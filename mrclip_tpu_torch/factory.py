@@ -1,0 +1,209 @@
+"""Model factory and JSON config registry of the port (counterpart of
+`mrclip_tpu/factory.py`: `list_models`, `get_model_config`,
+`add_model_config`, `create_model`).
+
+The registry scans the port's own `model_configs/` (byte-identical copies of
+the JAX package's files). `create_model` returns a `CLIP` module on its
+device, initialized at random from `rng_seed` or loaded from an
+open_clip-layout state dict.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+from copy import deepcopy
+from pathlib import Path
+from typing import Dict, Optional, Union
+
+import torch
+
+from .models import CLIP
+from .utils import resolve_device
+
+__all__ = [
+    "list_models",
+    "get_model_config",
+    "add_model_config",
+    "create_model",
+    "model_from_config",
+    "cast_dtype",
+]
+
+_MODEL_CONFIG_PATHS = [Path(__file__).parent / "model_configs/"]
+# top-level config keys `create_model(**model_kwargs)` may override
+_CFG_KEYS = ("embed_dim", "vision_cfg", "text_cfg", "quick_gelu", "init_logit_scale",
+             "init_logit_bias")
+_MODEL_CONFIGS: Dict[str, dict] = {}
+
+
+def _natural_key(s: str):
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s.lower())]
+
+
+def _rescan_model_configs():
+    global _MODEL_CONFIGS
+    config_files = []
+    for config_path in _MODEL_CONFIG_PATHS:
+        if config_path.is_dir():
+            config_files.extend(config_path.glob("*.json"))
+        elif config_path.is_file() and config_path.suffix == ".json":
+            config_files.append(config_path)
+    for cf in config_files:
+        with open(cf) as f:
+            cfg = json.load(f)
+        if all(k in cfg for k in ("embed_dim", "vision_cfg", "text_cfg")):
+            _MODEL_CONFIGS[cf.stem] = cfg
+    _MODEL_CONFIGS = dict(sorted(_MODEL_CONFIGS.items(), key=lambda x: _natural_key(x[0])))
+
+
+_rescan_model_configs()
+
+
+def list_models():
+    """Registered model architectures."""
+    return list(_MODEL_CONFIGS.keys())
+
+
+def get_model_config(model_name: str) -> Optional[dict]:
+    if model_name in _MODEL_CONFIGS:
+        return deepcopy(_MODEL_CONFIGS[model_name])
+    return None
+
+
+def add_model_config(path) -> None:
+    """Register model configs from a file or directory."""
+    _MODEL_CONFIG_PATHS.append(Path(path))
+    _rescan_model_configs()
+
+
+def cast_dtype(precision: str) -> torch.dtype:
+    """Compute dtype of a precision name; parameters stay fp32 either way."""
+    if precision.startswith("pure_"):
+        raise NotImplementedError(
+            f"precision={precision!r} (low-precision weights) is not ported "
+            "(ROADMAP: later slice 6, int8 and export)"
+        )
+    if precision in ("bf16", "amp_bf16", "amp_bfloat16", "fp16", "amp", "amp_fp16"):
+        # as in the JAX package, fp16 requests map to bf16
+        return torch.bfloat16
+    return torch.float32
+
+
+def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def _init_weights(model: CLIP, generator: torch.Generator) -> None:
+    """Random init in the spirit of the JAX package's initializers: normal
+    with std fan_in^-0.5 for projections, small normals for embeddings,
+    unit LayerNorm scales, zero biases."""
+    width_v = model.visual.width
+    for name, p in model.named_parameters():
+        if name in ("logit_scale", "logit_bias"):
+            continue  # keep the configured initial values
+        if name.endswith("bias"):
+            torch.nn.init.zeros_(p)
+        elif ".ln_" in name or name.startswith("ln_"):
+            torch.nn.init.ones_(p)
+        elif name == "token_embedding.weight":
+            _normal_(p, 0.02, generator)
+        elif name == "positional_embedding":
+            _normal_(p, 0.01, generator)
+        elif name in ("visual.class_embedding", "visual.positional_embedding"):
+            _normal_(p, width_v ** -0.5, generator)
+        elif name == "visual.conv1.weight":
+            _normal_(p, p[0].numel() ** -0.5, generator)
+        elif name in ("visual.proj", "text_projection"):
+            _normal_(p, p.shape[0] ** -0.5, generator)
+        elif name.endswith("gamma"):
+            continue  # LayerScale keeps its configured init value
+        else:  # [out, in] projection weights
+            _normal_(p, p.shape[1] ** -0.5, generator)
+
+
+def model_from_config(
+    cfg: dict, *, precision: str = "fp32", attn_impl: str = "xla", gelu_approx: bool = False
+) -> CLIP:
+    """An uninitialized CLIP on the CPU for a resolved config dict. The
+    arguments are kept on the module as `build_args`, from which
+    `serving.export_model` writes what rebuilding it takes."""
+    if "multimodal_cfg" in cfg:
+        raise NotImplementedError("CoCa is not ported (ROADMAP: later slice 4, other towers)")
+    model = CLIP(
+        embed_dim=cfg["embed_dim"],
+        vision_cfg=cfg["vision_cfg"],
+        text_cfg=cfg["text_cfg"],
+        quick_gelu=cfg.get("quick_gelu", False),
+        act_impl="tanh" if gelu_approx else "erf",
+        init_logit_scale=cfg.get("init_logit_scale", math.log(1 / 0.07)),
+        init_logit_bias=cfg.get("init_logit_bias"),
+        attn_impl=attn_impl,
+        dtype=cast_dtype(precision),
+    )
+    model.build_args = {
+        "model_cfg": deepcopy(cfg),
+        "precision": precision,
+        "attn_impl": attn_impl,
+        "gelu_approx": bool(gelu_approx),
+    }
+    return model
+
+
+def _load_open_clip(path_or_sd) -> Dict[str, torch.Tensor]:
+    sd = path_or_sd
+    if not isinstance(sd, dict):
+        sd = torch.load(path_or_sd, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    if sd and all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def create_model(
+    model_name: str,
+    pretrained: Optional[Union[str, dict]] = None,
+    precision: str = "fp32",
+    *,
+    device=None,
+    attn_impl: str = "xla",
+    gelu_approx: bool = False,
+    rng_seed: int = 0,
+    **model_kwargs,
+) -> CLIP:
+    """Build a CLIP module on `device` (CUDA unless given; raises without a
+    card), in eval mode.
+
+    `pretrained`: an open_clip-layout state dict, or the path of a `.pt`
+    holding one (optionally under "state_dict", optionally "module."
+    prefixed); it loads with `strict=True`. Without it, parameters are drawn
+    from a `torch.Generator` seeded with `rng_seed`. `model_kwargs`
+    override top-level config keys (e.g. `init_logit_bias`); the JAX
+    package's other options (scan_layers, remat, force_*) raise.
+    """
+    dev = resolve_device(device)
+    model_name = model_name.replace("/", "-")
+    cfg = get_model_config(model_name)
+    if cfg is None:
+        raise RuntimeError(f"Model config for {model_name} not found; available: {list_models()}")
+    unported = sorted(set(model_kwargs) - set(_CFG_KEYS))
+    if unported:
+        raise NotImplementedError(
+            f"create_model options {unported} are not ported: scan_layers and remat "
+            "are XLA compile-time choices the unrolled stack has no use for; training "
+            "options come with training (ROADMAP: later slice 1), force_* overrides "
+            "with the other configs (ROADMAP: later slice 2)"
+        )
+    cfg.update(model_kwargs)
+
+    model = model_from_config(
+        cfg, precision=precision, attn_impl=attn_impl, gelu_approx=gelu_approx
+    )
+    if pretrained is not None:
+        model.load_state_dict(_load_open_clip(pretrained), strict=True)
+    else:
+        _init_weights(model, torch.Generator().manual_seed(rng_seed))
+    return model.to(dev).eval()

@@ -1,0 +1,100 @@
+"""Transformer stack of the port (counterpart of
+`mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled.
+
+The JAX package's `scan_layers` and `remat` are compile-time choices of
+XLA with no counterpart here; cross-attention, post-norm and SwiGLU blocks
+belong to towers not ported yet (ROADMAP: other configs and towers).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from .layers import MLP, LayerNorm, LayerScale, MultiHeadAttention, gelu_exact
+
+__all__ = ["ResidualAttentionBlock", "Transformer", "text_global_pool"]
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN block: x += attn(ln_1(x)); x += mlp(ln_2(x))."""
+
+    def __init__(
+        self,
+        width: int,
+        num_heads: int,
+        mlp_ratio: float = 4.0,
+        ls_init_value: Optional[float] = None,
+        act: Callable = gelu_exact,
+        is_causal: bool = False,
+        attn_impl: str = "xla",
+        ln_eps: float = 1e-5,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.is_causal = is_causal
+        self.ln_1 = LayerNorm(width, eps=ln_eps)
+        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
+        self.ln_2 = LayerNorm(width, eps=ln_eps)
+        self.mlp = MLP(width, int(width * mlp_ratio), act=act, dtype=dtype)
+        if ls_init_value is not None:
+            self.ls_1 = LayerScale(width, ls_init_value)
+            self.ls_2 = LayerScale(width, ls_init_value)
+        else:
+            self.ls_1 = self.ls_2 = nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.ls_1(self.attn(self.ln_1(x), is_causal=self.is_causal))
+        return x + self.ls_2(self.mlp(self.ln_2(x)))
+
+
+class Transformer(nn.Module):
+    """Stack of residual attention blocks (`resblocks.N` as in open_clip)."""
+
+    def __init__(
+        self,
+        width: int,
+        layers: int,
+        heads: int,
+        mlp_ratio: float = 4.0,
+        ls_init_value: Optional[float] = None,
+        act: Callable = gelu_exact,
+        is_causal: bool = False,
+        attn_impl: str = "xla",
+        ln_eps: float = 1e-5,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.width = width
+        self.layers = layers
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(
+                width, heads, mlp_ratio, ls_init_value, act, is_causal,
+                attn_impl, ln_eps, dtype,
+            )
+            for _ in range(layers)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.resblocks:
+            x = block(x)
+        return x
+
+
+def text_global_pool(x: torch.Tensor, tokens: Optional[torch.Tensor] = None,
+                     pool_type: str = "argmax"):
+    """Pool a text sequence: 'argmax' takes the position of the highest token
+    id (EOT has the largest id in the CLIP vocab); 'first'/'last' take fixed
+    positions; 'none' is identity. Returns (pooled, tokens_out)."""
+    if pool_type == "first":
+        return x[:, 0], x[:, 1:]
+    if pool_type == "last":
+        return x[:, -1], x[:, :-1]
+    if pool_type == "argmax":
+        if tokens is None:
+            raise ValueError("argmax pooling needs the tokens")
+        eot = tokens.argmax(dim=-1)
+        return x[torch.arange(x.shape[0], device=x.device), eot], x
+    return x, x

@@ -1,0 +1,93 @@
+"""JAX-package parameters -> the port's state dict.
+
+The port's own copy of the plain-ViT and causal-text part of
+`mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
+`mrclip_tpu` CLIP (a nested dict of arrays, unrolled `blocks_N` or
+scan-stacked `blocks/block` with a leading layer axis) and returns the
+open_clip-layout state dict that `mrclip_tpu_torch.models.CLIP` loads with
+`strict=True`. Only numpy is needed: any array with `__array__` works.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_flax"]
+
+
+def _blocks(tower: dict) -> list:
+    tr = tower["transformer"]
+    stacked = tr.get("blocks", {}).get("block")
+    if stacked is not None:
+        n = len(np.asarray(stacked["ln_1"]["scale"]))
+        return [_index(stacked, i) for i in range(n)]
+    keys = sorted((k for k in tr if k.startswith("blocks_")), key=lambda k: int(k.split("_")[-1]))
+    return [tr[k] for k in keys]
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """Flax CLIP params -> {open_clip key: fp32 torch tensor}."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+
+    def put(key, val):
+        sd[key] = torch.tensor(np.asarray(val, dtype=np.float32))  # a contiguous copy
+
+    def put_ln(key, ln):
+        put(key + ".weight", ln["scale"])
+        put(key + ".bias", ln["bias"])
+
+    def put_dense(key, dense):  # Flax kernel [in, out] -> torch weight [out, in]
+        put(key + ".weight", np.asarray(dense["kernel"]).T)
+        put(key + ".bias", dense["bias"])
+
+    def put_blocks(tower, prefix):
+        for i, blk in enumerate(_blocks(tower)):
+            bp = f"{prefix}transformer.resblocks.{i}."
+            put_ln(bp + "ln_1", blk["ln_1"])
+            put_ln(bp + "ln_2", blk["ln_2"])
+            put(bp + "attn.in_proj_weight", np.asarray(blk["attn"]["in_proj"]["kernel"]).T)
+            put(bp + "attn.in_proj_bias", blk["attn"]["in_proj"]["bias"])
+            put_dense(bp + "attn.out_proj", blk["attn"]["out_proj"])
+            put_dense(bp + "mlp.c_fc", blk["mlp"]["c_fc"])
+            put_dense(bp + "mlp.c_proj", blk["mlp"]["c_proj"])
+            for ls in ("ls_1", "ls_2"):
+                if ls in blk:
+                    put(bp + f"{ls}.gamma", blk[ls]["gamma"])
+
+    vis = params["visual"]
+    if "conv1" not in vis or "class_embedding" not in vis:
+        raise NotImplementedError(
+            "only the plain CLIP ViT converts (ROADMAP: later slice 4, other towers)"
+        )
+    # [ph, pw, 3, W] -> open_clip conv layout [W, 3, ph, pw]
+    put("visual.conv1.weight", np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    put("visual.class_embedding", vis["class_embedding"])
+    put("visual.positional_embedding", vis["positional_embedding"])
+    put_ln("visual.ln_pre", vis["ln_pre"])
+    put_ln("visual.ln_post", vis["ln_post"])
+    put("visual.proj", vis["proj"])
+    put_blocks(vis, "visual.")
+
+    txt = params["text"]
+    if "token_embedding" not in txt:
+        raise NotImplementedError(
+            "only the causal CLIP text tower converts (ROADMAP: later slice 4, other towers)"
+        )
+    put("token_embedding.weight", txt["token_embedding"]["embedding"])
+    put("positional_embedding", txt["positional_embedding"])
+    put_ln("ln_final", txt["ln_final"])
+    put("text_projection", txt["text_projection"])
+    put_blocks(txt, "")
+
+    put("logit_scale", np.asarray(params["logit_scale"]).reshape(()))
+    if "logit_bias" in params:
+        put("logit_bias", np.asarray(params["logit_bias"]).reshape(()))
+    return sd

@@ -1,0 +1,101 @@
+"""Package rules of the PyTorch port (mrclip_tpu_torch) and its chip_smoke.py:
+no JAX, CUDA by default, byte-identical copies of configs and vocab, and a
+Hopper build of the kernel source."""
+
+import filecmp
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mrclip_tpu_torch import export as export_cli
+from mrclip_tpu_torch import serve
+from mrclip_tpu_torch.factory import create_model
+from mrclip_tpu_torch.ops import build
+from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORTS_NO_JAX = """
+import sys
+import chip_smoke, mrclip_tpu_torch
+import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORTS_NO_JAX], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("pkg") / "m.mrclip")
+    save_exported(export_model(create_model("ViT-B-32-mini", device="cpu")), path)
+    return path
+
+
+@pytest.mark.parametrize("entry", ["create_model", "load_exported", "make_server",
+                                   "serve.main", "export.main"])
+def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry):
+    calls = {
+        "create_model": lambda: create_model("ViT-B-32-mini"),
+        "load_exported": lambda: load_exported(artifact),
+        "make_server": lambda: serve.make_server(artifact, host="127.0.0.1", port=0),
+        "serve.main": lambda: serve.main(["--model", artifact, "--port", "0"]),
+        "export.main": lambda: export_cli.main(
+            ["--model", "ViT-B-32-mini", "--output", str(tmp_path / "x.mrclip")]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("rel", [
+    "model_configs/ViT-B-16.json",
+    "model_configs/ViT-B-32-mini.json",
+    "assets/bpe_simple_vocab_16e6.txt.gz",
+])
+def test_copied_files_are_byte_identical(rel):
+    assert filecmp.cmp(ROOT / "mrclip_tpu" / rel, ROOT / "mrclip_tpu_torch" / rel, shallow=False)
+
+
+def test_kernel_source_builds_for_hopper():
+    src = build.CSRC / "packed_attn_fwd.cu"
+    assert src.is_file()
+    text = src.read_text()
+    assert 'extern "C" int packed_attn_fwd(' in text
+    assert "_packed_fwd_kernel" in text  # names the TPU kernel it replaces
+    cmd = build.nvcc_command(src, Path("lib.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("cwd", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, cwd):
+    """No CUDA here: chip_smoke.py must exit non-zero and print no result
+    line, both from the repo and as the only file of an empty directory."""
+    script = ROOT / "chip_smoke.py"
+    if cwd == "alone":
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script, where = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        where = ROOT
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present; the no-card path cannot be exercised")
+    proc = subprocess.run([sys.executable, str(script)], cwd=where,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
