@@ -6,16 +6,27 @@
 Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
   1. card:   name, power limit, TF32 off for fp32 products;
-  2. build:  every CUDA kernel of the served path, from `mrclip_tpu_torch/csrc`;
-  3. kernel: each kernel against its plain PyTorch version on the card, at the
-             served shapes and ragged edges, bf16 and fp32, q/k/v passed as
-             strided column slices of one qkv tensor; timings beside SDPA;
+  2. build:  every CUDA source in `mrclip_tpu_torch/csrc` (one nvcc each, all
+             started together), with registers and spills from ptxas;
+  3. kernel: each kernel against its plain PyTorch version on the card: K1
+             (attention forward) and K3 (attention backward) at the served and
+             trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
+             strided column slices; K6/K7 (fused SupCon loss) in fp32 at
+             B in {100, 256, 333} and with distinct labels; timings beside
+             the plain versions, the bounds and SDPA (forward, and backward);
   4. serve:  full-width ViT-B-16 (random weights from a seed, bf16 compute,
              fp32 params, attn_impl='fusedp') exported to an artifact, loaded,
              served over HTTP on 127.0.0.1; health, concurrent image and text
              requests and a score; features checked against the same weights
              under the plain attention; the kernel launch counts of that run;
-             served throughput at b32/b256.
+             served throughput at b32/b256;
+  5. train:  full-width ViT-B-16 (bf16 compute, fp32 params, 'fusedp', tanh
+             GELU) with AdamW (lr 1e-4, wd 0.2, bf16 first moment) and the
+             multipositive loss, batch 256 of uint8 images normalised inside
+             the step; gradients checked against plain attention and the
+             pallas loss against the dense one at the initial weights; then
+             one warm-up and 5 timed dense steps and one pallas-loss step,
+             with the kernels' launch counts of that run.
 The last three lines are the kernels JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}. Needs one CUDA card and imports no JAX.
 """
@@ -37,10 +48,23 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 MMA / fp32 FMA
+# K1 o: about one bf16 ulp at |o| < 4; fp32 differs only in summation order
 O_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-3
+# K3, max |err| of each of dq, dk, dv over the largest max |plain| of the
+# three (one scale per call: at N = 1, dq and dk are exactly 0 and the plain
+# version's rounding noise has no scale of its own): kernel and plain version
+# round P and dS to bf16 at the same points, but fp32 sums in another order
+# can flip one bf16 rounding of a gradient (~1e-2 relative); fp32 is
+# summation order only.
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# K6/K7, fp32 with TF32 off: max |err| / max |plain|, summation order only
+SUPCON_TOL = 1e-5
 VISION = dict(b=32, n=197, nk=197, h=12, d=64, causal=False)  # ViT-B-16, batch 32
 TEXT = dict(b=32, n=98, nk=98, h=8, d=64, causal=True)  # its text tower, context 98
+TRAIN_BATCH = 256
+EMBED = 512  # ViT-B-16's embedding width: the D of the loss kernels
+SUPCON_CASES = [(256, 32), (100, 32), (333, 32), (256, None)]  # (B, label classes | distinct)
 EDGES = [dict(b=4, n=n, nk=n, h=4, d=64, causal=c) for n in (1, 50, 257) for c in (False, True)]
 EDGES += [dict(b=2, n=76, nk=255, h=2, d=64, causal=False),  # kv length != q length
           dict(b=3, n=33, nk=33, h=2, d=32, causal=True)]  # head dim 32
@@ -89,15 +113,42 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, n, nk, h, d, causal, dtype):
-    """(least ms, 'bytes'|'operations'): q, k, v read once, o and lse written
-    once; 4*D operations per attended (query, key) pair."""
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * b * h * d * (2 * n + 2 * nk) + 4 * b * h * n
-    pairs = sum(min(i + 1, nk) for i in range(n)) if causal else n * nk
-    ops = 4 * b * h * pairs * d
+def _bound(nbytes, ops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _pairs(n, nk, causal):
+    return sum(min(i + 1, nk) for i in range(n)) if causal else n * nk
+
+
+def attention_bound(b, n, nk, h, d, causal, dtype):
+    """K1 (least ms, 'bytes'|'operations'): q, k, v read once, o and lse
+    written once; 4*D operations per attended (query, key) pair."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * b * h * d * (2 * n + 2 * nk) + 4 * b * h * n
+    return _bound(nbytes, 4 * b * h * _pairs(n, nk, causal) * d, dtype)
+
+
+def attention_bwd_bound(b, n, nk, h, d, causal, dtype):
+    """K3: q, k, v, o, dO read and dq, dk, dv written once (8 tensors of
+    B*H*N*D elements when Nk = N) plus lse; 10*D operations per attended
+    pair (the five products S, dV, dP, dQ, dK)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * b * h * d * (5 * n + 3 * nk) + 4 * b * h * n
+    return _bound(nbytes, 10 * b * h * _pairs(n, nk, causal) * d, dtype)
+
+
+def supcon_bound(kind, nq, nk, d):
+    """K6 'stats': 2*Nq*Nk*D operations, q and k read, 4 row vectors written;
+    K7 'grad_q'/'grad_k': 4*Nq*Nk*D (the logit tile and the gradient
+    product), q, k, labels and 3 row vectors read, dq (+ds) or dk written."""
+    if kind == "stats":
+        nbytes, ops = 4 * (nq + nk) * d + 4 * (nq + nk) + 16 * nq, 2 * nq * nk * d
+    else:
+        out = nq * d + nq if kind == "grad_q" else nk * d
+        nbytes, ops = 4 * (nq + nk) * d + 4 * (nq + nk) + 12 * nq + 4 * out, 4 * nq * nk * d
+    return _bound(nbytes, ops, torch.float32)
 
 
 def qkv_slices(shape, dtype, gen):
@@ -120,18 +171,27 @@ def phase_card():
     return name, smi
 
 
+SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss")
+
+
 def phase_build():
-    from mrclip_tpu_torch.ops import build, fused_attn
+    from mrclip_tpu_torch.ops import build, fused_attn, pallas_loss
 
-    fused_attn.load_kernel()  # the slice's one source; later sources build in parallel
-    info = build.build_info("packed_attn_fwd")
-    log(f"[build] packed_attn_fwd.cu -> {info['path']} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    build.load_libraries(SOURCES)  # one nvcc per source, all started together
+    log(f"[build] {len(SOURCES)} sources built in {time.perf_counter() - t0:.2f} s wall")
+    for name in SOURCES:
+        info = build.build_info(name)
+        log(f"[build] {name}.cu -> {info['path']} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
+    fused_attn.load_kernel()
+    fused_attn.load_bwd_kernel()
+    pallas_loss.load_kernels()
 
 
-def phase_kernel():
+def phase_kernel_fwd():
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -168,7 +228,8 @@ def phase_kernel():
         return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
 
     vision, text = timings(VISION), timings(TEXT)
-    serving_b256 = timings(dict(VISION, b=256))
+    serving_b256 = timings(dict(VISION, b=TRAIN_BATCH))
+    text_b256 = timings(dict(TEXT, b=TRAIN_BATCH))
     return {
         "name": "packed_attn_fwd",
         "route": "cuda",
@@ -184,7 +245,193 @@ def phase_kernel():
         "bound_us": vision["bound_ms"] * 1e3,
         "text": text,
         "vision_b256": serving_b256,
+        "text_b256": text_b256,
     }
+
+
+def abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def rel_err(got, want, scale=None):
+    """max |got - want| / scale (default max |want|), in fp32."""
+    scale = want.float().abs().max().item() if scale is None else scale
+    return abs_err(got, want) / max(scale, 1e-30)
+
+
+def phase_kernel_bwd():
+    """K3 against its plain version; q, k, v, o and dO as strided column
+    slices, and dq/dk/dv written into the column slices of one buffer
+    where N = Nk (as the train step hands them over)."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for shape in [VISION, TEXT, *EDGES]:
+        h, causal = shape["h"], shape["causal"]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = qkv_slices(shape, dtype, gen)
+            o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+            od = torch.empty(*o.shape[:2], 2 * o.shape[2], device="cuda", dtype=dtype)
+            o_s, do_s = od.chunk(2, dim=-1)
+            o_s.copy_(o)
+            do_s.copy_(torch.randn(o.shape, device="cuda", generator=gen))
+            out = None
+            if shape["n"] == shape["nk"]:
+                out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=dtype).chunk(3, -1)
+            got = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal,
+                                                heads=h, out=out)
+            torch.cuda.synchronize()
+            want = fa.fused_attention_packed_bwd_ref(q, k, v, o_s, do_s, lse, is_causal=causal,
+                                                     heads=h)
+            scale = max(w.float().abs().max().item() for w in want)
+            errs = [rel_err(g, w, scale) for g, w in zip(got, want)]
+            ok = all(bool(torch.isfinite(g.float()).all()) for g in got) and max(errs) <= GRAD_TOL[dtype]
+            log(f"[kernel] K3 {shape} {str(dtype)[6:]}: max|d-plain| / max|plain| (={scale:.3g}) "
+                "dq/dk/dv = " + "/".join(f"{e:.3e}" for e in errs) + f" (tol {GRAD_TOL[dtype]}) "
+                + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"packed_attn_bwd disagrees with its plain version at {shape} {dtype}")
+            worst[dtype] = max(worst[dtype], *errs)
+            worst_abs[dtype] = max(worst_abs[dtype], *(abs_err(g, w) for g, w in zip(got, want)))
+
+    def timings(shape):
+        q, k, v = qkv_slices(shape, torch.bfloat16, gen)
+        h, causal = shape["h"], shape["causal"]
+        o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        buf = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=torch.bfloat16)
+        out = buf.chunk(3, dim=-1)
+        ms = cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
+                                                           heads=h, out=out), 20)
+        plain = cuda_ms(lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse,
+                                                                  is_causal=causal, heads=h), 5)
+        q4, k4, v4 = (t.unflatten(-1, (h, shape["d"])).transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        do4 = do.unflatten(-1, (h, shape["d"])).transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), 20)
+        both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
+                                                   (q4, k4, v4), do4), 20)
+        bound, by = attention_bwd_bound(**shape, dtype=torch.bfloat16)
+        log(f"[kernel] K3 bf16 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
+            f"{both - fwd:.4f} ms (fwd+bwd {both:.4f} - fwd {fwd:.4f}), bound {bound * 1e3:.2f} us ({by})")
+        return dict(ms=ms, plain_ms=plain, library_ms=both - fwd, bound_ms=bound, bound_by=by)
+
+    vision = timings(dict(VISION, b=TRAIN_BATCH))
+    text = timings(dict(TEXT, b=TRAIN_BATCH))
+    return {
+        "name": "packed_attn_bwd",
+        "route": "cuda",
+        "source": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu",
+        "replaces": "mrclip_tpu/ops/fused_attn.py:382",
+        "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_bwd_kernel",
+        "launches": None,  # filled in from the train run
+        "max_abs_err": worst_abs[torch.bfloat16],
+        "max_abs_err_fp32": worst_abs[torch.float32],
+        "max_rel_err": worst[torch.bfloat16],
+        "max_rel_err_fp32": worst[torch.float32],
+        "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
+        "shape": f"vision b{TRAIN_BATCH} n197 h12 d64 bf16",
+        **vision,
+        "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+        "text_b256": text,
+    }
+
+
+def supcon_inputs(n, classes, gen):
+    q = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
+    k = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
+    labels = (torch.arange(n, device="cuda") if classes is None else
+              torch.randint(0, classes, (n,), device="cuda", generator=gen)).to(torch.int32)
+    scale = torch.tensor([1 / 0.07], device="cuda")
+    gbar = torch.tensor([0.5 / n], device="cuda")
+    return q, k, labels, scale, gbar
+
+
+def phase_kernel_supcon():
+    """K6 and K7 against their plain versions in fp32; timings at B = 256
+    (the train step) and 8192."""
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"supcon_stats": 0.0, "supcon_grad_q": 0.0, "supcon_grad_k": 0.0}
+    worst_abs = dict(worst)
+    for n, classes in SUPCON_CASES:
+        q, k, labels, scale, gbar = supcon_inputs(n, classes, gen)
+        stats = pl.supcon_stats(q, k, labels, labels, scale)
+        want = pl.supcon_stats_ref(q, k, labels, labels, scale)
+        m, s, _, cnt = want
+        cnt = cnt.clamp(min=1.0)
+        dq, ds_rows = pl.supcon_grad_q(q, k, labels, labels, scale, m, s, cnt, gbar)
+        dk = pl.supcon_grad_k(q, k, labels, labels, scale, m, s, cnt, gbar)
+        torch.cuda.synchronize()
+        want_dq, want_ds = pl.supcon_grad_q_ref(q, k, labels, labels, scale, m, s, cnt, gbar)
+        want_dk = pl.supcon_grad_k_ref(q, k, labels, labels, scale, m, s, cnt, gbar)
+        errs = {
+            "supcon_stats": max(rel_err(g, w) for g, w in zip(stats, want)),
+            "supcon_grad_q": max(rel_err(dq, want_dq), rel_err(ds_rows, want_ds)),
+            "supcon_grad_k": rel_err(dk, want_dk),
+        }
+        ok = max(errs.values()) <= SUPCON_TOL
+        log(f"[kernel] K6/K7 B={n} D={EMBED} labels={classes or 'distinct'} fp32: "
+            + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items()) + f" (tol {SUPCON_TOL}) "
+            + ("ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError(f"supcon kernels disagree with their plain versions at B={n}")
+        abs_errs = {
+            "supcon_stats": max(abs_err(g, w) for g, w in zip(stats, want)),
+            "supcon_grad_q": max(abs_err(dq, want_dq), abs_err(ds_rows, want_ds)),
+            "supcon_grad_k": abs_err(dk, want_dk),
+        }
+        for name, e in errs.items():
+            worst[name] = max(worst[name], e)
+            worst_abs[name] = max(worst_abs[name], abs_errs[name])
+
+    def timings(n):
+        q, k, labels, scale, gbar = supcon_inputs(n, 32, gen)
+        m, s, _, cnt = pl.supcon_stats_ref(q, k, labels, labels, scale)
+        cnt = cnt.clamp(min=1.0)
+        calls = {
+            "supcon_stats": (lambda: pl.supcon_stats(q, k, labels, labels, scale),
+                             lambda: pl.supcon_stats_ref(q, k, labels, labels, scale), "stats"),
+            "supcon_grad_q": (lambda: pl.supcon_grad_q(q, k, labels, labels, scale, m, s, cnt, gbar),
+                              lambda: pl.supcon_grad_q_ref(q, k, labels, labels, scale, m, s, cnt,
+                                                           gbar), "grad_q"),
+            "supcon_grad_k": (lambda: pl.supcon_grad_k(q, k, labels, labels, scale, m, s, cnt, gbar),
+                              lambda: pl.supcon_grad_k_ref(q, k, labels, labels, scale, m, s, cnt,
+                                                           gbar), "grad_k"),
+        }
+        out = {}
+        for name, (kernel, plain, kind) in calls.items():
+            ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 10)
+            bound, by = supcon_bound(kind, n, n, EMBED)
+            log(f"[kernel] {name} fp32 B={n} D={EMBED}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound * 1e3:.2f} us ({by})")
+            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        return out
+
+    b256, b8192 = timings(TRAIN_BATCH), timings(8192)
+    tpu = {"supcon_stats": ":37 (_fwd_kernel, via _stats :155)",
+           "supcon_grad_q": ":76 (_grad_q_kernel, via _bwd :229)",
+           "supcon_grad_k": ":106 (_grad_k_kernel, via _bwd :229)"}
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "mrclip_tpu_torch/csrc/supcon_loss.cu",
+        "replaces": "mrclip_tpu/ops/pallas_loss.py" + tpu[name].split(" ")[0],
+        "tpu_kernel": "mrclip_tpu/ops/pallas_loss.py" + tpu[name],
+        "launches": None,  # filled in from the train run
+        "max_abs_err": worst_abs[name],
+        "max_rel_err": worst[name],
+        "rel_err_is": "max |kernel - plain| / max |plain| per output, fp32",
+        "shape": f"B{TRAIN_BATCH} D{EMBED} fp32",
+        **b256[name],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the SupCon row statistics or their gradients",
+        "b8192": b8192[name],
+    } for name in worst]
 
 
 def post(base, path, payload):
@@ -312,6 +559,220 @@ def phase_serve(kernel_entry, card):
     return main_path_launches, per_pair, perf
 
 
+def grad_cosines(a: dict, b: dict):
+    """(cosine of the whole flattened gradients, min cosine over tensors of
+    10**4 or more elements, that tensor's name), in float64."""
+    dot = na = nb = 0.0
+    worst, worst_name = 1.0, None
+    for name, ga in a.items():
+        x, y = ga.double().flatten(), b[name].double().flatten()
+        d, nx, ny = (x @ y).item(), (x @ x).item(), (y @ y).item()
+        dot, na, nb = dot + d, na + nx, nb + ny
+        if x.numel() >= 10**4:
+            cos = d / max(np.sqrt(nx * ny), 1e-300)
+            if cos < worst:
+                worst, worst_name = cos, name
+    return dot / np.sqrt(na * nb), worst, worst_name
+
+
+# Device kernels by name -> the layer they belong to (first match wins).
+KERNEL_GROUPS = [
+    ("K1 packed_attn_fwd", ("packed_attn_fwd",)),
+    ("K3 packed_attn_bwd", ("attn_bwd_dq", "attn_bwd_dkv")),
+    ("K6/K7 supcon", ("supcon_",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("other (elementwise, norms, reductions, copies)", ("",)),
+]
+
+
+def profile_step(run):
+    """Device time of one step by kernel group, from torch.profiler (CUPTI),
+    and the device's idle share of the profiled wall time (profiling slows
+    the host, so that share is an upper bound). {} if no device time was
+    recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        kernels.append((ms, ev.count, ev.key))
+        low = ev.key.lower()
+        groups[next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))] += ms
+    busy = sum(groups.values())
+    if busy == 0:
+        log("[train] profiler recorded no device time: breakdown by kernel not measured")
+        return {}
+    log(f"[train] profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}; by group (ms): "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
+    for ms, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"[train]   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "groups_ms": groups}
+
+
+def phase_train(entries, card):
+    """The train step of the JAX package's bench.py on ViT-B-16 at b256."""
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.factory import create_model
+    from mrclip_tpu_torch.ops import fused_attn as fa
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+    from mrclip_tpu_torch.ops.image_ops import normalize_images
+    from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
+                                           make_loss_apply)
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+
+    t0 = time.perf_counter()
+    model = create_model("ViT-B-16", precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                         rng_seed=0)
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = create_train_state(model, tx)
+    args = dict(multipositiveloss=True, delta=0.5, model="ViT-B-16", gather_with_grad=True)
+    dense = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=False)))
+    pallas = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=True)))
+    rng = np.random.RandomState(0)
+    batch = {  # uint8 canvases as the loader ships them; normalised inside the step
+        "images": torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, 224, 224, 3)).astype(np.uint8)).cuda(),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (TRAIN_BATCH, 98)).astype(np.int64)).cuda(),
+        "labels": torch.from_numpy(rng.randint(0, 32, (TRAIN_BATCH,)).astype(np.int32)).cuda(),
+    }
+
+    def prep(b):
+        return dict(b, images=normalize_images(b["images"]))
+
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"[train] ViT-B-16 ({n_params / 1e6:.1f} M params), AdamW bf16 mu, batch {TRAIN_BATCH} "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    # checks at the initial weights (their launches are not the main path's)
+    g_kernel, l_kernel = loss_and_grads(model, dense, state.params, prep(batch))
+    plain = create_model("ViT-B-16", pretrained={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                         precision="bf16", attn_impl="xla", gelu_approx=True)
+    g_plain, l_plain = loss_and_grads(plain, dense, dict(plain.named_parameters()), prep(batch))
+    del plain
+    lk, lp = l_kernel["loss"].item(), l_plain["loss"].item()
+    whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
+    del g_plain
+    torch.cuda.empty_cache()
+    in_proj = [n for n in g_kernel if n.endswith("attn.in_proj_weight")]
+    dead = [n for n in in_proj if g_kernel[n].abs().max().item() == 0]
+    ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= 0.999 and worst >= 0.99
+          and not dead)
+    log(f"[train] kernel vs plain attention, same weights and batch: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine whole {whole:.6f} "
+        f"(>= 0.999), min per tensor >= 1e4 elements {worst:.6f} at {worst_name} (>= 0.99, "
+        f"bf16 through 12 layers); {len(in_proj) - len(dead)}/{len(in_proj)} in_proj weights "
+        f"with a gradient {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the kernel train step's gradients disagree with plain attention")
+
+    pl.reset_launches()
+    g_pallas, l_pallas = loss_and_grads(model, pallas, state.params, prep(batch))
+    torch.cuda.synchronize()
+    lpl = l_pallas["loss"].item()
+    whole_p, worst_p, _ = grad_cosines(g_pallas, g_kernel)
+    counts = dict(pl.launches)
+    ok = (abs(lpl - lk) <= 1e-4 * abs(lk) and whole_p >= 0.9999
+          and all(c == 2 for c in counts.values()))
+    log(f"[train] pallas vs dense loss, same state: loss {lpl:.7f} vs {lk:.7f} (rel "
+        f"{abs(lpl - lk) / abs(lk):.2e}, tol 1e-4); gradient cosine {whole_p:.7f} (>= 0.9999); "
+        f"launches {counts} (2 each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the pallas loss step disagrees with the dense one")
+    del g_pallas, g_kernel
+    torch.cuda.empty_cache()
+
+    # the main path: warm-up, 5 timed dense steps, one pallas-loss step
+    dense_step = build_train_step(model, dense, tx)
+    pallas_step = build_train_step(model, pallas, tx)
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    pl.reset_launches()
+
+    def one(step_fn):
+        nonlocal state
+        before = (fa.launches, fa.bwd_launches)
+        state, metrics = step_fn(state, prep(batch))
+        per_step.append((fa.launches - before[0], fa.bwd_launches - before[1]))
+        losses.append(metrics["loss"])
+        return metrics
+
+    one(dense_step)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        metrics = one(dense_step)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / 5 * 1e3
+    one(pallas_step)
+    torch.cuda.synchronize()
+    launches = {"packed_attn_fwd": fa.launches, "packed_attn_bwd": fa.bwd_launches, **pl.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    ok = (all(np.isfinite(losses)) and all(p == (24, 24) for p in per_step)
+          and all(launches[k] == 2 for k in pl.launches) and state.step == 7)
+    log(f"[train] main path: 7 steps (1 warm-up, 5 timed, 1 pallas loss), losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + f"; K1/K3 launches per step {per_step} "
+        f"(24/24 each: 12 vision + 12 text layers); launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the train main path failed its checks")
+
+    # where the step's time goes: the kernels from phase 3, the rest measured here
+    fwd, bwd = entries["packed_attn_fwd"], entries["packed_attn_bwd"]
+    k1_ms = 12 * (fwd["vision_b256"]["ms"] + fwd["text_b256"]["ms"])
+    k3_ms = 12 * (bwd["ms"] + bwd["text_b256"]["ms"])
+    with torch.no_grad():
+        out = model(prep(batch)["images"], batch["tokens"])
+    feats = {k: (v.detach().requires_grad_() if k.endswith("features") else v.detach())
+             for k, v in out.items()}
+
+    def loss_fwd_bwd(apply):
+        ld = apply(feats, batch)
+        return torch.autograd.grad(ld["loss"], [feats["image_features"], feats["text_features"]])
+
+    dense_ms = cuda_ms(lambda: loss_fwd_bwd(dense), 10)
+    pallas_ms = cuda_ms(lambda: loss_fwd_bwd(pallas), 10)
+    norm_ms = cuda_ms(lambda: normalize_images(batch["images"]), 10)
+    grads, _ = loss_and_grads(model, dense, state.params, prep(batch))
+    opt_ms = cuda_ms(lambda: tx.update(grads, state.opt_state, state.params), 3, warmup=1)
+    rest = step_ms - k1_ms - k3_ms - dense_ms - norm_ms - opt_ms
+    profile = profile_step(lambda: dense_step(state, prep(batch)))
+    perf = {
+        "train_step_ms": step_ms,
+        "train_pairs_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "peak_memory_gb": peak_gb,
+        "k1_ms_per_step": k1_ms, "k1_share": k1_ms / step_ms,
+        "k3_ms_per_step": k3_ms, "k3_share": k3_ms / step_ms,
+        "dense_loss_fwd_bwd_ms": dense_ms, "pallas_loss_fwd_bwd_ms": pallas_ms,
+        "normalize_ms": norm_ms, "optimizer_ms": opt_ms,
+        "rest_gemm_elementwise_ms": rest,
+        "profiled_step": profile,
+    }
+    log(f"[train] ViT-B-16 b{TRAIN_BATCH} step {step_ms:.2f} ms, {perf['train_pairs_per_s']:.1f} "
+        f"pairs/s, peak memory {peak_gb:.2f} GB, K1 {100 * perf['k1_share']:.1f}% and K3 "
+        f"{100 * perf['k3_share']:.1f}% of the step | {card}")
+    log(f"[train] breakdown: " + json.dumps(perf))
+    per_step_launches = {"packed_attn_fwd": 24, "packed_attn_bwd": 24, "supcon_stats": 2,
+                         "supcon_grad_q": 2, "supcon_grad_k": 2}
+    return launches, per_step_launches, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -321,9 +782,18 @@ def main() -> int:
 
     name, smi = phase_card()
     phase_build()
-    entry = phase_kernel()
-    entry["launches"], entry["launches_per_pair"], entry["serving"] = phase_serve(entry, smi)
-    print(json.dumps({"kernels": [entry]}))
+    entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_supcon()]}
+    fwd = entries["packed_attn_fwd"]
+    serve_launches, fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
+    train_launches, per_step, fwd["training"] = phase_train(entries, smi)
+    for kname, entry in entries.items():
+        by_path = {"serve": serve_launches if kname == "packed_attn_fwd" else 0,
+                   "train": train_launches[kname]}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+        entry["launches_per_step"] = per_step[kname]
+        entry["card"] = smi
+    print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Model factory and JSON config registry of the port (counterpart of
 `mrclip_tpu/factory.py`: `list_models`, `get_model_config`,
-`add_model_config`, `create_model`).
+`add_model_config`, `create_model`, `create_loss`).
 
 The registry scans the port's own `model_configs/` (byte-identical copies of
 the JAX package's files). `create_model` returns a `CLIP` module on its
@@ -14,12 +14,15 @@ import json
 import math
 import re
 from copy import deepcopy
+from functools import partial
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from .losses.contrastive import clip_loss, multipositive_clip_loss
 from .models import CLIP
+from .ops.pallas_loss import pallas_multipositive_clip_loss
 from .utils import resolve_device
 
 __all__ = [
@@ -27,6 +30,7 @@ __all__ = [
     "get_model_config",
     "add_model_config",
     "create_model",
+    "create_loss",
     "model_from_config",
     "cast_dtype",
 ]
@@ -192,10 +196,11 @@ def create_model(
     unported = sorted(set(model_kwargs) - set(_CFG_KEYS))
     if unported:
         raise NotImplementedError(
-            f"create_model options {unported} are not ported: scan_layers and remat "
-            "are XLA compile-time choices the unrolled stack has no use for; training "
-            "options come with training (ROADMAP: later slice 1), force_* overrides "
-            "with the other configs (ROADMAP: later slice 2)"
+            f"create_model options {unported} are not ported: scan_layers is an XLA "
+            "compile-time choice the unrolled stack has no use for; training is ported "
+            "but remat (grad_checkpointing, remat_policy) is not (ROADMAP: later slice 3, "
+            "the training CLI's options); force_* overrides come with the other configs "
+            "(ROADMAP: later slice 2)"
         )
     cfg.update(model_kwargs)
 
@@ -207,3 +212,37 @@ def create_model(
     else:
         _init_weights(model, torch.Generator().manual_seed(rng_seed))
     return model.to(dev).eval()
+
+
+def _unported_loss(what: str, roadmap: str):
+    raise NotImplementedError(f"the {what} loss is not ported (ROADMAP: {roadmap})")
+
+
+def create_loss(args) -> Callable[..., dict]:
+    """Loss from the CLI flags, as the JAX package dispatches them: dense
+    `multipositiveloss` (`delta`), its fused-kernel form with
+    `pallas_loss`, or the plain symmetric `clip_loss`. `args` is any object
+    with the flags as attributes; the losses of other slices raise."""
+    get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
+
+    if get("distill"):
+        _unported_loss("distill", "later slice 2, other losses")
+    if "coca" in (get("model", "") or "").lower():
+        _unported_loss("CoCa captioning", "later slice 4, other towers")
+    if get("siglip"):
+        _unported_loss("SigLIP", "later slice 2, other losses")
+    if get("multipositiveloss"):
+        if get("visiononly"):
+            _unported_loss("vision-only multipositive", "later slice 2, other losses")
+        if get("distance"):
+            _unported_loss("distance-weighted multipositive", "later slice 2, other losses")
+        if get("pallas_loss"):
+            return partial(pallas_multipositive_clip_loss, delta=get("delta", 0.5),
+                           gather_with_grad=get("gather_with_grad", True))
+        if get("chunked_loss"):
+            _unported_loss("chunked multipositive", "later slice 2, other losses")
+        return partial(multipositive_clip_loss, delta=get("delta", 0.5),
+                       gather_with_grad=get("gather_with_grad", True))
+    if get("lam"):
+        _unported_loss("multipositive-with-vision (lam)", "later slice 2, other losses")
+    return partial(clip_loss, gather_with_grad=get("gather_with_grad", True))

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attn import fused_attention_packed, fused_attention_packed_ref
+from ..ops.fused_attn import fused_attention_packed_ref, fused_attention_qkv
 
 __all__ = [
     "LayerNorm",
@@ -29,8 +29,9 @@ __all__ = [
     "ATTN_IMPLS",
 ]
 
-# 'xla' = plain softmax math (the JAX package's jax.nn.dot_product_attention
-# path, same rounding order); 'fusedp' = the packed Hopper kernel.
+# 'xla' = plain softmax math under ordinary autograd (the JAX package's
+# jax.nn.dot_product_attention path, same rounding order); 'fusedp' = the
+# packed Hopper kernels, forward (K1) and backward (K3).
 ATTN_IMPLS = ("xla", "fusedp")
 
 
@@ -122,8 +123,11 @@ class MultiHeadAttention(nn.Module):
         dt = self.compute_dtype
         w = x.shape[-1]
         qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
-        # Column slices of the [B, N, 3W] projection, handed over uncopied.
-        q, k, v = qkv[..., :w], qkv[..., w : 2 * w], qkv[..., 2 * w :]
-        attend = fused_attention_packed if self.attn_impl == "fusedp" else fused_attention_packed_ref
-        out, _ = attend(q, k, v, is_causal=is_causal, heads=self.num_heads)
+        if self.attn_impl == "fusedp":
+            # The kernels read the column slices of the [B, N, 3W] projection
+            # uncopied, and the backward writes its gradient in one piece.
+            out = fused_attention_qkv(qkv, heads=self.num_heads, is_causal=is_causal)
+        else:
+            q, k, v = qkv[..., :w], qkv[..., w : 2 * w], qkv[..., 2 * w :]
+            out, _ = fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=self.num_heads)
         return self.out_proj(out)

@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` exposes a plain C interface. It is compiled for Hopper
 file name that carries the hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads the library already built.
 Nothing here runs at import time: the CPU tests import every module on a
-host with no `nvcc`.
+host with no `nvcc`. Different sources build in parallel when loaded from
+several threads (`load_libraries`); one source builds once.
 """
 
 from __future__ import annotations
@@ -17,15 +18,18 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "nvcc_command", "load_library", "build_info"]
+__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "nvcc_command", "load_library", "load_libraries",
+           "build_info"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the dicts below
+_name_locks: dict[str, threading.Lock] = {}  # one build of each source at a time
 _libs: dict[str, ctypes.CDLL] = {}
 _info: dict[str, dict] = {}
 
@@ -59,6 +63,8 @@ def load_library(name: str) -> ctypes.CDLL:
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{key}.so"
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(str(out))
         if lib is not None:
             return lib
@@ -77,9 +83,18 @@ def load_library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed on {src}:\n{info['log']}")
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         lib = ctypes.CDLL(str(out))
-        _libs[str(out)] = lib
-        _info[name] = info
+        with _lock:
+            _libs[str(out)] = lib
+            _info[name] = info
     return lib
+
+
+def load_libraries(names) -> dict[str, ctypes.CDLL]:
+    """`load_library` for several sources at once, one nvcc each, all
+    started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))
 
 
 def build_info(name: str) -> dict:

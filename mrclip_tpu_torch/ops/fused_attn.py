@@ -1,19 +1,22 @@
-"""Packed fused attention, forward: the port of `ops/fused_attn.py`'s
-`_packed_fwd_kernel` (batched-head mode, no rope) to a hand-written Hopper
-kernel, `csrc/packed_attn_fwd.cu`.
+"""Packed fused attention: the port of `ops/fused_attn.py`'s
+`_packed_fwd_kernel` and `_packed_bwd_kernel` (batched-head mode, no rope)
+to two hand-written Hopper kernels, `csrc/packed_attn_fwd.cu` (K1) and
+`csrc/packed_attn_bwd.cu` (K3), bound together for autograd by
+`FusedAttentionPacked` (the JAX package's `_pcore` custom VJP).
 
 q, k and v stay in the natural layout the QKV projection produces,
 `[B, N, H, D]` or packed `[B, N, H*D]`, with any batch and row stride and a
 contiguous head dimension: the three column slices of one `in_proj` output
-go to the kernel with no copies. The `[N, Nk]` scores never reach device
-memory. The kernel returns o and the fp32 log-sum-exp `[B, H, N]` that the
-backward (still to be ported) recomputes P from.
+go to the kernels with no copies, and the backward writes dq, dk and dv
+into the three column slices of one `[B, N, 3*H*D]` gradient buffer. The
+`[N, Nk]` scores never reach device memory. The forward returns o and the
+fp32 log-sum-exp `[B, H, N]` that the backward recomputes P from.
 
-`fused_attention_packed` launches the kernel for CUDA tensors and raises on
-anything it cannot take; only for tensors on the CPU does it run the plain
-version, `fused_attention_packed_ref`, which follows the TPU kernel's
-rounding order: fp32 scores, P divided by l in fp32 and cast to the input
-type, then P @ V accumulated in fp32.
+`fused_attention_packed` and `fused_attention_packed_bwd` launch their
+kernels for CUDA tensors and raise on anything the kernels cannot take; only
+for tensors on the CPU do they run the plain versions,
+`fused_attention_packed_ref` and `fused_attention_packed_bwd_ref`, which
+follow the TPU kernels' rounding order.
 """
 
 from __future__ import annotations
@@ -28,31 +31,46 @@ import torch
 from . import build
 
 __all__ = [
+    "FusedAttentionPacked",
     "fused_attention_packed",
+    "fused_attention_packed_bwd",
+    "fused_attention_packed_bwd_ref",
     "fused_attention_packed_ref",
+    "fused_attention_qkv",
     "launches",
+    "bwd_launches",
     "reset_launches",
     "load_kernel",
+    "load_bwd_kernel",
 ]
 
 _NEG = -1e30  # the TPU kernel's additive causal mask value
 _HEAD_DIMS = (32, 64)
 
-# Launches of the CUDA kernel since import or the last reset_launches().
+# Launches of the forward (K1) and backward (K3) CUDA kernels since import
+# or the last reset_launches(); one wrapper call counts one launch.
 launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     with _count_lock:
         launches = 0
+        bwd_launches = 0
 
 
 def _count_launch() -> None:
     global launches
     with _count_lock:
         launches += 1
+
+
+def _count_bwd_launch() -> None:
+    global bwd_launches
+    with _count_lock:
+        bwd_launches += 1
 
 
 def _as_packed(t: torch.Tensor, heads):
@@ -84,6 +102,17 @@ def _split(q, k, v, heads):
     return q3, k3, v3, h, d
 
 
+def _scores(q, k, d, is_causal):
+    """fp32 scaled scores [B, H, N, Nk] with the TPU kernels' additive
+    causal mask."""
+    s = q @ k.transpose(-1, -2) * (1.0 / math.sqrt(d))
+    if is_causal:
+        col = torch.arange(k.shape[-2], device=s.device)
+        row = torch.arange(q.shape[-2], device=s.device)
+        s = s + torch.where(col[None, :] > row[:, None], _NEG, 0.0)
+    return s
+
+
 def fused_attention_packed_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is_causal: bool = False, heads: int | None = None,
@@ -94,19 +123,17 @@ def fused_attention_packed_ref(
     b, n, _ = q3.shape
     nk = k3.shape[1]
 
-    def heads_first(t):  # [B, L, H*D] -> [B, H, L, D] fp32
-        return t.reshape(b, t.shape[1], h, d).transpose(1, 2).float()
+    acc = torch.promote_types(q.dtype, torch.float32)  # fp32 (fp64 stays fp64)
 
-    s = heads_first(q3) @ heads_first(k3).transpose(-1, -2) * (1.0 / math.sqrt(d))
-    if is_causal:
-        col = torch.arange(nk, device=s.device)
-        row = torch.arange(n, device=s.device)
-        s = s + torch.where(col[None, :] > row[:, None], _NEG, 0.0)
+    def heads_first(t):  # [B, L, H*D] -> [B, H, L, D] in acc
+        return t.reshape(b, t.shape[1], h, d).transpose(1, 2).to(acc)
+
+    s = _scores(heads_first(q3), heads_first(k3), d, is_causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     lse = (m + torch.log(l)).squeeze(-1)
-    pn = (p / l).to(q.dtype).float()
+    pn = (p / l).to(q.dtype).to(acc)
     o = (pn @ heads_first(v3)).to(q.dtype)  # [B, H, N, D]
     o = o.transpose(1, 2).reshape(q.shape)
     return o, lse
@@ -126,6 +153,24 @@ def load_kernel():
     return fn
 
 
+def _check_kernel_inputs(name, packed, d):
+    """Refuse what the CUDA kernels cannot take: packed `[B, L, H*D]` views
+    on one CUDA device, fp32 or bf16 of one type, head dim 32 or 64, a
+    contiguous packed head dimension."""
+    first = packed[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    if any(t.device != first.device for t in packed):
+        raise ValueError(f"{name}: tensors on different devices: {[t.device for t in packed]}")
+    if first.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != first.dtype for t in packed):
+        raise TypeError(f"{name}: kernel takes fp32 or bf16 tensors of one type; got "
+                        f"{[t.dtype for t in packed]}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
+    if any(t.stride(2) != 1 for t in packed):
+        raise ValueError(f"{name}: the packed head dimension must be contiguous")
+
+
 def fused_attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is_causal: bool = False, heads: int | None = None,
@@ -140,19 +185,8 @@ def fused_attention_packed(
     """
     if q.device.type == "cpu":
         return fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention_packed: unsupported device {q.device}")
     q3, k3, v3, h, d = _split(q, k, v, heads)
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"kernel takes fp32 or bf16 q/k/v of one type; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes head dim {_HEAD_DIMS}; got {d}")
-    for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        if t.stride(2) != 1:
-            raise ValueError(f"{name}: the packed head dimension must be contiguous")
+    _check_kernel_inputs("fused_attention_packed", (q3, k3, v3), d)
     b, n, hd = q3.shape
     nk = k3.shape[1]
     o = torch.empty((b, n, hd), dtype=q.dtype, device=q.device)
@@ -175,3 +209,151 @@ def fused_attention_packed(
         raise RuntimeError(f"packed_attn_fwd launch failed: cudaError {err}")
     _count_launch()
     return o.reshape(q.shape), lse
+
+
+def fused_attention_packed_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
+    heads: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) in q's
+    layout and type, in the TPU kernel's rounding order: P = exp(S - lse) in
+    fp32, cast to the input type before P^T dO; delta = rowsum(dO * O) in
+    fp32; dS = P (dP - delta) scale cast to the input type before dS K and
+    dS^T Q; every product summed in fp32 and cast once."""
+    q3, k3, v3, h, d = _split(q, k, v, heads)
+    o3, _, _ = _as_packed(o, h)
+    do3, _, _ = _as_packed(do, h)
+    b, n, _ = q3.shape
+    dt = q.dtype
+    acc = torch.promote_types(dt, torch.float32)  # fp32 (fp64 stays fp64)
+
+    def heads_first(t):  # [B, L, H*D] -> [B, H, L, D] in acc
+        return t.reshape(b, t.shape[1], h, d).transpose(1, 2).to(acc)
+
+    qf, kf, vf, dof = (heads_first(t) for t in (q3, k3, v3, do3))
+    p = torch.exp(_scores(qf, kf, d, is_causal) - lse[..., None])
+    dv = p.to(dt).to(acc).transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (dof * heads_first(o3)).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * (1.0 / math.sqrt(d))).to(dt).to(acc)
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ qf
+
+    def back(t, like):  # [B, H, L, D] -> like's layout and q's type
+        return t.to(dt).transpose(1, 2).reshape(like.shape)
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+@functools.lru_cache(maxsize=None)
+def load_bwd_kernel():
+    """Build (at first use) and bind the backward kernel's C entry point."""
+    fn = build.load_library("packed_attn_bwd").packed_attn_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_attention_packed_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
+    heads: int | None = None, out=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of `fused_attention_packed` for the output
+    gradient `do`, from the forward's o and lse.
+
+    Layouts and types as the forward takes them; `do` has o's shape. `out`,
+    if given, is a (dq, dk, dv) triple of tensors with q's, k's and v's
+    shapes and type and any row stride (for example the column slices of one
+    `[B, N, 3*H*D]` buffer), which receive the result. CPU tensors take the
+    plain version; CUDA tensors launch the Hopper kernel or raise.
+    """
+    if q.device.type == "cpu":
+        grads = fused_attention_packed_bwd_ref(q, k, v, o, do, lse,
+                                               is_causal=is_causal, heads=heads)
+        if out is None:
+            return grads
+        for dst, g in zip(out, grads):
+            dst.copy_(g)
+        return tuple(out)
+    q3, k3, v3, h, d = _split(q, k, v, heads)
+    o3, do3 = _as_packed(o, h)[0], _as_packed(do, h)[0]
+    if o3.shape != q3.shape or do3.shape != q3.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    _check_kernel_inputs("fused_attention_packed_bwd", (q3, k3, v3, o3, do3), d)
+    b, n, hd = q3.shape
+    nk = k3.shape[1]
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 {(b, h, n)}; got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if lse.device != q.device:
+        raise ValueError(f"lse on {lse.device}, q on {q.device}")
+    if out is None:
+        out = (torch.empty_like(q3, memory_format=torch.contiguous_format),
+               torch.empty_like(k3, memory_format=torch.contiguous_format),
+               torch.empty_like(v3, memory_format=torch.contiguous_format))
+    dq3, dk3, dv3 = (_as_packed(t, h)[0] for t in out)
+    if dq3.shape != q3.shape or dk3.shape != k3.shape or dv3.shape != v3.shape:
+        raise ValueError(f"out shapes {[tuple(t.shape) for t in out]} differ from q/k/v's")
+    _check_kernel_inputs("fused_attention_packed_bwd", (q3, dq3, dk3, dv3), d)
+    if b and n and nk:
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 16)(*(
+            s for t in (q3, k3, v3, o3, do3, dq3, dk3, dv3) for s in (t.stride(0), t.stride(1))
+        ))
+        kernel = load_bwd_kernel()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = kernel(
+                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o3.data_ptr(), do3.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq3.data_ptr(), dk3.data_ptr(),
+                dv3.data_ptr(), int(q.dtype == torch.bfloat16), b, n, nk, h, d,
+                strides, 1.0 / math.sqrt(d), int(is_causal), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"packed_attn_bwd launch failed: cudaError {err}")
+        _count_bwd_launch()
+    elif nk == 0 and n:
+        raise ValueError("attention over zero keys")
+    return tuple(t.reshape(like.shape) for t, like in zip(out, (q, k, v)))
+
+
+class FusedAttentionPacked(torch.autograd.Function):
+    """Self-attention over one packed `[B, N, 3*H*D]` qkv tensor (the
+    in_proj output): the forward launches K1 and keeps (q, k, v, o, lse), the
+    JAX package's residuals; the backward launches K3, which writes dq, dk
+    and dv straight into the column slices of one `[B, N, 3*H*D]` gradient,
+    so the in_proj backward reads it with no concatenation. On CPU tensors
+    both directions run the plain versions. Returns o `[B, N, H*D]`."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int, is_causal: bool) -> torch.Tensor:
+        q, k, v = qkv.chunk(3, dim=-1)
+        o, lse = fused_attention_packed(q, k, v, is_causal=is_causal, heads=heads)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.heads, ctx.is_causal = heads, is_causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do: torch.Tensor):
+        qkv, o, lse = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        fused_attention_packed_bwd(
+            *qkv.chunk(3, dim=-1), o, do.to(qkv.dtype).contiguous(), lse,
+            is_causal=ctx.is_causal, heads=ctx.heads, out=dqkv.chunk(3, dim=-1),
+        )
+        return dqkv, None, None
+
+
+def fused_attention_qkv(qkv: torch.Tensor, *, heads: int, is_causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) [+ causal]) v over the three column slices of
+    a packed qkv `[B, N, 3*H*D]`, differentiable through the K1/K3 kernels
+    (`FusedAttentionPacked`)."""
+    return FusedAttentionPacked.apply(qkv, heads, is_causal)

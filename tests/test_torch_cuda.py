@@ -1,5 +1,7 @@
-"""Card-only tests of the PyTorch port: the Hopper kernel against its plain
-version, its refusals, and a small CLIP through it.
+"""Card-only tests of the PyTorch port: each Hopper kernel (K1 and K3, the
+packed attention forward and backward; K6 and K7, the fused SupCon loss)
+against its plain version, their refusals, a small CLIP through them, and a
+small train step whose attention gradients come from the kernels.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -14,8 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from mrclip_tpu_torch.factory import create_model
+from mrclip_tpu_torch.factory import create_loss, create_model
 from mrclip_tpu_torch.ops import fused_attn as fa
+from mrclip_tpu_torch.ops import pallas_loss as pl
+from mrclip_tpu_torch.ops.image_ops import normalize_images
+from mrclip_tpu_torch.parallel import create_optimizer, create_train_state, make_loss_apply
+from mrclip_tpu_torch.parallel.train_step import loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +105,133 @@ def test_small_clip_through_the_kernel_matches_plain_attention(cuda_device):
     for key in ("image_features", "text_features"):
         cos = torch.nn.functional.cosine_similarity(a[key].float(), b[key].float(), dim=-1)
         assert cos.min().item() >= 0.999, key
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES)
+@pytest.mark.parametrize("d", [32, 64])
+def test_backward_kernel_matches_plain_version(cuda_device, b, n, nk, h, causal, d, dtype, tol):
+    """K3: max |err| / max |plain| per output. bf16: the two round P and dS
+    the same way, but a sum taken in another order can flip one bf16
+    rounding of a gradient (~1e-2 relative); fp32: summation order only."""
+    q, k, v = _inputs(b, n, nk, h, d, cuda_device, dtype)
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal)
+    do = torch.randn(o.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(1)).to(dtype)
+    before = fa.bwd_launches
+    got = fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal)
+    for g, w, like in zip(got, want, (q, k, v)):
+        assert g.shape == like.shape and g.dtype == dtype
+        rel = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel.item() <= tol
+
+
+def test_backward_kernel_writes_column_slices_of_one_buffer(cuda_device):
+    b, n, h, d = 4, 197, 12, 64
+    qkv = torch.randn(b, n, 3 * h * d, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    o, lse = fa.fused_attention_packed(q, k, v, heads=h)
+    do = torch.randn_like(o)
+    buf = torch.zeros_like(qkv)
+    fa.fused_attention_packed_bwd(q, k, v, o, do, lse, heads=h, out=buf.chunk(3, dim=-1))
+    want = fa.fused_attention_packed_bwd_ref(*(t.contiguous() for t in (q, k, v)), o, do, lse,
+                                             heads=h)
+    for part, w in zip(buf.chunk(3, dim=-1), want):
+        assert ((part.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 2e-2
+
+
+def test_backward_kernel_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _inputs(1, 16, 16, 2, 64, cuda_device, torch.float32)
+    o, lse = fa.fused_attention_packed(q, k, v)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fa.fused_attention_packed_bwd(q, k, v, o, o.half(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.fused_attention_packed_bwd(q, k, v, o, o, lse.double())
+    with pytest.raises(ValueError, match="unsupported device|different devices"):
+        fa.fused_attention_packed_bwd(q, k, v, o, o.cpu(), lse)
+
+
+def _supcon_inputs(n, d, n_labels, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q, k = (rng.randn(n, d).astype(np.float32) for _ in range(2))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    k /= np.linalg.norm(k, axis=1, keepdims=True)
+    labels = (np.arange(n) if n_labels is None else rng.randint(0, n_labels, n)).astype(np.int32)
+    return (torch.from_numpy(q).to(device), torch.from_numpy(k).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+@pytest.mark.parametrize("n,d,n_labels", [(32, 128, 5), (12, 16, 3), (20, 32, None),
+                                          (100, 512, 32), (333, 512, 32), (256, 512, None)])
+def test_supcon_kernels_match_plain_versions(cuda_device, n, d, n_labels):
+    """K6 and K7 in fp32 against their plain versions: max |err| / max
+    |plain| <= 1e-5 (fp32 FMA sums in another order, TF32 off)."""
+    q, k, labels = _supcon_inputs(n, d, n_labels, cuda_device)
+    scale = torch.tensor([14.0], device=cuda_device)
+    gbar = torch.tensor([0.7 / n], device=cuda_device)
+    before = dict(pl.launches)
+    stats = pl.supcon_stats(q, k, labels, labels, scale)
+    want = pl.supcon_stats_ref(q, k, labels, labels, scale)
+    for g, w in zip(stats, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-5
+    m, s, _, cnt = want
+    cnt = cnt.clamp(min=1.0)
+    dq, ds_rows = pl.supcon_grad_q(q, k, labels, labels, scale, m, s, cnt, gbar)
+    dk = pl.supcon_grad_k(q, k, labels, labels, scale, m, s, cnt, gbar)
+    torch.cuda.synchronize()
+    want_dq, want_ds = pl.supcon_grad_q_ref(q, k, labels, labels, scale, m, s, cnt, gbar)
+    want_dk = pl.supcon_grad_k_ref(q, k, labels, labels, scale, m, s, cnt, gbar)
+    for g, w in ((dq, want_dq), (ds_rows, want_ds), (dk, want_dk)):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-5
+    assert all(pl.launches[name] == before[name] + 1 for name in pl.launches)
+
+
+def test_supcon_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, labels = _supcon_inputs(8, 16, 2, cuda_device)
+    scale = torch.tensor([1.0], device=cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        pl.supcon_stats(q.double(), k.double(), labels, labels, scale)
+    with pytest.raises(TypeError, match="int32"):
+        pl.supcon_stats(q, k, labels.long(), labels.long(), scale)
+    with pytest.raises(ValueError, match="different devices"):
+        pl.supcon_stats(q, k, labels.cpu(), labels, scale)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_small_train_step_gradients_through_the_kernels(cuda_device, pallas):
+    """ViT-B-32-mini bf16 on the card: with attn_impl='fusedp' every
+    attention projection gets a gradient through K1/K3 (each layer launches
+    both once), equal to the plain-attention step's within bf16 rounding
+    through two layers (cosine >= 0.999 per tensor of 10^3 or more elements);
+    under pallas_loss each K6/K7 kernel launches twice."""
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=pallas))()
+    apply = make_loss_apply(create_loss(args))
+    rng = np.random.RandomState(0)
+    batch = {
+        "images": normalize_images(torch.from_numpy(
+            rng.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)).to(cuda_device)),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (8, 32))).to(cuda_device),
+        "labels": torch.from_numpy(rng.randint(0, 3, 8).astype(np.int32)).to(cuda_device),
+    }
+    grads = {}
+    for impl in ("fusedp", "xla"):
+        model = create_model("ViT-B-32-mini", precision="bf16", attn_impl=impl, rng_seed=0)
+        state = create_train_state(model, create_optimizer(lr=1e-4))
+        fa.reset_launches()
+        pl.reset_launches()
+        grads[impl], ldict = loss_and_grads(model, apply, state.params, batch)
+        torch.cuda.synchronize()
+        assert np.isfinite(ldict["loss"].item())
+        if impl == "fusedp":
+            assert fa.launches == 4 and fa.bwd_launches == 4  # 2 vision + 2 text layers
+            assert all(v == (2 if pallas else 0) for v in pl.launches.values())
+    for name, g in grads["fusedp"].items():
+        if "in_proj" in name:
+            assert g.abs().max().item() > 0, name
+        if g.numel() >= 1000:
+            cos = torch.nn.functional.cosine_similarity(
+                g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
+            assert cos.item() >= 0.999, name

@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port (mrclip_tpu_torch) and its chip_smoke.py:
 no JAX, CUDA by default, byte-identical copies of configs and vocab, and a
-Hopper build of the kernel source."""
+Hopper build of every kernel source."""
 
 import filecmp
 import subprocess
@@ -14,6 +14,7 @@ from mrclip_tpu_torch import export as export_cli
 from mrclip_tpu_torch import serve
 from mrclip_tpu_torch.factory import create_model
 from mrclip_tpu_torch.ops import build
+from mrclip_tpu_torch.parallel import create_optimizer, create_train_state
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -22,6 +23,8 @@ _IMPORTS_NO_JAX = """
 import sys
 import chip_smoke, mrclip_tpu_torch
 import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
+import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops
+import mrclip_tpu_torch.losses, mrclip_tpu_torch.parallel, mrclip_tpu_torch.train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu"))
 print(bad)
@@ -48,10 +51,14 @@ def artifact(tmp_path_factory):
 
 
 @pytest.mark.parametrize("entry", ["create_model", "load_exported", "make_server",
-                                   "serve.main", "export.main"])
+                                   "serve.main", "export.main", "train"])
 def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry):
+    """The training path runs on its model's device, so it too stops at
+    create_model without a card unless given device='cpu'."""
     calls = {
         "create_model": lambda: create_model("ViT-B-32-mini"),
+        "train": lambda: create_train_state(create_model("ViT-B-32-mini", attn_impl="fusedp"),
+                                            create_optimizer(lr=1e-4)),
         "load_exported": lambda: load_exported(artifact),
         "make_server": lambda: serve.make_server(artifact, host="127.0.0.1", port=0),
         "serve.main": lambda: serve.main(["--model", artifact, "--port", "0"]),
@@ -71,12 +78,21 @@ def test_copied_files_are_byte_identical(rel):
     assert filecmp.cmp(ROOT / "mrclip_tpu" / rel, ROOT / "mrclip_tpu_torch" / rel, shallow=False)
 
 
-def test_kernel_source_builds_for_hopper():
-    src = build.CSRC / "packed_attn_fwd.cu"
+@pytest.mark.parametrize("source,entries,tpu_kernels", [
+    ("packed_attn_fwd.cu", ["packed_attn_fwd"], ["fused_attn.py::_packed_fwd_kernel"]),
+    ("packed_attn_bwd.cu", ["packed_attn_bwd"], ["fused_attn.py::_packed_bwd_kernel"]),
+    ("supcon_loss.cu", ["supcon_stats", "supcon_grad_q", "supcon_grad_k"],
+     ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"]),
+])
+def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
+    src = build.CSRC / source
     assert src.is_file()
     text = src.read_text()
-    assert 'extern "C" int packed_attn_fwd(' in text
-    assert "_packed_fwd_kernel" in text  # names the TPU kernel it replaces
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in text
+    for kernel in tpu_kernels:  # names the TPU kernel it replaces
+        assert kernel in text
+    assert "cudaGetLastError()" in text
     cmd = build.nvcc_command(src, Path("lib.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
