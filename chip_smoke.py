@@ -11,9 +11,14 @@ fails:
   3. kernel: each kernel against its plain PyTorch version on the card: K1
              (attention forward) and K3 (attention backward) at the served and
              trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
-             strided column slices; K6/K7 (fused SupCon loss) in fp32 at
+             strided column slices; K2 and K3r (the same with the EVA02 rope
+             rotated inside) at EVA02-B-16's vision shapes b32 and b256 with
+             the real rope_cat_2d table and at edges (prefix 0, N = 1, 50,
+             257, head dim 32, causal); K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
-             the plain versions, the bounds and SDPA (forward, and backward);
+             the plain versions, the bounds and SDPA (forward, and backward;
+             for K2/K3r on q and k rotated beforehand, so not the same
+             function), and K2/K3r beside K1/K3 at the same shape;
   4. serve:  full-width ViT-B-16 (random weights from a seed, bf16 compute,
              fp32 params, attn_impl='fusedp') exported to an artifact, loaded,
              served over HTTP on 127.0.0.1; health, concurrent image and text
@@ -26,9 +31,18 @@ fails:
              the step; gradients checked against plain attention and the
              pallas loss against the dense one at the initial weights; then
              one warm-up and 5 timed dense steps and one pallas-loss step,
-             with the kernels' launch counts of that run.
-The last three lines are the kernels JSON, the card's name and power limit,
-and {"ok": true, "device": {...}}. Needs one CUDA card and imports no JAX.
+             with the kernels' launch counts of that run;
+  6. serve EVA02-B-16 (full width and depth, random weights from a seed,
+             bf16, 'fusedp'): export, load, `encode_image` at b32 and b256
+             and `encode_text` at b256 through `ServedModel`; features
+             against the same weights under plain attention; 12 K2 launches
+             per image call and 12 K1 per text call;
+  7. train EVA02-B-16 at b256, as phase 5: 12 K2, 12 K1, 12 K3r and 12 K3
+             launches per step, every q/k/v projection with a gradient.
+Each path (4 to 7) runs with the launch counts set to 0 just before it and
+reads them just after. The last three lines are the kernels JSON, the card's
+name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
+and imports no JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +82,21 @@ SUPCON_CASES = [(256, 32), (100, 32), (333, 32), (256, None)]  # (B, label class
 EDGES = [dict(b=4, n=n, nk=n, h=4, d=64, causal=c) for n in (1, 50, 257) for c in (False, True)]
 EDGES += [dict(b=2, n=76, nk=255, h=2, d=64, causal=False),  # kv length != q length
           dict(b=3, n=33, nk=33, h=2, d=32, causal=True)]  # head dim 32
+TEXT77 = dict(TEXT, n=77, nk=77)  # EVA02-B-16's text tower, context 77
+# K1 and K3 are checked at every shape phase 3 times them: the served b32 and
+# the trained b256 of ViT-B-16's towers and of EVA02-B-16's text tower
+CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77)), *EDGES]
+# K2/K3r: EVA02-B-16's vision layers have ViT-B-16's N, H and D, and a CLS
+# prefix row; the table is rope_cat_2d's where N - prefix is a square grid
+ROPE_VISION = dict(VISION, prefix=1)
+ROPE_EDGES = [
+    dict(b=4, n=197, nk=197, h=4, d=64, causal=False, prefix=0),
+    dict(b=4, n=1, nk=1, h=4, d=64, causal=False, prefix=1),
+    dict(b=4, n=50, nk=50, h=4, d=64, causal=False, prefix=1),
+    dict(b=4, n=257, nk=257, h=4, d=64, causal=False, prefix=1),
+    dict(b=3, n=33, nk=33, h=2, d=32, causal=False, prefix=1),
+    dict(b=4, n=50, nk=50, h=4, d=64, causal=True, prefix=1),
+]
 CAPTIONS = [
     "A brain MRI, plane axial, Scanner (Manufacturer, Model, Field Strength): (SIEMENS, "
     "Prisma, 3), Acquisition (Description, Sequence, Variant): (t1_mprage_tra, GR\\IR, "
@@ -139,6 +168,18 @@ def attention_bwd_bound(b, n, nk, h, d, causal, dtype):
     return _bound(nbytes, 10 * b * h * _pairs(n, nk, causal) * d, dtype)
 
 
+def rope_attention_bound(b, n, nk, h, d, causal, dtype, backward=False):
+    """K2 (K3r with `backward`): K1's (K3's) bytes plus the [N, 2D] table read
+    once; K1's (K3's) operations plus 6 per rotated element of q and k (K3r
+    also un-rotates dq and dk: 4 tensors)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    tensors = (5 * n + 3 * nk) if backward else (2 * n + 2 * nk)
+    nbytes = item * b * h * d * tensors + 4 * b * h * n + item * n * 2 * d
+    ops = ((10 if backward else 4) * b * h * _pairs(n, nk, causal) * d
+           + 6 * (4 if backward else 2) * b * n * h * d)
+    return _bound(nbytes, ops, dtype)
+
+
 def supcon_bound(kind, nq, nk, d):
     """K6 'stats': 2*Nq*Nk*D operations, q and k read, 4 row vectors written;
     K7 'grad_q'/'grad_k': 4*Nq*Nk*D (the logit tile and the gradient
@@ -196,7 +237,7 @@ def phase_kernel_fwd():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for shape in [VISION, TEXT, *EDGES]:
+    for shape in CHECKED:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv_slices(shape, dtype, gen)
             o, lse = fa.fused_attention_packed(q, k, v, is_causal=shape["causal"], heads=shape["h"])
@@ -230,6 +271,7 @@ def phase_kernel_fwd():
     vision, text = timings(VISION), timings(TEXT)
     serving_b256 = timings(dict(VISION, b=TRAIN_BATCH))
     text_b256 = timings(dict(TEXT, b=TRAIN_BATCH))
+    text77_b256 = timings(dict(TEXT77, b=TRAIN_BATCH))
     return {
         "name": "packed_attn_fwd",
         "route": "cuda",
@@ -246,6 +288,7 @@ def phase_kernel_fwd():
         "text": text,
         "vision_b256": serving_b256,
         "text_b256": text_b256,
+        "text77_b256": text77_b256,
     }
 
 
@@ -268,7 +311,7 @@ def phase_kernel_bwd():
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_abs = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for shape in [VISION, TEXT, *EDGES]:
+    for shape in CHECKED:
         h, causal = shape["h"], shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv_slices(shape, dtype, gen)
@@ -321,6 +364,7 @@ def phase_kernel_bwd():
 
     vision = timings(dict(VISION, b=TRAIN_BATCH))
     text = timings(dict(TEXT, b=TRAIN_BATCH))
+    text77 = timings(dict(TEXT77, b=TRAIN_BATCH))
     return {
         "name": "packed_attn_bwd",
         "route": "cuda",
@@ -337,7 +381,153 @@ def phase_kernel_bwd():
         **vision,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text_b256": text,
+        "text77_b256": text77,
     }
+
+
+def rope_inputs(shape, dtype, gen):
+    """q, k, v as strided column slices (`qkv_slices`), the raw [N - prefix,
+    2D] sin||cos table (rope_cat_2d's where N - prefix is a square grid, as
+    EVA02's 14 x 14, else uniform in [-1, 1]) and the kernel table built from
+    it in `dtype`."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+    from mrclip_tpu_torch.ops.pos_embed import rope_cat_2d
+
+    n, d, prefix = shape["n"], shape["d"], shape["prefix"]
+    g = int(round((n - prefix) ** 0.5))
+    if g * g == n - prefix and g:
+        rope = rope_cat_2d(d, g, g, ref_feat_shape=(16, 16))
+    else:
+        rope = np.random.RandomState(n).uniform(-1, 1, (n - prefix, 2 * d)).astype(np.float32)
+    q, k, v = qkv_slices(shape, dtype, gen)
+    return q, k, v, rope, fa.rope_table(rope, prefix, dtype).cuda()
+
+
+def phase_kernel_rope():
+    """K2 and K3r against their plain versions: q, k, v, o and dO as strided
+    column slices, dq/dk/dv into the column slices of one buffer; timings
+    at EVA02-B-16's vision layer (b32 served, b256 trained) beside K1/K3 at
+    the same shape (the cost of the rope) and SDPA on q and k rotated
+    beforehand (labelled: not the same function)."""
+    from mrclip_tpu_torch.models.layers import apply_rope_cat
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {"fwd": {torch.bfloat16: 0.0, torch.float32: 0.0},
+             "bwd": {torch.bfloat16: 0.0, torch.float32: 0.0}}
+    worst_rel = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for shape in [ROPE_VISION, dict(ROPE_VISION, b=TRAIN_BATCH), *ROPE_EDGES]:
+        h, causal = shape["h"], shape["causal"]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _, tab = rope_inputs(shape, dtype, gen)
+            o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
+            od = torch.empty(*o.shape[:2], 2 * o.shape[2], device="cuda", dtype=dtype)
+            o_s, do_s = od.chunk(2, dim=-1)
+            o_s.copy_(o)
+            do_s.copy_(torch.randn(o.shape, device="cuda", generator=gen))
+            out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=dtype).chunk(3, -1)
+            got = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal, heads=h,
+                                                rope=tab, out=out)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h,
+                                                           rope=tab)
+            want = fa.fused_attention_packed_bwd_ref(q, k, v, o_s, do_s, lse, is_causal=causal,
+                                                     heads=h, rope=tab)
+            err_o, err_l = abs_err(o, o_ref), (lse - lse_ref).abs().max().item()
+            scale = max(w.float().abs().max().item() for w in want)
+            errs = [rel_err(g, w, scale) for g, w in zip(got, want)]
+            ok = (bool(torch.isfinite(o.float()).all()) and err_o <= O_TOL[dtype]
+                  and err_l <= LSE_TOL and all(bool(torch.isfinite(g.float()).all()) for g in got)
+                  and max(errs) <= GRAD_TOL[dtype])
+            log(f"[kernel] K2/K3r {shape} {str(dtype)[6:]}: max|o-plain|={err_o:.3e} (tol "
+                f"{O_TOL[dtype]}) max|lse-plain|={err_l:.3e} (tol {LSE_TOL}); max|d-plain| / "
+                f"max|plain| (={scale:.3g}) dq/dk/dv = " + "/".join(f"{e:.3e}" for e in errs)
+                + f" (tol {GRAD_TOL[dtype]}) " + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"packed_attn_rope_fwd/bwd disagree with their plain versions "
+                                     f"at {shape} {dtype}")
+            worst["fwd"][dtype] = max(worst["fwd"][dtype], err_o)
+            worst["bwd"][dtype] = max(worst["bwd"][dtype], *(abs_err(g, w) for g, w in zip(got, want)))
+            worst_rel[dtype] = max(worst_rel[dtype], *errs)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def timings(shape):
+        q, k, v, rope, tab = rope_inputs(shape, torch.bfloat16, gen)
+        h, d, causal = shape["h"], shape["d"], shape["causal"]
+        o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
+        o1, lse1 = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda",
+                          dtype=torch.bfloat16).chunk(3, dim=-1)
+        fwd = dict(
+            ms=cuda_ms(lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h,
+                                                         rope=tab), 50),
+            k1_ms=cuda_ms(lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h), 50),
+            plain_ms=cuda_ms(lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal,
+                                                                   heads=h, rope=tab), 20),
+        )
+        bwd = dict(
+            ms=cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
+                                                             heads=h, rope=tab, out=out), 20),
+            k3_ms=cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o1, do, lse1,
+                                                                is_causal=causal, heads=h, out=out), 20),
+            plain_ms=cuda_ms(lambda: fa.fused_attention_packed_bwd_ref(
+                q, k, v, o, do, lse, is_causal=causal, heads=h, rope=tab), 5),
+        )
+        # SDPA on q and k rotated beforehand: the rotation is not in its time
+        tab32 = fa.rope_table(rope, shape["prefix"], torch.float32).cuda()
+        rot = [apply_rope_cat(t.unflatten(-1, (h, d)), tab32).transpose(1, 2) for t in (q, k)]
+        q4, k4 = (t.detach().requires_grad_() for t in rot)
+        v4 = v.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_()
+        do4 = do.unflatten(-1, (h, d)).transpose(1, 2)
+        fwd["library_ms"] = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), 50)
+        both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
+                                                   (q4, k4, v4), do4), 20)
+        bwd["library_ms"] = both - fwd["library_ms"]
+        args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
+        fwd["bound_ms"], fwd["bound_by"] = rope_attention_bound(**args, dtype=torch.bfloat16)
+        bwd["bound_ms"], bwd["bound_by"] = rope_attention_bound(**args, dtype=torch.bfloat16,
+                                                                backward=True)
+        for name, t in (("K2", fwd), ("K3r", bwd)):
+            base = "K1" if name == "K2" else "K3"
+            log(f"[kernel] {name} bf16 {shape}: kernel {t['ms']:.4f} ms, {base} same shape "
+                f"{t[base.lower() + '_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA on "
+                f"pre-rotated q/k {t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+                f"({t['bound_by']})")
+        return fwd, bwd
+
+    fwd32, bwd32 = timings(ROPE_VISION)
+    fwd256, bwd256 = timings(dict(ROPE_VISION, b=TRAIN_BATCH))
+    library = ("scaled_dot_product_attention on q and k rotated beforehand: the rotation "
+               "is not in its time, so not the same function")
+    common = dict(route="cuda", launches=None, shape=f"EVA02-B-16 vision b{TRAIN_BATCH} n197 "
+                  "h12 d64 bf16, rope_cat_2d 14x14 table, CLS prefix")
+    return [{
+        "name": "packed_attn_rope_fwd",
+        "source": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu",
+        "replaces": "mrclip_tpu/ops/fused_attn.py:330",
+        "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_fwd_kernel, rope branch :330-343",
+        "max_abs_err": worst["fwd"][torch.bfloat16],
+        "max_abs_err_fp32": worst["fwd"][torch.float32],
+        **common, **fwd256,
+        "library": library + " (forward)",
+        "vision_b32": fwd32,
+    }, {
+        "name": "packed_attn_rope_bwd",
+        "source": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu",
+        "replaces": "mrclip_tpu/ops/fused_attn.py:418",
+        "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_bwd_kernel, rope branch "
+                      ":418-428, :464-473",
+        "max_abs_err": worst["bwd"][torch.bfloat16],
+        "max_abs_err_fp32": worst["bwd"][torch.float32],
+        "max_rel_err": worst_rel[torch.bfloat16],
+        "max_rel_err_fp32": worst_rel[torch.float32],
+        "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
+        **common, **bwd256,
+        "library": library + " (backward: fwd+bwd minus fwd)",
+        "vision_b32": bwd32,
+    }]
 
 
 def supcon_inputs(n, classes, gen):
@@ -556,7 +746,99 @@ def phase_serve(kernel_entry, card):
     perf["attention_kernel_share_b256"] = share
     log(f"[serve] throughput on {card}: " + json.dumps(perf))
     tmp.cleanup()
-    return main_path_launches, per_pair, perf
+    return {"packed_attn_fwd": main_path_launches}, per_pair, perf
+
+
+def launch_counts():
+    """Every kernel's launches since the last reset, by kernel name."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+
+    return {"packed_attn_fwd": fa.launches, "packed_attn_bwd": fa.bwd_launches,
+            "packed_attn_rope_fwd": fa.rope_launches,
+            "packed_attn_rope_bwd": fa.rope_bwd_launches, **pl.launches}
+
+
+def reset_counts():
+    from mrclip_tpu_torch.ops import fused_attn as fa
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+
+    fa.reset_launches()
+    pl.reset_launches()
+
+
+def phase_serve_eva02(entries, card):
+    """EVA02-B-16 through the serving entry points: export, load, encode."""
+    from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.factory import create_model
+    from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
+
+    t0 = time.perf_counter()
+    model = create_model("EVA02-B-16", precision="bf16", attn_impl="fusedp", rng_seed=0)
+    exported = export_model(model)
+    del model
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "eva02_b_16.mrclip")
+    save_exported(exported, path)
+    served = load_exported(path)
+    plain = create_model("EVA02-B-16", pretrained=exported.state_dict, precision="bf16",
+                         attn_impl="xla")
+    embed, ctx = served.meta["model_cfg"]["embed_dim"], served.meta["context_length"]
+    log(f"[serve-eva02] EVA02-B-16 built, exported ({os.path.getsize(path) / 1e6:.1f} MB) and "
+        f"loaded in {time.perf_counter() - t0:.1f} s; context {ctx}")
+    rng = np.random.RandomState(1)
+    images = rng.randn(TRAIN_BATCH, 224, 224, 3).astype(np.float32)
+    tokens = np.resize(SimpleTokenizer(context_length=ctx)(CAPTIONS), (TRAIN_BATCH, ctx))
+
+    reset_counts()  # the EVA02 served main path starts here
+    calls, feats = [], {}
+    for key, enc, arg in (("image_b32", served.encode_image, images[:32]),
+                          ("image_b256", served.encode_image, images),
+                          ("text_b256", served.encode_text, tokens)):
+        before = launch_counts()
+        feats[key] = unit_rows(enc(arg), len(arg), embed)
+        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+    main_path = launch_counts()  # read right after the served run
+    want = [{"packed_attn_rope_fwd": 12}, {"packed_attn_rope_fwd": 12}, {"packed_attn_fwd": 12}]
+    log(f"[serve-eva02] launches per call (image b32, image b256, text b256): {calls} "
+        f"(want {want}) {'ok' if calls == want else 'FAIL'}")
+    if calls != want:
+        raise AssertionError("the EVA02 served path did not launch K2 12 times per image call "
+                             "and K1 12 times per text call")
+
+    with torch.inference_mode():
+        ref_img = plain.encode_image(torch.from_numpy(images[:32]).cuda(), normalize=True)
+        ref_txt = plain.encode_text(torch.from_numpy(tokens).cuda(), normalize=True)
+    cos_img = cosine_rows(feats["image_b32"], ref_img.float().cpu().numpy()).min()
+    cos_256 = cosine_rows(feats["image_b256"][:32], feats["image_b32"]).min()
+    cos_txt = cosine_rows(feats["text_b256"], ref_txt.float().cpu().numpy()).min()
+    ok = min(cos_img, cos_txt) >= 0.999 and cos_256 >= 0.999
+    log(f"[serve-eva02] served (kernel) vs plain attention, same weights: min cosine image "
+        f"{cos_img:.6f}, text {cos_txt:.6f}; image b256 vs b32 rows {cos_256:.6f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("EVA02 served features disagree with the plain-attention model")
+
+    perf = {}
+    for bsz in (32, 256):
+        t = time.perf_counter()
+        for _ in range(5):
+            served.encode_image(images[:bsz])
+        perf[f"served_encode_image_b{bsz}_imgs_per_s"] = bsz * 5 / (time.perf_counter() - t)
+    t = time.perf_counter()
+    for _ in range(5):
+        served.encode_text(tokens)
+    perf["served_encode_text_b256_texts_per_s"] = TRAIN_BATCH * 5 / (time.perf_counter() - t)
+    x256 = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        for name, m in (("fusedp", served.model), ("xla", plain)):
+            perf[f"device_encode_image_b256_ms_{name}"] = cuda_ms(
+                lambda: m.encode_image(x256, normalize=True), 5, warmup=1)
+    perf["k2_share_b256"] = (12 * entries["packed_attn_rope_fwd"]["ms"]
+                             / perf["device_encode_image_b256_ms_fusedp"])
+    log(f"[serve-eva02] throughput on {card}: " + json.dumps(perf))
+    tmp.cleanup()
+    return main_path, perf
 
 
 def grad_cosines(a: dict, b: dict):
@@ -575,9 +857,13 @@ def grad_cosines(a: dict, b: dict):
     return dot / np.sqrt(na * nb), worst, worst_name
 
 
-# Device kernels by name -> the layer they belong to (first match wins).
+# Device kernels by (lower-cased) name -> the layer they belong to (first
+# match wins). The rope instantiations of the attention kernels carry the
+# template flag `true` in their names.
 KERNEL_GROUPS = [
+    ("K2 packed_attn_rope_fwd", ("packed_attn_fwd_kernel<__nv_bfloat16, 64, true>",)),
     ("K1 packed_attn_fwd", ("packed_attn_fwd",)),
+    ("K3r packed_attn_rope_bwd", ("_kernel<__nv_bfloat16, 64, true>",)),
     ("K3 packed_attn_bwd", ("attn_bwd_dq", "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -586,7 +872,7 @@ KERNEL_GROUPS = [
 ]
 
 
-def profile_step(run):
+def profile_step(run, tag="[train]"):
     """Device time of one step by kernel group, from torch.profiler (CUPTI),
     and the device's idle share of the profiled wall time (profiling slows
     the host, so that share is an upper bound). {} if no device time was
@@ -611,42 +897,68 @@ def profile_step(run):
         groups[next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))] += ms
     busy = sum(groups.values())
     if busy == 0:
-        log("[train] profiler recorded no device time: breakdown by kernel not measured")
+        log(f"{tag} profiler recorded no device time: breakdown by kernel not measured")
         return {}
-    log(f"[train] profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+    log(f"{tag} profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
         f"{1 - busy / wall_ms:.3f}; by group (ms): "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
-        log(f"[train]   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+        log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
             "groups_ms": groups}
 
 
-def phase_train(entries, card):
-    """The train step of the JAX package's bench.py on ViT-B-16 at b256."""
+# The train main path of each model: the attention kernels' launches per
+# step (one per attention layer per direction) and which parameters are the
+# attention's input projections.
+TRAIN_MODELS = {
+    "ViT-B-16": dict(per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24},
+                     projections=("attn.in_proj_weight",)),
+    "EVA02-B-16": dict(per_step={"packed_attn_rope_fwd": 12, "packed_attn_fwd": 12,
+                                 "packed_attn_rope_bwd": 12, "packed_attn_bwd": 12},
+                       projections=("attn.q_proj.weight", "attn.k_proj.weight",
+                                    "attn.v_proj.weight")),
+}
+
+
+def kernel_ms_per_step(model_name, entries):
+    """Each attention kernel's device ms in one step of `model_name` at b256,
+    from the phase 3 timings at the step's shapes."""
+    fwd, bwd = entries["packed_attn_fwd"], entries["packed_attn_bwd"]
+    if model_name == "ViT-B-16":
+        return {"K1": 12 * (fwd["vision_b256"]["ms"] + fwd["text_b256"]["ms"]),
+                "K3": 12 * (bwd["ms"] + bwd["text_b256"]["ms"])}
+    return {"K2": 12 * entries["packed_attn_rope_fwd"]["ms"], "K1": 12 * fwd["text77_b256"]["ms"],
+            "K3r": 12 * entries["packed_attn_rope_bwd"]["ms"], "K3": 12 * bwd["text77_b256"]["ms"]}
+
+
+def phase_train(model_name, entries, card):
+    """The train step of the JAX package's bench.py on `model_name` at b256."""
     from types import SimpleNamespace
 
     from mrclip_tpu_torch import create_loss
     from mrclip_tpu_torch.factory import create_model
-    from mrclip_tpu_torch.ops import fused_attn as fa
     from mrclip_tpu_torch.ops import pallas_loss as pl
     from mrclip_tpu_torch.ops.image_ops import normalize_images
     from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
                                            make_loss_apply)
     from mrclip_tpu_torch.parallel.train_step import loss_and_grads
 
+    tag = "[train]" if model_name == "ViT-B-16" else "[train-eva02]"
+    spec = TRAIN_MODELS[model_name]
     t0 = time.perf_counter()
-    model = create_model("ViT-B-16", precision="bf16", attn_impl="fusedp", gelu_approx=True,
+    model = create_model(model_name, precision="bf16", attn_impl="fusedp", gelu_approx=True,
                          rng_seed=0)
     tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
     state = create_train_state(model, tx)
-    args = dict(multipositiveloss=True, delta=0.5, model="ViT-B-16", gather_with_grad=True)
+    args = dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True)
     dense = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=False)))
     pallas = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=True)))
     rng = np.random.RandomState(0)
+    ctx = model.context_length
     batch = {  # uint8 canvases as the loader ships them; normalised inside the step
         "images": torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, 224, 224, 3)).astype(np.uint8)).cuda(),
-        "tokens": torch.from_numpy(rng.randint(1, 49408, (TRAIN_BATCH, 98)).astype(np.int64)).cuda(),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (TRAIN_BATCH, ctx)).astype(np.int64)).cuda(),
         "labels": torch.from_numpy(rng.randint(0, 32, (TRAIN_BATCH,)).astype(np.int32)).cuda(),
     }
 
@@ -654,12 +966,12 @@ def phase_train(entries, card):
         return dict(b, images=normalize_images(b["images"]))
 
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"[train] ViT-B-16 ({n_params / 1e6:.1f} M params), AdamW bf16 mu, batch {TRAIN_BATCH} "
-        f"built in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} {model_name} ({n_params / 1e6:.1f} M params), AdamW bf16 mu, batch {TRAIN_BATCH}, "
+        f"context {ctx}, built in {time.perf_counter() - t0:.1f} s")
 
     # checks at the initial weights (their launches are not the main path's)
     g_kernel, l_kernel = loss_and_grads(model, dense, state.params, prep(batch))
-    plain = create_model("ViT-B-16", pretrained={k: v.detach().cpu() for k, v in model.state_dict().items()},
+    plain = create_model(model_name, pretrained={k: v.detach().cpu() for k, v in model.state_dict().items()},
                          precision="bf16", attn_impl="xla", gelu_approx=True)
     g_plain, l_plain = loss_and_grads(plain, dense, dict(plain.named_parameters()), prep(batch))
     del plain
@@ -667,15 +979,15 @@ def phase_train(entries, card):
     whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
     del g_plain
     torch.cuda.empty_cache()
-    in_proj = [n for n in g_kernel if n.endswith("attn.in_proj_weight")]
-    dead = [n for n in in_proj if g_kernel[n].abs().max().item() == 0]
+    proj = [n for n in g_kernel if n.endswith(spec["projections"])]
+    dead = [n for n in proj if g_kernel[n].abs().max().item() == 0]
     ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= 0.999 and worst >= 0.99
-          and not dead)
-    log(f"[train] kernel vs plain attention, same weights and batch: loss {lk:.6f} vs {lp:.6f} "
+          and proj and not dead)
+    log(f"{tag} kernel vs plain attention, same weights and batch: loss {lk:.6f} vs {lp:.6f} "
         f"(rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine whole {whole:.6f} "
         f"(>= 0.999), min per tensor >= 1e4 elements {worst:.6f} at {worst_name} (>= 0.99, "
-        f"bf16 through 12 layers); {len(in_proj) - len(dead)}/{len(in_proj)} in_proj weights "
-        f"with a gradient {'ok' if ok else 'FAIL'}")
+        f"bf16 through 12 layers); {len(proj) - len(dead)}/{len(proj)} attention projection "
+        f"weights ({', '.join(spec['projections'])}) with a gradient {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the kernel train step's gradients disagree with plain attention")
 
@@ -687,7 +999,7 @@ def phase_train(entries, card):
     counts = dict(pl.launches)
     ok = (abs(lpl - lk) <= 1e-4 * abs(lk) and whole_p >= 0.9999
           and all(c == 2 for c in counts.values()))
-    log(f"[train] pallas vs dense loss, same state: loss {lpl:.7f} vs {lk:.7f} (rel "
+    log(f"{tag} pallas vs dense loss, same state: loss {lpl:.7f} vs {lk:.7f} (rel "
         f"{abs(lpl - lk) / abs(lk):.2e}, tol 1e-4); gradient cosine {whole_p:.7f} (>= 0.9999); "
         f"launches {counts} (2 each) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -701,14 +1013,14 @@ def phase_train(entries, card):
     losses, per_step = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    pl.reset_launches()
+    reset_counts()
 
     def one(step_fn):
         nonlocal state
-        before = (fa.launches, fa.bwd_launches)
+        before = launch_counts()
         state, metrics = step_fn(state, prep(batch))
-        per_step.append((fa.launches - before[0], fa.bwd_launches - before[1]))
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()
+                         if k in spec["per_step"]})
         losses.append(metrics["loss"])
         return metrics
 
@@ -716,27 +1028,25 @@ def phase_train(entries, card):
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(5):
-        metrics = one(dense_step)
+        one(dense_step)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) / 5 * 1e3
     one(pallas_step)
     torch.cuda.synchronize()
-    launches = {"packed_attn_fwd": fa.launches, "packed_attn_bwd": fa.bwd_launches, **pl.launches}
+    launches = launch_counts()  # read right after the train run
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
-    ok = (all(np.isfinite(losses)) and all(p == (24, 24) for p in per_step)
+    want = spec["per_step"]
+    ok = (all(np.isfinite(losses)) and all(p == want for p in per_step)
           and all(launches[k] == 2 for k in pl.launches) and state.step == 7)
-    log(f"[train] main path: 7 steps (1 warm-up, 5 timed, 1 pallas loss), losses "
-        + ", ".join(f"{x:.5f}" for x in losses) + f"; K1/K3 launches per step {per_step} "
-        f"(24/24 each: 12 vision + 12 text layers); launches {launches} "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"{tag} main path: 7 steps (1 warm-up, 5 timed, 1 pallas loss), losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + f"; attention launches per step {per_step[0]} "
+        f"(want {want} each step); launches {launches} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the train main path failed its checks")
+        raise AssertionError(f"the {model_name} train main path failed its checks")
 
     # where the step's time goes: the kernels from phase 3, the rest measured here
-    fwd, bwd = entries["packed_attn_fwd"], entries["packed_attn_bwd"]
-    k1_ms = 12 * (fwd["vision_b256"]["ms"] + fwd["text_b256"]["ms"])
-    k3_ms = 12 * (bwd["ms"] + bwd["text_b256"]["ms"])
+    kernel_ms = kernel_ms_per_step(model_name, entries)
     with torch.no_grad():
         out = model(prep(batch)["images"], batch["tokens"])
     feats = {k: (v.detach().requires_grad_() if k.endswith("features") else v.detach())
@@ -751,25 +1061,28 @@ def phase_train(entries, card):
     norm_ms = cuda_ms(lambda: normalize_images(batch["images"]), 10)
     grads, _ = loss_and_grads(model, dense, state.params, prep(batch))
     opt_ms = cuda_ms(lambda: tx.update(grads, state.opt_state, state.params), 3, warmup=1)
-    rest = step_ms - k1_ms - k3_ms - dense_ms - norm_ms - opt_ms
-    profile = profile_step(lambda: dense_step(state, prep(batch)))
+    del grads
+    rest = step_ms - sum(kernel_ms.values()) - dense_ms - norm_ms - opt_ms
+    profile = profile_step(lambda: dense_step(state, prep(batch)), tag)
     perf = {
         "train_step_ms": step_ms,
         "train_pairs_per_s": TRAIN_BATCH / step_ms * 1e3,
         "peak_memory_gb": peak_gb,
-        "k1_ms_per_step": k1_ms, "k1_share": k1_ms / step_ms,
-        "k3_ms_per_step": k3_ms, "k3_share": k3_ms / step_ms,
+        **{f"{k.lower()}_ms_per_step": v for k, v in kernel_ms.items()},
+        **{f"{k.lower()}_share": v / step_ms for k, v in kernel_ms.items()},
         "dense_loss_fwd_bwd_ms": dense_ms, "pallas_loss_fwd_bwd_ms": pallas_ms,
         "normalize_ms": norm_ms, "optimizer_ms": opt_ms,
         "rest_gemm_elementwise_ms": rest,
         "profiled_step": profile,
     }
-    log(f"[train] ViT-B-16 b{TRAIN_BATCH} step {step_ms:.2f} ms, {perf['train_pairs_per_s']:.1f} "
-        f"pairs/s, peak memory {peak_gb:.2f} GB, K1 {100 * perf['k1_share']:.1f}% and K3 "
-        f"{100 * perf['k3_share']:.1f}% of the step | {card}")
-    log(f"[train] breakdown: " + json.dumps(perf))
-    per_step_launches = {"packed_attn_fwd": 24, "packed_attn_bwd": 24, "supcon_stats": 2,
-                         "supcon_grad_q": 2, "supcon_grad_k": 2}
+    log(f"{tag} {model_name} b{TRAIN_BATCH} step {step_ms:.2f} ms, "
+        f"{perf['train_pairs_per_s']:.1f} pairs/s, peak memory {peak_gb:.2f} GB, "
+        + ", ".join(f"{k} {100 * v / step_ms:.1f}%" for k, v in kernel_ms.items())
+        + f" of the step | {card}")
+    log(f"{tag} breakdown: " + json.dumps(perf))
+    per_step_launches = dict(spec["per_step"], supcon_stats=2, supcon_grad_q=2, supcon_grad_k=2)
+    del model, state
+    torch.cuda.empty_cache()
     return launches, per_step_launches, perf
 
 
@@ -782,16 +1095,30 @@ def main() -> int:
 
     name, smi = phase_card()
     phase_build()
-    entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_supcon()]}
-    fwd = entries["packed_attn_fwd"]
-    serve_launches, fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
-    train_launches, per_step, fwd["training"] = phase_train(entries, smi)
+    entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
+                                      *phase_kernel_supcon()]}
+    fwd, rope_fwd = entries["packed_attn_fwd"], entries["packed_attn_rope_fwd"]
+    paths, per_step = {}, {}
+    paths["serve"], fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
+    paths["train"], per_step["train"], fwd["training"] = phase_train("ViT-B-16", entries, smi)
+    paths["serve_eva02"], rope_fwd["serving"] = phase_serve_eva02(entries, smi)
+    paths["train_eva02"], per_step["train_eva02"], rope_fwd["training"] = phase_train(
+        "EVA02-B-16", entries, smi)
+    # every kernel of a path launched on it (the exact counts are checked inside)
+    expected = {"serve": ["packed_attn_fwd"],
+                "train": [*TRAIN_MODELS["ViT-B-16"]["per_step"], "supcon_stats", "supcon_grad_q",
+                          "supcon_grad_k"],
+                "serve_eva02": ["packed_attn_rope_fwd", "packed_attn_fwd"],
+                "train_eva02": [*TRAIN_MODELS["EVA02-B-16"]["per_step"], "supcon_stats",
+                                "supcon_grad_q", "supcon_grad_k"]}
+    missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
     for kname, entry in entries.items():
-        by_path = {"serve": serve_launches if kname == "packed_attn_fwd" else 0,
-                   "train": train_launches[kname]}
+        by_path = {p: counts.get(kname, 0) for p, counts in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-        entry["launches_per_step"] = per_step[kname]
+        entry["launches_per_step"] = {p: per_step[p].get(kname, 0) for p in per_step}
         entry["card"] = smi
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)

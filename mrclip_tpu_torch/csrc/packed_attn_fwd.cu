@@ -1,10 +1,29 @@
 // Packed fused-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel mrclip_tpu/ops/fused_attn.py::_packed_fwd_kernel
-// (batched-head mode, rope=False, driven by _pfwd_impl). Per (sample, head):
+// (batched-head mode, driven by _pfwd_impl), both of its branches:
+//   K1, packed_attn_fwd:      rope=False;
+//   K2, packed_attn_rope_fwd: rope=True, the EVA02 towers' axial 2D rope
+//       applied inside the kernel (the rope branch, fused_attn.py:330-343).
+// Per (sample, head):
 //
 //   o   = softmax(q k^T / sqrt(D)  [+ causal mask: key j > query i]) v
 //   lse = log(sum_j exp(s_ij))     (fp32; the backward recomputes P from it)
+//
+// K2 first rotates q and k by the [N, 2D] sin||cos table (row i holds the
+// sin of query/key position i in columns [0, D) and its cos in [D, 2D), in
+// the input type; identity rows sin 0 / cos 1 over the CLS prefix):
+//
+//   x_r = round_T(x * cos + rot(x) * sin),  rot(x)[2i] = -x[2i+1],
+//                                           rot(x)[2i+1] = x[2i]
+//
+// in fp32 with each product and sum rounded once (no FMA contraction), then
+// rounded once to the input type T, as the TPU's _rope_rotate casts back to
+// x.dtype before the score product. The TPU did the pair swap as a 0/+-1
+// matmul (_rot_matrix) to avoid lane shuffles; here both members of a pair
+// sit in one thread, so it is a register swap: the thread's q row rotates at
+// load, each K row while it is staged into shared memory. The rotated
+// tensors never reach device memory. K2 takes self-attention only (Nk = N).
 //
 // q, k and v arrive in the natural packed layout [B, N, H*D] that the in_proj
 // produces, with a batch stride and a row stride each, so they can be the
@@ -15,7 +34,9 @@
 // bf16) the function must read q, k, v (0.91 MB) and write o (0.30 MB) and
 // lse (9.5 KB): 1.21 MB, against 4*N*N*D*H = 119 MFLOP. That is about 98
 // FLOP/byte, under the card's ~295 bf16 FLOP/byte ridge, so the least time is
-// the bytes over 3.35 TB/s: about 0.36 us per sample.
+// the bytes over 3.35 TB/s: about 0.36 us per sample. K2 adds the table
+// (N * 2D elements, read once per call) and 6 operations per rotated
+// element of q and k, about 1% of the score and output products at D = 64.
 //
 // What the design does about it: the N x N scores live only in registers
 // (online max and sum-exp in fp32), q is read once, o and lse are written
@@ -34,26 +55,20 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rope.cuh"  // load_f, store_f, round_to, rotate_pair
+
 namespace {
 
 constexpr int kRows = 64;  // query rows per block, one thread each
 constexpr int kKeys = 64;  // keys per shared-memory K/V tile
 constexpr int kChunk = 8;  // keys scored together per online-softmax update
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T, int D>
+template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(kRows)
     packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int n, int nk, int heads,
+                           const T* __restrict__ v, const T* __restrict__ tab,
+                           T* __restrict__ o, float* __restrict__ lse, int n,
+                           int nk, int heads,
                            long long q_bs, long long q_rs, long long k_bs,
                            long long k_rs, long long v_bs, long long v_rs,
                            float scale, int causal) {
@@ -74,6 +89,13 @@ __global__ void __launch_bounds__(kRows)
     qr[d] = live ? load_f(qp + d) : 0.f;
     acc[d] = 0.f;
   }
+  if constexpr (ROPE) {
+    if (live) {
+      const T* t = tab + (long long)row * (2 * D);
+#pragma unroll
+      for (int d = 0; d < D; d += 2) rotate_pair<T, D>(qr[d], qr[d + 1], t, d);
+    }
+  }
 
   float m = -INFINITY;  // running row max of the scaled scores
   float l = 0.f;        // running sum of exp(s - m)
@@ -86,11 +108,26 @@ __global__ void __launch_bounds__(kRows)
   for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
     const int len = min(kKeys, kv_end - k0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < len * D; i += kRows) {
-      const int j = i / D;
-      const int d = i % D;
-      ks[j][d] = load_f(kb + (long long)(k0 + j) * k_rs + d);
-      vs[j][d] = load_f(vb + (long long)(k0 + j) * v_rs + d);
+    if constexpr (ROPE) {  // one (key, pair) per step: k rotates on the way in
+      for (int i = threadIdx.x; i < len * (D / 2); i += kRows) {
+        const int j = i / (D / 2);
+        const int d = 2 * (i % (D / 2));
+        const T* kr = kb + (long long)(k0 + j) * k_rs + d;
+        const T* vr = vb + (long long)(k0 + j) * v_rs + d;
+        float k_0 = load_f(kr), k_1 = load_f(kr + 1);
+        rotate_pair<T, D>(k_0, k_1, tab + (long long)(k0 + j) * (2 * D), d);
+        ks[j][d] = k_0;
+        ks[j][d + 1] = k_1;
+        vs[j][d] = load_f(vr);
+        vs[j][d + 1] = load_f(vr + 1);
+      }
+    } else {
+      for (int i = threadIdx.x; i < len * D; i += kRows) {
+        const int j = i / D;
+        const int d = i % D;
+        ks[j][d] = load_f(kb + (long long)(k0 + j) * k_rs + d);
+        vs[j][d] = load_f(vb + (long long)(k0 + j) * v_rs + d);
+      }
     }
     __syncthreads();
 
@@ -151,17 +188,43 @@ __global__ void __launch_bounds__(kRows)
   lse[(b * heads + h) * n + row] = m + logf(l);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int n, int nk, int heads, long long q_bs, long long q_rs,
-           long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-           float scale, int causal, cudaStream_t stream) {
+template <typename T, int D, bool ROPE>
+int launch(const void* q, const void* k, const void* v, const void* tab,
+           void* o, float* lse, int batch, int n, int nk, int heads,
+           long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+           long long v_bs, long long v_rs, float scale, int causal,
+           cudaStream_t stream) {
   const dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  packed_attn_fwd_kernel<T, D><<<grid, kRows, 0, stream>>>(
+  packed_attn_fwd_kernel<T, D, ROPE><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n, nk, heads, q_bs,
-      q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal);
+      static_cast<const T*>(v), static_cast<const T*>(tab),
+      static_cast<T*>(o), lse, n, nk, heads, q_bs, q_rs, k_bs, k_rs, v_bs,
+      v_rs, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entry points: instantiate for (bf16 | fp32) x head dim (64 | 32).
+template <bool ROPE>
+int dispatch(const void* q, const void* k, const void* v, const void* tab,
+             void* o, void* lse, int is_bf16, int batch, int n, int nk,
+             int heads, int head_dim, long long q_bs, long long q_rs,
+             long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+             float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define MRCLIP_LAUNCH(T, D)                                                  \
+  return launch<T, D, ROPE>(q, k, v, tab, o, l, batch, n, nk, heads, q_bs,  \
+                            q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal, s)
+  if (head_dim == 64) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
+    MRCLIP_LAUNCH(float, 64);
+  }
+  if (head_dim == 32) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
+    MRCLIP_LAUNCH(float, 32);
+  }
+#undef MRCLIP_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -174,19 +237,23 @@ extern "C" int packed_attn_fwd(const void* q, const void* k, const void* v,
                                long long q_bs, long long q_rs, long long k_bs,
                                long long k_rs, long long v_bs, long long v_rs,
                                float scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-#define MRCLIP_LAUNCH(T, D)                                                  \
-  return launch<T, D>(q, k, v, o, l, batch, n, nk, heads, q_bs, q_rs, k_bs, \
-                      k_rs, v_bs, v_rs, scale, causal, s)
-  if (head_dim == 64) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
-    MRCLIP_LAUNCH(float, 64);
-  }
-  if (head_dim == 32) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
-    MRCLIP_LAUNCH(float, 32);
-  }
-#undef MRCLIP_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, nullptr, o, lse, is_bf16, batch, n, nk,
+                         heads, head_dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+                         scale, causal, stream);
+}
+
+// K2: as packed_attn_fwd with q and k rotated by `tab` ([N, 2*head_dim]
+// sin||cos, contiguous, the input type) inside the kernel; self-attention,
+// so k and v have n rows.
+extern "C" int packed_attn_rope_fwd(const void* q, const void* k,
+                                    const void* v, const void* tab, void* o,
+                                    void* lse, int is_bf16, int batch, int n,
+                                    int heads, int head_dim, long long q_bs,
+                                    long long q_rs, long long k_bs,
+                                    long long k_rs, long long v_bs,
+                                    long long v_rs, float scale, int causal,
+                                    void* stream) {
+  return dispatch<true>(q, k, v, tab, o, lse, is_bf16, batch, n, n, heads,
+                        head_dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
+                        causal, stream);
 }

@@ -105,20 +105,23 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
     with std fan_in^-0.5 for projections, small normals for embeddings,
     unit LayerNorm scales, zero biases."""
     width_v = model.visual.width
+    norm_scales = {f"{name}.weight" for name, m in model.named_modules()
+                   if isinstance(m, torch.nn.LayerNorm)}
     for name, p in model.named_parameters():
         if name in ("logit_scale", "logit_bias"):
             continue  # keep the configured initial values
         if name.endswith("bias"):
             torch.nn.init.zeros_(p)
-        elif ".ln_" in name or name.startswith("ln_"):
+        elif name in norm_scales:
             torch.nn.init.ones_(p)
         elif name == "token_embedding.weight":
             _normal_(p, 0.02, generator)
         elif name == "positional_embedding":
             _normal_(p, 0.01, generator)
-        elif name in ("visual.class_embedding", "visual.positional_embedding"):
+        elif name in ("visual.class_embedding", "visual.positional_embedding",
+                      "visual.trunk.cls_token", "visual.trunk.pos_embed"):
             _normal_(p, width_v ** -0.5, generator)
-        elif name == "visual.conv1.weight":
+        elif name in ("visual.conv1.weight", "visual.trunk.patch_embed.proj.weight"):
             _normal_(p, p[0].numel() ** -0.5, generator)
         elif name in ("visual.proj", "text_projection"):
             _normal_(p, p.shape[0] ** -0.5, generator)
@@ -157,6 +160,9 @@ def model_from_config(
 
 
 def _load_open_clip(path_or_sd) -> Dict[str, torch.Tensor]:
+    """An open_clip state dict in the port's layout: unwrapped from
+    "state_dict", without a DDP "module." prefix, and with a CustomTextCLIP's
+    `text.` tower inlined at the root (as `mrclip_tpu.checkpoint` does)."""
     sd = path_or_sd
     if not isinstance(sd, dict):
         sd = torch.load(path_or_sd, map_location="cpu", weights_only=True)
@@ -164,7 +170,7 @@ def _load_open_clip(path_or_sd) -> Dict[str, torch.Tensor]:
         sd = sd["state_dict"]
     if sd and all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}
-    return sd
+    return {k.removeprefix("text."): v for k, v in sd.items()}
 
 
 def create_model(

@@ -1,6 +1,6 @@
 """CLIP assembly of the port (counterpart of `mrclip_tpu/models/clip.py`):
-the plain ViT and the causal text tower, L2-normalized embeddings and a
-learned temperature.
+the plain ViT or the EVA02-B/L tower and the causal text tower,
+L2-normalized embeddings and a learned temperature.
 
 Attribute names follow open_clip's CLIP, whose text tower is inlined at the
 root, so the state dict that `mrclip_tpu.hub.export_torch_state_dict` writes
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
@@ -22,7 +23,7 @@ from torch import nn
 
 from .layers import gelu_exact, gelu_tanh, quick_gelu
 from .text import TextTransformer, encode_tokens
-from .vision import VisionTransformer
+from .vision import EvaVisionTransformer, VisionTransformer
 
 __all__ = ["CLIP", "CLIPVisionCfg", "CLIPTextCfg", "build_vision_tower", "build_text_tower"]
 
@@ -133,11 +134,54 @@ def _reject(unsupported: dict, what: str, roadmap: str) -> None:
             raise NotImplementedError(f"{what}: {name} is not ported yet (ROADMAP: {roadmap})")
 
 
+_EVA02 = re.compile(r"eva02_(base|large|enormous)_patch(\d+)(?:_plus)?_clip_(224|336)$")
+_EVA02_DIMS = {"base": (768, 12, 12), "large": (1024, 24, 16)}  # width, layers, heads
+
+
+def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
+                       attn_impl: str) -> EvaVisionTransformer:
+    """The EVA02-B/L tower of the JAX package's `_build_timm_vit_tower`
+    (`eva02_{base,large}_patch*_clip_{224,336}`): SwiGLU hidden
+    int(width * 8/3) with sub-LN, inner attention LN, zero k bias, axial 2D
+    rope on the (16, 16) pretraining grid, LN eps 1e-6."""
+    m = _EVA02.match(cfg.timm_model_name)
+    _reject({
+        "EVA02-E (eva02_enormous: post-norm blocks, no rope)": m.group(1) == "enormous",
+        "the fused SwiGLU gate (mlp_fused_gate)": cfg.mlp_fused_gate,
+        "drop path (timm_drop_path)": cfg.timm_drop_path,
+        # JAX rejects it too: rope indexes patches by grid position
+        "patch dropout with rope": cfg.patch_dropout > 0,
+        f"timm_proj={cfg.timm_proj!r} (linear only)": cfg.timm_proj != "linear",
+        "timm_proj_bias": cfg.timm_proj_bias,
+    }, "EVA02 tower", "later slice 2, other configs")
+    if cfg.timm_pool not in ("token", "tok", ""):
+        raise NotImplementedError(
+            f"timm_pool={cfg.timm_pool!r} unsupported for EVA02 (token pooling only)")
+    width, layers, heads = _EVA02_DIMS[m.group(1)]
+    return EvaVisionTransformer(
+        image_size=cfg.image_size or int(m.group(3)),
+        patch_size=int(m.group(2)),
+        width=width,
+        layers=layers,
+        heads=heads,
+        mlp_ratio=4 * 2 / 3,
+        output_dim=embed_dim,
+        rope_ref_feat_shape=(16, 16),
+        ln_eps=1e-6,
+        attn_impl=attn_impl,
+        dtype=dtype,
+    )
+
+
 def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
-                       attn_impl: str = "xla") -> VisionTransformer:
-    """The plain open_clip ViT; other vision towers raise."""
+                       attn_impl: str = "xla"):
+    """The plain open_clip ViT or the EVA02-B/L tower; other vision towers
+    raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
+    act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
+    if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
+        return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl)  # SwiGLU: no act
     _reject({
         f"timm tower {cfg.timm_model_name!r}": cfg.timm_model_name,
         "the ModifiedResNet tower": isinstance(cfg.layers, (tuple, list)),
@@ -151,7 +195,6 @@ def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
         f"pool_type={cfg.pool_type!r}": cfg.pool_type != "tok",
         "output_tokens": cfg.output_tokens,
     }, "vision tower", "later slice 2, other configs")
-    act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
     return VisionTransformer(
         image_size=cfg.image_size,
         patch_size=cfg.patch_size,

@@ -1,9 +1,10 @@
 """Transformer stack of the port (counterpart of
-`mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled.
+`mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled, and
+the EVA02 block (`EvaBlock`: SwiGLU with sub-LN, inner attention LN, rope).
 
 The JAX package's `scan_layers` and `remat` are compile-time choices of
-XLA with no counterpart here; cross-attention, post-norm and SwiGLU blocks
-belong to towers not ported yet (ROADMAP: other configs and towers).
+XLA with no counterpart here; cross-attention and post-norm blocks belong
+to towers not ported yet (ROADMAP: other configs and towers).
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from .layers import MLP, LayerNorm, LayerScale, MultiHeadAttention, gelu_exact
+from .layers import (MLP, EvaAttention, LayerNorm, LayerScale, MultiHeadAttention, SwiGLU,
+                     gelu_exact)
 
-__all__ = ["ResidualAttentionBlock", "Transformer", "text_global_pool"]
+__all__ = ["EvaBlock", "ResidualAttentionBlock", "Transformer", "text_global_pool"]
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -48,6 +50,27 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.ls_1(self.attn(self.ln_1(x), is_causal=self.is_causal))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
+
+
+class EvaBlock(nn.Module):
+    """The EVA02 pre-norm block in timm `eva.py` names (`norm1`, `attn`,
+    `norm2`, `mlp`): the JAX package's `ResidualAttentionBlock` with
+    `mlp_type='swiglu'`, `mlp_norm`, `attn_inner_norm`, `attn_zero_k_bias`
+    and the rope table passed through: x += attn(norm1(x)); x +=
+    mlp(norm2(x))."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio: float,
+                 attn_impl: str = "xla", ln_eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = LayerNorm(width, eps=ln_eps)
+        self.attn = EvaAttention(width, num_heads, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype)
+        self.norm2 = LayerNorm(width, eps=ln_eps)
+        self.mlp = SwiGLU(width, int(width * mlp_ratio), ln_eps=ln_eps, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, rope: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), rope=rope)
+        return x + self.mlp(self.norm2(x))
 
 
 class Transformer(nn.Module):

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled for Hopper
 (`sm_90a`) at first use into `build/kernels/` beside the package, under a
-file name that carries the hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+file name that carries the hash of the source, the headers it includes and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads the library already built.
 Nothing here runs at import time: the CPU tests import every module on a
 host with no `nvcc`. Different sources build in parallel when loaded from
 several threads (`load_libraries`); one source builds once.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,12 +23,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "nvcc_command", "load_library", "load_libraries",
-           "build_info"]
+__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "nvcc_command", "source_key", "load_library",
+           "load_libraries", "build_info"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 
 _lock = threading.Lock()  # guards the dicts below
 _name_locks: dict[str, threading.Lock] = {}  # one build of each source at a time
@@ -41,6 +45,16 @@ def nvcc_command(src: Path, out: Path, nvcc: str = "nvcc") -> list[str]:
         nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-Xptxas", "-v", "-o", str(out), str(src),
     ]
+
+
+def source_key(src: Path) -> str:
+    """Hash of the source, the headers of `csrc/` it includes by quoted
+    name, and the nvcc flags: an edit to any of them rebuilds."""
+    text = src.read_bytes()
+    headers = sorted(set(_INCLUDE.findall(text.decode())))
+    data = text + b"".join((src.parent / h).read_bytes() for h in headers)
+    flags = " ".join(nvcc_command(src, Path("out"))).encode()
+    return hashlib.sha256(data + flags).hexdigest()[:16]
 
 
 def _find_nvcc() -> str:
@@ -58,10 +72,7 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if no build of this exact source exists, then
     load it. Raises with nvcc's output when the build fails."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(nvcc_command(src, Path("out"))).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{key}.so"
+    out = BUILD_DIR / f"lib{name}-{source_key(src)}.so"
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:

@@ -1,8 +1,15 @@
 """Packed fused attention: the port of `ops/fused_attn.py`'s
-`_packed_fwd_kernel` and `_packed_bwd_kernel` (batched-head mode, no rope)
-to two hand-written Hopper kernels, `csrc/packed_attn_fwd.cu` (K1) and
-`csrc/packed_attn_bwd.cu` (K3), bound together for autograd by
-`FusedAttentionPacked` (the JAX package's `_pcore` custom VJP).
+`_packed_fwd_kernel` and `_packed_bwd_kernel` (batched-head mode) to
+hand-written Hopper kernels, `csrc/packed_attn_fwd.cu` (K1, and K2 with
+rope) and `csrc/packed_attn_bwd.cu` (K3, and K3r with rope), bound together
+for autograd by `FusedAttentionPacked` (the JAX package's `_pcore` and
+`_pcore_rope` custom VJPs).
+
+With `rope=` (the EVA02 towers' axial 2D rope) q and k rotate inside the
+kernels by an `[N, 2D]` sin||cos table in q's type (`rope_table`, identity
+rows over the CLS prefix): the rotated tensors and their gradients never
+reach device memory. The backward keeps the unrotated q and k, rotates them
+again and un-rotates dq and dk before storing them.
 
 q, k and v stay in the natural layout the QKV projection produces,
 `[B, N, H, D]` or packed `[B, N, H*D]`, with any batch and row stride and a
@@ -37,40 +44,41 @@ __all__ = [
     "fused_attention_packed_bwd_ref",
     "fused_attention_packed_ref",
     "fused_attention_qkv",
+    "rope_table",
     "launches",
     "bwd_launches",
+    "rope_launches",
+    "rope_bwd_launches",
     "reset_launches",
     "load_kernel",
     "load_bwd_kernel",
+    "load_rope_kernel",
+    "load_rope_bwd_kernel",
 ]
 
 _NEG = -1e30  # the TPU kernel's additive causal mask value
 _HEAD_DIMS = (32, 64)
 
-# Launches of the forward (K1) and backward (K3) CUDA kernels since import
-# or the last reset_launches(); one wrapper call counts one launch.
+# Launches since import or the last reset_launches() of the forward (K1),
+# backward (K3), rope forward (K2) and rope backward (K3r) CUDA kernels;
+# one wrapper call counts one launch.
 launches = 0
 bwd_launches = 0
+rope_launches = 0
+rope_bwd_launches = 0
+_COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches")
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
     with _count_lock:
-        launches = 0
-        bwd_launches = 0
+        for name in _COUNTERS:
+            globals()[name] = 0
 
 
-def _count_launch() -> None:
-    global launches
+def _count(name: str) -> None:
     with _count_lock:
-        launches += 1
-
-
-def _count_bwd_launch() -> None:
-    global bwd_launches
-    with _count_lock:
-        bwd_launches += 1
+        globals()[name] += 1
 
 
 def _as_packed(t: torch.Tensor, heads):
@@ -102,6 +110,49 @@ def _split(q, k, v, heads):
     return q3, k3, v3, h, d
 
 
+def rope_table(rope, prefix: int, dtype: torch.dtype) -> torch.Tensor:
+    """The kernels' rope operand, built as the JAX package's
+    `fused_attention_packed` builds it (fused_attn.py:881-888): the
+    `[N - prefix, 2D]` sin||cos table of `ops.pos_embed.rope_cat_2d` with
+    `prefix` identity rows (sin 0, cos 1) in front for the CLS tokens,
+    `[N, 2D]`, cast to `dtype` (q's type, so in bf16 sin and cos are
+    themselves rounded). Build it once per tower call, not per layer."""
+    rope = torch.as_tensor(rope)
+    sin, cos = rope.chunk(2, dim=-1)
+    sin = torch.nn.functional.pad(sin, (0, 0, prefix, 0))
+    cos = torch.nn.functional.pad(cos, (0, 0, prefix, 0), value=1.0)
+    return torch.cat([sin, cos], dim=-1).to(dtype).contiguous()
+
+
+def _rot(x: torch.Tensor) -> torch.Tensor:
+    """rot(x)[2i] = -x[2i+1], rot(x)[2i+1] = x[2i] over the last dim: the
+    pair swap of interleaved-pair rope (the TPU's `_rot_matrix` product)."""
+    return torch.stack((-x[..., 1::2], x[..., 0::2]), dim=-1).flatten(-2)
+
+
+def _check_table(rope, n, nk, d, dtype):
+    """A rope table is `[N, 2D]` in q's type; rope is self-attention only."""
+    if nk != n:
+        raise ValueError(f"rope applies to self-attention only; got N={n}, Nk={nk}")
+    if rope.shape != (n, 2 * d):
+        raise ValueError(f"rope table must be [N, 2D] = {(n, 2 * d)}; got {tuple(rope.shape)}")
+    if rope.dtype != dtype:
+        raise TypeError(f"rope table must have q's type {dtype} (rope_table casts it); "
+                        f"got {rope.dtype}")
+
+
+def _rope_rotate(x, sin, cos, dt):
+    """The TPU's `_rope_rotate`: x * cos + rot(x) * sin in `x`'s (fp32)
+    type, rounded to `dt`. x: [B, H, L, D]; sin, cos: [L, D]."""
+    return (x * cos + _rot(x) * sin).to(dt).to(x.dtype)
+
+
+def _rope_unrotate_grad(g, sin, cos, dt):
+    """The TPU's `_rope_unrotate_grad`, the VJP of `_rope_rotate`:
+    g * cos - rot(round_dt(g * sin)), in g's (fp32) type."""
+    return g * cos - _rot((g * sin).to(dt).to(g.dtype))
+
+
 def _scores(q, k, d, is_causal):
     """fp32 scaled scores [B, H, N, Nk] with the TPU kernels' additive
     causal mask."""
@@ -115,10 +166,11 @@ def _scores(q, k, d, is_causal):
 
 def fused_attention_packed_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    is_causal: bool = False, heads: int | None = None,
+    is_causal: bool = False, heads: int | None = None, rope: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: same inputs, same outputs
-    (o in q's layout and type, lse [B, H, N] fp32), TPU rounding order."""
+    """Plain PyTorch version of the kernels K1 and (with `rope`) K2: same
+    inputs, same outputs (o in q's layout and type, lse [B, H, N] fp32),
+    TPU rounding order."""
     q3, k3, v3, h, d = _split(q, k, v, heads)
     b, n, _ = q3.shape
     nk = k3.shape[1]
@@ -128,7 +180,12 @@ def fused_attention_packed_ref(
     def heads_first(t):  # [B, L, H*D] -> [B, H, L, D] in acc
         return t.reshape(b, t.shape[1], h, d).transpose(1, 2).to(acc)
 
-    s = _scores(heads_first(q3), heads_first(k3), d, is_causal)
+    qf, kf = heads_first(q3), heads_first(k3)
+    if rope is not None:
+        _check_table(rope, n, nk, d, q.dtype)
+        sin, cos = rope.to(acc).chunk(2, dim=-1)
+        qf, kf = _rope_rotate(qf, sin, cos, q.dtype), _rope_rotate(kf, sin, cos, q.dtype)
+    s = _scores(qf, kf, d, is_causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -146,6 +203,20 @@ def load_kernel():
     fn.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 6
+        + [ctypes.c_longlong] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def load_rope_kernel():
+    """Bind K2, the rope forward (`packed_attn_rope_fwd`, same library)."""
+    fn = build.load_library("packed_attn_fwd").packed_attn_rope_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -171,56 +242,77 @@ def _check_kernel_inputs(name, packed, d):
         raise ValueError(f"{name}: the packed head dimension must be contiguous")
 
 
+def _check_kernel_table(name, rope, q3, nk, d):
+    """Refuse a rope table the kernels cannot take: `[N, 2D]`, q's type and
+    device, contiguous; self-attention only."""
+    _check_table(rope, q3.shape[1], nk, d, q3.dtype)
+    if rope.device != q3.device:
+        raise ValueError(f"{name}: rope table on {rope.device}, q on {q3.device}")
+    if not rope.is_contiguous():
+        raise ValueError(f"{name}: the rope table must be contiguous")
+
+
 def fused_attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    is_causal: bool = False, heads: int | None = None,
+    is_causal: bool = False, heads: int | None = None, rope: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T / sqrt(D) [+ causal]) v per head, forward only.
 
     q: [B, N, H, D] or [B, N, H*D] (pass `heads` for the packed form);
-    k, v: the same with Nk rows (Nk may differ from N). Returns
-    (o in q's layout and type, lse [B, H, N] fp32). bf16 and fp32, head dim
-    32 or 64. CPU tensors take the plain version; CUDA tensors launch the
-    Hopper kernel or raise.
+    k, v: the same with Nk rows (Nk may differ from N). `rope`: an `[N, 2D]`
+    sin||cos table in q's type (`rope_table`) by which q and k rotate inside
+    the kernel (K2; self-attention, Nk = N). Returns (o in q's layout and
+    type, lse [B, H, N] fp32). bf16 and fp32, head dim 32 or 64. CPU tensors
+    take the plain version; CUDA tensors launch the Hopper kernel or raise.
     """
     if q.device.type == "cpu":
-        return fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=heads)
+        return fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=heads, rope=rope)
     q3, k3, v3, h, d = _split(q, k, v, heads)
     _check_kernel_inputs("fused_attention_packed", (q3, k3, v3), d)
     b, n, hd = q3.shape
     nk = k3.shape[1]
+    if rope is not None:
+        _check_kernel_table("fused_attention_packed", rope, q3, nk, d)
     o = torch.empty((b, n, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
         return o.reshape(q.shape), lse
     if nk == 0:
         raise ValueError("attention over zero keys")
-    kernel = load_kernel()
+    strides = (q3.stride(0), q3.stride(1), k3.stride(0), k3.stride(1), v3.stride(0), v3.stride(1))
+    tail = (*strides, 1.0 / math.sqrt(d), int(is_causal))
+    is_bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, n, nk, h, d,
-            q3.stride(0), q3.stride(1), k3.stride(0), k3.stride(1),
-            v3.stride(0), v3.stride(1),
-            1.0 / math.sqrt(d), int(is_causal), stream,
-        )
+        if rope is None:
+            err = load_kernel()(
+                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                is_bf16, b, n, nk, h, d, *tail, stream,
+            )
+        else:
+            err = load_rope_kernel()(
+                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), rope.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), is_bf16, b, n, h, d, *tail, stream,
+            )
+    entry = "packed_attn_fwd" if rope is None else "packed_attn_rope_fwd"
     if err != 0:
-        raise RuntimeError(f"packed_attn_fwd launch failed: cudaError {err}")
-    _count_launch()
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    _count("launches" if rope is None else "rope_launches")
     return o.reshape(q.shape), lse
 
 
 def fused_attention_packed_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
-    heads: int | None = None,
+    heads: int | None = None, rope: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel: (dq, dk, dv) in q's
-    layout and type, in the TPU kernel's rounding order: P = exp(S - lse) in
+    """Plain PyTorch version of the backward kernels K3 and (with `rope`)
+    K3r: (dq, dk, dv) in q's layout and type, in the TPU kernel's rounding
+    order: q and k rotated as the forward rotates them; P = exp(S - lse) in
     fp32, cast to the input type before P^T dO; delta = rowsum(dO * O) in
     fp32; dS = P (dP - delta) scale cast to the input type before dS K and
-    dS^T Q; every product summed in fp32 and cast once."""
+    dS^T Q; every product summed in fp32; dq and dk un-rotated with g * sin
+    rounded to the input type; each gradient cast once."""
     q3, k3, v3, h, d = _split(q, k, v, heads)
     o3, _, _ = _as_packed(o, h)
     do3, _, _ = _as_packed(do, h)
@@ -232,6 +324,10 @@ def fused_attention_packed_bwd_ref(
         return t.reshape(b, t.shape[1], h, d).transpose(1, 2).to(acc)
 
     qf, kf, vf, dof = (heads_first(t) for t in (q3, k3, v3, do3))
+    if rope is not None:
+        _check_table(rope, n, k3.shape[1], d, dt)
+        sin, cos = rope.to(acc).chunk(2, dim=-1)
+        qf, kf = _rope_rotate(qf, sin, cos, dt), _rope_rotate(kf, sin, cos, dt)
     p = torch.exp(_scores(qf, kf, d, is_causal) - lse[..., None])
     dv = p.to(dt).to(acc).transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
@@ -239,6 +335,8 @@ def fused_attention_packed_bwd_ref(
     ds = (p * (dp - delta) * (1.0 / math.sqrt(d))).to(dt).to(acc)
     dq = ds @ kf
     dk = ds.transpose(-1, -2) @ qf
+    if rope is not None:
+        dq, dk = _rope_unrotate_grad(dq, sin, cos, dt), _rope_unrotate_grad(dk, sin, cos, dt)
 
     def back(t, like):  # [B, H, L, D] -> like's layout and q's type
         return t.to(dt).transpose(1, 2).reshape(like.shape)
@@ -259,13 +357,26 @@ def load_bwd_kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def load_rope_bwd_kernel():
+    """Bind K3r, the rope backward (`packed_attn_rope_bwd`, same library)."""
+    fn = build.load_library("packed_attn_bwd").packed_attn_rope_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 11
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def fused_attention_packed_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
-    heads: int | None = None, out=None,
+    heads: int | None = None, rope: torch.Tensor | None = None, out=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of `fused_attention_packed` for the output
-    gradient `do`, from the forward's o and lse.
+    gradient `do`, from the forward's o and lse (and its `rope` table: K3r).
 
     Layouts and types as the forward takes them; `do` has o's shape. `out`,
     if given, is a (dq, dk, dv) triple of tensors with q's, k's and v's
@@ -274,8 +385,8 @@ def fused_attention_packed_bwd(
     plain version; CUDA tensors launch the Hopper kernel or raise.
     """
     if q.device.type == "cpu":
-        grads = fused_attention_packed_bwd_ref(q, k, v, o, do, lse,
-                                               is_causal=is_causal, heads=heads)
+        grads = fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=is_causal,
+                                               heads=heads, rope=rope)
         if out is None:
             return grads
         for dst, g in zip(out, grads):
@@ -294,6 +405,8 @@ def fused_attention_packed_bwd(
                          f"{lse.dtype}")
     if lse.device != q.device:
         raise ValueError(f"lse on {lse.device}, q on {q.device}")
+    if rope is not None:
+        _check_kernel_table("fused_attention_packed_bwd", rope, q3, nk, d)
     if out is None:
         out = (torch.empty_like(q3, memory_format=torch.contiguous_format),
                torch.empty_like(k3, memory_format=torch.contiguous_format),
@@ -307,18 +420,26 @@ def fused_attention_packed_bwd(
         strides = (ctypes.c_longlong * 16)(*(
             s for t in (q3, k3, v3, o3, do3, dq3, dk3, dv3) for s in (t.stride(0), t.stride(1))
         ))
-        kernel = load_bwd_kernel()
+        tail = (strides, 1.0 / math.sqrt(d), int(is_causal))
+        is_bf16 = int(q.dtype == torch.bfloat16)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = kernel(
-                q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o3.data_ptr(), do3.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq3.data_ptr(), dk3.data_ptr(),
-                dv3.data_ptr(), int(q.dtype == torch.bfloat16), b, n, nk, h, d,
-                strides, 1.0 / math.sqrt(d), int(is_causal), stream,
-            )
+            if rope is None:
+                err = load_bwd_kernel()(
+                    q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o3.data_ptr(), do3.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq3.data_ptr(), dk3.data_ptr(),
+                    dv3.data_ptr(), is_bf16, b, n, nk, h, d, *tail, stream,
+                )
+            else:
+                err = load_rope_bwd_kernel()(
+                    q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), rope.data_ptr(), o3.data_ptr(),
+                    do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq3.data_ptr(),
+                    dk3.data_ptr(), dv3.data_ptr(), is_bf16, b, n, h, d, *tail, stream,
+                )
+        entry = "packed_attn_bwd" if rope is None else "packed_attn_rope_bwd"
         if err != 0:
-            raise RuntimeError(f"packed_attn_bwd launch failed: cudaError {err}")
-        _count_bwd_launch()
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        _count("bwd_launches" if rope is None else "rope_bwd_launches")
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return tuple(t.reshape(like.shape) for t, like in zip(out, (q, k, v)))
@@ -326,34 +447,39 @@ def fused_attention_packed_bwd(
 
 class FusedAttentionPacked(torch.autograd.Function):
     """Self-attention over one packed `[B, N, 3*H*D]` qkv tensor (the
-    in_proj output): the forward launches K1 and keeps (q, k, v, o, lse), the
-    JAX package's residuals; the backward launches K3, which writes dq, dk
-    and dv straight into the column slices of one `[B, N, 3*H*D]` gradient,
-    so the in_proj backward reads it with no concatenation. On CPU tensors
+    in_proj output): the forward launches K1 (K2 with a `rope` table) and
+    keeps (q, k, v, o, lse), the JAX package's residuals, with q and k
+    unrotated; the backward launches K3 (K3r), which writes dq, dk and dv
+    straight into the column slices of one `[B, N, 3*H*D]` gradient, so the
+    in_proj backward reads it with no concatenation. The table, a position
+    constant, gets no gradient (JAX returns zeros for it). On CPU tensors
     both directions run the plain versions. Returns o `[B, N, H*D]`."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, heads: int, is_causal: bool) -> torch.Tensor:
+    def forward(ctx, qkv: torch.Tensor, heads: int, is_causal: bool,
+                rope: torch.Tensor | None = None) -> torch.Tensor:
         q, k, v = qkv.chunk(3, dim=-1)
-        o, lse = fused_attention_packed(q, k, v, is_causal=is_causal, heads=heads)
-        ctx.save_for_backward(qkv, o, lse)
+        o, lse = fused_attention_packed(q, k, v, is_causal=is_causal, heads=heads, rope=rope)
+        ctx.save_for_backward(qkv, o, lse, rope)
         ctx.heads, ctx.is_causal = heads, is_causal
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do: torch.Tensor):
-        qkv, o, lse = ctx.saved_tensors
+        qkv, o, lse, rope = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         fused_attention_packed_bwd(
             *qkv.chunk(3, dim=-1), o, do.to(qkv.dtype).contiguous(), lse,
-            is_causal=ctx.is_causal, heads=ctx.heads, out=dqkv.chunk(3, dim=-1),
+            is_causal=ctx.is_causal, heads=ctx.heads, rope=rope, out=dqkv.chunk(3, dim=-1),
         )
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
-def fused_attention_qkv(qkv: torch.Tensor, *, heads: int, is_causal: bool = False) -> torch.Tensor:
+def fused_attention_qkv(qkv: torch.Tensor, *, heads: int, is_causal: bool = False,
+                        rope: torch.Tensor | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) [+ causal]) v over the three column slices of
-    a packed qkv `[B, N, 3*H*D]`, differentiable through the K1/K3 kernels
+    a packed qkv `[B, N, 3*H*D]`, q and k rotated by the `rope` table if
+    given, differentiable through the K1/K3 (K2/K3r) kernels
     (`FusedAttentionPacked`)."""
-    return FusedAttentionPacked.apply(qkv, heads, is_causal)
+    return FusedAttentionPacked.apply(qkv, heads, is_causal, rope)

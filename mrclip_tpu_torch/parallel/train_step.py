@@ -57,11 +57,17 @@ def _no_mesh(mesh, what: str) -> None:
 
 def _wd_mask(params: Params) -> Dict[str, bool]:
     """True where weight decay applies: not for ndim < 2 (biases, norms,
-    embeddings' scalars) nor for anything bn-like or the logit scale/bias."""
+    embeddings' scalars) nor for anything bn-like or the logit scale/bias.
+    Leading singleton dims do not count, so timm's `cls_token` [1, 1, W]
+    and `pos_embed` [1, N, W] decide as the JAX package's `class_embedding`
+    [W] and `positional_embedding` [N, W] do."""
 
     def decide(name: str, p: torch.Tensor) -> bool:
         name = name.lower()
-        if p.dim() < 2:
+        shape = list(p.shape)
+        while shape and shape[0] == 1:
+            shape.pop(0)
+        if len(shape) < 2:
             return False
         return not ("bn" in name or "batchnorm" in name or "logit" in name)
 
@@ -69,9 +75,13 @@ def _wd_mask(params: Params) -> Dict[str, bool]:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32 (optax.global_norm)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares of every element, fp32 (optax.global_norm).
+    One multi-tensor norm that accumulates in fp64: PyTorch's fp32 CPU norm
+    adds one element after another and drifts (1.9e-4 relative on 6.3M
+    elements, the size of a token embedding table), where XLA sums
+    pairwise."""
+    norms = torch._foreach_norm([t.float() for t in tensors], 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 @dataclasses.dataclass

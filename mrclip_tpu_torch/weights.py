@@ -1,11 +1,14 @@
 """JAX-package parameters -> the port's state dict.
 
-The port's own copy of the plain-ViT and causal-text part of
-`mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
+The port's own copy of the plain-ViT, EVA02 (pre-norm) and causal-text part
+of `mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
 `mrclip_tpu` CLIP (a nested dict of arrays, unrolled `blocks_N` or
 scan-stacked `blocks/block` with a leading layer axis) and returns the
 open_clip-layout state dict that `mrclip_tpu_torch.models.CLIP` loads with
-`strict=True`. Only numpy is needed: any array with `__array__` works.
+`strict=True`; an EVA02 vision tower (one with SwiGLU MLPs) goes to the
+`visual.trunk.*` timm layout. Like hub's export it takes a tree without
+`text` or `logit_scale` (a lone vision tower's). Only numpy is needed: any
+array with `__array__` works.
 """
 
 from __future__ import annotations
@@ -30,6 +33,19 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def _split_swiglu(mlp: dict) -> dict:
+    """A fused-gate SwiGLU mlp (`fc1`, kernel [.., D, 2H] = gate||value) in
+    the split layout (`fc1_g`, `fc1_x`), as `mrclip_tpu.models.layers.
+    split_swiglu_params` does; split subtrees pass through."""
+    if "fc1" not in mlp:
+        return mlp
+    mlp = dict(mlp)
+    gv = mlp.pop("fc1")
+    gk, vk = np.split(np.asarray(gv["kernel"]), 2, axis=-1)
+    gb, vb = np.split(np.asarray(gv["bias"]), 2, axis=-1)
+    return dict(mlp, fc1_g={"kernel": gk, "bias": gb}, fc1_x={"kernel": vk, "bias": vb})
 
 
 def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
@@ -62,32 +78,66 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
                 if ls in blk:
                     put(bp + f"{ls}.gamma", blk[ls]["gamma"])
 
+    def put_eva02_trunk(vis):  # hub.export_eva02_trunk, pre-norm branch
+        tp = "visual.trunk."
+        put(tp + "cls_token", np.asarray(vis["class_embedding"]).reshape(1, 1, -1))
+        put(tp + "pos_embed", np.asarray(vis["positional_embedding"])[None])
+        put(tp + "patch_embed.proj.weight",
+            np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+        put(tp + "patch_embed.proj.bias", vis["conv1"]["bias"])
+        for i, blk in enumerate(_blocks(vis)):
+            bp = f"{tp}blocks.{i}."
+            put_ln(bp + "norm1", blk["ln_1"])
+            put_ln(bp + "norm2", blk["ln_2"])
+            qw, kw, vw = np.split(np.asarray(blk["attn"]["in_proj"]["kernel"]).T, 3, axis=0)
+            qb, _, vb = np.split(np.asarray(blk["attn"]["in_proj"]["bias"]), 3)  # k bias is 0
+            put(bp + "attn.q_proj.weight", qw)
+            put(bp + "attn.q_proj.bias", qb)
+            put(bp + "attn.k_proj.weight", kw)
+            put(bp + "attn.v_proj.weight", vw)
+            put(bp + "attn.v_proj.bias", vb)
+            put_ln(bp + "attn.norm", blk["attn"]["norm"])
+            put_dense(bp + "attn.proj", blk["attn"]["out_proj"])
+            mlp = _split_swiglu(blk["mlp"])
+            for name in ("fc1_g", "fc1_x", "fc2"):
+                put_dense(bp + f"mlp.{name}", mlp[name])
+            put_ln(bp + "mlp.norm", mlp["norm"])
+        put_ln(tp + "norm", vis["ln_post"])
+        put("visual.head.proj.weight", np.asarray(vis["proj"]).T)
+
     vis = params["visual"]
     if "conv1" not in vis or "class_embedding" not in vis:
         raise NotImplementedError(
-            "only the plain CLIP ViT converts (ROADMAP: later slice 4, other towers)"
+            "only the plain CLIP ViT and the EVA02 tower convert (ROADMAP: later "
+            "slice 4, other towers)"
         )
-    # [ph, pw, 3, W] -> open_clip conv layout [W, 3, ph, pw]
-    put("visual.conv1.weight", np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
-    put("visual.class_embedding", vis["class_embedding"])
-    put("visual.positional_embedding", vis["positional_embedding"])
-    put_ln("visual.ln_pre", vis["ln_pre"])
-    put_ln("visual.ln_post", vis["ln_post"])
-    put("visual.proj", vis["proj"])
-    put_blocks(vis, "visual.")
+    blocks = _blocks(vis)
+    if blocks and ("fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"]):
+        put_eva02_trunk(vis)
+    else:
+        # [ph, pw, 3, W] -> open_clip conv layout [W, 3, ph, pw]
+        put("visual.conv1.weight", np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+        put("visual.class_embedding", vis["class_embedding"])
+        put("visual.positional_embedding", vis["positional_embedding"])
+        put_ln("visual.ln_pre", vis["ln_pre"])
+        put_ln("visual.ln_post", vis["ln_post"])
+        put("visual.proj", vis["proj"])
+        put_blocks(vis, "visual.")
 
-    txt = params["text"]
-    if "token_embedding" not in txt:
-        raise NotImplementedError(
-            "only the causal CLIP text tower converts (ROADMAP: later slice 4, other towers)"
-        )
-    put("token_embedding.weight", txt["token_embedding"]["embedding"])
-    put("positional_embedding", txt["positional_embedding"])
-    put_ln("ln_final", txt["ln_final"])
-    put("text_projection", txt["text_projection"])
-    put_blocks(txt, "")
+    txt = params.get("text")  # absent, as in hub's export, for a lone vision tower
+    if txt is not None:
+        if "token_embedding" not in txt:
+            raise NotImplementedError(
+                "only the causal CLIP text tower converts (ROADMAP: later slice 4, other towers)"
+            )
+        put("token_embedding.weight", txt["token_embedding"]["embedding"])
+        put("positional_embedding", txt["positional_embedding"])
+        put_ln("ln_final", txt["ln_final"])
+        put("text_projection", txt["text_projection"])
+        put_blocks(txt, "")
 
-    put("logit_scale", np.asarray(params["logit_scale"]).reshape(()))
+    if "logit_scale" in params:
+        put("logit_scale", np.asarray(params["logit_scale"]).reshape(()))
     if "logit_bias" in params:
         put("logit_bias", np.asarray(params["logit_bias"]).reshape(()))
     return sd

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: each Hopper kernel (K1 and K3, the
-packed attention forward and backward; K6 and K7, the fused SupCon loss)
-against its plain version, their refusals, a small CLIP through them, and a
-small train step whose attention gradients come from the kernels.
+packed attention forward and backward; K2 and K3r, the same with the rope
+rotated inside; K6 and K7, the fused SupCon loss) against its plain version,
+their refusals, a small CLIP through them, and small train steps (ViT and
+EVA02) whose attention gradients come from the kernels.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -16,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from mrclip_tpu_torch.factory import create_loss, create_model
+from mrclip_tpu_torch.factory import create_loss, create_model, get_model_config
 from mrclip_tpu_torch.ops import fused_attn as fa
+from mrclip_tpu_torch.ops.pos_embed import rope_cat_2d
 from mrclip_tpu_torch.ops import pallas_loss as pl
 from mrclip_tpu_torch.ops.image_ops import normalize_images
 from mrclip_tpu_torch.parallel import create_optimizer, create_train_state, make_loss_apply
@@ -235,3 +237,112 @@ def test_small_train_step_gradients_through_the_kernels(cuda_device, pallas):
             cos = torch.nn.functional.cosine_similarity(
                 g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
             assert cos.item() >= 0.999, name
+
+
+ROPE_SHAPES = [  # (B, N, H, D, prefix, causal)
+    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer, the real 14 x 14 table
+    (2, 197, 4, 64, 0, False),
+    (3, 50, 2, 32, 1, True),     # head dim 32, causal
+    (2, 1, 2, 64, 1, False),     # CLS only
+    (1, 257, 2, 64, 1, False),   # 16 x 16 grid
+]
+
+
+def _rope_inputs(b, n, h, d, prefix, device, dtype):
+    """q, k, v, o-gradient as column slices of one packed buffer, and the
+    kernel table of a rope_cat_2d grid (or random rows when N - prefix is
+    not a square)."""
+    rng = np.random.RandomState(4)
+    g = int(round((n - prefix) ** 0.5))
+    rope = (rope_cat_2d(d, g, g, ref_feat_shape=(16, 16)) if g * g == n - prefix
+            else rng.uniform(-1, 1, (n - prefix, 2 * d)).astype(np.float32))
+    tab = fa.rope_table(rope, prefix, dtype).to(device)
+    buf = torch.from_numpy(rng.randn(b, n, 4 * h * d).astype(np.float32)).to(device, dtype)
+    q, k, v, do = buf.chunk(4, dim=-1)
+    return q, k, v, do, tab
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,h,d,prefix,causal", ROPE_SHAPES)
+def test_rope_kernels_match_plain_versions(cuda_device, b, n, h, d, prefix, causal, dtype, tol):
+    """K2 and K3r: o within K1's bar, lse within 1e-3, each gradient within
+    tol of the call's largest |plain| gradient (K3's bar); the kernels
+    rotate with the plain version's roundings, so the CLS rows of a prefix
+    see exactly the unrotated q and k."""
+    q, k, v, do, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, dtype)
+    before = (fa.rope_launches, fa.rope_bwd_launches, fa.launches, fa.bwd_launches)
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
+    got = fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal, heads=h, rope=tab)
+    torch.cuda.synchronize()
+    assert (fa.rope_launches, fa.rope_bwd_launches, fa.launches, fa.bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    want_o, want_lse = fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h, rope=tab)
+    assert (o.float() - want_o.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    want = fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal, heads=h,
+                                             rope=tab)
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        assert (g.float() - w.float()).abs().max().item() <= tol * max(scale, 1e-30)
+
+
+def test_rope_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, v, do, tab = _rope_inputs(1, 17, 2, 64, 1, cuda_device, torch.bfloat16)
+    with pytest.raises(TypeError, match="q's type"):
+        fa.fused_attention_packed(q, k, v, heads=2, rope=tab.float())
+    with pytest.raises(ValueError, match="2D"):
+        fa.fused_attention_packed(q, k, v, heads=2, rope=tab[1:])
+    with pytest.raises(ValueError, match="self-attention"):
+        fa.fused_attention_packed(q, k[:, :9], v[:, :9], heads=2, rope=tab)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention_packed(q, k, v, heads=2, rope=tab.t().contiguous().t())
+    o, lse = fa.fused_attention_packed(q, k, v, heads=2, rope=tab)
+    with pytest.raises(ValueError, match="rope table on"):
+        fa.fused_attention_packed_bwd(q, k, v, o, do, lse, heads=2, rope=tab.cpu())
+
+
+def test_small_eva02_train_step_gradients_through_the_kernels(cuda_device):
+    """EVA02-B-16 at full width on 32 x 32 images (4 patches + CLS) with a
+    2-layer text tower, bf16: under 'fusedp' each vision layer launches K2
+    and K3r once and each text layer K1 and K3 once; every q/k/v projection
+    gets a gradient, equal to the plain-attention step's within bf16
+    rounding through 12 layers, where the kernels rotate with the bf16 table
+    and the plain path in fp32 (cosine >= 0.999 over all gradients, >= 0.99
+    per tensor of 10^4 or more elements, chip_smoke.py's bars)."""
+    cfg = get_model_config("EVA02-B-16")
+    vision = dict(cfg["vision_cfg"], image_size=32)
+    text = dict(cfg["text_cfg"], width=128, heads=2, layers=2, context_length=16)
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=False))()
+    apply = make_loss_apply(create_loss(args))
+    rng = np.random.RandomState(0)
+    batch = {
+        "images": normalize_images(torch.from_numpy(
+            rng.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)).to(cuda_device)),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (8, 16))).to(cuda_device),
+        "labels": torch.from_numpy(rng.randint(0, 3, 8).astype(np.int32)).to(cuda_device),
+    }
+    grads = {}
+    for impl in ("fusedp", "xla"):
+        model = create_model("EVA02-B-16", precision="bf16", attn_impl=impl, rng_seed=0,
+                             vision_cfg=vision, text_cfg=text)
+        state = create_train_state(model, create_optimizer(lr=1e-4))
+        fa.reset_launches()
+        grads[impl], ldict = loss_and_grads(model, apply, state.params, batch)
+        torch.cuda.synchronize()
+        assert np.isfinite(ldict["loss"].item())
+        if impl == "fusedp":
+            assert (fa.rope_launches, fa.rope_bwd_launches) == (12, 12)
+            assert (fa.launches, fa.bwd_launches) == (2, 2)
+    qkv = [n for n in grads["fusedp"] if any(p in n for p in ("q_proj.w", "k_proj.w", "v_proj.w"))]
+    assert len(qkv) == 36
+    for name in qkv:
+        assert grads["fusedp"][name].abs().max().item() > 0, name
+    flat = {impl: torch.cat([g.flatten().double() for g in grads[impl].values()])
+            for impl in grads}
+    cos = torch.nn.functional.cosine_similarity
+    assert cos(flat["fusedp"], flat["xla"], dim=0).item() >= 0.999
+    for name, g in grads["fusedp"].items():
+        if g.numel() >= 10**4:
+            assert cos(g.flatten().double(), grads["xla"][name].flatten().double(),
+                       dim=0).item() >= 0.99, name

@@ -23,7 +23,8 @@ _IMPORTS_NO_JAX = """
 import sys
 import chip_smoke, mrclip_tpu_torch
 import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
-import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops
+import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops, mrclip_tpu_torch.ops.pos_embed
+import mrclip_tpu_torch.models.vision, mrclip_tpu_torch.models.transformer, mrclip_tpu_torch.weights
 import mrclip_tpu_torch.losses, mrclip_tpu_torch.parallel, mrclip_tpu_torch.train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu"))
@@ -50,13 +51,14 @@ def artifact(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("entry", ["create_model", "load_exported", "make_server",
-                                   "serve.main", "export.main", "train"])
+@pytest.mark.parametrize("entry", ["create_model", "create_model EVA02-B-16", "load_exported",
+                                   "make_server", "serve.main", "export.main", "train"])
 def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry):
     """The training path runs on its model's device, so it too stops at
     create_model without a card unless given device='cpu'."""
     calls = {
         "create_model": lambda: create_model("ViT-B-32-mini"),
+        "create_model EVA02-B-16": lambda: create_model("EVA02-B-16", attn_impl="fusedp"),
         "train": lambda: create_train_state(create_model("ViT-B-32-mini", attn_impl="fusedp"),
                                             create_optimizer(lr=1e-4)),
         "load_exported": lambda: load_exported(artifact),
@@ -72,6 +74,7 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
 @pytest.mark.parametrize("rel", [
     "model_configs/ViT-B-16.json",
     "model_configs/ViT-B-32-mini.json",
+    "model_configs/EVA02-B-16.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
 ])
 def test_copied_files_are_byte_identical(rel):
@@ -79,8 +82,10 @@ def test_copied_files_are_byte_identical(rel):
 
 
 @pytest.mark.parametrize("source,entries,tpu_kernels", [
-    ("packed_attn_fwd.cu", ["packed_attn_fwd"], ["fused_attn.py::_packed_fwd_kernel"]),
-    ("packed_attn_bwd.cu", ["packed_attn_bwd"], ["fused_attn.py::_packed_bwd_kernel"]),
+    ("packed_attn_fwd.cu", ["packed_attn_fwd", "packed_attn_rope_fwd"],
+     ["fused_attn.py::_packed_fwd_kernel", "rope branch"]),
+    ("packed_attn_bwd.cu", ["packed_attn_bwd", "packed_attn_rope_bwd"],
+     ["fused_attn.py::_packed_bwd_kernel", "_rope_unrotate_grad"]),
     ("supcon_loss.cu", ["supcon_stats", "supcon_grad_q", "supcon_grad_k"],
      ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"]),
 ])
@@ -97,6 +102,22 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
+    """K2 and K3r take the rotation from one `rope.cuh`, and an edit to that
+    header changes the build key of each source that includes it."""
+    for source in ("packed_attn_fwd.cu", "packed_attn_bwd.cu"):
+        text = (build.CSRC / source).read_text()
+        assert '#include "rope.cuh"' in text
+        assert "void rotate_pair(" not in text and "float round_to(" not in text
+    (tmp_path / "rope.cuh").write_text("// v1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "rope.cuh"\n')
+    key = build.source_key(src)
+    assert build.source_key(src) == key
+    (tmp_path / "rope.cuh").write_text("// v2\n")
+    assert build.source_key(src) != key
 
 
 @pytest.mark.parametrize("cwd", ["repo", "alone"])
