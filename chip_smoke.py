@@ -18,7 +18,12 @@ fails:
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
              for K2/K3r on q and k rotated beforehand, so not the same
-             function), and K2/K3r beside K1/K3 at the same shape;
+             function), and K2/K3r beside K1/K3 at the same shape; K4/K5
+             (grouped-layout attention, 'fused') and K10/K10b (flash
+             attention, 'flash'; also at N = 257 and 577, several key
+             blocks) at the same shapes as K1/K3, bf16 and fp32, timed at
+             the b256 shapes of phases 8 and 9 beside K1 (K4) and K4/K5
+             (K10/K10b);
   4. serve:  full-width ViT-B-16 (random weights from a seed, bf16 compute,
              fp32 params, attn_impl='fusedp') exported to an artifact, loaded,
              served over HTTP on 127.0.0.1; health, concurrent image and text
@@ -38,8 +43,18 @@ fails:
              against the same weights under plain attention; 12 K2 launches
              per image call and 12 K1 per text call;
   7. train EVA02-B-16 at b256, as phase 5: 12 K2, 12 K1, 12 K3r and 12 K3
-             launches per step, every q/k/v projection with a gradient.
-Each path (4 to 7) runs with the launch counts set to 0 just before it and
+             launches per step, every q/k/v projection with a gradient;
+  8. fused:  ViT-B-16 as phase 5 under attn_impl='fused': one warm-up and 3
+             timed dense steps with 24 K4 and 24 K5 launches each and no
+             packed kernel; then `encode_image` at b256 through `ServedModel`
+             from an exported 'fused' artifact, 12 K4 per call, against the
+             same weights under plain attention;
+  9. flash:  EVA02-B-16 as phase 7 under attn_impl='flash': 48 K10 (24 in
+             the forward, 24 recomputed in the backward) and 24 K10b per
+             step, no packed kernel, every q/k/v projection with a gradient,
+             peak memory beside phase 7's; `encode_image` at b256 under
+             `inference_mode`, 12 K10 per call.
+Each path (4 to 9) runs with the launch counts set to 0 just before it and
 reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
@@ -86,6 +101,9 @@ TEXT77 = dict(TEXT, n=77, nk=77)  # EVA02-B-16's text tower, context 77
 # K1 and K3 are checked at every shape phase 3 times them: the served b32 and
 # the trained b256 of ViT-B-16's towers and of EVA02-B-16's text tower
 CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77)), *EDGES]
+# K10/K10b also where jax walks several key blocks: N = 577 pads to 640, five
+# blocks of 128 (N = 257 in EDGES pads to 384, three)
+FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c) for c in (False, True))]
 # K2/K3r: EVA02-B-16's vision layers have ViT-B-16's N, H and D, and a CLS
 # prefix row; the table is rope_cat_2d's where N - prefix is a square grid
 ROPE_VISION = dict(VISION, prefix=1)
@@ -160,11 +178,11 @@ def attention_bound(b, n, nk, h, d, causal, dtype):
 
 
 def attention_bwd_bound(b, n, nk, h, d, causal, dtype):
-    """K3: q, k, v, o, dO read and dq, dk, dv written once (8 tensors of
-    B*H*N*D elements when Nk = N) plus lse; 10*D operations per attended
+    """K3 and K5: q, o, dO read and dq written (N rows), k, v read and dk,
+    dv written (Nk rows), once each, plus lse; 10*D operations per attended
     pair (the five products S, dV, dP, dQ, dK)."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * b * h * d * (5 * n + 3 * nk) + 4 * b * h * n
+    nbytes = item * b * h * d * (4 * n + 4 * nk) + 4 * b * h * n
     return _bound(nbytes, 10 * b * h * _pairs(n, nk, causal) * d, dtype)
 
 
@@ -178,6 +196,18 @@ def rope_attention_bound(b, n, nk, h, d, causal, dtype, backward=False):
     ops = ((10 if backward else 4) * b * h * _pairs(n, nk, causal) * d
            + 6 * (4 if backward else 2) * b * n * h * d)
     return _bound(nbytes, ops, dtype)
+
+
+def flash_bound(b, n, nk, h, d, causal, dtype, backward=False):
+    """K10: q, k, v read and o, l, m written once; 4*D operations per
+    attended pair. K10b (`backward`): q, k, v, dO, l, m, di read and dq, dk,
+    dv written once; 10*D per attended pair."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    if backward:
+        nbytes = item * b * h * d * (3 * n + 4 * nk) + 12 * b * h * n
+    else:
+        nbytes = item * b * h * d * (2 * n + 2 * nk) + 8 * b * h * n
+    return _bound(nbytes, (10 if backward else 4) * b * h * _pairs(n, nk, causal) * d, dtype)
 
 
 def supcon_bound(kind, nq, nk, d):
@@ -212,11 +242,11 @@ def phase_card():
     return name, smi
 
 
-SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss")
+SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn")
 
 
 def phase_build():
-    from mrclip_tpu_torch.ops import build, fused_attn, pallas_loss
+    from mrclip_tpu_torch.ops import build, flash_attn, fused_attn, pallas_loss
 
     t0 = time.perf_counter()
     build.load_libraries(SOURCES)  # one nvcc per source, all started together
@@ -229,6 +259,8 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
     fused_attn.load_kernel()
     fused_attn.load_bwd_kernel()
+    fused_attn.load_grouped_kernels()
+    flash_attn.load_kernels()
     pallas_loss.load_kernels()
 
 
@@ -530,6 +562,212 @@ def phase_kernel_rope():
     }]
 
 
+def check_attention(tag, shape, dtype, fwd, bwd):
+    """Hold one forward (o, residual stats) and backward (dq, dk, dv) of a
+    kernel pair against their plain versions with K1/K3's bars: o within
+    O_TOL, each stat within LSE_TOL (abs for lse and m, relative for l), each
+    gradient within GRAD_TOL of the call's largest |plain| gradient.
+    `fwd` / `bwd` are (kernel outputs, plain outputs, stat kinds) and
+    (kernel grads, plain grads). Returns (max |o - plain|, max |d - plain|,
+    max relative gradient error)."""
+    (o, stats), (o_ref, stats_ref), kinds = fwd
+    got, want = bwd
+    err_o = abs_err(o, o_ref)
+    err_s = [rel_err(a, b, 1.0) if kind != "l" else ((a - b).abs() / b).max().item()
+             for a, b, kind in zip(stats, stats_ref, kinds)]
+    scale = max(w.float().abs().max().item() for w in want)
+    errs = [rel_err(g, w, scale) for g, w in zip(got, want)]
+    ok = (bool(torch.isfinite(o.float()).all()) and err_o <= O_TOL[dtype] and max(err_s) <= LSE_TOL
+          and all(bool(torch.isfinite(g.float()).all()) for g in got)
+          and max(errs) <= GRAD_TOL[dtype])
+    log(f"[kernel] {tag} {shape} {str(dtype)[6:]}: max|o-plain|={err_o:.3e} (tol {O_TOL[dtype]}) "
+        + " ".join(f"{k}={e:.3e}" for k, e in zip(kinds, err_s)) + f" (tol {LSE_TOL}); "
+        f"max|d-plain| / max|plain| (={scale:.3g}) dq/dk/dv = "
+        + "/".join(f"{e:.3e}" for e in errs) + f" (tol {GRAD_TOL[dtype]}) " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{tag} disagree with their plain versions at {shape} {dtype}")
+    return err_o, max(abs_err(g, w) for g, w in zip(got, want)), max(errs)
+
+
+def sdpa_ms(q4, k4, v4, do4, causal):
+    """SDPA forward ms and backward ms (fwd+bwd minus fwd) on [B, H, L, D]
+    views: a yardstick, never on a path."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), 50)
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
+                                               (q4, k4, v4), do4), 20)
+    return fwd, both - fwd
+
+
+def phase_kernel_grouped():
+    """K4 and K5 against their plain versions on q, k, v as 'fused' hands
+    them over (column slices of one projection, transposed to contiguous
+    [B*H, L, D]); timings at phase 8's shapes beside K1 at the same shape."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    def inputs(shape, dtype):
+        h, d = shape["h"], shape["d"]
+        return [fa.group_heads(t.unflatten(-1, (h, d))) for t in qkv_slices(shape, dtype, gen)]
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
+    for shape in CHECKED:
+        causal = shape["causal"]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(shape, dtype)
+            o, lse = fa.fused_attention_grouped(q, k, v, is_causal=causal)
+            do = torch.randn(o.shape, device="cuda", generator=gen).to(dtype)
+            got = fa.fused_attention_grouped_bwd(q, k, v, o, do, lse, is_causal=causal)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fa.fused_attention_ref(q, k, v, is_causal=causal)
+            want = fa.fused_attention_bwd_ref(q, k, v, o, do, lse, is_causal=causal)
+            errs = check_attention("K4/K5", shape, dtype, ((o, [lse]), (o_ref, [lse_ref]), ["lse"]),
+                                   (got, want))
+            worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+
+    def timings(shape):
+        h, d, causal = shape["h"], shape["d"], shape["causal"]
+        q, k, v = inputs(shape, torch.bfloat16)
+        q1, k1, v1 = qkv_slices(shape, torch.bfloat16, gen)
+        o, lse = fa.fused_attention_grouped(q, k, v, is_causal=causal)
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        fwd = dict(
+            ms=cuda_ms(lambda: fa.fused_attention_grouped(q, k, v, is_causal=causal), 50),
+            k1_ms=cuda_ms(lambda: fa.fused_attention_packed(q1, k1, v1, is_causal=causal, heads=h),
+                          50),
+            plain_ms=cuda_ms(lambda: fa.fused_attention_ref(q, k, v, is_causal=causal), 20))
+        bwd = dict(
+            ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, do, lse,
+                                                              is_causal=causal), 20),
+            plain_ms=cuda_ms(lambda: fa.fused_attention_bwd_ref(q, k, v, o, do, lse,
+                                                                is_causal=causal), 5))
+        b, n = shape["b"], shape["n"]
+        fwd["library_ms"], bwd["library_ms"] = sdpa_ms(
+            *(t.view(b, h, -1, d) for t in (q, k, v)), do.view(b, h, n, d), causal)
+        args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
+        fwd["bound_ms"], fwd["bound_by"] = attention_bound(**args, dtype=torch.bfloat16)
+        bwd["bound_ms"], bwd["bound_by"] = attention_bwd_bound(**args, dtype=torch.bfloat16)
+        log(f"[kernel] K4 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K1 same shape "
+            f"{fwd['k1_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
+            f"ms, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+        log(f"[kernel] K5 bf16 {shape}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
+            f"SDPA backward {bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us "
+            f"({bwd['bound_by']})")
+        return fwd, bwd
+
+    fwd256, bwd256 = timings(dict(VISION, b=TRAIN_BATCH))
+    fwd_text, bwd_text = timings(dict(TEXT, b=TRAIN_BATCH))
+    common = dict(route="cuda", source="mrclip_tpu_torch/csrc/grouped_attn.cu", launches=None,
+                  shape=f"vision b{TRAIN_BATCH} n197 h12 d64 bf16, grouped [B*H, N, D]")
+    return [{
+        "name": "grouped_attn_fwd",
+        "replaces": "mrclip_tpu/ops/fused_attn.py:101",
+        "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_fwd_kernel (via _run_fwd :167)",
+        "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
+        **common, **fwd256,
+        "library": "scaled_dot_product_attention forward",
+        "text_b256": fwd_text,
+    }, {
+        "name": "grouped_attn_bwd",
+        "replaces": "mrclip_tpu/ops/fused_attn.py:118",
+        "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_bwd_kernel (via _core_bwd :193)",
+        "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
+        "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
+        "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
+        **common, **bwd256,
+        "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+        "text_b256": bwd_text,
+    }]
+
+
+def phase_kernel_flash():
+    """K10 and K10b against their plain versions on q, k, v as 'flash' hands
+    them over ([B, L, H, D] views of one projection's column slices), also
+    at N = 577 (five key blocks); timings at phase 9's shapes beside K4/K5
+    at the same shape."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    def inputs(shape, dtype):
+        return [t.unflatten(-1, (shape["h"], shape["d"])) for t in qkv_slices(shape, dtype, gen)]
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
+    for shape in FLASH_CHECKED:
+        causal = shape["causal"]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(shape, dtype)
+            o, l, m = fl.flash_attention(q, k, v, is_causal=causal)
+            do = torch.randn(o.shape, device="cuda", generator=gen).to(dtype)
+            di = fl.flash_di(o, do)
+            got = fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal)
+            torch.cuda.synchronize()
+            o_ref, l_ref, m_ref = fl.flash_attention_ref(q, k, v, is_causal=causal)
+            want = fl.flash_attention_bwd_ref(q, k, v, do, l, m, di, is_causal=causal)
+            errs = check_attention("K10/K10b", shape, dtype,
+                                   ((o, [l, m]), (o_ref, [l_ref, m_ref]), ["l", "m"]), (got, want))
+            worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+
+    def timings(shape):
+        h, d, causal = shape["h"], shape["d"], shape["causal"]
+        q, k, v = inputs(shape, torch.bfloat16)
+        o, l, m = fl.flash_attention(q, k, v, is_causal=causal)
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        di = fl.flash_di(o, do)
+        qg, kg, vg, dog = (fa.group_heads(t) for t in (q, k, v, do))
+        og, lse = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
+        fwd = dict(
+            ms=cuda_ms(lambda: fl.flash_attention(q, k, v, is_causal=causal), 50),
+            k4_ms=cuda_ms(lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal), 50),
+            plain_ms=cuda_ms(lambda: fl.flash_attention_ref(q, k, v, is_causal=causal), 10))
+        bwd = dict(
+            ms=cuda_ms(lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal), 20),
+            k5_ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse,
+                                                                 is_causal=causal), 20),
+            plain_ms=cuda_ms(lambda: fl.flash_attention_bwd_ref(q, k, v, do, l, m, di,
+                                                                is_causal=causal), 5))
+        fwd["library_ms"], bwd["library_ms"] = sdpa_ms(
+            *(t.transpose(1, 2) for t in (q, k, v)), do.transpose(1, 2), causal)
+        args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
+        fwd["bound_ms"], fwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16)
+        bwd["bound_ms"], bwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16, backward=True)
+        log(f"[kernel] K10 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K4 same shape "
+            f"{fwd['k4_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
+            f"ms, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+        log(f"[kernel] K10b bf16 {shape}: kernel {bwd['ms']:.4f} ms, K5 same shape "
+            f"{bwd['k5_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA backward "
+            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
+        return fwd, bwd
+
+    fwd256, bwd256 = timings(dict(VISION, b=TRAIN_BATCH))
+    fwd_text, bwd_text = timings(dict(TEXT77, b=TRAIN_BATCH))
+    fwd_577, bwd_577 = timings(dict(b=32, n=577, nk=577, h=12, d=64, causal=False))
+    common = dict(route="cuda", source="mrclip_tpu_torch/csrc/flash_attn.cu", launches=None,
+                  shape=f"EVA02-B-16 vision b{TRAIN_BATCH} n197 h12 d64 bf16 (one key block)")
+    return [{
+        "name": "flash_attn_fwd",
+        "replaces": "mrclip_tpu/ops/flash_attn.py:41",
+        "tpu_kernel": "mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded -> jax "
+                      "pallas/ops/tpu/flash_attention.py::_flash_attention_kernel_single_batch",
+        "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
+        **common, **fwd256,
+        "library": "scaled_dot_product_attention forward",
+        "text77_b256": fwd_text, "n577_b32": fwd_577,
+    }, {
+        "name": "flash_attn_bwd",
+        "replaces": "mrclip_tpu/ops/flash_attn.py:41",
+        "tpu_kernel": "jax pallas/ops/tpu/flash_attention.py::_flash_attention_dkv_kernel, "
+                      "_flash_attention_dq_kernel (via _flash_attention_bwd)",
+        "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
+        "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
+        "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
+        **common, **bwd256,
+        "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+        "text77_b256": bwd_text, "n577_b32": bwd_577,
+    }]
+
+
 def supcon_inputs(n, classes, gen):
     q = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
     k = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
@@ -751,19 +989,24 @@ def phase_serve(kernel_entry, card):
 
 def launch_counts():
     """Every kernel's launches since the last reset, by kernel name."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
     from mrclip_tpu_torch.ops import pallas_loss as pl
 
     return {"packed_attn_fwd": fa.launches, "packed_attn_bwd": fa.bwd_launches,
             "packed_attn_rope_fwd": fa.rope_launches,
-            "packed_attn_rope_bwd": fa.rope_bwd_launches, **pl.launches}
+            "packed_attn_rope_bwd": fa.rope_bwd_launches,
+            "grouped_attn_fwd": fa.grouped_launches, "grouped_attn_bwd": fa.grouped_bwd_launches,
+            "flash_attn_fwd": fl.launches, "flash_attn_bwd": fl.bwd_launches, **pl.launches}
 
 
 def reset_counts():
+    from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
     from mrclip_tpu_torch.ops import pallas_loss as pl
 
     fa.reset_launches()
+    fl.reset_launches()
     pl.reset_launches()
 
 
@@ -858,9 +1101,15 @@ def grad_cosines(a: dict, b: dict):
 
 
 # Device kernels by (lower-cased) name -> the layer they belong to (first
-# match wins). The rope instantiations of the attention kernels carry the
-# template flag `true` in their names.
+# match wins). The rope instantiations of the packed attention kernels and
+# the flash instantiations of the row kernels carry the template flag `true`
+# in their names.
 KERNEL_GROUPS = [
+    ("K10 flash_attn_fwd", ("rows_fwd_kernel<__nv_bfloat16, 64, true>",)),
+    ("K4 grouped_attn_fwd", ("rows_fwd_kernel",)),
+    ("K10b flash_attn_bwd", ("rows_bwd_dq_kernel<__nv_bfloat16, 64, true>",
+                             "rows_bwd_dkv_kernel<__nv_bfloat16, 64, true>")),
+    ("K5 grouped_attn_bwd", ("rows_bwd_",)),
     ("K2 packed_attn_rope_fwd", ("packed_attn_fwd_kernel<__nv_bfloat16, 64, true>",)),
     ("K1 packed_attn_fwd", ("packed_attn_fwd",)),
     ("K3r packed_attn_rope_bwd", ("_kernel<__nv_bfloat16, 64, true>",)),
@@ -908,23 +1157,38 @@ def profile_step(run, tag="[train]"):
             "groups_ms": groups}
 
 
-# The train main path of each model: the attention kernels' launches per
-# step (one per attention layer per direction) and which parameters are the
+# The train main path of each (model, attn_impl): the attention kernels'
+# exact launches per dense step (one per attention layer per direction;
+# 'flash' launches K10 again in the backward) and which parameters are the
 # attention's input projections.
-TRAIN_MODELS = {
-    "ViT-B-16": dict(per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24},
-                     projections=("attn.in_proj_weight",)),
-    "EVA02-B-16": dict(per_step={"packed_attn_rope_fwd": 12, "packed_attn_fwd": 12,
-                                 "packed_attn_rope_bwd": 12, "packed_attn_bwd": 12},
-                       projections=("attn.q_proj.weight", "attn.k_proj.weight",
-                                    "attn.v_proj.weight")),
+VIT_PROJ = ("attn.in_proj_weight",)
+EVA_PROJ = ("attn.q_proj.weight", "attn.k_proj.weight", "attn.v_proj.weight")
+TRAIN_PATHS = {
+    ("ViT-B-16", "fusedp"): dict(per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24},
+                                 projections=VIT_PROJ),
+    ("EVA02-B-16", "fusedp"): dict(per_step={"packed_attn_rope_fwd": 12, "packed_attn_fwd": 12,
+                                             "packed_attn_rope_bwd": 12, "packed_attn_bwd": 12},
+                                   projections=EVA_PROJ),
+    ("ViT-B-16", "fused"): dict(per_step={"grouped_attn_fwd": 24, "grouped_attn_bwd": 24},
+                                projections=VIT_PROJ),
+    ("EVA02-B-16", "flash"): dict(per_step={"flash_attn_fwd": 48, "flash_attn_bwd": 24},
+                                  projections=EVA_PROJ),
 }
+PALLAS_STEP = {"supcon_stats": 2, "supcon_grad_q": 2, "supcon_grad_k": 2}
 
 
-def kernel_ms_per_step(model_name, entries):
-    """Each attention kernel's device ms in one step of `model_name` at b256,
-    from the phase 3 timings at the step's shapes."""
+def kernel_ms_per_step(model_name, attn_impl, entries):
+    """Each attention kernel's device ms in one step of `model_name` under
+    `attn_impl` at b256, from the phase 3 timings at the step's shapes."""
     fwd, bwd = entries["packed_attn_fwd"], entries["packed_attn_bwd"]
+    if attn_impl == "fused":  # ViT-B-16
+        k4, k5 = entries["grouped_attn_fwd"], entries["grouped_attn_bwd"]
+        return {"K4": 12 * (k4["ms"] + k4["text_b256"]["ms"]),
+                "K5": 12 * (k5["ms"] + k5["text_b256"]["ms"])}
+    if attn_impl == "flash":  # EVA02-B-16: K10 twice per layer (forward, recomputed)
+        k10, k10b = entries["flash_attn_fwd"], entries["flash_attn_bwd"]
+        return {"K10": 24 * (k10["ms"] + k10["text77_b256"]["ms"]),
+                "K10b": 12 * (k10b["ms"] + k10b["text77_b256"]["ms"])}
     if model_name == "ViT-B-16":
         return {"K1": 12 * (fwd["vision_b256"]["ms"] + fwd["text_b256"]["ms"]),
                 "K3": 12 * (bwd["ms"] + bwd["text_b256"]["ms"])}
@@ -932,8 +1196,11 @@ def kernel_ms_per_step(model_name, entries):
             "K3r": 12 * entries["packed_attn_rope_bwd"]["ms"], "K3": 12 * bwd["text77_b256"]["ms"]}
 
 
-def phase_train(model_name, entries, card):
-    """The train step of the JAX package's bench.py on `model_name` at b256."""
+def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_step=True):
+    """The train step of the JAX package's bench.py on `model_name` at b256
+    under `attn_impl`: checks at the initial weights, then one warm-up and
+    `timed` dense steps (and, with `pallas_step`, the pallas loss against
+    the dense one and one pallas-loss step)."""
     from types import SimpleNamespace
 
     from mrclip_tpu_torch import create_loss
@@ -944,10 +1211,12 @@ def phase_train(model_name, entries, card):
                                            make_loss_apply)
     from mrclip_tpu_torch.parallel.train_step import loss_and_grads
 
-    tag = "[train]" if model_name == "ViT-B-16" else "[train-eva02]"
-    spec = TRAIN_MODELS[model_name]
+    tag = ("[train]" if model_name == "ViT-B-16" else "[train-eva02]")
+    if attn_impl != "fusedp":
+        tag = f"[train-{attn_impl}]"
+    spec = TRAIN_PATHS[model_name, attn_impl]
     t0 = time.perf_counter()
-    model = create_model(model_name, precision="bf16", attn_impl="fusedp", gelu_approx=True,
+    model = create_model(model_name, precision="bf16", attn_impl=attn_impl, gelu_approx=True,
                          rng_seed=0)
     tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
     state = create_train_state(model, tx)
@@ -966,8 +1235,8 @@ def phase_train(model_name, entries, card):
         return dict(b, images=normalize_images(b["images"]))
 
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"{tag} {model_name} ({n_params / 1e6:.1f} M params), AdamW bf16 mu, batch {TRAIN_BATCH}, "
-        f"context {ctx}, built in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} {model_name} ({n_params / 1e6:.1f} M params), attn_impl={attn_impl!r}, AdamW "
+        f"bf16 mu, batch {TRAIN_BATCH}, context {ctx}, built in {time.perf_counter() - t0:.1f} s")
 
     # checks at the initial weights (their launches are not the main path's)
     g_kernel, l_kernel = loss_and_grads(model, dense, state.params, prep(batch))
@@ -991,62 +1260,65 @@ def phase_train(model_name, entries, card):
     if not ok:
         raise AssertionError("the kernel train step's gradients disagree with plain attention")
 
-    pl.reset_launches()
-    g_pallas, l_pallas = loss_and_grads(model, pallas, state.params, prep(batch))
-    torch.cuda.synchronize()
-    lpl = l_pallas["loss"].item()
-    whole_p, worst_p, _ = grad_cosines(g_pallas, g_kernel)
-    counts = dict(pl.launches)
-    ok = (abs(lpl - lk) <= 1e-4 * abs(lk) and whole_p >= 0.9999
-          and all(c == 2 for c in counts.values()))
-    log(f"{tag} pallas vs dense loss, same state: loss {lpl:.7f} vs {lk:.7f} (rel "
-        f"{abs(lpl - lk) / abs(lk):.2e}, tol 1e-4); gradient cosine {whole_p:.7f} (>= 0.9999); "
-        f"launches {counts} (2 each) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the pallas loss step disagrees with the dense one")
-    del g_pallas, g_kernel
+    if pallas_step:
+        pl.reset_launches()
+        g_pallas, l_pallas = loss_and_grads(model, pallas, state.params, prep(batch))
+        torch.cuda.synchronize()
+        lpl = l_pallas["loss"].item()
+        whole_p, worst_p, _ = grad_cosines(g_pallas, g_kernel)
+        counts = dict(pl.launches)
+        ok = (abs(lpl - lk) <= 1e-4 * abs(lk) and whole_p >= 0.9999
+              and all(c == 2 for c in counts.values()))
+        log(f"{tag} pallas vs dense loss, same state: loss {lpl:.7f} vs {lk:.7f} (rel "
+            f"{abs(lpl - lk) / abs(lk):.2e}, tol 1e-4); gradient cosine {whole_p:.7f} (>= 0.9999); "
+            f"launches {counts} (2 each) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the pallas loss step disagrees with the dense one")
+        del g_pallas
+    del g_kernel
     torch.cuda.empty_cache()
 
-    # the main path: warm-up, 5 timed dense steps, one pallas-loss step
+    # the main path: warm-up, `timed` dense steps (and one pallas-loss step);
+    # each step launches exactly the listed kernels, no other
     dense_step = build_train_step(model, dense, tx)
-    pallas_step = build_train_step(model, pallas, tx)
-    losses, per_step = [], []
+    losses, per_step, wants = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
 
-    def one(step_fn):
+    def one(step_fn, want):
         nonlocal state
         before = launch_counts()
         state, metrics = step_fn(state, prep(batch))
-        per_step.append({k: v - before[k] for k, v in launch_counts().items()
-                         if k in spec["per_step"]})
+        per_step.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        wants.append(want)
         losses.append(metrics["loss"])
         return metrics
 
-    one(dense_step)
+    one(dense_step, spec["per_step"])
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(5):
-        one(dense_step)
+    for _ in range(timed):
+        one(dense_step, spec["per_step"])
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) / 5 * 1e3
-    one(pallas_step)
+    step_ms = (time.perf_counter() - t) / timed * 1e3
+    if pallas_step:
+        one(build_train_step(model, pallas, tx), {**spec["per_step"], **PALLAS_STEP})
     torch.cuda.synchronize()
     launches = launch_counts()  # read right after the train run
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
-    want = spec["per_step"]
-    ok = (all(np.isfinite(losses)) and all(p == want for p in per_step)
-          and all(launches[k] == 2 for k in pl.launches) and state.step == 7)
-    log(f"{tag} main path: 7 steps (1 warm-up, 5 timed, 1 pallas loss), losses "
-        + ", ".join(f"{x:.5f}" for x in losses) + f"; attention launches per step {per_step[0]} "
-        f"(want {want} each step); launches {launches} {'ok' if ok else 'FAIL'}")
+    n_steps = 1 + timed + int(pallas_step)
+    ok = all(np.isfinite(losses)) and per_step == wants and state.step == n_steps
+    log(f"{tag} main path: {n_steps} steps (1 warm-up, {timed} timed"
+        + (", 1 pallas loss" if pallas_step else "") + "), losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + f"; launches per step {per_step} (want "
+        f"{wants}); launches {launches} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"the {model_name} train main path failed its checks")
+        raise AssertionError(f"the {model_name} {attn_impl} train main path failed its checks")
 
     # where the step's time goes: the kernels from phase 3, the rest measured here
-    kernel_ms = kernel_ms_per_step(model_name, entries)
+    kernel_ms = kernel_ms_per_step(model_name, attn_impl, entries)
     with torch.no_grad():
         out = model(prep(batch)["images"], batch["tokens"])
     feats = {k: (v.detach().requires_grad_() if k.endswith("features") else v.detach())
@@ -1080,10 +1352,74 @@ def phase_train(model_name, entries, card):
         + ", ".join(f"{k} {100 * v / step_ms:.1f}%" for k, v in kernel_ms.items())
         + f" of the step | {card}")
     log(f"{tag} breakdown: " + json.dumps(perf))
-    per_step_launches = dict(spec["per_step"], supcon_stats=2, supcon_grad_q=2, supcon_grad_k=2)
+    per_step_launches = {**spec["per_step"], **(PALLAS_STEP if pallas_step else {})}
     del model, state
     torch.cuda.empty_cache()
     return launches, per_step_launches, perf
+
+
+def phase_encode(model_name, attn_impl, kernel, card, exported):
+    """`encode_image` at b256 of full-width `model_name` under `attn_impl`
+    (random weights from seed 0, bf16): through `ServedModel` from an
+    exported artifact when `exported`, else on the model under
+    `inference_mode`. Each call launches `kernel` 12 times and no other
+    kernel; the features agree with the same weights under plain attention."""
+    from mrclip_tpu_torch.factory import create_model, get_model_config
+    from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
+
+    tag = f"[serve-{attn_impl}]"
+    model = create_model(model_name, precision="bf16", attn_impl=attn_impl, rng_seed=0)
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    embed = get_model_config(model_name)["embed_dim"]
+    tmp = tempfile.TemporaryDirectory()
+    if exported:
+        path = os.path.join(tmp.name, "model.mrclip")
+        save_exported(export_model(model), path)
+        del model
+        served = load_exported(path)
+        if served.meta["attn_impl"] != attn_impl:
+            raise AssertionError(f"artifact carries attn_impl {served.meta['attn_impl']!r}")
+        model, encode = served.model, served.encode_image
+    else:
+        def encode(x):
+            with torch.inference_mode():
+                return model.encode_image(torch.from_numpy(x).cuda(), normalize=True).float().cpu().numpy()
+    images = np.random.RandomState(2).randn(TRAIN_BATCH, 224, 224, 3).astype(np.float32)
+
+    reset_counts()  # this path starts here
+    calls = []
+    for _ in range(2):
+        before = launch_counts()
+        feats = unit_rows(encode(images), TRAIN_BATCH, embed)
+        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+    main_path = launch_counts()  # read right after the run
+    want = [{kernel: 12}] * 2
+    plain = create_model(model_name, pretrained=weights, precision="bf16", attn_impl="xla")
+    x = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        ref = plain.encode_image(x, normalize=True).float().cpu().numpy()
+    cos = cosine_rows(feats, ref).min()
+    ok = calls == want and cos >= 0.999
+    log(f"{tag} {model_name} encode_image b{TRAIN_BATCH} "
+        f"{'through ServedModel from an artifact' if exported else 'under inference_mode'}: "
+        f"launches per call {calls} (want {want}); min cosine vs plain attention, same weights "
+        f"{cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {attn_impl} encode path of {model_name} failed its checks")
+    perf = {}
+    with torch.inference_mode():
+        for name, m in ((attn_impl, model), ("xla", plain)):
+            perf[f"device_encode_image_b256_ms_{name}"] = cuda_ms(
+                lambda: m.encode_image(x, normalize=True), 5, warmup=1)
+    t = time.perf_counter()
+    for _ in range(3):
+        encode(images)
+    perf["encode_image_b256_imgs_per_s"] = TRAIN_BATCH * 3 / (time.perf_counter() - t)
+    log(f"{tag} throughput on {card}: " + json.dumps(perf))
+    tmp.cleanup()
+    del model, plain
+    torch.cuda.empty_cache()
+    return main_path, perf
 
 
 def main() -> int:
@@ -1096,21 +1432,36 @@ def main() -> int:
     name, smi = phase_card()
     phase_build()
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
-                                      *phase_kernel_supcon()]}
+                                      *phase_kernel_supcon(), *phase_kernel_grouped(),
+                                      *phase_kernel_flash()]}
     fwd, rope_fwd = entries["packed_attn_fwd"], entries["packed_attn_rope_fwd"]
+    k4, k10 = entries["grouped_attn_fwd"], entries["flash_attn_fwd"]
     paths, per_step = {}, {}
     paths["serve"], fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
     paths["train"], per_step["train"], fwd["training"] = phase_train("ViT-B-16", entries, smi)
     paths["serve_eva02"], rope_fwd["serving"] = phase_serve_eva02(entries, smi)
     paths["train_eva02"], per_step["train_eva02"], rope_fwd["training"] = phase_train(
         "EVA02-B-16", entries, smi)
+    paths["train_fused"], per_step["train_fused"], k4["training"] = phase_train(
+        "ViT-B-16", entries, smi, attn_impl="fused", timed=3, pallas_step=False)
+    paths["serve_fused"], k4["serving"] = phase_encode("ViT-B-16", "fused", "grouped_attn_fwd", smi,
+                                                       exported=True)
+    paths["train_flash"], per_step["train_flash"], k10["training"] = phase_train(
+        "EVA02-B-16", entries, smi, attn_impl="flash", timed=3, pallas_step=False)
+    paths["serve_flash"], k10["serving"] = phase_encode("EVA02-B-16", "flash", "flash_attn_fwd", smi,
+                                                        exported=False)
+    log(f"[train-flash] peak memory of the EVA02-B-16 b{TRAIN_BATCH} step: flash "
+        f"{k10['training']['peak_memory_gb']:.2f} GB (keeps q, k, v), fusedp "
+        f"{rope_fwd['training']['peak_memory_gb']:.2f} GB (keeps q, k, v, o, lse)")
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
-                "train": [*TRAIN_MODELS["ViT-B-16"]["per_step"], "supcon_stats", "supcon_grad_q",
-                          "supcon_grad_k"],
+                "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
                 "serve_eva02": ["packed_attn_rope_fwd", "packed_attn_fwd"],
-                "train_eva02": [*TRAIN_MODELS["EVA02-B-16"]["per_step"], "supcon_stats",
-                                "supcon_grad_q", "supcon_grad_k"]}
+                "train_eva02": [*TRAIN_PATHS["EVA02-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
+                "train_fused": [*TRAIN_PATHS["ViT-B-16", "fused"]["per_step"]],
+                "serve_fused": ["grouped_attn_fwd"],
+                "train_flash": [*TRAIN_PATHS["EVA02-B-16", "flash"]["per_step"]],
+                "serve_flash": ["flash_attn_fwd"]}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -4,7 +4,7 @@
 Usage:
   python -m mrclip_tpu_torch.export --model ViT-B-16 \
       [--checkpoint open_clip.pt] [--precision bf16] [--gelu-approx] \
-      [--attn-impl fusedp|xla] [--device cpu] --output model.mrclip
+      [--attn-impl fusedp|fused|bf16|manual|xla] [--device cpu] --output model.mrclip
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ def main(argv=None) -> str:
     p.add_argument("--precision", default="fp32", help="compute dtype baked into the artifact")
     p.add_argument("--gelu-approx", action="store_true",
                    help="tanh-approximate GELU in the artifact (serving throughput mode)")
-    p.add_argument("--attn-impl", default="fusedp", choices=["xla", "fusedp"],
-                   help="attention baked into the artifact: fusedp = the packed "
-                   "Hopper kernel, xla = plain softmax math")
+    p.add_argument("--attn-impl", default="fusedp",
+                   choices=["xla", "manual", "bf16", "fused", "fusedp"],
+                   help="attention baked into the artifact (the JAX export's choices): "
+                   "fusedp = the packed Hopper kernels, fused = the grouped-layout ones, "
+                   "xla/manual/bf16 = plain softmax math")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' to run without one)")
     p.add_argument("--output", required=True, help="output .mrclip artifact path")

@@ -10,13 +10,15 @@ state dict loads with `strict=True`.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attn import fused_attention_packed_ref, fused_attention_qkv
+from ..ops.flash_attn import flash_attention_unpadded
+from ..ops.fused_attn import fused_attention, fused_attention_packed_ref, fused_attention_qkv
 
 __all__ = [
     "LayerNorm",
@@ -31,22 +33,30 @@ __all__ = [
     "EvaAttention",
     "apply_rope_cat",
     "ATTN_IMPLS",
+    "ROPE_IN_COMPUTE_DTYPE",
 ]
 
-# 'xla' = plain softmax math under ordinary autograd (the JAX package's
-# jax.nn.dot_product_attention path, same rounding order, rope rotated
-# outside in fp32); 'fusedp' = the packed Hopper kernels, forward (K1, or K2
-# with rope) and backward (K3, or K3r).
-ATTN_IMPLS = ("xla", "fusedp")
+# The JAX package's six attention options (its `MultiHeadAttention`):
+# 'xla' = plain softmax math under ordinary autograd (the
+#   jax.nn.dot_product_attention path, same rounding order);
+# 'manual' = fp32 logits and softmax, probs cast to the compute type before
+#   P V; 'bf16' = logits in the compute type, softmax upcast to fp32, probs
+#   cast back (both plain PyTorch: the JAX package leaves them to XLA);
+# 'fused' = the grouped-layout Hopper kernels K4 (forward) and K5 (backward);
+# 'flash' = the flash Hopper kernels K10 (forward) and K10b (backward);
+# 'fusedp' = the packed Hopper kernels, forward (K1, or K2 with rope) and
+#   backward (K3, or K3r).
+# A rope rotates q and k outside the kernels in fp32 under 'xla' and
+# 'manual', in the compute type under 'bf16', 'flash' and 'fused', and
+# inside K2/K3r under 'fusedp'.
+ATTN_IMPLS = ("xla", "manual", "bf16", "flash", "fused", "fusedp")
+# the options that rotate (and so build the rope table) in the compute type
+ROPE_IN_COMPUTE_DTYPE = ("bf16", "flash", "fused", "fusedp")
 
 
 def _check_attn_impl(attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported; the port has {ATTN_IMPLS} "
-            "(ROADMAP: 'fused' with K4, 'flash' with K10, 'manual'/'bf16' "
-            "with the other configs)"
-        )
+        raise ValueError(f"attn_impl={attn_impl!r} is not one of {ATTN_IMPLS}")
 
 
 class LayerNorm(nn.LayerNorm):
@@ -128,37 +138,68 @@ class SwiGLU(nn.Module):
         return self.fc2(self.norm(F.silu(self.fc1_g(x)) * self.fc1_x(x)))
 
 
-def apply_rope_cat(t: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
-    """Rotate q or k by a concatenated sin||cos rope table, in fp32 (the JAX
-    package's `apply_rope_cat` with `compute_dtype=None`, the out-of-kernel
-    rope of the 'xla' path): `t` [B, N, H, hd]; `rope` [N, 2*hd], the table
-    of `ops.fused_attn.rope_table` with its identity rows (sin 0, cos 1)
-    over the prefix (CLS) tokens, which so pass through unchanged.
-    y = x * cos + rot(x) * sin, cast back to t's type."""
-    sin, cos = rope.float().chunk(2, dim=-1)  # [N, hd]
-    x = t.float()
+def apply_rope_cat(t: torch.Tensor, rope: torch.Tensor,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Rotate q or k by a concatenated sin||cos rope table (the JAX
+    package's `apply_rope_cat`): `t` [B, N, H, hd]; `rope` [N, 2*hd], the
+    table of `ops.fused_attn.rope_table` with its identity rows (sin 0, cos
+    1) over the prefix (CLS) tokens, which so pass through unchanged.
+    y = x * cos + rot(x) * sin in fp32 (`compute_dtype=None`, the rotation
+    of 'xla' and 'manual') or in `compute_dtype` (that of 'bf16', 'flash'
+    and 'fused'), each product and sum rounded in that type; cast back to
+    t's type."""
+    rdt = torch.float32 if compute_dtype is None else compute_dtype
+    sin, cos = rope.to(rdt).chunk(2, dim=-1)  # [N, hd]
+    x = t.to(rdt)
     rot = torch.stack((-x[..., 1::2], x[..., 0::2]), dim=-1).flatten(-2)
     # broadcast [N, hd] over [B, N, H, hd]
     return (x * cos[None, :, None, :] + rot * sin[None, :, None, :]).to(t.dtype)
+
+
+def _score_attention(q, k, v, is_causal: bool, score_dtype: torch.dtype) -> torch.Tensor:
+    """'manual' (`score_dtype` fp32) and 'bf16' (`score_dtype` the compute
+    type), the JAX package's explicit-softmax paths (layers.py:507-532): q,
+    k, v [B, L, H, D]; logits q k^T in `score_dtype`, scaled in it, causal
+    pairs set to -inf, softmax in fp32, probs cast to the compute type
+    before P V. Returns [B, N, H, D]."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D]
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=score_dtype)
+    logits = qh.to(score_dtype) @ kh.to(score_dtype).transpose(-1, -2) * scale.to(q.device)
+    if is_causal:
+        n, nk = logits.shape[-2:]
+        above = torch.ones(n, nk, dtype=torch.bool, device=q.device).triu(1)
+        logits = logits.masked_fill(above, -math.inf)
+    probs = torch.softmax(logits.float(), dim=-1).to(dt)
+    return (probs @ vh).transpose(1, 2)
 
 
 def _attend(qkv: torch.Tensor, heads: int, attn_impl: str, is_causal: bool,
             rope: torch.Tensor | None) -> torch.Tensor:
     """Attention over the three column slices of one `[B, N, 3W]` projection
     -> `[B, N, W]`. `rope` is the `[N, 2D]` sin||cos table with identity
-    prefix rows (`ops.fused_attn.rope_table`): in the compute type for
-    'fusedp', whose kernels rotate q and k inside; in fp32 for 'xla', which
-    rotates them first with `apply_rope_cat`."""
+    prefix rows (`ops.fused_attn.rope_table`), in the compute type where the
+    rotation runs in it (`ROPE_IN_COMPUTE_DTYPE`: 'fusedp', whose kernels
+    rotate q and k inside, 'bf16', 'flash' and 'fused'), in fp32 for 'xla'
+    and 'manual'."""
     if attn_impl == "fusedp":
         # The kernels read the column slices of the [B, N, 3W] projection
         # uncopied, and the backward writes its gradient in one piece.
         return fused_attention_qkv(qkv, heads=heads, is_causal=is_causal, rope=rope)
-    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = (t.unflatten(-1, (heads, -1)) for t in qkv.chunk(3, dim=-1))  # [B, N, H, D]
     if rope is not None:
-        q, k = (apply_rope_cat(t.unflatten(-1, (heads, -1)), rope).flatten(-2)
-                for t in (q, k))
-    out, _ = fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=heads)
-    return out
+        rdt = qkv.dtype if attn_impl in ROPE_IN_COMPUTE_DTYPE else None
+        q, k = (apply_rope_cat(t, rope, compute_dtype=rdt) for t in (q, k))
+    if attn_impl == "fused":
+        out = fused_attention(q, k, v, is_causal=is_causal)
+    elif attn_impl == "flash":
+        out = flash_attention_unpadded(q, k, v, is_causal=is_causal)
+    elif attn_impl in ("manual", "bf16"):
+        out = _score_attention(q, k, v, is_causal,
+                               torch.float32 if attn_impl == "manual" else qkv.dtype)
+    else:
+        out, _ = fused_attention_packed_ref(q, k, v, is_causal=is_causal)
+    return out.flatten(-2)
 
 
 class MultiHeadAttention(nn.Module):

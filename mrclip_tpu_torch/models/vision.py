@@ -20,7 +20,7 @@ from torch import nn
 from ..ops.fused_attn import rope_table
 from ..ops.pos_embed import rope_cat_2d
 from ..utils import to_2tuple
-from .layers import LayerNorm, Linear, gelu_exact
+from .layers import ROPE_IN_COMPUTE_DTYPE, LayerNorm, Linear, gelu_exact
 from .transformer import EvaBlock, Transformer
 
 __all__ = ["EvaVisionTransformer", "VisionTransformer"]
@@ -115,8 +115,10 @@ class EvaVisionTransformer(nn.Module):
 
     The rope table is built once, at construction, in the form the
     attention takes it (`ops.fused_attn.rope_table`): in the compute type
-    for the kernels of 'fusedp', in fp32 for 'xla'. It is a buffer outside
-    the state dict, so it follows the module's device.
+    where q and k rotate in it ('bf16', 'flash', 'fused', and the kernels of
+    'fusedp'), in fp32 for 'xla' and 'manual', as the JAX package casts it.
+    It is a buffer outside the state dict, so it follows the module's
+    device.
     """
 
     def __init__(
@@ -157,7 +159,7 @@ class EvaVisionTransformer(nn.Module):
         self.head = nn.Module()
         self.head.proj = Linear(width, output_dim, bias=False, dtype=dtype)
         rope = rope_cat_2d(width // heads, gh, gw, ref_feat_shape=rope_ref_feat_shape)
-        table_dtype = dtype if attn_impl == "fusedp" else torch.float32
+        table_dtype = dtype if attn_impl in ROPE_IN_COMPUTE_DTYPE else torch.float32
         self.register_buffer("rope", rope_table(rope, 1, table_dtype), persistent=False)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

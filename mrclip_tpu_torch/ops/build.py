@@ -47,12 +47,24 @@ def nvcc_command(src: Path, out: Path, nvcc: str = "nvcc") -> list[str]:
     ]
 
 
+def _headers(src: Path) -> list[str]:
+    """The headers beside `src` that it includes by quoted name, directly
+    or through another such header, sorted."""
+    seen: set[str] = set()
+    todo = [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            if name not in seen:
+                seen.add(name)
+                todo.append(src.parent / name)
+    return sorted(seen)
+
+
 def source_key(src: Path) -> str:
     """Hash of the source, the headers of `csrc/` it includes by quoted
-    name, and the nvcc flags: an edit to any of them rebuilds."""
-    text = src.read_bytes()
-    headers = sorted(set(_INCLUDE.findall(text.decode())))
-    data = text + b"".join((src.parent / h).read_bytes() for h in headers)
+    name (and those include), and the nvcc flags: an edit to any of them
+    rebuilds."""
+    data = src.read_bytes() + b"".join((src.parent / h).read_bytes() for h in _headers(src))
     flags = " ".join(nvcc_command(src, Path("out"))).encode()
     return hashlib.sha256(data + flags).hexdigest()[:16]
 

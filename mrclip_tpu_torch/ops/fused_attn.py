@@ -1,9 +1,22 @@
-"""Packed fused attention: the port of `ops/fused_attn.py`'s
-`_packed_fwd_kernel` and `_packed_bwd_kernel` (batched-head mode) to
-hand-written Hopper kernels, `csrc/packed_attn_fwd.cu` (K1, and K2 with
-rope) and `csrc/packed_attn_bwd.cu` (K3, and K3r with rope), bound together
-for autograd by `FusedAttentionPacked` (the JAX package's `_pcore` and
+"""Fused attention: the port of `ops/fused_attn.py`'s kernels to
+hand-written Hopper kernels.
+
+'fusedp', the packed layout: `_packed_fwd_kernel` and `_packed_bwd_kernel`
+(batched-head mode) are `csrc/packed_attn_fwd.cu` (K1, and K2 with rope)
+and `csrc/packed_attn_bwd.cu` (K3, and K3r with rope), bound together for
+autograd by `FusedAttentionPacked` (the JAX package's `_pcore` and
 `_pcore_rope` custom VJPs).
+
+'fused', the grouped layout: `_fwd_kernel` and `_bwd_kernel` (driven by
+`_run_fwd` and `_core_bwd`) are `csrc/grouped_attn.cu` (K4 and K5), bound
+by `FusedAttention` (the JAX package's `_core` custom VJP) behind
+`fused_attention`. As the JAX package's `prep` does, q, k and v are
+transposed to contiguous `[B*H, N, D]` tiles first, and o back after; the
+residuals are the grouped (q, k, v, o, lse). The TPU also pads N to 128
+rows and B*H to a multiple of 8 (Mosaic's tiling): its padded key columns
+enter with -1e30, whose exp is exactly 0 in fp32, and its padded query
+rows are sliced off with zero cotangents, so the unpadded kernels here,
+which skip keys >= Nk, give the same values on every real row.
 
 With `rope=` (the EVA02 towers' axial 2D rope) q and k rotate inside the
 kernels by an `[N, 2D]` sin||cos table in q's type (`rope_table`, identity
@@ -38,7 +51,15 @@ import torch
 from . import build
 
 __all__ = [
+    "FusedAttention",
     "FusedAttentionPacked",
+    "fused_attention",
+    "fused_attention_bwd_ref",
+    "fused_attention_grouped",
+    "fused_attention_grouped_bwd",
+    "fused_attention_ref",
+    "group_heads",
+    "ungroup_heads",
     "fused_attention_packed",
     "fused_attention_packed_bwd",
     "fused_attention_packed_bwd_ref",
@@ -49,24 +70,31 @@ __all__ = [
     "bwd_launches",
     "rope_launches",
     "rope_bwd_launches",
+    "grouped_launches",
+    "grouped_bwd_launches",
     "reset_launches",
     "load_kernel",
     "load_bwd_kernel",
     "load_rope_kernel",
     "load_rope_bwd_kernel",
+    "load_grouped_kernels",
 ]
 
 _NEG = -1e30  # the TPU kernel's additive causal mask value
 _HEAD_DIMS = (32, 64)
 
-# Launches since import or the last reset_launches() of the forward (K1),
-# backward (K3), rope forward (K2) and rope backward (K3r) CUDA kernels;
-# one wrapper call counts one launch.
+# Launches since import or the last reset_launches() of the packed forward
+# (K1), backward (K3), rope forward (K2) and rope backward (K3r) and of the
+# grouped forward (K4) and backward (K5) CUDA kernels; one wrapper call
+# counts one launch.
 launches = 0
 bwd_launches = 0
 rope_launches = 0
 rope_bwd_launches = 0
-_COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches")
+grouped_launches = 0
+grouped_bwd_launches = 0
+_COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches",
+             "grouped_launches", "grouped_bwd_launches")
 _count_lock = threading.Lock()
 
 
@@ -483,3 +511,172 @@ def fused_attention_qkv(qkv: torch.Tensor, *, heads: int, is_causal: bool = Fals
     given, differentiable through the K1/K3 (K2/K3r) kernels
     (`FusedAttentionPacked`)."""
     return FusedAttentionPacked.apply(qkv, heads, is_causal, rope)
+
+
+def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        is_causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 (`_fwd_kernel`) on the grouped layout:
+    q `[G, N, D]`, k and v `[G, Nk, D]` -> (o `[G, N, D]` in q's type, lse
+    `[G, N]` fp32), the TPU's rounding order (P normalised, then cast before
+    P V). The math is the packed plain version's with one head per group."""
+    o, lse = fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=1)
+    return o, lse[:, 0]
+
+
+def fused_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5 (`_bwd_kernel`) on the grouped layout:
+    (dq, dk, dv) in q's type, the TPU's rounding order (P and dS cast
+    before their products, delta = rowsum(dO * O) in fp32)."""
+    return fused_attention_packed_bwd_ref(q, k, v, o, do, lse[:, None], is_causal=is_causal,
+                                          heads=1)
+
+
+@functools.lru_cache(maxsize=None)
+def load_grouped_kernels():
+    """Build (at first use) and bind K4 and K5, `grouped_attn_fwd` and
+    `grouped_attn_bwd` of `csrc/grouped_attn.cu`."""
+    lib = build.load_library("grouped_attn")
+    fwd, bwd = lib.grouped_attn_fwd, lib.grouped_attn_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check_grouped(name, ts, n, nk, d):
+    """Refuse what K4/K5 cannot take: contiguous, 16-byte aligned `[G, L,
+    D]` tiles on one CUDA device, fp32 or bf16 of one type, head dim 32 or
+    64; q-like tensors with N rows, k-like with Nk."""
+    first = ts[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    if any(t.device != first.device for t in ts):
+        raise ValueError(f"{name}: tensors on different devices: {[t.device for t in ts]}")
+    if first.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != first.dtype for t in ts):
+        raise TypeError(f"{name}: kernel takes fp32 or bf16 tensors of one type; got "
+                        f"{[t.dtype for t in ts]}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
+    if any(t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the grouped tiles must be contiguous, 16-byte aligned "
+                         "[G, L, D] tensors")
+    g = first.shape[0]
+    for i, t in enumerate(ts):
+        rows = n if i in (0, 3, 4) else nk  # q, o, dO have N rows; k, v have Nk
+        if tuple(t.shape) != (g, rows, d):
+            raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]} do not agree")
+
+
+def fused_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            is_causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: softmax(q k^T / sqrt(D) [+ causal]) v per group of the grouped
+    layout, q `[G, N, D]`, k and v `[G, Nk, D]` (Nk may differ from N), all
+    contiguous. Returns (o `[G, N, D]` in q's type, lse `[G, N]` fp32). CPU
+    tensors take the plain version; CUDA tensors launch the Hopper kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return fused_attention_ref(q, k, v, is_causal=is_causal)
+    g, n, d = q.shape
+    nk = k.shape[1]
+    _check_grouped("fused_attention_grouped", (q, k, v), n, nk, d)
+    o = torch.empty_like(q)
+    lse = torch.empty((g, n), dtype=torch.float32, device=q.device)
+    if g == 0 or n == 0:
+        return o, lse
+    if nk == 0:
+        raise ValueError("attention over zero keys")
+    with torch.cuda.device(q.device):
+        err = load_grouped_kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            int(q.dtype == torch.bfloat16), g, n, nk, d, 1.0 / math.sqrt(d), int(is_causal),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"grouped_attn_fwd launch failed: cudaError {err}")
+    _count("grouped_launches")
+    return o, lse
+
+
+def fused_attention_grouped_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *, is_causal: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5: the gradients (dq, dk, dv) of `fused_attention_grouped` for the
+    output gradient `do` (o's shape), from its o and lse; grouped layouts as
+    the forward takes them. CPU tensors take the plain version; CUDA tensors
+    launch the Hopper kernel or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_ref(q, k, v, o, do, lse, is_causal=is_causal)
+    g, n, d = q.shape
+    nk = k.shape[1]
+    _check_grouped("fused_attention_grouped_bwd", (q, k, v, o, do), n, nk, d)
+    if lse.shape != (g, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 {(g, n)}; got {tuple(lse.shape)} {lse.dtype}")
+    if lse.device != q.device:
+        raise ValueError(f"lse on {lse.device}, q on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if g and n and nk:
+        delta = torch.empty((g, n), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            err = load_grouped_kernels()[1](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                int(q.dtype == torch.bfloat16), g, n, nk, d, 1.0 / math.sqrt(d),
+                int(is_causal), torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"grouped_attn_bwd launch failed: cudaError {err}")
+        _count("grouped_bwd_launches")
+    elif nk == 0 and n:
+        raise ValueError("attention over zero keys")
+    return dq, dk, dv
+
+
+def group_heads(t: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> contiguous [B*H, L, D] (the JAX package's `prep`)."""
+    b, n, h, d = t.shape
+    return t.transpose(1, 2).reshape(b * h, n, d).contiguous()
+
+
+def ungroup_heads(t: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """[B*H, L, D] -> contiguous [B, L, H, D]."""
+    return t.reshape(b, h, *t.shape[1:]).transpose(1, 2).contiguous()
+
+
+class FusedAttention(torch.autograd.Function):
+    """attn_impl='fused': q, k, v `[B, N|Nk, H, D]` go to the grouped layout,
+    K4 runs forward and keeps the grouped (q, k, v, o, lse), the JAX
+    package's `_core_fwd` residuals; the backward casts dO to q's type,
+    groups it, launches K5 and ungroups dq, dk and dv. On CPU tensors both
+    directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                is_causal: bool) -> torch.Tensor:
+        qg, kg, vg = group_heads(q), group_heads(k), group_heads(v)
+        og, lse = fused_attention_grouped(qg, kg, vg, is_causal=is_causal)
+        ctx.save_for_backward(qg, kg, vg, og, lse)
+        ctx.is_causal = is_causal
+        return ungroup_heads(og, q.shape[0], q.shape[2])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do: torch.Tensor):
+        qg, kg, vg, og, lse = ctx.saved_tensors
+        b, h = do.shape[0], do.shape[2]
+        grads = fused_attention_grouped_bwd(qg, kg, vg, og, group_heads(do.to(qg.dtype)), lse,
+                                            is_causal=ctx.is_causal)
+        return (*(ungroup_heads(t, b, h) for t in grads), None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    is_causal: bool = False) -> torch.Tensor:
+    """The port of the JAX package's `fused_attention`: q, k, v `[B, N|Nk, H,
+    D]` -> `[B, N, H, D]`, scale 1/sqrt(D), differentiable through K4/K5
+    (`FusedAttention`)."""
+    return FusedAttention.apply(q, k, v, is_causal)

@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: each Hopper kernel (K1 and K3, the
 packed attention forward and backward; K2 and K3r, the same with the rope
-rotated inside; K6 and K7, the fused SupCon loss) against its plain version,
-their refusals, a small CLIP through them, and small train steps (ViT and
-EVA02) whose attention gradients come from the kernels.
+rotated inside; K4 and K5, the grouped-layout attention; K10 and K10b, the
+flash attention; K6 and K7, the fused SupCon loss) against its plain
+version, their refusals, a small CLIP through them, and small train steps
+(ViT and EVA02) whose attention gradients come from the kernels.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from mrclip_tpu_torch.factory import create_loss, create_model, get_model_config
+from mrclip_tpu_torch.ops import flash_attn as fl
 from mrclip_tpu_torch.ops import fused_attn as fa
 from mrclip_tpu_torch.ops.pos_embed import rope_cat_2d
 from mrclip_tpu_torch.ops import pallas_loss as pl
@@ -346,3 +348,129 @@ def test_small_eva02_train_step_gradients_through_the_kernels(cuda_device):
         if g.numel() >= 10**4:
             assert cos(g.flatten().double(), grads["xla"][name].flatten().double(),
                        dim=0).item() >= 0.99, name
+
+
+def _rel(got, want, scale):
+    return ((got.float() - want.float()).abs().max() / max(scale, 1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES)
+@pytest.mark.parametrize("d", [32, 64])
+def test_grouped_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d, dtype, tol):
+    """K4 and K5 on the grouped [B*H, N, D] layout: o within K1's bar, lse
+    within 1e-3, each gradient within tol of the call's largest |plain|
+    gradient (K3's bar); one launch each, none of the packed kernels."""
+    q, k, v = (t.transpose(1, 2).reshape(b * h, -1, d).contiguous()
+               for t in _inputs(b, n, nk, h, d, cuda_device, dtype))
+    fa.reset_launches()
+    o, lse = fa.fused_attention_grouped(q, k, v, is_causal=causal)
+    do = torch.randn(o.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(1)).to(dtype)
+    got = fa.fused_attention_grouped_bwd(q, k, v, o, do, lse, is_causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.grouped_launches, fa.grouped_bwd_launches, fa.launches, fa.bwd_launches) == (1, 1, 0, 0)
+    want_o, want_lse = fa.fused_attention_ref(q, k, v, is_causal=causal)
+    assert o.dtype == dtype and lse.shape == (b * h, n)
+    assert (o.float() - want_o.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    want = fa.fused_attention_bwd_ref(q, k, v, o, do, lse, is_causal=causal)
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _rel(g, w, scale) <= tol
+
+
+FLASH_SHAPES = SHAPES + [(2, 577, 577, 2, False), (1, 257, 257, 3, True)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,nk,h,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d, dtype, tol):
+    """K10 and K10b on q, k, v as column slices of one packed projection
+    (N = 257 and 577 walk three and five key blocks): o within K1's bar, l
+    and m within 1e-3 relative, gradients within K3's bar."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(b, n, 4 * h * d).astype(np.float32)).to(cuda_device, dtype)
+    y = x if nk == n else torch.from_numpy(rng.randn(b, nk, 4 * h * d).astype(np.float32)).to(
+        cuda_device, dtype)
+    q, _, _, do = (t.unflatten(-1, (h, d)) for t in x.chunk(4, dim=-1))
+    _, k, v, _ = (t.unflatten(-1, (h, d)) for t in y.chunk(4, dim=-1))
+    fl.reset_launches()
+    fa.reset_launches()
+    o, l, m = fl.flash_attention(q, k, v, is_causal=causal)
+    do = do.contiguous()
+    di = fl.flash_di(o, do)
+    got = fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal)
+    torch.cuda.synchronize()
+    assert (fl.launches, fl.bwd_launches) == (1, 1)
+    assert (fa.launches, fa.bwd_launches, fa.grouped_launches) == (0, 0, 0)
+    want_o, want_l, want_m = fl.flash_attention_ref(q, k, v, is_causal=causal)
+    assert o.shape == q.shape and o.dtype == dtype and l.shape == m.shape == (b, h, n)
+    assert (o.float() - want_o.float()).abs().max().item() <= tol
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-3
+    assert (m - want_m).abs().max().item() <= 1e-3
+    want = fl.flash_attention_bwd_ref(q, k, v, do, l, m, di, is_causal=causal)
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w, like in zip(got, want, (q, k, v)):
+        assert g.shape == like.shape and g.dtype == dtype
+        assert _rel(g, w, scale) <= tol
+
+
+def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, v = _inputs(1, 16, 16, 2, 64, cuda_device, torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fl.flash_attention(q, k, v)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fa.fused_attention_grouped(*(t[:, :, 0].contiguous() for t in (q, k, v)))
+    q, k, v = _inputs(1, 16, 16, 2, 64, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    g = q.transpose(1, 2).reshape(2, 16, 64)  # a view of the non-grouped layout
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention_grouped(g, g, g)
+    o, l, m = fl.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        fl.flash_attention_bwd(q, k, v, o, l.double(), m, l)
+
+
+@pytest.mark.parametrize("impl", ["fused", "flash"])
+def test_small_train_step_gradients_through_fused_and_flash(cuda_device, impl):
+    """ViT-B-32-mini bf16 on the card: each attention layer launches K4 and
+    K5 once ('fused'), or K10 twice (forward, and again in the backward) and
+    K10b once ('flash'), and none of the packed kernels; every in_proj_weight
+    gets a gradient, equal to the plain-attention step's within bf16
+    rounding through two layers (cosine >= 0.999 per tensor of 10^3 or more
+    elements)."""
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=False))()
+    apply = make_loss_apply(create_loss(args))
+    rng = np.random.RandomState(0)
+    batch = {
+        "images": normalize_images(torch.from_numpy(
+            rng.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)).to(cuda_device)),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (8, 32))).to(cuda_device),
+        "labels": torch.from_numpy(rng.randint(0, 3, 8).astype(np.int32)).to(cuda_device),
+    }
+    grads = {}
+    for name in (impl, "xla"):
+        model = create_model("ViT-B-32-mini", precision="bf16", attn_impl=name, rng_seed=0)
+        state = create_train_state(model, create_optimizer(lr=1e-4))
+        fa.reset_launches()
+        fl.reset_launches()
+        grads[name], ldict = loss_and_grads(model, apply, state.params, batch)
+        torch.cuda.synchronize()
+        assert np.isfinite(ldict["loss"].item())
+        if name == impl:  # 2 vision + 2 text layers
+            want = ((4, 4, 0, 0) if impl == "fused" else (0, 0, 8, 4))
+            assert (fa.grouped_launches, fa.grouped_bwd_launches, fl.launches,
+                    fl.bwd_launches) == want
+            assert (fa.launches, fa.bwd_launches, fa.rope_launches, fa.rope_bwd_launches) == (
+                0, 0, 0, 0)
+    for name, g in grads[impl].items():
+        if "in_proj_weight" in name:
+            assert g.abs().max().item() > 0, name
+        if g.numel() >= 1000:
+            cos = torch.nn.functional.cosine_similarity(
+                g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
+            assert cos.item() >= 0.999, name

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from mrclip_tpu.factory import create_loss as jax_create_loss
 from mrclip_tpu.factory import create_model as jax_create_model
@@ -33,7 +34,7 @@ from mrclip_tpu.parallel import make_loss_apply as jax_make_loss_apply
 from mrclip_tpu.parallel.train_step import _wd_mask as jax_wd_mask
 from mrclip_tpu_torch import create_loss, create_model, state_dict_from_flax
 from mrclip_tpu_torch.factory import get_model_config, model_from_config
-from mrclip_tpu_torch.models.layers import apply_rope_cat
+from mrclip_tpu_torch.models.layers import ATTN_IMPLS, apply_rope_cat
 from mrclip_tpu_torch.models.vision import EvaVisionTransformer
 from mrclip_tpu_torch.ops.fused_attn import rope_table
 from mrclip_tpu_torch.ops.image_ops import normalize_images
@@ -111,6 +112,37 @@ def test_apply_rope_cat_matches_jax(prefix):
         np.testing.assert_array_equal(got[:, 0].numpy(), t[:, 0])
 
 
+def test_apply_rope_cat_in_the_compute_type_matches_jax():
+    """The rotation of 'bf16', 'flash' and 'fused' (`compute_dtype` bf16):
+    each product and sum rounded to bf16, as the JAX package computes it on
+    the same bf16 inputs and bf16 table. Bar: one bf16 ulp at the largest
+    magnitude (measured: bit-equal)."""
+    rng = np.random.RandomState(1)
+    t = jnp.asarray(rng.randn(2, 17, 3, 8), jnp.bfloat16)
+    rope = rng.uniform(-1, 1, (16, 16)).astype(np.float32)
+    want = np.asarray(jax_apply_rope_cat(t, jnp.asarray(rope), 1, compute_dtype=jnp.bfloat16),
+                      np.float32)
+    got = apply_rope_cat(torch.from_numpy(np.asarray(t, np.float32)).to(torch.bfloat16),
+                         rope_table(rope, 1, torch.bfloat16), compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got.float().numpy() - want).max() <= ulp
+    np.testing.assert_array_equal(got[:, 0].float().numpy(), np.asarray(t[:, 0], np.float32))
+
+
+@pytest.mark.parametrize("impl", ATTN_IMPLS)
+def test_rope_table_type_follows_jax(impl):
+    """JAX rotates q and k in the compute type under 'bf16', 'flash', 'fused'
+    (and inside the kernels under 'fusedp'), in fp32 under 'xla' and
+    'manual' (`MultiHeadAttention`, layers.py:456-460): the table is built in
+    that type."""
+    tower = EvaVisionTransformer(image_size=16, patch_size=4, width=32, layers=1, heads=2,
+                                 output_dim=24, rope_ref_feat_shape=(8, 8), attn_impl=impl,
+                                 dtype=torch.bfloat16)
+    want = torch.float32 if impl in ("xla", "manual") else torch.bfloat16
+    assert tower.rope.dtype == want
+
+
 @pytest.mark.parametrize("impl", ["xla", "fusedp"])
 def test_narrow_tower_matches_jax(impl):
     """tests/test_fused_attn.py's narrow EVA02 tower (image 16, patch 4,
@@ -181,6 +213,28 @@ def test_whole_slice_features_match_jax(scanned, impl):
     images, tokens, _ = _batch()
     imgs = np.array(jax_normalize(jnp.asarray(images)))
     want = jm.apply({"params": params}, imgs, tokens)
+    model = _port(params, impl)
+    with torch.no_grad():
+        got = model(torch.from_numpy(imgs), torch.from_numpy(tokens))
+    for key in ("image_features", "text_features"):
+        assert got[key].shape == want[key].shape == (8, 512)
+        assert np.abs(got[key].numpy() - np.asarray(want[key])).max() < 1e-4, key
+
+
+@pytest.mark.parametrize("impl", ["fused", "flash"])
+def test_small_eva02_features_match_jax_under_the_same_impl(scanned, impl):
+    """EVA02-B-16 cut to the slice's size (full-width, full-depth vision on
+    64 x 64 images, 2-layer text) under 'fused' (K4 plain) and 'flash' (K10
+    plain) against the JAX model under the same attn_impl (its kernels in
+    interpret mode), same params: fp32 features to 1e-4. The JAX side runs
+    unrolled: jax's flash kernel sits in a `jax.checkpoint`, which interpret
+    mode cannot partial-evaluate inside a scan."""
+    jm, params = scanned
+    images, tokens, _ = _batch()
+    imgs = np.array(jax_normalize(jnp.asarray(images)))
+    with pltpu.force_tpu_interpret_mode():
+        want = jm.clone(attn_impl=impl, scan_layers=False).apply(
+            {"params": _unstack(params)}, imgs, tokens)
     model = _port(params, impl)
     with torch.no_grad():
         got = model(torch.from_numpy(imgs), torch.from_numpy(tokens))

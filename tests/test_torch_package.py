@@ -23,6 +23,7 @@ _IMPORTS_NO_JAX = """
 import sys
 import chip_smoke, mrclip_tpu_torch
 import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
+import mrclip_tpu_torch.ops.flash_attn
 import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops, mrclip_tpu_torch.ops.pos_embed
 import mrclip_tpu_torch.models.vision, mrclip_tpu_torch.models.transformer, mrclip_tpu_torch.weights
 import mrclip_tpu_torch.losses, mrclip_tpu_torch.parallel, mrclip_tpu_torch.train
@@ -88,6 +89,11 @@ def test_copied_files_are_byte_identical(rel):
      ["fused_attn.py::_packed_bwd_kernel", "_rope_unrotate_grad"]),
     ("supcon_loss.cu", ["supcon_stats", "supcon_grad_q", "supcon_grad_k"],
      ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"]),
+    ("grouped_attn.cu", ["grouped_attn_fwd", "grouped_attn_bwd"],
+     ["fused_attn.py::_fwd_kernel", "fused_attn.py::_bwd_kernel"]),
+    ("flash_attn.cu", ["flash_attn_fwd", "flash_attn_bwd"],
+     ["flash_attn.py::flash_attention_unpadded", "_flash_attention_kernel_single_batch",
+      "_flash_attention_dkv_kernel", "_flash_attention_dq_kernel"]),
 ])
 def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
     src = build.CSRC / source
@@ -97,7 +103,8 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
         assert f'extern "C" int {entry}(' in text
     for kernel in tpu_kernels:  # names the TPU kernel it replaces
         assert kernel in text
-    assert "cudaGetLastError()" in text
+    headers = "".join((build.CSRC / h).read_text() for h in build._headers(src))
+    assert "cudaGetLastError()" in text + headers
     cmd = build.nvcc_command(src, Path("lib.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
@@ -117,6 +124,22 @@ def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
     key = build.source_key(src)
     assert build.source_key(src) == key
     (tmp_path / "rope.cuh").write_text("// v2\n")
+    assert build.source_key(src) != key
+
+
+def test_nested_headers_key_the_build(tmp_path):
+    """K4/K5 and K10/K10b share `attn_rows.cuh`, which includes
+    `attn_tile.cuh` (K3 includes that one too): an edit to a header that a
+    source includes only through another header rebuilds the source."""
+    assert build._headers(build.CSRC / "grouped_attn.cu") == ["attn_rows.cuh", "attn_tile.cuh",
+                                                              "rope.cuh"]
+    assert "attn_tile.cuh" in build._headers(build.CSRC / "packed_attn_bwd.cu")
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include "outer.cuh"\n')
+    key = build.source_key(src)
+    (tmp_path / "inner.cuh").write_text("// v2\n")
     assert build.source_key(src) != key
 
 

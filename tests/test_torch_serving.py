@@ -208,3 +208,25 @@ def test_export_cli_round_trip(tmp_path):
     with torch.no_grad():
         want = direct.encode_text(torch.from_numpy(tokens), normalize=True).float().numpy()
     np.testing.assert_array_equal(served.encode_text(tokens), want)
+
+
+@pytest.mark.parametrize("impl", ["xla", "manual", "bf16", "fused", "fusedp"])
+def test_export_cli_takes_the_jax_exports_attention_choices(tmp_path, impl):
+    """`--attn-impl` takes the JAX export's five choices and bakes the one
+    given into the artifact, which serves it."""
+    path = str(tmp_path / f"{impl}.mrclip")
+    export_cli.main(["--model", "ViT-B-32-mini", "--device", "cpu", "--attn-impl", impl,
+                     "--output", path])
+    served = load_exported(path, device="cpu")
+    assert served.meta["attn_impl"] == impl
+    assert served.model.visual.transformer.resblocks[0].attn.attn_impl == impl
+    tokens = np.zeros((1, 32), np.int64)
+    tokens[:, 0], tokens[:, 1] = 49406, 49407
+    assert np.isfinite(served.encode_text(tokens)).all()
+
+
+def test_export_cli_refuses_flash(tmp_path):
+    """The JAX export has no 'flash' choice, so neither has the port's."""
+    with pytest.raises(SystemExit):
+        export_cli.main(["--model", "ViT-B-32-mini", "--device", "cpu", "--attn-impl", "flash",
+                         "--output", str(tmp_path / "f.mrclip")])
