@@ -23,7 +23,11 @@ fails:
              attention, 'flash'; also at N = 257 and 577, several key
              blocks) at the same shapes as K1/K3, bf16 and fp32, timed at
              the b256 shapes of phases 8 and 9 beside K1 (K4) and K4/K5
-             (K10/K10b);
+             (K10/K10b); K8/K9 (depthwise convolution, MRCLIP_DW_IMPL=pallas) at
+             MobileCLIP-S1's stage shapes (b32 and b256) and edges (B = 1,
+             9 x 13, C in {8, 80, 100}, K = 5; 7 x 7 on 2 x 2), bf16 and fp32,
+             K9 twice for equal bits, timed beside the plain versions, the
+             bounds and cuDNN (`F.conv2d(groups=C)`);
   4. serve:  full-width ViT-B-16 (random weights from a seed, bf16 compute,
              fp32 params, attn_impl='fusedp') exported to an artifact, loaded,
              served over HTTP on 127.0.0.1; health, concurrent image and text
@@ -53,8 +57,19 @@ fails:
              the forward, 24 recomputed in the backward) and 24 K10b per
              step, no packed kernel, every q/k/v projection with a gradient,
              peak memory beside phase 7's; `encode_image` at b256 under
-             `inference_mode`, 12 K10 per call.
-Each path (4 to 9) runs with the launch counts set to 0 just before it and
+             `inference_mode`, 12 K10 per call;
+ 10. serve MobileCLIP-S1 (FastViT MCi1, 256 x 256, random weights from a
+             seed, bf16, 'fusedp', MRCLIP_DW_IMPL=pallas): export, load,
+             `encode_image` at b32 and b256 and `encode_text` at b256 through
+             `ServedModel`; 73 K8 and 4 K1 per image call, 12 K1 per text
+             call; features against the same weights on cuDNN's convolution
+             and plain attention; throughput under both convolution choices;
+ 11. train MobileCLIP-S1 at b256 as phase 5, attn_impl 'bf16' (bench.py's
+             choice): gradients against cuDNN's convolution, every depthwise
+             weight with a gradient, pallas vs dense loss, one warm-up, 3
+             timed steps and a pallas-loss step with 73 K8 + 73 K9 each, a
+             profiled step, peak memory, and the step on cuDNN's convolution.
+Each path (4 to 11) runs with the launch counts set to 0 just before it and
 reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
@@ -97,10 +112,13 @@ SUPCON_CASES = [(256, 32), (100, 32), (333, 32), (256, None)]  # (B, label class
 EDGES = [dict(b=4, n=n, nk=n, h=4, d=64, causal=c) for n in (1, 50, 257) for c in (False, True)]
 EDGES += [dict(b=2, n=76, nk=255, h=2, d=64, causal=False),  # kv length != q length
           dict(b=3, n=33, nk=33, h=2, d=32, causal=True)]  # head dim 32
-TEXT77 = dict(TEXT, n=77, nk=77)  # EVA02-B-16's text tower, context 77
+TEXT77 = dict(TEXT, n=77, nk=77)  # EVA02-B-16's (and MobileCLIP-S1's) text tower, context 77
+MCI = dict(b=32, n=64, nk=64, h=8, d=64, causal=False)  # MobileCLIP-S1's attention stage
 # K1 and K3 are checked at every shape phase 3 times them: the served b32 and
-# the trained b256 of ViT-B-16's towers and of EVA02-B-16's text tower
-CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77)), *EDGES]
+# the trained b256 of ViT-B-16's towers and of EVA02-B-16's text tower, and
+# at MobileCLIP-S1's served attention stage (8 x 8 tokens), b32 and b256
+CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77)), MCI,
+           dict(MCI, b=TRAIN_BATCH), *EDGES]
 # K10/K10b also where jax walks several key blocks: N = 577 pads to 640, five
 # blocks of 128 (N = 257 in EDGES pads to 384, three)
 FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c) for c in (False, True))]
@@ -115,6 +133,22 @@ ROPE_EDGES = [
     dict(b=3, n=33, nk=33, h=2, d=32, causal=False, prefix=1),
     dict(b=4, n=50, nk=50, h=4, d=64, causal=True, prefix=1),
 ]
+# K8/K9: MobileCLIP-S1's stride-1 depthwise convolutions (H, W, C, K) by
+# stage, with their count in one forward (RepMixer blocks x one 3x3 and one
+# 7x7; the CPE on the 8 x 8 map), held at b32 and b256; and the edges
+# (B, H, W, C, K): one image, a ragged 9 x 13 map, C not a multiple of 32,
+# and the CPE's 7 x 7 on the 2 x 2 map of a 64 px image
+DW_STAGES = [((64, 64, 64, 3), 4), ((64, 64, 64, 7), 4), ((32, 32, 128, 3), 12),
+             ((32, 32, 128, 7), 12), ((16, 16, 256, 3), 20), ((16, 16, 256, 7), 20),
+             ((8, 8, 512, 7), 1)]
+DW_EDGES = [(1, 9, 13, c, 5) for c in (8, 80, 100)] + [(2, 2, 2, 16, 7)]
+# K8 and K9's dx: bit-identical to the plain versions (the same fp32 products
+# and sums in the same order, one rounding to the input type); the bar is
+# one bf16 ulp at |y| < 4 and 0 in fp32. K9's dw: max |err| / max |plain|,
+# fp32 sums over up to 10^6 terms in another order.
+DW_TOL = {torch.bfloat16: 2e-2, torch.float32: 0.0}
+DW_GRAD_TOL = 1e-3
+MOBILECLIP_SIZE = 256
 CAPTIONS = [
     "A brain MRI, plane axial, Scanner (Manufacturer, Model, Field Strength): (SIEMENS, "
     "Prisma, 3), Acquisition (Description, Sequence, Variant): (t1_mprage_tra, GR\\IR, "
@@ -242,11 +276,12 @@ def phase_card():
     return name, smi
 
 
-SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn")
+SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn",
+           "dw_conv")
 
 
 def phase_build():
-    from mrclip_tpu_torch.ops import build, flash_attn, fused_attn, pallas_loss
+    from mrclip_tpu_torch.ops import build, dw_conv, flash_attn, fused_attn, pallas_loss
 
     t0 = time.perf_counter()
     build.load_libraries(SOURCES)  # one nvcc per source, all started together
@@ -262,6 +297,7 @@ def phase_build():
     fused_attn.load_grouped_kernels()
     flash_attn.load_kernels()
     pallas_loss.load_kernels()
+    dw_conv.load_kernels()
 
 
 def phase_kernel_fwd():
@@ -862,6 +898,124 @@ def phase_kernel_supcon():
     } for name in worst]
 
 
+def dw_bound(b, h, w, c, k, dtype, backward=False):
+    """K8: x read and y written once, the [K*K, C] fp32 table read; one
+    multiply-add (2 operations, fp32) per tap and element. K9: x and dy read,
+    dx written, the table read and dw written; two multiply-adds per tap and
+    element (dx and dw)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    n, taps = b * h * w * c, k * k
+    nbytes = item * n * (3 if backward else 2) + 4 * taps * c * (2 if backward else 1)
+    return _bound(nbytes, (4 if backward else 2) * taps * n, torch.float32)
+
+
+def phase_kernel_dw():
+    """K8 and K9 against their plain versions on the card, bf16 and fp32,
+    at MobileCLIP-S1's stage shapes (b32 and b256) and the edges; K9 twice
+    on the same input for equal bits; timings at every stage shape beside
+    the plain versions, the bounds and cuDNN (`F.conv2d(groups=C)` on the
+    channels-last view, bf16 weight: the 'xla' path's call), and the sums
+    over the 73 convolutions of one MobileCLIP-S1 forward."""
+    from mrclip_tpu_torch.ops import dw_conv as dc
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, h, w, c, k, dtype):
+        x = torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+        w2 = torch.randn(k * k, c, device="cuda", generator=gen) * 0.2
+        return x, w2, torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+
+    worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
+    shapes = [(b, *shape) for (shape, _) in DW_STAGES for b in (32, TRAIN_BATCH)] + DW_EDGES
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w2, dy = inputs(*shape, dtype)
+            y = dc.dw_conv_fwd(x, w2)
+            dx, dw = dc.dw_conv_bwd(x, w2, dy)
+            dx2, dw2 = dc.dw_conv_bwd(x, w2, dy)
+            torch.cuda.synchronize()
+            y_ref = dc.dw_conv_fwd_ref(x, w2)
+            dx_ref, dw_ref = dc.dw_conv_bwd_ref(x, w2, dy)
+            errs = [abs_err(y, y_ref), abs_err(dx, dx_ref), rel_err(dw, dw_ref)]
+            same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            ok = (all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, dw)) and same
+                  and max(errs[:2]) <= DW_TOL[dtype] and errs[2] <= DW_GRAD_TOL)
+            log(f"[kernel] K8/K9 {shape} {str(dtype)[6:]}: max|y-plain|={errs[0]:.3e} "
+                f"max|dx-plain|={errs[1]:.3e} (tol {DW_TOL[dtype]}) max|dw-plain| / max|plain|="
+                f"{errs[2]:.3e} (tol {DW_GRAD_TOL}); second K9 run bit-equal {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"dw_conv kernels disagree with their plain versions at {shape} "
+                                     f"{dtype}")
+            worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+            del x, dy, y, dx, dx2, y_ref, dx_ref
+
+    def timings(b, h, w, c, k):
+        x, w2, dy = inputs(b, h, w, c, k, torch.bfloat16)
+        xn = x.permute(0, 3, 1, 2)  # the NCHW view of NHWC: channels-last
+        wt = w2.t().reshape(c, 1, k, k).to(torch.bfloat16)
+        xg, wg = xn.detach().requires_grad_(), wt.detach().requires_grad_()
+
+        def conv(a, b):
+            return torch.nn.functional.conv2d(a, b, padding=k // 2, groups=c)
+
+        fwd = dict(ms=cuda_ms(lambda: dc.dw_conv_fwd(x, w2), 10),
+                   plain_ms=cuda_ms(lambda: dc.dw_conv_fwd_ref(x, w2), 3, warmup=1),
+                   library_ms=cuda_ms(lambda: conv(xn, wt), 10))
+        dyn = dy.permute(0, 3, 1, 2)
+        both = cuda_ms(lambda: torch.autograd.grad(conv(xg, wg), (xg, wg), dyn), 10)
+        bwd = dict(ms=cuda_ms(lambda: dc.dw_conv_bwd(x, w2, dy), 10),
+                   plain_ms=cuda_ms(lambda: dc.dw_conv_bwd_ref(x, w2, dy), 3, warmup=1),
+                   library_ms=both - fwd["library_ms"])
+        fwd["bound_ms"], fwd["bound_by"] = dw_bound(b, h, w, c, k, torch.bfloat16)
+        bwd["bound_ms"], bwd["bound_by"] = dw_bound(b, h, w, c, k, torch.bfloat16, backward=True)
+        for name, t in (("K8", fwd), ("K9", bwd)):
+            log(f"[kernel] {name} bf16 b{b} {(h, w, c)} K={k}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        return fwd, bwd
+
+    fwd, bwd = {}, {}
+    for b in (TRAIN_BATCH, 32):
+        for shape, _ in DW_STAGES:
+            fwd[b, shape], bwd[b, shape] = timings(b, *shape)
+
+    def per_forward(table, b):
+        """ms of the 73 convolutions of one forward at batch b, by key."""
+        return {key: sum(n * table[b, shape][key] for shape, n in DW_STAGES)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    head = (TRAIN_BATCH, DW_STAGES[1][0])  # stage 0, 7x7, b256
+    common = dict(route="cuda", source="mrclip_tpu_torch/csrc/dw_conv.cu", launches=None,
+                  shape=f"MobileCLIP-S1 stage 0 b{TRAIN_BATCH} [64, 64, 64] K=7 bf16")
+    entries = []
+    for name, table, tpu, line, lib in (
+            ("dw_conv_fwd", fwd, "_fwd_kernel (via _core_fwd :113)", 57,
+             "F.conv2d(groups=C) forward, bf16, channels-last (cuDNN)"),
+            ("dw_conv_bwd", bwd, "_bwd_kernel (via _core_bwd :128)", 75,
+             "F.conv2d(groups=C) backward, dx and dw (fwd+bwd minus fwd; cuDNN)")):
+        i = 0 if name == "dw_conv_fwd" else 1
+        entries.append({
+            "name": name,
+            "replaces": f"mrclip_tpu/ops/dw_conv.py:{line}",
+            "tpu_kernel": f"mrclip_tpu/ops/dw_conv.py::{tpu}",
+            "max_abs_err": worst[torch.bfloat16][i],
+            "max_abs_err_fp32": worst[torch.float32][i],
+            **({} if i == 0 else {"dw_max_rel_err": worst[torch.bfloat16][2],
+                                  "dw_max_rel_err_fp32": worst[torch.float32][2],
+                                  "dw_rel_err_is": "max |kernel - plain| / max |plain| of dw"}),
+            **common, **table[head],
+            "library": lib,
+            "by_shape": {f"b{b} {shape[:3]} K={shape[3]}": t for (b, shape), t in table.items()},
+            "per_forward_b256": per_forward(table, TRAIN_BATCH),
+            "per_forward_b32": per_forward(table, 32),
+        })
+    for e, tag in zip(entries, ("K8", "K9")):
+        log(f"[kernel] {tag} over the 73 convolutions of one MobileCLIP-S1 forward at "
+            f"b{TRAIN_BATCH}: " + json.dumps({k: round(v, 4) for k, v in e["per_forward_b256"].items()}))
+    return entries
+
+
 def post(base, path, payload):
     req = urllib.request.Request(base + path, json.dumps(payload).encode(),
                                  {"Content-Type": "application/json"})
@@ -989,6 +1143,7 @@ def phase_serve(kernel_entry, card):
 
 def launch_counts():
     """Every kernel's launches since the last reset, by kernel name."""
+    from mrclip_tpu_torch.ops import dw_conv as dc
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
     from mrclip_tpu_torch.ops import pallas_loss as pl
@@ -997,10 +1152,12 @@ def launch_counts():
             "packed_attn_rope_fwd": fa.rope_launches,
             "packed_attn_rope_bwd": fa.rope_bwd_launches,
             "grouped_attn_fwd": fa.grouped_launches, "grouped_attn_bwd": fa.grouped_bwd_launches,
-            "flash_attn_fwd": fl.launches, "flash_attn_bwd": fl.bwd_launches, **pl.launches}
+            "flash_attn_fwd": fl.launches, "flash_attn_bwd": fl.bwd_launches, **pl.launches,
+            **dc.launches}
 
 
 def reset_counts():
+    from mrclip_tpu_torch.ops import dw_conv as dc
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
     from mrclip_tpu_torch.ops import pallas_loss as pl
@@ -1008,6 +1165,103 @@ def reset_counts():
     fa.reset_launches()
     fl.reset_launches()
     pl.reset_launches()
+    dc.reset_launches()
+
+
+def build_model(name, dw_impl="pallas", **kw):
+    """`create_model(name, **kw)` with MRCLIP_DW_IMPL set to `dw_impl`:
+    DepthwiseConv reads it when it is built (it has no effect on the towers
+    without depthwise convolutions)."""
+    from mrclip_tpu_torch.factory import create_model
+
+    os.environ["MRCLIP_DW_IMPL"] = dw_impl
+    return create_model(name, **kw)
+
+
+def phase_serve_mobileclip(entries, card):
+    """MobileCLIP-S1 through the serving entry points with
+    MRCLIP_DW_IMPL=pallas: export, load, `encode_image` at b32 and b256
+    (256 x 256) and `encode_text` at b256 through `ServedModel`; 73 K8 and 4
+    K1 launches per image call, 12 K1 per text call; features against the
+    same weights on cuDNN's convolution and plain attention; throughput
+    under both convolution choices (the same attention)."""
+    from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.serving import ServedModel, export_model, load_exported, save_exported
+
+    t0 = time.perf_counter()
+    model = build_model("MobileCLIP-S1", "pallas", precision="bf16", attn_impl="fusedp", rng_seed=0)
+    exported = export_model(model)
+    del model
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "mobileclip_s1.mrclip")
+    save_exported(exported, path)
+    os.environ["MRCLIP_DW_IMPL"] = "pallas"  # the serving process's choice; not in the artifact
+    served = load_exported(path)
+    weights = exported.state_dict
+    plain = build_model("MobileCLIP-S1", "xla", pretrained=weights, precision="bf16", attn_impl="xla")
+    conv = ServedModel(build_model("MobileCLIP-S1", "xla", pretrained=weights, precision="bf16",
+                                   attn_impl="fusedp"), served.meta)
+    embed, ctx = served.meta["model_cfg"]["embed_dim"], served.meta["context_length"]
+    size = served.meta["image_size"][0]
+    log(f"[serve-mobileclip] MobileCLIP-S1 built, exported ({os.path.getsize(path) / 1e6:.1f} MB) "
+        f"and loaded in {time.perf_counter() - t0:.1f} s; {size} x {size} px, context {ctx}")
+    rng = np.random.RandomState(4)
+    images = rng.randn(TRAIN_BATCH, size, size, 3).astype(np.float32)
+    tokens = np.resize(SimpleTokenizer(context_length=ctx)(CAPTIONS), (TRAIN_BATCH, ctx))
+
+    reset_counts()  # the MobileCLIP served main path starts here
+    calls, feats = [], {}
+    for key, enc, arg in (("image_b32", served.encode_image, images[:32]),
+                          ("image_b256", served.encode_image, images),
+                          ("text_b256", served.encode_text, tokens)):
+        before = launch_counts()
+        feats[key] = unit_rows(enc(arg), len(arg), embed)
+        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+    main_path = launch_counts()  # read right after the served run
+    want = [{"packed_attn_fwd": 4, "dw_conv_fwd": 73}] * 2 + [{"packed_attn_fwd": 12}]
+    log(f"[serve-mobileclip] launches per call (image b32, image b256, text b256): {calls} "
+        f"(want {want}) {'ok' if calls == want else 'FAIL'}")
+    if calls != want:
+        raise AssertionError("the MobileCLIP served path did not launch K8 73 times and K1 4 "
+                             "times per image call and K1 12 times per text call")
+
+    with torch.inference_mode():
+        ref_img = plain.encode_image(torch.from_numpy(images[:32]).cuda(), normalize=True)
+        ref_txt = plain.encode_text(torch.from_numpy(tokens).cuda(), normalize=True)
+    cos_img = cosine_rows(feats["image_b32"], ref_img.float().cpu().numpy()).min()
+    cos_256 = cosine_rows(feats["image_b256"][:32], feats["image_b32"]).min()
+    cos_txt = cosine_rows(feats["text_b256"], ref_txt.float().cpu().numpy()).min()
+    ok = min(cos_img, cos_txt, cos_256) >= 0.999
+    log(f"[serve-mobileclip] served (K8, K1) vs cuDNN convolution and plain attention, same "
+        f"weights: min cosine image {cos_img:.6f}, text {cos_txt:.6f}; image b256 vs b32 rows "
+        f"{cos_256:.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MobileCLIP served features disagree with the plain model")
+
+    perf = {}
+    for name, srv in (("pallas", served), ("xla", conv)):
+        for bsz in (32, 256):
+            srv.encode_image(images[:bsz])
+            t = time.perf_counter()
+            for _ in range(3):
+                srv.encode_image(images[:bsz])
+            perf[f"served_encode_image_b{bsz}_imgs_per_s_{name}"] = bsz * 3 / (time.perf_counter() - t)
+    t = time.perf_counter()
+    for _ in range(3):
+        served.encode_text(tokens)
+    perf["served_encode_text_b256_texts_per_s"] = TRAIN_BATCH * 3 / (time.perf_counter() - t)
+    x256 = torch.from_numpy(images).cuda()
+    with torch.inference_mode():
+        for name, m in (("pallas", served.model), ("xla", conv.model), ("xla_plain_attention", plain)):
+            perf[f"device_encode_image_b256_ms_{name}"] = cuda_ms(
+                lambda: m.encode_image(x256, normalize=True), 3, warmup=1)
+    perf["k8_share_b256"] = (entries["dw_conv_fwd"]["per_forward_b256"]["ms"]
+                             / perf["device_encode_image_b256_ms_pallas"])
+    log(f"[serve-mobileclip] throughput on {card}: " + json.dumps(perf))
+    tmp.cleanup()
+    del served, conv, plain, x256
+    torch.cuda.empty_cache()
+    return main_path, perf
 
 
 def phase_serve_eva02(entries, card):
@@ -1105,6 +1359,11 @@ def grad_cosines(a: dict, b: dict):
 # the flash instantiations of the row kernels carry the template flag `true`
 # in their names.
 KERNEL_GROUPS = [
+    ("K8 dw_conv_fwd", ("dw_stencil_kernel<__nv_bfloat16, 3, false>",
+                        "dw_stencil_kernel<__nv_bfloat16, 7, false>")),
+    ("K9 dw_conv_bwd", ("dw_stencil_kernel", "dw_wgrad_")),
+    ("convolution (cuDNN: stem, downsamples)", ("convolution", "cudnn", "fprop", "dgrad",
+                                                "wgrad", "conv2d", "depthwise")),
     ("K10 flash_attn_fwd", ("rows_fwd_kernel<__nv_bfloat16, 64, true>",)),
     ("K4 grouped_attn_fwd", ("rows_fwd_kernel",)),
     ("K10b flash_attn_bwd", ("rows_bwd_dq_kernel<__nv_bfloat16, 64, true>",
@@ -1163,16 +1422,23 @@ def profile_step(run, tag="[train]"):
 # attention's input projections.
 VIT_PROJ = ("attn.in_proj_weight",)
 EVA_PROJ = ("attn.q_proj.weight", "attn.k_proj.weight", "attn.v_proj.weight")
+DW_WEIGHTS = ("mixer_dw.weight", "ffn.conv_dw.weight", "pos_emb_dw.weight")
+# `weights`: the parameters whose gradient comes through the path's kernels;
+# `plain`: the (attn_impl, MRCLIP_DW_IMPL) of the step it is held against
 TRAIN_PATHS = {
     ("ViT-B-16", "fusedp"): dict(per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24},
-                                 projections=VIT_PROJ),
+                                 weights=VIT_PROJ, plain=("xla", "pallas")),
     ("EVA02-B-16", "fusedp"): dict(per_step={"packed_attn_rope_fwd": 12, "packed_attn_fwd": 12,
                                              "packed_attn_rope_bwd": 12, "packed_attn_bwd": 12},
-                                   projections=EVA_PROJ),
+                                   weights=EVA_PROJ, plain=("xla", "pallas")),
     ("ViT-B-16", "fused"): dict(per_step={"grouped_attn_fwd": 24, "grouped_attn_bwd": 24},
-                                projections=VIT_PROJ),
+                                weights=VIT_PROJ, plain=("xla", "pallas")),
     ("EVA02-B-16", "flash"): dict(per_step={"flash_attn_fwd": 48, "flash_attn_bwd": 24},
-                                  projections=EVA_PROJ),
+                                  weights=EVA_PROJ, plain=("xla", "pallas")),
+    # bench.py's attention for MobileCLIP-S1 ('bf16': plain), held against
+    # cuDNN's convolution
+    ("MobileCLIP-S1", "bf16"): dict(per_step={"dw_conv_fwd": 73, "dw_conv_bwd": 73},
+                                    weights=DW_WEIGHTS, plain=("bf16", "xla")),
 }
 PALLAS_STEP = {"supcon_stats": 2, "supcon_grad_q": 2, "supcon_grad_k": 2}
 
@@ -1180,6 +1446,9 @@ PALLAS_STEP = {"supcon_stats": 2, "supcon_grad_q": 2, "supcon_grad_k": 2}
 def kernel_ms_per_step(model_name, attn_impl, entries):
     """Each attention kernel's device ms in one step of `model_name` under
     `attn_impl` at b256, from the phase 3 timings at the step's shapes."""
+    if model_name == "MobileCLIP-S1":  # the 73 convolutions; attention 'bf16' is plain
+        return {"K8": entries["dw_conv_fwd"]["per_forward_b256"]["ms"],
+                "K9": entries["dw_conv_bwd"]["per_forward_b256"]["ms"]}
     fwd, bwd = entries["packed_attn_fwd"], entries["packed_attn_bwd"]
     if attn_impl == "fused":  # ViT-B-16
         k4, k5 = entries["grouped_attn_fwd"], entries["grouped_attn_bwd"]
@@ -1204,7 +1473,6 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     from types import SimpleNamespace
 
     from mrclip_tpu_torch import create_loss
-    from mrclip_tpu_torch.factory import create_model
     from mrclip_tpu_torch.ops import pallas_loss as pl
     from mrclip_tpu_torch.ops.image_ops import normalize_images
     from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
@@ -1214,10 +1482,14 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     tag = ("[train]" if model_name == "ViT-B-16" else "[train-eva02]")
     if attn_impl != "fusedp":
         tag = f"[train-{attn_impl}]"
+    if model_name == "MobileCLIP-S1":
+        tag = "[train-mobileclip]"
     spec = TRAIN_PATHS[model_name, attn_impl]
+    plain_attn, plain_dw = spec["plain"]
     t0 = time.perf_counter()
-    model = create_model(model_name, precision="bf16", attn_impl=attn_impl, gelu_approx=True,
-                         rng_seed=0)
+    model = build_model(model_name, "pallas", precision="bf16", attn_impl=attn_impl,
+                        gelu_approx=True, rng_seed=0)
+    size = model.visual.image_size[0]
     tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
     state = create_train_state(model, tx)
     args = dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True)
@@ -1226,7 +1498,7 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     rng = np.random.RandomState(0)
     ctx = model.context_length
     batch = {  # uint8 canvases as the loader ships them; normalised inside the step
-        "images": torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, 224, 224, 3)).astype(np.uint8)).cuda(),
+        "images": torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, size, size, 3)).astype(np.uint8)).cuda(),
         "tokens": torch.from_numpy(rng.randint(1, 49408, (TRAIN_BATCH, ctx)).astype(np.int64)).cuda(),
         "labels": torch.from_numpy(rng.randint(0, 32, (TRAIN_BATCH,)).astype(np.int32)).cuda(),
     }
@@ -1236,29 +1508,32 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
 
     n_params = sum(p.numel() for p in state.params.values())
     log(f"{tag} {model_name} ({n_params / 1e6:.1f} M params), attn_impl={attn_impl!r}, AdamW "
-        f"bf16 mu, batch {TRAIN_BATCH}, context {ctx}, built in {time.perf_counter() - t0:.1f} s")
+        f"bf16 mu, batch {TRAIN_BATCH}, {size} x {size} px, context {ctx}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # checks at the initial weights (their launches are not the main path's)
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     g_kernel, l_kernel = loss_and_grads(model, dense, state.params, prep(batch))
-    plain = create_model(model_name, pretrained={k: v.detach().cpu() for k, v in model.state_dict().items()},
-                         precision="bf16", attn_impl="xla", gelu_approx=True)
+    plain = build_model(model_name, plain_dw, pretrained=weights, precision="bf16",
+                        attn_impl=plain_attn, gelu_approx=True)
     g_plain, l_plain = loss_and_grads(plain, dense, dict(plain.named_parameters()), prep(batch))
     del plain
     lk, lp = l_kernel["loss"].item(), l_plain["loss"].item()
     whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
     del g_plain
     torch.cuda.empty_cache()
-    proj = [n for n in g_kernel if n.endswith(spec["projections"])]
-    dead = [n for n in proj if g_kernel[n].abs().max().item() == 0]
+    through = [n for n in g_kernel if n.endswith(spec["weights"])]
+    dead = [n for n in through if g_kernel[n].abs().max().item() == 0]
     ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= 0.999 and worst >= 0.99
-          and proj and not dead)
-    log(f"{tag} kernel vs plain attention, same weights and batch: loss {lk:.6f} vs {lp:.6f} "
-        f"(rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine whole {whole:.6f} "
-        f"(>= 0.999), min per tensor >= 1e4 elements {worst:.6f} at {worst_name} (>= 0.99, "
-        f"bf16 through 12 layers); {len(proj) - len(dead)}/{len(proj)} attention projection "
-        f"weights ({', '.join(spec['projections'])}) with a gradient {'ok' if ok else 'FAIL'}")
+          and through and not dead)
+    log(f"{tag} kernel path vs plain (attn_impl={plain_attn!r}, MRCLIP_DW_IMPL={plain_dw!r}), "
+        f"same weights and batch: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, "
+        f"tol 1e-2); gradient cosine whole {whole:.6f} (>= 0.999), min per tensor >= 1e4 "
+        f"elements {worst:.6f} at {worst_name} (>= 0.99, bf16 through the tower); "
+        f"{len(through) - len(dead)}/{len(through)} weights behind the kernels "
+        f"({', '.join(spec['weights'])}) with a gradient {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the kernel train step's gradients disagree with plain attention")
+        raise AssertionError("the kernel train step's gradients disagree with the plain step")
 
     if pallas_step:
         pl.reset_launches()
@@ -1336,6 +1611,21 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     del grads
     rest = step_ms - sum(kernel_ms.values()) - dense_ms - norm_ms - opt_ms
     profile = profile_step(lambda: dense_step(state, prep(batch)), tag)
+    baseline = {}
+    if plain_dw == "xla":  # the same step on cuDNN's convolution, same attention and weights
+        base = build_model(model_name, "xla", pretrained=weights, precision="bf16",
+                           attn_impl=attn_impl, gelu_approx=True)
+        base_state = create_train_state(base, tx)
+        base_step = build_train_step(base, dense, tx)
+        base_state, _ = base_step(base_state, prep(batch))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(timed):
+            base_state, _ = base_step(base_state, prep(batch))
+        torch.cuda.synchronize()
+        baseline = {"train_step_ms_xla_conv": (time.perf_counter() - t) / timed * 1e3}
+        del base, base_state, base_step
+        torch.cuda.empty_cache()
     perf = {
         "train_step_ms": step_ms,
         "train_pairs_per_s": TRAIN_BATCH / step_ms * 1e3,
@@ -1345,6 +1635,7 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
         "dense_loss_fwd_bwd_ms": dense_ms, "pallas_loss_fwd_bwd_ms": pallas_ms,
         "normalize_ms": norm_ms, "optimizer_ms": opt_ms,
         "rest_gemm_elementwise_ms": rest,
+        **baseline,
         "profiled_step": profile,
     }
     log(f"{tag} {model_name} b{TRAIN_BATCH} step {step_ms:.2f} ms, "
@@ -1433,9 +1724,9 @@ def main() -> int:
     phase_build()
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
                                       *phase_kernel_supcon(), *phase_kernel_grouped(),
-                                      *phase_kernel_flash()]}
+                                      *phase_kernel_flash(), *phase_kernel_dw()]}
     fwd, rope_fwd = entries["packed_attn_fwd"], entries["packed_attn_rope_fwd"]
-    k4, k10 = entries["grouped_attn_fwd"], entries["flash_attn_fwd"]
+    k4, k10, k8 = entries["grouped_attn_fwd"], entries["flash_attn_fwd"], entries["dw_conv_fwd"]
     paths, per_step = {}, {}
     paths["serve"], fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
     paths["train"], per_step["train"], fwd["training"] = phase_train("ViT-B-16", entries, smi)
@@ -1453,6 +1744,9 @@ def main() -> int:
     log(f"[train-flash] peak memory of the EVA02-B-16 b{TRAIN_BATCH} step: flash "
         f"{k10['training']['peak_memory_gb']:.2f} GB (keeps q, k, v), fusedp "
         f"{rope_fwd['training']['peak_memory_gb']:.2f} GB (keeps q, k, v, o, lse)")
+    paths["serve_mobileclip"], k8["serving"] = phase_serve_mobileclip(entries, smi)
+    paths["train_mobileclip"], per_step["train_mobileclip"], k8["training"] = phase_train(
+        "MobileCLIP-S1", entries, smi, attn_impl="bf16", timed=3)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -1461,7 +1755,10 @@ def main() -> int:
                 "train_fused": [*TRAIN_PATHS["ViT-B-16", "fused"]["per_step"]],
                 "serve_fused": ["grouped_attn_fwd"],
                 "train_flash": [*TRAIN_PATHS["EVA02-B-16", "flash"]["per_step"]],
-                "serve_flash": ["flash_attn_fwd"]}
+                "serve_flash": ["flash_attn_fwd"],
+                "serve_mobileclip": ["dw_conv_fwd", "packed_attn_fwd"],
+                "train_mobileclip": [*TRAIN_PATHS["MobileCLIP-S1", "bf16"]["per_step"],
+                                     *PALLAS_STEP]}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -1,6 +1,7 @@
 // Element access and the EVA02 rope rotation shared by packed_attn_fwd.cu
 // (K2) and packed_attn_bwd.cu (K3r), so both kernels rotate bit-identically
-// to the plain versions in mrclip_tpu_torch/ops/fused_attn.py.
+// to the plain versions in mrclip_tpu_torch/ops/fused_attn.py; dw_conv.cu
+// (K8, K9) takes the element access.
 //
 // A rope table row t holds the sin of its position in t[0, D) and the cos in
 // t[D, 2D), in the input type T. Rows pair interleaved dims (2i, 2i+1):

@@ -102,9 +102,9 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 
 def _init_weights(model: CLIP, generator: torch.Generator) -> None:
     """Random init in the spirit of the JAX package's initializers: normal
-    with std fan_in^-0.5 for projections, small normals for embeddings,
-    unit LayerNorm scales, zero biases."""
-    width_v = model.visual.width
+    with std fan_in^-0.5 for projections and convolutions (lecun_normal),
+    small normals for embeddings, unit LayerNorm and RepMixer scales, zero
+    biases."""
     norm_scales = {f"{name}.weight" for name, m in model.named_modules()
                    if isinstance(m, torch.nn.LayerNorm)}
     for name, p in model.named_parameters():
@@ -118,10 +118,12 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
             _normal_(p, 0.02, generator)
         elif name == "positional_embedding":
             _normal_(p, 0.01, generator)
+        elif name.endswith("mixer_scale"):
+            torch.nn.init.ones_(p)
         elif name in ("visual.class_embedding", "visual.positional_embedding",
                       "visual.trunk.cls_token", "visual.trunk.pos_embed"):
-            _normal_(p, width_v ** -0.5, generator)
-        elif name in ("visual.conv1.weight", "visual.trunk.patch_embed.proj.weight"):
+            _normal_(p, model.visual.width ** -0.5, generator)
+        elif p.dim() == 4:  # convolutions [out, in / groups, kh, kw]: fan_in = p[0].numel()
             _normal_(p, p[0].numel() ** -0.5, generator)
         elif name in ("visual.proj", "text_projection"):
             _normal_(p, p.shape[0] ** -0.5, generator)

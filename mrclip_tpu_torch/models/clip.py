@@ -1,6 +1,6 @@
 """CLIP assembly of the port (counterpart of `mrclip_tpu/models/clip.py`):
-the plain ViT or the EVA02-B/L tower and the causal text tower,
-L2-normalized embeddings and a learned temperature.
+the plain ViT, the EVA02-B/L or the FastViT/MCi (MobileCLIP-S1/S2) tower and
+the causal text tower, L2-normalized embeddings and a learned temperature.
 
 Attribute names follow open_clip's CLIP, whose text tower is inlined at the
 root, so the state dict that `mrclip_tpu.hub.export_torch_state_dict` writes
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .fastvit import FASTVIT_DIMS, FastViT
 from .layers import gelu_exact, gelu_tanh, quick_gelu
 from .text import TextTransformer, encode_tokens
 from .vision import EvaVisionTransformer, VisionTransformer
@@ -173,15 +174,47 @@ def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
     )
 
 
+def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.dtype,
+                        attn_impl: str) -> FastViT:
+    """The MobileCLIP tower of the JAX package's `_build_timm_vit_tower`
+    (`fastvit_mci{0,1,2}`) in its from-scratch form (`norm='ln'`,
+    `stem='2conv'`)."""
+    name = cfg.timm_model_name
+    _reject({
+        "MobileCLIP-B's hybrid ViT tower (vit_base_mci_224)": name == "vit_base_mci_224",
+        "the Apple-checkpoint import form (timm_deploy_import: norm='affine', stem='3conv')":
+            cfg.timm_deploy_import,
+        "output_tokens": cfg.output_tokens,
+    }, "MobileCLIP tower", "later slice 4, other towers")
+    if name not in FASTVIT_DIMS:
+        raise NotImplementedError(
+            f"timm fastvit variant '{name}' has no stage table; supported: "
+            f"{sorted(FASTVIT_DIMS)} (MobileCLIP MCi)")
+    depths, dims, mlp_ratio = FASTVIT_DIMS[name]
+    return FastViT(
+        image_size=cfg.image_size or 256,
+        depths=depths,
+        dims=dims,
+        mlp_ratio=mlp_ratio,
+        output_dim=None if cfg.timm_proj == "none" else embed_dim,
+        act=act,
+        attn_impl=attn_impl,
+        dtype=dtype,
+    )
+
+
 def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
                        attn_impl: str = "xla"):
-    """The plain open_clip ViT or the EVA02-B/L tower; other vision towers
-    raise."""
+    """The plain open_clip ViT, the EVA02-B/L or the FastViT/MCi tower;
+    other vision towers raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
     if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
         return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl)  # SwiGLU: no act
+    if cfg.timm_model_name and (cfg.timm_model_name.startswith("fastvit_")
+                                or cfg.timm_model_name == "vit_base_mci_224"):
+        return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl)
     _reject({
         f"timm tower {cfg.timm_model_name!r}": cfg.timm_model_name,
         "the ModifiedResNet tower": isinstance(cfg.layers, (tuple, list)),

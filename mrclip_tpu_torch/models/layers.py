@@ -5,22 +5,27 @@ computes in `dtype`. A dense layer casts its weight (and bias) to `dtype` at
 use, as `flax.linen.Dense(dtype=...)` does; LayerNorm takes its statistics in
 fp32 and returns the input's type. Parameter names are open_clip's (timm
 `eva.py`'s for the EVA02 parts: `EvaAttention`, `SwiGLU`), so an open_clip
-state dict loads with `strict=True`.
+state dict loads with `strict=True`. `DepthwiseConv` keeps the JAX package's
+`kernel`/`bias` pair as the `weight [C, 1, K, K]` / `bias` of a depthwise
+`Conv2d`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dw_conv import dw_conv
 from ..ops.flash_attn import flash_attention_unpadded
 from ..ops.fused_attn import fused_attention, fused_attention_packed_ref, fused_attention_qkv
 
 __all__ = [
+    "DepthwiseConv",
     "LayerNorm",
     "Linear",
     "gelu_exact",
@@ -57,6 +62,41 @@ ROPE_IN_COMPUTE_DTYPE = ("bf16", "flash", "fused", "fusedp")
 def _check_attn_impl(attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r} is not one of {ATTN_IMPLS}")
+
+
+class DepthwiseConv(nn.Module):
+    """Stride-1 SAME depthwise convolution over NHWC activations (the JAX
+    package's `DepthwiseConv`): `weight [C, 1, K, K]`, `bias [C]`, computing
+    in `dtype`.
+
+    The implementation is the JAX package's environment switch
+    `MRCLIP_DW_IMPL`, read when the module is built and kept as `impl`:
+    'pallas' runs the Hopper kernels K8/K9 (`ops.dw_conv`, the weight as an
+    fp32 `[K*K, C]` table, fp32 accumulation); any other value, and the
+    default, is 'xla', a grouped `F.conv2d` with the weight cast to the
+    compute type, as `conv_general_dilated` computes it. The bias is added
+    after either, in the compute type."""
+
+    def __init__(self, features: int, kernel_size: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, 1, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.compute_dtype = dtype
+        self.impl = "pallas" if os.environ.get("MRCLIP_DW_IMPL", "xla") == "pallas" else "xla"
+
+    def extra_repr(self) -> str:
+        c, _, k, _ = self.weight.shape
+        return f"{c}, kernel_size={k}, impl={self.impl!r}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.impl == "pallas":
+            y = dw_conv(x.to(dt), self.weight)
+        else:
+            c, _, k, _ = self.weight.shape
+            y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), padding=k // 2,
+                         groups=c).permute(0, 2, 3, 1)
+        return y + self.bias.to(y.dtype)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -6,7 +6,11 @@ of `mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
 scan-stacked `blocks/block` with a leading layer axis) and returns the
 open_clip-layout state dict that `mrclip_tpu_torch.models.CLIP` loads with
 `strict=True`; an EVA02 vision tower (one with SwiGLU MLPs) goes to the
-`visual.trunk.*` timm layout. Like hub's export it takes a tree without
+`visual.trunk.*` timm layout. A FastViT/MCi tower (MobileCLIP-S1/S2; hub's
+export has no branch for it) keeps the Flax tree's names, with each
+convolution's HWIO kernel `[K, K, in / groups, out]` as the torch weight
+`[out, in / groups, K, K]` and its attention stage as
+`visual.transformer.resblocks.N`. Like hub's export it takes a tree without
 `text` or `logit_scale` (a lone vision tower's). Only numpy is needed: any
 array with `__array__` works.
 """
@@ -105,14 +109,27 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         put_ln(tp + "norm", vis["ln_post"])
         put("visual.head.proj.weight", np.asarray(vis["proj"]).T)
 
+    def put_tree(key, tree):  # FastViT: Conv, Dense and LayerNorm subtrees by their leaves
+        if "kernel" in tree:  # Conv HWIO -> [out, in / groups, K, K]; Dense [in, out] -> [out, in]
+            k = np.asarray(tree["kernel"])
+            put(key + ".weight", k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
+            put(key + ".bias", tree["bias"])
+        elif "scale" in tree:
+            put_ln(key, tree)
+        else:
+            for name, sub in tree.items():
+                (put_tree if hasattr(sub, "items") else put)(f"{key}.{name}", sub)
+
     vis = params["visual"]
-    if "conv1" not in vis or "class_embedding" not in vis:
+    if "stem_conv1" in vis:
+        put_tree("visual", {k: v for k, v in vis.items() if k != "transformer"})
+        put_blocks(vis, "visual.")
+    elif "conv1" not in vis or "class_embedding" not in vis:
         raise NotImplementedError(
-            "only the plain CLIP ViT and the EVA02 tower convert (ROADMAP: later "
-            "slice 4, other towers)"
+            "only the plain CLIP ViT, the EVA02 and the FastViT/MCi towers convert (ROADMAP: "
+            "later slice 4, other towers)"
         )
-    blocks = _blocks(vis)
-    if blocks and ("fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"]):
+    elif (blocks := _blocks(vis)) and ("fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"]):
         put_eva02_trunk(vis)
     else:
         # [ph, pw, 3, W] -> open_clip conv layout [W, 3, ph, pw]

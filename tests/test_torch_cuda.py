@@ -1,9 +1,10 @@
 """Card-only tests of the PyTorch port: each Hopper kernel (K1 and K3, the
 packed attention forward and backward; K2 and K3r, the same with the rope
 rotated inside; K4 and K5, the grouped-layout attention; K10 and K10b, the
-flash attention; K6 and K7, the fused SupCon loss) against its plain
-version, their refusals, a small CLIP through them, and small train steps
-(ViT and EVA02) whose attention gradients come from the kernels.
+flash attention; K6 and K7, the fused SupCon loss; K8 and K9, the depthwise
+convolution) against its plain version, their refusals, a small CLIP and
+MobileCLIP-S1 through them, and small train steps (ViT, EVA02, MobileCLIP)
+whose gradients come from the kernels.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from mrclip_tpu_torch.factory import create_loss, create_model, get_model_config
+from mrclip_tpu_torch.models import fastvit
+from mrclip_tpu_torch.ops import dw_conv as dc
 from mrclip_tpu_torch.ops import flash_attn as fl
 from mrclip_tpu_torch.ops import fused_attn as fa
 from mrclip_tpu_torch.ops.pos_embed import rope_cat_2d
@@ -474,3 +477,122 @@ def test_small_train_step_gradients_through_fused_and_flash(cuda_device, impl):
             cos = torch.nn.functional.cosine_similarity(
                 g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
             assert cos.item() >= 0.999, name
+
+
+DW_SHAPES = [  # (B, H, W, C, K): ragged maps, C not a multiple of 32, a map under K//2
+    (2, 9, 13, 8, 3), (1, 9, 13, 80, 5), (3, 16, 16, 100, 7), (2, 2, 2, 16, 7), (4, 32, 32, 128, 7),
+]
+
+
+def _dw_inputs(b, h, w, c, k, device, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(device, dtype)
+    w2 = torch.from_numpy((rng.randn(k * k, c) * 0.2).astype(np.float32)).to(device)
+    dy = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(device, dtype)
+    return x, w2, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,k", DW_SHAPES)
+def test_dw_conv_kernels_match_plain_versions(cuda_device, b, h, w, c, k, dtype):
+    """K8's y and K9's dx take the plain versions' fp32 products and sums in
+    the same order and round once: equal bits; K9's dw within 1e-3 of its
+    largest plain value (fp32 sums in another order)."""
+    x, w2, dy = _dw_inputs(b, h, w, c, k, cuda_device, dtype)
+    dc.reset_launches()
+    y = dc.dw_conv_fwd(x, w2)
+    dx, dw = dc.dw_conv_bwd(x, w2, dy)
+    torch.cuda.synchronize()
+    assert dc.launches == {"dw_conv_fwd": 1, "dw_conv_bwd": 1}
+    want_dx, want_dw = dc.dw_conv_bwd_ref(x, w2, dy)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(y, dc.dw_conv_fwd_ref(x, w2), rtol=0, atol=0)
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
+    assert _rel(dw, want_dw, want_dw.abs().max().item()) <= 1e-3
+
+
+def test_dw_conv_backward_is_deterministic(cuda_device):
+    """K9's dw is a two-pass reduction without atomics: two runs on the same
+    input give the same bits."""
+    x, w2, dy = _dw_inputs(8, 64, 64, 64, 7, cuda_device, torch.bfloat16, seed=1)
+    first = dc.dw_conv_bwd(x, w2, dy)
+    second = dc.dw_conv_bwd(x, w2, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_dw_conv_kernels_refuse_what_they_cannot_take(cuda_device):
+    x, w2, dy = _dw_inputs(1, 8, 8, 16, 3, cuda_device, torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        dc.dw_conv_fwd(x, w2)
+    x, w2, dy = _dw_inputs(1, 12, 12, 16, 9, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="not built"):
+        dc.dw_conv_fwd(x, w2)
+    x, w2, dy = _dw_inputs(1, 8, 8, 16, 3, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.dw_conv_fwd(x.transpose(1, 2), w2)
+    with pytest.raises(ValueError, match="fp32"):
+        dc.dw_conv_fwd(x, w2.double())
+
+
+def test_mobileclip_s1_encode_image_launches_k8_73_times(cuda_device, monkeypatch):
+    """Full-width MobileCLIP-S1 in bf16 under MRCLIP_DW_IMPL=pallas and
+    'fusedp': one image call launches K8 73 times and K1 4 times; its
+    features agree with the same weights on cuDNN's convolution."""
+    monkeypatch.setenv("MRCLIP_DW_IMPL", "pallas")
+    kernel = create_model("MobileCLIP-S1", precision="bf16", attn_impl="fusedp", rng_seed=0)
+    monkeypatch.setenv("MRCLIP_DW_IMPL", "xla")
+    plain = create_model("MobileCLIP-S1", precision="bf16", attn_impl="fusedp", rng_seed=0)
+    images = torch.from_numpy(np.random.RandomState(0).randn(2, 256, 256, 3).astype(np.float32))
+    with torch.inference_mode():
+        dc.reset_launches()
+        fa.reset_launches()
+        a = kernel.encode_image(images.to(cuda_device), normalize=True)
+        torch.cuda.synchronize()
+        assert dc.launches == {"dw_conv_fwd": 73, "dw_conv_bwd": 0} and fa.launches == 4
+        b = plain.encode_image(images.to(cuda_device), normalize=True)
+    cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
+    assert cos.min().item() >= 0.999
+
+
+def test_small_mobileclip_train_step_gradients_through_the_kernels(cuda_device, monkeypatch):
+    """A MobileCLIP-S1 cut to one block per stage (widths 32 to 128, 7
+    depthwise convolutions) in bf16 at 128 px, attention 'bf16': each
+    convolution launches K8 once and K9 once, every depthwise weight gets a
+    gradient, and the gradients agree with cuDNN's convolution within bf16
+    rounding (cosine >= 0.999 whole, >= 0.99 per tensor of 10^4 or more
+    elements)."""
+    monkeypatch.setitem(fastvit.FASTVIT_DIMS, "fastvit_mci1", ((1, 1, 1, 1), (32, 64, 96, 128), 3.0))
+    vision = dict(get_model_config("MobileCLIP-S1")["vision_cfg"], image_size=128)
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=False))()
+    apply = make_loss_apply(create_loss(args))
+    rng = np.random.RandomState(0)
+    batch = {
+        "images": normalize_images(torch.from_numpy(
+            rng.randint(0, 256, (8, 128, 128, 3)).astype(np.uint8)).to(cuda_device)),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (8, 77))).to(cuda_device),
+        "labels": torch.from_numpy(rng.randint(0, 3, 8).astype(np.int32)).to(cuda_device),
+    }
+    grads = {}
+    for impl in ("pallas", "xla"):
+        monkeypatch.setenv("MRCLIP_DW_IMPL", impl)
+        model = create_model("MobileCLIP-S1", precision="bf16", attn_impl="bf16", rng_seed=0,
+                             vision_cfg=vision)
+        state = create_train_state(model, create_optimizer(lr=1e-4))
+        dc.reset_launches()
+        grads[impl], ldict = loss_and_grads(model, apply, state.params, batch)
+        torch.cuda.synchronize()
+        assert np.isfinite(ldict["loss"].item())
+        want = 7 if impl == "pallas" else 0
+        assert dc.launches == {"dw_conv_fwd": want, "dw_conv_bwd": want}
+    dw_names = [n for n in grads["pallas"]
+                if n.endswith(("mixer_dw.weight", "ffn.conv_dw.weight", "pos_emb_dw.weight"))]
+    assert len(dw_names) == 7
+    assert all(grads["pallas"][n].abs().max().item() > 0 for n in dw_names)
+    flat = [torch.cat([g[n].flatten().double() for n in grads["xla"]]) for g in (grads["pallas"],
+                                                                                grads["xla"])]
+    assert torch.nn.functional.cosine_similarity(*flat, dim=0).item() >= 0.999
+    for name, g in grads["pallas"].items():
+        if g.numel() >= 10**4:
+            cos = torch.nn.functional.cosine_similarity(
+                g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
+            assert cos.item() >= 0.99, name

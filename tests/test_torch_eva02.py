@@ -44,6 +44,10 @@ from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, creat
 from mrclip_tpu_torch.parallel.train_step import _wd_mask, loss_and_grads
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 STEPS = 2
 # the slice's configuration cut to size: full-width, full-depth vision on
 # 64 x 64 images, a 2-layer text tower
@@ -232,9 +236,9 @@ def test_small_eva02_features_match_jax_under_the_same_impl(scanned, impl):
     jm, params = scanned
     images, tokens, _ = _batch()
     imgs = np.array(jax_normalize(jnp.asarray(images)))
+    jax_model = jm.clone(attn_impl=impl, scan_layers=False)
     with pltpu.force_tpu_interpret_mode():
-        want = jm.clone(attn_impl=impl, scan_layers=False).apply(
-            {"params": _unstack(params)}, imgs, tokens)
+        want = jax.jit(lambda p: jax_model.apply({"params": p}, imgs, tokens))(_unstack(params))
     model = _port(params, impl)
     with torch.no_grad():
         got = model(torch.from_numpy(imgs), torch.from_numpy(tokens))

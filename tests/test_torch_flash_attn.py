@@ -22,6 +22,10 @@ from mrclip_tpu.ops.flash_attn import flash_attention_unpadded as jax_flash
 from mrclip_tpu_torch.ops import flash_attn as fl
 from mrclip_tpu_torch.ops import fused_attn as fa
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 B, H = 2, 2
 
 
@@ -120,7 +124,7 @@ def test_function_launches_nothing_on_the_cpu_and_passes_gradcheck():
         return fl.flash_attention_unpadded(q, k, v, is_causal=True)
 
     fl.reset_launches()
-    assert torch.autograd.gradcheck(f, (qkv,))
+    assert torch.autograd.gradcheck(f, (qkv,), fast_mode=True)
     assert fl.launches == 0 and fl.bwd_launches == 0
 
 

@@ -18,6 +18,10 @@ from mrclip_tpu.ops.fused_attn import _pfwd_impl
 from mrclip_tpu.ops.fused_attn import fused_attention_packed as jax_fused_attention_packed
 from mrclip_tpu_torch.ops import fused_attn as fa
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 # tests/test_fused_attn.py's shapes plus the ViT-B/16 layer (N=197, H=12, D=64)
 SHAPES = [
     (2, 197, 197, 4, False),   # ViT-B/16 sequence

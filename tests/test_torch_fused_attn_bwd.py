@@ -15,6 +15,10 @@ import torch
 from mrclip_tpu.ops.fused_attn import _pbwd_impl, _pfwd_impl
 from mrclip_tpu_torch.ops import fused_attn as fa
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 # tests/test_torch_fused_attn.py's SHAPES: (B, N, Nk, H, causal)
 SHAPES = [
     (2, 197, 197, 4, False),

@@ -29,6 +29,10 @@ from mrclip_tpu_torch.losses import (
 from mrclip_tpu_torch.ops.image_ops import normalize_images
 from mrclip_tpu_torch.ops.pallas_loss import pallas_multipositive_clip_loss
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_losses.npz")
 
 

@@ -34,6 +34,10 @@ from mrclip_tpu_torch.ops.image_ops import normalize_images
 from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
                                        make_loss_apply)
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 TEXTS = [
     "A brain MRI, plane axial, Scanner (Manufacturer, Model, Field Strength): "
     "(SIEMENS, Prisma, 3)",

@@ -17,13 +17,17 @@ from mrclip_tpu_torch.ops import build
 from mrclip_tpu_torch.parallel import create_optimizer, create_train_state
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORTS_NO_JAX = """
 import sys
 import chip_smoke, mrclip_tpu_torch
 import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
-import mrclip_tpu_torch.ops.flash_attn
+import mrclip_tpu_torch.ops.flash_attn, mrclip_tpu_torch.ops.dw_conv, mrclip_tpu_torch.models.fastvit
 import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops, mrclip_tpu_torch.ops.pos_embed
 import mrclip_tpu_torch.models.vision, mrclip_tpu_torch.models.transformer, mrclip_tpu_torch.weights
 import mrclip_tpu_torch.losses, mrclip_tpu_torch.parallel, mrclip_tpu_torch.train
@@ -52,14 +56,16 @@ def artifact(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("entry", ["create_model", "create_model EVA02-B-16", "load_exported",
-                                   "make_server", "serve.main", "export.main", "train"])
+@pytest.mark.parametrize("entry", ["create_model", "create_model EVA02-B-16",
+                                   "create_model MobileCLIP-S1", "load_exported", "make_server",
+                                   "serve.main", "export.main", "train"])
 def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry):
     """The training path runs on its model's device, so it too stops at
     create_model without a card unless given device='cpu'."""
     calls = {
         "create_model": lambda: create_model("ViT-B-32-mini"),
         "create_model EVA02-B-16": lambda: create_model("EVA02-B-16", attn_impl="fusedp"),
+        "create_model MobileCLIP-S1": lambda: create_model("MobileCLIP-S1"),
         "train": lambda: create_train_state(create_model("ViT-B-32-mini", attn_impl="fusedp"),
                                             create_optimizer(lr=1e-4)),
         "load_exported": lambda: load_exported(artifact),
@@ -76,6 +82,8 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
     "model_configs/ViT-B-16.json",
     "model_configs/ViT-B-32-mini.json",
     "model_configs/EVA02-B-16.json",
+    "model_configs/MobileCLIP-S1.json",
+    "model_configs/MobileCLIP-S2.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
 ])
 def test_copied_files_are_byte_identical(rel):
@@ -94,6 +102,8 @@ def test_copied_files_are_byte_identical(rel):
     ("flash_attn.cu", ["flash_attn_fwd", "flash_attn_bwd"],
      ["flash_attn.py::flash_attention_unpadded", "_flash_attention_kernel_single_batch",
       "_flash_attention_dkv_kernel", "_flash_attention_dq_kernel"]),
+    ("dw_conv.cu", ["dw_conv_fwd", "dw_conv_bwd"],
+     ["dw_conv.py::_fwd_kernel", "dw_conv.py::_bwd_kernel"]),
 ])
 def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
     src = build.CSRC / source

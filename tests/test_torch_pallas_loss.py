@@ -18,6 +18,10 @@ from mrclip_tpu.ops import pallas_loss as jpl
 from mrclip_tpu_torch.losses import multipositive_clip_loss
 from mrclip_tpu_torch.ops import pallas_loss as pl
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 # (Nq, Nk, D, labels, JAX blocks): test_pallas_loss.py's shapes, including
 # its non-divisible batch of 12 at block 8, and one with distinct labels
 CASES = [

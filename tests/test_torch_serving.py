@@ -23,6 +23,10 @@ from mrclip_tpu_torch.factory import create_model
 from mrclip_tpu_torch.serve import _Batcher, make_server
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 JAX_META_KEYS = {"image_size", "context_length", "int8", "batch_size", "tokenizer",
                  "logit_scale", "logit_bias"}
 

@@ -42,6 +42,10 @@ from mrclip_tpu_torch.parallel import (
 from mrclip_tpu_torch.parallel.train_step import _wd_mask, loss_and_grads
 from mrclip_tpu_torch.train import scheduler
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread per core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 STEPS = 3
 
 
@@ -52,7 +56,10 @@ def _loss_args(pallas: bool):
 
 @pytest.fixture(scope="module")
 def jax_model():
-    return jax_create_model("ViT-B-32-mini", scan_layers=False, attn_impl="fusedp")
+    # initialised under 'xla' (the same tree; the interpret-mode kernels would
+    # run the init forward op by op), then applied under 'fusedp'
+    jm, jv = jax_create_model("ViT-B-32-mini", scan_layers=False, attn_impl="xla")
+    return jm.clone(attn_impl="fusedp"), jv
 
 
 def _batch():
@@ -81,7 +88,7 @@ def runs(request, jax_model):
         out = jm.apply({"params": params}, jb["images"], jb["tokens"], deterministic=False)
         return jax_apply(out, jb)["loss"]
 
-    jax_grads = state_dict_from_flax(jax.device_get(jax.grad(jax_loss)(state.params)))
+    jax_grads = state_dict_from_flax(jax.device_get(jax.jit(jax.grad(jax_loss))(state.params)))
     jax_metrics = []
     for i in range(STEPS):
         state, m = step(state, jb, jax.random.key(i))
