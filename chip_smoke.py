@@ -21,7 +21,9 @@ fails:
              function), and K2/K3r beside K1/K3 at the same shape; K4/K5
              (grouped-layout attention, 'fused') and K10/K10b (flash
              attention, 'flash'; also at N = 257 and 577, several key
-             blocks) at the same shapes as K1/K3, bf16 and fp32, timed at
+             blocks) at the same shapes as K1/K3 and at the edges of the
+             bf16 forward's tensor-core tiles (N in {1, 15, 16, 17, 63, 65,
+             255}, head dim 32 and 64, causal and not), bf16 and fp32, timed at
              the b256 shapes of phases 8 and 9 beside K1 (K4) and K4/K5
              (K10/K10b); K8/K9 (depthwise convolution, MRCLIP_DW_IMPL=pallas) at
              MobileCLIP-S1's stage shapes (b32 and b256) and edges (B = 1,
@@ -79,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -120,8 +123,19 @@ MCI = dict(b=32, n=64, nk=64, h=8, d=64, causal=False)  # MobileCLIP-S1's attent
 CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77)), MCI,
            dict(MCI, b=TRAIN_BATCH), *EDGES]
 # K10/K10b also where jax walks several key blocks: N = 577 pads to 640, five
-# blocks of 128 (N = 257 in EDGES pads to 384, three)
-FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c) for c in (False, True))]
+# blocks of 128, N = 400 to 512, two of 256 (N = 257 in EDGES pads to 384,
+# three of 128)
+FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=n, nk=n, h=4, d=64, causal=c)
+                             for n in (577, 400) for c in (False, True))]
+# K4 and K10 (and their backward) also at the edges of the bf16 forward's
+# tiles: 16-key groups, 64-key sub-tiles, 16-row warps of a 64-row block
+TILE_EDGES = [dict(b=2, n=n, nk=n, h=2, d=d, causal=c) for n in (1, 15, 16, 17, 63, 65, 255)
+              for d in (32, 64) for c in (False, True)]
+MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
+               design="mma.sync bf16, K/V bf16 in shared memory")
+# the K4/K10 forward, the kernel it is set beside and SDPA take tens of
+# microseconds at the text shapes: each is the median of this many readings
+FWD_RUNS = 7
 # K2/K3r: EVA02-B-16's vision layers have ViT-B-16's N, H and D, and a CLS
 # prefix row; the table is rope_cat_2d's where N - prefix is a square grid
 ROPE_VISION = dict(VISION, prefix=1)
@@ -192,6 +206,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fns: dict, iters: int, runs: int = FWD_RUNS) -> tuple[dict, dict]:
+    """Median of `runs` cuda_ms readings of each of `fns` (name -> fn), the
+    fns taken in turn within a run so that a slow spell of the card falls on
+    all of them; and every reading."""
+    reads = {key: [] for key in fns}
+    for _ in range(runs):
+        for key, fn in fns.items():
+            reads[key].append(cuda_ms(fn, iters))
+    return {key: statistics.median(v) for key, v in reads.items()}, reads
+
+
+def spread(readings: dict) -> str:
+    """min-max of each fn's readings, ms."""
+    return ", ".join(f"{key} {min(v):.4f}-{max(v):.4f}" for key, v in readings.items())
 
 
 def _bound(nbytes, ops, dtype):
@@ -648,7 +678,7 @@ def phase_kernel_grouped():
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
-    for shape in CHECKED:
+    for shape in [*CHECKED, *TILE_EDGES]:
         causal = shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(shape, dtype)
@@ -668,25 +698,28 @@ def phase_kernel_grouped():
         q1, k1, v1 = qkv_slices(shape, torch.bfloat16, gen)
         o, lse = fa.fused_attention_grouped(q, k, v, is_causal=causal)
         do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
-        fwd = dict(
-            ms=cuda_ms(lambda: fa.fused_attention_grouped(q, k, v, is_causal=causal), 50),
-            k1_ms=cuda_ms(lambda: fa.fused_attention_packed(q1, k1, v1, is_causal=causal, heads=h),
-                          50),
-            plain_ms=cuda_ms(lambda: fa.fused_attention_ref(q, k, v, is_causal=causal), 20))
+        b, n = shape["b"], shape["n"]
+        q4, k4, v4 = (t.view(b, h, -1, d) for t in (q, k, v))
+        fwd, readings = median_ms({
+            "ms": lambda: fa.fused_attention_grouped(q, k, v, is_causal=causal),
+            "k1_ms": lambda: fa.fused_attention_packed(q1, k1, v1, is_causal=causal, heads=h),
+            "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal)}, 50)
+        fwd.update(readings=readings, plain_ms=cuda_ms(
+            lambda: fa.fused_attention_ref(q, k, v, is_causal=causal), 20))
         bwd = dict(
             ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, do, lse,
                                                               is_causal=causal), 20),
             plain_ms=cuda_ms(lambda: fa.fused_attention_bwd_ref(q, k, v, o, do, lse,
                                                                 is_causal=causal), 5))
-        b, n = shape["b"], shape["n"]
-        fwd["library_ms"], bwd["library_ms"] = sdpa_ms(
-            *(t.view(b, h, -1, d) for t in (q, k, v)), do.view(b, h, n, d), causal)
+        _, bwd["library_ms"] = sdpa_ms(q4, k4, v4, do.view(b, h, n, d), causal)
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = attention_bound(**args, dtype=torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = attention_bwd_bound(**args, dtype=torch.bfloat16)
         log(f"[kernel] K4 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K1 same shape "
             f"{fwd['k1_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
-            f"ms, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}), bound "
+            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
         log(f"[kernel] K5 bf16 {shape}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
             f"SDPA backward {bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us "
             f"({bwd['bound_by']})")
@@ -701,7 +734,7 @@ def phase_kernel_grouped():
         "replaces": "mrclip_tpu/ops/fused_attn.py:101",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_fwd_kernel (via _run_fwd :167)",
         "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
-        **common, **fwd256,
+        **common, **fwd256, **MMA_FWD,
         "library": "scaled_dot_product_attention forward",
         "text_b256": fwd_text,
     }, {
@@ -730,7 +763,7 @@ def phase_kernel_flash():
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
-    for shape in FLASH_CHECKED:
+    for shape in [*FLASH_CHECKED, *TILE_EDGES]:
         causal = shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(shape, dtype)
@@ -753,24 +786,28 @@ def phase_kernel_flash():
         di = fl.flash_di(o, do)
         qg, kg, vg, dog = (fa.group_heads(t) for t in (q, k, v, do))
         og, lse = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
-        fwd = dict(
-            ms=cuda_ms(lambda: fl.flash_attention(q, k, v, is_causal=causal), 50),
-            k4_ms=cuda_ms(lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal), 50),
-            plain_ms=cuda_ms(lambda: fl.flash_attention_ref(q, k, v, is_causal=causal), 10))
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+        fwd, readings = median_ms({
+            "ms": lambda: fl.flash_attention(q, k, v, is_causal=causal),
+            "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+            "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal)}, 50)
+        fwd.update(readings=readings, plain_ms=cuda_ms(
+            lambda: fl.flash_attention_ref(q, k, v, is_causal=causal), 10))
         bwd = dict(
             ms=cuda_ms(lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal), 20),
             k5_ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse,
                                                                  is_causal=causal), 20),
             plain_ms=cuda_ms(lambda: fl.flash_attention_bwd_ref(q, k, v, do, l, m, di,
                                                                 is_causal=causal), 5))
-        fwd["library_ms"], bwd["library_ms"] = sdpa_ms(
-            *(t.transpose(1, 2) for t in (q, k, v)), do.transpose(1, 2), causal)
+        _, bwd["library_ms"] = sdpa_ms(q4, k4, v4, do.transpose(1, 2), causal)
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16, backward=True)
         log(f"[kernel] K10 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K4 same shape "
             f"{fwd['k4_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
-            f"ms, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}), bound "
+            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
         log(f"[kernel] K10b bf16 {shape}: kernel {bwd['ms']:.4f} ms, K5 same shape "
             f"{bwd['k5_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA backward "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
@@ -787,7 +824,7 @@ def phase_kernel_flash():
         "tpu_kernel": "mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded -> jax "
                       "pallas/ops/tpu/flash_attention.py::_flash_attention_kernel_single_batch",
         "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
-        **common, **fwd256,
+        **common, **fwd256, **MMA_FWD,
         "library": "scaled_dot_product_attention forward",
         "text77_b256": fwd_text, "n577_b32": fwd_577,
     }, {
@@ -1195,7 +1232,9 @@ def phase_serve_mobileclip(entries, card):
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "mobileclip_s1.mrclip")
     save_exported(exported, path)
-    os.environ["MRCLIP_DW_IMPL"] = "pallas"  # the serving process's choice; not in the artifact
+    # the artifact's dw_impl ('pallas') decides, not the serving process's
+    # variable: the K8 launch counts below show it
+    os.environ["MRCLIP_DW_IMPL"] = "xla"
     served = load_exported(path)
     weights = exported.state_dict
     plain = build_model("MobileCLIP-S1", "xla", pretrained=weights, precision="bf16", attn_impl="xla")
@@ -1356,16 +1395,16 @@ def grad_cosines(a: dict, b: dict):
 
 # Device kernels by (lower-cased) name -> the layer they belong to (first
 # match wins). The rope instantiations of the packed attention kernels and
-# the flash instantiations of the row kernels carry the template flag `true`
-# in their names.
+# the flash instantiations of the row and tensor-core kernels carry the
+# template flag `true` in their names.
 KERNEL_GROUPS = [
     ("K8 dw_conv_fwd", ("dw_stencil_kernel<__nv_bfloat16, 3, false>",
                         "dw_stencil_kernel<__nv_bfloat16, 7, false>")),
     ("K9 dw_conv_bwd", ("dw_stencil_kernel", "dw_wgrad_")),
     ("convolution (cuDNN: stem, downsamples)", ("convolution", "cudnn", "fprop", "dgrad",
                                                 "wgrad", "conv2d", "depthwise")),
-    ("K10 flash_attn_fwd", ("rows_fwd_kernel<__nv_bfloat16, 64, true>",)),
-    ("K4 grouped_attn_fwd", ("rows_fwd_kernel",)),
+    ("K10 flash_attn_fwd", ("mma_fwd_kernel<64, true", "rows_fwd_kernel<float, 64, true>")),
+    ("K4 grouped_attn_fwd", ("mma_fwd_kernel", "rows_fwd_kernel")),
     ("K10b flash_attn_bwd", ("rows_bwd_dq_kernel<__nv_bfloat16, 64, true>",
                              "rows_bwd_dkv_kernel<__nv_bfloat16, 64, true>")),
     ("K5 grouped_attn_bwd", ("rows_bwd_",)),

@@ -1,0 +1,569 @@
+// Tensor-core forward of the bf16 attention of grouped_attn.cu (K4,
+// attn_impl='fused') and flash_attn.cu (K10, attn_impl='flash'), and the
+// forward launcher of both (fp32 stays on attn_rows.cuh's FMA kernel: TF32
+// products would miss the fp32 bar of the plain version, 1e-4).
+//
+// Replaces, in bf16:
+//   K4:  mrclip_tpu/ops/fused_attn.py::_fwd_kernel (:101), driven by
+//        _run_fwd (:167);
+//   K10: jax's _flash_attention_kernel_single_batch (and its single-step
+//        form), which mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded
+//        (:41) reaches.
+// The values are those of attn_rows.cuh's rounding orders (FLASH flag):
+// with one key block (K4; K10 when the padded length Np_k <= 256) P is
+// normalised, then rounded to bf16 before P.V; with several (K10, MULTI)
+// jax's update with the unnormalised P rounded before P.V and each product
+// and sum of the update rounded once. Scores carry log2(e) so that one ex2
+// gives each exp; m is stored back in natural units.
+//
+// Bound on an H100 SXM at ViT-B/16 vision b256 (N = 197, H = 12, D = 64):
+// q, k, v read and o written once, 310 MB plus the stats: 93.2 us (K4) and
+// 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us at 989
+// TFLOP/s): bound by bytes. The design keeps every product on the tensor
+// cores and reads K and V from device memory once per (sample, head) where
+// a block holds them:
+//   - four warps of 16 query rows walk sub-tiles of 64 rows; where one chunk
+//     holds every key (every main-path shape) K and V stay staged and a
+//     block walks up to 256 query rows, so K and V leave device memory once
+//     per (sample, head) at N = 197 (one block per 64 rows read them four
+//     times there and took nearly twice as long on the H100); the grid is
+//     (batch or groups, row blocks, heads);
+//   - Q, K and V staged in bf16 in dynamic shared memory by 16-byte
+//     cp.async (one row's head slice is D * 2 bytes, so the same copy takes
+//     the contiguous grouped layout and the strided [B, N, H, D] views),
+//     rows padded by 16 bytes so that ldmatrix meets no bank conflict, rows
+//     past the last key zero-filled by the copy itself;
+//   - a chunk is up to 256 keys, the whole K and V of one jax key block
+//     (every main-path shape: N = 197, 98, 77, 64); V's copy overlaps
+//     pass A. K4 past 256 keys walks chunks of 256, copied again
+//     in pass B. Whole chunks, not double-buffered 64-key tiles: jax's
+//     blocks are at most 256 keys, so one copy per block serves both passes
+//     and the recompute of pass B reads shared memory only;
+//   - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 out) with Q's fragments
+//     loaded once by ldmatrix, 64 keys at a time, scaled in fp32; keys past
+//     the chunk and causal pairs (key > query) set to -inf, so their exp is
+//     exactly 0; row max and sum reduced over the quad of lanes that share a
+//     row, once per 64 keys;
+//   - pass A: the max and the online sum (one block) or the block's max
+//     (several); pass B: S recomputed on the tensor cores from shared
+//     memory, P rounded to bf16 in the accumulator's registers, which are
+//     the A fragments of P.V (V read by ldmatrix.trans), P.V summed in fp32.
+//     The TPU's order (P normalised, then rounded) needs a row's final max
+//     and sum before any P.V; holding a whole walk's scores in registers
+//     instead (S computed once) took three instantiations per kernel and
+//     spilled, and timed within the run-to-run spread of this form on the
+//     H100 (PERF.md, PR 6);
+//   - o rounded to bf16 and stored by 16-byte stores through the warp's
+//     rows of the Q tile; lse = m + log l (K4) or l and m (K10), one lane
+//     per row; rows >= n store nothing, a warp whose rows all lie past n
+//     computes nothing.
+// Dynamic shared memory: (64 + 2 ch) * (D + 8) * 2 bytes for a chunk of ch
+// keys, 69,120 at N = 197, D = 64, so three blocks share an SM. Registers
+// (-Xptxas -v in build.py's log, sm_90a; three blocks of 128 threads per SM
+// cap them at 168): K4 127 (D = 32) and 167 (D = 64); K10 128 and 168 with
+// one key block, 167 and 168 with several, the last spilling 60 bytes (the
+// N = 577 path, off the main paths).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
+
+#include "attn_rows.cuh"  // Strides, rows_fwd_kernel (fp32), lane_sum
+
+namespace {
+
+constexpr int kMmaRows = 64;  // query rows per sub-tile, 16 per warp
+constexpr int kMmaThreads = 128;
+constexpr int kMaxChunk = 256;  // keys staged at once
+constexpr int kMaxRows = 256;   // query rows per block while K and V stay staged
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+using bf16 = __nv_bfloat16;
+
+// Shared-memory bytes: the Q tile and `ch` rows each of K and V, rows of D
+// + 8 elements.
+template <int D>
+constexpr int mma_smem_bytes(int ch) {
+  return (kMmaRows + 2 * ch) * (D + 8) * 2;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  }
+}
+
+// d += a b: m16n8k16, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [0, len) of one (sample, head)'s D columns (row stride rs elements)
+// into shared rows of D + 8 elements at `dst`, by 16-byte copies; rows
+// [len, len rounded up to 16) are zero-filled (no source bytes).
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long long rs,
+                                           int len) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces per row
+  const int rows = (len + 15) & ~15;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r < len;
+    cp_async16(dst + (r * (D + 8) + c * 8) * 2, src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
+  }
+}
+
+// This warp's raw scores q.k over 64 keys from shared row `kr` of K:
+// n-fragment j holds keys kr + 8j + 2t + {0, 1} of rows g (regs 0, 1) and
+// g + 8 (regs 2, 3). FULL: all four groups of 16 keys; else groups from
+// `groups` on are not computed and read 0.
+template <int D, bool FULL>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
+                                            uint32_t sk, int kr, int groups, int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  // this lane's ldmatrix row: keys 0-7 / 8-15 of a group, dims 0-7 / 8-15
+  const uint32_t base = sk + ((kr + (mi >> 1) * 8 + rr) * (D + 8) + (mi & 1) * 8) * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ds = 0; ds < D / 16; ++ds) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (FULL || kk < groups) {
+        uint32_t b[4];
+        ldsm_x4<false>(b, base + (16 * kk * (D + 8) + 16 * ds) * 2);
+        mma_bf16(s[2 * kk], qf[ds], b[0], b[1]);
+        mma_bf16(s[2 * kk + 1], qf[ds], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc += P V over the 64 keys of `p` (probabilities in the accumulator
+// layout of tile_scores, rounded to bf16 here: the C fragments of keys
+// 16kk..+7 and +8..+15 are the A fragment) from shared row `kr` of V.
+template <int D, bool FULL>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&p)[8][4],
+                                        uint32_t sv, int kr, int groups, int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  // this lane's ldmatrix.trans row: keys 0-7 / 8-15, dims 0-7 | 8-15
+  const uint32_t base = sv + ((kr + (mi & 1) * 8 + rr) * (D + 8) + (mi >> 1) * 8) * 2;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (FULL || kk < groups) {
+      const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                             pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                             pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4<true>(b, base + (16 * kk * (D + 8) + 16 * dp) * 2);
+        mma_bf16(acc[2 * dp], a, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Keys at or past c1 and causal pairs (key > query row) to -inf.
+__device__ __forceinline__ void mask_scores(float (&s)[8][4], int s0, int c1, int r0,
+                                            bool causal, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = s0 + 8 * j + 2 * t + (e & 1);
+      if (key >= c1 || (causal && key > r0 + (e & 2) * 4)) s[j][e] = -INFINITY;
+    }
+  }
+}
+
+// One sub-tile of 64 keys, pass A: the rows' max m (base 2: s * sl2) and,
+// with one key block, the online sum l of 2^(s sl2 - m) (MULTI: the
+// block's max mb only). `mask`: some key of the 64 is masked.
+template <int D, bool MULTI, bool FULL>
+__device__ __forceinline__ void pass_a_tile(float (&m)[2], float (&l)[2], float (&mb)[2],
+                                            const uint32_t (&qf)[D / 16][4], uint32_t sk, int kr,
+                                            int groups, int s0, int c1, int r0, bool mask,
+                                            bool causal, float sl2, int lane) {
+  float s[8][4];
+  tile_scores<D, FULL>(s, qf, sk, kr, groups, lane);
+  if (mask) mask_scores(s, s0, c1, r0, causal, lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = quad_max(mx) * sl2;  // scale > 0: the max of the scaled scores
+    if constexpr (MULTI) {
+      mb[i] = fmaxf(mb[i], mx);
+    } else {
+      const float m_new = fmaxf(m[i], mx);
+      if (m_new != -INFINITY) {
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (FULL || j < 2 * groups) {  // keys not computed: exp 0
+            sum0 += ex2(fmaf(s[j][2 * i], sl2, -m_new));
+            sum1 += ex2(fmaf(s[j][2 * i + 1], sl2, -m_new));
+          }
+        }
+        l[i] = fmaf(l[i], ex2(m[i] - m_new), sum0 + sum1);
+      }
+      m[i] = m_new;
+    }
+  }
+}
+
+// One sub-tile of 64 keys, pass B: p = 2^(s sl2 - mo) (one block: mo = m
+// + log2 l, P normalised; MULTI: mo = the new max, P unnormalised and its
+// sum added to ls), rounded to bf16, acc += P V.
+template <int D, bool MULTI, bool FULL>
+__device__ __forceinline__ void pass_b_tile(float (&acc)[D / 8][4], float (&ls)[2],
+                                            const float (&mo)[2],
+                                            const uint32_t (&qf)[D / 16][4], uint32_t sk,
+                                            uint32_t sv, int kr, int groups, int s0, int c1,
+                                            int r0, bool mask, bool causal, float sl2, int lane) {
+  float s[8][4];
+  tile_scores<D, FULL>(s, qf, sk, kr, groups, lane);
+  if (mask) mask_scores(s, s0, c1, r0, causal, lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (FULL || j < 2 * groups) {  // tile_pv reads no further
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], sl2, -mo[e >> 1]));
+        if constexpr (MULTI) ls[e >> 1] += s[j][e];
+      }
+    }
+  }
+  tile_pv<D, FULL>(acc, s, sv, kr, groups, lane);
+}
+
+// Forward of the query rows of one block of one (sample, head): K4 (FLASH
+// = false: stat_a = lse) or K10 (stat_a = l, stat_b = m); MULTI: jax's walk
+// over nblk > 1 key blocks. K4 passes nblk = 1 and blk_k = nk. The block
+// walks `iters` sub-tiles of kMmaRows rows; `ch` is the staged chunk, in
+// keys (a multiple of 16, at most kMaxChunk). Where one chunk holds every
+// key, K and V are staged once for all the sub-tiles.
+template <int D, bool FLASH, bool MULTI>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    mma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ stat_a,
+                   float* __restrict__ stat_b, int n, int nk, int heads, Strides st, float scale,
+                   int causal, int blk_q, int blk_k, int nblk, int ch, int iters) {
+  static_assert(D == 32 || D == 64, "head dim");
+  static_assert(FLASH || !MULTI, "K4 walks one key block");
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sq = reinterpret_cast<bf16*>(mma_smem);
+  const uint32_t sq_a = static_cast<uint32_t>(__cvta_generic_to_shared(sq));
+  const uint32_t sk_a = sq_a + kMmaRows * (D + 8) * 2;
+  const uint32_t sv_a = sk_a + ch * (D + 8) * 2;
+
+  const long long b = blockIdx.x;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long hd = (long long)h * D;
+  const bf16* kb = k + b * st.k_bs + hd;
+  const bf16* vb = v + b * st.v_bs + hd;
+  const float sl2 = scale * kLog2e;
+  const bool resident = nblk == 1 && nk <= ch;
+
+  for (int it = 0; it < iters; ++it) {
+    const int row0 = (blockIdx.y * iters + it) * kMmaRows;
+    if (row0 >= n) break;
+    const int wrow0 = row0 + 16 * warp;
+    const int r0 = wrow0 + g;  // this lane's rows: r0 and r0 + 8
+    __syncthreads();  // every warp is done with the Q tile (its staged o)
+    stage_rows<D>(sq_a, q + b * st.q_bs + row0 * st.q_rs + hd, st.q_rs,
+                  min(kMmaRows, n - row0));
+    cp_async_commit();
+
+    // keys past the sub-tile's last row are masked for all its rows
+    // (causal); keys from w_keys on for every row of this warp (a warp
+    // whose rows all lie past n computes nothing)
+    const int last = min(n, row0 + kMmaRows) - 1;
+    const int w_keys = wrow0 >= n ? INT_MIN : causal ? min(n - 1, wrow0 + 15) + 1 : INT_MAX;
+    const int qblk = row0 / blk_q;  // jax's query block (kMmaRows | blk_q)
+
+    uint32_t qf[D / 16][4];
+    bool have_q = false;
+    float acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m to base 2
+
+    for (int c = 0; c < nblk; ++c) {
+      const int kb0 = c * blk_k;
+      // jax's below_or_on_diag: later blocks lie above the diagonal too
+      if (FLASH && causal && !((qblk + 1) * blk_q - 1 > kb0)) break;
+      const int kb1 = min(nk, kb0 + blk_k);
+      const int kend = causal ? min(kb1, last + 1) : kb1;
+      const int nch = kend > kb0 ? (kend - kb0 + ch - 1) / ch : 0;
+
+      // pass A: the block's max; one block: the online sum
+      float mb[2] = {-INFINITY, -INFINITY};
+      for (int ci = 0; ci < nch; ++ci) {
+        const int c0 = kb0 + ci * ch, c1 = min(kend, c0 + ch);
+        if (!resident || it == 0) {
+          __syncthreads();  // every warp is done with the staged chunk
+          const int s1 = resident ? kb1 : c1;  // resident: every key, for later sub-tiles
+          stage_rows<D>(sk_a, kb + c0 * st.k_rs, st.k_rs, s1 - c0);
+          cp_async_commit();
+          if (nch == 1) {  // V's copy overlaps pass A
+            stage_rows<D>(sv_a, vb + c0 * st.v_rs, st.v_rs, s1 - c0);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+        } else {
+          cp_async_wait<0>();  // the sub-tile's Q
+        }
+        __syncthreads();
+        if (!have_q) {  // Q's copy came before the first chunk's K
+          const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+          for (int ds = 0; ds < D / 16; ++ds)
+            ldsm_x4<false>(qf[ds], sq_a + ((16 * warp + (mi & 1) * 8 + rr) * (D + 8) +
+                                           16 * ds + (mi >> 1) * 8) * 2);
+          have_q = true;
+        }
+        const int wend = min(c1, w_keys);
+        for (int s0 = c0; s0 < wend; s0 += 64) {
+          const bool mask = !(s0 + 64 <= c1 && (!causal || s0 + 63 <= wrow0));
+          if (s0 + 64 <= wend)
+            pass_a_tile<D, MULTI, true>(m, l, mb, qf, sk_a, s0 - c0, 4, s0, c1, r0, mask,
+                                        causal, sl2, lane);
+          else
+            pass_a_tile<D, MULTI, false>(m, l, mb, qf, sk_a, s0 - c0, (wend - s0 + 15) / 16, s0,
+                                         c1, r0, true, causal, sl2, lane);
+        }
+      }
+
+      // pass B: P.V over the block, S recomputed from shared memory
+      float mo[2], ls[2] = {0.f, 0.f};
+      float cur[D / 8][4];  // MULTI: this block's P.V
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (MULTI) {
+          mo[i] = fmaxf(m[i], mb[i]);
+        } else {
+          l[i] = lane_sum(l[i]);
+          mo[i] = m[i] + log2f(l[i]);  // 2^(s sl2 - mo) = exp(s scale - m) / l
+        }
+      }
+      if constexpr (MULTI) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) cur[j][0] = cur[j][1] = cur[j][2] = cur[j][3] = 0.f;
+      }
+      for (int ci = 0; ci < nch; ++ci) {
+        const int c0 = kb0 + ci * ch, c1 = min(kend, c0 + ch);
+        if (nch > 1) {
+          __syncthreads();
+          stage_rows<D>(sk_a, kb + c0 * st.k_rs, st.k_rs, c1 - c0);
+          stage_rows<D>(sv_a, vb + c0 * st.v_rs, st.v_rs, c1 - c0);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+        const int wend = min(c1, w_keys);
+        for (int s0 = c0; s0 < wend; s0 += 64) {
+          const bool mask = !(s0 + 64 <= c1 && (!causal || s0 + 63 <= wrow0));
+          const bool full = s0 + 64 <= wend;
+          const int groups = full ? 4 : (wend - s0 + 15) / 16;
+          if constexpr (MULTI) {  // the block's P.V apart, for jax's update
+            if (full)
+              pass_b_tile<D, true, true>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+                                         r0, mask, causal, sl2, lane);
+            else
+              pass_b_tile<D, true, false>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+                                          r0, true, causal, sl2, lane);
+          } else {
+            if (full)
+              pass_b_tile<D, false, true>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+                                          r0, mask, causal, sl2, lane);
+            else
+              pass_b_tile<D, false, false>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0,
+                                           c1, r0, true, causal, sl2, lane);
+          }
+        }
+      }
+
+      if constexpr (MULTI) {
+        // jax's update, each product and sum rounded once (no contraction)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float l_blk = lane_sum(ls[i]);
+          const float l_corr = mo[i] == -INFINITY ? 0.f : __fmul_rn(ex2(m[i] - mo[i]), l[i]);
+          const float l_new = __fadd_rn(l_blk, l_corr);
+          const float inv = l_new == 0.f ? 1.f : __fdiv_rn(1.f, l_new);
+          const float f = __fmul_rn(l_corr, inv);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+            for (int e = 2 * i; e < 2 * i + 2; ++e)
+              acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], f), __fmul_rn(cur[j][e], inv));
+          }
+          m[i] = mo[i];
+          l[i] = l_new;
+        }
+      }
+    }
+
+    // o through this warp's 16 rows of the Q tile, 16 bytes per store
+    __syncwarp();
+    bf16* so = sq + 16 * warp * (D + 8);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(so + g * (D + 8) + 8 * j + 2 * t) =
+          pack_bf16(acc[j][0], acc[j][1]);
+      *reinterpret_cast<uint32_t*>(so + (g + 8) * (D + 8) + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2], acc[j][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const int row = wrow0 + r;
+      if (row < n)
+        *reinterpret_cast<uint4*>(o + b * st.o_bs + row * st.o_rs + hd + 8 * c8) =
+            *reinterpret_cast<const uint4*>(so + r * (D + 8) + 8 * c8);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        if (row >= n) continue;
+        const long long idx = (b * heads + h) * n + row;
+        const float m_nat = m[i] * kLn2;
+        if constexpr (FLASH) {
+          stat_a[idx] = l[i];
+          stat_b[idx] = m_nat;
+        } else {
+          stat_a[idx] = __fadd_rn(m_nat, logf(l[i]));
+        }
+      }
+    }
+  }
+}
+
+// Lets mma_fwd_kernel<D, FLASH, MULTI> take the largest chunk's shared
+// memory (above the default 48 KB for D = 64), once per device.
+template <int D, bool FLASH, bool MULTI>
+cudaError_t allow_mma_smem() {
+  static std::atomic<unsigned long long> done{0};  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(mma_fwd_kernel<D, FLASH, MULTI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             mma_smem_bytes<D>(kMaxChunk));
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int D, bool FLASH, bool MULTI>
+int launch_mma_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
+                   float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+                   float scale, int causal, int blk_q, int blk_k, int nblk,
+                   cudaStream_t stream) {
+  const cudaError_t err = allow_mma_smem<D, FLASH, MULTI>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one jax block (at most 256 keys when there are several) per chunk
+  const int keys = blk_k < nk ? blk_k : nk;
+  const int ch = keys >= kMaxChunk ? kMaxChunk : (keys + 15) & ~15;
+  // K and V resident: one block walks up to kMaxRows query rows
+  const int tiles = (n + kMmaRows - 1) / kMmaRows;
+  const int most = nblk == 1 && nk <= ch ? kMaxRows / kMmaRows : 1;
+  const int iters = tiles < most ? tiles : most;
+  const dim3 grid(batch, (tiles + iters - 1) / iters, heads);
+  mma_fwd_kernel<D, FLASH, MULTI><<<grid, kMmaThreads, mma_smem_bytes<D>(ch), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, blk_q, blk_k,
+      nblk, ch, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the forward, the kernel chosen by type at compile time: bf16 on
+// the tensor cores (mma_fwd_kernel), fp32 on the FMA rows kernel. Returns
+// the cudaError_t of the launch.
+template <typename T, int D, bool FLASH>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
+               float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+               float scale, int causal, int blk_q, int blk_k, int nblk, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if constexpr (FLASH) {
+      if (nblk > 1)
+        return launch_mma_fwd<D, true, true>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads,
+                                             st, scale, causal, blk_q, blk_k, nblk, stream);
+    }
+    return launch_mma_fwd<D, FLASH, false>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
+                                           scale, causal, blk_q, blk_k, nblk, stream);
+  } else {
+    const dim3 grid(batch, (n + kTile - 1) / kTile, heads);
+    rows_fwd_kernel<T, D, FLASH><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, blk_q, blk_k, nblk);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+}  // namespace

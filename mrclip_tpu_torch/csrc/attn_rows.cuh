@@ -17,6 +17,8 @@
 // Both walk one 64-row query tile per block with four lanes per row
 // (attn_tile.cuh), stage 64-key tiles of K and V through shared memory in
 // fp32, and keep every score in registers. The grid is (batch, tile, head).
+// The bf16 forward runs on the tensor cores instead (attn_mma_fwd.cuh, which
+// holds the forward launcher); rows_fwd_kernel is the fp32 forward.
 //
 // Forward, per query row, over key blocks: K4 has one block of all Nk keys;
 // K10 the blocks jax walks, width blk_k = pick_block(Np_k) of the padded
@@ -103,8 +105,9 @@ __device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src,
   }
 }
 
-// Forward (K4: stat_a = lse; K10: stat_a = l, stat_b = m), one 64-row query
-// tile of one (sample, head). K4 passes nblk = 1 and blk_k = nk.
+// Forward in fp32 (K4: stat_a = lse; K10: stat_a = l, stat_b = m), one
+// 64-row query tile of one (sample, head). K4 passes nblk = 1 and blk_k =
+// nk. bf16 runs attn_mma_fwd.cuh's mma_fwd_kernel.
 template <typename T, int D, bool FLASH>
 __global__ void __launch_bounds__(kThreads)
     rows_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -112,6 +115,7 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ stat_a, float* __restrict__ stat_b,
                     int n, int nk, int heads, Strides st, float scale,
                     int causal, int blk_q, int blk_k, int nblk) {
+  static_assert(sizeof(T) == 4, "the bf16 forward is attn_mma_fwd.cuh's");
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
@@ -371,20 +375,6 @@ __global__ void __launch_bounds__(kThreads)
   if (!live) return;
   store_row<T, D>(dk + b * st.dk_bs + key * st.dk_rs + hd, dk_acc, sub);
   store_row<T, D>(dv + b * st.dv_bs + key * st.dv_rs + hd, dv_acc, sub);
-}
-
-// Launches the forward; returns the cudaError_t of the launch.
-template <typename T, int D, bool FLASH>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* stat_a, float* stat_b, int batch, int n, int nk,
-               int heads, const Strides& st, float scale, int causal,
-               int blk_q, int blk_k, int nblk, cudaStream_t stream) {
-  const dim3 grid(batch, (n + kTile - 1) / kTile, heads);
-  rows_fwd_kernel<T, D, FLASH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), stat_a, stat_b, n, nk,
-      heads, st, scale, causal, blk_q, blk_k, nblk);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches both backward passes; returns the first cudaError_t.

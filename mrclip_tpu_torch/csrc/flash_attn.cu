@@ -10,7 +10,8 @@
 //         _flash_attention_dq_kernel (:1146), driven by
 //         _flash_attention_bwd (:254); one call launches both passes.
 //
-// Per (sample, head), in jax's rounding order (attn_rows.cuh, FLASH = true):
+// Per (sample, head), in jax's rounding order (attn_rows.cuh and
+// attn_mma_fwd.cuh, FLASH = true):
 // the keys are walked in blocks of width pick_block(Np_k) (256 if it divides
 // the padded length Np_k, else 128); a causal block wholly above the
 // diagonal of the query row's block is skipped. With one block (Np_k <= 256,
@@ -39,16 +40,21 @@
 // Layout: q, k, v are [B, N, H, D] views with a batch and a row stride each
 // and contiguous heads (the three column slices of one in_proj output go in
 // uncopied, where jax's wrapper pads and transposes them to [B, H, Np, D]);
-// o, dO and the gradients the same way.
+// o, dO and the gradients the same way. Base pointers and the batch and row
+// strides are multiples of 16 bytes (checked by the caller), so a row's
+// head slice is copied in 16-byte pieces.
 //
 // Bound on an H100 SXM, as K4/K5 (grouped_attn.cu): at ViT-B/16 vision b256
 // (N = 197, H = 12, D = 64, bf16) the forward reads q, k, v and writes o
 // (310 MB) and l, m (4.8 MB): 0.0940 ms at 3.35 TB/s against 30.5 GFLOP
 // (0.031 ms at 989 TFLOP/s), bytes; the backward reads q, k, v, dO, l, m, di
-// and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. This version
-// runs the products on the fp32 FMA pipes, so it sits far above both; the
-// tensor cores are the later step. The model's backward launches the
-// forward again first (jax.checkpoint's recompute: only q, k, v are kept).
+// and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. The bf16
+// forward runs on the tensor cores (attn_mma_fwd.cuh, FLASH = true: K and V
+// staged in bf16 by 16-byte copies, the strided views taken as they are);
+// the fp32 forward and the backward run on the fp32 FMA pipes
+// (attn_rows.cuh), so the backward sits far above its bound. The model's
+// backward launches the forward again first (jax.checkpoint's recompute:
+// only q, k, v are kept).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attn.so flash_attn.cu
@@ -57,7 +63,8 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
-#include "attn_rows.cuh"  // Strides, launch_fwd, launch_bwd
+#include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
+#include "attn_rows.cuh"     // Strides, launch_bwd
 
 namespace {
 

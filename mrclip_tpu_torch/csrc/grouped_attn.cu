@@ -23,13 +23,14 @@
 // kernels here take the unpadded tiles and skip keys >= Nk, which gives the
 // same values on every real row. Cross-attention (Nk != N) is allowed.
 //
-// Design (attn_rows.cuh, FLASH = false): one block per (group, 64-row query
-// tile), four lanes per row, 64-key K/V tiles staged in fp32 through shared
-// memory. Each group is one contiguous N x D tile, so a K or V tile is one
-// contiguous span, staged with 16-byte loads and no strided gather (the
-// packed K1/K3 walk a row stride of 3*H*D instead). The forward walks the
-// keys twice (max and online sum, then P.V with the final m and l), because
-// the TPU rounds P only after normalising it; the backward is K3's two
+// Design. The bf16 forward runs on the tensor cores (attn_mma_fwd.cuh,
+// FLASH = false): a block stages a group's K and V once in bf16 and walks
+// its query rows, the keys twice (max and online sum, then P.V with the
+// scores recomputed from shared memory), since the TPU rounds P only after
+// normalising it. The fp32 forward and the backward take one block per
+// (group, 64-row query tile), four lanes per row, 64-key K/V tiles staged
+// in fp32 (attn_rows.cuh): the fp32 forward walks the keys twice (max and
+// online sum, then P.V with the final m and l); the backward is K3's two
 // passes (dQ + delta per query tile; dK, dV per key tile).
 //
 // Bound on an H100 SXM. Forward, ViT-B/16 vision at b256 (B*H = 3072
@@ -37,10 +38,10 @@
 // MB) plus lse (2.4 MB), 0.0933 ms at 3.35 TB/s, against 4*N*N*D operations
 // per group (30.5 GFLOP, 0.031 ms at 989 TFLOP/s): bound by bytes. Backward:
 // eight such tensors read or written and 10*D operations per pair (76.3
-// GFLOP): 0.1857 ms, bytes. This version runs every product on the fp32
-// FMA pipes (67 TFLOP/s), 6*D (forward) and 14*D (backward) FMA-operations
-// per pair, so it sits far above those bounds; the tensor cores (mma.sync /
-// wgmma) are the step that brings it down. The grouped layout itself costs
+// GFLOP): 0.1857 ms, bytes. The backward runs every product on the fp32
+// FMA pipes (67 TFLOP/s), 14*D FMA-operations per pair, so it sits far
+// above its bound; the bf16 forward's products run on the tensor cores
+// (attn_mma_fwd.cuh says how it meets the bytes). The grouped layout costs
 // the transposes around the kernels (q, k, v, dO in; o, dq, dk, dv out),
 // which the packed K1/K3 do not need.
 //
@@ -50,7 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "attn_rows.cuh"  // Strides, launch_fwd, launch_bwd
+#include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
+#include "attn_rows.cuh"     // Strides, launch_bwd
 
 namespace {
 

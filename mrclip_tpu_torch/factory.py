@@ -134,11 +134,14 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
 
 
 def model_from_config(
-    cfg: dict, *, precision: str = "fp32", attn_impl: str = "xla", gelu_approx: bool = False
+    cfg: dict, *, precision: str = "fp32", attn_impl: str = "xla", gelu_approx: bool = False,
+    dw_impl: Optional[str] = None,
 ) -> CLIP:
-    """An uninitialized CLIP on the CPU for a resolved config dict. The
-    arguments are kept on the module as `build_args`, from which
-    `serving.export_model` writes what rebuilding it takes."""
+    """An uninitialized CLIP on the CPU for a resolved config dict, its
+    depthwise convolutions (MobileCLIP) on `dw_impl` ('pallas' or 'xla';
+    without one, MRCLIP_DW_IMPL decides). The other arguments are kept on
+    the module as `build_args`, from which `serving.export_model` writes
+    what rebuilding it takes."""
     if "multimodal_cfg" in cfg:
         raise NotImplementedError("CoCa is not ported (ROADMAP: later slice 4, other towers)")
     model = CLIP(
@@ -151,6 +154,7 @@ def model_from_config(
         init_logit_bias=cfg.get("init_logit_bias"),
         attn_impl=attn_impl,
         dtype=cast_dtype(precision),
+        dw_impl=dw_impl,
     )
     model.build_args = {
         "model_cfg": deepcopy(cfg),

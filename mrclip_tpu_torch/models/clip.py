@@ -175,7 +175,7 @@ def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
 
 
 def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.dtype,
-                        attn_impl: str) -> FastViT:
+                        attn_impl: str, dw_impl: Optional[str]) -> FastViT:
     """The MobileCLIP tower of the JAX package's `_build_timm_vit_tower`
     (`fastvit_mci{0,1,2}`) in its from-scratch form (`norm='ln'`,
     `stem='2conv'`)."""
@@ -200,21 +200,23 @@ def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.d
         act=act,
         attn_impl=attn_impl,
         dtype=dtype,
+        dw_impl=dw_impl,
     )
 
 
 def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
-                       attn_impl: str = "xla"):
-    """The plain open_clip ViT, the EVA02-B/L or the FastViT/MCi tower;
-    other vision towers raise."""
+                       attn_impl: str = "xla", dw_impl: Optional[str] = None):
+    """The plain open_clip ViT, the EVA02-B/L or the FastViT/MCi tower
+    (its depthwise convolutions on `dw_impl`; without one, MRCLIP_DW_IMPL
+    decides); other vision towers raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
     if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
         return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl)  # SwiGLU: no act
     if cfg.timm_model_name and (cfg.timm_model_name.startswith("fastvit_")
                                 or cfg.timm_model_name == "vit_base_mci_224"):
-        return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl)
+        return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl, dw_impl)
     _reject({
         f"timm tower {cfg.timm_model_name!r}": cfg.timm_model_name,
         "the ModifiedResNet tower": isinstance(cfg.layers, (tuple, list)),
@@ -258,6 +260,7 @@ def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
         "proj_bias": cfg.proj_bias,
         "final_ln_after_pool": cfg.final_ln_after_pool,
         "output_tokens": cfg.output_tokens,
+        "text dropout": cfg.dropout > 0,
     }, "text tower", "later slice 2, other configs")
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "text")
     return TextTransformer(
@@ -290,12 +293,13 @@ class CLIP(nn.Module):
         init_logit_bias: Optional[float] = None,
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
+        dw_impl: Optional[str] = None,
     ):
         super().__init__()
         act = True if quick_gelu else act_impl
         self.compute_dtype = dtype
         self.visual = build_vision_tower(
-            embed_dim, vision_cfg or CLIPVisionCfg(), act, dtype, attn_impl
+            embed_dim, vision_cfg or CLIPVisionCfg(), act, dtype, attn_impl, dw_impl
         )
         # open_clip inlines the text tower's parts at the root of CLIP
         text = build_text_tower(embed_dim, text_cfg or CLIPTextCfg(), act, dtype, attn_impl)

@@ -74,9 +74,9 @@ class ConvFFN(nn.Module):
     caller adds the residual."""
 
     def __init__(self, dim: int, mlp_ratio: float = 3.0, act: Callable = gelu_exact,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dw_impl: Optional[str] = None):
         super().__init__()
-        self.conv_dw = DepthwiseConv(dim, 7, dtype=dtype)
+        self.conv_dw = DepthwiseConv(dim, 7, dtype=dtype, impl=dw_impl)
         self.norm = LayerNorm(dim, eps=1e-6)
         self.fc1 = Linear(dim, int(dim * mlp_ratio), dtype=dtype)
         self.fc2 = Linear(int(dim * mlp_ratio), dim, dtype=dtype)
@@ -90,11 +90,11 @@ class RepMixerBlock(nn.Module):
     """Deploy-form RepMixer: x += mixer_scale * dw3x3(x); x += ffn(x)."""
 
     def __init__(self, dim: int, mlp_ratio: float = 3.0, act: Callable = gelu_exact,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dw_impl: Optional[str] = None):
         super().__init__()
-        self.mixer_dw = DepthwiseConv(dim, 3, dtype=dtype)
+        self.mixer_dw = DepthwiseConv(dim, 3, dtype=dtype, impl=dw_impl)
         self.mixer_scale = nn.Parameter(torch.ones(dim))
-        self.ffn = ConvFFN(dim, mlp_ratio, act, dtype)
+        self.ffn = ConvFFN(dim, mlp_ratio, act, dtype, dw_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.mixer_dw(x) * self.mixer_scale.to(x.dtype)
@@ -129,6 +129,7 @@ class FastViT(nn.Module):
         act: Callable = gelu_exact,
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
+        dw_impl: Optional[str] = None,
     ):
         super().__init__()
         self.image_size = to_2tuple(image_size)
@@ -144,9 +145,10 @@ class FastViT(nn.Module):
             if s > 0:
                 setattr(self, f"downsample{s}", PatchDownsample(c[s - 1], c[s], dtype))
             for i in range(depths[s]):
-                setattr(self, f"stage{s}_block{i}", RepMixerBlock(c[s], mlp_ratio, act, dtype))
+                setattr(self, f"stage{s}_block{i}",
+                        RepMixerBlock(c[s], mlp_ratio, act, dtype, dw_impl))
         self.downsample3 = PatchDownsample(c[2], c[3], dtype)
-        self.pos_emb_dw = DepthwiseConv(c[3], 7, dtype=dtype)
+        self.pos_emb_dw = DepthwiseConv(c[3], 7, dtype=dtype, impl=dw_impl)
         self.transformer = Transformer(
             c[3], depths[3], max(1, c[3] // 64), mlp_ratio, None, act,
             is_causal=False, attn_impl=attn_impl, ln_eps=1e-6, dtype=dtype,

@@ -69,20 +69,23 @@ class DepthwiseConv(nn.Module):
     package's `DepthwiseConv`): `weight [C, 1, K, K]`, `bias [C]`, computing
     in `dtype`.
 
-    The implementation is the JAX package's environment switch
-    `MRCLIP_DW_IMPL`, read when the module is built and kept as `impl`:
-    'pallas' runs the Hopper kernels K8/K9 (`ops.dw_conv`, the weight as an
-    fp32 `[K*K, C]` table, fp32 accumulation); any other value, and the
-    default, is 'xla', a grouped `F.conv2d` with the weight cast to the
+    The implementation is `impl`, kept on the module; without one, the JAX
+    package's environment switch `MRCLIP_DW_IMPL`, read when the module is
+    built: 'pallas' runs the Hopper kernels K8/K9 (`ops.dw_conv`, the weight
+    as an fp32 `[K*K, C]` table, fp32 accumulation); any other value, and
+    the default, is 'xla', a grouped `F.conv2d` with the weight cast to the
     compute type, as `conv_general_dilated` computes it. The bias is added
     after either, in the compute type."""
 
-    def __init__(self, features: int, kernel_size: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, kernel_size: int, dtype: torch.dtype = torch.float32,
+                 impl: str | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, 1, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
         self.compute_dtype = dtype
-        self.impl = "pallas" if os.environ.get("MRCLIP_DW_IMPL", "xla") == "pallas" else "xla"
+        if impl is None:
+            impl = os.environ.get("MRCLIP_DW_IMPL", "xla")
+        self.impl = "pallas" if impl == "pallas" else "xla"
 
     def extra_repr(self) -> str:
         c, _, k, _ = self.weight.shape

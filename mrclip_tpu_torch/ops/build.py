@@ -1,9 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled for Hopper
-(`sm_90a`) at first use into `build/kernels/` beside the package, under a
-file name that carries the hash of the source, the headers it includes and
-the flags, so an edited source or header rebuilds and an unchanged one
+(`sm_90a`) at first use into `build_dir()`: `build/kernels/` of the checkout
+when the package sits in one, else the per-user cache
+`~/.cache/mrclip_tpu_torch/kernels` (an installed package), under a file
+name that carries the hash of the source, the headers it includes and the
+flags, so an edited source or header rebuilds and an unchanged one
 loads the library already built.
 Nothing here runs at import time: the CPU tests import every module on a
 host with no `nvcc`. Different sources build in parallel when loaded from
@@ -23,11 +25,23 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "nvcc_command", "source_key", "load_library",
-           "load_libraries", "build_info"]
+__all__ = ["ARCH_FLAGS", "CSRC", "BUILD_DIR", "build_dir", "nvcc_command", "source_key",
+           "load_library", "load_libraries", "build_info"]
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+
+
+def build_dir(package: Path = PACKAGE) -> Path:
+    """Where the kernels of the package at `package` build: `build/kernels/`
+    of the checkout when the package sits in one (a `pyproject.toml` beside
+    it), else the per-user cache `~/.cache/mrclip_tpu_torch/kernels`."""
+    if (package.parent / "pyproject.toml").is_file():
+        return package.parent / "build" / "kernels"
+    return Path.home() / ".cache" / "mrclip_tpu_torch" / "kernels"
+
+
+BUILD_DIR = build_dir()
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)

@@ -199,7 +199,8 @@ def load_kernels():
 def _check(name, ts):
     """Refuse what K10/K10b cannot take: `[B, L, H, D]` views on one CUDA
     device, fp32 or bf16 of one type, head dim 32 or 64, heads contiguous
-    within a row (any batch and row stride)."""
+    within a row, base pointer and batch and row strides multiples of 16
+    bytes (the forward copies each row's head slice in 16-byte pieces)."""
     first = ts[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -215,6 +216,13 @@ def _check(name, ts):
         raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
     if any(t.stride(3) != 1 or t.stride(2) != d for t in ts):
         raise ValueError(f"{name}: the heads of a row must be contiguous (strides [.., D, 1])")
+    for t in ts:
+        # the stride of a dimension of size 1 is never stepped
+        steps = [t.stride(i) * t.element_size() for i in (0, 1) if t.shape[i] > 1]
+        if t.data_ptr() % 16 or any(s % 16 for s in steps):
+            raise ValueError(f"{name}: base pointer, batch and row strides must be multiples of "
+                             f"16 bytes; got strides {t.stride()} of {t.element_size()}-byte "
+                             f"elements at offset {t.data_ptr() % 16} mod 16")
 
 
 def _check_stats(name, stats, shape, device):

@@ -550,8 +550,10 @@ def load_grouped_kernels():
 
 def _check_grouped(name, ts, n, nk, d):
     """Refuse what K4/K5 cannot take: contiguous, 16-byte aligned `[G, L,
-    D]` tiles on one CUDA device, fp32 or bf16 of one type, head dim 32 or
-    64; q-like tensors with N rows, k-like with Nk."""
+    D]` tiles on one CUDA device (so the row and group strides are
+    multiples of 16 bytes: K4 copies rows in 16-byte pieces), fp32 or bf16
+    of one type, head dim 32 or 64; q-like tensors with N rows, k-like with
+    Nk."""
     first = ts[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -563,8 +565,8 @@ def _check_grouped(name, ts, n, nk, d):
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
     if any(t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: the grouped tiles must be contiguous, 16-byte aligned "
-                         "[G, L, D] tensors")
+        raise ValueError(f"{name}: the grouped tiles must be contiguous [G, L, D] tensors "
+                         "whose base pointer is a multiple of 16 bytes")
     g = first.shape[0]
     for i, t in enumerate(ts):
         rows = n if i in (0, 3, 4) else nk  # q, o, dO have N rows; k, v have Nk

@@ -2,8 +2,9 @@
 
 The JAX package serializes its jitted encoders as StableHLO. The port's
 artifact is a zip holding `meta.json` (the JAX artifact's keys, plus the
-model config, precision, activation and `attn_impl` needed to rebuild the
-module) and `model.pt`, the `torch.save`d fp32 state dict.
+model config, precision, activation, `attn_impl` and the depthwise
+convolution's implementation `dw_impl` needed to rebuild the module) and
+`model.pt`, the `torch.save`d fp32 state dict.
 
 API:
   exp = export_model(model)                     # model from factory.create_model
@@ -24,6 +25,7 @@ import torch
 
 from .factory import model_from_config
 from .models import CLIP
+from .models.layers import DepthwiseConv
 from .utils import resolve_device
 
 __all__ = ["ExportedModel", "ServedModel", "export_model", "save_exported", "load_exported"]
@@ -73,8 +75,13 @@ class ServedModel:
 
 def export_model(model: CLIP) -> ExportedModel:
     """Capture the weights of a model built by `factory.create_model` and
-    what rebuilding it takes."""
+    what rebuilding it takes, with the `impl` its depthwise convolutions
+    were built with as `dw_impl` (None without any), as the JAX export keeps
+    the path it traced."""
     bias = model.logit_bias
+    dw_impls = {m.impl for m in model.modules() if isinstance(m, DepthwiseConv)}
+    if len(dw_impls) > 1:
+        raise ValueError(f"the model mixes depthwise convolution impls {sorted(dw_impls)}")
     meta = {
         "image_size": list(model.visual.image_size),
         "context_length": int(model.context_length),
@@ -85,6 +92,7 @@ def export_model(model: CLIP) -> ExportedModel:
         "logit_scale": float(model.logit_scale.detach().float().exp().cpu()),
         "logit_bias": float(bias.detach().float().cpu()) if bias is not None else 0.0,
         **model.build_args,
+        "dw_impl": dw_impls.pop() if dw_impls else None,
     }
     sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
     return ExportedModel(sd, meta)
@@ -101,14 +109,15 @@ def save_exported(exported: ExportedModel, path: str) -> None:
 
 def load_exported(path: str, device=None) -> ServedModel:
     """Rebuild an artifact's model on `device` (CUDA unless given; raises
-    without a card)."""
+    without a card), its depthwise convolutions on the artifact's `dw_impl`
+    whatever the loading process's `MRCLIP_DW_IMPL` says."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as zf:
         meta = json.loads(zf.read("meta.json"))
         sd = torch.load(io.BytesIO(zf.read("model.pt")), map_location="cpu", weights_only=True)
     model = model_from_config(
         meta["model_cfg"], precision=meta["precision"], attn_impl=meta["attn_impl"],
-        gelu_approx=meta["gelu_approx"],
+        gelu_approx=meta["gelu_approx"], dw_impl=meta.get("dw_impl"),
     )
     model.load_state_dict(sd, strict=True)
     return ServedModel(model.to(dev).eval(), meta)

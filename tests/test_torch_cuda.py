@@ -357,8 +357,13 @@ def _rel(got, want, scale):
     return ((got.float() - want.float()).abs().max() / max(scale, 1e-30)).item()
 
 
+# the edges of the bf16 forward's tiles (16-key groups, 64-key sub-tiles,
+# 16-row warps of a 64-row block), causal and not
+TILE_EDGES = [(2, n, n, 2, c) for n in (1, 15, 16, 17, 63, 65, 255) for c in (False, True)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES)
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES)
 @pytest.mark.parametrize("d", [32, 64])
 def test_grouped_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d, dtype, tol):
     """K4 and K5 on the grouped [B*H, N, D] layout: o within K1's bar, lse
@@ -384,7 +389,9 @@ def test_grouped_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, 
         assert _rel(g, w, scale) <= tol
 
 
-FLASH_SHAPES = SHAPES + [(2, 577, 577, 2, False), (1, 257, 257, 3, True)]
+# N = 577 and 257 walk 128-key blocks (five and three), N = 400 two of 256
+FLASH_SHAPES = SHAPES + [(2, 577, 577, 2, False), (1, 257, 257, 3, True), (1, 400, 400, 2, False),
+                         (1, 400, 400, 2, True)] + TILE_EDGES
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
@@ -392,7 +399,7 @@ FLASH_SHAPES = SHAPES + [(2, 577, 577, 2, False), (1, 257, 257, 3, True)]
 @pytest.mark.parametrize("d", [32, 64])
 def test_flash_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d, dtype, tol):
     """K10 and K10b on q, k, v as column slices of one packed projection
-    (N = 257 and 577 walk three and five key blocks): o within K1's bar, l
+    (N = 257, 400 and 577 walk several key blocks): o within K1's bar, l
     and m within 1e-3 relative, gradients within K3's bar."""
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(b, n, 4 * h * d).astype(np.float32)).to(cuda_device, dtype)
@@ -436,6 +443,23 @@ def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):
     o, l, m = fl.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="contiguous fp32"):
         fl.flash_attention_bwd(q, k, v, o, l.double(), m, l)
+
+
+def test_flash_kernel_refuses_views_off_16_bytes(cuda_device):
+    """K10 copies each row's head slice in 16-byte pieces: a view whose row
+    stride or base pointer is not a multiple of 16 bytes is refused, and
+    the same view copied to a contiguous tensor is taken."""
+    h, d = 2, 64
+    x = torch.randn(2, 16, 3 * h * d + 1, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fl.flash_attention(q, k, v)  # row stride 2 * (3 * H * D + 1) bytes
+    y = torch.zeros(2, 16, h * d + 8, device=cuda_device, dtype=torch.bfloat16)
+    q1 = y[..., 1:1 + h * d].unflatten(-1, (h, d))  # row stride fine, base pointer 2 bytes off
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fl.flash_attention(q1, *(t.contiguous() for t in (k, v)))
+    o, _, _ = fl.flash_attention(*(t.contiguous() for t in (q, k, v)))
+    assert o.shape == q.shape
 
 
 @pytest.mark.parametrize("impl", ["fused", "flash"])

@@ -332,25 +332,43 @@ def test_random_init_follows_the_jax_initialisers(monkeypatch):
         assert 0.85 * fan_in ** -0.5 < std < 1.15 * fan_in ** -0.5, name
 
 
-def test_export_round_trip_takes_the_serving_process_choice(monkeypatch, tmp_path):
-    """An artifact of the narrow MobileCLIP-S1 records no convolution
-    choice: the loading process's MRCLIP_DW_IMPL decides, and its features
-    equal the exporting model's (plain K8 against the convolution, fp32
-    summation order)."""
+def _serve_exported(monkeypatch, tmp_path, exported, loading):
+    """The narrow MobileCLIP-S1 built and exported under MRCLIP_DW_IMPL =
+    `exported`, loaded under `loading` (None: the variable unset): the
+    served model keeps the artifact's `dw_impl` and the exporting model's
+    features."""
     _use_dims(monkeypatch, NARROW)
-    monkeypatch.setenv("MRCLIP_DW_IMPL", "xla")
+    monkeypatch.setenv("MRCLIP_DW_IMPL", exported)
     model = create_model("MobileCLIP-S1", device="cpu", vision_cfg=_vision(128), text_cfg=TEXT_CFG)
+    assert _impls(model) == {exported}
     path = str(tmp_path / "mobileclip.mrclip")
     save_exported(export_model(model), path)
-    monkeypatch.setenv("MRCLIP_DW_IMPL", "pallas")
+    if loading is None:
+        monkeypatch.delenv("MRCLIP_DW_IMPL")
+    else:
+        monkeypatch.setenv("MRCLIP_DW_IMPL", loading)
     served = load_exported(path, device="cpu")
-    assert _impls(served.model) == {"pallas"} and "MRCLIP" not in str(served.meta)
+    assert _impls(served.model) == {exported} and served.meta["dw_impl"] == exported
     assert served.meta["image_size"] == [128, 128]
-    images, tokens, _ = _batch(128)
+    images, _, _ = _batch(128)
     imgs = normalize_images(torch.from_numpy(images)).numpy()
     with torch.no_grad():
         want = model.encode_image(torch.from_numpy(imgs), normalize=True).numpy()
     np.testing.assert_allclose(served.encode_image(imgs), want, rtol=0, atol=1e-5)
+
+
+def test_export_round_trip_takes_the_serving_process_choice(monkeypatch, tmp_path):
+    """The serving process takes its convolution choice from the artifact
+    (`dw_impl`), not from its own MRCLIP_DW_IMPL: exported under 'xla',
+    loaded under 'pallas', it serves on 'xla'."""
+    _serve_exported(monkeypatch, tmp_path, "xla", "pallas")
+
+
+def test_export_keeps_the_pallas_choice_without_the_variable(monkeypatch, tmp_path):
+    """Exported under 'pallas', loaded with the variable unset: the served
+    model still runs K8 (its plain version here on the CPU), not the
+    default convolution."""
+    _serve_exported(monkeypatch, tmp_path, "pallas", None)
 
 
 @pytest.mark.parametrize("key,value,match", [

@@ -189,6 +189,16 @@ def test_create_model_options_outside_the_slice_raise(option):
         create_model("ViT-B-32-mini", device="cpu", **option)
 
 
+def test_text_dropout_raises():
+    """MR-CLIP's text dropout is not ported: a text tower asked for it
+    raises and names it, rather than building one that drops nothing; the
+    default (no dropout) still builds."""
+    text_cfg = dict(get_model_config("ViT-B-32-mini")["text_cfg"], dropout=0.5)
+    with pytest.raises(NotImplementedError, match="text dropout.*ROADMAP"):
+        create_model("ViT-B-32-mini", text_cfg=text_cfg, device="cpu")
+    create_model("ViT-B-32-mini", device="cpu")
+
+
 def test_params_do_not_depend_on_the_attention_impl(pair):
     """The JAX tree under each option has xla's structure and shapes, so one
     state dict (and `state_dict_from_flax`, unchanged) serves every option."""

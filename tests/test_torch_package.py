@@ -3,8 +3,10 @@ no JAX, CUDA by default, byte-identical copies of configs and vocab, and a
 Hopper build of every kernel source."""
 
 import filecmp
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -138,11 +140,13 @@ def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
 
 
 def test_nested_headers_key_the_build(tmp_path):
-    """K4/K5 and K10/K10b share `attn_rows.cuh`, which includes
-    `attn_tile.cuh` (K3 includes that one too): an edit to a header that a
-    source includes only through another header rebuilds the source."""
-    assert build._headers(build.CSRC / "grouped_attn.cu") == ["attn_rows.cuh", "attn_tile.cuh",
-                                                              "rope.cuh"]
+    """K4/K5 and K10/K10b share `attn_mma_fwd.cuh` (the bf16 forward) and
+    `attn_rows.cuh`, which includes `attn_tile.cuh` (K3 includes that one
+    too): an edit to a header that a source includes only through another
+    header rebuilds the source."""
+    for source in ("grouped_attn.cu", "flash_attn.cu"):
+        assert build._headers(build.CSRC / source) == ["attn_mma_fwd.cuh", "attn_rows.cuh",
+                                                       "attn_tile.cuh", "rope.cuh"]
     assert "attn_tile.cuh" in build._headers(build.CSRC / "packed_attn_bwd.cu")
     (tmp_path / "inner.cuh").write_text("// v1\n")
     (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
@@ -151,6 +155,32 @@ def test_nested_headers_key_the_build(tmp_path):
     key = build.source_key(src)
     (tmp_path / "inner.cuh").write_text("// v2\n")
     assert build.source_key(src) != key
+
+
+def test_package_data_ships_every_included_header():
+    """An installed package builds its kernels from the files its package
+    data ships: every `#include "..."` of every `csrc/*.cu` and `*.cuh`
+    names a file that those globs match."""
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]["mrclip_tpu_torch"]
+    pkg = build.CSRC.parent
+    shipped = {p for g in globs for p in pkg.glob(g)}
+    sources = sorted(build.CSRC.glob("*.cu")) + sorted(build.CSRC.glob("*.cuh"))
+    assert len(sources) >= 7 and set(sources) <= shipped
+    for src in sources:
+        for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            assert build.CSRC / name in shipped, f"{src.name} includes {name}, which is not shipped"
+
+
+def test_build_dir_is_the_checkout_or_the_user_cache(tmp_path):
+    """Kernels build into `build/kernels/` of a checkout (a pyproject.toml
+    beside the package), and into the per-user cache from an install."""
+    installed = tmp_path / "site-packages" / "mrclip_tpu_torch"
+    installed.mkdir(parents=True)
+    assert build.build_dir(installed) == Path.home() / ".cache" / "mrclip_tpu_torch" / "kernels"
+    (tmp_path / "site-packages" / "pyproject.toml").write_text("")
+    assert build.build_dir(installed) == tmp_path / "site-packages" / "build" / "kernels"
+    assert build.build_dir() == build.BUILD_DIR == ROOT / "build" / "kernels"
 
 
 @pytest.mark.parametrize("cwd", ["repo", "alone"])
