@@ -11,14 +11,21 @@ fails:
   3. kernel: each kernel against its plain PyTorch version on the card: K1
              (attention forward) and K3 (attention backward) at the served and
              trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
-             strided column slices; K2 and K3r (the same with the EVA02 rope
-             rotated inside) at EVA02-B-16's vision shapes b32 and b256 with
-             the real rope_cat_2d table and at edges (prefix 0, N = 1, 50,
-             257, head dim 32, causal); K6/K7 (fused SupCon loss) in fp32 at
+             strided column slices, K1 also at the tensor-core forward's tile
+             edges (N in {1, 15, 16, 17, 63, 65, 255}, head dim 32 and 64,
+             causal and not) and N = 577; K2 and K3r (the same with the EVA02
+             rope rotated inside) at EVA02-B-16's vision shapes b32 and b256
+             with the real rope_cat_2d table, at edges (prefix 0, N = 1, 50,
+             257, head dim 32, causal) and at the tile edges and N = 577;
+             which device kernel bf16 and fp32 K1 and K2 run (profiler);
+             K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
              for K2/K3r on q and k rotated beforehand, so not the same
-             function), and K2/K3r beside K1/K3 at the same shape; K4/K5
+             function), K1 beside K4 and K2 beside K1 and K4 at the same
+             shape (medians of 7, and the profiler's device time per launch:
+             at the small shapes the host takes longer to issue a call than
+             the card to run it), K3r beside K3; K4/K5
              (grouped-layout attention, 'fused') and K10/K10b (flash
              attention, 'flash'; also at N = 257 and 577, several key
              blocks) at the same shapes as K1/K3 and at the edges of the
@@ -127,14 +134,20 @@ CHECKED = [VISION, TEXT, *(dict(s, b=TRAIN_BATCH) for s in (VISION, TEXT, TEXT77
 # three of 128)
 FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=n, nk=n, h=4, d=64, causal=c)
                              for n in (577, 400) for c in (False, True))]
-# K4 and K10 (and their backward) also at the edges of the bf16 forward's
-# tiles: 16-key groups, 64-key sub-tiles, 16-row warps of a 64-row block
+# K1, K4 and K10 (and their backward) also at the edges of the bf16
+# forward's tiles: 16-key groups, 64-key sub-tiles, 16-row warps of a 64-row
+# block
 TILE_EDGES = [dict(b=2, n=n, nk=n, h=2, d=d, causal=c) for n in (1, 15, 16, 17, 63, 65, 255)
               for d in (32, 64) for c in (False, True)]
+# K1 past 256 keys, where the tensor-core forward walks chunks of 256 copied
+# again in pass B (N = 257 is in EDGES): N = 577, three chunks
+PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c)
+                                           for c in (False, True))]
 MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                design="mma.sync bf16, K/V bf16 in shared memory")
-# the K4/K10 forward, the kernel it is set beside and SDPA take tens of
-# microseconds at the text shapes: each is the median of this many readings
+# the bf16 forwards (K1, K2, K4, K10), the kernels each is set beside and
+# SDPA take tens of microseconds at the text shapes: each is the median of
+# this many readings
 FWD_RUNS = 7
 # K2/K3r: EVA02-B-16's vision layers have ViT-B-16's N, H and D, and a CLS
 # prefix row; the table is rope_cat_2d's where N - prefix is a square grid
@@ -147,6 +160,9 @@ ROPE_EDGES = [
     dict(b=3, n=33, nk=33, h=2, d=32, causal=False, prefix=1),
     dict(b=4, n=50, nk=50, h=4, d=64, causal=True, prefix=1),
 ]
+# K2 at the tile edges (prefix 1 at D = 64, 0 at D = 32) and past 256 keys
+ROPE_TILE_EDGES = [dict(s, prefix=int(s["d"] == 64)) for s in TILE_EDGES if not s["causal"]]
+ROPE_TILE_EDGES += [dict(b=2, n=577, nk=577, h=2, d=64, causal=False, prefix=1)]
 # K8/K9: MobileCLIP-S1's stride-1 depthwise convolutions (H, W, C, K) by
 # stage, with their count in one forward (RepMixer blocks x one 3x3 and one
 # 7x7; the CPE on the 8 x 8 map), held at b32 and b256; and the edges
@@ -217,6 +233,33 @@ def median_ms(fns: dict, iters: int, runs: int = FWD_RUNS) -> tuple[dict, dict]:
         for key, fn in fns.items():
             reads[key].append(cuda_ms(fn, iters))
     return {key: statistics.median(v) for key, v in reads.items()}, reads
+
+
+def device_ms(fns: dict, launches: int = 10, runs: int = FWD_RUNS) -> dict:
+    """Median over `runs` torch.profiler windows of each of `fns`' device
+    time per call (the kernels that `launches` back-to-back calls ran): the
+    kernel's own time, which cuda_ms exceeds where the host takes longer to
+    issue a call than the card takes to run it. None where the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reads = {key: [] for key in fns}
+    for _ in range(runs):
+        for key, fn in fns.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(launches):
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA)
+            reads[key].append(total / launches / 1e3)
+    return {key: statistics.median(v) if all(v) else None for key, v in reads.items()}
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def spread(readings: dict) -> str:
@@ -330,12 +373,37 @@ def phase_build():
     dw_conv.load_kernels()
 
 
+def device_kernels(tag, calls, want):
+    """The device kernels that one call of each of `calls` (dtype -> fn)
+    launches, by torch.profiler; fails unless each name holds `want[dtype]`
+    (the kernel the type routes to). "not measured" where the profiler
+    records no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype, fn in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = sorted({ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA})
+        key = str(dtype)[6:]
+        names[key] = seen or "not measured"
+        ok = not seen or all(want[dtype] in name for name in seen)
+        log(f"[kernel] {tag} {key} runs {seen or 'no kernel the profiler recorded: not measured'} "
+            f"(want {want[dtype]!r}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {key} ran {seen}, not {want[dtype]}")
+    return names
+
+
 def phase_kernel_fwd():
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for shape in CHECKED:
+    for shape in PACKED_CHECKED:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv_slices(shape, dtype, gen)
             o, lse = fa.fused_attention_packed(q, k, v, is_causal=shape["causal"], heads=shape["h"])
@@ -353,18 +421,33 @@ def phase_kernel_fwd():
                 raise AssertionError(f"packed_attn_fwd disagrees with its plain version at {shape} {dtype}")
             worst[dtype] = max(worst[dtype], err_o)
 
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv_slices(VISION, dtype, gen)
+        calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=VISION["h"])
+    names = device_kernels("K1", calls, {torch.bfloat16: "mma_fwd_kernel<64, false, false, false>",
+                                         torch.float32: "packed_attn_fwd_kernel<64, false>"})
+
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
-        h, causal = shape["h"], shape["causal"]
-        q4, k4, v4 = (t.unflatten(-1, (h, shape["d"])).transpose(1, 2) for t in (q, k, v))
-        ms = cuda_ms(lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h), 50)
-        plain = cuda_ms(lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h), 20)
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), 50)
-        bound, by = attention_bound(**shape, dtype=torch.bfloat16)
-        log(f"[kernel] bf16 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"SDPA {lib:.4f} ms, bound {bound * 1e3:.2f} us ({by})")
-        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        h, d, causal = shape["h"], shape["d"], shape["causal"]
+        q4, k4, v4 = (t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v))
+        qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
+        fns = {"ms": lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h),
+               "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+               "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=causal)}
+        t, readings = median_ms(fns, 50)
+        t.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
+            lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h), 20))
+        t["bound_ms"], t["bound_by"] = attention_bound(**shape, dtype=torch.bfloat16)
+        dev = t["device_ms"]
+        log(f"[kernel] K1 bf16 {shape}: kernel {t['ms']:.4f} ms, K4 same shape {t['k4_ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms (medians of "
+            f"{FWD_RUNS}; readings {spread(readings)}); device time per launch (profiler): "
+            f"K1 {fmt_ms(dev['ms'])}, K4 {fmt_ms(dev['k4_ms'])}, SDPA {fmt_ms(dev['library_ms'])} "
+            f"ms; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        return t
 
     vision, text = timings(VISION), timings(TEXT)
     serving_b256 = timings(dict(VISION, b=TRAIN_BATCH))
@@ -373,7 +456,6 @@ def phase_kernel_fwd():
     return {
         "name": "packed_attn_fwd",
         "route": "cuda",
-        "source": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu",
         "replaces": "mrclip_tpu/ops/fused_attn.py:300",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_fwd_kernel",
         "launches": None,  # filled in from the served run
@@ -381,6 +463,9 @@ def phase_kernel_fwd():
         "max_abs_err_fp32": worst[torch.float32],
         "shape": "vision b32 n197 h12 d64 bf16",
         **vision,
+        **MMA_FWD,  # bf16; fp32 runs packed_attn_fwd.cu's FMA kernel
+        "entry": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu::packed_attn_fwd",
+        "device_kernels": names,
         "kernel_ms": vision["ms"],
         "bound_us": vision["bound_ms"] * 1e3,
         "text": text,
@@ -514,7 +599,7 @@ def phase_kernel_rope():
     worst = {"fwd": {torch.bfloat16: 0.0, torch.float32: 0.0},
              "bwd": {torch.bfloat16: 0.0, torch.float32: 0.0}}
     worst_rel = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for shape in [ROPE_VISION, dict(ROPE_VISION, b=TRAIN_BATCH), *ROPE_EDGES]:
+    for shape in [ROPE_VISION, dict(ROPE_VISION, b=TRAIN_BATCH), *ROPE_EDGES, *ROPE_TILE_EDGES]:
         h, causal = shape["h"], shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, _, tab = rope_inputs(shape, dtype, gen)
@@ -548,6 +633,14 @@ def phase_kernel_rope():
             worst["bwd"][dtype] = max(worst["bwd"][dtype], *(abs_err(g, w) for g, w in zip(got, want)))
             worst_rel[dtype] = max(worst_rel[dtype], *errs)
 
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, tab = rope_inputs(ROPE_VISION, dtype, gen)
+        calls[dtype] = lambda q=q, k=k, v=v, tab=tab: fa.fused_attention_packed(
+            q, k, v, heads=ROPE_VISION["h"], rope=tab)
+    names = device_kernels("K2", calls, {torch.bfloat16: "mma_fwd_kernel<64, false, false, true>",
+                                         torch.float32: "packed_attn_fwd_kernel<64, true>"})
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def timings(shape):
@@ -558,13 +651,20 @@ def phase_kernel_rope():
         do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
         out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda",
                           dtype=torch.bfloat16).chunk(3, dim=-1)
-        fwd = dict(
-            ms=cuda_ms(lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h,
-                                                         rope=tab), 50),
-            k1_ms=cuda_ms(lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h), 50),
-            plain_ms=cuda_ms(lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal,
-                                                                   heads=h, rope=tab), 20),
-        )
+        # SDPA on q and k rotated beforehand: the rotation is not in its time
+        tab32 = fa.rope_table(rope, shape["prefix"], torch.float32).cuda()
+        rot = [apply_rope_cat(t.unflatten(-1, (h, d)), tab32).transpose(1, 2) for t in (q, k)]
+        q4, k4 = (t.detach().requires_grad_() for t in rot)
+        v4 = v.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_()
+        do4 = do.unflatten(-1, (h, d)).transpose(1, 2)
+        qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
+        fns = {"ms": lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab),
+               "k1_ms": lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h),
+               "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+               "library_ms": lambda: sdpa(q4, k4, v4, is_causal=causal)}
+        fwd, readings = median_ms(fns, 50)
+        fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
+            lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h, rope=tab), 20))
         bwd = dict(
             ms=cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
                                                              heads=h, rope=tab, out=out), 20),
@@ -573,13 +673,6 @@ def phase_kernel_rope():
             plain_ms=cuda_ms(lambda: fa.fused_attention_packed_bwd_ref(
                 q, k, v, o, do, lse, is_causal=causal, heads=h, rope=tab), 5),
         )
-        # SDPA on q and k rotated beforehand: the rotation is not in its time
-        tab32 = fa.rope_table(rope, shape["prefix"], torch.float32).cuda()
-        rot = [apply_rope_cat(t.unflatten(-1, (h, d)), tab32).transpose(1, 2) for t in (q, k)]
-        q4, k4 = (t.detach().requires_grad_() for t in rot)
-        v4 = v.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_()
-        do4 = do.unflatten(-1, (h, d)).transpose(1, 2)
-        fwd["library_ms"] = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), 50)
         both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
                                                    (q4, k4, v4), do4), 20)
         bwd["library_ms"] = both - fwd["library_ms"]
@@ -587,12 +680,17 @@ def phase_kernel_rope():
         fwd["bound_ms"], fwd["bound_by"] = rope_attention_bound(**args, dtype=torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = rope_attention_bound(**args, dtype=torch.bfloat16,
                                                                 backward=True)
-        for name, t in (("K2", fwd), ("K3r", bwd)):
-            base = "K1" if name == "K2" else "K3"
-            log(f"[kernel] {name} bf16 {shape}: kernel {t['ms']:.4f} ms, {base} same shape "
-                f"{t[base.lower() + '_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA on "
-                f"pre-rotated q/k {t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
-                f"({t['bound_by']})")
+        dev = fwd["device_ms"]
+        log(f"[kernel] K2 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K1 same shape "
+            f"{fwd['k1_ms']:.4f} ms, K4 same shape {fwd['k4_ms']:.4f} ms, plain "
+            f"{fwd['plain_ms']:.4f} ms, SDPA on pre-rotated q/k {fwd['library_ms']:.4f} ms "
+            f"(medians of {FWD_RUNS}; readings {spread(readings)}); device time per launch "
+            f"(profiler): K2 {fmt_ms(dev['ms'])}, K1 {fmt_ms(dev['k1_ms'])}, K4 "
+            f"{fmt_ms(dev['k4_ms'])}, SDPA {fmt_ms(dev['library_ms'])} ms; bound "
+            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+        log(f"[kernel] K3r bf16 {shape}: kernel {bwd['ms']:.4f} ms, K3 same shape "
+            f"{bwd['k3_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA on pre-rotated q/k "
+            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
         return fwd, bwd
 
     fwd32, bwd32 = timings(ROPE_VISION)
@@ -603,12 +701,16 @@ def phase_kernel_rope():
                   "h12 d64 bf16, rope_cat_2d 14x14 table, CLS prefix")
     return [{
         "name": "packed_attn_rope_fwd",
-        "source": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu",
         "replaces": "mrclip_tpu/ops/fused_attn.py:330",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_fwd_kernel, rope branch :330-343",
         "max_abs_err": worst["fwd"][torch.bfloat16],
         "max_abs_err_fp32": worst["fwd"][torch.float32],
         **common, **fwd256,
+        # bf16; fp32 runs packed_attn_fwd.cu's FMA kernel
+        "source": MMA_FWD["source"],
+        "design": MMA_FWD["design"] + ", q and k rotated in shared memory (rope.cuh rotate_pair_f32)",
+        "entry": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu::packed_attn_rope_fwd",
+        "device_kernels": names,
         "library": library + " (forward)",
         "vision_b32": fwd32,
     }, {
@@ -700,12 +802,12 @@ def phase_kernel_grouped():
         do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
         b, n = shape["b"], shape["n"]
         q4, k4, v4 = (t.view(b, h, -1, d) for t in (q, k, v))
-        fwd, readings = median_ms({
-            "ms": lambda: fa.fused_attention_grouped(q, k, v, is_causal=causal),
-            "k1_ms": lambda: fa.fused_attention_packed(q1, k1, v1, is_causal=causal, heads=h),
-            "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal)}, 50)
-        fwd.update(readings=readings, plain_ms=cuda_ms(
+        fns = {"ms": lambda: fa.fused_attention_grouped(q, k, v, is_causal=causal),
+               "k1_ms": lambda: fa.fused_attention_packed(q1, k1, v1, is_causal=causal, heads=h),
+               "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=causal)}
+        fwd, readings = median_ms(fns, 50)
+        fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
             lambda: fa.fused_attention_ref(q, k, v, is_causal=causal), 20))
         bwd = dict(
             ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, do, lse,
@@ -716,10 +818,13 @@ def phase_kernel_grouped():
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = attention_bound(**args, dtype=torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = attention_bwd_bound(**args, dtype=torch.bfloat16)
+        dev = fwd["device_ms"]
         log(f"[kernel] K4 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K1 same shape "
             f"{fwd['k1_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
-            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}), bound "
-            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}); device time per launch "
+            f"(profiler): K4 {fmt_ms(dev['ms'])}, K1 {fmt_ms(dev['k1_ms'])}, SDPA "
+            f"{fmt_ms(dev['library_ms'])} ms; bound {fwd['bound_ms'] * 1e3:.2f} us "
+            f"({fwd['bound_by']})")
         log(f"[kernel] K5 bf16 {shape}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
             f"SDPA backward {bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us "
             f"({bwd['bound_by']})")
@@ -787,12 +892,12 @@ def phase_kernel_flash():
         qg, kg, vg, dog = (fa.group_heads(t) for t in (q, k, v, do))
         og, lse = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
         q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
-        fwd, readings = median_ms({
-            "ms": lambda: fl.flash_attention(q, k, v, is_causal=causal),
-            "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
-            "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal)}, 50)
-        fwd.update(readings=readings, plain_ms=cuda_ms(
+        fns = {"ms": lambda: fl.flash_attention(q, k, v, is_causal=causal),
+               "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+               "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=causal)}
+        fwd, readings = median_ms(fns, 50)
+        fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
             lambda: fl.flash_attention_ref(q, k, v, is_causal=causal), 10))
         bwd = dict(
             ms=cuda_ms(lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal), 20),
@@ -804,10 +909,13 @@ def phase_kernel_flash():
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16, backward=True)
+        dev = fwd["device_ms"]
         log(f"[kernel] K10 bf16 {shape}: kernel {fwd['ms']:.4f} ms, K4 same shape "
             f"{fwd['k4_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} "
-            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}), bound "
-            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+            f"ms (medians of {FWD_RUNS}; readings {spread(readings)}); device time per launch "
+            f"(profiler): K10 {fmt_ms(dev['ms'])}, K4 {fmt_ms(dev['k4_ms'])}, SDPA "
+            f"{fmt_ms(dev['library_ms'])} ms; bound {fwd['bound_ms'] * 1e3:.2f} us "
+            f"({fwd['bound_by']})")
         log(f"[kernel] K10b bf16 {shape}: kernel {bwd['ms']:.4f} ms, K5 same shape "
             f"{bwd['k5_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA backward "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
@@ -1403,13 +1511,15 @@ KERNEL_GROUPS = [
     ("K9 dw_conv_bwd", ("dw_stencil_kernel", "dw_wgrad_")),
     ("convolution (cuDNN: stem, downsamples)", ("convolution", "cudnn", "fprop", "dgrad",
                                                 "wgrad", "conv2d", "depthwise")),
+    ("K2 packed_attn_rope_fwd", ("mma_fwd_kernel<64, false, false, true>",
+                                 "packed_attn_fwd_kernel<64, true>")),
     ("K10 flash_attn_fwd", ("mma_fwd_kernel<64, true", "rows_fwd_kernel<float, 64, true>")),
-    ("K4 grouped_attn_fwd", ("mma_fwd_kernel", "rows_fwd_kernel")),
+    # one instantiation: K1 under fusedp, K4 under fused
+    ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("mma_fwd_kernel", "rows_fwd_kernel",
+                                                  "packed_attn_fwd")),
     ("K10b flash_attn_bwd", ("rows_bwd_dq_kernel<__nv_bfloat16, 64, true>",
                              "rows_bwd_dkv_kernel<__nv_bfloat16, 64, true>")),
     ("K5 grouped_attn_bwd", ("rows_bwd_",)),
-    ("K2 packed_attn_rope_fwd", ("packed_attn_fwd_kernel<__nv_bfloat16, 64, true>",)),
-    ("K1 packed_attn_fwd", ("packed_attn_fwd",)),
     ("K3r packed_attn_rope_bwd", ("_kernel<__nv_bfloat16, 64, true>",)),
     ("K3 packed_attn_bwd", ("attn_bwd_dq", "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),

@@ -1,27 +1,34 @@
-// Tensor-core forward of the bf16 attention of grouped_attn.cu (K4,
-// attn_impl='fused') and flash_attn.cu (K10, attn_impl='flash'), and the
-// forward launcher of both (fp32 stays on attn_rows.cuh's FMA kernel: TF32
-// products would miss the fp32 bar of the plain version, 1e-4).
+// Tensor-core forward of the bf16 attention of packed_attn_fwd.cu (K1,
+// attn_impl='fusedp'; K2, the same with the EVA02 rope), grouped_attn.cu
+// (K4, attn_impl='fused') and flash_attn.cu (K10, attn_impl='flash'), and
+// the forward launcher of K4 and K10 (fp32 stays on FMA kernels: TF32
+// products would miss the fp32 bar of the plain version, 1e-4; K1 and K2 on
+// packed_attn_fwd.cu's, K4 and K10 on attn_rows.cuh's).
 //
 // Replaces, in bf16:
+//   K1:  mrclip_tpu/ops/fused_attn.py::_packed_fwd_kernel (:300, batched
+//        heads, driven by _pfwd_impl :534);
+//   K2:  the same with its rope branch (:330-343);
 //   K4:  mrclip_tpu/ops/fused_attn.py::_fwd_kernel (:101), driven by
 //        _run_fwd (:167);
 //   K10: jax's _flash_attention_kernel_single_batch (and its single-step
 //        form), which mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded
 //        (:41) reaches.
-// The values are those of attn_rows.cuh's rounding orders (FLASH flag):
-// with one key block (K4; K10 when the padded length Np_k <= 256) P is
-// normalised, then rounded to bf16 before P.V; with several (K10, MULTI)
-// jax's update with the unnormalised P rounded before P.V and each product
-// and sum of the update rounded once. Scores carry log2(e) so that one ex2
-// gives each exp; m is stored back in natural units.
+// K1 and K4 run one instantiation (FLASH = false, ROPE = false): the packed
+// [B, N, H*D] views and the grouped [B*H, N, D] tiles differ only in their
+// strides. The values are those of attn_rows.cuh's rounding orders (FLASH
+// flag): with one key block (K1, K2, K4; K10 when the padded length Np_k <=
+// 256) P is normalised, then rounded to bf16 before P.V; with several (K10,
+// MULTI) jax's update with the unnormalised P rounded before P.V and each
+// product and sum of the update rounded once. Scores carry log2(e) so that
+// one ex2 gives each exp; m is stored back in natural units.
 //
 // Bound on an H100 SXM at ViT-B/16 vision b256 (N = 197, H = 12, D = 64):
-// q, k, v read and o written once, 310 MB plus the stats: 93.2 us (K4) and
-// 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us at 989
-// TFLOP/s): bound by bytes. The design keeps every product on the tensor
-// cores and reads K and V from device memory once per (sample, head) where
-// a block holds them:
+// q, k, v read and o written once, 310 MB plus the stats: 93.2 us (K1, K2,
+// K4) and 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us
+// at 989 TFLOP/s): bound by bytes. The design keeps every product on the
+// tensor cores and reads K and V from device memory once per (sample, head)
+// where a block holds them:
 //   - four warps of 16 query rows walk sub-tiles of 64 rows; where one chunk
 //     holds every key (every main-path shape) K and V stay staged and a
 //     block walks up to 256 query rows, so K and V leave device memory once
@@ -30,12 +37,26 @@
 //     (batch or groups, row blocks, heads);
 //   - Q, K and V staged in bf16 in dynamic shared memory by 16-byte
 //     cp.async (one row's head slice is D * 2 bytes, so the same copy takes
-//     the contiguous grouped layout and the strided [B, N, H, D] views),
-//     rows padded by 16 bytes so that ldmatrix meets no bank conflict, rows
-//     past the last key zero-filled by the copy itself;
+//     the contiguous grouped layout and the strided [B, N, H, D] views and
+//     [B, N, H*D] column slices; the wrappers refuse a bf16 view whose base
+//     pointer or batch or row stride is not a multiple of 16 bytes), rows
+//     padded by 16 bytes so that ldmatrix meets no bank conflict, rows past
+//     the last key zero-filled by the copy itself;
+//   - K2 (ROPE): each thread rotates in place the 16-byte pieces of Q and K
+//     it copied itself, once its cp.async wait has landed them and before
+//     the barrier that precedes ldmatrix, by rope.cuh's rotate_pair_f32
+//     (fp32, each product and sum rounded once, one rounding to bf16:
+//     bit-identical to the plain version's rotated q and k), the table row
+//     of each query or key position read from device memory by 16-byte
+//     loads, two pieces' in flight (L1/L2: 50 KB at N = 197, D = 64). No
+//     shared memory beyond K1's: the rotated rows replace the
+//     staged ones. K is rotated once per (sample, head) where it stays
+//     staged, and again for each chunk copied again past 256 keys; V's copy
+//     still overlaps the rotation and pass A; zero-filled rows are left
+//     alone;
 //   - a chunk is up to 256 keys, the whole K and V of one jax key block
 //     (every main-path shape: N = 197, 98, 77, 64); V's copy overlaps
-//     pass A. K4 past 256 keys walks chunks of 256, copied again
+//     pass A. K1, K2 and K4 past 256 keys walk chunks of 256, copied again
 //     in pass B. Whole chunks, not double-buffered 64-key tiles: jax's
 //     blocks are at most 256 keys, so one copy per block serves both passes
 //     and the recompute of pass B reads shared memory only;
@@ -52,17 +73,19 @@
 //     and sum before any P.V; holding a whole walk's scores in registers
 //     instead (S computed once) took three instantiations per kernel and
 //     spilled, and timed within the run-to-run spread of this form on the
-//     H100 (PERF.md, PR 6);
+//     H100 (PERF.md, section 6);
 //   - o rounded to bf16 and stored by 16-byte stores through the warp's
-//     rows of the Q tile; lse = m + log l (K4) or l and m (K10), one lane
-//     per row; rows >= n store nothing, a warp whose rows all lie past n
-//     computes nothing.
+//     rows of the Q tile; lse = m + log l (K1, K2, K4) or l and m (K10), one
+//     lane per row; rows >= n store nothing, a warp whose rows all lie past
+//     n computes nothing.
 // Dynamic shared memory: (64 + 2 ch) * (D + 8) * 2 bytes for a chunk of ch
 // keys, 69,120 at N = 197, D = 64, so three blocks share an SM. Registers
 // (-Xptxas -v in build.py's log, sm_90a; three blocks of 128 threads per SM
-// cap them at 168): K4 127 (D = 32) and 167 (D = 64); K10 128 and 168 with
-// one key block, 167 and 168 with several, the last spilling 60 bytes (the
-// N = 577 path, off the main paths).
+// cap them at 168): K1/K4 127 (D = 32) and 167 (D = 64); K2 144 and 167;
+// K10 128 and 168 with one key block, 167 and 168 with several, the last
+// spilling 60 bytes (the N = 577 path, off the main paths). The rotation
+// pass takes two pieces per step: four spilled at D = 64, one timed slower
+// on the H100.
 
 #pragma once
 
@@ -163,6 +186,73 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long l
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r < len;
     cp_async16(dst + (r * (D + 8) + c * 8) * 2, src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
+  }
+}
+
+// The two bf16 of a 32-bit word as fp32: dim 2i in the low half.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ uint4 lds16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts16(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// One 16-byte piece (4 pairs) rotated by its 8 sin and 8 cos: rope.cuh's
+// rotate_pair_f32 on each pair (2i, 2i+1), one 32-bit word, then one
+// rounding to bf16 (nearest even, as round_to).
+__device__ __forceinline__ uint4 rotate_piece(const uint4& x, const uint4& sn, const uint4& cs) {
+  const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t sw[4] = {sn.x, sn.y, sn.z, sn.w};
+  const uint32_t cw[4] = {cs.x, cs.y, cs.z, cs.w};
+  uint32_t y[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float x0 = bf16_lo(xw[p]), x1 = bf16_hi(xw[p]);
+    rotate_pair_f32(x0, x1, bf16_lo(sw[p]), bf16_hi(sw[p]), bf16_lo(cw[p]), bf16_hi(cw[p]));
+    y[p] = pack_bf16(x0, x1);
+  }
+  return make_uint4(y[0], y[1], y[2], y[3]);
+}
+
+// K2: rows [0, len) that stage_rows staged at shared address `dst` rotated
+// in place, row r by table row p0 + r. Each thread takes the 16-byte
+// pieces it copied itself, so its own cp.async wait has landed them; the
+// caller's __syncthreads then publishes them to ldmatrix. A piece reads its
+// 8 sin and 8 cos as two 16-byte loads (the wrapper checks that the
+// table's base pointer is a multiple of 16 bytes), two pieces' loads in
+// flight at once. The zero-filled rows past len stay as they are, and no
+// table row past p0 + len - 1 is read.
+template <int D>
+__device__ __forceinline__ void rotate_rows(uint32_t dst, const bf16* __restrict__ tab, int p0,
+                                            int len) {
+  constexpr int kChunks = D / 8;                    // 16-byte pieces per row, as stage_rows
+  constexpr int kStep = kMmaThreads / kChunks;      // rows between a thread's pieces
+  constexpr uint32_t kRowBytes = kStep * (D + 8) * 2;
+  const int c = threadIdx.x % kChunks;              // the thread's piece of every row it takes
+  int r = threadIdx.x / kChunks;
+  uint32_t a = dst + (r * (D + 8) + c * 8) * 2;
+  const uint4* t = reinterpret_cast<const uint4*>(tab + ((p0 + r) * (2 * D) + c * 8));
+  for (; r < len; r += 2 * kStep, a += 2 * kRowBytes, t += 2 * kStep * (2 * D / 8)) {
+    const uint4 x0 = lds16(a), s0 = __ldg(t), k0 = __ldg(t + D / 8);
+    if (r + kStep < len) {  // the next piece's loads in flight beside this one's
+      const uint32_t a1 = a + kRowBytes;
+      const uint4* t1 = t + kStep * (2 * D / 8);
+      const uint4 x1 = lds16(a1), s1 = __ldg(t1), k1 = __ldg(t1 + D / 8);
+      sts16(a, rotate_piece(x0, s0, k0));
+      sts16(a1, rotate_piece(x1, s1, k1));
+    } else {
+      sts16(a, rotate_piece(x0, s0, k0));
+    }
   }
 }
 
@@ -294,20 +384,24 @@ __device__ __forceinline__ void pass_b_tile(float (&acc)[D / 8][4], float (&ls)[
   tile_pv<D, FULL>(acc, s, sv, kr, groups, lane);
 }
 
-// Forward of the query rows of one block of one (sample, head): K4 (FLASH
-// = false: stat_a = lse) or K10 (stat_a = l, stat_b = m); MULTI: jax's walk
-// over nblk > 1 key blocks. K4 passes nblk = 1 and blk_k = nk. The block
-// walks `iters` sub-tiles of kMmaRows rows; `ch` is the staged chunk, in
-// keys (a multiple of 16, at most kMaxChunk). Where one chunk holds every
-// key, K and V are staged once for all the sub-tiles.
-template <int D, bool FLASH, bool MULTI>
+// Forward of the query rows of one block of one (sample, head): K4 and K1
+// (FLASH = false: stat_a = lse) or K10 (stat_a = l, stat_b = m); MULTI:
+// jax's walk over nblk > 1 key blocks. K4 and K1 pass nblk = 1 and blk_k =
+// nk. ROPE (K2, self-attention): q and k rotated in shared memory by the
+// [n, 2D] table `tab`. The block walks `iters` sub-tiles of kMmaRows rows;
+// `ch` is the staged chunk, in keys (a multiple of 16, at most kMaxChunk).
+// Where one chunk holds every key, K and V are staged (and K rotated) once
+// for all the sub-tiles.
+template <int D, bool FLASH, bool MULTI, bool ROPE>
 __global__ void __launch_bounds__(kMmaThreads, 3)
     mma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ stat_a,
+                   const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                   bf16* __restrict__ o, float* __restrict__ stat_a,
                    float* __restrict__ stat_b, int n, int nk, int heads, Strides st, float scale,
                    int causal, int blk_q, int blk_k, int nblk, int ch, int iters) {
   static_assert(D == 32 || D == 64, "head dim");
   static_assert(FLASH || !MULTI, "K4 walks one key block");
+  static_assert(!(FLASH && ROPE), "the rope forward is K2's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* sq = reinterpret_cast<bf16*>(mma_smem);
   const uint32_t sq_a = static_cast<uint32_t>(__cvta_generic_to_shared(sq));
@@ -372,8 +466,12 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
           } else {
             cp_async_wait<0>();
           }
+          if constexpr (ROPE) rotate_rows<D>(sk_a, tab, c0, s1 - c0);
         } else {
           cp_async_wait<0>();  // the sub-tile's Q
+        }
+        if constexpr (ROPE) {
+          if (!have_q) rotate_rows<D>(sq_a, tab, row0, min(kMmaRows, n - row0));
         }
         __syncthreads();
         if (!have_q) {  // Q's copy came before the first chunk's K
@@ -421,6 +519,9 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
           cp_async_commit();
         }
         cp_async_wait<0>();
+        if constexpr (ROPE) {
+          if (nch > 1) rotate_rows<D>(sk_a, tab, c0, c1 - c0);  // the chunk copied again
+        }
         __syncthreads();
         const int wend = min(c1, w_keys);
         for (int s0 = c0; s0 < wend; s0 += 64) {
@@ -503,9 +604,9 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
-// Lets mma_fwd_kernel<D, FLASH, MULTI> take the largest chunk's shared
-// memory (above the default 48 KB for D = 64), once per device.
-template <int D, bool FLASH, bool MULTI>
+// Lets mma_fwd_kernel<D, FLASH, MULTI, ROPE> take the largest chunk's
+// shared memory (above the default 48 KB for D = 64), once per device.
+template <int D, bool FLASH, bool MULTI, bool ROPE>
 cudaError_t allow_mma_smem() {
   static std::atomic<unsigned long long> done{0};  // a bit per device
   int dev = 0;
@@ -513,19 +614,20 @@ cudaError_t allow_mma_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(mma_fwd_kernel<D, FLASH, MULTI>,
+  err = cudaFuncSetAttribute(mma_fwd_kernel<D, FLASH, MULTI, ROPE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              mma_smem_bytes<D>(kMaxChunk));
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
-template <int D, bool FLASH, bool MULTI>
-int launch_mma_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
-                   float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
-                   float scale, int causal, int blk_q, int blk_k, int nblk,
+// `tab`: K2's [n, 2D] rope table (ROPE), else unused.
+template <int D, bool FLASH, bool MULTI, bool ROPE = false>
+int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab, void* o,
+                   float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
+                   const Strides& st, float scale, int causal, int blk_q, int blk_k, int nblk,
                    cudaStream_t stream) {
-  const cudaError_t err = allow_mma_smem<D, FLASH, MULTI>();
+  const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
   if (err != cudaSuccess) return static_cast<int>(err);
   // one jax block (at most 256 keys when there are several) per chunk
   const int keys = blk_k < nk ? blk_k : nk;
@@ -535,10 +637,10 @@ int launch_mma_fwd(const void* q, const void* k, const void* v, void* o, float* 
   const int most = nblk == 1 && nk <= ch ? kMaxRows / kMmaRows : 1;
   const int iters = tiles < most ? tiles : most;
   const dim3 grid(batch, (tiles + iters - 1) / iters, heads);
-  mma_fwd_kernel<D, FLASH, MULTI><<<grid, kMmaThreads, mma_smem_bytes<D>(ch), stream>>>(
+  mma_fwd_kernel<D, FLASH, MULTI, ROPE><<<grid, kMmaThreads, mma_smem_bytes<D>(ch), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, blk_q, blk_k,
-      nblk, ch, iters);
+      static_cast<const bf16*>(tab), static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st,
+      scale, causal, blk_q, blk_k, nblk, ch, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,11 +654,12 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* stat
   if constexpr (std::is_same<T, bf16>::value) {
     if constexpr (FLASH) {
       if (nblk > 1)
-        return launch_mma_fwd<D, true, true>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads,
-                                             st, scale, causal, blk_q, blk_k, nblk, stream);
+        return launch_mma_fwd<D, true, true>(q, k, v, nullptr, o, stat_a, stat_b, batch, n,
+                                             nk, heads, st, scale, causal, blk_q, blk_k, nblk,
+                                             stream);
     }
-    return launch_mma_fwd<D, FLASH, false>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
-                                           scale, causal, blk_q, blk_k, nblk, stream);
+    return launch_mma_fwd<D, FLASH, false>(q, k, v, nullptr, o, stat_a, stat_b, batch, n, nk,
+                                           heads, st, scale, causal, blk_q, blk_k, nblk, stream);
   } else {
     const dim3 grid(batch, (n + kTile - 1) / kTile, heads);
     rows_fwd_kernel<T, D, FLASH><<<grid, kThreads, 0, stream>>>(

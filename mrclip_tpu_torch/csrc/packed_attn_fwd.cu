@@ -19,16 +19,27 @@
 //
 // in fp32 with each product and sum rounded once (no FMA contraction), then
 // rounded once to the input type T, as the TPU's _rope_rotate casts back to
-// x.dtype before the score product. The TPU did the pair swap as a 0/+-1
-// matmul (_rot_matrix) to avoid lane shuffles; here both members of a pair
-// sit in one thread, so it is a register swap: the thread's q row rotates at
-// load, each K row while it is staged into shared memory. The rotated
-// tensors never reach device memory. K2 takes self-attention only (Nk = N).
+// x.dtype before the score product (rope.cuh's rotate_pair_f32, in both
+// kernels below). The TPU did the pair swap as a 0/+-1 matmul (_rot_matrix)
+// to avoid lane shuffles; here both members of a pair sit in one thread, so
+// it is a register swap. The rotated tensors never reach device memory. K2
+// takes self-attention only (Nk = N).
 //
 // q, k and v arrive in the natural packed layout [B, N, H*D] that the in_proj
 // produces, with a batch stride and a row stride each, so they can be the
 // three column slices of one [B, N, 3*H*D] tensor without copies. o is
 // written contiguous [B, N, H*D] in the input type, lse contiguous [B, H, N].
+//
+// Two kernels, chosen by type:
+//   bf16: attn_mma_fwd.cuh's mma_fwd_kernel, the tensor-core forward that K4
+//     runs (K1 is the same instantiation, with the packed strides; K2 sets
+//     its ROPE flag, which rotates the staged Q and K rows in shared memory).
+//     Its 16-byte copies need the views' base pointers and batch and row
+//     strides to be multiples of 16 bytes, which the wrapper checks;
+//   fp32: packed_attn_fwd_kernel below, on the FMA pipes (TF32 products
+//     would miss the fp32 bar of 1e-4), which takes any element-aligned
+//     strides: the thread's q row rotates at load, each K row while it is
+//     staged into shared memory.
 //
 // Bound on an H100 SXM: memory. For one ViT-B/16 image (N=197, H=12, D=64,
 // bf16) the function must read q, k, v (0.91 MB) and write o (0.30 MB) and
@@ -38,15 +49,15 @@
 // (N * 2D elements, read once per call) and 6 operations per rotated
 // element of q and k, about 1% of the score and output products at D = 64.
 //
-// What the design does about it: the N x N scores live only in registers
-// (online max and sum-exp in fp32), q is read once, o and lse are written
-// once, and each K/V tile is staged once per 64-row query tile through shared
-// memory (repeat reads of K/V across the few query tiles of a head hit L2).
-// This first version runs both products on the fp32 FMA pipes, one thread per
-// query row, so it is limited by their issue rate (67 TFLOP/s peak: at best
-// ~1.8 us per sample on the shape above), not by the bytes. Moving the two
-// products onto the tensor cores (mma.sync / wgmma) is the step that brings
-// it to the memory bound.
+// What the design does about it: in both kernels the N x N scores live only
+// in registers (online max and sum-exp in fp32), q is read once, o and lse
+// are written once. The bf16 kernel runs both products on the tensor cores
+// and reads K and V once per (sample, head) (attn_mma_fwd.cuh says how).
+// The fp32 kernel stages each K/V tile once per 64-row query tile through
+// shared memory (repeat reads of K/V across the few query tiles of a head
+// hit L2) and runs both products on the fp32 FMA pipes, one thread per
+// query row, so it is limited by their issue rate (67 TFLOP/s peak), not by
+// the bytes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpacked_attn_fwd.so packed_attn_fwd.cu
@@ -55,19 +66,21 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "rope.cuh"  // load_f, store_f, round_to, rotate_pair
+#include "attn_mma_fwd.cuh"  // launch_mma_fwd, Strides (bf16 on the tensor cores)
+#include "rope.cuh"          // load_f, store_f, round_to, rotate_pair
 
 namespace {
 
-constexpr int kRows = 64;  // query rows per block, one thread each
+constexpr int kRows = 64;  // query rows per block, one thread each (fp32)
 constexpr int kKeys = 64;  // keys per shared-memory K/V tile
 constexpr int kChunk = 8;  // keys scored together per online-softmax update
 
-template <typename T, int D, bool ROPE>
+// The fp32 forward (bf16 runs mma_fwd_kernel).
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(kRows)
-    packed_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ tab,
-                           T* __restrict__ o, float* __restrict__ lse, int n,
+    packed_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ tab,
+                           float* __restrict__ o, float* __restrict__ lse, int n,
                            int nk, int heads,
                            long long q_bs, long long q_rs, long long k_bs,
                            long long k_rs, long long v_bs, long long v_rs,
@@ -83,7 +96,7 @@ __global__ void __launch_bounds__(kRows)
 
   float qr[D];
   float acc[D];
-  const T* qp = q + b * q_bs + (long long)row * q_rs + h * D;
+  const float* qp = q + b * q_bs + (long long)row * q_rs + h * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     qr[d] = live ? load_f(qp + d) : 0.f;
@@ -91,9 +104,9 @@ __global__ void __launch_bounds__(kRows)
   }
   if constexpr (ROPE) {
     if (live) {
-      const T* t = tab + (long long)row * (2 * D);
+      const float* t = tab + (long long)row * (2 * D);
 #pragma unroll
-      for (int d = 0; d < D; d += 2) rotate_pair<T, D>(qr[d], qr[d + 1], t, d);
+      for (int d = 0; d < D; d += 2) rotate_pair<float, D>(qr[d], qr[d + 1], t, d);
     }
   }
 
@@ -102,8 +115,8 @@ __global__ void __launch_bounds__(kRows)
   // In a causal tile every key past the tile's last row is masked for all
   // of its rows, so the walk stops there.
   const int kv_end = causal ? min(nk, (tile + 1) * kRows) : nk;
-  const T* kb = k + b * k_bs + h * D;
-  const T* vb = v + b * v_bs + h * D;
+  const float* kb = k + b * k_bs + h * D;
+  const float* vb = v + b * v_bs + h * D;
 
   for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
     const int len = min(kKeys, kv_end - k0);
@@ -112,10 +125,10 @@ __global__ void __launch_bounds__(kRows)
       for (int i = threadIdx.x; i < len * (D / 2); i += kRows) {
         const int j = i / (D / 2);
         const int d = 2 * (i % (D / 2));
-        const T* kr = kb + (long long)(k0 + j) * k_rs + d;
-        const T* vr = vb + (long long)(k0 + j) * v_rs + d;
+        const float* kr = kb + (long long)(k0 + j) * k_rs + d;
+        const float* vr = vb + (long long)(k0 + j) * v_rs + d;
         float k_0 = load_f(kr), k_1 = load_f(kr + 1);
-        rotate_pair<T, D>(k_0, k_1, tab + (long long)(k0 + j) * (2 * D), d);
+        rotate_pair<float, D>(k_0, k_1, tab + (long long)(k0 + j) * (2 * D), d);
         ks[j][d] = k_0;
         ks[j][d + 1] = k_1;
         vs[j][d] = load_f(vr);
@@ -182,28 +195,30 @@ __global__ void __launch_bounds__(kRows)
 
   if (!live) return;
   const float inv = 1.f / l;
-  T* op = o + (b * n + row) * (long long)(heads * D) + h * D;
+  float* op = o + (b * n + row) * (long long)(heads * D) + h * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) store_f(op + d, acc[d] * inv);
   lse[(b * heads + h) * n + row] = m + logf(l);
 }
 
-template <typename T, int D, bool ROPE>
+template <int D, bool ROPE>
 int launch(const void* q, const void* k, const void* v, const void* tab,
            void* o, float* lse, int batch, int n, int nk, int heads,
            long long q_bs, long long q_rs, long long k_bs, long long k_rs,
            long long v_bs, long long v_rs, float scale, int causal,
            cudaStream_t stream) {
   const dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  packed_attn_fwd_kernel<T, D, ROPE><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(tab),
-      static_cast<T*>(o), lse, n, nk, heads, q_bs, q_rs, k_bs, k_rs, v_bs,
+  packed_attn_fwd_kernel<D, ROPE><<<grid, kRows, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(tab),
+      static_cast<float*>(o), lse, n, nk, heads, q_bs, q_rs, k_bs, k_rs, v_bs,
       v_rs, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both entry points: instantiate for (bf16 | fp32) x head dim (64 | 32).
+// Both entry points, by type and head dim (64 | 32): bf16 on the tensor
+// cores, one key block of all nk keys (K4's form: o [B, N, H*D] contiguous,
+// lse [B, H, N] at (b * heads + h) * n + row), fp32 on the FMA kernel.
 template <bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const void* tab,
              void* o, void* lse, int is_bf16, int batch, int n, int nk,
@@ -212,17 +227,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
              float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define MRCLIP_LAUNCH(T, D)                                                  \
-  return launch<T, D, ROPE>(q, k, v, tab, o, l, batch, n, nk, heads, q_bs,  \
-                            q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal, s)
+  const long long o_rs = (long long)heads * head_dim;
+  const Strides st{q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, n * o_rs, o_rs};
+#define MRCLIP_LAUNCH_MMA(D)                                                   \
+  return launch_mma_fwd<D, false, false, ROPE>(q, k, v, tab, o, l, nullptr,   \
+                                               batch, n, nk, heads, st, scale, \
+                                               causal, 1, nk, 1, s)
+#define MRCLIP_LAUNCH(D)                                                 \
+  return launch<D, ROPE>(q, k, v, tab, o, l, batch, n, nk, heads, q_bs, \
+                         q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal, s)
   if (head_dim == 64) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
-    MRCLIP_LAUNCH(float, 64);
+    if (is_bf16) MRCLIP_LAUNCH_MMA(64);
+    MRCLIP_LAUNCH(64);
   }
   if (head_dim == 32) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
-    MRCLIP_LAUNCH(float, 32);
+    if (is_bf16) MRCLIP_LAUNCH_MMA(32);
+    MRCLIP_LAUNCH(32);
   }
+#undef MRCLIP_LAUNCH_MMA
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -230,7 +252,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). The caller has
-// checked shapes, strides, types and devices; element strides are 1.
+// checked shapes, strides, types and devices; element strides are 1, and in
+// bf16 the base pointers and batch and row strides are multiples of 16
+// bytes.
 extern "C" int packed_attn_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int is_bf16, int batch,
                                int n, int nk, int heads, int head_dim,

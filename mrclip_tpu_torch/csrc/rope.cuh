@@ -27,18 +27,27 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// Pair (x0, x1) rotated by the sin (s0, s1) and cos (c0, c1) of its dims:
+// x * cos + rot(x) * sin, every product and sum rounded once in fp32 (no FMA
+// contraction), as the plain version computes it, before its one rounding
+// to the input type.
+__device__ __forceinline__ void rotate_pair_f32(float& x0, float& x1, float s0, float s1,
+                                                float c0, float c1) {
+  const float y0 = __fadd_rn(__fmul_rn(x0, c0), -__fmul_rn(x1, s0));
+  const float y1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(x0, s1));
+  x0 = y0;
+  x1 = y1;
+}
+
 // Pair (x0, x1) at dims (d, d+1) rotated by its table row t:
-// y = round_T(x * cos + rot(x) * sin), every product and sum rounded once in
-// fp32 (no FMA contraction), as the plain version computes it.
+// y = round_T(x * cos + rot(x) * sin) (rotate_pair_f32, then one rounding).
 template <typename T, int D>
 __device__ __forceinline__ void rotate_pair(float& x0, float& x1,
                                             const T* t, int d) {
-  const float s0 = load_f(t + d), s1 = load_f(t + d + 1);
-  const float c0 = load_f(t + D + d), c1 = load_f(t + D + d + 1);
-  const float y0 = __fadd_rn(__fmul_rn(x0, c0), -__fmul_rn(x1, s0));
-  const float y1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(x0, s1));
-  x0 = round_to(y0, t);
-  x1 = round_to(y1, t);
+  rotate_pair_f32(x0, x1, load_f(t + d), load_f(t + d + 1), load_f(t + D + d),
+                  load_f(t + D + d + 1));
+  x0 = round_to(x0, t);
+  x1 = round_to(x1, t);
 }
 
 // The gradient pair (g0, g1) of a rotated row, un-rotated:

@@ -40,6 +40,7 @@ import threading
 import torch
 
 from . import build
+from .fused_attn import check_rows_aligned_16
 
 __all__ = [
     "FlashAttention",
@@ -216,13 +217,7 @@ def _check(name, ts):
         raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
     if any(t.stride(3) != 1 or t.stride(2) != d for t in ts):
         raise ValueError(f"{name}: the heads of a row must be contiguous (strides [.., D, 1])")
-    for t in ts:
-        # the stride of a dimension of size 1 is never stepped
-        steps = [t.stride(i) * t.element_size() for i in (0, 1) if t.shape[i] > 1]
-        if t.data_ptr() % 16 or any(s % 16 for s in steps):
-            raise ValueError(f"{name}: base pointer, batch and row strides must be multiples of "
-                             f"16 bytes; got strides {t.stride()} of {t.element_size()}-byte "
-                             f"elements at offset {t.data_ptr() % 16} mod 16")
+    check_rows_aligned_16(name, ts)
 
 
 def _check_stats(name, stats, shape, device):

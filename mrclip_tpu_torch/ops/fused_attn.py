@@ -2,10 +2,11 @@
 hand-written Hopper kernels.
 
 'fusedp', the packed layout: `_packed_fwd_kernel` and `_packed_bwd_kernel`
-(batched-head mode) are `csrc/packed_attn_fwd.cu` (K1, and K2 with rope)
-and `csrc/packed_attn_bwd.cu` (K3, and K3r with rope), bound together for
-autograd by `FusedAttentionPacked` (the JAX package's `_pcore` and
-`_pcore_rope` custom VJPs).
+(batched-head mode) are `csrc/packed_attn_fwd.cu` (K1, and K2 with rope;
+bf16 on the tensor cores through `csrc/attn_mma_fwd.cuh`, the forward K4
+runs, fp32 on an FMA kernel) and `csrc/packed_attn_bwd.cu` (K3, and K3r
+with rope), bound together for autograd by `FusedAttentionPacked` (the JAX
+package's `_pcore` and `_pcore_rope` custom VJPs).
 
 'fused', the grouped layout: `_fwd_kernel` and `_bwd_kernel` (driven by
 `_run_fwd` and `_core_bwd`) are `csrc/grouped_attn.cu` (K4 and K5), bound
@@ -66,6 +67,8 @@ __all__ = [
     "fused_attention_packed_ref",
     "fused_attention_qkv",
     "rope_table",
+    "rows_aligned_16",
+    "check_rows_aligned_16",
     "launches",
     "bwd_launches",
     "rope_launches",
@@ -270,6 +273,26 @@ def _check_kernel_inputs(name, packed, d):
         raise ValueError(f"{name}: the packed head dimension must be contiguous")
 
 
+def rows_aligned_16(ptr: int, strides, itemsize: int) -> bool:
+    """Whether a view at address `ptr` whose stepped (batch, row) element
+    strides are `strides` can be copied row by row in 16-byte pieces, as the
+    bf16 tensor-core forward (K1, K2, K4, K10) stages its rows: the base
+    pointer and each stride, in bytes, are multiples of 16."""
+    return ptr % 16 == 0 and all(s * itemsize % 16 == 0 for s in strides)
+
+
+def check_rows_aligned_16(name, tensors):
+    """Refuse, with ValueError, a `[B, L, ...]` view that `rows_aligned_16`
+    refuses; the stride of a dimension of size 1 is never stepped."""
+    for t in tensors:
+        shape, stride = t.shape, t.stride()  # one call each: this runs on every launch
+        steps = [s for s, m in zip(stride[:2], shape[:2]) if m > 1]
+        if not rows_aligned_16(t.data_ptr(), steps, t.element_size()):
+            raise ValueError(f"{name}: base pointer, batch and row strides must be multiples of "
+                             f"16 bytes; got strides {t.stride()} of {t.element_size()}-byte "
+                             f"elements at offset {t.data_ptr() % 16} mod 16")
+
+
 def _check_kernel_table(name, rope, q3, nk, d):
     """Refuse a rope table the kernels cannot take: `[N, 2D]`, q's type and
     device, contiguous; self-attention only."""
@@ -290,8 +313,11 @@ def fused_attention_packed(
     k, v: the same with Nk rows (Nk may differ from N). `rope`: an `[N, 2D]`
     sin||cos table in q's type (`rope_table`) by which q and k rotate inside
     the kernel (K2; self-attention, Nk = N). Returns (o in q's layout and
-    type, lse [B, H, N] fp32). bf16 and fp32, head dim 32 or 64. CPU tensors
-    take the plain version; CUDA tensors launch the Hopper kernel or raise.
+    type, lse [B, H, N] fp32). bf16 and fp32, head dim 32 or 64; in bf16 the
+    base pointers (the table's too) and batch and row strides must be
+    multiples of 16 bytes (the tensor-core kernel reads rows in 16-byte
+    pieces). CPU tensors take the plain version; CUDA tensors launch the
+    Hopper kernel or raise.
     """
     if q.device.type == "cpu":
         return fused_attention_packed_ref(q, k, v, is_causal=is_causal, heads=heads, rope=rope)
@@ -301,6 +327,9 @@ def fused_attention_packed(
     nk = k3.shape[1]
     if rope is not None:
         _check_kernel_table("fused_attention_packed", rope, q3, nk, d)
+    if q3.dtype == torch.bfloat16:  # rows and table rows read in 16-byte pieces
+        tables = () if rope is None else (rope[None],)
+        check_rows_aligned_16("fused_attention_packed", (q3, k3, v3, *tables))
     o = torch.empty((b, n, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:

@@ -40,6 +40,12 @@ SHAPES = [  # (B, N, Nk, H, causal) of tests/test_torch_fused_attn.py
     (1, 64, 64, 5, True),
     (2, 197, 197, 12, False),
 ]
+# the edges of the bf16 forward's tiles (16-key groups, 64-key sub-tiles,
+# 16-row warps of a 64-row block), causal and not
+TILE_EDGES = [(2, n, n, 2, c) for n in (1, 15, 16, 17, 63, 65, 255) for c in (False, True)]
+# K1 past 256 keys: chunks of 256 copied again in pass B (N = 257 non-causal
+# is in SHAPES)
+PACKED_LONG = [(2, 257, 257, 2, True), (2, 577, 577, 2, False), (2, 577, 577, 2, True)]
 
 
 @pytest.fixture
@@ -57,7 +63,7 @@ def _inputs(b, n, nk, h, d, device, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES)
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES + PACKED_LONG)
 @pytest.mark.parametrize("d", [32, 64])
 def test_kernel_matches_plain_version(cuda_device, b, n, nk, h, causal, d, dtype, tol):
     q, k, v = _inputs(b, n, nk, h, d, cuda_device, dtype)
@@ -92,6 +98,31 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     every_other = torch.randn(1, 16, 256, device=cuda_device).to(torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fa.fused_attention_packed(every_other, every_other, every_other, heads=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_refuses_bf16_views_off_16_bytes(cuda_device, dtype):
+    """The bf16 forward copies each row's head slice in 16-byte pieces: a
+    packed view whose base pointer or row stride is off 16 bytes raises and
+    reaches no plain version; the same views in fp32 run the FMA kernel."""
+    h, d = 2, 64
+    x = torch.randn(2, 16, 3 * h * d + 8, device=cuda_device).to(dtype)
+    shifted = [x[..., 1 + i * h * d:1 + (i + 1) * h * d] for i in range(3)]  # one element in
+    y = torch.randn(2, 16, 3 * h * d + 1, device=cuda_device).to(dtype)
+    odd_rows = list(y[..., :3 * h * d].split(h * d, dim=-1))  # row stride 3 * H * D + 1
+    for q, k, v in (shifted, odd_rows):
+        before = fa.launches
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiples of 16 bytes"):
+                fa.fused_attention_packed(q, k, v, heads=h)
+            assert fa.launches == before
+            continue
+        o, lse = fa.fused_attention_packed(q, k, v, heads=h)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        want_o, want_lse = fa.fused_attention_packed_ref(q, k, v, heads=h)
+        assert (o - want_o).abs().max().item() <= 1e-4
+        assert (lse - want_lse).abs().max().item() <= 1e-3
 
 
 def test_small_clip_through_the_kernel_matches_plain_attention(cuda_device):
@@ -251,6 +282,9 @@ ROPE_SHAPES = [  # (B, N, H, D, prefix, causal)
     (2, 1, 2, 64, 1, False),     # CLS only
     (1, 257, 2, 64, 1, False),   # 16 x 16 grid
 ]
+# the bf16 forward's tile edges and chunks past 256 keys, prefix 0 and 1
+ROPE_TILE_EDGES = [(2, n, 2, d, p, False) for n in (1, 15, 16, 17, 63, 65, 255, 257, 577)
+                   for d in (32, 64) for p in (0, 1)]
 
 
 def _rope_inputs(b, n, h, d, prefix, device, dtype):
@@ -268,7 +302,7 @@ def _rope_inputs(b, n, h, d, prefix, device, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,n,h,d,prefix,causal", ROPE_SHAPES)
+@pytest.mark.parametrize("b,n,h,d,prefix,causal", ROPE_SHAPES + ROPE_TILE_EDGES)
 def test_rope_kernels_match_plain_versions(cuda_device, b, n, h, d, prefix, causal, dtype, tol):
     """K2 and K3r: o within K1's bar, lse within 1e-3, each gradient within
     tol of the call's largest |plain| gradient (K3's bar); the kernels
@@ -290,6 +324,35 @@ def test_rope_kernels_match_plain_versions(cuda_device, b, n, h, d, prefix, caus
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.isfinite(g.float()).all()
         assert (g.float() - w.float()).abs().max().item() <= tol * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,d,prefix,causal", [
+    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer: K stays staged, rotated once
+    (1, 257, 2, 64, 1, False),   # two chunks, K rotated again in pass B
+    (1, 577, 2, 64, 1, True),    # three chunks, causal
+    (2, 50, 2, 32, 1, False),    # head dim 32
+])
+def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, prefix, causal,
+                                                      dtype):
+    """K2 equals, bit for bit, K1 on q and k rotated beforehand by the plain
+    version's arithmetic (`_rope_rotate`: fp32, each product and sum rounded
+    once, one rounding to q's type): the kernel's rotation is the plain
+    version's, and the CLS row, whose table row is the identity, stays
+    exactly the unrotated q and k."""
+    q, k, v, _, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, dtype)
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
+    sin, cos = (t[:, None] for t in tab.float().chunk(2, dim=-1))  # [N, 1, D]
+
+    def rotated(x):
+        x4 = x.unflatten(-1, (h, d)).float()
+        return fa._rope_rotate(x4, sin, cos, dtype).to(dtype).flatten(-2)
+
+    qr, kr = rotated(q), rotated(k)
+    assert torch.equal(qr[:, :prefix], q[:, :prefix]) and torch.equal(kr[:, :prefix], k[:, :prefix])
+    o1, lse1 = fa.fused_attention_packed(qr, kr, v, is_causal=causal, heads=h)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
 
 
 def test_rope_kernels_refuse_what_they_cannot_take(cuda_device):
@@ -355,11 +418,6 @@ def test_small_eva02_train_step_gradients_through_the_kernels(cuda_device):
 
 def _rel(got, want, scale):
     return ((got.float() - want.float()).abs().max() / max(scale, 1e-30)).item()
-
-
-# the edges of the bf16 forward's tiles (16-key groups, 64-key sub-tiles,
-# 16-row warps of a 64-row block), causal and not
-TILE_EDGES = [(2, n, n, 2, c) for n in (1, 15, 16, 17, 63, 65, 255) for c in (False, True)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])

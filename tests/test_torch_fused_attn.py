@@ -111,3 +111,43 @@ def test_no_fallback_for_other_devices_and_bad_layouts():
         fa.fused_attention_packed(x, x, x)  # packed layout needs heads=
     with pytest.raises(ValueError, match="whole number"):
         fa.fused_attention_packed(x, x, x, heads=3)
+
+
+# (base pointer, stepped batch and row strides in elements, element bytes):
+# the packed column slices of ViT-B-16's [B, N, 3*768] and of its text
+# tower's [B, N, 3*512] projection in bf16, and views off 16 bytes
+ALIGNMENT_CASES = [
+    ((0, (197 * 2304, 2304), 2), True),
+    ((1536, (197 * 2304, 2304), 2), True),   # k's slice, 768 bf16 in
+    ((1024, (98 * 1536, 1536), 2), True),    # text tower's k slice
+    ((2, (197 * 2304, 2304), 2), False),     # base pointer one bf16 off
+    ((0, (16 * 385, 385), 2), False),        # row stride 3*128 + 1 bf16
+    ((0, (1028, 8), 2), False),              # batch stride off, row stride fine
+    ((0, (), 2), True),                      # one row of one sample
+    ((4, (), 4), False),                     # fp32, one element off
+    ((16, (100, 4), 4), True),               # fp32, 16-byte strides
+]
+
+
+@pytest.mark.parametrize("args,aligned", ALIGNMENT_CASES)
+def test_rows_aligned_16_predicate(args, aligned):
+    """The 16-byte rule of the bf16 tensor-core forward (K1, K2, K4, K10),
+    one predicate on (pointer, strides, element size) for every wrapper."""
+    assert fa.rows_aligned_16(*args) is aligned
+
+
+def test_check_rows_aligned_16_refuses_views_off_16_bytes():
+    """The shared check reads a view's pointer, its stepped batch and row
+    strides and its element size: column slices of one packed projection
+    pass, a slice one element off does not; a dimension of size 1 has no
+    stride that counts."""
+    h, d = 2, 64
+    qkv = torch.zeros(2, 16, 3 * h * d, dtype=torch.bfloat16)
+    fa.check_rows_aligned_16("k1", qkv.split(h * d, dim=-1))
+    off = torch.zeros(2, 16, 3 * h * d + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa.check_rows_aligned_16("k1", (off[..., :h * d],))  # row stride 385 elements
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa.check_rows_aligned_16("k1", (qkv[..., 1:h * d + 1],))  # base pointer 2 bytes in
+    one_row = torch.zeros(1, 1, h * d + 1, dtype=torch.bfloat16)[..., :h * d]
+    fa.check_rows_aligned_16("k1", (one_row,))
