@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
-  1. card:   name, power limit, TF32 off for fp32 products;
+  1. card:   name, power limit, PyTorch and CUDA versions, TF32 off for fp32
+             products;
   2. build:  every CUDA source in `mrclip_tpu_torch/csrc` (one nvcc each, all
              started together), with registers and spills from ptxas;
   3. kernel: each kernel against its plain PyTorch version on the card: K1
@@ -28,11 +29,14 @@ fails:
              the card to run it), K3r beside K3; K4/K5
              (grouped-layout attention, 'fused') and K10/K10b (flash
              attention, 'flash'; also at N = 257 and 577, several key
-             blocks) at the same shapes as K1/K3 and at the edges of the
-             bf16 forward's tensor-core tiles (N in {1, 15, 16, 17, 63, 65,
-             255}, head dim 32 and 64, causal and not), bf16 and fp32, timed at
-             the b256 shapes of phases 8 and 9 beside K1 (K4) and K4/K5
-             (K10/K10b); K8/K9 (depthwise convolution, MRCLIP_DW_IMPL=pallas) at
+             blocks; K4/K5 also at N = 577) at the same shapes as K1/K3 and
+             at the edges of the bf16 tensor-core tiles (N in {1, 15, 16, 17,
+             63, 65, 255}, head dim 32 and 64, causal and not), bf16 and fp32,
+             which device kernels bf16 and fp32 K5 and K10b run (profiler),
+             two bf16 K5 and K10b runs bit-equal, timed at the b256 shapes of
+             phases 8 and 9 beside K1 (K4) and K4/K5 (K10/K10b), the
+             backward too as medians of 7 and the profiler's device time;
+             K8/K9 (depthwise convolution, MRCLIP_DW_IMPL=pallas) at
              MobileCLIP-S1's stage shapes (b32 and b256) and edges (B = 1,
              9 x 13, C in {8, 80, 100}, K = 5; 7 x 7 on 2 x 2), bf16 and fp32,
              K9 twice for equal bits, timed beside the plain versions, the
@@ -139,12 +143,16 @@ FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=n, nk=n, h=4, d=64, causal=c)
 # block
 TILE_EDGES = [dict(b=2, n=n, nk=n, h=2, d=d, causal=c) for n in (1, 15, 16, 17, 63, 65, 255)
               for d in (32, 64) for c in (False, True)]
-# K1 past 256 keys, where the tensor-core forward walks chunks of 256 copied
-# again in pass B (N = 257 is in EDGES): N = 577, three chunks
+# K1 and K4/K5 past 256 keys, where the tensor-core kernels walk chunks of
+# 256 rows (the forward copies them again in pass B; N = 257 is in EDGES):
+# N = 577, three chunks
 PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c)
                                            for c in (False, True))]
 MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                design="mma.sync bf16, K/V bf16 in shared memory")
+MMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
+               design="mma.sync bf16, two passes (dq, then dk/dv), Q/dO or K/V fragments in "
+                      "registers, the other pair bf16 in shared memory")
 # the bf16 forwards (K1, K2, K4, K10), the kernels each is set beside and
 # SDPA take tens of microseconds at the text shapes: each is the median of
 # this many readings
@@ -343,7 +351,8 @@ def phase_card():
     smi = smi_name_power()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[card] {name} | {smi} | devices={torch.cuda.device_count()}")
+    log(f"[card] {name} | {smi} | devices={torch.cuda.device_count()} | torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[card] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     return name, smi
@@ -768,6 +777,21 @@ def sdpa_ms(q4, k4, v4, do4, causal):
     return fwd, both - fwd
 
 
+def backward_timings(fns, plain):
+    """The backward's medians of FWD_RUNS readings and the profiler's device
+    time per call of each of `fns` (name -> fn; "ms" is the kernel), the
+    plain version's time, and whether two kernel runs on the same inputs
+    give the same bits (raises if not: each gradient element is written
+    once by one thread, no atomics)."""
+    t, readings = median_ms(fns, 20)
+    t.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(plain, 5))
+    first, second = fns["ms"](), fns["ms"]()
+    t["bit_equal"] = all(torch.equal(a, b) for a, b in zip(first, second))
+    if not t["bit_equal"]:
+        raise AssertionError("two runs of the backward kernel on the same inputs differ")
+    return t
+
+
 def phase_kernel_grouped():
     """K4 and K5 against their plain versions on q, k, v as 'fused' hands
     them over (column slices of one projection, transposed to contiguous
@@ -780,7 +804,7 @@ def phase_kernel_grouped():
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
-    for shape in [*CHECKED, *TILE_EDGES]:
+    for shape in PACKED_CHECKED:
         causal = shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(shape, dtype)
@@ -793,6 +817,14 @@ def phase_kernel_grouped():
             errs = check_attention("K4/K5", shape, dtype, ((o, [lse]), (o_ref, [lse_ref]), ["lse"]),
                                    (got, want))
             worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
+
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(VISION, dtype)
+        o, lse = fa.fused_attention_grouped(q, k, v)
+        calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_grouped_bwd(
+            q, k, v, o, o, lse)
+    names = device_kernels("K5", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
 
     def timings(shape):
         h, d, causal = shape["h"], shape["d"], shape["causal"]
@@ -809,11 +841,9 @@ def phase_kernel_grouped():
         fwd, readings = median_ms(fns, 50)
         fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
             lambda: fa.fused_attention_ref(q, k, v, is_causal=causal), 20))
-        bwd = dict(
-            ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, do, lse,
-                                                              is_causal=causal), 20),
-            plain_ms=cuda_ms(lambda: fa.fused_attention_bwd_ref(q, k, v, o, do, lse,
-                                                                is_causal=causal), 5))
+        bwd = backward_timings(
+            {"ms": lambda: fa.fused_attention_grouped_bwd(q, k, v, o, do, lse, is_causal=causal)},
+            lambda: fa.fused_attention_bwd_ref(q, k, v, o, do, lse, is_causal=causal))
         _, bwd["library_ms"] = sdpa_ms(q4, k4, v4, do.view(b, h, n, d), causal)
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = attention_bound(**args, dtype=torch.bfloat16)
@@ -825,9 +855,10 @@ def phase_kernel_grouped():
             f"(profiler): K4 {fmt_ms(dev['ms'])}, K1 {fmt_ms(dev['k1_ms'])}, SDPA "
             f"{fmt_ms(dev['library_ms'])} ms; bound {fwd['bound_ms'] * 1e3:.2f} us "
             f"({fwd['bound_by']})")
-        log(f"[kernel] K5 bf16 {shape}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
-            f"SDPA backward {bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us "
-            f"({bwd['bound_by']})")
+        log(f"[kernel] K5 bf16 {shape}: kernel {bwd['ms']:.4f} ms (median of {FWD_RUNS}; readings "
+            f"{spread(bwd['readings'])}; device time per launch {fmt_ms(bwd['device_ms']['ms'])} "
+            f"ms; two runs bit-equal), plain {bwd['plain_ms']:.4f} ms, SDPA backward "
+            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
         return fwd, bwd
 
     fwd256, bwd256 = timings(dict(VISION, b=TRAIN_BATCH))
@@ -849,7 +880,9 @@ def phase_kernel_grouped():
         "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
-        **common, **bwd256,
+        **common, **bwd256, **MMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
+        "entry": "mrclip_tpu_torch/csrc/grouped_attn.cu::grouped_attn_bwd",
+        "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text_b256": bwd_text,
     }]
@@ -883,6 +916,15 @@ def phase_kernel_flash():
                                    ((o, [l, m]), (o_ref, [l_ref, m_ref]), ["l", "m"]), (got, want))
             worst[dtype] = [max(a, b) for a, b in zip(worst[dtype], errs)]
 
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(VISION, dtype)
+        o, l, m = fl.flash_attention(q, k, v)
+        di = fl.flash_di(o, o)
+        calls[dtype] = lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di: fl.flash_attention_bwd(
+            q, k, v, o, l, m, di)
+    names = device_kernels("K10b", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
+
     def timings(shape):
         h, d, causal = shape["h"], shape["d"], shape["causal"]
         q, k, v = inputs(shape, torch.bfloat16)
@@ -899,12 +941,11 @@ def phase_kernel_flash():
         fwd, readings = median_ms(fns, 50)
         fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
             lambda: fl.flash_attention_ref(q, k, v, is_causal=causal), 10))
-        bwd = dict(
-            ms=cuda_ms(lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal), 20),
-            k5_ms=cuda_ms(lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse,
-                                                                 is_causal=causal), 20),
-            plain_ms=cuda_ms(lambda: fl.flash_attention_bwd_ref(q, k, v, do, l, m, di,
-                                                                is_causal=causal), 5))
+        bwd = backward_timings(
+            {"ms": lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal),
+             "k5_ms": lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse,
+                                                             is_causal=causal)},
+            lambda: fl.flash_attention_bwd_ref(q, k, v, do, l, m, di, is_causal=causal))
         _, bwd["library_ms"] = sdpa_ms(q4, k4, v4, do.transpose(1, 2), causal)
         args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
         fwd["bound_ms"], fwd["bound_by"] = flash_bound(**args, dtype=torch.bfloat16)
@@ -916,9 +957,13 @@ def phase_kernel_flash():
             f"(profiler): K10 {fmt_ms(dev['ms'])}, K4 {fmt_ms(dev['k4_ms'])}, SDPA "
             f"{fmt_ms(dev['library_ms'])} ms; bound {fwd['bound_ms'] * 1e3:.2f} us "
             f"({fwd['bound_by']})")
+        dev = bwd["device_ms"]
         log(f"[kernel] K10b bf16 {shape}: kernel {bwd['ms']:.4f} ms, K5 same shape "
-            f"{bwd['k5_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA backward "
-            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
+            f"{bwd['k5_ms']:.4f} ms (medians of {FWD_RUNS}; readings {spread(bwd['readings'])}); "
+            f"device time per launch (profiler): K10b {fmt_ms(dev['ms'])}, K5 "
+            f"{fmt_ms(dev['k5_ms'])} ms; two runs bit-equal; plain {bwd['plain_ms']:.4f} ms, SDPA "
+            f"backward {bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us "
+            f"({bwd['bound_by']})")
         return fwd, bwd
 
     fwd256, bwd256 = timings(dict(VISION, b=TRAIN_BATCH))
@@ -943,7 +988,9 @@ def phase_kernel_flash():
         "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
-        **common, **bwd256,
+        **common, **bwd256, **MMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
+        "entry": "mrclip_tpu_torch/csrc/flash_attn.cu::flash_attn_bwd",
+        "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text77_b256": bwd_text, "n577_b32": bwd_577,
     }]
@@ -1517,9 +1564,11 @@ KERNEL_GROUPS = [
     # one instantiation: K1 under fusedp, K4 under fused
     ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("mma_fwd_kernel", "rows_fwd_kernel",
                                                   "packed_attn_fwd")),
-    ("K10b flash_attn_bwd", ("rows_bwd_dq_kernel<__nv_bfloat16, 64, true>",
-                             "rows_bwd_dkv_kernel<__nv_bfloat16, 64, true>")),
-    ("K5 grouped_attn_bwd", ("rows_bwd_",)),
+    ("K10b flash_attn_bwd", ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
+                             "rows_bwd_dq_kernel<float, 64, true>",
+                             "rows_bwd_dkv_kernel<float, 64, true>")),
+    # the rest of the tensor-core and FMA rows backward: K5's instantiations
+    ("K5 grouped_attn_bwd", ("mma_bwd_", "rows_bwd_")),
     ("K3r packed_attn_rope_bwd", ("_kernel<__nv_bfloat16, 64, true>",)),
     ("K3 packed_attn_bwd", ("attn_bwd_dq", "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),

@@ -256,22 +256,25 @@ __device__ __forceinline__ void rotate_rows(uint32_t dst, const bf16* __restrict
   }
 }
 
-// This warp's raw scores q.k over 64 keys from shared row `kr` of K:
+// This warp's raw scores q.k over KEYS keys from shared row `kr` of K:
 // n-fragment j holds keys kr + 8j + 2t + {0, 1} of rows g (regs 0, 1) and
-// g + 8 (regs 2, 3). FULL: all four groups of 16 keys; else groups from
-// `groups` on are not computed and read 0.
-template <int D, bool FULL>
-__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
-                                            uint32_t sk, int kr, int groups, int lane) {
+// g + 8 (regs 2, 3). FULL: all KEYS / 16 groups of 16 keys; else groups
+// from `groups` on are not computed and read 0. The backward
+// (attn_mma_bwd.cuh) takes the same product with other operands and
+// widths: Q K^T and dO V^T over 32 keys, K Q^T and V dO^T over 16 queries.
+template <int D, bool FULL, int KEYS = 64>
+__device__ __forceinline__ void tile_scores(float (&s)[KEYS / 8][4],
+                                            const uint32_t (&qf)[D / 16][4], uint32_t sk, int kr,
+                                            int groups, int lane) {
   const int mi = lane >> 3, rr = lane & 7;
   // this lane's ldmatrix row: keys 0-7 / 8-15 of a group, dims 0-7 / 8-15
   const uint32_t base = sk + ((kr + (mi >> 1) * 8 + rr) * (D + 8) + (mi & 1) * 8) * 2;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int j = 0; j < KEYS / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
   for (int ds = 0; ds < D / 16; ++ds) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
       if (FULL || kk < groups) {
         uint32_t b[4];
         ldsm_x4<false>(b, base + (16 * kk * (D + 8) + 16 * ds) * 2);
@@ -282,17 +285,18 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&q
   }
 }
 
-// acc += P V over the 64 keys of `p` (probabilities in the accumulator
+// acc += P V over the KEYS keys of `p` (probabilities in the accumulator
 // layout of tile_scores, rounded to bf16 here: the C fragments of keys
-// 16kk..+7 and +8..+15 are the A fragment) from shared row `kr` of V.
-template <int D, bool FULL>
-__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&p)[8][4],
+// 16kk..+7 and +8..+15 are the A fragment) from shared row `kr` of V. The
+// backward's dV, dQ and dK products are this one with P^T, dS or dS^T.
+template <int D, bool FULL, int KEYS = 64>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&p)[KEYS / 8][4],
                                         uint32_t sv, int kr, int groups, int lane) {
   const int mi = lane >> 3, rr = lane & 7;
   // this lane's ldmatrix.trans row: keys 0-7 / 8-15, dims 0-7 | 8-15
   const uint32_t base = sv + ((kr + (mi & 1) * 8 + rr) * (D + 8) + (mi >> 1) * 8) * 2;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
     if (FULL || kk < groups) {
       const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
@@ -310,10 +314,11 @@ __device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&p)
 }
 
 // Keys at or past c1 and causal pairs (key > query row) to -inf.
-__device__ __forceinline__ void mask_scores(float (&s)[8][4], int s0, int c1, int r0,
+template <int KEYS = 64>
+__device__ __forceinline__ void mask_scores(float (&s)[KEYS / 8][4], int s0, int c1, int r0,
                                             bool causal, int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = s0 + 8 * j + 2 * t + (e & 1);
@@ -604,21 +609,26 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
-// Lets mma_fwd_kernel<D, FLASH, MULTI, ROPE> take the largest chunk's
-// shared memory (above the default 48 KB for D = 64), once per device.
-template <int D, bool FLASH, bool MULTI, bool ROPE>
-cudaError_t allow_mma_smem() {
-  static std::atomic<unsigned long long> done{0};  // a bit per device
+// Lets `kernel` take `bytes` of dynamic shared memory (above the default 48
+// KB), once per device: `done` holds a bit per device, one flag per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes, std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(mma_fwd_kernel<D, FLASH, MULTI, ROPE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             mma_smem_bytes<D>(kMaxChunk));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
+}
+
+// Lets mma_fwd_kernel<D, FLASH, MULTI, ROPE> take the largest chunk's
+// shared memory (above the default 48 KB for D = 64).
+template <int D, bool FLASH, bool MULTI, bool ROPE>
+cudaError_t allow_mma_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return allow_smem(mma_fwd_kernel<D, FLASH, MULTI, ROPE>, mma_smem_bytes<D>(kMaxChunk), done);
 }
 
 // `tab`: K2's [n, 2D] rope table (ROPE), else unused.

@@ -17,8 +17,10 @@
 // Both walk one 64-row query tile per block with four lanes per row
 // (attn_tile.cuh), stage 64-key tiles of K and V through shared memory in
 // fp32, and keep every score in registers. The grid is (batch, tile, head).
-// The bf16 forward runs on the tensor cores instead (attn_mma_fwd.cuh, which
-// holds the forward launcher); rows_fwd_kernel is the fp32 forward.
+// These kernels are the fp32 forward and backward only (TF32 products would
+// miss the fp32 bar of the plain versions, 1e-4): bf16 runs on the tensor
+// cores, the forward in attn_mma_fwd.cuh and the backward in
+// attn_mma_bwd.cuh, which hold the launchers that choose by type.
 //
 // Forward, per query row, over key blocks: K4 has one block of all Nk keys;
 // K10 the blocks jax walks, width blk_k = pick_block(Np_k) of the padded
@@ -255,6 +257,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ delta, T* __restrict__ dq, int n,
                        int nk, int heads, Strides st, float scale,
                        int causal) {
+  static_assert(sizeof(T) == 4, "the bf16 backward is attn_mma_bwd.cuh's");
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
@@ -325,6 +328,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dk,
                         T* __restrict__ dv, int n, int nk, int heads,
                         Strides st, float scale, int causal) {
+  static_assert(sizeof(T) == 4, "the bf16 backward is attn_mma_bwd.cuh's");
   __shared__ __align__(16) float qs[kTile][D];
   __shared__ __align__(16) float dos[kTile][D];
   __shared__ float stat_s[kTile];   // lse (K5) or m (K10b)
@@ -377,13 +381,13 @@ __global__ void __launch_bounds__(kThreads)
   store_row<T, D>(dv + b * st.dv_bs + key * st.dv_rs + hd, dv_acc, sub);
 }
 
-// Launches both backward passes; returns the first cudaError_t.
+// Launches both fp32 backward passes; returns the first cudaError_t.
 template <typename T, int D, bool FLASH>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* stat_a, const float* stat_b,
-               float* delta, void* dq, void* dk, void* dv, int batch, int n,
-               int nk, int heads, const Strides& st, float scale, int causal,
-               cudaStream_t stream) {
+int launch_rows_bwd(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* stat_a, const float* stat_b,
+                    float* delta, void* dq, void* dk, void* dv, int batch, int n,
+                    int nk, int heads, const Strides& st, float scale, int causal,
+                    cudaStream_t stream) {
   const dim3 grid_a(batch, (n + kTile - 1) / kTile, heads);
   rows_bwd_dq_kernel<T, D, FLASH><<<grid_a, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -48,11 +48,12 @@
 // (N = 197, H = 12, D = 64, bf16) the forward reads q, k, v and writes o
 // (310 MB) and l, m (4.8 MB): 0.0940 ms at 3.35 TB/s against 30.5 GFLOP
 // (0.031 ms at 989 TFLOP/s), bytes; the backward reads q, k, v, dO, l, m, di
-// and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. The bf16
-// forward runs on the tensor cores (attn_mma_fwd.cuh, FLASH = true: K and V
-// staged in bf16 by 16-byte copies, the strided views taken as they are);
-// the fp32 forward and the backward run on the fp32 FMA pipes
-// (attn_rows.cuh), so the backward sits far above its bound. The model's
+// and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. bf16 runs on
+// the tensor cores, FLASH = true, the strided views taken as they are: the
+// forward in attn_mma_fwd.cuh (K and V staged in bf16 by 16-byte copies),
+// the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
+// statistics m and 1 / l, and di, read per query row). fp32 runs on the
+// FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
 // only q, k, v are kept).
 //
@@ -63,8 +64,9 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
+#include "attn_mma_bwd.cuh"  // launch_bwd (bf16 on the tensor cores)
 #include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
-#include "attn_rows.cuh"     // Strides, launch_bwd
+#include "attn_rows.cuh"     // Strides
 
 namespace {
 

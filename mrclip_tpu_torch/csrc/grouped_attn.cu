@@ -23,27 +23,28 @@
 // kernels here take the unpadded tiles and skip keys >= Nk, which gives the
 // same values on every real row. Cross-attention (Nk != N) is allowed.
 //
-// Design. The bf16 forward runs on the tensor cores (attn_mma_fwd.cuh,
-// FLASH = false): a block stages a group's K and V once in bf16 and walks
-// its query rows, the keys twice (max and online sum, then P.V with the
-// scores recomputed from shared memory), since the TPU rounds P only after
-// normalising it. The fp32 forward and the backward take one block per
-// (group, 64-row query tile), four lanes per row, 64-key K/V tiles staged
-// in fp32 (attn_rows.cuh): the fp32 forward walks the keys twice (max and
-// online sum, then P.V with the final m and l); the backward is K3's two
-// passes (dQ + delta per query tile; dK, dV per key tile).
+// Design. bf16 runs on the tensor cores, FLASH = false: the forward in
+// attn_mma_fwd.cuh (a block stages a group's K and V once in bf16 and walks
+// its query rows, the keys twice: max and online sum, then P.V with the
+// scores recomputed from shared memory, since the TPU rounds P only after
+// normalising it); the backward in attn_mma_bwd.cuh (a dq pass that also
+// takes delta, then a dk/dv pass; Q, dO or K, V fragments in registers, the
+// other pair staged once per group where the group has at most 256 rows).
+// fp32 takes one block per (group, 64-row query tile), four lanes per row,
+// 64-key K/V tiles staged in fp32 (attn_rows.cuh): the forward walks the
+// keys twice; the backward is K3's two passes (dQ + delta per query tile;
+// dK, dV per key tile).
 //
 // Bound on an H100 SXM. Forward, ViT-B/16 vision at b256 (B*H = 3072
 // groups, N = 197, D = 64, bf16): q, k, v read and o written once (4 x 77.5
 // MB) plus lse (2.4 MB), 0.0933 ms at 3.35 TB/s, against 4*N*N*D operations
 // per group (30.5 GFLOP, 0.031 ms at 989 TFLOP/s): bound by bytes. Backward:
 // eight such tensors read or written and 10*D operations per pair (76.3
-// GFLOP): 0.1857 ms, bytes. The backward runs every product on the fp32
-// FMA pipes (67 TFLOP/s), 14*D FMA-operations per pair, so it sits far
-// above its bound; the bf16 forward's products run on the tensor cores
-// (attn_mma_fwd.cuh says how it meets the bytes). The grouped layout costs
-// the transposes around the kernels (q, k, v, dO in; o, dq, dk, dv out),
-// which the packed K1/K3 do not need.
+// GFLOP): 0.1857 ms, bytes. attn_mma_fwd.cuh and attn_mma_bwd.cuh say how
+// the bf16 kernels meet them; the fp32 kernels run every product on the FMA
+// pipes (67 TFLOP/s) and sit far above. The grouped layout costs the
+// transposes around the kernels (q, k, v, dO in; o, dq, dk, dv out), which
+// the packed K1/K3 do not need.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libgrouped_attn.so grouped_attn.cu
@@ -51,8 +52,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_mma_bwd.cuh"  // launch_bwd (bf16 on the tensor cores)
 #include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
-#include "attn_rows.cuh"     // Strides, launch_bwd
+#include "attn_rows.cuh"     // Strides
 
 namespace {
 

@@ -43,8 +43,8 @@ SHAPES = [  # (B, N, Nk, H, causal) of tests/test_torch_fused_attn.py
 # the edges of the bf16 forward's tiles (16-key groups, 64-key sub-tiles,
 # 16-row warps of a 64-row block), causal and not
 TILE_EDGES = [(2, n, n, 2, c) for n in (1, 15, 16, 17, 63, 65, 255) for c in (False, True)]
-# K1 past 256 keys: chunks of 256 copied again in pass B (N = 257 non-causal
-# is in SHAPES)
+# K1 and K4/K5 past 256 keys: chunks of 256 rows, which K1's pass B copies
+# again (N = 257 non-causal is in SHAPES)
 PACKED_LONG = [(2, 257, 257, 2, True), (2, 577, 577, 2, False), (2, 577, 577, 2, True)]
 
 
@@ -421,11 +421,12 @@ def _rel(got, want, scale):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES)
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES + PACKED_LONG)
 @pytest.mark.parametrize("d", [32, 64])
 def test_grouped_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d, dtype, tol):
-    """K4 and K5 on the grouped [B*H, N, D] layout: o within K1's bar, lse
-    within 1e-3, each gradient within tol of the call's largest |plain|
+    """K4 and K5 on the grouped [B*H, N, D] layout (the bf16 backward's tile
+    edges; past 256 rows, where it walks chunks of 256): o within K1's bar,
+    lse within 1e-3, each gradient within tol of the call's largest |plain|
     gradient (K3's bar); one launch each, none of the packed kernels."""
     q, k, v = (t.transpose(1, 2).reshape(b * h, -1, d).contiguous()
                for t in _inputs(b, n, nk, h, d, cuda_device, dtype))
@@ -484,6 +485,27 @@ def test_flash_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d,
     for g, w, like in zip(got, want, (q, k, v)):
         assert g.shape == like.shape and g.dtype == dtype
         assert _rel(g, w, scale) <= tol
+
+
+@pytest.mark.parametrize("impl", ["fused", "flash"])
+def test_bf16_attention_backward_is_deterministic(cuda_device, impl):
+    """K5 and K10b write each gradient element once, from one thread, with
+    no atomics: two bf16 runs on the same inputs give the same bits (N =
+    197, and 577 where the passes walk chunks of 256 rows)."""
+    for b, n, h in ((2, 197, 12), (1, 577, 2)):
+        q, k, v = _inputs(b, n, n, h, 64, cuda_device, torch.bfloat16)
+        do = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(
+            device=cuda_device).manual_seed(2)).to(torch.bfloat16)
+        if impl == "fused":
+            q, k, v, do = (t.transpose(1, 2).reshape(b * h, n, 64).contiguous()
+                           for t in (q, k, v, do))
+            o, lse = fa.fused_attention_grouped(q, k, v)
+            runs = [fa.fused_attention_grouped_bwd(q, k, v, o, do, lse) for _ in range(2)]
+        else:
+            o, l, m = fl.flash_attention(q, k, v)
+            di = fl.flash_di(o, do)
+            runs = [fl.flash_attention_bwd(q, k, v, do, l, m, di) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
 def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):

@@ -93,6 +93,50 @@ def test_plain_forward_follows_jax_rounding_in_bf16(n, causal):
     assert (k4 != want).mean() > 0.1
 
 
+def _unrounded_grads(q, k, v, do, causal):
+    """dq, dk, dv of fp32 softmax attention on the same inputs, rounded to
+    bf16 only at the end: no rounding of P or dS on the way."""
+    t = [torch.from_numpy(np.asarray(x, np.float32)).requires_grad_() for x in (q, k, v)]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in t), is_causal=causal).transpose(1, 2)
+    grads = torch.autograd.grad(o, t, torch.from_numpy(np.asarray(do, np.float32)))
+    return [g.to(torch.bfloat16).float().numpy() for g in grads]
+
+
+@pytest.mark.parametrize("n,causal", [(197, False), (98, True), (257, False)])
+def test_plain_backward_follows_jax_rounding_in_bf16(n, causal):
+    """bf16: the plain K10b casts P = exp(S - m) * (1 / l) to bf16 before
+    P^T dO and dS before dS K and dS^T Q, where jax's dkv and dq kernels
+    cast them, and takes di = rowsum(O * dO) in fp32 outside, so dq, dk, dv
+    through `FlashAttention` (plain K10, di, plain K10b) differ from
+    jax.grad through the interpret-mode kernels (`save_residuals=True`, as
+    test_plain_gradients_match_jax_kernels) by at most one bf16 ulp at their
+    largest magnitude, in under 1% of the elements (measured: at most
+    0.3%). fp32 attention's gradients, rounded to bf16 only at the end,
+    differ in over 10% (measured: 40-43% of each of dq, dk, dv)."""
+    q, k, v, do = _inputs(n, seed=3)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+
+    def loss(q_, k_, v_):
+        o = jax_flash(q_, k_, v_, is_causal=causal, save_residuals=True)
+        return (o.astype(jnp.float32) * jdo.astype(jnp.float32)).sum()
+
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(w, np.float32) for w in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    t = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).requires_grad_()
+         for x in (jq, jk, jv)]
+    got = torch.autograd.grad(fl.flash_attention_unpadded(*t, is_causal=causal), t,
+                              torch.from_numpy(np.asarray(jdo, np.float32)).to(torch.bfloat16))
+    unrounded = _unrounded_grads(jq, jk, jv, jdo, causal)
+    for g, u, w in zip(got, unrounded, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        assert np.abs(g - w).max() <= ulp
+        assert (g != w).mean() < 0.01
+        assert (u != w).mean() > 0.1
+
+
 def test_save_residuals_gives_the_same_gradients():
     """The default keeps q, k, v and recomputes o, l, m in the backward; the
     other keeps them: bit-equal gradients."""

@@ -106,6 +106,48 @@ def test_plain_forward_follows_tpu_rounding_in_bf16(n, nk, causal):
     assert np.abs(got.float().numpy() - want).max() <= ulp
 
 
+def _unrounded_grads(q, k, v, do, causal):
+    """dq, dk, dv of fp32 softmax attention on the same inputs, rounded to
+    bf16 only at the end: no rounding of P or dS on the way."""
+    t = [torch.from_numpy(np.asarray(x, np.float32)).requires_grad_() for x in (q, k, v)]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in t), is_causal=causal).transpose(1, 2)
+    grads = torch.autograd.grad(o, t, torch.from_numpy(np.asarray(do, np.float32)))
+    return [g.to(torch.bfloat16).float().numpy() for g in grads]
+
+
+@pytest.mark.parametrize("n,nk,causal", [(197, 197, False), (98, 98, True), (257, 257, False)])
+def test_plain_backward_follows_tpu_rounding_in_bf16(n, nk, causal):
+    """bf16: the plain K5 casts P to bf16 before P^T dO and dS before dS K
+    and dS^T Q, where the TPU kernel casts them, so dq, dk, dv through
+    `FusedAttention` (plain K4, then plain K5) differ from jax.grad through
+    the interpret-mode kernels by at most one bf16 ulp at their largest
+    magnitude, in under 1% of the elements (measured: at most 0.3%, fp32
+    sums in another order flip a rounding). fp32 attention's gradients,
+    rounded to bf16 only at the end, differ in over 10% (measured: 40-43%
+    of each of dq, dk, dv)."""
+    q, k, v, do = _inputs(n, nk, 64, seed=3)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+
+    def loss(q_, k_, v_):
+        o = jax_fused_attention(q_, k_, v_, is_causal=causal, interpret=True)
+        return (o.astype(jnp.float32) * jdo.astype(jnp.float32)).sum()
+
+    want = [np.asarray(w, np.float32) for w in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    t = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).requires_grad_()
+         for x in (jq, jk, jv)]
+    got = torch.autograd.grad(fa.fused_attention(*t, is_causal=causal), t,
+                              torch.from_numpy(np.asarray(jdo, np.float32)).to(torch.bfloat16))
+    unrounded = _unrounded_grads(jq, jk, jv, jdo, causal)
+    for g, u, w in zip(got, unrounded, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        assert np.abs(g - w).max() <= ulp
+        assert (g != w).mean() < 0.01
+        assert (u != w).mean() > 0.1
+
+
 def test_function_routes_whole_gradients_and_launches_nothing_on_the_cpu():
     """q, k, v as column slices of one [B, N, 3W] projection: the gradient
     arrives whole, equals autograd through the plain forward (fp32

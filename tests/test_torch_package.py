@@ -142,17 +142,24 @@ def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
 def test_nested_headers_key_the_build(tmp_path):
     """K1/K2, K4/K5 and K10/K10b share `attn_mma_fwd.cuh` (the bf16
     forward) and `attn_rows.cuh`, which includes `attn_tile.cuh` (K3
-    includes that one too): an edit to a header that a source includes only
-    through another header rebuilds the source."""
+    includes that one too); K5 and K10b also `attn_mma_bwd.cuh` (the bf16
+    backward), which includes the forward's header: an edit to a header that
+    a source includes only through another header rebuilds the source, and
+    an edit to the backward's header rebuilds K5/K10b's sources alone."""
     sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu")
-    for source in sources:
-        assert build._headers(build.CSRC / source) == ["attn_mma_fwd.cuh", "attn_rows.cuh",
-                                                       "attn_tile.cuh", "rope.cuh"]
+    fwd_headers = ["attn_mma_fwd.cuh", "attn_rows.cuh", "attn_tile.cuh", "rope.cuh"]
+    assert build._headers(build.CSRC / "packed_attn_fwd.cu") == fwd_headers
+    for source in sources[1:]:
+        assert build._headers(build.CSRC / source) == ["attn_mma_bwd.cuh", *fwd_headers]
     assert "attn_tile.cuh" in build._headers(build.CSRC / "packed_attn_bwd.cu")
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in build.CSRC.iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
+    keys = {s: build.source_key(csrc / s) for s in sources}
+    header = csrc / "attn_mma_bwd.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert [build.source_key(csrc / s) != keys[s] for s in sources] == [False, True, True]
     keys = {s: build.source_key(csrc / s) for s in sources}
     header = csrc / "attn_mma_fwd.cuh"
     header.write_text(header.read_text() + "// edited\n")
