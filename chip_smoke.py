@@ -8,25 +8,31 @@ fails:
   1. card:   name, power limit, PyTorch and CUDA versions, TF32 off for fp32
              products;
   2. build:  every CUDA source in `mrclip_tpu_torch/csrc` (one nvcc each, all
-             started together), with registers and spills from ptxas;
+             started together), with registers and spills from ptxas for
+             every instantiation, and the instantiations that spill;
   3. kernel: each kernel against its plain PyTorch version on the card: K1
              (attention forward) and K3 (attention backward) at the served and
              trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
-             strided column slices, K1 also at the tensor-core forward's tile
-             edges (N in {1, 15, 16, 17, 63, 65, 255}, head dim 32 and 64,
-             causal and not) and N = 577; K2 and K3r (the same with the EVA02
+             strided column slices, both also at the tensor-core kernels'
+             tile edges (N in {1, 15, 16, 17, 63, 65, 255}, head dim 32 and
+             64, causal and not) and N = 577 (the chunked backward; two bf16
+             K3 runs bit-equal there); K2 and K3r (the same with the EVA02
              rope rotated inside) at EVA02-B-16's vision shapes b32 and b256
              with the real rope_cat_2d table, at edges (prefix 0, N = 1, 50,
-             257, head dim 32, causal) and at the tile edges and N = 577;
-             which device kernel bf16 and fp32 K1 and K2 run (profiler);
+             257, head dim 32, causal) and at the tile edges and N = 577,
+             causal and not (two bf16 K3r runs bit-equal there);
+             which device kernels bf16 and fp32 K1, K2, K3 and K3r run
+             (profiler: bf16 K3/K3r on attn_mma_bwd.cuh's mma_bwd_*, fp32 on
+             packed_attn_bwd.cu's FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
              for K2/K3r on q and k rotated beforehand, so not the same
              function), K1 beside K4 and K2 beside K1 and K4 at the same
-             shape (medians of 7, and the profiler's device time per launch:
-             at the small shapes the host takes longer to issue a call than
-             the card to run it), K3r beside K3; K4/K5
+             shape, K3 beside K5 and K3r beside K3 (medians of 7, and the
+             profiler's device time per launch: at the small shapes the host
+             takes longer to issue a call than the card to run it; two bf16
+             K3 and K3r runs bit-equal at the timed shapes); K4/K5
              (grouped-layout attention, 'fused') and K10/K10b (flash
              attention, 'flash'; also at N = 257 and 577, several key
              blocks; K4/K5 also at N = 577) at the same shapes as K1/K3 and
@@ -168,9 +174,10 @@ ROPE_EDGES = [
     dict(b=3, n=33, nk=33, h=2, d=32, causal=False, prefix=1),
     dict(b=4, n=50, nk=50, h=4, d=64, causal=True, prefix=1),
 ]
-# K2 at the tile edges (prefix 1 at D = 64, 0 at D = 32) and past 256 keys
-ROPE_TILE_EDGES = [dict(s, prefix=int(s["d"] == 64)) for s in TILE_EDGES if not s["causal"]]
-ROPE_TILE_EDGES += [dict(b=2, n=577, nk=577, h=2, d=64, causal=False, prefix=1)]
+# K2 and K3r at the tile edges (prefix 1 at D = 64, 0 at D = 32), causal
+# and not, and past 256 rows (the chunked kernels)
+ROPE_TILE_EDGES = [dict(s, prefix=int(s["d"] == 64)) for s in TILE_EDGES]
+ROPE_TILE_EDGES += [dict(b=2, n=577, nk=577, h=2, d=64, causal=c, prefix=1) for c in (False, True)]
 # K8/K9: MobileCLIP-S1's stride-1 depthwise convolutions (H, W, C, K) by
 # stage, with their count in one forward (RepMixer blocks x one 3x3 and one
 # 7x7; the CPE on the 8 x 8 map), held at b32 and b256; and the edges
@@ -368,12 +375,21 @@ def phase_build():
     t0 = time.perf_counter()
     build.load_libraries(SOURCES)  # one nvcc per source, all started together
     log(f"[build] {len(SOURCES)} sources built in {time.perf_counter() - t0:.2f} s wall")
+    spills = []
     for name in SOURCES:
         info = build.build_info(name)
         log(f"[build] {name}.cu -> {info['path']} in {info['seconds']:.2f} s")
+        entry = ""
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build]   {line.strip()}")
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill stores" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{name}: {entry} ({line.strip()})")
+    log(f"[build] instantiations that spill: {len(spills)}")
+    for line in spills:
+        log(f"[build]   {line}")
     fused_attn.load_kernel()
     fused_attn.load_bwd_kernel()
     fused_attn.load_grouped_kernels()
@@ -494,16 +510,28 @@ def rel_err(got, want, scale=None):
     return abs_err(got, want) / max(scale, 1e-30)
 
 
+def fresh_grads(shape, dtype):
+    """A zero-argument call giving the column slices (dq, dk, dv) of a new
+    [B, N, 3*H*D] gradient buffer, as the train step's backward allocates
+    one per call (fresh outputs also keep two runs' bits apart)."""
+    b, n, hd = shape["b"], shape["n"], shape["h"] * shape["d"]
+    return lambda: torch.empty(b, n, 3 * hd, device="cuda", dtype=dtype).chunk(3, dim=-1)
+
+
 def phase_kernel_bwd():
-    """K3 against its plain version; q, k, v, o and dO as strided column
-    slices, and dq/dk/dv written into the column slices of one buffer
-    where N = Nk (as the train step hands them over)."""
+    """K3 against its plain version at PACKED_CHECKED (the tensor-core tile
+    edges and N = 577, the chunked kernels, too); q, k, v, o and dO as
+    strided column slices, and dq/dk/dv written into the column slices of
+    one buffer where N = Nk (as the train step hands them over); two bf16
+    runs bit-equal at N = 577 (and at the timed shapes); which device
+    kernels bf16 and fp32 K3 run; timings at the b256 main-path shapes
+    beside K5 at the same shape and SDPA's backward."""
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_abs = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for shape in CHECKED:
+    for shape in PACKED_CHECKED:
         h, causal = shape["h"], shape["causal"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv_slices(shape, dtype, gen)
@@ -514,7 +542,7 @@ def phase_kernel_bwd():
             do_s.copy_(torch.randn(o.shape, device="cuda", generator=gen))
             out = None
             if shape["n"] == shape["nk"]:
-                out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=dtype).chunk(3, -1)
+                out = fresh_grads(shape, dtype)()
             got = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal,
                                                 heads=h, out=out)
             torch.cuda.synchronize()
@@ -523,36 +551,54 @@ def phase_kernel_bwd():
             scale = max(w.float().abs().max().item() for w in want)
             errs = [rel_err(g, w, scale) for g, w in zip(got, want)]
             ok = all(bool(torch.isfinite(g.float()).all()) for g in got) and max(errs) <= GRAD_TOL[dtype]
+            same = ""
+            if dtype == torch.bfloat16 and shape["n"] == 577:  # the chunked kernels
+                again = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal,
+                                                      heads=h)
+                equal = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = ok and equal
+                same = "; two runs bit-equal" if equal else "; two runs differ"
             log(f"[kernel] K3 {shape} {str(dtype)[6:]}: max|d-plain| / max|plain| (={scale:.3g}) "
-                "dq/dk/dv = " + "/".join(f"{e:.3e}" for e in errs) + f" (tol {GRAD_TOL[dtype]}) "
-                + ("ok" if ok else "FAIL"))
+                "dq/dk/dv = " + "/".join(f"{e:.3e}" for e in errs) + f" (tol {GRAD_TOL[dtype]})"
+                + same + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"packed_attn_bwd disagrees with its plain version at {shape} {dtype}")
             worst[dtype] = max(worst[dtype], *errs)
             worst_abs[dtype] = max(worst_abs[dtype], *(abs_err(g, w) for g, w in zip(got, want)))
 
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv_slices(VISION, dtype, gen)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=VISION["h"])
+        calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
+            q, k, v, o, o, lse, heads=VISION["h"])
+    names = device_kernels("K3", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "attn_bwd_"})
+
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
-        h, causal = shape["h"], shape["causal"]
+        h, d, causal = shape["h"], shape["d"], shape["causal"]
         o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
         do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
-        buf = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=torch.bfloat16)
-        out = buf.chunk(3, dim=-1)
-        ms = cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
-                                                           heads=h, out=out), 20)
-        plain = cuda_ms(lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse,
-                                                                  is_causal=causal, heads=h), 5)
-        q4, k4, v4 = (t.unflatten(-1, (h, shape["d"])).transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        do4 = do.unflatten(-1, (h, shape["d"])).transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), 20)
-        both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
-                                                   (q4, k4, v4), do4), 20)
-        bound, by = attention_bwd_bound(**shape, dtype=torch.bfloat16)
-        log(f"[kernel] K3 bf16 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
-            f"{both - fwd:.4f} ms (fwd+bwd {both:.4f} - fwd {fwd:.4f}), bound {bound * 1e3:.2f} us ({by})")
-        return dict(ms=ms, plain_ms=plain, library_ms=both - fwd, bound_ms=bound, bound_by=by)
+        grads = fresh_grads(shape, torch.bfloat16)
+        qg, kg, vg, og, dog = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v, o, do))
+        lse_g = lse.flatten(0, 1)
+        t = backward_timings(
+            {"ms": lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
+                                                         heads=h, out=grads()),
+             "k5_ms": lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse_g,
+                                                             is_causal=causal)},
+            lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal,
+                                                      heads=h))
+        q4, k4, v4, do4 = (x.unflatten(-1, (h, d)).transpose(1, 2) for x in (q, k, v, do))
+        _, t["library_ms"] = sdpa_ms(q4, k4, v4, do4, causal)
+        t["bound_ms"], t["bound_by"] = attention_bwd_bound(**shape, dtype=torch.bfloat16)
+        dev = t["device_ms"]
+        log(f"[kernel] K3 bf16 {shape}: kernel {t['ms']:.4f} ms, K5 same shape {t['k5_ms']:.4f} "
+            f"ms (medians of {FWD_RUNS}; readings {spread(t['readings'])}); device time per "
+            f"launch (profiler): K3 {fmt_ms(dev['ms'])}, K5 {fmt_ms(dev['k5_ms'])} ms; two runs "
+            f"bit-equal; plain {t['plain_ms']:.4f} ms, SDPA backward {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        return t
 
     vision = timings(dict(VISION, b=TRAIN_BATCH))
     text = timings(dict(TEXT, b=TRAIN_BATCH))
@@ -560,7 +606,6 @@ def phase_kernel_bwd():
     return {
         "name": "packed_attn_bwd",
         "route": "cuda",
-        "source": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu",
         "replaces": "mrclip_tpu/ops/fused_attn.py:382",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_bwd_kernel",
         "launches": None,  # filled in from the train run
@@ -571,6 +616,9 @@ def phase_kernel_bwd():
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         "shape": f"vision b{TRAIN_BATCH} n197 h12 d64 bf16",
         **vision,
+        **MMA_BWD,  # bf16; fp32 runs packed_attn_bwd.cu's FMA kernels
+        "entry": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu::packed_attn_bwd",
+        "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text_b256": text,
         "text77_b256": text77,
@@ -617,9 +665,8 @@ def phase_kernel_rope():
             o_s, do_s = od.chunk(2, dim=-1)
             o_s.copy_(o)
             do_s.copy_(torch.randn(o.shape, device="cuda", generator=gen))
-            out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda", dtype=dtype).chunk(3, -1)
             got = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal, heads=h,
-                                                rope=tab, out=out)
+                                                rope=tab, out=fresh_grads(shape, dtype)())
             torch.cuda.synchronize()
             o_ref, lse_ref = fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h,
                                                            rope=tab)
@@ -631,10 +678,17 @@ def phase_kernel_rope():
             ok = (bool(torch.isfinite(o.float()).all()) and err_o <= O_TOL[dtype]
                   and err_l <= LSE_TOL and all(bool(torch.isfinite(g.float()).all()) for g in got)
                   and max(errs) <= GRAD_TOL[dtype])
+            same = ""
+            if dtype == torch.bfloat16 and shape["n"] == 577:  # the chunked kernels
+                again = fa.fused_attention_packed_bwd(q, k, v, o_s, do_s, lse, is_causal=causal,
+                                                      heads=h, rope=tab)
+                equal = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = ok and equal
+                same = "; two runs bit-equal" if equal else "; two runs differ"
             log(f"[kernel] K2/K3r {shape} {str(dtype)[6:]}: max|o-plain|={err_o:.3e} (tol "
                 f"{O_TOL[dtype]}) max|lse-plain|={err_l:.3e} (tol {LSE_TOL}); max|d-plain| / "
                 f"max|plain| (={scale:.3g}) dq/dk/dv = " + "/".join(f"{e:.3e}" for e in errs)
-                + f" (tol {GRAD_TOL[dtype]}) " + ("ok" if ok else "FAIL"))
+                + f" (tol {GRAD_TOL[dtype]})" + same + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"packed_attn_rope_fwd/bwd disagree with their plain versions "
                                      f"at {shape} {dtype}")
@@ -649,6 +703,13 @@ def phase_kernel_rope():
             q, k, v, heads=ROPE_VISION["h"], rope=tab)
     names = device_kernels("K2", calls, {torch.bfloat16: "mma_fwd_kernel<64, false, false, true>",
                                          torch.float32: "packed_attn_fwd_kernel<64, true>"})
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, tab = rope_inputs(ROPE_VISION, dtype, gen)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=ROPE_VISION["h"], rope=tab)
+        calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse, tab=tab: fa.fused_attention_packed_bwd(
+            q, k, v, o, o, lse, heads=ROPE_VISION["h"], rope=tab)
+    names_bwd = device_kernels("K3r", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "attn_bwd_"})
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -658,8 +719,7 @@ def phase_kernel_rope():
         o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
         o1, lse1 = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
         do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
-        out = torch.empty(*o.shape[:2], 3 * o.shape[2], device="cuda",
-                          dtype=torch.bfloat16).chunk(3, dim=-1)
+        grads = fresh_grads(shape, torch.bfloat16)
         # SDPA on q and k rotated beforehand: the rotation is not in its time
         tab32 = fa.rope_table(rope, shape["prefix"], torch.float32).cuda()
         rot = [apply_rope_cat(t.unflatten(-1, (h, d)), tab32).transpose(1, 2) for t in (q, k)]
@@ -674,14 +734,14 @@ def phase_kernel_rope():
         fwd, readings = median_ms(fns, 50)
         fwd.update(readings=readings, device_ms=device_ms(fns), plain_ms=cuda_ms(
             lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h, rope=tab), 20))
-        bwd = dict(
-            ms=cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
-                                                             heads=h, rope=tab, out=out), 20),
-            k3_ms=cuda_ms(lambda: fa.fused_attention_packed_bwd(q, k, v, o1, do, lse1,
-                                                                is_causal=causal, heads=h, out=out), 20),
-            plain_ms=cuda_ms(lambda: fa.fused_attention_packed_bwd_ref(
-                q, k, v, o, do, lse, is_causal=causal, heads=h, rope=tab), 5),
-        )
+        bwd = backward_timings(
+            {"ms": lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
+                                                         heads=h, rope=tab, out=grads()),
+             "k3_ms": lambda: fa.fused_attention_packed_bwd(q, k, v, o1, do, lse1,
+                                                            is_causal=causal, heads=h,
+                                                            out=grads())},
+            lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal,
+                                                      heads=h, rope=tab))
         both = cuda_ms(lambda: torch.autograd.grad(sdpa(q4, k4, v4, is_causal=causal),
                                                    (q4, k4, v4), do4), 20)
         bwd["library_ms"] = both - fwd["library_ms"]
@@ -697,9 +757,13 @@ def phase_kernel_rope():
             f"(profiler): K2 {fmt_ms(dev['ms'])}, K1 {fmt_ms(dev['k1_ms'])}, K4 "
             f"{fmt_ms(dev['k4_ms'])}, SDPA {fmt_ms(dev['library_ms'])} ms; bound "
             f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']})")
+        dev = bwd["device_ms"]
         log(f"[kernel] K3r bf16 {shape}: kernel {bwd['ms']:.4f} ms, K3 same shape "
-            f"{bwd['k3_ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA on pre-rotated q/k "
-            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
+            f"{bwd['k3_ms']:.4f} ms (medians of {FWD_RUNS}; readings {spread(bwd['readings'])}); "
+            f"device time per launch (profiler): K3r {fmt_ms(dev['ms'])}, K3 "
+            f"{fmt_ms(dev['k3_ms'])} ms; two runs bit-equal; plain {bwd['plain_ms']:.4f} ms, "
+            f"SDPA backward on pre-rotated q/k {bwd['library_ms']:.4f} ms, bound "
+            f"{bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
         return fwd, bwd
 
     fwd32, bwd32 = timings(ROPE_VISION)
@@ -724,7 +788,6 @@ def phase_kernel_rope():
         "vision_b32": fwd32,
     }, {
         "name": "packed_attn_rope_bwd",
-        "source": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu",
         "replaces": "mrclip_tpu/ops/fused_attn.py:418",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_packed_bwd_kernel, rope branch "
                       ":418-428, :464-473",
@@ -734,6 +797,12 @@ def phase_kernel_rope():
         "max_rel_err_fp32": worst_rel[torch.float32],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         **common, **bwd256,
+        # bf16; fp32 runs packed_attn_bwd.cu's FMA kernels
+        "source": MMA_BWD["source"],
+        "design": MMA_BWD["design"] + ", the staged operand rotated in shared memory, the other "
+                  "in registers, dq and dk un-rotated in registers (rope.cuh)",
+        "entry": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu::packed_attn_rope_bwd",
+        "device_kernels": names_bwd,
         "library": library + " (backward: fwd+bwd minus fwd)",
         "vision_b32": bwd32,
     }]
@@ -1567,10 +1636,13 @@ KERNEL_GROUPS = [
     ("K10b flash_attn_bwd", ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
                              "rows_bwd_dq_kernel<float, 64, true>",
                              "rows_bwd_dkv_kernel<float, 64, true>")),
-    # the rest of the tensor-core and FMA rows backward: K5's instantiations
-    ("K5 grouped_attn_bwd", ("mma_bwd_", "rows_bwd_")),
-    ("K3r packed_attn_rope_bwd", ("_kernel<__nv_bfloat16, 64, true>",)),
-    ("K3 packed_attn_bwd", ("attn_bwd_dq", "attn_bwd_dkv")),
+    ("K3r packed_attn_rope_bwd", ("mma_bwd_dq_kernel<64, false, false, true>",
+                                  "mma_bwd_dkv_kernel<64, false, false, true>",
+                                  "attn_bwd_dq_kernel<64, true>", "attn_bwd_dkv_kernel<64, true>")),
+    # the rest of the tensor-core and FMA backward: one bf16 instantiation,
+    # K3 under fusedp, K5 under fused
+    ("K3 packed_attn_bwd / K5 grouped_attn_bwd", ("mma_bwd_", "rows_bwd_", "attn_bwd_dq",
+                                                  "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

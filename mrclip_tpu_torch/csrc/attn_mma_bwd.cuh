@@ -1,30 +1,46 @@
-// Tensor-core backward of the bf16 attention of grouped_attn.cu (K5,
-// attn_impl='fused') and flash_attn.cu (K10b, attn_impl='flash'), and the
-// backward launcher of both (fp32 stays on attn_rows.cuh's FMA kernels:
-// TF32 products would miss the fp32 bar of the plain versions, 1e-4).
+// Tensor-core backward of the bf16 attention of packed_attn_bwd.cu (K3,
+// attn_impl='fusedp'; K3r, the same with the EVA02 rope), grouped_attn.cu
+// (K5, attn_impl='fused') and flash_attn.cu (K10b, attn_impl='flash'), and
+// the backward launcher of K5 and K10b (fp32 stays on FMA kernels: TF32
+// products would miss the fp32 bar of the plain versions, 1e-4; K3 and K3r
+// on packed_attn_bwd.cu's, K5 and K10b on attn_rows.cuh's).
 //
 // Replaces, in bf16:
+//   K3:   mrclip_tpu/ops/fused_attn.py::_packed_bwd_kernel (:382, batched
+//         heads, driven by _pbwd_impl :573);
+//   K3r:  the same with its rope branch (:418-428, :464-473);
 //   K5:   mrclip_tpu/ops/fused_attn.py::_bwd_kernel (:118), driven by
 //         _core_bwd (:193);
 //   K10b: jax's _flash_attention_dkv_kernel (:796) and
 //         _flash_attention_dq_kernel (:1146), driven by _flash_attention_bwd
 //         (:254), which mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded
 //         reaches.
-// One template, FLASH flag as in attn_rows.cuh. Per (sample, head), the
-// values of the plain versions (fused_attention_bwd_ref,
+// One template, FLASH flag as in attn_rows.cuh, ROPE flag as in
+// attn_mma_fwd.cuh. K3 and K5 run one instantiation (FLASH = false, ROPE =
+// false): the packed [B, N, H*D] views and the grouped [B*H, N, D] tiles
+// differ only in their strides. Per (sample, head), the values of the plain
+// versions (fused_attention_packed_bwd_ref, fused_attention_bwd_ref,
 // flash_attention_bwd_ref):
-//   P  = exp(S scale - lse) (K5), exp(S scale - m) * (1 / l) (K10b);
+//   P  = exp(S scale - lse) (K3, K5), exp(S scale - m) * (1 / l) (K10b);
 //   dV = round(P)^T dO;  dP = dO V^T;
-//   dS = round(P (dP - delta) scale), delta = rowsum(dO O) in fp32 (K5,
-//        taken here) or di (K10b, from outside);
+//   dS = round(P (dP - delta) scale), delta = rowsum(dO O) in fp32 (K3,
+//        K5, taken here) or di (K10b, from outside);
 //   dQ = dS K;  dK = dS^T Q;  every product summed in fp32, each gradient
 //        rounded to bf16 once.
+// K3r (ROPE, self-attention): q and k above are round(q cos + rot(q) sin)
+// (and k's), rotated inside from the unrotated q and k the forward kept by
+// the [N, 2D] sin||cos table, as K2 rotates them (rope.cuh's
+// rotate_pair_f32, one rounding: bit-identical to the plain version); dQ and
+// dK, summed in fp32 against the rotated operands, are un-rotated in the
+// accumulator's registers before their one rounding:
+// dx = g cos - rot(round(g sin)) (rope.cuh's unrotate_pair_f32). dV and
+// delta (from the unrotated O and dO) are K3's.
 // P uses the forward's final statistics, so the backward has no block-
 // dependent rounding and N > 256 (jax's several key blocks) needs no MULTI
 // form: past 256 rows the staged operands are walked in chunks.
 //
 // Bound on an H100 SXM at ViT-B/16 vision b256 (N = 197, H = 12, D = 64):
-// K5 reads q, k, v, o, dO and writes dq, dk, dv once (8 x 77.5 MB) plus lse,
+// K3/K5 read q, k, v, o, dO and write dq, dk, dv once (8 x 77.5 MB) plus lse,
 // 0.1857 ms at 3.35 TB/s; K10b reads q, k, v, dO, l, m, di and writes dq,
 // dk, dv, 0.1640 ms; against 10 D operations per attended pair of the five
 // products (76.3 GFLOP, 77 us at 989 TFLOP/s): bound by bytes. The kernels
@@ -33,9 +49,9 @@
 //     thread, so two runs give the same bits;
 //   - dq pass, grid (batch or groups, row blocks, heads), four warps of 16
 //     query rows: Q and dO fragments read once from device memory into
-//     registers (32-bit loads in the mma A layout; K5 also reads O that way,
-//     takes delta = rowsum(dO O) over the quad of lanes that share a row and
-//     writes it for the dkv pass); K and V staged in bf16 by 16-byte
+//     registers (32-bit loads in the mma A layout; K3/K5 also read O so,
+//     take delta = rowsum(dO O) over the quad of lanes that share a row and
+//     write it for the dkv pass); K and V staged in bf16 by 16-byte
 //     cp.async into padded rows (ldmatrix meets no bank conflict); per 32
 //     keys S = Q K^T and dP = dO V^T on mma.sync m16n8k16, P and dS in fp32
 //     in the accumulator's registers, dS rounded to bf16 there as the A
@@ -69,8 +85,21 @@
 //     diagonal; on the diagonal and the ragged edges masked pairs get a
 //     score of -inf, so their P is exactly 0; rows past n (keys past nk) are
 //     read as 0 and store nothing;
+//   - K3r: the staged operand (K in the dq pass, Q in the dkv pass) is
+//     rotated in shared memory by the forward's rotate_rows, each thread
+//     its own 16-byte pieces after its cp.async wait, before the barrier
+//     that precedes ldmatrix: once per (sample, head) in the resident
+//     kernels, once per chunk in the chunked ones. The register operand (Q
+//     in the dq pass, K in the dkv pass) is rotated in registers after
+//     load_frag_a: each 32-bit A-fragment register is one rope pair of one
+//     row, so a lane rotates its own words by one sin and one cos word of
+//     the table. dQ and dK are un-rotated the same way in the C layout,
+//     whose (c0, c1) and (c2, c3) are one pair of rows g and g + 8; the
+//     dkv pass stores dV first, so that its registers are free for dK's;
 //   - gradients rounded to bf16 and stored from the accumulators by 32-bit
-//     stores.
+//     stores. The 16-byte copies and 32-bit loads and stores need the
+//     views' base pointers and batch and row strides (and K3r's table) to
+//     be multiples of 16 bytes, which the wrappers check.
 // What holds it back: each mma.sync reads its B fragment from shared memory
 // (16 warp rows per fragment), so shared-memory reads (about 6.7 GB at
 // vision b256) and the two recomputed products, not device memory, set its
@@ -142,6 +171,58 @@ __device__ __forceinline__ void store_frag_c(bf16* base, long long rs, const flo
   }
 }
 
+// K3r: this warp's A fragments of rows [r0, r0 + 16) (load_frag_a's)
+// rotated in registers by the [n, 2D] table. In the m16n8k16 A layout each
+// 32-bit register holds the pair (2i, 2i + 1) of one row, so a lane rotates
+// its own words (rotate_word), reading the pair's sin and cos words of the
+// table. No branch: a row past n reads row n - 1's table and keeps its 0,
+// so that every table load can be issued before the first is used.
+template <int D>
+__device__ __forceinline__ void rotate_frag_a(uint32_t (&f)[D / 16][4],
+                                              const bf16* __restrict__ tab, int r0, int n,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool in0 = r0 + g < n, in1 = r0 + g + 8 < n;
+  // the sin words of rows g and g + 8 at column 2t; the cos words D / 2 on
+  const uint32_t* t0 =
+      reinterpret_cast<const uint32_t*>(tab + min(r0 + g, n - 1) * (2 * D)) + t;
+  const uint32_t* t1 =
+      reinterpret_cast<const uint32_t*>(tab + min(r0 + g + 8, n - 1) * (2 * D)) + t;
+#pragma unroll
+  for (int ds = 0; ds < D / 16; ++ds) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rows g (e even), g + 8 (odd); columns + 8 from e = 2
+      const uint32_t* w = (e & 1 ? t1 : t0) + 8 * ds + 4 * (e >> 1);
+      const uint32_t y = rotate_word(f[ds][e], __ldg(w), __ldg(w + D / 2));
+      f[ds][e] = (e & 1 ? in1 : in0) ? y : 0u;
+    }
+  }
+}
+
+// K3r: rows [r0, r0 + 16) of a gradient accumulator (C layout: (c0, c1)
+// and (c2, c3) are columns (2t, 2t + 1) of rows g and g + 8, one rope pair
+// each) un-rotated in place by the table, rope.cuh's unrotate_pair_f32
+// (g * sin rounded to bf16), before store_frag_c rounds it once. No branch,
+// as rotate_frag_a: a row past n (which stores nothing) reads row n - 1's
+// table.
+template <int D>
+__device__ __forceinline__ void unrotate_frag_c(float (&acc)[D / 8][4],
+                                                const bf16* __restrict__ tab, int r0, int n,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = min(r0 + g + 8 * i, n - 1);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(tab + row * (2 * D)) + t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t sn = __ldg(w + 4 * j), cs = __ldg(w + D / 2 + 4 * j);
+      unrotate_pair_f32(acc[j][2 * i], acc[j][2 * i + 1], bf16_lo(sn), bf16_hi(sn), bf16_lo(cs),
+                        bf16_hi(cs), tab);
+    }
+  }
+}
+
 // The dkv pass's transposed scores (rows: keys, this lane's `key` and key +
 // 8; columns: queries from s0): queries at or past c1 and causal pairs (key
 // > query) to -inf.
@@ -159,7 +240,7 @@ __device__ __forceinline__ void mask_scores_t(float (&s)[KEYS / 8][4], int s0, i
 }
 
 // dq pass, kDqKeys keys from shared row `kr` of the staged K and V: acc +=
-// dS K. st2: this lane's rows' lse (K5) or m (K10b) in log2 units; inv:
+// dS K. st2: this lane's rows' lse (K3, K5) or m (K10b) in log2 units; inv:
 // 1 / l (K10b); dl: delta or di.
 template <int D, bool FLASH, bool FULL>
 __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (&qf)[D / 16][4],
@@ -235,19 +316,22 @@ __device__ __forceinline__ void dkv_tile(float (&dka)[D / 8][4], float (&dva)[D 
   tile_pv<D, FULL, kDkvQueries>(dka, p, sq, qr, groups, lane);
 }
 
-// dq pass, this warp's rows: Q and dO fragments, and the rows' statistics
-// (st2: lse (K5) or m (K10b) in log2 units; inv: 1 / l (K10b); dl: delta,
-// taken here and written for the dkv pass (K5), or di (K10b)).
-template <int D, bool FLASH>
+// dq pass, this warp's rows: Q (ROPE: rotated by `tab`) and dO fragments,
+// and the rows' statistics (st2: lse (K3, K5) or m (K10b) in log2 units;
+// inv: 1 / l (K10b); dl: delta, taken here and written for the dkv pass
+// (K3, K5), or di (K10b)).
+template <int D, bool FLASH, bool ROPE>
 __device__ __forceinline__ void dq_rows(uint32_t (&qf)[D / 16][4], uint32_t (&dof)[D / 16][4],
                                         float (&st2)[2], float (&inv)[2], float (&dl)[2],
-                                        const bf16* q, const bf16* o, const bf16* dout,
-                                        const float* stat_a, const float* stat_b, float* delta,
-                                        const Strides& st, long long b, long long hd, long long sb,
-                                        int wrow0, int n, int lane) {
+                                        const bf16* q, const bf16* tab, const bf16* o,
+                                        const bf16* dout, const float* stat_a,
+                                        const float* stat_b, float* delta, const Strides& st,
+                                        long long b, long long hd, long long sb, int wrow0, int n,
+                                        int lane) {
   const int r0 = wrow0 + (lane >> 2), t = lane & 3;
   load_frag_a<D>(qf, q + b * st.q_bs + hd, st.q_rs, wrow0, n, lane);
   load_frag_a<D>(dof, dout + b * st.do_bs + hd, st.do_rs, wrow0, n, lane);
+  if constexpr (ROPE) rotate_frag_a<D>(qf, tab, wrow0, n, lane);
   if constexpr (FLASH) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -304,21 +388,24 @@ __device__ __forceinline__ void dq_walk(float (&acc)[D / 8][4], const uint32_t (
   }
 }
 
-// dq pass: dQ (and, for K5, delta) for the query rows of one block of one
-// (sample, head): K5 stat_a = lse, delta written; K10b stat_a = l, stat_b =
-// m, delta = di read. CHUNKED = false (Nk <= kMaxChunk): every key staged
+// dq pass: dQ (and, for K3 and K5, delta) for the query rows of one block
+// of one (sample, head): K3/K5 stat_a = lse, delta written; K10b stat_a =
+// l, stat_b = m, delta = di read. ROPE (K3r, self-attention): Q rotated in
+// registers, each staged K row in shared memory, dQ un-rotated before its
+// store. CHUNKED = false (Nk <= kMaxChunk): every key staged (and rotated)
 // once, before the block walks its `iters` sub-tiles of kMmaRows rows;
 // CHUNKED: one sub-tile, the keys staged in chunks of `ch` (a multiple of
 // 16, at most kMaxChunk), two blocks an SM.
-template <int D, bool FLASH, bool CHUNKED>
+template <int D, bool FLASH, bool CHUNKED, bool ROPE>
 __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
     mma_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ o,
-                      const bf16* __restrict__ dout, const float* __restrict__ stat_a,
-                      const float* __restrict__ stat_b, float* __restrict__ delta,
-                      bf16* __restrict__ dq, int n, int nk, int heads, Strides st, float scale,
-                      int causal, int ch, int iters) {
+                      const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                      const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      const float* __restrict__ stat_a, const float* __restrict__ stat_b,
+                      float* __restrict__ delta, bf16* __restrict__ dq, int n, int nk, int heads,
+                      Strides st, float scale, int causal, int ch, int iters) {
   static_assert(D == 32 || D == 64, "head dim");
+  static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const uint32_t sk_a = static_cast<uint32_t>(__cvta_generic_to_shared(mma_smem));
   const uint32_t sv_a = sk_a + ch * (D + 8) * 2;
@@ -334,6 +421,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
 
   if constexpr (!CHUNKED) {  // every key, for all the sub-tiles
     stage_rows<D>(sk_a, kb, st.k_rs, nk);
+    if constexpr (ROPE) cp_async_commit();  // K apart: it rotates while V lands
     stage_rows<D>(sv_a, vb, st.v_rs, nk);
     cp_async_commit();
   }
@@ -362,25 +450,33 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         stage_rows<D>(sv_a, vb + c0 * st.v_rs, st.v_rs, c1 - c0);
         cp_async_commit();
         if (c0 == 0 && wrow0 < n)  // under the copies
-          dq_rows<D, FLASH>(qf, dof, st2, inv, dl, q, o, dout, stat_a, stat_b, delta, st, b, hd,
-                            sb, wrow0, n, lane);
+          dq_rows<D, FLASH, ROPE>(qf, dof, st2, inv, dl, q, tab, o, dout, stat_a, stat_b, delta,
+                                  st, b, hd, sb, wrow0, n, lane);
         cp_async_wait<0>();
+        if constexpr (ROPE) rotate_rows<D>(sk_a, tab, c0, c1 - c0);
         __syncthreads();
         dq_walk<D, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, c0, c1, min(c1, w_keys), wrow0,
                           causal, sl2, scale, lane);
       }
     } else {
       if (wrow0 < n)  // the first sub-tile's under the copies
-        dq_rows<D, FLASH>(qf, dof, st2, inv, dl, q, o, dout, stat_a, stat_b, delta, st, b, hd, sb,
-                          wrow0, n, lane);
+        dq_rows<D, FLASH, ROPE>(qf, dof, st2, inv, dl, q, tab, o, dout, stat_a, stat_b, delta, st,
+                                b, hd, sb, wrow0, n, lane);
       if (it == 0) {
+        if constexpr (ROPE) {
+          cp_async_wait<1>();
+          rotate_rows<D>(sk_a, tab, 0, nk);
+        }
         cp_async_wait<0>();
         __syncthreads();
       }
       dq_walk<D, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, 0, kend, min(kend, w_keys),
                         wrow0, causal, sl2, scale, lane);
     }
-    if (wrow0 < n) store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, acc, wrow0, n, lane);
+    if (wrow0 < n) {
+      if constexpr (ROPE) unrotate_frag_c<D>(acc, tab, wrow0, n, lane);
+      store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, acc, wrow0, n, lane);
+    }
   }
 }
 
@@ -431,19 +527,22 @@ __device__ __forceinline__ void dkv_walk(float (&dka)[D / 8][4], float (&dva)[D 
 }
 
 // dkv pass: dK and dV for the keys of one block of one (sample, head),
-// statistics as for the dq pass (delta from it for K5, di for K10b).
-// CHUNKED = false (N <= kMaxChunk): every query row staged once, before the
-// block walks its `iters` sub-tiles of kMmaRows keys; CHUNKED: one
-// sub-tile, the query rows staged in chunks of `ch`, two blocks an SM.
-template <int D, bool FLASH, bool CHUNKED>
+// statistics as for the dq pass (delta from it for K3 and K5, di for
+// K10b). ROPE (K3r): K rotated in registers, each staged Q row in shared
+// memory, dK un-rotated before its store. CHUNKED = false (N <= kMaxChunk):
+// every query row staged (and rotated) once, before the block walks its
+// `iters` sub-tiles of kMmaRows keys; CHUNKED: one sub-tile, the query
+// rows staged in chunks of `ch`, two blocks an SM.
+template <int D, bool FLASH, bool CHUNKED, bool ROPE>
 __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
     mma_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ stat_a, const float* __restrict__ stat_b,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int n, int nk, int heads, Strides st, float scale,
-                       int causal, int ch, int iters) {
+                       const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                       const bf16* __restrict__ dout, const float* __restrict__ stat_a,
+                       const float* __restrict__ stat_b, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int nk, int heads,
+                       Strides st, float scale, int causal, int ch, int iters) {
   static_assert(D == 32 || D == 64, "head dim");
+  static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const uint32_t sq_a = static_cast<uint32_t>(__cvta_generic_to_shared(mma_smem));
   const uint32_t sdo_a = sq_a + ch * (D + 8) * 2;
@@ -488,8 +587,10 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         if (c0 == q_begin && live) {  // under the copies
           load_frag_a<D>(kf, k + b * st.k_bs + hd, st.k_rs, wk0, nk, lane);
           load_frag_a<D>(vf, v + b * st.v_bs + hd, st.v_rs, wk0, nk, lane);
+          if constexpr (ROPE) rotate_frag_a<D>(kf, tab, wk0, nk, lane);
         }
         cp_async_wait<0>();
+        if constexpr (ROPE) rotate_rows<D>(sq_a, tab, c0, c1 - c0);
         __syncthreads();
         if (live)
           dkv_walk<D, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, c0, c1, wk0,
@@ -499,36 +600,41 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
       if (live) {  // the first sub-tile's under the copies
         load_frag_a<D>(kf, k + b * st.k_bs + hd, st.k_rs, wk0, nk, lane);
         load_frag_a<D>(vf, v + b * st.v_bs + hd, st.v_rs, wk0, nk, lane);
+        if constexpr (ROPE) rotate_frag_a<D>(kf, tab, wk0, nk, lane);
       }
       if (it == 0) {
         cp_async_wait<0>();
+        if constexpr (ROPE) rotate_rows<D>(sq_a, tab, 0, n);
         __syncthreads();
       }
       if (live)
         dkv_walk<D, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, 0, n, wk0, causal,
                            sl2, scale, lane);
     }
-    if (live) {
-      store_frag_c<D>(dk + b * st.dk_bs + hd, st.dk_rs, dka, wk0, nk, lane);
+    if (live) {  // dV first: its registers are free before dK's un-rotation
       store_frag_c<D>(dv + b * st.dv_bs + hd, st.dv_rs, dva, wk0, nk, lane);
+      if constexpr (ROPE) unrotate_frag_c<D>(dka, tab, wk0, nk, lane);
+      store_frag_c<D>(dk + b * st.dk_bs + hd, st.dk_rs, dka, wk0, nk, lane);
     }
   }
 }
 
-// Launches the bf16 backward, dq pass first (K5's delta). Each pass runs
-// its resident kernel where one chunk holds every row it stages (Nk for the
-// dq pass, N for the dkv pass, up to kMaxChunk), a block walking up to
-// kMaxRows / kMmaRows sub-tiles, else its chunked kernel, one sub-tile a
-// block. Returns the first cudaError_t.
-template <int D, bool FLASH>
-int launch_mma_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* stat_a, const float* stat_b, float* delta, void* dq, void* dk,
-                   void* dv, int batch, int n, int nk, int heads, const Strides& st, float scale,
-                   int causal, cudaStream_t stream) {
+// Launches the bf16 backward, dq pass first (K3's and K5's delta). Each
+// pass runs its resident kernel where one chunk holds every row it stages
+// (Nk for the dq pass, N for the dkv pass, up to kMaxChunk), a block
+// walking up to kMaxRows / kMmaRows sub-tiles, else its chunked kernel, one
+// sub-tile a block. `tab`: K3r's [n, 2D] rope table (ROPE), else unused.
+// Returns the first cudaError_t.
+template <int D, bool FLASH, bool ROPE = false>
+int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab, const void* o,
+                   const void* dout, const float* stat_a, const float* stat_b, float* delta,
+                   void* dq, void* dk, void* dv, int batch, int n, int nk, int heads,
+                   const Strides& st, float scale, int causal, cudaStream_t stream) {
   static std::atomic<unsigned long long> done[4];  // the four kernels' allow_smem
   constexpr int kMost = kMaxRows / kMmaRows;      // sub-tiles of a resident block
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
   const bf16 *vp = static_cast<const bf16*>(v), *dop = static_cast<const bf16*>(dout);
+  const bf16* tp = static_cast<const bf16*>(tab);
   // resident: the rows staged, rounded up to 16, and the sub-tiles a block
   // walks; chunked: kMaxChunk and one
   auto plan = [&](int len, int tiles, int& ch, int& it) {
@@ -544,12 +650,13 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* o, c
     const cudaError_t e = allow_smem(kernel, mma_bwd_dq_smem<D>(kMaxChunk), flag);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(batch, (tiles_q + it - 1) / it, heads), kMmaThreads, mma_bwd_dq_smem<D>(ch),
-             stream>>>(qp, kp, vp, static_cast<const bf16*>(o), dop, stat_a, stat_b, delta,
+             stream>>>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop, stat_a, stat_b, delta,
                        static_cast<bf16*>(dq), n, nk, heads, st, scale, causal, ch, it);
     return cudaGetLastError();
   };
-  cudaError_t err = plan(nk, tiles_q, ch, it) ? dq_pass(mma_bwd_dq_kernel<D, FLASH, false>, done[0])
-                                              : dq_pass(mma_bwd_dq_kernel<D, FLASH, true>, done[1]);
+  cudaError_t err = plan(nk, tiles_q, ch, it)
+                        ? dq_pass(mma_bwd_dq_kernel<D, FLASH, false, ROPE>, done[0])
+                        : dq_pass(mma_bwd_dq_kernel<D, FLASH, true, ROPE>, done[1]);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int tiles_k = (nk + kMmaRows - 1) / kMmaRows;
@@ -557,12 +664,12 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* o, c
     const cudaError_t e = allow_smem(kernel, mma_bwd_dkv_smem<D>(kMaxChunk), flag);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(batch, (tiles_k + it - 1) / it, heads), kMmaThreads, mma_bwd_dkv_smem<D>(ch),
-             stream>>>(qp, kp, vp, dop, stat_a, stat_b, delta, static_cast<bf16*>(dk),
+             stream>>>(qp, kp, vp, tp, dop, stat_a, stat_b, delta, static_cast<bf16*>(dk),
                        static_cast<bf16*>(dv), n, nk, heads, st, scale, causal, ch, it);
     return cudaGetLastError();
   };
-  err = plan(n, tiles_k, ch, it) ? dkv_pass(mma_bwd_dkv_kernel<D, FLASH, false>, done[2])
-                                 : dkv_pass(mma_bwd_dkv_kernel<D, FLASH, true>, done[3]);
+  err = plan(n, tiles_k, ch, it) ? dkv_pass(mma_bwd_dkv_kernel<D, FLASH, false, ROPE>, done[2])
+                                 : dkv_pass(mma_bwd_dkv_kernel<D, FLASH, true, ROPE>, done[3]);
   return static_cast<int>(err);
 }
 
@@ -576,8 +683,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
                void* dv, int batch, int n, int nk, int heads, const Strides& st, float scale,
                int causal, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value)
-    return launch_mma_bwd<D, FLASH>(q, k, v, o, dout, stat_a, stat_b, delta, dq, dk, dv, batch,
-                                    n, nk, heads, st, scale, causal, stream);
+    return launch_mma_bwd<D, FLASH>(q, k, v, nullptr, o, dout, stat_a, stat_b, delta, dq, dk,
+                                    dv, batch, n, nk, heads, st, scale, causal, stream);
   else
     return launch_rows_bwd<T, D, FLASH>(q, k, v, o, dout, stat_a, stat_b, delta, dq, dk, dv,
                                         batch, n, nk, heads, st, scale, causal, stream);

@@ -207,24 +207,23 @@ __device__ __forceinline__ void sts16(uint32_t addr, const uint4& v) {
                : "memory");
 }
 
-// One 16-byte piece (4 pairs) rotated by its 8 sin and 8 cos: rope.cuh's
-// rotate_pair_f32 on each pair (2i, 2i+1), one 32-bit word, then one
-// rounding to bf16 (nearest even, as round_to).
-__device__ __forceinline__ uint4 rotate_piece(const uint4& x, const uint4& sn, const uint4& cs) {
-  const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
-  const uint32_t sw[4] = {sn.x, sn.y, sn.z, sn.w};
-  const uint32_t cw[4] = {cs.x, cs.y, cs.z, cs.w};
-  uint32_t y[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    float x0 = bf16_lo(xw[p]), x1 = bf16_hi(xw[p]);
-    rotate_pair_f32(x0, x1, bf16_lo(sw[p]), bf16_hi(sw[p]), bf16_lo(cw[p]), bf16_hi(cw[p]));
-    y[p] = pack_bf16(x0, x1);
-  }
-  return make_uint4(y[0], y[1], y[2], y[3]);
+// One 32-bit word (the pair (2i, 2i+1) of one row, dim 2i in the low half)
+// rotated by the words of its sin and cos: rope.cuh's rotate_pair_f32,
+// then one rounding to bf16 (nearest even, as round_to).
+__device__ __forceinline__ uint32_t rotate_word(uint32_t x, uint32_t sn, uint32_t cs) {
+  float x0 = bf16_lo(x), x1 = bf16_hi(x);
+  rotate_pair_f32(x0, x1, bf16_lo(sn), bf16_hi(sn), bf16_lo(cs), bf16_hi(cs));
+  return pack_bf16(x0, x1);
 }
 
-// K2: rows [0, len) that stage_rows staged at shared address `dst` rotated
+// One 16-byte piece (4 pairs) rotated by its 8 sin and 8 cos, a word at a
+// time.
+__device__ __forceinline__ uint4 rotate_piece(const uint4& x, const uint4& sn, const uint4& cs) {
+  return make_uint4(rotate_word(x.x, sn.x, cs.x), rotate_word(x.y, sn.y, cs.y),
+                    rotate_word(x.z, sn.z, cs.z), rotate_word(x.w, sn.w, cs.w));
+}
+
+// K2, K3r: rows [0, len) that stage_rows staged at shared address `dst` rotated
 // in place, row r by table row p0 + r. Each thread takes the 16-byte
 // pieces it copied itself, so its own cp.async wait has landed them; the
 // caller's __syncthreads then publishes them to ldmatrix. A piece reads its

@@ -1,7 +1,9 @@
 // Element access and the EVA02 rope rotation shared by packed_attn_fwd.cu
-// (K2) and packed_attn_bwd.cu (K3r), so both kernels rotate bit-identically
-// to the plain versions in mrclip_tpu_torch/ops/fused_attn.py; dw_conv.cu
-// (K8, K9) takes the element access.
+// (K2: the fp32 FMA kernel) and packed_attn_bwd.cu (K3r's fp32 FMA kernel),
+// and through attn_mma_fwd.cuh and attn_mma_bwd.cuh by their bf16
+// tensor-core forms, so every kernel rotates bit-identically to the plain
+// versions in mrclip_tpu_torch/ops/fused_attn.py; dw_conv.cu (K8, K9) takes
+// the element access.
 //
 // A rope table row t holds the sin of its position in t[0, D) and the cos in
 // t[D, 2D), in the input type T. Rows pair interleaved dims (2i, 2i+1):
@@ -50,20 +52,28 @@ __device__ __forceinline__ void rotate_pair(float& x0, float& x1,
   x1 = round_to(x1, t);
 }
 
-// The gradient pair (g0, g1) of a rotated row, un-rotated:
-// dx = g * cos - rot(round_T(g * sin)); fp32, the result stays unrounded
-// until it is stored.
-template <typename T, int D>
-__device__ __forceinline__ void unrotate_pair(float& g0, float& g1,
-                                              const T* t, int d) {
-  const float s0 = load_f(t + d), s1 = load_f(t + d + 1);
-  const float c0 = load_f(t + D + d), c1 = load_f(t + D + d + 1);
-  const float gs0 = round_to(__fmul_rn(g0, s0), t);
-  const float gs1 = round_to(__fmul_rn(g1, s1), t);
+// The gradient pair (g0, g1) of a rotated row un-rotated by the sin (s0,
+// s1) and cos (c0, c1) of its dims: dx = g * cos - rot(round_T(g * sin)),
+// T the input type (of `like`, never read); fp32, each product and sum
+// rounded once, the result unrounded until it is stored.
+template <typename T>
+__device__ __forceinline__ void unrotate_pair_f32(float& g0, float& g1, float s0, float s1,
+                                                  float c0, float c1, const T* like) {
+  const float gs0 = round_to(__fmul_rn(g0, s0), like);
+  const float gs1 = round_to(__fmul_rn(g1, s1), like);
   const float x0 = __fadd_rn(__fmul_rn(g0, c0), gs1);
   const float x1 = __fsub_rn(__fmul_rn(g1, c1), gs0);
   g0 = x0;
   g1 = x1;
+}
+
+// The gradient pair (g0, g1) at dims (d, d+1) un-rotated by its table row
+// t (unrotate_pair_f32).
+template <typename T, int D>
+__device__ __forceinline__ void unrotate_pair(float& g0, float& g1,
+                                              const T* t, int d) {
+  unrotate_pair_f32(g0, g1, load_f(t + d), load_f(t + d + 1), load_f(t + D + d),
+                    load_f(t + D + d + 1), t);
 }
 
 }  // namespace

@@ -5,7 +5,8 @@ hand-written Hopper kernels.
 (batched-head mode) are `csrc/packed_attn_fwd.cu` (K1, and K2 with rope;
 bf16 on the tensor cores through `csrc/attn_mma_fwd.cuh`, the forward K4
 runs, fp32 on an FMA kernel) and `csrc/packed_attn_bwd.cu` (K3, and K3r
-with rope), bound together for autograd by `FusedAttentionPacked` (the JAX
+with rope; bf16 on the tensor cores through `csrc/attn_mma_bwd.cuh`, the
+backward K5 runs, fp32 on FMA kernels), bound together for autograd by `FusedAttentionPacked` (the JAX
 package's `_pcore` and `_pcore_rope` custom VJPs).
 
 'fused', the grouped layout: `_fwd_kernel` and `_bwd_kernel` (driven by
@@ -276,8 +277,8 @@ def _check_kernel_inputs(name, packed, d):
 def rows_aligned_16(ptr: int, strides, itemsize: int) -> bool:
     """Whether a view at address `ptr` whose stepped (batch, row) element
     strides are `strides` can be copied row by row in 16-byte pieces, as the
-    bf16 tensor-core forward (K1, K2, K4, K10) stages its rows: the base
-    pointer and each stride, in bytes, are multiples of 16."""
+    bf16 tensor-core kernels (K1, K2, K4, K10; K3, K3r, K5, K10b) stage their
+    rows: the base pointer and each stride, in bytes, are multiples of 16."""
     return ptr % 16 == 0 and all(s * itemsize % 16 == 0 for s in strides)
 
 
@@ -438,8 +439,11 @@ def fused_attention_packed_bwd(
     Layouts and types as the forward takes them; `do` has o's shape. `out`,
     if given, is a (dq, dk, dv) triple of tensors with q's, k's and v's
     shapes and type and any row stride (for example the column slices of one
-    `[B, N, 3*H*D]` buffer), which receive the result. CPU tensors take the
-    plain version; CUDA tensors launch the Hopper kernel or raise.
+    `[B, N, 3*H*D]` buffer), which receive the result. In bf16 the base
+    pointers (the table's too) and batch and row strides of all eight views
+    must be multiples of 16 bytes (the tensor-core kernels read and write
+    rows in 16-byte and 32-bit pieces). CPU tensors take the plain version;
+    CUDA tensors launch the Hopper kernel or raise.
     """
     if q.device.type == "cpu":
         grads = fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=is_causal,
@@ -472,6 +476,10 @@ def fused_attention_packed_bwd(
     if dq3.shape != q3.shape or dk3.shape != k3.shape or dv3.shape != v3.shape:
         raise ValueError(f"out shapes {[tuple(t.shape) for t in out]} differ from q/k/v's")
     _check_kernel_inputs("fused_attention_packed_bwd", (q3, dq3, dk3, dv3), d)
+    if q3.dtype == torch.bfloat16:  # 16-byte copies, 32-bit fragment loads and stores
+        tables = () if rope is None else (rope[None],)
+        check_rows_aligned_16("fused_attention_packed_bwd",
+                              (q3, k3, v3, o3, do3, dq3, dk3, dv3, *tables))
     if b and n and nk:
         delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
         strides = (ctypes.c_longlong * 16)(*(

@@ -146,12 +146,14 @@ def test_small_clip_through_the_kernel_matches_plain_attention(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES)
+@pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES + PACKED_LONG)
 @pytest.mark.parametrize("d", [32, 64])
 def test_backward_kernel_matches_plain_version(cuda_device, b, n, nk, h, causal, d, dtype, tol):
-    """K3: max |err| / max |plain| per output. bf16: the two round P and dS
-    the same way, but a sum taken in another order can flip one bf16
-    rounding of a gradient (~1e-2 relative); fp32: summation order only."""
+    """K3 (bf16 on the tensor cores, at their tile edges and past 256 rows,
+    where they walk chunks): max |err| / max |plain| per output. bf16: the
+    two round P and dS the same way, but a sum taken in another order can
+    flip one bf16 rounding of a gradient (~1e-2 relative); fp32: summation
+    order only."""
     q, k, v = _inputs(b, n, nk, h, d, cuda_device, dtype)
     o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal)
     do = torch.randn(o.shape, device=cuda_device, generator=torch.Generator(
@@ -161,10 +163,14 @@ def test_backward_kernel_matches_plain_version(cuda_device, b, n, nk, h, causal,
     torch.cuda.synchronize()
     assert fa.bwd_launches == before + 1
     want = fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal)
+    # N = 1: one key, so P = 1 and dS = 0; dq and dk are rounding noise with
+    # no scale of their own and take the call's largest |plain| gradient
+    scale = max(w.float().abs().max().item() for w in want)
     for g, w, like in zip(got, want, (q, k, v)):
         assert g.shape == like.shape and g.dtype == dtype
-        rel = (g.float() - w.float()).abs().max() / w.float().abs().max()
-        assert rel.item() <= tol
+        own = w.float().abs().max().item()
+        rel = (g.float() - w.float()).abs().max().item() / (own if n > 1 else scale)
+        assert rel <= tol
 
 
 def test_backward_kernel_writes_column_slices_of_one_buffer(cuda_device):
@@ -179,6 +185,36 @@ def test_backward_kernel_writes_column_slices_of_one_buffer(cuda_device):
                                              heads=h)
     for part, w in zip(buf.chunk(3, dim=-1), want):
         assert ((part.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernel_refuses_bf16_views_off_16_bytes(cuda_device, dtype):
+    """The bf16 K3 copies rows in 16-byte pieces and reads and writes 32-bit
+    fragments: an input or gradient view whose base pointer or row stride is
+    off 16 bytes raises and reaches no plain version; the same views in fp32
+    run the FMA kernels."""
+    h, d = 2, 64
+    x = torch.randn(2, 16, 3 * h * d + 8, device=cuda_device).to(dtype)
+    shifted = [x[..., 1 + i * h * d:1 + (i + 1) * h * d] for i in range(3)]  # one element in
+    y = torch.randn(2, 16, 3 * h * d + 1, device=cuda_device).to(dtype)
+    odd_rows = list(y[..., :3 * h * d].split(h * d, dim=-1))  # row stride 3 * H * D + 1
+    q, k, v = (t.contiguous() for t in shifted)
+    o, lse = fa.fused_attention_packed(q, k, v, heads=h)
+    do = torch.randn_like(o)
+    for inputs, out in (((*shifted, o, do), None), ((*odd_rows, o, do), None),
+                        ((q, k, v, o, do), torch.zeros_like(y)[..., :3 * h * d].chunk(3, dim=-1))):
+        before = fa.bwd_launches
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiples of 16 bytes"):
+                fa.fused_attention_packed_bwd(*inputs, lse, heads=h, out=out)
+            assert fa.bwd_launches == before
+            continue
+        got = fa.fused_attention_packed_bwd(*inputs, lse, heads=h, out=out)
+        torch.cuda.synchronize()
+        assert fa.bwd_launches == before + 1
+        want = fa.fused_attention_packed_bwd_ref(*inputs, lse, heads=h)
+        scale = max(w.abs().max().item() for w in want)
+        assert max((g - w).abs().max().item() for g, w in zip(got, want)) <= 1e-4 * scale
 
 
 def test_backward_kernel_refuses_what_it_cannot_take(cuda_device):
@@ -355,6 +391,47 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
     assert torch.equal(o, o1) and torch.equal(lse, lse1)
 
 
+@pytest.mark.parametrize("b,n,h,d,prefix,causal", [
+    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer: the resident kernels
+    (1, 577, 2, 64, 1, True),    # three chunks, causal
+    (2, 50, 2, 32, 1, False),    # head dim 32
+    (2, 17, 2, 64, 0, True),     # a ragged 16-row fragment
+])
+def test_rope_backward_rotates_bit_identically(cuda_device, b, n, h, d, prefix, causal):
+    """bf16 K3r rotates q and k as the plain version does, bit for bit, in
+    both passes (the staged operand in shared memory, the other in
+    registers) and un-rotates dq and dk at the right pairs. Two exact forms
+    against K3 on q and k rotated beforehand (`_rope_rotate`) with the same
+    o and lse: (1) with the model's table, dV, which the dk/dv pass takes
+    from P of the rotated K (registers) and Q (shared memory), is equal bit
+    for bit; (2) with a table of sin = +-1 (random per element) and cos =
+    0, where every rotation and un-rotation is exact (a signed swap), dV is
+    equal and so are dq and dk to K3's dq and dk un-rotated by the plain
+    version (`_rope_unrotate_grad`: its rounding of g * sin is exact on
+    bf16 gradients)."""
+    q, k, v, do, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    sign = torch.randint(0, 2, (n, d), device=cuda_device, generator=gen).float() * 2 - 1
+    signs = torch.cat([sign, torch.zeros_like(sign)], dim=-1).to(torch.bfloat16)
+
+    def rope(x, t, fn):
+        sin, cos = (s[:, None] for s in t.float().chunk(2, dim=-1))  # [N, 1, D]
+        return fn(x.unflatten(-1, (h, d)).float(), sin, cos, torch.bfloat16).to(
+            torch.bfloat16).flatten(-2)
+
+    for t in (tab, signs):
+        o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=t)
+        got = fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal, heads=h, rope=t)
+        qr, kr = (rope(x, t, fa._rope_rotate) for x in (q, k))
+        dq1, dk1, dv1 = fa.fused_attention_packed_bwd(qr, kr, v, o, do, lse, is_causal=causal,
+                                                      heads=h)
+        torch.cuda.synchronize()
+        assert torch.equal(got[2], dv1)
+        if t is signs:
+            assert torch.equal(got[0], rope(dq1, t, fa._rope_unrotate_grad))
+            assert torch.equal(got[1], rope(dk1, t, fa._rope_unrotate_grad))
+
+
 def test_rope_kernels_refuse_what_they_cannot_take(cuda_device):
     q, k, v, do, tab = _rope_inputs(1, 17, 2, 64, 1, cuda_device, torch.bfloat16)
     with pytest.raises(TypeError, match="q's type"):
@@ -487,16 +564,22 @@ def test_flash_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d,
         assert _rel(g, w, scale) <= tol
 
 
-@pytest.mark.parametrize("impl", ["fused", "flash"])
+@pytest.mark.parametrize("impl", ["fused", "flash", "fusedp", "fusedp_rope"])
 def test_bf16_attention_backward_is_deterministic(cuda_device, impl):
-    """K5 and K10b write each gradient element once, from one thread, with
-    no atomics: two bf16 runs on the same inputs give the same bits (N =
-    197, and 577 where the passes walk chunks of 256 rows)."""
+    """K5, K10b, K3 and K3r write each gradient element once, from one
+    thread, with no atomics: two bf16 runs on the same inputs give the same
+    bits (N = 197, and 577 where the passes walk chunks of 256 rows)."""
     for b, n, h in ((2, 197, 12), (1, 577, 2)):
         q, k, v = _inputs(b, n, n, h, 64, cuda_device, torch.bfloat16)
         do = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(
             device=cuda_device).manual_seed(2)).to(torch.bfloat16)
-        if impl == "fused":
+        if impl.startswith("fusedp"):
+            tab = None
+            if impl == "fusedp_rope":
+                tab = _rope_inputs(b, n, h, 64, 1, cuda_device, torch.bfloat16)[-1]
+            o, lse = fa.fused_attention_packed(q, k, v, rope=tab)
+            runs = [fa.fused_attention_packed_bwd(q, k, v, o, do, lse, rope=tab) for _ in range(2)]
+        elif impl == "fused":
             q, k, v, do = (t.transpose(1, 2).reshape(b * h, n, 64).contiguous()
                            for t in (q, k, v, do))
             o, lse = fa.fused_attention_grouped(q, k, v)

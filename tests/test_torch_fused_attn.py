@@ -126,13 +126,20 @@ ALIGNMENT_CASES = [
     ((0, (), 2), True),                      # one row of one sample
     ((4, (), 4), False),                     # fp32, one element off
     ((16, (100, 4), 4), True),               # fp32, 16-byte strides
+    # the backward's gradient: dk and dv, the column slices of one
+    # [B, N, 3*768] bf16 buffer, and of one [B, N, 3*768 + 1] (odd rows)
+    ((1536, (197 * 2304, 2304), 2), True),
+    ((3072, (197 * 2304, 2304), 2), True),
+    ((3072, (197 * 2305, 2305), 2), False),
+    ((0, (128,), 2), True),                  # K3r's [N, 2D] table at D = 64
 ]
 
 
 @pytest.mark.parametrize("args,aligned", ALIGNMENT_CASES)
 def test_rows_aligned_16_predicate(args, aligned):
-    """The 16-byte rule of the bf16 tensor-core forward (K1, K2, K4, K10),
-    one predicate on (pointer, strides, element size) for every wrapper."""
+    """The 16-byte rule of the bf16 tensor-core kernels (K1, K2, K4, K10 and
+    K3, K3r, K5, K10b), one predicate on (pointer, strides, element size)
+    for every wrapper."""
     assert fa.rows_aligned_16(*args) is aligned
 
 

@@ -79,6 +79,55 @@ def test_plain_backward_follows_tpu_rounding_in_bf16(b, n, nk, h, causal, d):
         assert np.abs(g.float().numpy() - w).max() <= ulp
 
 
+# The bf16 kernel's tile edges (16-row fragments, 32-key dq steps, 16-query
+# dkv steps, 64-row sub-tiles): N, causal, head dim; B = 1, H = 2
+TILE_EDGES = [(n, c, d) for n in (1, 15, 17, 65) for c in (False, True) for d in (32, 64)]
+
+
+def bf16_bars(got, want):
+    """One bf16 ulp at the call's largest |gradient| (2**-7 of its power of
+    two: at N = 1 and on a causal first row dq and dk are fp32 cancellation
+    noise with no scale of their own), and the share of the elements of
+    each gradient at least that ulp in size whose bits differ (on the
+    noise, two summation orders differ everywhere)."""
+    w = [np.asarray(x, np.float32) for x in want]
+    ulp = 2.0 ** (np.floor(np.log2(max(np.abs(x).max() for x in w))) - 7)
+    errs, shares = [], []
+    for g, x in zip(got, w):
+        g = g.float().numpy()
+        errs.append(np.abs(g - x).max() / ulp)
+        big = np.abs(x) >= ulp
+        shares.append((g[big] != x[big]).mean() if big.any() else 0.0)
+    return errs, shares
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,causal,d", TILE_EDGES)
+def test_plain_backward_matches_jax_kernel_at_tile_edges(n, causal, d, dtype):
+    """The plain K3 that chip_smoke.py holds the tensor-core kernel against
+    at its tile edges, against JAX's `_pbwd_impl` in interpret mode at the
+    same shapes: fp32 within 1e-4; bf16 within one bf16 ulp at the call's
+    largest gradient, in under 1% of each gradient's elements (P and dS
+    rounded at the same points; fp32 sums in another order can flip one
+    rounding)."""
+    q, k, v, do = _packed(1, n, n, 2, d, seed=11)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
+    jo, jlse = _pfwd_impl(jq, jk, jv, d, causal, True)
+    want = _pbwd_impl(jq, jk, jv, jo, jdo, jlse, d, causal, True)
+    t = lambda x: torch.from_numpy(np.array(x, np.float32)).to(dtype)  # noqa: E731
+    got = fa.fused_attention_packed_bwd_ref(t(jq), t(jk), t(jv), t(jo), t(jdo),
+                                            torch.from_numpy(np.array(jlse)), is_causal=causal,
+                                            heads=2)
+    assert all(g.shape == (1, n, 2 * d) and g.dtype == dtype for g in got)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
+        return
+    errs, shares = bf16_bars(got, want)
+    assert max(errs) <= 1 and max(shares) < 0.01
+
+
 @pytest.mark.parametrize("b,n,h,d,causal", [(2, 50, 2, 32, False), (1, 98, 4, 64, True),
                                             (2, 13, 3, 32, True)])
 def test_function_gradients_match_autograd_of_plain_forward(b, n, h, d, causal):

@@ -92,22 +92,26 @@ def test_copied_files_are_byte_identical(rel):
     assert filecmp.cmp(ROOT / "mrclip_tpu" / rel, ROOT / "mrclip_tpu_torch" / rel, shallow=False)
 
 
-@pytest.mark.parametrize("source,entries,tpu_kernels", [
+@pytest.mark.parametrize("source,entries,tpu_kernels,includes", [
     ("packed_attn_fwd.cu", ["packed_attn_fwd", "packed_attn_rope_fwd"],
-     ["fused_attn.py::_packed_fwd_kernel", "rope branch"]),
+     ["fused_attn.py::_packed_fwd_kernel", "rope branch"], ["attn_mma_fwd.cuh"]),
     ("packed_attn_bwd.cu", ["packed_attn_bwd", "packed_attn_rope_bwd"],
-     ["fused_attn.py::_packed_bwd_kernel", "_rope_unrotate_grad"]),
+     ["fused_attn.py::_packed_bwd_kernel", "_rope_unrotate_grad"], ["attn_mma_bwd.cuh"]),
     ("supcon_loss.cu", ["supcon_stats", "supcon_grad_q", "supcon_grad_k"],
-     ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"]),
+     ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"], []),
     ("grouped_attn.cu", ["grouped_attn_fwd", "grouped_attn_bwd"],
-     ["fused_attn.py::_fwd_kernel", "fused_attn.py::_bwd_kernel"]),
+     ["fused_attn.py::_fwd_kernel", "fused_attn.py::_bwd_kernel"],
+     ["attn_mma_fwd.cuh", "attn_mma_bwd.cuh"]),
     ("flash_attn.cu", ["flash_attn_fwd", "flash_attn_bwd"],
      ["flash_attn.py::flash_attention_unpadded", "_flash_attention_kernel_single_batch",
-      "_flash_attention_dkv_kernel", "_flash_attention_dq_kernel"]),
+      "_flash_attention_dkv_kernel", "_flash_attention_dq_kernel"],
+     ["attn_mma_fwd.cuh", "attn_mma_bwd.cuh"]),
     ("dw_conv.cu", ["dw_conv_fwd", "dw_conv_bwd"],
-     ["dw_conv.py::_fwd_kernel", "dw_conv.py::_bwd_kernel"]),
+     ["dw_conv.py::_fwd_kernel", "dw_conv.py::_bwd_kernel"], []),
 ])
-def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
+def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels, includes):
+    """Each source's C entry points, the TPU kernels it names, the
+    tensor-core headers its bf16 kernels come from, and its nvcc line."""
     src = build.CSRC / source
     assert src.is_file()
     text = src.read_text()
@@ -115,6 +119,8 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels):
         assert f'extern "C" int {entry}(' in text
     for kernel in tpu_kernels:  # names the TPU kernel it replaces
         assert kernel in text
+    for header in includes:  # bf16 on the tensor cores
+        assert f'#include "{header}"' in text
     headers = "".join((build.CSRC / h).read_text() for h in build._headers(src))
     assert "cudaGetLastError()" in text + headers
     cmd = build.nvcc_command(src, Path("lib.so"))
@@ -141,17 +147,16 @@ def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
 
 def test_nested_headers_key_the_build(tmp_path):
     """K1/K2, K4/K5 and K10/K10b share `attn_mma_fwd.cuh` (the bf16
-    forward) and `attn_rows.cuh`, which includes `attn_tile.cuh` (K3
-    includes that one too); K5 and K10b also `attn_mma_bwd.cuh` (the bf16
-    backward), which includes the forward's header: an edit to a header that
-    a source includes only through another header rebuilds the source, and
-    an edit to the backward's header rebuilds K5/K10b's sources alone."""
-    sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu")
+    forward) and `attn_rows.cuh`, which includes `attn_tile.cuh`; K3/K3r,
+    K5 and K10b also `attn_mma_bwd.cuh` (the bf16 backward), which includes
+    the forward's header: an edit to a header that a source includes only
+    through another header rebuilds the source, and an edit to the
+    backward's header rebuilds K3/K3r's, K5's and K10b's sources alone."""
+    sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu", "packed_attn_bwd.cu")
     fwd_headers = ["attn_mma_fwd.cuh", "attn_rows.cuh", "attn_tile.cuh", "rope.cuh"]
     assert build._headers(build.CSRC / "packed_attn_fwd.cu") == fwd_headers
     for source in sources[1:]:
         assert build._headers(build.CSRC / source) == ["attn_mma_bwd.cuh", *fwd_headers]
-    assert "attn_tile.cuh" in build._headers(build.CSRC / "packed_attn_bwd.cu")
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in build.CSRC.iterdir():
@@ -159,7 +164,7 @@ def test_nested_headers_key_the_build(tmp_path):
     keys = {s: build.source_key(csrc / s) for s in sources}
     header = csrc / "attn_mma_bwd.cuh"
     header.write_text(header.read_text() + "// edited\n")
-    assert [build.source_key(csrc / s) != keys[s] for s in sources] == [False, True, True]
+    assert [build.source_key(csrc / s) != keys[s] for s in sources] == [False, True, True, True]
     keys = {s: build.source_key(csrc / s) for s in sources}
     header = csrc / "attn_mma_fwd.cuh"
     header.write_text(header.read_text() + "// edited\n")

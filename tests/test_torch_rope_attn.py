@@ -19,6 +19,7 @@ from mrclip_tpu.ops.fused_attn import _pbwd_impl, _pfwd_impl
 from mrclip_tpu.ops.fused_attn import fused_attention_packed as jax_fused_attention_packed
 from mrclip_tpu.ops.pos_embed import rope_cat_2d
 from mrclip_tpu_torch.ops import fused_attn as fa
+from test_torch_fused_attn_bwd import TILE_EDGES, bf16_bars
 
 # One intra-op thread: the suite runs in several worker processes at once, and
 # torch's default of one thread per core in each of them oversubscribes the CPU.
@@ -117,6 +118,34 @@ def test_plain_versions_follow_tpu_rounding_in_bf16(b, n, h, d, prefix):
         ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
         assert g.dtype == torch.bfloat16
         assert np.abs(g.float().numpy() - w).max() <= ulp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,causal,d", TILE_EDGES)
+def test_plain_backward_matches_jax_kernel_at_tile_edges(n, causal, d, dtype):
+    """The plain K3r that chip_smoke.py holds the tensor-core kernel against
+    at its tile edges, against JAX's `_pbwd_impl` with the table in
+    interpret mode at the same shapes (a CLS identity row, random table rows
+    after it): fp32 within 1e-4; bf16 within one bf16 ulp at the call's
+    largest gradient, in under 1% of each gradient's elements (the rotation,
+    P, dS and g * sin rounded at the same points)."""
+    q, k, v, do, rope = _inputs(1, n, 2, d, 1, seed=12)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
+    jtab = _jax_table(rope, 1, jdt)
+    jo, jlse = _pfwd_impl(jq, jk, jv, d, causal, True, jtab)
+    want = _pbwd_impl(jq, jk, jv, jo, jdo, jlse, d, causal, True, tab=jtab)
+    t = lambda x: torch.from_numpy(np.array(x, np.float32)).to(dtype)  # noqa: E731
+    got = fa.fused_attention_packed_bwd_ref(t(jq), t(jk), t(jv), t(jo), t(jdo),
+                                            torch.from_numpy(np.array(jlse)), is_causal=causal,
+                                            heads=2, rope=fa.rope_table(rope, 1, dtype))
+    assert all(g.shape == (1, n, 2 * d) and g.dtype == dtype for g in got)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
+        return
+    errs, shares = bf16_bars(got, want)
+    assert max(errs) <= 1 and max(shares) < 0.01
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

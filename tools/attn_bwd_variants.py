@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the bf16 attention backward of the PyTorch/CUDA port (K5 and K10b,
-`mrclip_tpu_torch/csrc/attn_mma_bwd.cuh`) beside variants of its design, on
-one CUDA card, in turns within one process.
+"""Time the bf16 attention backward of the PyTorch/CUDA port (K3, K3r, K5
+and K10b, `mrclip_tpu_torch/csrc/attn_mma_bwd.cuh`) beside variants of its
+design, on one CUDA card, in turns within one process.
 
     python3 tools/attn_bwd_variants.py [--out build/attn_bwd_variants.json]
 
-Each variant is the committed sources with one text edit, built by nvcc into
-`build/variants/<name>/` and bound in place of the package's own library:
+Each variant is the committed sources with text edits to that header, built
+by nvcc into `build/variants/<name>/` and bound in place of the package's
+own libraries:
   committed    the sources as they are;
   one_subtile  a resident block takes one 64-row (dq) or 64-key (dkv)
                sub-tile and stages K, V (Q, dO) for it alone: the staged
@@ -15,12 +16,21 @@ Each variant is the committed sources with one text edit, built by nvcc into
   dq_k64       the dq pass steps 64 keys at a time, not 32;
   dkv_q32      the dkv pass steps 32 queries at a time, not 16;
   dkv_lb2      the dkv pass's resident kernel at two blocks per SM (255
-               registers), not three (168).
-For each it prints ptxas's registers and spills, checks K5 and K10b against
-their plain versions at the timed shapes (GRAD_TOL, as chip_smoke.py), and
-times them at ViT-B-16 vision b256, text b256 (N = 98, causal) and
-EVA02-B-16's text ctx 77 b256: medians of 7 rounds of CUDA-event readings,
-the variants in turns within each round. Needs one CUDA card; imports no JAX.
+               registers), not three (168);
+and, to find where K3r's rotation time goes (its results are then wrong,
+so K3r is timed, not checked; K3, K5 and K10b are unchanged):
+  rope_no_reg  K3r leaves the register operand (Q in the dq pass, K in the
+               dk/dv pass) unrotated;
+  rope_no_smem K3r leaves the staged operand (K, Q) unrotated;
+  rope_no_unrot K3r stores dq and dk without their un-rotation;
+  rope_none    all three: the ROPE instantiation doing K3's work.
+For each it prints ptxas's registers and spills, checks K3, K5, K10b and K3r
+against their plain versions at the timed shapes (GRAD_TOL, as
+chip_smoke.py), and times K3, K5 and K10b at ViT-B-16 vision b256, text
+b256 (N = 98, causal) and EVA02-B-16's text ctx 77 b256, and K3r (with K3
+beside it) at EVA02-B-16's vision b256 with its rope_cat_2d table: medians
+of 7 rounds of CUDA-event readings, the variants in turns within each
+round. Needs one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +59,12 @@ HEADER = "attn_mma_bwd.cuh"
 # the package's own loaders: each variant's backward is bound beside the
 # committed forward
 LOADERS = (fa.load_grouped_kernels, fl.load_kernels)
+# K3r's rope steps, each taken out by one edit (a count of occurrences)
+NO_REG = ("if constexpr (ROPE) rotate_frag_a<D>(", "if constexpr (false) rotate_frag_a<D>(", 3)
+NO_SMEM = ("rotate_rows<D>(", "if (false) rotate_rows<D>(", 4)
+NO_UNROT = ("if constexpr (ROPE) unrotate_frag_c<D>(", "if constexpr (false) unrotate_frag_c<D>(",
+            2)
+ROPE_ABLATIONS = ("rope_no_reg", "rope_no_smem", "rope_no_unrot", "rope_none")
 VARIANTS = {
     "committed": [],
     "one_subtile": [("constexpr int kMost = kMaxRows / kMmaRows;", "constexpr int kMost = 1;")],
@@ -56,28 +72,34 @@ VARIANTS = {
     "dkv_q32": [("constexpr int kDkvQueries = 16;", "constexpr int kDkvQueries = 32;")],
     "dkv_lb2": [("__launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)\n    mma_bwd_dkv_kernel(",
                  "__launch_bounds__(kMmaThreads, 2)\n    mma_bwd_dkv_kernel(")],
+    "rope_no_reg": [NO_REG],
+    "rope_no_smem": [NO_SMEM],
+    "rope_no_unrot": [NO_UNROT],
+    "rope_none": [NO_REG, NO_SMEM, NO_UNROT],
 }
 SHAPES = {"vision_b256": dict(cs.VISION, b=cs.TRAIN_BATCH),
           "text_b256": dict(cs.TEXT, b=cs.TRAIN_BATCH),
           "text77_b256": dict(cs.TEXT77, b=cs.TRAIN_BATCH)}
+ROPE_SHAPE = dict(cs.ROPE_VISION, b=cs.TRAIN_BATCH)  # EVA02-B-16's vision layer
 
 
 def build_variant(name, edits):
-    """The grouped and flash libraries of one variant, (K5 bwd fn, K10b bwd
-    fn), and ptxas's lines for the backward kernels (and, for the committed
-    sources, the forward's)."""
+    """The grouped, flash and packed-backward libraries of one variant,
+    (K5 bwd fn, K10b bwd fn, K3 fn, K3r fn), and ptxas's lines for the
+    backward kernels (and, for the committed sources, the forward's)."""
     src = ROOT / "build" / "variants" / name
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC, src)
     header = src / HEADER
     text = header.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} is not in {HEADER} once")
+    for old, new, *count in edits:
+        if text.count(old) != (count[0] if count else 1):
+            raise RuntimeError(f"variant {name}: {old!r} is not in {HEADER} "
+                               f"{count[0] if count else 1} times")
         text = text.replace(old, new)
     header.write_text(text)
     libs, lines = {}, []
-    for lib in ("grouped_attn", "flash_attn"):
+    for lib in ("grouped_attn", "flash_attn", "packed_attn_bwd"):
         out = src / f"lib{lib}.so"
         proc = subprocess.run(build.nvcc_command(src / f"{lib}.cu", out, build._find_nvcc()),
                               capture_output=True, text=True)
@@ -98,13 +120,17 @@ def build_variant(name, edits):
     k10b = libs["flash_attn"].flash_attn_bwd
     k10b.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    k5.restype = k10b.restype = ctypes.c_int
-    return (k5, k10b), lines
+    k3 = libs["packed_attn_bwd"].packed_attn_bwd
+    k3.argtypes = fa.load_bwd_kernel().argtypes
+    k3r = libs["packed_attn_bwd"].packed_attn_rope_bwd
+    k3r.argtypes = fa.load_rope_bwd_kernel().argtypes
+    k5.restype = k10b.restype = k3.restype = k3r.restype = ctypes.c_int
+    return (k5, k10b, k3, k3r), lines
 
 
 def inputs(shape, gen):
-    """K5's grouped (q, k, v, o, do, lse) and K10b's (q, k, v, do, l, m, di)
-    from one set of column slices."""
+    """K5's grouped (q, k, v, o, do, lse), K10b's (q, k, v, do, l, m, di)
+    and K3's packed (q, k, v, o, do, lse) from one set of column slices."""
     h, d, causal = shape["h"], shape["d"], shape["causal"]
     sl = cs.qkv_slices(shape, torch.bfloat16, gen)
     qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in sl)
@@ -113,12 +139,27 @@ def inputs(shape, gen):
     q, k, v = (t.unflatten(-1, (h, d)) for t in sl)
     o, l, m = fl.flash_attention(q, k, v, is_causal=causal)
     do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
-    return (qg, kg, vg, og, dog, lse), (q, k, v, do, l, m, fl.flash_di(o, do))
+    op, lse_p = fa.fused_attention_packed(*sl, is_causal=causal, heads=h)
+    dop = torch.randn(op.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    return ((qg, kg, vg, og, dog, lse), (q, k, v, do, l, m, fl.flash_di(o, do)),
+            (*sl, op, dop, lse_p))
 
 
-def calls(fns, k5_args, k10b_args, causal):
-    """Zero-argument K5 and K10b backward calls through the wrappers, bound
-    to the variant's library functions `fns`."""
+def bound_call(wrapper, loader, fn, *args, **kw):
+    """A zero-argument call of `wrapper` with the package's `loader` (a
+    name in `fa` or `fl`) bound to the variant's library function `fn`."""
+    module, name = loader
+
+    def call():
+        setattr(module, name, lambda: fn)
+        return wrapper(*args, **kw)
+
+    return call
+
+
+def calls(fns, k5_args, k10b_args, k3_args, causal, h):
+    """Zero-argument K5, K10b and K3 backward calls through the wrappers,
+    bound to the variant's library functions `fns`."""
     def k5():
         fa.load_grouped_kernels = lambda: (LOADERS[0]()[0], fns[0])
         return fa.fused_attention_grouped_bwd(*k5_args, is_causal=causal)
@@ -127,7 +168,9 @@ def calls(fns, k5_args, k10b_args, causal):
         fl.load_kernels = lambda: (LOADERS[1]()[0], fns[1])
         return fl.flash_attention_bwd(*k10b_args, is_causal=causal)
 
-    return k5, k10b
+    k3 = bound_call(fa.fused_attention_packed_bwd, (fa, "load_bwd_kernel"), fns[2], *k3_args,
+                    is_causal=causal, heads=h)
+    return k5, k10b, k3
 
 
 def check(tag, got, want):
@@ -146,6 +189,7 @@ def main() -> int:
         print("attn_bwd_variants: no CUDA device available", file=sys.stderr)
         return 1
     name, smi = cs.phase_card()
+    fa.load_bwd_kernel()  # the package's own K3 library, whose argtypes the variants take
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # the variants build together
         done = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS, VARIANTS.values())))
     built = {}
@@ -155,24 +199,51 @@ def main() -> int:
             cs.log(f"[ptxas] {var}: {line}")
     gen = torch.Generator(device="cuda").manual_seed(8)
     result = {"card": smi, "device": name, "runs": cs.FWD_RUNS, "shapes": {}}
-    for sname, shape in SHAPES.items():
-        k5_args, k10b_args = inputs(shape, gen)
-        causal = shape["causal"]
-        want5 = fa.fused_attention_bwd_ref(*k5_args, is_causal=causal)
-        want10 = fl.flash_attention_bwd_ref(*k10b_args, is_causal=causal)
-        fns = {}
-        for var, lib in built.items():
-            k5, k10b = calls(lib, k5_args, k10b_args, causal)
-            errs = (check(f"{var} K5 {sname}", k5(), want5),
-                    check(f"{var} K10b {sname}", k10b(), want10))
-            cs.log(f"[check] {var} {sname}: K5 {errs[0]:.3e}, K10b {errs[1]:.3e} (tol "
-                   f"{cs.GRAD_TOL[torch.bfloat16]})")
-            fns[f"{var} K5"], fns[f"{var} K10b"] = k5, k10b
+
+    def timed(sname, shape, fns):
         med, reads = cs.median_ms(fns, 20)
         result["shapes"][sname] = {"shape": shape, "median_ms": med, "readings": reads}
         for key in fns:
             cs.log(f"[time] {sname} {key}: {med[key]:.4f} ms (readings "
                    f"{min(reads[key]):.4f}-{max(reads[key]):.4f}, median of {cs.FWD_RUNS})")
+
+    for sname, shape in SHAPES.items():
+        k5_args, k10b_args, k3_args = inputs(shape, gen)
+        causal, h = shape["causal"], shape["h"]
+        want5 = fa.fused_attention_bwd_ref(*k5_args, is_causal=causal)
+        want10 = fl.flash_attention_bwd_ref(*k10b_args, is_causal=causal)
+        want3 = fa.fused_attention_packed_bwd_ref(*k3_args, is_causal=causal, heads=h)
+        fns = {}
+        for var, lib in built.items():
+            k5, k10b, k3 = calls(lib, k5_args, k10b_args, k3_args, causal, h)
+            errs = (check(f"{var} K5 {sname}", k5(), want5),
+                    check(f"{var} K10b {sname}", k10b(), want10),
+                    check(f"{var} K3 {sname}", k3(), want3))
+            cs.log(f"[check] {var} {sname}: K5 {errs[0]:.3e}, K10b {errs[1]:.3e}, K3 "
+                   f"{errs[2]:.3e} (tol {cs.GRAD_TOL[torch.bfloat16]})")
+            fns[f"{var} K5"], fns[f"{var} K10b"], fns[f"{var} K3"] = k5, k10b, k3
+        timed(sname, shape, fns)
+
+    # K3r at EVA02-B-16's vision layer, K3 beside it on the same q, k, v
+    q, k, v, _, tab = cs.rope_inputs(ROPE_SHAPE, torch.bfloat16, gen)
+    h = ROPE_SHAPE["h"]
+    o, lse = fa.fused_attention_packed(q, k, v, heads=h, rope=tab)
+    o1, lse1 = fa.fused_attention_packed(q, k, v, heads=h)
+    do = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    want = fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, heads=h, rope=tab)
+    fns = {}
+    for var, lib in built.items():
+        k3r = bound_call(fa.fused_attention_packed_bwd, (fa, "load_rope_bwd_kernel"), lib[3],
+                         q, k, v, o, do, lse, heads=h, rope=tab)
+        got = k3r()
+        if var in ROPE_ABLATIONS:  # wrong by design: timed, not checked
+            cs.log(f"[check] {var} K3r: not checked (rope steps taken out)")
+        else:
+            cs.log(f"[check] {var} K3r: {check(f'{var} K3r', got, want):.3e}")
+        fns[f"{var} K3r"] = k3r
+        fns[f"{var} K3"] = bound_call(fa.fused_attention_packed_bwd, (fa, "load_bwd_kernel"),
+                                      lib[2], q, k, v, o1, do, lse1, heads=h)
+    timed("eva02_vision_b256", ROPE_SHAPE, fns)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
