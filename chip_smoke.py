@@ -44,9 +44,13 @@ fails:
              backward too as medians of 7 and the profiler's device time;
              K8/K9 (depthwise convolution, MRCLIP_DW_IMPL=pallas) at
              MobileCLIP-S1's stage shapes (b32 and b256) and edges (B = 1,
-             9 x 13, C in {8, 80, 100}, K = 5; 7 x 7 on 2 x 2), bf16 and fp32,
-             K9 twice for equal bits, timed beside the plain versions, the
-             bounds and cuDNN (`F.conv2d(groups=C)`);
+             9 x 13, C in {8, 80, 100}, K = 5; 7 x 7 on 2 x 2; the kernels'
+             tiles one pixel short and past, an odd C, C not a multiple of
+             64; x and dy one element into their storage, off 16-byte
+             alignment), bf16 and fp32, K9 twice for equal bits, timed
+             beside the plain versions, the bounds, the unfused floors and
+             cuDNN (`F.conv2d(groups=C)`), as event means and profiler
+             device time;
   4. serve:  full-width ViT-B-16 (random weights from a seed, bf16 compute,
              fp32 params, attn_impl='fusedp') exported to an artifact, loaded,
              served over HTTP on 127.0.0.1; health, concurrent image and text
@@ -87,7 +91,9 @@ fails:
              choice): gradients against cuDNN's convolution, every depthwise
              weight with a gradient, pallas vs dense loss, one warm-up, 3
              timed steps and a pallas-loss step with 73 K8 + 73 K9 each, a
-             profiled step, peak memory, and the step on cuDNN's convolution.
+             profiled step (K8 and K9 in their own groups, no depthwise
+             kernel in "other"), peak memory, and the step on cuDNN's
+             convolution.
 Each path (4 to 11) runs with the launch counts set to 0 just before it and
 reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
@@ -111,6 +117,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# FP32 instructions (FMUL, FADD or FFMA: one lane each) an H100 SXM issues a
+# second: 132 SMs x 128 lanes at the 1.98 GHz boost clock
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 MMA / fp32 FMA
 # K1 o: about one bf16 ulp at |o| < 4; fp32 differs only in summation order
 O_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -182,11 +191,20 @@ ROPE_TILE_EDGES += [dict(b=2, n=577, nk=577, h=2, d=64, causal=c, prefix=1) for 
 # stage, with their count in one forward (RepMixer blocks x one 3x3 and one
 # 7x7; the CPE on the 8 x 8 map), held at b32 and b256; and the edges
 # (B, H, W, C, K): one image, a ragged 9 x 13 map, C not a multiple of 32,
-# and the CPE's 7 x 7 on the 2 x 2 map of a 64 px image
+# the CPE's 7 x 7 on the 2 x 2 map of a 64 px image; the kernels' tiles
+# (`ops/dw_conv.plan`: 16 x 16 output pixels at maps of 16 and wider in
+# bf16, 4 or 8 rows in fp32, 8 wide on the 8 x 8 map; 64 channels) one pixel
+# short and one past, at K = 3, 5 and 7, in H and in W, an odd C, C not a
+# multiple of 64; and contiguous views whose storage offset of one element
+# breaks 16-byte alignment (the element-wise copies)
 DW_STAGES = [((64, 64, 64, 3), 4), ((64, 64, 64, 7), 4), ((32, 32, 128, 3), 12),
              ((32, 32, 128, 7), 12), ((16, 16, 256, 3), 20), ((16, 16, 256, 7), 20),
              ((8, 8, 512, 7), 1)]
-DW_EDGES = [(1, 9, 13, c, 5) for c in (8, 80, 100)] + [(2, 2, 2, 16, 7)]
+DW_EDGES = [(1, 9, 13, c, 5) for c in (8, 80, 100)] + [(2, 2, 2, 16, 7)] + [
+    (2, 7, 31, 64, 7), (2, 9, 33, 64, 3), (2, 9, 33, 33, 7), (2, 15, 15, 128, 7),
+    (2, 17, 17, 100, 3), (2, 8, 8, 96, 5), (2, 15, 33, 64, 7), (2, 17, 17, 64, 7),
+    (2, 33, 31, 64, 5)]
+DW_OFFSET_VIEWS = [(2, 9, 33, 64, 7), (2, 16, 16, 128, 3)]
 # K8 and K9's dx: bit-identical to the plain versions (the same fp32 products
 # and sums in the same order, one rounding to the input type); the bar is
 # one bf16 ulp at |y| < 4 and 0 in fp32. K9's dw: max |err| / max |plain|,
@@ -1170,27 +1188,43 @@ def dw_bound(b, h, w, c, k, dtype, backward=False):
     return _bound(nbytes, (4 if backward else 2) * taps * n, torch.float32)
 
 
+def dw_floor(b, h, w, c, k, backward=False):
+    """The unfused floor of K8 (K9), ms: y (and dx) are held bit-equal to the
+    plain versions, which round each product before adding it, so they take
+    two FP32 instructions per tap and element, and K9's dw one more (FMA)."""
+    return (3 if backward else 2) * k * k * b * h * w * c / FP32_INSTR_PER_S * 1e3
+
+
 def phase_kernel_dw():
     """K8 and K9 against their plain versions on the card, bf16 and fp32,
     at MobileCLIP-S1's stage shapes (b32 and b256) and the edges; K9 twice
     on the same input for equal bits; timings at every stage shape beside
-    the plain versions, the bounds and cuDNN (`F.conv2d(groups=C)` on the
-    channels-last view, bf16 weight: the 'xla' path's call), and the sums
-    over the 73 convolutions of one MobileCLIP-S1 forward."""
+    the plain versions, the bounds, the unfused floors and cuDNN
+    (`F.conv2d(groups=C)` on the channels-last view, bf16 weight: the 'xla'
+    path's call), as event means and as the profiler's device time per call
+    (at b32 the host issues a call more slowly than the card runs it), and
+    the sums over the 73 convolutions of one MobileCLIP-S1 forward."""
     from mrclip_tpu_torch.ops import dw_conv as dc
 
     gen = torch.Generator(device="cuda").manual_seed(6)
 
-    def inputs(b, h, w, c, k, dtype):
-        x = torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+    def inputs(b, h, w, c, k, dtype, offset=0):
+        """x, the table and dy; with `offset`, x and dy are contiguous views
+        that many elements into their storage."""
+        def image():
+            flat = torch.randn(offset + b * h * w * c, device="cuda", generator=gen).to(dtype)
+            return flat[offset:].view(b, h, w, c)
+        x = image()
         w2 = torch.randn(k * k, c, device="cuda", generator=gen) * 0.2
-        return x, w2, torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+        return x, w2, image()
 
     worst = {dt: [0.0, 0.0, 0.0] for dt in (torch.bfloat16, torch.float32)}
     shapes = [(b, *shape) for (shape, _) in DW_STAGES for b in (32, TRAIN_BATCH)] + DW_EDGES
-    for shape in shapes:
+    cases = [(shape, 0) for shape in shapes] + [(shape, 1) for shape in DW_OFFSET_VIEWS]
+    for shape, offset in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            x, w2, dy = inputs(*shape, dtype)
+            x, w2, dy = inputs(*shape, dtype, offset)
+            wide = dc._plan_for(x, shape[4], dy).wide
             y = dc.dw_conv_fwd(x, w2)
             dx, dw = dc.dw_conv_bwd(x, w2, dy)
             dx2, dw2 = dc.dw_conv_bwd(x, w2, dy)
@@ -1201,7 +1235,8 @@ def phase_kernel_dw():
             same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
             ok = (all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, dw)) and same
                   and max(errs[:2]) <= DW_TOL[dtype] and errs[2] <= DW_GRAD_TOL)
-            log(f"[kernel] K8/K9 {shape} {str(dtype)[6:]}: max|y-plain|={errs[0]:.3e} "
+            log(f"[kernel] K8/K9 {shape} {str(dtype)[6:]}{f' offset {offset}' if offset else ''} "
+                f"({'16-byte' if wide else 'element-wise'} copies): max|y-plain|={errs[0]:.3e} "
                 f"max|dx-plain|={errs[1]:.3e} (tol {DW_TOL[dtype]}) max|dw-plain| / max|plain|="
                 f"{errs[2]:.3e} (tol {DW_GRAD_TOL}); second K9 run bit-equal {same} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1228,12 +1263,23 @@ def phase_kernel_dw():
         bwd = dict(ms=cuda_ms(lambda: dc.dw_conv_bwd(x, w2, dy), 10),
                    plain_ms=cuda_ms(lambda: dc.dw_conv_bwd_ref(x, w2, dy), 3, warmup=1),
                    library_ms=both - fwd["library_ms"])
+        dev = device_ms({"fwd": lambda: dc.dw_conv_fwd(x, w2),
+                         "bwd": lambda: dc.dw_conv_bwd(x, w2, dy),
+                         "lib": lambda: conv(xn, wt),
+                         "lib_both": lambda: torch.autograd.grad(conv(xg, wg), (xg, wg), dyn)},
+                        runs=3)
+        fwd["device_ms"], bwd["device_ms"] = dev["fwd"], dev["bwd"]
+        fwd["library_device_ms"] = dev["lib"]
+        bwd["library_device_ms"] = (None if None in (dev["lib"], dev["lib_both"])
+                                    else dev["lib_both"] - dev["lib"])
         fwd["bound_ms"], fwd["bound_by"] = dw_bound(b, h, w, c, k, torch.bfloat16)
         bwd["bound_ms"], bwd["bound_by"] = dw_bound(b, h, w, c, k, torch.bfloat16, backward=True)
-        for name, t in (("K8", fwd), ("K9", bwd)):
-            log(f"[kernel] {name} bf16 b{b} {(h, w, c)} K={k}: kernel {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} ms, bound "
-                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        for name, t, back in (("K8", fwd, False), ("K9", bwd, True)):
+            log(f"[kernel] {name} bf16 b{b} {(h, w, c)} K={k}: kernel {t['ms']:.4f} ms (device "
+                f"{fmt_ms(t['device_ms'])}), plain {t['plain_ms']:.4f} ms, cuDNN "
+                f"{t['library_ms']:.4f} ms (device {fmt_ms(t['library_device_ms'])}), bound "
+                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), unfused floor "
+                f"{dw_floor(b, h, w, c, k, back) * 1e3:.2f} us (assumed clock, not measured)")
         return fwd, bwd
 
     fwd, bwd = {}, {}
@@ -1242,9 +1288,15 @@ def phase_kernel_dw():
             fwd[b, shape], bwd[b, shape] = timings(b, *shape)
 
     def per_forward(table, b):
-        """ms of the 73 convolutions of one forward at batch b, by key."""
-        return {key: sum(n * table[b, shape][key] for shape, n in DW_STAGES)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        """ms of the 73 convolutions of one forward at batch b, by key (None
+        where the profiler gave no device time)."""
+        out = {}
+        for key in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                    "bound_ms"):
+            vals = [table[b, shape][key] for shape, _ in DW_STAGES]
+            out[key] = (None if None in vals
+                        else sum(n * v for (_, n), v in zip(DW_STAGES, vals)))
+        return out
 
     head = (TRAIN_BATCH, DW_STAGES[1][0])  # stage 0, 7x7, b256
     common = dict(route="cuda", source="mrclip_tpu_torch/csrc/dw_conv.cu", launches=None,
@@ -1271,9 +1323,13 @@ def phase_kernel_dw():
             "per_forward_b256": per_forward(table, TRAIN_BATCH),
             "per_forward_b32": per_forward(table, 32),
         })
-    for e, tag in zip(entries, ("K8", "K9")):
+    for e, tag, back in zip(entries, ("K8", "K9"), (False, True)):
+        floors = [sum(n * dw_floor(b, *shape, back) for shape, n in DW_STAGES)
+                  for b in (TRAIN_BATCH, 32)]
         log(f"[kernel] {tag} over the 73 convolutions of one MobileCLIP-S1 forward at "
-            f"b{TRAIN_BATCH}: " + json.dumps({k: round(v, 4) for k, v in e["per_forward_b256"].items()}))
+            f"b{TRAIN_BATCH}: " + json.dumps(e["per_forward_b256"]) + f"; b32: "
+            + json.dumps(e["per_forward_b32"]) + f"; unfused floor (assumed clock, not "
+            f"measured) b{TRAIN_BATCH} {floors[0]:.4f} ms, b32 {floors[1]:.4f} ms")
     return entries
 
 
@@ -1622,9 +1678,8 @@ def grad_cosines(a: dict, b: dict):
 # the flash instantiations of the row and tensor-core kernels carry the
 # template flag `true` in their names.
 KERNEL_GROUPS = [
-    ("K8 dw_conv_fwd", ("dw_stencil_kernel<__nv_bfloat16, 3, false>",
-                        "dw_stencil_kernel<__nv_bfloat16, 7, false>")),
-    ("K9 dw_conv_bwd", ("dw_stencil_kernel", "dw_wgrad_")),
+    ("K8 dw_conv_fwd", ("dw_fwd_kernel",)),
+    ("K9 dw_conv_bwd", ("dw_bwd_kernel", "dw_wgrad_sum_kernel")),
     ("convolution (cuDNN: stem, downsamples)", ("convolution", "cudnn", "fprop", "dgrad",
                                                 "wgrad", "conv2d", "depthwise")),
     ("K2 packed_attn_rope_fwd", ("mma_fwd_kernel<64, false, false, true>",
@@ -1682,8 +1737,12 @@ def profile_step(run, tag="[train]"):
         + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+    other = KERNEL_GROUPS[-1][0]
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "groups_ms": groups}
+            "groups_ms": groups,
+            "kernels_in_other": [key for _, _, key in kernels
+                                 if next(g for g, keys in KERNEL_GROUPS
+                                         if any(k in key.lower() for k in keys)) == other]}
 
 
 # The train main path of each (model, attn_impl): the attention kernels'
@@ -1881,6 +1940,14 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     del grads
     rest = step_ms - sum(kernel_ms.values()) - dense_ms - norm_ms - opt_ms
     profile = profile_step(lambda: dense_step(state, prep(batch)), tag)
+    if profile and "dw_conv_fwd" in spec["per_step"]:
+        # the depthwise kernels in their own groups, none of them in "other"
+        stray = [key for key in profile["kernels_in_other"] if "dw_" in key.lower()]
+        dw_ms = [profile["groups_ms"][g] for g in ("K8 dw_conv_fwd", "K9 dw_conv_bwd")]
+        log(f"{tag} profiled K8 / K9 groups {dw_ms[0]:.2f} / {dw_ms[1]:.2f} ms; depthwise "
+            f"kernels in 'other': {stray}")
+        if min(dw_ms) <= 0 or stray:
+            raise AssertionError(f"{tag} the profiler did not put K8 and K9 in their groups")
     baseline = {}
     if plain_dw == "xla":  # the same step on cuDNN's convolution, same attention and weights
         base = build_model(model_name, "xla", pretrained=weights, precision="bf16",

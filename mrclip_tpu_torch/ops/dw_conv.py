@@ -17,7 +17,10 @@ versions here take any H and W: a tap that reaches no output is skipped, as
 SAME zero padding has it.
 
 Each kernel wrapper launches on CUDA tensors or raises, and runs its plain
-version (`dw_conv_fwd_ref`, `dw_conv_bwd_ref`) only for CPU tensors.
+version (`dw_conv_fwd_ref`, `dw_conv_bwd_ref`) only for CPU tensors. How a
+launch cuts its work (the tile of output pixels, 16-byte or element-wise
+copies, K9's dw partition) is decided here, by `plan`, so the CPU tests
+check that it covers every output.
 `DwConv` binds them for autograd (the JAX package's custom VJP) and
 `dw_conv` takes the port's `[C, 1, K, K]` convolution weight.
 """
@@ -28,6 +31,7 @@ import ctypes
 import functools
 import math
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -42,14 +46,25 @@ __all__ = [
     "dw_conv_fwd_ref",
     "launches",
     "load_kernels",
+    "plan",
     "reset_launches",
 ]
 
 # kernel sizes the CUDA source instantiates: FastViT's 3 and 7, and 5
 KERNEL_SIZES = (3, 5, 7)
-# K9's dw reduction: about this many blocks of 32 channels x 8 rows of
-# threads in its first pass, each summing a fixed range of image rows
-_DW_BLOCKS = 1024
+# The kernels' tiling (csrc/dw_conv.cu): a block of 8 warps owns 64 channels
+# of a tile of output pixels; a thread a channel pair and a strip of 8
+# outputs along W, so a tile's width is a multiple of 8.
+TILE_C = 64
+STRIP = 8
+# Shared memory of one block at most, by kernel: three K8 blocks or two K9
+# blocks share an SM's 228 KB (each with 1 KB the card reserves; K9's
+# registers allow two blocks, K8's four).
+SMEM_BUDGET = {False: 75 * 1024, True: 112 * 1024}
+# K9's dw reduction: about this many blocks in its first kernel, each
+# walking a fixed run of tiles of one 64-channel slice into its own partial
+# (tools/dw_conv_variants.py: 1024 and 2048 took longer)
+_DW_BLOCKS = 512
 
 # Launches of each CUDA kernel since import or the last reset_launches().
 launches = {"dw_conv_fwd": 0, "dw_conv_bwd": 0}
@@ -68,8 +83,8 @@ def load_kernels():
     `dw_conv_bwd` of `csrc/dw_conv.cu`."""
     lib = build.load_library("dw_conv")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    fns = {"dw_conv_fwd": [ptr] * 3 + [i] * 6 + [ptr],
-           "dw_conv_bwd": [ptr] * 6 + [i] * 7 + [ptr]}
+    fns = {"dw_conv_fwd": [ptr] * 3 + [i] * 10 + [ptr],
+           "dw_conv_bwd": [ptr] * 6 + [i] * 12 + [ptr]}
     out = {}
     for name, argtypes in fns.items():
         fn = getattr(lib, name)
@@ -133,12 +148,78 @@ def dw_conv_bwd_ref(x: torch.Tensor, w2: torch.Tensor, dy: torch.Tensor):
     return acc.to(x.dtype), dw
 
 
-def _dw_parts(b: int, h: int, c: int) -> int:
-    """Row ranges of K9's first dw pass: each block of 32 channels sums the
-    products over one range of the B*H image rows into its own partial, and
-    the second pass adds the partials in order (no atomics, so the result is
-    the same on every run)."""
-    return max(1, min(b * h, -(-_DW_BLOCKS // -(-c // 32))))
+def smem_bytes(k: int, itemsize: int, th: int, tw: int, backward: bool = False) -> int:
+    """Dynamic shared memory of a K8 block (or a K9 block): the [K*K, 64]
+    fp32 weight slice, the input (dy) tile with its halo, and K9's x tile
+    (or, if larger, K9's [groups - 1, K*K, 32] float2 of row-group sums)."""
+    halo = (th + k - 1) * (tw + k - 1) * TILE_C * itemsize
+    weights = k * k * TILE_C * 4
+    if not backward:
+        return weights + halo
+    groups = max(1, 8 // k)
+    return weights + max(halo + th * tw * TILE_C * itemsize, (groups - 1) * k * k * 32 * 8)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How a K8 or K9 launch cuts its work, as the kernels run it. `th` x
+    `tw` output pixels x 64 channels a tile; `tiles` per channel slice (B x
+    ceil(H/th) x ceil(W/tw), the image slowest, then the tile row); `slices`
+    of 64 channels; `wide`: 16-byte copies and pair stores; `smem`: a
+    block's dynamic shared memory, bytes; K9's first kernel runs `parts`
+    blocks per slice, each walking `per_part` consecutive tiles (the last
+    maybe fewer), and writes one partial each."""
+
+    th: int
+    tw: int
+    tiles: int
+    slices: int
+    wide: bool
+    smem: int
+    parts: int
+    per_part: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, h: int, w: int, c: int, k: int, itemsize: int, backward: bool = False,
+         aligned: bool = True, *, tile: tuple[int, int] | None = None,
+         dw_blocks: int = _DW_BLOCKS) -> Plan:
+    """The tile, copy width and dw partition of one call. The tile is 16
+    outputs wide at maps of 16 and wider, else the map's width rounded up to
+    8, and up to 256 / tw rows (never more than H): square where the map
+    allows, the least halo per output; halved in height (then narrowed)
+    until a block fits in SMEM_BUDGET. 16-byte copies (`wide`) need C a
+    multiple of 16 bytes' elements and every tensor of the call 16-byte
+    aligned (`aligned`); otherwise the kernels copy and store element by
+    element. K9: about `dw_blocks` blocks, none without a tile (no atomics:
+    the partials are added in order, the same on every run). `tile` (th,
+    tw), tw a multiple of 8, starts the fit from another tile than the
+    default one (tools/dw_conv_variants.py)."""
+    if tile is None:
+        tw = min(16, -(-w // STRIP) * STRIP)
+        th = min(h, max(1, 256 // tw))
+    else:
+        th, tw = tile
+    while (smem := smem_bytes(k, itemsize, th, tw, backward)) > SMEM_BUDGET[backward]:
+        if th > 1:
+            th = -(-th // 2)
+        elif tw > STRIP:
+            tw -= STRIP
+        else:
+            raise ValueError(f"no tile of K={k} fits in {SMEM_BUDGET[backward]} bytes")
+    tiles = b * -(-h // th) * -(-w // tw)
+    slices = -(-c // TILE_C)
+    wide = aligned and c % (16 // itemsize) == 0
+    if not backward:
+        return Plan(th, tw, tiles, slices, wide, smem, tiles, 1)
+    per_part = -(-tiles // max(1, min(tiles, -(-dw_blocks // slices))))
+    return Plan(th, tw, tiles, slices, wide, smem, -(-tiles // per_part), per_part)
+
+
+def _plan_for(x: torch.Tensor, k: int, *tensors: torch.Tensor, backward: bool = False,
+              **overrides) -> Plan:
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
+    return plan(*x.shape, k, x.element_size(), backward, aligned, **overrides)
 
 
 def _kernel_args(name, x, w2, dy=None):
@@ -166,8 +247,7 @@ def _kernel_args(name, x, w2, dy=None):
     return k
 
 
-def _launch(name, *args):
-    fn = load_kernels()[name]
+def _launch(fn, name, *args):
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
@@ -177,6 +257,22 @@ def _launch(name, *args):
         launches[name] += 1
 
 
+def _run_fwd(x, w2, y, k, p: Plan, fn) -> None:
+    """Launch K8 through `fn` (the bound `dw_conv_fwd`) into y, as plan `p`
+    cuts it; counted."""
+    _launch(fn, "dw_conv_fwd", x, w2, y, *x.shape[1:], k, int(x.dtype == torch.bfloat16),
+            p.th, p.tw, int(p.wide), p.tiles, p.smem)
+
+
+def _run_bwd(x, w2, dy, dx, dw, k, p: Plan, fn) -> None:
+    """Launch K9 through `fn` (the bound `dw_conv_bwd`) into dx and dw, as
+    plan `p` cuts it; counted."""
+    partial = torch.empty(p.parts, k * k, x.shape[3], dtype=torch.float32, device=x.device)
+    _launch(fn, "dw_conv_bwd", x, w2, dy, dx, partial, dw, *x.shape[1:], k,
+            int(x.dtype == torch.bfloat16), p.th, p.tw, int(p.wide), p.tiles, p.parts,
+            p.per_part, p.smem)
+
+
 def dw_conv_fwd(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """K8: y [B, H, W, C] in x's type from contiguous x (bf16 or fp32) and
     the fp32 [K*K, C] table. CPU tensors take the plain version."""
@@ -184,25 +280,23 @@ def dw_conv_fwd(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
         return dw_conv_fwd_ref(x, w2)
     k = _kernel_args("dw_conv_fwd", x, w2)
     y = torch.empty_like(x)
-    _launch("dw_conv_fwd", x, w2, y, *x.shape, k, int(x.dtype == torch.bfloat16))
+    _run_fwd(x, w2, y, k, _plan_for(x, k, y), load_kernels()["dw_conv_fwd"])
     return y
 
 
 def dw_conv_bwd(x: torch.Tensor, w2: torch.Tensor, dy: torch.Tensor):
-    """K9: (dx in x's type, dw fp32 [K*K, C]) in one call (a dx pass and the
-    two dw passes). dy is rounded to x's type first. CPU tensors take the
-    plain version."""
+    """K9: (dx in x's type, dw fp32 [K*K, C]) in one call (one kernel reads
+    x and dy once, writes dx and a dw partial per block; a second adds the
+    partials in order). dy is rounded to x's type first. CPU tensors take
+    the plain version."""
     if x.device.type == "cpu":
         return dw_conv_bwd_ref(x, w2, dy)
     dy = dy.to(x.dtype)
     k = _kernel_args("dw_conv_bwd", x, w2, dy)
-    b, h, w, c = x.shape
-    parts = _dw_parts(b, h, c)
     dx = torch.empty_like(x)
-    partial = torch.empty(parts, k * k, c, dtype=torch.float32, device=x.device)
-    dw = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
-    _launch("dw_conv_bwd", x, w2, dy, dx, partial, dw, b, h, w, c, k, parts,
-            int(x.dtype == torch.bfloat16))
+    dw = torch.empty(k * k, x.shape[3], dtype=torch.float32, device=x.device)
+    _run_bwd(x, w2, dy, dx, dw, k, _plan_for(x, k, dy, dx, backward=True),
+             load_kernels()["dw_conv_bwd"])
     return dx, dw
 
 

@@ -668,15 +668,47 @@ def test_small_train_step_gradients_through_fused_and_flash(cuda_device, impl):
 
 DW_SHAPES = [  # (B, H, W, C, K): ragged maps, C not a multiple of 32, a map under K//2
     (2, 9, 13, 8, 3), (1, 9, 13, 80, 5), (3, 16, 16, 100, 7), (2, 2, 2, 16, 7), (4, 32, 32, 128, 7),
+    # the kernels' tiles (`dc.plan`: 16 x 16 output pixels at maps of 16 and
+    # wider in bf16, 4 or 8 rows in fp32, 8 wide on the 8 x 8 map; 64
+    # channels) one pixel short and one past, at K = 3, 5 and 7, in H and in
+    # W, an odd C, C not a multiple of 64
+    (2, 7, 31, 64, 7), (2, 9, 33, 64, 3), (2, 9, 33, 33, 7), (2, 15, 15, 128, 7),
+    (2, 17, 17, 100, 3), (2, 8, 8, 96, 5), (1, 9, 33, 33, 3), (2, 15, 33, 64, 7),
+    (2, 17, 17, 64, 7), (2, 33, 31, 64, 5),
+    # every MobileCLIP-S1 stage shape at b2, 3 x 3 and 7 x 7
+    *[(2, hw, hw, c, k) for hw, c in ((64, 64), (32, 128), (16, 256), (8, 512)) for k in (3, 7)],
 ]
 
 
-def _dw_inputs(b, h, w, c, k, device, dtype, seed=0):
+def _dw_inputs(b, h, w, c, k, device, dtype, seed=0, offset=0):
+    """x, the [K*K, C] table and dy; with `offset`, x and dy are contiguous
+    views that many elements into their storage."""
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(device, dtype)
+
+    def image():
+        flat = torch.from_numpy(rng.randn(offset + b * h * w * c).astype(np.float32))
+        return flat.to(device, dtype)[offset:].view(b, h, w, c)
+
+    x = image()
     w2 = torch.from_numpy((rng.randn(k * k, c) * 0.2).astype(np.float32)).to(device)
-    dy = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(device, dtype)
-    return x, w2, dy
+    return x, w2, image()
+
+
+def _dw_check(x, w2, dy, dtype):
+    """K8's y and K9's dx bit-equal to the plain versions, K9's dw within 1e-3
+    of its largest plain value, two K9 runs bit-equal, one launch a call."""
+    dc.reset_launches()
+    y = dc.dw_conv_fwd(x, w2)
+    dx, dw = dc.dw_conv_bwd(x, w2, dy)
+    dx2, dw2 = dc.dw_conv_bwd(x, w2, dy)
+    torch.cuda.synchronize()
+    assert dc.launches == {"dw_conv_fwd": 1, "dw_conv_bwd": 2}
+    want_dx, want_dw = dc.dw_conv_bwd_ref(x, w2, dy)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(y, dc.dw_conv_fwd_ref(x, w2), rtol=0, atol=0)
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
+    assert _rel(dw, want_dw, want_dw.abs().max().item()) <= 1e-3
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -684,18 +716,21 @@ def _dw_inputs(b, h, w, c, k, device, dtype, seed=0):
 def test_dw_conv_kernels_match_plain_versions(cuda_device, b, h, w, c, k, dtype):
     """K8's y and K9's dx take the plain versions' fp32 products and sums in
     the same order and round once: equal bits; K9's dw within 1e-3 of its
-    largest plain value (fp32 sums in another order)."""
-    x, w2, dy = _dw_inputs(b, h, w, c, k, cuda_device, dtype)
-    dc.reset_launches()
-    y = dc.dw_conv_fwd(x, w2)
-    dx, dw = dc.dw_conv_bwd(x, w2, dy)
-    torch.cuda.synchronize()
-    assert dc.launches == {"dw_conv_fwd": 1, "dw_conv_bwd": 1}
-    want_dx, want_dw = dc.dw_conv_bwd_ref(x, w2, dy)
-    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
-    torch.testing.assert_close(y, dc.dw_conv_fwd_ref(x, w2), rtol=0, atol=0)
-    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
-    assert _rel(dw, want_dw, want_dw.abs().max().item()) <= 1e-3
+    largest plain value (fp32 sums in another order), the same bits on a
+    second run."""
+    _dw_check(*_dw_inputs(b, h, w, c, k, cuda_device, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,k", [(2, 9, 33, 64, 7), (2, 16, 16, 128, 3)])
+def test_dw_conv_kernels_take_misaligned_views(cuda_device, b, h, w, c, k, dtype):
+    """Contiguous x and dy one element into their storage (not 16-byte
+    aligned, as an autograd dy may be): the element-wise copies, the same
+    bars."""
+    x, w2, dy = _dw_inputs(b, h, w, c, k, cuda_device, dtype, offset=1)
+    assert x.storage_offset() == 1 and x.data_ptr() % 16 != 0
+    assert not dc._plan_for(x, k, dy).wide
+    _dw_check(x, w2, dy, dtype)
 
 
 def test_dw_conv_backward_is_deterministic(cuda_device):

@@ -6,7 +6,9 @@ On the CPU the kernel wrappers run their plain versions and count no
 launch; the kernels themselves are held against the plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py). Inputs come from numpy
 seeds; the JAX test's shapes (tests/test_dw_conv.py) and tolerances: fp32
-forward 1e-5, gradients 1e-4.
+forward 1e-5, gradients 1e-4. The kernels' work split (`dw_conv.plan`: tile,
+copy width, K9's dw partition) is Python, so its coverage is checked here on
+every shape chip_smoke.py holds the kernels at.
 """
 
 import jax
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mrclip_tpu.ops.dw_conv as jax_dw
 from mrclip_tpu.models.layers import DepthwiseConv as JaxDepthwiseConv
 from mrclip_tpu_torch.models.layers import DepthwiseConv
@@ -181,3 +184,125 @@ def test_module_matches_jax_module(monkeypatch, impl):
     with torch.no_grad():
         got = mod(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# Every shape the card holds the kernels at (chip_smoke.py: the stage shapes
+# at b32 and b256, the edges, the misaligned views), as (B, H, W, C, K)
+PLAN_SHAPES = sorted({(b, *shape) for shape, _ in chip_smoke.DW_STAGES for b in (2, 32, 256)}
+                     | set(chip_smoke.DW_EDGES) | set(chip_smoke.DW_OFFSET_VIEWS))
+
+
+def _runs(p, backward):
+    """The tiles each block of a channel slice takes: one each (K8), or a
+    run of per_part (K9); every tile once, no K9 block without a tile."""
+    if backward:
+        runs = [range(part * p.per_part, min(p.tiles, (part + 1) * p.per_part))
+                for part in range(p.parts)]
+        assert all(len(run) > 0 for run in runs), "a K9 block without a tile"
+    else:
+        runs = [range(t, t + 1) for t in range(p.tiles)]
+    assert [t for run in runs for t in run] == list(range(p.tiles))
+    return runs
+
+
+def _cover(p, b, h, w, c, backward):
+    """How often the kernels write each output (b, row, column, channel)
+    under plan `p`, by csrc/dw_conv.cu's index math: the blocks (tile, slice)
+    of K8, or (part, slice) of K9 walking tiles [part * per_part, ...); a
+    tile's origin from its index (`tile_origin`); its 8 warps taking the
+    (row, strip) items in turn, a strip 8 outputs, 32 lanes a channel pair
+    each; writes past H, W or C dropped. K9's dw visits the same positions."""
+    count = np.zeros((b, h, w, c), np.uint8)
+    tiles_h, tiles_w = -(-h // p.th), -(-w // p.tw)
+    runs = _runs(p, backward)
+    ns = p.tw // dc.STRIP
+    items = sorted(it for warp in range(8) for it in range(warp, p.th * ns, 8))
+    assert items == list(range(p.th * ns))
+    for ch0 in range(0, p.slices * dc.TILE_C, dc.TILE_C):
+        chans = [ch for lane in range(32) for ch in (ch0 + 2 * lane, ch0 + 2 * lane + 1) if ch < c]
+        assert chans == list(range(ch0, min(c, ch0 + dc.TILE_C)))
+        for run in runs:
+            for t in run:
+                bi, rest = divmod(t, tiles_h * tiles_w)
+                ty, tx = divmod(rest, tiles_w)
+                for it in items:
+                    r, s = divmod(it, ns)
+                    q0 = tx * p.tw + s * dc.STRIP
+                    count[bi, ty * p.th + r:ty * p.th + r + 1, q0:q0 + dc.STRIP,
+                          ch0:ch0 + dc.TILE_C] += 1
+    return count
+
+
+@pytest.mark.parametrize("b,h,w,c,k", PLAN_SHAPES)
+def test_plan_covers_every_output_once(b, h, w, c, k):
+    """K8's and K9's work split, bf16 and fp32: every output element written
+    once, every K9 block with a tile, the block's shared memory in the budget
+    that lets two blocks share an SM, and about _DW_BLOCKS K9 blocks where
+    there are as many tiles."""
+    for itemsize in (2, 4):
+        for backward in (False, True):
+            p = dc.plan(b, h, w, c, k, itemsize, backward)
+            assert p.smem == dc.smem_bytes(k, itemsize, p.th, p.tw, backward)
+            assert p.smem <= dc.SMEM_BUDGET[backward]
+            assert p.tw % dc.STRIP == 0 and p.tiles == b * -(-h // p.th) * -(-w // p.tw)
+            assert p.slices * dc.TILE_C >= c > (p.slices - 1) * dc.TILE_C
+            _runs(p, backward)
+            if b * h * w * c <= 2**24:
+                assert (_cover(p, b, h, w, c, backward) == 1).all()
+            if backward:
+                assert p.parts * p.per_part >= p.tiles > (p.parts - 1) * p.per_part
+                assert p.parts * p.slices <= dc._DW_BLOCKS + p.slices
+                assert p.parts == p.tiles or p.parts * p.slices * 2 >= dc._DW_BLOCKS
+
+
+def test_plan_takes_narrow_copies_for_odd_c_and_misaligned_views():
+    """16-byte copies only where C is a multiple of 16 bytes' elements and
+    every tensor of the call is 16-byte aligned; else the element-wise
+    kernels (still the kernels, never the plain version)."""
+    assert dc.plan(2, 9, 33, 64, 7, 2).wide and dc.plan(2, 9, 33, 64, 7, 4, True).wide
+    for c, itemsize in ((33, 2), (33, 4), (100, 2), (6, 4), (12, 2)):
+        assert not dc.plan(2, 9, 33, c, 7, itemsize).wide
+        assert not dc.plan(2, 9, 33, c, 7, itemsize, True).wide
+    assert dc.plan(2, 9, 33, 100, 7, 4).wide  # 100 fp32 channels: 25 copies a pixel
+    assert not dc.plan(2, 9, 33, 64, 7, 2, aligned=False).wide
+    for dtype in (torch.bfloat16, torch.float32):
+        base = torch.zeros(2 * 9 * 33 * 64 + 1, dtype=dtype)
+        view = base[1:].view(2, 9, 33, 64)
+        assert view.is_contiguous() and view.storage_offset() == 1
+        assert not dc._plan_for(view, 7, torch.zeros_like(view)).wide
+        assert dc._plan_for(base[:-1].view(2, 9, 33, 64), 7).wide
+
+
+@pytest.mark.parametrize("b,h,w,c,k", [(1, 9, 33, 33, 7), (2, 17, 17, 33, 3), (1, 9, 33, 64, 5),
+                                       (1, 17, 17, 33, 7)])
+def test_plain_versions_match_jax_kernel_past_a_tile(b, h, w, c, k):
+    """At an odd C and at maps one larger than the kernels' tiles (16 x 16
+    in bf16, 4 or 8 rows in fp32): the plain versions the card holds the
+    kernels to against the JAX kernel in interpret mode, forward and both
+    gradients, fp32."""
+    x, kern, dy = _inputs(b, h, w, c, k, 8)
+    y_j, gx_j, gk_j = _jax_grads(x, kern, dy, _jax_kernel)
+    y = dc.dw_conv_fwd_ref(torch.from_numpy(x), _table(kern))
+    gx, dw = dc.dw_conv_bwd_ref(torch.from_numpy(x), _table(kern), torch.from_numpy(dy))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(gx_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(gk_j).reshape(k * k, c), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("tile,dw_blocks", [((8, 16), 512), ((8, 32), 512), (None, 1024),
+                                            (None, 2048)])
+def test_plan_overrides_cover_every_output_once(tile, dw_blocks):
+    """`plan`'s overrides (a starting tile, K9's dw blocks), as the design
+    sweep of tools/dw_conv_variants.py takes them: each output still once,
+    the block in the budget, the tile no larger than asked."""
+    for b, h, w, c, k in [(2, 17, 33, 100, 7), (2, 9, 13, 64, 3), (32, 16, 16, 256, 7)]:
+        for itemsize in (2, 4):
+            for backward in (False, True):
+                p = dc.plan(b, h, w, c, k, itemsize, backward, tile=tile, dw_blocks=dw_blocks)
+                assert p.smem <= dc.SMEM_BUDGET[backward]
+                if tile is not None:
+                    assert p.th <= tile[0] and p.tw <= tile[1]
+                assert (_cover(p, b, h, w, c, backward) == 1).all()
+                if backward:
+                    assert p.parts * p.slices <= dw_blocks + p.slices
