@@ -15,20 +15,24 @@ fails:
              trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
              strided column slices, both also at the tensor-core kernels'
              tile edges (N in {1, 15, 16, 17, 63, 65, 255}, head dim 32 and
-             64, causal and not) and N = 577 (the chunked backward; two bf16
-             K3 runs bit-equal there); K2 and K3r (the same with the EVA02
+             64, causal and not; and at D = 64 the wgmma forward's, N in
+             {48, 49, 64, 127, 128, 129, 193, 208, 209, 256}) and N = 577
+             (the chunked backward; two bf16 K3 runs bit-equal there); K2
+             and K3r (the same with the EVA02
              rope rotated inside) at EVA02-B-16's vision shapes b32 and b256
              with the real rope_cat_2d table, at edges (prefix 0, N = 1, 50,
              257, head dim 32, causal) and at the tile edges and N = 577,
              causal and not (two bf16 K3r runs bit-equal there);
              which device kernels bf16 and fp32 K1, K2, K3 and K3r run
-             (profiler: bf16 K3/K3r on attn_mma_bwd.cuh's mma_bwd_*, fp32 on
-             packed_attn_bwd.cu's FMA kernels);
+             (profiler: bf16 K1 on attn_mma_fwd.cuh's wgmma_fwd_kernel, and
+             on mma_fwd_kernel at N = 577, K2 on mma_fwd_kernel; bf16 K3/K3r
+             on attn_mma_bwd.cuh's mma_bwd_*, fp32 on packed_attn_bwd.cu's
+             FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
              for K2/K3r on q and k rotated beforehand, so not the same
-             function), K1 beside K4 and K2 beside K1 and K4 at the same
+             function), K1 beside K4 and K10 and K2 beside K1 and K4 at the same
              shape, K3 beside K5 and K3r beside K3 (medians of 7, and the
              profiler's device time per launch: at the small shapes the host
              takes longer to issue a call than the card to run it; two bf16
@@ -36,9 +40,10 @@ fails:
              (grouped-layout attention, 'fused') and K10/K10b (flash
              attention, 'flash'; also at N = 257 and 577, several key
              blocks; K4/K5 also at N = 577) at the same shapes as K1/K3 and
-             at the edges of the bf16 tensor-core tiles (N in {1, 15, 16, 17,
-             63, 65, 255}, head dim 32 and 64, causal and not), bf16 and fp32,
-             which device kernels bf16 and fp32 K5 and K10b run (profiler),
+             at the edges of the bf16 tensor-core tiles (as K1's), bf16 and
+             fp32, which device kernels bf16 and fp32 K4, K5, K10 and K10b
+             run (profiler; bf16 K4 and K10 on wgmma_fwd_kernel, K10 at N =
+             577 on mma_fwd_kernel),
              two bf16 K5 and K10b runs bit-equal, timed at the b256 shapes of
              phases 8 and 9 beside K1 (K4) and K4/K5 (K10/K10b), the
              backward too as medians of 7 and the profiler's device time;
@@ -155,9 +160,13 @@ FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=n, nk=n, h=4, d=64, causal=c)
                              for n in (577, 400) for c in (False, True))]
 # K1, K4 and K10 (and their backward) also at the edges of the bf16
 # forward's tiles: 16-key groups, 64-key sub-tiles, 16-row warps of a 64-row
-# block
+# block; and of the wgmma forward (D = 64): its 64-row sub-tile (N = 64,
+# 127, 128, 129, 193), its n64 tiles and n16 tail (48, 49, 208, 209) and
+# the top of its route (256 keys; N = 257 in EDGES takes mma_fwd_kernel)
 TILE_EDGES = [dict(b=2, n=n, nk=n, h=2, d=d, causal=c) for n in (1, 15, 16, 17, 63, 65, 255)
               for d in (32, 64) for c in (False, True)]
+TILE_EDGES += [dict(b=2, n=n, nk=n, h=2, d=64, causal=c)
+               for n in (48, 49, 64, 127, 128, 129, 193, 208, 209, 256) for c in (False, True)]
 # K1 and K4/K5 past 256 keys, where the tensor-core kernels walk chunks of
 # 256 rows (the forward copies them again in pass B; N = 257 is in EDGES):
 # N = 577, three chunks
@@ -165,6 +174,13 @@ PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, c
                                            for c in (False, True))]
 MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                design="mma.sync bf16, K/V bf16 in shared memory")
+# K1, K4 and K10 with one key block of at most 256 keys at D = 64 (every
+# main-path shape); K2, several key blocks, longer walks and D = 32 stay on
+# MMA_FWD's mma_fwd_kernel
+WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
+                 design="wgmma bf16 (m64n64k16 and m64n16k16, A in registers, K and V read "
+                        "through 128-byte-swizzled shared memory), each row's scores whole in "
+                        "registers, one exp per score")
 MMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
                design="mma.sync bf16, two passes (dq, then dk/dv), Q/dO or K/V fragments in "
                       "registers, the other pair bf16 in shared memory")
@@ -442,6 +458,7 @@ def device_kernels(tag, calls, want):
 
 
 def phase_kernel_fwd():
+    from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -468,16 +485,23 @@ def phase_kernel_fwd():
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = qkv_slices(VISION, dtype, gen)
         calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=VISION["h"])
-    names = device_kernels("K1", calls, {torch.bfloat16: "mma_fwd_kernel<64, false, false, false>",
+    names = device_kernels("K1", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, ",
                                          torch.float32: "packed_attn_fwd_kernel<64, false>"})
+    chunked = dict(VISION, b=4, n=577, nk=577, h=4)  # past 256 keys: the chunked walk
+    q, k, v = qkv_slices(chunked, torch.bfloat16, gen)
+    call = {torch.bfloat16: lambda: fa.fused_attention_packed(q, k, v, heads=chunked["h"])}
+    names["bf16_n577"] = device_kernels(
+        "K1 N=577", call, {torch.bfloat16: "mma_fwd_kernel<64, false, false, false>"})["bfloat16"]
 
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
         h, d, causal = shape["h"], shape["d"], shape["causal"]
-        q4, k4, v4 = (t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v))
-        qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
+        q3, k3, v3 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q3, k3, v3))
+        qg, kg, vg = (fa.group_heads(t) for t in (q3, k3, v3))
         fns = {"ms": lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h),
                "k4_ms": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+               "k10_ms": lambda: fl.flash_attention(q3, k3, v3, is_causal=causal),
                "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
                    q4, k4, v4, is_causal=causal)}
         t, readings = median_ms(fns, 50)
@@ -485,11 +509,13 @@ def phase_kernel_fwd():
             lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h), 20))
         t["bound_ms"], t["bound_by"] = attention_bound(**shape, dtype=torch.bfloat16)
         dev = t["device_ms"]
-        log(f"[kernel] K1 bf16 {shape}: kernel {t['ms']:.4f} ms, K4 same shape {t['k4_ms']:.4f} "
-            f"ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms (medians of "
-            f"{FWD_RUNS}; readings {spread(readings)}); device time per launch (profiler): "
-            f"K1 {fmt_ms(dev['ms'])}, K4 {fmt_ms(dev['k4_ms'])}, SDPA {fmt_ms(dev['library_ms'])} "
-            f"ms; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        log(f"[kernel] K1 bf16 {shape}: kernel {t['ms']:.4f} ms, K4 / K10 same shape "
+            f"{t['k4_ms']:.4f} / {t['k10_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+            f"{t['library_ms']:.4f} ms (medians of {FWD_RUNS}; readings {spread(readings)}); "
+            f"device time per launch (profiler): K1 {fmt_ms(dev['ms'])}, K4 "
+            f"{fmt_ms(dev['k4_ms'])}, K10 {fmt_ms(dev['k10_ms'])}, SDPA "
+            f"{fmt_ms(dev['library_ms'])} ms; bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']})")
         return t
 
     vision, text = timings(VISION), timings(TEXT)
@@ -506,7 +532,7 @@ def phase_kernel_fwd():
         "max_abs_err_fp32": worst[torch.float32],
         "shape": "vision b32 n197 h12 d64 bf16",
         **vision,
-        **MMA_FWD,  # bf16; fp32 runs packed_attn_fwd.cu's FMA kernel
+        **WGMMA_FWD,  # bf16; fp32 runs packed_attn_fwd.cu's FMA kernel
         "entry": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu::packed_attn_fwd",
         "device_kernels": names,
         "kernel_ms": vision["ms"],
@@ -912,6 +938,12 @@ def phase_kernel_grouped():
         calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_grouped_bwd(
             q, k, v, o, o, lse)
     names = device_kernels("K5", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(VISION, dtype)
+        calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_grouped(q, k, v)
+    names_fwd = device_kernels("K4", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, ",
+                                             torch.float32: "rows_fwd_kernel<float, 64, false>"})
 
     def timings(shape):
         h, d, causal = shape["h"], shape["d"], shape["causal"]
@@ -957,7 +989,8 @@ def phase_kernel_grouped():
         "replaces": "mrclip_tpu/ops/fused_attn.py:101",
         "tpu_kernel": "mrclip_tpu/ops/fused_attn.py::_fwd_kernel (via _run_fwd :167)",
         "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
-        **common, **fwd256, **MMA_FWD,
+        **common, **fwd256, **WGMMA_FWD,
+        "device_kernels": names_fwd,
         "library": "scaled_dot_product_attention forward",
         "text_b256": fwd_text,
     }, {
@@ -1011,6 +1044,16 @@ def phase_kernel_flash():
         calls[dtype] = lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di: fl.flash_attention_bwd(
             q, k, v, o, l, m, di)
     names = device_kernels("K10b", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(VISION, dtype)
+        calls[dtype] = lambda q=q, k=k, v=v: fl.flash_attention(q, k, v)
+    names_fwd = device_kernels("K10", calls, {torch.bfloat16: "wgmma_fwd_kernel<true, ",
+                                              torch.float32: "rows_fwd_kernel<float, 64, true>"})
+    q, k, v = inputs(dict(VISION, b=4, n=577, nk=577, h=4), torch.bfloat16)  # five key blocks
+    names_fwd["bf16_n577"] = device_kernels(
+        "K10 N=577", {torch.bfloat16: lambda: fl.flash_attention(q, k, v)},
+        {torch.bfloat16: "mma_fwd_kernel<64, true, true, false>"})["bfloat16"]
 
     def timings(shape):
         h, d, causal = shape["h"], shape["d"], shape["causal"]
@@ -1064,7 +1107,8 @@ def phase_kernel_flash():
         "tpu_kernel": "mrclip_tpu/ops/flash_attn.py::flash_attention_unpadded -> jax "
                       "pallas/ops/tpu/flash_attention.py::_flash_attention_kernel_single_batch",
         "max_abs_err": worst[torch.bfloat16][0], "max_abs_err_fp32": worst[torch.float32][0],
-        **common, **fwd256, **MMA_FWD,
+        **common, **fwd256, **WGMMA_FWD,
+        "device_kernels": names_fwd,
         "library": "scaled_dot_product_attention forward",
         "text77_b256": fwd_text, "n577_b32": fwd_577,
     }, {
@@ -1684,10 +1728,11 @@ KERNEL_GROUPS = [
                                                 "wgrad", "conv2d", "depthwise")),
     ("K2 packed_attn_rope_fwd", ("mma_fwd_kernel<64, false, false, true>",
                                  "packed_attn_fwd_kernel<64, true>")),
-    ("K10 flash_attn_fwd", ("mma_fwd_kernel<64, true", "rows_fwd_kernel<float, 64, true>")),
+    ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ", "mma_fwd_kernel<64, true",
+                            "rows_fwd_kernel<float, 64, true>")),
     # one instantiation: K1 under fusedp, K4 under fused
-    ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("mma_fwd_kernel", "rows_fwd_kernel",
-                                                  "packed_attn_fwd")),
+    ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "mma_fwd_kernel",
+                                                  "rows_fwd_kernel", "packed_attn_fwd")),
     ("K10b flash_attn_bwd", ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
                              "rows_bwd_dq_kernel<float, 64, true>",
                              "rows_bwd_dkv_kernel<float, 64, true>")),

@@ -26,11 +26,63 @@
 // Bound on an H100 SXM at ViT-B/16 vision b256 (N = 197, H = 12, D = 64):
 // q, k, v read and o written once, 310 MB plus the stats: 93.2 us (K1, K2,
 // K4) and 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us
-// at 989 TFLOP/s): bound by bytes. The design keeps every product on the
-// tensor cores and reads K and V from device memory once per (sample, head)
-// where a block holds them:
+// at 989 TFLOP/s): bound by bytes.
+//
+// Two kernels, chosen by shape in launch_mma_fwd, the launcher all four
+// reach:
+//   wgmma_fwd_kernel<FLASH, G>, on Hopper's warpgroup products (wgmma.cuh):
+//     K1, K4 and K10 with one key block of nk <= 256 keys at D = 64,
+//     without the rope: every main-path shape of K1, K4 and K10 (N = 197,
+//     98, 77, 64). G = ceil(nk / 16) is a template argument, one
+//     instantiation per G (1..16): runtime branches between the products
+//     made ptxas copy the accumulators and wait after every wgmma, and hold
+//     255 registers with spills.
+//   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K2
+//     (the rope rotated in shared memory), K10 over several jax key blocks
+//     (MULTI, N > 256), K1 and K4 past 256 keys (the chunked walk), and D =
+//     32.
+//
+// wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
+// sub-tiles of 64 query rows of one (sample, head), grid (batch or groups,
+// row blocks, heads), K and V staged once:
+//   - K and V by 16-byte cp.async into shared memory in the 128-byte
+//     swizzle that the wgmma descriptors read, rows nk .. 16 G - 1
+//     zero-filled; V's copy overlaps the first sub-tile's S and softmax. Q
+//     by sub-tile into rows padded for ldmatrix, two tiles, the next one's
+//     copy overlapping this one; each warp's ldmatrix fragments of its 16
+//     rows are the register A operand of S;
+//   - S = Q K^T once: wgmma m64n64k16 over the whole 64-key tiles and
+//     m64n16k16 over the 16-key groups of the tail (N = 197 computes 208
+//     keys, not 256); each row's scores stay whole in registers (8 G fp32 a
+//     thread); a causal sub-tile computes all G groups too, its keys past
+//     its last row set to -inf: a skip inside the batch is a runtime branch
+//     between products, and a second, half-width body for the causal
+//     sub-tiles that need no more (a build tried on the H100) gained
+//     nothing at text b256, N = 98, where the products do not bound the
+//     kernel (PERF.md, section 6);
+//   - an exact softmax from the registers: keys >= nk and causal pairs to
+//     -inf, the row max m over every key (reduced over the quad of lanes
+//     that share a row), one ex2 per score, l = sum p, then P = p * (1 / l)
+//     rounded to bf16 into the A fragments of P V: the TPU's order (P
+//     normalised, then rounded); the normalisation is a multiply where
+//     mma_fwd_kernel takes a second exp, fp32 ulps before the rounding;
+//   - O = P V on wgmma m64n64k16, one 16-key group a step, V read MN-major
+//     (transpose bit, no copy); o rounded to bf16 and stored through the
+//     warp's rows of the Q tile by 16-byte stores; lse = m + log l (K1, K4)
+//     or l and m (K10); rows >= n store nothing.
+// Sub-tile waste at N = 197: 197 rows compute 256 rows of each product,
+// and 197 keys 208. Shared memory: 1 KB of alignment slack, K and V 2 KB
+// each per 16-key group, two Q tiles of 9 KB: 72,704 bytes at N = 197 (G =
+// 13), 85,000 at 256 keys; two blocks an SM (__launch_bounds__(128, 2)).
+// Registers (-Xptxas -v in build.py's log, sm_90a): 74 (G = 1) to 185 (G
+// = 16), 164 at G = 13, 104 at G = 7, 88 at G = 5, the same for K10; no
+// spill, no serialized wgmma.
+//
+// mma_fwd_kernel (K2, MULTI, past 256 keys, D = 32) keeps every product on
+// the tensor cores and reads K and V from device memory once per (sample,
+// head) where a block holds them:
 //   - four warps of 16 query rows walk sub-tiles of 64 rows; where one chunk
-//     holds every key (every main-path shape) K and V stay staged and a
+//     holds every key (K2's main-path shape) K and V stay staged and a
 //     block walks up to 256 query rows, so K and V leave device memory once
 //     per (sample, head) at N = 197 (one block per 64 rows read them four
 //     times there and took nearly twice as long on the H100); the grid is
@@ -55,7 +107,7 @@
 //     still overlaps the rotation and pass A; zero-filled rows are left
 //     alone;
 //   - a chunk is up to 256 keys, the whole K and V of one jax key block
-//     (every main-path shape: N = 197, 98, 77, 64); V's copy overlaps
+//     (K2's main-path shape, N = 197); V's copy overlaps
 //     pass A. K1, K2 and K4 past 256 keys walk chunks of 256, copied again
 //     in pass B. Whole chunks, not double-buffered 64-key tiles: jax's
 //     blocks are at most 256 keys, so one copy per block serves both passes
@@ -71,9 +123,10 @@
 //     the A fragments of P.V (V read by ldmatrix.trans), P.V summed in fp32.
 //     The TPU's order (P normalised, then rounded) needs a row's final max
 //     and sum before any P.V; holding a whole walk's scores in registers
-//     instead (S computed once) took three instantiations per kernel and
-//     spilled, and timed within the run-to-run spread of this form on the
-//     H100 (PERF.md, section 6);
+//     instead (S computed once) on mma.sync, at three blocks an SM, took
+//     three instantiations per kernel and spilled, and timed within the
+//     run-to-run spread of this form on the H100 (PERF.md, section 6):
+//     wgmma_fwd_kernel does so on wgmma at two blocks an SM;
 //   - o rounded to bf16 and stored by 16-byte stores through the warp's
 //     rows of the Q tile; lse = m + log l (K1, K2, K4) or l and m (K10), one
 //     lane per row; rows >= n store nothing, a warp whose rows all lie past
@@ -99,6 +152,7 @@
 #include <type_traits>
 
 #include "attn_rows.cuh"  // Strides, rows_fwd_kernel (fp32), lane_sum
+#include "wgmma.cuh"      // wgmma_m64n64k16, wgmma_m64n16k16, wgmma_desc, swz128, ...
 
 namespace {
 
@@ -106,6 +160,8 @@ constexpr int kMmaRows = 64;  // query rows per sub-tile, 16 per warp
 constexpr int kMmaThreads = 128;
 constexpr int kMaxChunk = 256;  // keys staged at once
 constexpr int kMaxRows = 256;   // query rows per block while K and V stay staged
+constexpr int kWgKeys = 256;    // wgmma_fwd_kernel: the most keys, all scores in registers
+constexpr int kWgDim = 64;      // wgmma_fwd_kernel's head dim: one 128-byte row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -630,12 +686,247 @@ cudaError_t allow_mma_smem() {
   return allow_smem(mma_fwd_kernel<D, FLASH, MULTI, ROPE>, mma_smem_bytes<D>(kMaxChunk), done);
 }
 
-// `tab`: K2's [n, 2D] rope table (ROPE), else unused.
+// Shared-memory bytes of wgmma_fwd_kernel for `kr` staged key rows (a
+// multiple of 16): alignment slack, K and V in 128-byte rows, two Q tiles.
+constexpr int wg_smem_bytes(int kr) {
+  return 1024 + 2 * kr * 128 + 2 * kMmaRows * (kWgDim + 8) * 2;
+}
+
+// Rows [0, len) of one (sample, head)'s 64 columns (row stride rs elements)
+// into the 128-byte-swizzled tile at `dst` by 16-byte copies; rows [len,
+// rows) zero-filled.
+__device__ __forceinline__ void stage_swz(uint32_t dst, const bf16* src, long long rs, int len,
+                                          int rows) {
+  for (int i = threadIdx.x; i < rows * 8; i += kMmaThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool in = r < len;
+    cp_async16(dst + swz128(r, c), src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
+  }
+}
+
+// K1 and K4 (FLASH = false: stat_a = lse) and K10 with one key block (FLASH
+// = true: stat_a = l, stat_b = m), D = 64, nk <= 16 G. One warpgroup walks
+// `iters` sub-tiles of 64 query rows with K and V staged once, computing G
+// 16-key groups of scores for each; the header's note says how.
+template <bool FLASH, int G>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ stat_a, float* __restrict__ stat_b, int n, int nk,
+                     int heads, Strides st, float scale, int causal, int iters) {
+  constexpr int D = kWgDim;
+  constexpr int kN64 = G / 4;  // whole 64-key tiles of S (n64), then G % 4 groups (n16)
+  constexpr uint32_t kQBytes = kMmaRows * (D + 8) * 2;
+  constexpr uint32_t kKBytes = 16 * G * 128;  // G groups of 16 rows, 128 bytes each
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sk = (raw + 1023) & ~1023u;  // the swizzle's 1024-byte alignment
+  const uint32_t sv = sk + kKBytes;
+  const uint32_t sq0 = sv + kKBytes;
+
+  const long long b = blockIdx.x;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long hd = (long long)h * D;
+  const bf16* qb = q + b * st.q_bs + hd;
+  const float sl2 = scale * kLog2e;
+  const int row_first = blockIdx.y * iters * kMmaRows;
+  const int tiles = min(iters, (n - row_first + kMmaRows - 1) / kMmaRows);
+
+  // the first sub-tile's Q with K, then V, whose copy overlaps S and softmax;
+  // key rows nk .. 16 G - 1 zero-filled
+  stage_rows<D>(sq0, qb + row_first * st.q_rs, st.q_rs, min(kMmaRows, n - row_first));
+  stage_swz(sk, k + b * st.k_bs + hd, st.k_rs, nk, 16 * G);
+  cp_async_commit();
+  stage_swz(sv, v + b * st.v_bs + hd, st.v_rs, nk, 16 * G);
+  cp_async_commit();
+
+  for (int it = 0; it < tiles; ++it) {
+    const int row0 = row_first + it * kMmaRows;
+    const uint32_t sq = sq0 + (it & 1) * kQBytes;
+    const bool next = it + 1 < tiles;
+    if (it == 0) {
+      cp_async_wait<1>();  // Q and K
+      fence_proxy_async();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // Q (and K) landed; every warp is done with the other Q tile
+    if (next) {  // the next sub-tile's Q copy overlaps this one
+      const int r1 = row0 + kMmaRows;
+      stage_rows<D>(sq0 + ((it + 1) & 1) * kQBytes, qb + r1 * st.q_rs, st.q_rs,
+                    min(kMmaRows, n - r1));
+      cp_async_commit();
+    }
+
+    uint32_t qf[D / 16][4];  // this warp's 16 rows, the A fragments of S
+    {
+      const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+      for (int ds = 0; ds < D / 16; ++ds)
+        ldsm_x4<false>(qf[ds], sq + ((16 * warp + (mi & 1) * 8 + rr) * (D + 8) + 16 * ds +
+                                     (mi >> 1) * 8) * 2);
+    }
+
+    // S = Q K^T, straight-line: runtime branches between the products made
+    // ptxas copy accumulators and wait after every wgmma. Group gg (keys
+    // 16 gg .. 16 gg + 15) in s[8 gg .. 8 gg + 7]; in the descriptor's
+    // 16-byte units a group is 128 further, a k16 step 2.
+    float s[8 * G];
+    const uint64_t dk = wgmma_desc(sk, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int tt = 0; tt < kN64; ++tt) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_m64n64k16<0>(s + 32 * tt, qf[ks], dk + 512 * tt + 2 * ks, ks);
+    }
+#pragma unroll
+    for (int gg = 4 * kN64; gg < G; ++gg) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_m64n16k16(s + 8 * gg, qf[ks], dk + 128 * gg + 2 * ks, ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<8 * G>(s);
+
+    // exact softmax from the registers: keys past nk and causal pairs to
+    // -inf, the row max m over every key, p = 2^(s sl2 - m) once, l = sum p
+    const int wrow0 = row0 + 16 * warp, r0 = wrow0 + g;  // this lane's rows: r0, r0 + 8
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2 * G; ++j) {  // 8-key chunk j: keys 8 j + 2 t + {0, 1}
+      float* x = s + 4 * j;
+      if (8 * j + 8 > nk || (causal && 8 * j + 7 > wrow0)) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * t + (e & 1);
+          if (key >= nk || (causal && key > r0 + 8 * (e >> 1))) x[e] = -INFINITY;
+        }
+      }
+      m[0] = fmaxf(m[0], fmaxf(x[0], x[1]));
+      m[1] = fmaxf(m[1], fmaxf(x[2], x[3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]) * sl2;  // scale > 0
+#pragma unroll
+    for (int j = 0; j < 8 * G; ++j) {
+      s[j] = ex2(fmaf(s[j], sl2, -m[(j >> 1) & 1]));
+      l[(j >> 1) & 1] += s[j];
+    }
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = lane_sum(l[i]);
+      inv[i] = 1.f / l[i];
+    }
+
+    // P = p / l rounded to bf16: the A fragments of P V (a group's chunks
+    // 2 gg and 2 gg + 1), all written before the fence that the products'
+    // register reads need
+    uint32_t pa[G][4];
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i] * inv[i & 1], s[8 * kk + 2 * i + 1] * inv[i & 1]);
+    }
+    if (it == 0) {  // V landed for all
+      if (next) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    // O = P V, one 16-key group a step (2048 bytes of V, 128 in the
+    // descriptor)
+    float acc[D / 2];
+    const uint64_t dv = wgmma_desc(sv, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) wgmma_m64n64k16<1>(acc, pa[kk], dv + 128 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+
+    // o through this warp's 16 rows of the Q tile, 16 bytes per store
+    bf16* so = reinterpret_cast<bf16*>(wg_smem + (sq - raw)) + 16 * warp * (D + 8);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(so + g * (D + 8) + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(so + (g + 8) * (D + 8) + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const int row = wrow0 + r;
+      if (row < n)
+        *reinterpret_cast<uint4*>(o + b * st.o_bs + row * st.o_rs + hd + 8 * c8) =
+            *reinterpret_cast<const uint4*>(so + r * (D + 8) + 8 * c8);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        if (row >= n) continue;
+        const long long idx = (b * heads + h) * n + row;
+        const float m_nat = m[i] * kLn2;
+        if constexpr (FLASH) {
+          stat_a[idx] = l[i];
+          stat_b[idx] = m_nat;
+        } else {
+          stat_a[idx] = __fadd_rn(m_nat, logf(l[i]));
+        }
+      }
+    }
+  }
+}
+
+// Launches wgmma_fwd_kernel<FLASH, G> for the least G >= `groups` (16-key
+// groups of nk, 1 .. kWgKeys / 16).
+template <bool FLASH, int G = 1>
+int launch_wgmma_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
+                     float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+                     float scale, int causal, int groups, cudaStream_t stream) {
+  if constexpr (G < kWgKeys / 16) {
+    if (groups > G)
+      return launch_wgmma_fwd<FLASH, G + 1>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
+                                            scale, causal, groups, stream);
+  }
+  static std::atomic<unsigned long long> done{0};
+  const int smem = wg_smem_bytes(16 * G);
+  const cudaError_t err = allow_smem(wgmma_fwd_kernel<FLASH, G>, smem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n + kMmaRows - 1) / kMmaRows;
+  const int iters = tiles < kMaxRows / kMmaRows ? tiles : kMaxRows / kMmaRows;
+  const dim3 grid(batch, (tiles + iters - 1) / iters, heads);
+  wgmma_fwd_kernel<FLASH, G><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `tab`: K2's [n, 2D] rope table (ROPE), else unused. One key block of at
+// most kWgKeys keys at D = 64 without the rope takes wgmma_fwd_kernel, the
+// rest mma_fwd_kernel.
 template <int D, bool FLASH, bool MULTI, bool ROPE = false>
 int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab, void* o,
                    float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
                    const Strides& st, float scale, int causal, int blk_q, int blk_k, int nblk,
                    cudaStream_t stream) {
+  if constexpr (D == kWgDim && !MULTI && !ROPE) {
+    if (nblk == 1 && nk <= kWgKeys)
+      return launch_wgmma_fwd<FLASH>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st, scale,
+                                     causal, (nk + 15) / 16, stream);
+  }
   const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
   if (err != cudaSuccess) return static_cast<int>(err);
   // one jax block (at most 256 keys when there are several) per chunk

@@ -109,7 +109,7 @@ __device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src,
 
 // Forward in fp32 (K4: stat_a = lse; K10: stat_a = l, stat_b = m), one
 // 64-row query tile of one (sample, head). K4 passes nblk = 1 and blk_k =
-// nk. bf16 runs attn_mma_fwd.cuh's mma_fwd_kernel.
+// nk. bf16 runs attn_mma_fwd.cuh's kernels.
 template <typename T, int D, bool FLASH>
 __global__ void __launch_bounds__(kThreads)
     rows_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,

@@ -50,7 +50,8 @@
 // (0.031 ms at 989 TFLOP/s), bytes; the backward reads q, k, v, dO, l, m, di
 // and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. bf16 runs on
 // the tensor cores, FLASH = true, the strided views taken as they are: the
-// forward in attn_mma_fwd.cuh (K and V staged in bf16 by 16-byte copies),
+// forward in attn_mma_fwd.cuh (K and V staged in bf16 by 16-byte copies;
+// one key block of at most 256 keys at D = 64 on wgmma),
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
 // statistics m and 1 / l, and di, read per query row). fp32 runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's

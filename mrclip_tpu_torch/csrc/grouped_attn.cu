@@ -25,9 +25,10 @@
 //
 // Design. bf16 runs on the tensor cores, FLASH = false: the forward in
 // attn_mma_fwd.cuh (a block stages a group's K and V once in bf16 and walks
-// its query rows, the keys twice: max and online sum, then P.V with the
-// scores recomputed from shared memory, since the TPU rounds P only after
-// normalising it); the backward in attn_mma_bwd.cuh (a dq pass that also
+// its query rows; up to 256 keys at D = 64 on wgmma with each row's scores
+// whole in registers and one exp per score, since the TPU rounds P only
+// after normalising it; otherwise on mma.sync, the keys twice: max and
+// online sum, then P.V with the scores recomputed); the backward in attn_mma_bwd.cuh (a dq pass that also
 // takes delta, then a dk/dv pass; Q, dO or K, V fragments in registers, the
 // other pair staged once per group where the group has at most 256 rows).
 // fp32 takes one block per (group, 64-row query tile), four lanes per row,

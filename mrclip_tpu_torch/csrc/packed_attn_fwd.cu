@@ -31,9 +31,11 @@
 // written contiguous [B, N, H*D] in the input type, lse contiguous [B, H, N].
 //
 // Two kernels, chosen by type:
-//   bf16: attn_mma_fwd.cuh's mma_fwd_kernel, the tensor-core forward that K4
-//     runs (K1 is the same instantiation, with the packed strides; K2 sets
-//     its ROPE flag, which rotates the staged Q and K rows in shared memory).
+//   bf16: attn_mma_fwd.cuh's tensor-core forward that K4 runs (K1 is the
+//     same instantiation, with the packed strides): wgmma_fwd_kernel, on
+//     Hopper's wgmma, at D = 64 with at most 256 keys (every main-path
+//     shape of K1), mma_fwd_kernel otherwise; K2 sets mma_fwd_kernel's ROPE
+//     flag, which rotates the staged Q and K rows in shared memory.
 //     Its 16-byte copies need the views' base pointers and batch and row
 //     strides to be multiples of 16 bytes, which the wrapper checks;
 //   fp32: packed_attn_fwd_kernel below, on the FMA pipes (TF32 products
@@ -75,7 +77,7 @@ constexpr int kRows = 64;  // query rows per block, one thread each (fp32)
 constexpr int kKeys = 64;  // keys per shared-memory K/V tile
 constexpr int kChunk = 8;  // keys scored together per online-softmax update
 
-// The fp32 forward (bf16 runs mma_fwd_kernel).
+// The fp32 forward (bf16 runs attn_mma_fwd.cuh's kernels).
 template <int D, bool ROPE>
 __global__ void __launch_bounds__(kRows)
     packed_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,

@@ -41,8 +41,13 @@ SHAPES = [  # (B, N, Nk, H, causal) of tests/test_torch_fused_attn.py
     (2, 197, 197, 12, False),
 ]
 # the edges of the bf16 forward's tiles (16-key groups, 64-key sub-tiles,
-# 16-row warps of a 64-row block), causal and not
+# 16-row warps of a 64-row block), causal and not; and of the wgmma forward
+# (D = 64, one key block of at most 256 keys): its 64-row sub-tile (N = 64,
+# 127, 128, 129, 193), its n64 key tiles and n16 tail (48, 49, 208, 209)
+# and the top of its route (256; 257 takes mma_fwd_kernel, PACKED_LONG)
 TILE_EDGES = [(2, n, n, 2, c) for n in (1, 15, 16, 17, 63, 65, 255) for c in (False, True)]
+TILE_EDGES += [(2, n, n, 2, c) for n in (48, 49, 64, 127, 128, 129, 193, 208, 209, 256)
+               for c in (False, True)]
 # K1 and K4/K5 past 256 keys: chunks of 256 rows, which K1's pass B copies
 # again (N = 257 non-causal is in SHAPES)
 PACKED_LONG = [(2, 257, 257, 2, True), (2, 577, 577, 2, False), (2, 577, 577, 2, True)]
@@ -371,11 +376,14 @@ def test_rope_kernels_match_plain_versions(cuda_device, b, n, h, d, prefix, caus
 ])
 def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, prefix, causal,
                                                       dtype):
-    """K2 equals, bit for bit, K1 on q and k rotated beforehand by the plain
-    version's arithmetic (`_rope_rotate`: fp32, each product and sum rounded
-    once, one rounding to q's type): the kernel's rotation is the plain
-    version's, and the CLS row, whose table row is the identity, stays
-    exactly the unrotated q and k."""
+    """K2 equals, bit for bit, the same attention on q and k rotated
+    beforehand by the plain version's arithmetic (`_rope_rotate`: fp32, each
+    product and sum rounded once, one rounding to q's type): K2 with the
+    identity table (sin 0, cos 1, which rotates exactly), and K1 wherever K1
+    runs K2's kernel (all but the bf16 wgmma route, one key block of at most
+    256 keys at D = 64). So the kernel's rotation is the plain version's,
+    and the CLS row, whose table row is the identity, stays exactly the
+    unrotated q and k."""
     q, k, v, _, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, dtype)
     o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
     sin, cos = (t[:, None] for t in tab.float().chunk(2, dim=-1))  # [N, 1, D]
@@ -386,9 +394,14 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
 
     qr, kr = rotated(q), rotated(k)
     assert torch.equal(qr[:, :prefix], q[:, :prefix]) and torch.equal(kr[:, :prefix], k[:, :prefix])
-    o1, lse1 = fa.fused_attention_packed(qr, kr, v, is_causal=causal, heads=h)
-    torch.cuda.synchronize()
-    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    identity = torch.cat([torch.zeros_like(tab[:, :d]), torch.ones_like(tab[:, d:])], dim=-1)
+    same_kernel = [dict(rope=identity)]
+    if not (dtype == torch.bfloat16 and d == 64 and n <= 256):
+        same_kernel.append({})  # K1
+    for kw in same_kernel:
+        o1, lse1 = fa.fused_attention_packed(qr, kr, v, is_causal=causal, heads=h, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o1) and torch.equal(lse, lse1)
 
 
 @pytest.mark.parametrize("b,n,h,d,prefix,causal", [

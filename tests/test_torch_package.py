@@ -129,6 +129,24 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels, includes)
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
 
+@pytest.mark.parametrize("source", ["packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu"])
+def test_attention_forwards_reach_wgmma(source):
+    """K1, K4 and K10 reach the Hopper forward on wgmma: `wgmma.cuh` is among
+    the headers that key their build, it emits `wgmma.mma_async`, and the
+    one launcher they share routes one key block of at most 256 keys at D =
+    64 without the rope to `wgmma_fwd_kernel` (the kernel itself runs only
+    on the card)."""
+    assert "wgmma.cuh" in build._headers(build.CSRC / source)
+    header = (build.CSRC / "wgmma.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
+    assert "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16" in header
+    fwd = (build.CSRC / "attn_mma_fwd.cuh").read_text()
+    launcher = fwd[fwd.index("int launch_mma_fwd("):]
+    assert "if (nblk == 1 && nk <= kWgKeys)" in launcher
+    assert "return launch_wgmma_fwd<FLASH>(" in launcher
+    assert "constexpr int kWgKeys = 256;" in fwd and "constexpr int kWgDim = 64;" in fwd
+
+
 def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
     """K2 and K3r take the rotation from one `rope.cuh`, and an edit to that
     header changes the build key of each source that includes it."""
@@ -147,13 +165,14 @@ def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
 
 def test_nested_headers_key_the_build(tmp_path):
     """K1/K2, K4/K5 and K10/K10b share `attn_mma_fwd.cuh` (the bf16
-    forward) and `attn_rows.cuh`, which includes `attn_tile.cuh`; K3/K3r,
+    forward, which includes `wgmma.cuh`) and `attn_rows.cuh`, which includes
+    `attn_tile.cuh`; K3/K3r,
     K5 and K10b also `attn_mma_bwd.cuh` (the bf16 backward), which includes
     the forward's header: an edit to a header that a source includes only
     through another header rebuilds the source, and an edit to the
     backward's header rebuilds K3/K3r's, K5's and K10b's sources alone."""
     sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu", "packed_attn_bwd.cu")
-    fwd_headers = ["attn_mma_fwd.cuh", "attn_rows.cuh", "attn_tile.cuh", "rope.cuh"]
+    fwd_headers = ["attn_mma_fwd.cuh", "attn_rows.cuh", "attn_tile.cuh", "rope.cuh", "wgmma.cuh"]
     assert build._headers(build.CSRC / "packed_attn_fwd.cu") == fwd_headers
     for source in sources[1:]:
         assert build._headers(build.CSRC / source) == ["attn_mma_bwd.cuh", *fwd_headers]
