@@ -26,8 +26,10 @@ fails:
              which device kernels bf16 and fp32 K1, K2, K3 and K3r run
              (profiler: bf16 K1 on attn_mma_fwd.cuh's wgmma_fwd_kernel, and
              on mma_fwd_kernel at N = 577, K2 on mma_fwd_kernel; bf16 K3/K3r
-             on attn_mma_bwd.cuh's mma_bwd_*, fp32 on packed_attn_bwd.cu's
-             FMA kernels);
+             (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64 with N and
+             Nk <= 256, on its mma_bwd_* at N = 257 and 577, Nk = 300 and D
+             = 32, K10b on mma_bwd_*, each name in its own profiler group;
+             fp32 on packed_attn_bwd.cu's FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
@@ -169,9 +171,11 @@ TILE_EDGES += [dict(b=2, n=n, nk=n, h=2, d=64, causal=c)
                for n in (48, 49, 64, 127, 128, 129, 193, 208, 209, 256) for c in (False, True)]
 # K1 and K4/K5 past 256 keys, where the tensor-core kernels walk chunks of
 # 256 rows (the forward copies them again in pass B; N = 257 is in EDGES):
-# N = 577, three chunks
+# N = 577, three chunks; and Nk != N past the bf16 backward's wgmma route
+# (Nk <= 256: N = 76, Nk = 255 in EDGES)
 PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c)
-                                           for c in (False, True))]
+                                           for c in (False, True)),
+                  dict(b=2, n=76, nk=300, h=2, d=64, causal=False)]
 MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                design="mma.sync bf16, K/V bf16 in shared memory")
 # K1, K4 and K10 with one key block of at most 256 keys at D = 64 (every
@@ -184,6 +188,13 @@ WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
 MMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
                design="mma.sync bf16, two passes (dq, then dk/dv), Q/dO or K/V fragments in "
                       "registers, the other pair bf16 in shared memory")
+# K3, K3r and K5 at D = 64 with n and nk at most 256 (every main-path
+# shape); K10b, D = 32 and longer walks stay on MMA_BWD's mma_bwd_* kernels
+WGMMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
+                 design="wgmma bf16 (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel: m64n64k16 and "
+                        "m64n16k16, A in registers, the staged pair read K-major and MN-major "
+                        "from one 128-byte-swizzled tile), two passes, no atomics; mma.sync "
+                        "(mma_bwd_*) past 256 rows and at D = 32")
 # the bf16 forwards (K1, K2, K4, K10), the kernels each is set beside and
 # SDPA take tens of microseconds at the text shapes: each is the median of
 # this many readings
@@ -432,11 +443,13 @@ def phase_build():
     dw_conv.load_kernels()
 
 
-def device_kernels(tag, calls, want):
+def device_kernels(tag, calls, want, avoid=None, group=None):
     """The device kernels that one call of each of `calls` (dtype -> fn)
     launches, by torch.profiler; fails unless each name holds `want[dtype]`
-    (the kernel the type routes to). "not measured" where the profiler
-    records no device kernel."""
+    (the kernel the type routes to) and not `avoid` (a kernel whose name
+    holds want's: "wgmma_bwd_" holds "mma_bwd_"), and, with `group`, unless
+    `kernel_group` puts each name in that profiler group. "not measured"
+    where the profiler records no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,11 +462,13 @@ def device_kernels(tag, calls, want):
         seen = sorted({ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA})
         key = str(dtype)[6:]
         names[key] = seen or "not measured"
-        ok = not seen or all(want[dtype] in name for name in seen)
+        ok = not seen or all(want[dtype] in name and not (avoid and avoid in name)
+                             and (group is None or kernel_group(name) == group) for name in seen)
         log(f"[kernel] {tag} {key} runs {seen or 'no kernel the profiler recorded: not measured'} "
-            f"(want {want[dtype]!r}) {'ok' if ok else 'FAIL'}")
+            f"(want {want[dtype]!r}{f', not {avoid!r}' if avoid else ''}"
+            f"{f', in group {group!r}' if group else ''}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{tag} {key} ran {seen}, not {want[dtype]}")
+            raise AssertionError(f"{tag} {key} ran {seen}, not {want[dtype]} (or not in {group})")
     return names
 
 
@@ -616,7 +631,22 @@ def phase_kernel_bwd():
         o, lse = fa.fused_attention_packed(q, k, v, heads=VISION["h"])
         calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
             q, k, v, o, o, lse, heads=VISION["h"])
-    names = device_kernels("K3", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "attn_bwd_"})
+    names = device_kernels("K3", calls, {torch.bfloat16: "wgmma_bwd_", torch.float32: "attn_bwd_"},
+                           group=K3_GROUP)
+    # past the wgmma route (N = 257, 577; Nk = 300) and at D = 32: mma.sync
+    for tag, shape in (("N=256", dict(VISION, b=2, n=256, nk=256, h=2)),
+                       ("N=257", dict(VISION, b=2, n=257, nk=257, h=2)),
+                       ("N=577", dict(VISION, b=2, n=577, nk=577, h=2)),
+                       ("Nk=300", dict(VISION, b=2, n=76, nk=300, h=2)),
+                       ("D=32", dict(VISION, b=2, h=2, d=32))):
+        q, k, v = qkv_slices(shape, torch.bfloat16, gen)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=2)
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
+            q, k, v, o, o, lse, heads=2)}
+        wgmma = shape["d"] == 64 and max(shape["n"], shape["nk"]) <= 256
+        names[f"bf16_{tag}"] = device_kernels(
+            f"K3 {tag}", call, {torch.bfloat16: "wgmma_bwd_" if wgmma else "mma_bwd_"},
+            avoid=None if wgmma else "wgmma", group=K3_GROUP)["bfloat16"]
 
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
@@ -660,7 +690,7 @@ def phase_kernel_bwd():
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         "shape": f"vision b{TRAIN_BATCH} n197 h12 d64 bf16",
         **vision,
-        **MMA_BWD,  # bf16; fp32 runs packed_attn_bwd.cu's FMA kernels
+        **WGMMA_BWD,  # bf16; fp32 runs packed_attn_bwd.cu's FMA kernels
         "entry": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu::packed_attn_bwd",
         "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
@@ -753,7 +783,17 @@ def phase_kernel_rope():
         o, lse = fa.fused_attention_packed(q, k, v, heads=ROPE_VISION["h"], rope=tab)
         calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse, tab=tab: fa.fused_attention_packed_bwd(
             q, k, v, o, o, lse, heads=ROPE_VISION["h"], rope=tab)
-    names_bwd = device_kernels("K3r", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "attn_bwd_"})
+    names_bwd = device_kernels("K3r", calls, {torch.bfloat16: "wgmma_bwd_",
+                                              torch.float32: "attn_bwd_"}, group=K3R_GROUP)
+    for n in (256, 257, 577):  # the top of the wgmma route, and past it
+        shape = dict(ROPE_VISION, b=2, n=n, nk=n, h=2)
+        q, k, v, _, tab = rope_inputs(shape, torch.bfloat16, gen)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=2, rope=tab)
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse, tab=tab:
+                fa.fused_attention_packed_bwd(q, k, v, o, o, lse, heads=2, rope=tab)}
+        names_bwd[f"bf16_n{n}"] = device_kernels(
+            f"K3r N={n}", call, {torch.bfloat16: "wgmma_bwd_" if n <= 256 else "mma_bwd_"},
+            avoid=None if n <= 256 else "wgmma", group=K3R_GROUP)["bfloat16"]
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -842,9 +882,9 @@ def phase_kernel_rope():
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         **common, **bwd256,
         # bf16; fp32 runs packed_attn_bwd.cu's FMA kernels
-        "source": MMA_BWD["source"],
-        "design": MMA_BWD["design"] + ", the staged operand rotated in shared memory, the other "
-                  "in registers, dq and dk un-rotated in registers (rope.cuh)",
+        "source": WGMMA_BWD["source"],
+        "design": WGMMA_BWD["design"] + "; the staged operand rotated in shared memory, the "
+                  "other in registers, dq and dk un-rotated in registers (rope.cuh)",
         "entry": "mrclip_tpu_torch/csrc/packed_attn_bwd.cu::packed_attn_rope_bwd",
         "device_kernels": names_bwd,
         "library": library + " (backward: fwd+bwd minus fwd)",
@@ -924,6 +964,10 @@ def phase_kernel_grouped():
             o, lse = fa.fused_attention_grouped(q, k, v, is_causal=causal)
             do = torch.randn(o.shape, device="cuda", generator=gen).to(dtype)
             got = fa.fused_attention_grouped_bwd(q, k, v, o, do, lse, is_causal=causal)
+            if dtype == torch.bfloat16 and shape["n"] == 577:  # the chunked kernels
+                again = fa.fused_attention_grouped_bwd(q, k, v, o, do, lse, is_causal=causal)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"two bf16 K5 runs differ at {shape}")
             torch.cuda.synchronize()
             o_ref, lse_ref = fa.fused_attention_ref(q, k, v, is_causal=causal)
             want = fa.fused_attention_bwd_ref(q, k, v, o, do, lse, is_causal=causal)
@@ -937,7 +981,16 @@ def phase_kernel_grouped():
         o, lse = fa.fused_attention_grouped(q, k, v)
         calls[dtype] = lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_grouped_bwd(
             q, k, v, o, o, lse)
-    names = device_kernels("K5", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
+    names = device_kernels("K5", calls, {torch.bfloat16: "wgmma_bwd_", torch.float32: "rows_bwd_"},
+                           group=K3_GROUP)
+    for tag, shape in (("N=257", dict(VISION, b=2, n=257, nk=257, h=2)),
+                       ("Nk=300", dict(VISION, b=2, n=76, nk=300, h=2))):
+        q, k, v = inputs(shape, torch.bfloat16)
+        o, lse = fa.fused_attention_grouped(q, k, v)
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_grouped_bwd(
+            q, k, v, o, o, lse)}
+        names[f"bf16_{tag}"] = device_kernels(f"K5 {tag}", call, {torch.bfloat16: "mma_bwd_"},
+                                              avoid="wgmma", group=K3_GROUP)["bfloat16"]
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(VISION, dtype)
@@ -1000,7 +1053,7 @@ def phase_kernel_grouped():
         "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
-        **common, **bwd256, **MMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
+        **common, **bwd256, **WGMMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
         "entry": "mrclip_tpu_torch/csrc/grouped_attn.cu::grouped_attn_bwd",
         "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
@@ -1043,7 +1096,8 @@ def phase_kernel_flash():
         di = fl.flash_di(o, o)
         calls[dtype] = lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di: fl.flash_attention_bwd(
             q, k, v, o, l, m, di)
-    names = device_kernels("K10b", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"})
+    names = device_kernels("K10b", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"},
+                           avoid="wgmma", group=K10B_GROUP)
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(VISION, dtype)
@@ -1720,7 +1774,12 @@ def grad_cosines(a: dict, b: dict):
 # Device kernels by (lower-cased) name -> the layer they belong to (first
 # match wins). The rope instantiations of the packed attention kernels and
 # the flash instantiations of the row and tensor-core kernels carry the
-# template flag `true` in their names.
+# template flag `true` in their names (the wgmma backward's first flag is
+# ROPE: K3r's group comes before K3/K5's, whose "mma_bwd_" every
+# wgmma_bwd_ name holds); phase 3 asserts where K3, K3r, K5 and K10b land.
+K10B_GROUP = "K10b flash_attn_bwd"
+K3R_GROUP = "K3r packed_attn_rope_bwd"
+K3_GROUP = "K3 packed_attn_bwd / K5 grouped_attn_bwd"
 KERNEL_GROUPS = [
     ("K8 dw_conv_fwd", ("dw_fwd_kernel",)),
     ("K9 dw_conv_bwd", ("dw_bwd_kernel", "dw_wgrad_sum_kernel")),
@@ -1733,21 +1792,28 @@ KERNEL_GROUPS = [
     # one instantiation: K1 under fusedp, K4 under fused
     ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
-    ("K10b flash_attn_bwd", ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
-                             "rows_bwd_dq_kernel<float, 64, true>",
-                             "rows_bwd_dkv_kernel<float, 64, true>")),
-    ("K3r packed_attn_rope_bwd", ("mma_bwd_dq_kernel<64, false, false, true>",
-                                  "mma_bwd_dkv_kernel<64, false, false, true>",
-                                  "attn_bwd_dq_kernel<64, true>", "attn_bwd_dkv_kernel<64, true>")),
+    (K10B_GROUP, ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
+                  "rows_bwd_dq_kernel<float, 64, true>", "rows_bwd_dkv_kernel<float, 64, true>")),
+    (K3R_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
+                 "mma_bwd_dq_kernel<64, false, false, true>",
+                 "mma_bwd_dkv_kernel<64, false, false, true>",
+                 "mma_bwd_dq_kernel<64, false, true, true>",  # past 256 rows
+                 "mma_bwd_dkv_kernel<64, false, true, true>",
+                 "attn_bwd_dq_kernel<64, true>", "attn_bwd_dkv_kernel<64, true>")),
     # the rest of the tensor-core and FMA backward: one bf16 instantiation,
     # K3 under fusedp, K5 under fused
-    ("K3 packed_attn_bwd / K5 grouped_attn_bwd", ("mma_bwd_", "rows_bwd_", "attn_bwd_dq",
-                                                  "attn_bwd_dkv")),
+    (K3_GROUP, ("mma_bwd_", "rows_bwd_", "attn_bwd_dq", "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("other (elementwise, norms, reductions, copies)", ("",)),
 ]
+
+
+def kernel_group(name):
+    """The KERNEL_GROUPS group of a device kernel's name."""
+    low = name.lower()
+    return next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))
 
 
 def profile_step(run, tag="[train]"):
@@ -1771,8 +1837,7 @@ def profile_step(run, tag="[train]"):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
         kernels.append((ms, ev.count, ev.key))
-        low = ev.key.lower()
-        groups[next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))] += ms
+        groups[kernel_group(ev.key)] += ms
     busy = sum(groups.values())
     if busy == 0:
         log(f"{tag} profiler recorded no device time: breakdown by kernel not measured")
@@ -1785,9 +1850,7 @@ def profile_step(run, tag="[train]"):
     other = KERNEL_GROUPS[-1][0]
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
             "groups_ms": groups,
-            "kernels_in_other": [key for _, _, key in kernels
-                                 if next(g for g, keys in KERNEL_GROUPS
-                                         if any(k in key.lower() for k in keys)) == other]}
+            "kernels_in_other": [key for _, _, key in kernels if kernel_group(key) == other]}
 
 
 # The train main path of each (model, attn_impl): the attention kernels'

@@ -43,15 +43,81 @@
 // K3/K5 read q, k, v, o, dO and write dq, dk, dv once (8 x 77.5 MB) plus lse,
 // 0.1857 ms at 3.35 TB/s; K10b reads q, k, v, dO, l, m, di and writes dq,
 // dk, dv, 0.1640 ms; against 10 D operations per attended pair of the five
-// products (76.3 GFLOP, 77 us at 989 TFLOP/s): bound by bytes. The kernels
-// do 14 D per pair (S and dP in both passes, 107 GFLOP). Design:
-//   - two passes, no atomics: each gradient element is written once by one
-//     thread, so two runs give the same bits;
+// products (76.3 GFLOP, 77 us at 989 TFLOP/s): bound by bytes. Both
+// designs below take two passes without atomics, so each gradient element
+// is written once by one thread and two runs give the same bits; they
+// compute S and dP in both passes (14 D a pair) and move 13 tensors' bytes,
+// not 8 (about 1.0 GB, 0.30 ms at 3.35 TB/s at vision b256).
+//
+// Two families of kernels, chosen by shape in launch_mma_bwd:
+//   wgmma_bwd_dq_kernel and wgmma_bwd_dkv_kernel<ROPE, CAUSAL, TAIL>, on
+//     Hopper's warpgroup products (wgmma.cuh): bf16 K3, K3r and K5 at D =
+//     64 with n and nk at most 256, every main-path shape of the three;
+//   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
+//     Ampere's mma.sync: K10b (FLASH), D = 32 and past 256 rows.
+//
+// wgmma kernels: one warpgroup (128 threads) per block walks every 64-row
+// (dq pass) or 64-key (dk/dv pass) sub-tile of its (sample, head), grid
+// (batch or groups, 1, heads); the staged operands are read from device
+// memory once per (sample, head):
+//   - the staged rows, rounded up to 16 G rows, are walked as `full` whole
+//     64-row steps in a runtime loop (m64n64k16 products), then one
+//     straight-line step of TAIL = (G - 1) % 4 + 1 16-row groups
+//     (m64n16k16 for S and dP; N = 197 computes 208 keys, not 256). TAIL
+//     and CAUSAL are template arguments, not runtime branches between
+//     products (in the wgmma forward ptxas then copied accumulators and
+//     waited after every wgmma): 8 instantiations a pass, 16 with ROPE. A
+//     TAIL of 0 (a loop's last pass ending the walk) is not used: its ROPE
+//     instantiations gave wrong gradients on the H100 at two or more whole
+//     steps (N = 113-128, 177-192, 241-256), even with the identity table,
+//     and the same arithmetic is right as a straight-line last step;
+//   - dq pass: K and V staged by 16-byte cp.async in the 128-byte swizzle
+//     (wgmma.cuh), rows nk .. 16 G - 1 zero; K is read K-major for S = Q
+//     K^T and MN-major (transpose bit, the same tile) for dQ += dS K, V
+//     K-major for dP = dO V^T. Q and dO are this warp's A fragments, read
+//     from device memory by 32-bit loads (dq_rows, with O to take delta =
+//     rowsum(dO O) and write it for the dk/dv pass). Per step, S and dP
+//     are two commit groups: P = 2^(S sl2 - lse) is taken while dP is
+//     still on the tensor cores, then dS = P (dP - delta) scale in the
+//     accumulator's registers, rounded to bf16 into the A fragments of dQ
+//     += dS K;
+//   - dk/dv pass: Q and dO staged in the swizzle with the rows' lse and
+//     delta in fp32 shared memory; K and V by sub-tile into rows of D + 8
+//     elements by cp.async, the next sub-tile's copy under this one's
+//     products, this warp's A fragments read by ldmatrix. Per step S^T = K
+//     Q^T and dP^T = V dO^T are two commit groups; P^T and dV += round(P^T)
+//     dO are issued while dP^T is computed, then dS^T and dK += round(dS^T)
+//     Q (dO and Q read MN-major); dV is stored first;
+//   - causal (the text towers): keys past the row (queries before the key)
+//     to -inf, so P is 0; whole 64-row steps that are masked for every row
+//     of the sub-tile are skipped (dq: steps past its last row, and the
+//     tail step past it; dk/dv: steps before its first key); rows past n
+//     and keys past nk compute what they read and store nothing;
+//   - K3r: the staged operand (K, Q) rotated in the swizzled tile by each
+//     thread's own 16-byte pieces once its cp.async wait has landed them
+//     (rotate_swz), then fence.proxy.async and the barrier; the register
+//     operand (Q, K) by rotate_frag_a (wgmma's A layout is mma.sync's);
+//     dQ and dK un-rotated in the accumulator's registers (mma.sync's C
+//     layout, chunk after chunk);
+//   - shared memory: 1 KB of alignment slack and two tiles of 128-byte rows
+//     (dk/dv: plus 8 bytes a row of statistics and two 9 KB sub-tiles):
+//     54,272 and 74,368 bytes at N = 197; two blocks an SM (the dq pass's
+//     registers allow three).
+// What holds them back (PERF.md): the two passes' bytes (13 tensors, 0.30
+// ms at peak bandwidth at vision b256) at about 60% of peak bandwidth, and
+// within a warpgroup each step's products, exponentials and products in
+// series; the text shapes are latency-bound at 2 sub-tiles a block.
+// chip_smoke.py's phase 3 holds them against the plain versions at the
+// route's edges (N 48 to 256, Nk != N) and asserts by the profiler's names
+// which kernels each shape runs; tools/attn_bwd_variants.py times them
+// beside the mma.sync route (the route disabled by a text edit).
+//
+// mma.sync kernels (K10b, D = 32, past 256 rows):
 //   - dq pass, grid (batch or groups, row blocks, heads), four warps of 16
 //     query rows: Q and dO fragments read once from device memory into
-//     registers (32-bit loads in the mma A layout; K3/K5 also read O so,
-//     take delta = rowsum(dO O) over the quad of lanes that share a row and
-//     write it for the dkv pass); K and V staged in bf16 by 16-byte
+//     registers (32-bit loads in the mma A layout; K5 also reads O so, takes
+//     delta = rowsum(dO O) over the quad of lanes that share a row and
+//     writes it for the dkv pass); K and V staged in bf16 by 16-byte
 //     cp.async into padded rows (ldmatrix meets no bank conflict); per 32
 //     keys S = Q K^T and dP = dO V^T on mma.sync m16n8k16, P and dS in fp32
 //     in the accumulator's registers, dS rounded to bf16 there as the A
@@ -62,51 +128,36 @@
 //     delta or di) in fp32 shared memory; per 16 queries S^T = K Q^T, P^T
 //     rounded as the A fragment of dV += P^T dO, dP^T = V dO^T, dS^T rounded
 //     as the A fragment of dK += dS^T Q;
-//   - resident kernels (every main-path shape: the staged rows, Nk for the
-//     dq pass and N for the dkv pass, are at most 256): every row staged
-//     once, before a block walks up to four 64-row (64-key) sub-tiles, as
-//     the forward keeps K and V (a sub-tile per block, restaging for each,
-//     took 21-28% longer at vision b256); chunked kernels past 256 rows: one
-//     sub-tile a block, chunks of 256 rows staged in turn, two blocks an SM
-//     (the dkv pass's chunk allows no more at D = 64, and the registers
-//     beyond 168 keep both passes' chunk loops from spilling); neither is
-//     double-buffered: the resident kernels stage once, and a second
-//     256-row buffer would leave one chunked block an SM;
+//   - resident kernels (the staged rows, Nk for the dq pass and N for the
+//     dkv pass, at most 256): every row staged once, before a block walks
+//     up to four 64-row (64-key) sub-tiles, as the forward keeps K and V (a
+//     sub-tile per block, restaging for each, took 21-28% longer at vision
+//     b256); chunked kernels past 256 rows: one sub-tile a block, chunks of
+//     256 rows staged in turn, two blocks an SM (the dkv pass's chunk allows
+//     no more at D = 64, and the registers beyond 168 keep both passes'
+//     chunk loops from spilling); neither is double-buffered;
 //   - registers: three resident blocks of an SM allow 168 a thread, and dK,
 //     dV, K and V held take 96. 16 queries a dkv step and 32 keys a dq step
-//     keep every kernel from spilling: 32 queries spilled 36 bytes in
-//     K10b's dkv pass (1.3-1.5% faster at vision b256, up to 3% slower at
-//     the text shapes), 64 keys spilled in both dq passes and ran 2-7%
-//     slower, two dkv blocks an SM ran 6-8% slower. The staging sits
-//     outside the resident kernels' sub-tile loop, where its pointers would
-//     stay live beside those 96 (they spilled there). Readings: one call of
-//     tools/attn_bwd_variants.py on the H100, PERF.md;
+//     keep every kernel from spilling (wider steps spilled and ran slower,
+//     two dkv blocks an SM ran 6-8% slower: PERF.md). The staging sits
+//     outside the resident kernels' sub-tile loop;
 //   - causal: a warp skips the key (query) steps wholly above (below) its
 //     diagonal; on the diagonal and the ragged edges masked pairs get a
 //     score of -inf, so their P is exactly 0; rows past n (keys past nk) are
 //     read as 0 and store nothing;
-//   - K3r: the staged operand (K in the dq pass, Q in the dkv pass) is
-//     rotated in shared memory by the forward's rotate_rows, each thread
-//     its own 16-byte pieces after its cp.async wait, before the barrier
-//     that precedes ldmatrix: once per (sample, head) in the resident
-//     kernels, once per chunk in the chunked ones. The register operand (Q
-//     in the dq pass, K in the dkv pass) is rotated in registers after
-//     load_frag_a: each 32-bit A-fragment register is one rope pair of one
-//     row, so a lane rotates its own words by one sin and one cos word of
-//     the table. dQ and dK are un-rotated the same way in the C layout,
-//     whose (c0, c1) and (c2, c3) are one pair of rows g and g + 8; the
-//     dkv pass stores dV first, so that its registers are free for dK's;
+//   - K3r (past 256 rows and at D = 32): the staged operand rotated in
+//     shared memory by the forward's rotate_rows, the register operand by
+//     rotate_frag_a (each 32-bit A-fragment register is one rope pair of one
+//     row), dQ and dK un-rotated the same way in the C layout;
 //   - gradients rounded to bf16 and stored from the accumulators by 32-bit
 //     stores. The 16-byte copies and 32-bit loads and stores need the
 //     views' base pointers and batch and row strides (and K3r's table) to
 //     be multiples of 16 bytes, which the wrappers check.
-// What holds it back: each mma.sync reads its B fragment from shared memory
-// (16 warp rows per fragment), so shared-memory reads (about 6.7 GB at
-// vision b256) and the two recomputed products, not device memory, set its
-// pace; a warp's S -> P -> dS -> product chain runs in series.
-// Dynamic shared memory: 2 ch (D + 8) * 2 bytes for a chunk of ch rows (dkv:
-// plus 12 ch of statistics), 59,904 and 62,400 at N = 197, D = 64: three
-// resident blocks share an SM.
+// What holds them back: each mma.sync reads its B fragment from shared
+// memory (16 warp rows per fragment), so shared-memory reads and the two
+// recomputed products, not device memory, set the pace; a warp's S -> P ->
+// dS -> product chain runs in series. Dynamic shared memory: 2 ch (D + 8) *
+// 2 bytes for a chunk of ch rows (dkv: plus 12 ch of statistics).
 
 #pragma once
 
@@ -619,6 +670,420 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
   }
 }
 
+// Shared-memory bytes of the wgmma backward for `rows` staged rows (a
+// multiple of 16): alignment slack and two tiles of 128-byte rows (K and V,
+// or Q and dO); the dk/dv pass also the rows' lse and delta in fp32 and a
+// sub-tile of 64 rows each of K and V in rows of D + 8 elements.
+constexpr int wg_bwd_smem(int rows, bool dkv) {
+  return 1024 + 2 * rows * 128 + (dkv ? 2 * rows * 4 + 2 * kMmaRows * (kWgDim + 8) * 2 : 0);
+}
+
+// The accumulator of an m64n64 wgmma (d[4 j + e]) as mma.sync's C
+// fragments (acc[j][e]): the same registers, for store_frag_c and
+// unrotate_frag_c.
+__device__ __forceinline__ float (&as_frag_c(float (&d)[kWgDim / 2]))[kWgDim / 8][4] {
+  return *reinterpret_cast<float(*)[kWgDim / 8][4]>(&d);
+}
+
+// K3r: rows [0, len) that stage_swz staged at `dst` rotated in place, row
+// r by table row r (rotate_rows's arithmetic in the swizzled tile). Each
+// thread takes the 16-byte pieces it copied itself (piece c = threadIdx % 8
+// of rows threadIdx / 8 + 16 m), so its own cp.async wait has landed them,
+// four pieces' loads in flight at once; the caller's fence_proxy_async and
+// barrier publish the rotated rows to wgmma. The zero-filled rows past len
+// stay as they are.
+__device__ __forceinline__ void rotate_swz(uint32_t dst, const bf16* __restrict__ tab, int len) {
+  constexpr int kStep = kMmaThreads / 8;  // rows between a thread's pieces
+  const int c = threadIdx.x & 7;
+  for (int r0 = threadIdx.x >> 3; r0 < len; r0 += 4 * kStep) {
+    uint4 x[4], sn[4], cs[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // a row past len reloads the thread's first
+      const int r = r0 + u * kStep < len ? r0 + u * kStep : r0;
+      const uint4* t = reinterpret_cast<const uint4*>(tab + r * (2 * kWgDim) + c * 8);
+      x[u] = lds16(dst + swz128(r, c));
+      sn[u] = __ldg(t);
+      cs[u] = __ldg(t + kWgDim / 8);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r0 + u * kStep < len)
+        sts16(dst + swz128(r0 + u * kStep, c), rotate_piece(x[u], sn[u], cs[u]));
+    }
+  }
+}
+
+// NG 16-row groups of a score-like product into d (8 NG fp32): A (64 x 64,
+// this warp's rows in registers) times the K-major B of the swizzled tile
+// at `desc` (a group 128 further in the descriptor's 16-byte units, a k16
+// step 2). NG = 4: one m64n64k16 per k16 step; else m64n16k16 per group.
+template <int NG>
+__device__ __forceinline__ void wg_scores(float* d, const uint32_t (&a)[kWgDim / 16][4],
+                                          uint64_t desc) {
+#pragma unroll
+  for (int ks = 0; ks < kWgDim / 16; ++ks) {
+    if constexpr (NG == 4) {
+      wgmma_m64n64k16<0>(d, a[ks], desc + 2 * ks, ks);
+    } else {
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg)
+        wgmma_m64n16k16(d + 8 * gg, a[ks], desc + 128 * gg + 2 * ks, ks);
+    }
+  }
+}
+
+// acc (64 x 64) += A B over NG 16-row groups: A the bf16 fragments `a` of
+// each group, B the MN-major rows of those groups in the tile at `desc`.
+template <int NG>
+__device__ __forceinline__ void wg_accumulate(float (&acc)[kWgDim / 2], const uint32_t (&a)[NG][4],
+                                              uint64_t desc) {
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) wgmma_m64n64k16<1>(acc, a[kk], desc + 128 * kk, 1);
+}
+
+// The 8 NG values of x rounded to bf16 as the A fragments of NG k16 steps:
+// the accumulator's 8-column chunks 2 kk and 2 kk + 1 are step kk's.
+template <int NG>
+__device__ __forceinline__ void pack_frag_a(uint32_t (&a)[NG][4], const float* x) {
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+  }
+}
+
+// dq pass, NG 16-key groups from key k0 of the staged K (desc dk) and V
+// (dv): S = Q K^T and dP = dO V^T in one batch, P = 2^(S sl2 - lse) and dS
+// = P (dP - delta) scale in the accumulator's registers (keys >= nk and,
+// CAUSAL, keys past the row to -inf, so P = 0), dS rounded into the A
+// fragments of acc += dS K, K read MN-major from the same tile. st2: this
+// lane's rows' lse in log2 units; dl: their delta; r0: the lane's first
+// row, wrow0 the warp's.
+template <int NG, bool CAUSAL>
+__device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
+                                        const uint32_t (&qf)[kWgDim / 16][4],
+                                        const uint32_t (&dof)[kWgDim / 16][4],
+                                        const float (&st2)[2], const float (&dl)[2], uint64_t dk,
+                                        uint64_t dv, int k0, int wrow0, int r0, int nk, float sl2,
+                                        float scale, int t) {
+  float s[8 * NG], dp[8 * NG];
+  wgmma_fence();
+  wg_scores<NG>(s, qf, dk);
+  wgmma_commit();
+  wg_scores<NG>(dp, dof, dv);
+  wgmma_commit();
+  wgmma_wait<1>();  // S landed; P's exponentials run while dP is computed
+  fence_regs<8 * NG>(s);
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j) {  // 8-key chunk j: keys k0 + 8 j + 2 t + {0, 1}
+    float* x = s + 4 * j;
+    if (k0 + 8 * j + 8 > nk || (CAUSAL && k0 + 8 * j + 7 > wrow0)) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if (key >= nk || (CAUSAL && key > r0 + 8 * (e >> 1))) x[e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = ex2(fmaf(x[e], sl2, -st2[e >> 1]));  // P
+  }
+  wgmma_wait<0>();
+  fence_regs<8 * NG>(dp);
+#pragma unroll
+  for (int j = 0; j < 8 * NG; ++j) s[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) * scale;  // dS
+  uint32_t da[NG][4];
+  pack_frag_a<NG>(da, s);
+  wgmma_fence();
+  wg_accumulate<NG>(acc, da, dk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<kWgDim / 2>(acc);
+}
+
+// dk/dv pass, NG 16-query groups from query c0 of the staged Q (desc dq)
+// and dO (ddo) with their statistics (s_st: lse in log2 units, s_dl:
+// delta): S^T = K Q^T and dP^T = V dO^T in one batch; P^T and dS^T in the
+// accumulator's registers (queries >= n and, CAUSAL, queries before the key
+// to -inf); dva += round(P^T) dO and dka += round(dS^T) Q, dO and Q read
+// MN-major. key0: this lane's first key, wk0 the warp's.
+template <int NG, bool CAUSAL>
+__device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[kWgDim / 2],
+                                         const uint32_t (&kf)[kWgDim / 16][4],
+                                         const uint32_t (&vf)[kWgDim / 16][4], const float* s_st,
+                                         const float* s_dl, uint64_t dq, uint64_t ddo, int c0,
+                                         int wk0, int key0, int n, float sl2, float scale, int t) {
+  float s[8 * NG], dp[8 * NG];
+  wgmma_fence();
+  wg_scores<NG>(s, kf, dq);
+  wgmma_commit();
+  wg_scores<NG>(dp, vf, ddo);
+  wgmma_commit();
+  wgmma_wait<1>();  // S^T landed; P^T and dV's product run while dP^T is computed
+  fence_regs<8 * NG>(s);
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j) {  // 8-query chunk j: queries c0 + 8 j + 2 t + {0, 1}
+    const int col = c0 + 8 * j + 2 * t;
+    const float2 st = *reinterpret_cast<const float2*>(s_st + col);
+    float* x = s + 4 * j;
+    if (c0 + 8 * j + 8 > n || (CAUSAL && wk0 + 15 > c0 + 8 * j)) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = col + (e & 1);
+        if (qc >= n || (CAUSAL && key0 + 8 * (e >> 1) > qc)) x[e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = ex2(fmaf(x[e], sl2, -(e & 1 ? st.y : st.x)));  // P^T
+  }
+  uint32_t pa[NG][4], da[NG][4];
+  pack_frag_a<NG>(pa, s);
+  wgmma_fence();
+  wg_accumulate<NG>(dva, pa, ddo);
+  wgmma_commit();
+  wgmma_wait<1>();  // dP^T landed (dV's product may still run)
+  fence_regs<8 * NG>(dp);
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(s_dl + c0 + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? dl.y : dl.x)) * scale;  // dS^T
+  }
+  pack_frag_a<NG>(da, dp);
+  wgmma_fence();
+  wg_accumulate<NG>(dka, da, dq);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold_frag<4 * NG>(pa[0]);  // read by dV's product while dS^T was computed
+  fence_regs<kWgDim / 2>(dva);
+  fence_regs<kWgDim / 2>(dka);
+}
+
+// dq pass on wgmma (K3, K5 and, with ROPE, K3r at D = 64, n and nk <= 256):
+// dQ and delta for the query rows of one block of one (sample, head), stat
+// lse. The staged keys are 16 (4 full + TAIL) rows, TAIL 1 to 4: `full`
+// whole 64-key steps in a loop, then one straight-line step of TAIL 16-key
+// groups. The header's note says how.
+template <bool ROPE, bool CAUSAL, int TAIL>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    wgmma_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                        const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, float* __restrict__ delta,
+                        bf16* __restrict__ dq, int n, int nk, int heads, Strides st, float scale,
+                        int full, int iters) {
+  constexpr int D = kWgDim;
+  const int rows = 16 * (4 * full + TAIL);
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sk = (raw + 1023) & ~1023u;  // the swizzle's 1024-byte alignment
+  const uint32_t sv = sk + rows * 128;
+
+  const long long b = blockIdx.x;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long hd = (long long)h * D;
+  const long long sb = (b * heads + h) * n;
+  const float sl2 = scale * kLog2e;
+  const int row_first = blockIdx.y * iters * kMmaRows;
+  const int tiles = min(iters, (n - row_first + kMmaRows - 1) / kMmaRows);
+
+  // K, then V (K3r: K rotates while V lands); key rows nk .. rows - 1 zero
+  stage_swz(sk, k + b * st.k_bs + hd, st.k_rs, nk, rows);
+  cp_async_commit();
+  stage_swz(sv, v + b * st.v_bs + hd, st.v_rs, nk, rows);
+  cp_async_commit();
+  const uint64_t dk = wgmma_desc(sk, 16, 1024), dv = wgmma_desc(sv, 16, 1024);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int row0 = row_first + it * kMmaRows;
+    const int wrow0 = row0 + 16 * warp, r0 = wrow0 + (lane >> 2);
+    uint32_t qf[D / 16][4], dof[D / 16][4];
+    float st2[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f}, dl[2] = {0.f, 0.f};
+    // the first sub-tile's under the copies; rows past n read 0
+    dq_rows<D, false, ROPE>(qf, dof, st2, inv, dl, q, tab, o, dout, lse, nullptr, delta, st, b,
+                            hd, sb, wrow0, n, lane);
+    if (it == 0) {
+      if constexpr (ROPE) {
+        cp_async_wait<1>();
+        rotate_swz(sk, tab, nk);  // while V lands
+      }
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // causal: the 64-key steps past the sub-tile's last row are masked for
+    // every row of it, so skipped, and so is a tail step past that row
+    const int steps = CAUSAL ? min(full, row0 / kMmaRows + 1) : full;
+    for (int tt = 0; tt < steps; ++tt)
+      dq_step<4, CAUSAL>(acc, qf, dof, st2, dl, dk + 512 * tt, dv + 512 * tt, 64 * tt, wrow0, r0,
+                         nk, sl2, scale, lane & 3);
+    if (!CAUSAL || 64 * full < row0 + kMmaRows)
+      dq_step<TAIL, CAUSAL>(acc, qf, dof, st2, dl, dk + 512 * full, dv + 512 * full, 64 * full,
+                            wrow0, r0, nk, sl2, scale, lane & 3);
+    if constexpr (ROPE) unrotate_frag_c<D>(as_frag_c(acc), tab, wrow0, n, lane);
+    store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, as_frag_c(acc), wrow0, n, lane);
+  }
+}
+
+// dk/dv pass on wgmma: dK and dV for the keys of one block of one (sample,
+// head), delta from the dq pass. The staged query rows are 16 (4 full +
+// TAIL), walked as the dq pass walks its keys.
+template <bool ROPE, bool CAUSAL, int TAIL>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    wgmma_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int n, int nk, int heads, Strides st, float scale,
+                         int full, int iters) {
+  constexpr int D = kWgDim;
+  const int rows = 16 * (4 * full + TAIL);
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sq = (raw + 1023) & ~1023u;
+  const uint32_t sdo = sq + rows * 128;
+  float* s_st = reinterpret_cast<float*>(wg_smem + (sdo + rows * 128 - raw));
+  float* s_dl = s_st + rows;
+  constexpr uint32_t kTileBytes = kMmaRows * (D + 8) * 2;
+  const uint32_t sk = sdo + rows * 128 + 2 * rows * 4, sv = sk + kTileBytes;
+
+  const long long b = blockIdx.x;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long hd = (long long)h * D;
+  const long long sb = (b * heads + h) * n;
+  const float sl2 = scale * kLog2e;
+  const int key_first = blockIdx.y * iters * kMmaRows;
+  const int tiles = min(iters, (nk - key_first + kMmaRows - 1) / kMmaRows);
+
+  // Q and dO (rows n .. rows - 1 zero), the first sub-tile's K and V, and
+  // the rows' statistics (0 past n: those queries are masked)
+  const bf16* kb = k + b * st.k_bs + hd;
+  const bf16* vb = v + b * st.v_bs + hd;
+  stage_swz(sq, q + b * st.q_bs + hd, st.q_rs, n, rows);
+  stage_swz(sdo, dout + b * st.do_bs + hd, st.do_rs, n, rows);
+  stage_rows<D>(sk, kb + key_first * st.k_rs, st.k_rs, min(kMmaRows, nk - key_first));
+  stage_rows<D>(sv, vb + key_first * st.v_rs, st.v_rs, min(kMmaRows, nk - key_first));
+  cp_async_commit();
+  for (int i = threadIdx.x; i < rows; i += kMmaThreads) {
+    const bool in = i < n;
+    s_st[i] = in ? lse[sb + i] * kLog2e : 0.f;
+    s_dl[i] = in ? delta[sb + i] : 0.f;
+  }
+  const uint64_t dq = wgmma_desc(sq, 16, 1024), ddo = wgmma_desc(sdo, 16, 1024);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int kr0 = key_first + it * kMmaRows;
+    const int wk0 = kr0 + 16 * warp, key0 = wk0 + (lane >> 2);  // the warp's keys: wk0 .. + 15
+    // this sub-tile's K and V landed (and, first, Q and dO); keys past nk
+    // read 0 (the rows of a 16-row group past it) or what an earlier
+    // sub-tile left (the groups past that: their dK and dV rows are not
+    // stored)
+    cp_async_wait<0>();
+    if constexpr (ROPE) {
+      if (it == 0) rotate_swz(sq, tab, n);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    uint32_t kf[D / 16][4], vf[D / 16][4];
+    {
+      const int mi = lane >> 3, rr = lane & 7;
+      const uint32_t off = ((16 * warp + (mi & 1) * 8 + rr) * (D + 8) + (mi >> 1) * 8) * 2;
+#pragma unroll
+      for (int ds = 0; ds < D / 16; ++ds) {
+        ldsm_x4<false>(kf[ds], sk + off + 32 * ds);
+        ldsm_x4<false>(vf[ds], sv + off + 32 * ds);
+      }
+    }
+    if (it + 1 < tiles) {  // the next sub-tile's K and V land under this one
+      __syncthreads();  // every warp has its fragments
+      const int kr1 = kr0 + kMmaRows;
+      stage_rows<D>(sk, kb + kr1 * st.k_rs, st.k_rs, min(kMmaRows, nk - kr1));
+      stage_rows<D>(sv, vb + kr1 * st.v_rs, st.v_rs, min(kMmaRows, nk - kr1));
+      cp_async_commit();
+    }
+    if constexpr (ROPE) rotate_frag_a<D>(kf, tab, wk0, nk, lane);  // K3r; keys past nk to 0
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    // causal: the 64-query steps before the sub-tile's first key see none
+    // of its keys, so they are skipped; the tail step's queries are the last
+    for (int tt = CAUSAL ? kr0 / kMmaRows : 0; tt < full; ++tt)
+      dkv_step<4, CAUSAL>(dka, dva, kf, vf, s_st, s_dl, dq + 512 * tt, ddo + 512 * tt, 64 * tt,
+                          wk0, key0, n, sl2, scale, lane & 3);
+    dkv_step<TAIL, CAUSAL>(dka, dva, kf, vf, s_st, s_dl, dq + 512 * full, ddo + 512 * full,
+                           64 * full, wk0, key0, n, sl2, scale, lane & 3);
+    // dV first: its registers are free before dK's un-rotation
+    store_frag_c<D>(dv + b * st.dv_bs + hd, st.dv_rs, as_frag_c(dva), wk0, nk, lane);
+    if constexpr (ROPE) unrotate_frag_c<D>(as_frag_c(dka), tab, wk0, nk, lane);
+    store_frag_c<D>(dk + b * st.dk_bs + hd, st.dk_rs, as_frag_c(dka), wk0, nk, lane);
+  }
+}
+
+// fn(std::bool_constant<CAUSAL>(), std::integral_constant<int, TAIL>()):
+// the instantiation of a wgmma backward pass over `groups` (>= 1) 16-row
+// groups, TAIL = (groups - 1) % 4 + 1 of them in its straight-line last
+// step. A last step of 4 groups, not a loop's last pass: the rope
+// instantiations whose loop of whole steps ran last (TAIL 0) gave wrong
+// gradients on the H100 at 2 or more whole steps (ptxas; PERF.md).
+template <bool CAUSAL, typename Fn>
+cudaError_t with_tail(int groups, Fn&& fn) {
+  using C = std::bool_constant<CAUSAL>;
+  switch ((groups - 1) % 4) {
+    case 0: return fn(C(), std::integral_constant<int, 1>());
+    case 1: return fn(C(), std::integral_constant<int, 2>());
+    case 2: return fn(C(), std::integral_constant<int, 3>());
+    default: return fn(C(), std::integral_constant<int, 4>());
+  }
+}
+
+// Launches the wgmma backward (n and nk at most kWgKeys, D = 64), dq pass
+// first; one block walks every 64-row (64-key) sub-tile of its (sample,
+// head). Returns the first cudaError_t.
+template <bool ROPE>
+int launch_wgmma_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* tab, const bf16* o,
+                     const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
+                     bf16* dv, int batch, int n, int nk, int heads, const Strides& st,
+                     float scale, int causal, cudaStream_t stream) {
+  const int groups_k = (nk + 15) / 16, tiles_q = (n + kMmaRows - 1) / kMmaRows;
+  auto dq_pass = [&](auto is_causal, auto tail) {
+    constexpr bool kCausal = decltype(is_causal)::value;
+    constexpr int kTail = decltype(tail)::value;
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e = allow_smem(wgmma_bwd_dq_kernel<ROPE, kCausal, kTail>,
+                                     wg_bwd_smem(kWgKeys, false), done);
+    if (e != cudaSuccess) return e;
+    wgmma_bwd_dq_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
+                                                wg_bwd_smem(16 * groups_k, false), stream>>>(
+        q, k, v, tab, o, dout, lse, delta, dq, n, nk, heads, st, scale, (groups_k - 1) / 4,
+        tiles_q);
+    return cudaGetLastError();
+  };
+  cudaError_t err =
+      causal ? with_tail<true>(groups_k, dq_pass) : with_tail<false>(groups_k, dq_pass);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups_q = (n + 15) / 16, tiles_k = (nk + kMmaRows - 1) / kMmaRows;
+  auto dkv_pass = [&](auto is_causal, auto tail) {
+    constexpr bool kCausal = decltype(is_causal)::value;
+    constexpr int kTail = decltype(tail)::value;
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e = allow_smem(wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail>,
+                                     wg_bwd_smem(kWgKeys, true), done);
+    if (e != cudaSuccess) return e;
+    wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
+                                                 wg_bwd_smem(16 * groups_q, true), stream>>>(
+        q, k, v, tab, dout, lse, delta, dk, dv, n, nk, heads, st, scale, (groups_q - 1) / 4,
+        tiles_k);
+    return cudaGetLastError();
+  };
+  err = causal ? with_tail<true>(groups_q, dkv_pass) : with_tail<false>(groups_q, dkv_pass);
+  return static_cast<int>(err);
+}
+
 // Launches the bf16 backward, dq pass first (K3's and K5's delta). Each
 // pass runs its resident kernel where one chunk holds every row it stages
 // (Nk for the dq pass, N for the dkv pass, up to kMaxChunk), a block
@@ -635,6 +1100,13 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab,
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
   const bf16 *vp = static_cast<const bf16*>(v), *dop = static_cast<const bf16*>(dout);
   const bf16* tp = static_cast<const bf16*>(tab);
+  if constexpr (D == kWgDim && !FLASH) {
+    if (n <= kWgKeys && nk <= kWgKeys)
+      return launch_wgmma_bwd<ROPE>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop, stat_a,
+                                    delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                                    static_cast<bf16*>(dv), batch, n, nk, heads, st, scale,
+                                    causal, stream);
+  }
   // resident: the rows staged, rounded up to 16, and the sub-tiles a block
   // walks; chunked: kMaxChunk and one
   auto plan = [&](int len, int tiles, int& ch, int& it) {

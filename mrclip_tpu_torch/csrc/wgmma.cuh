@@ -74,6 +74,15 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Keeps R 32-bit A-fragment registers alive (unreused) until here: placed
+// after the wgmma_wait that covers the products that read them, where
+// other work ran while those products were in flight.
+template <int R>
+__device__ __forceinline__ void hold_frag(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // d (+)= a b for a 64 x 16 A in registers and a 16 x 64 B at `desc`; `acc`
 // 0 overwrites d. TRANS_B: 0 K-major B, 1 MN-major.
 template <int TRANS_B>

@@ -323,9 +323,12 @@ ROPE_SHAPES = [  # (B, N, H, D, prefix, causal)
     (2, 1, 2, 64, 1, False),     # CLS only
     (1, 257, 2, 64, 1, False),   # 16 x 16 grid
 ]
-# the bf16 forward's tile edges and chunks past 256 keys, prefix 0 and 1
+# the bf16 forward's tile edges and chunks past 256 keys, prefix 0 and 1;
+# and at D = 64 the wgmma backward's (as TILE_EDGES), causal and not
 ROPE_TILE_EDGES = [(2, n, 2, d, p, False) for n in (1, 15, 16, 17, 63, 65, 255, 257, 577)
                    for d in (32, 64) for p in (0, 1)]
+ROPE_TILE_EDGES += [(2, n, 2, 64, 1, c) for n in (48, 49, 64, 127, 128, 129, 193, 208, 209, 256)
+                    for c in (False, True)]
 
 
 def _rope_inputs(b, n, h, d, prefix, device, dtype):
@@ -405,10 +408,14 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
 
 
 @pytest.mark.parametrize("b,n,h,d,prefix,causal", [
-    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer: the resident kernels
-    (1, 577, 2, 64, 1, True),    # three chunks, causal
+    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer: the wgmma kernels
+    (1, 577, 2, 64, 1, True),    # three chunks, causal: mma.sync
     (2, 50, 2, 32, 1, False),    # head dim 32
     (2, 17, 2, 64, 0, True),     # a ragged 16-row fragment
+    (2, 128, 2, 64, 1, False),   # wgmma: a whole 64-row step, then a last one of 4 groups
+    (2, 256, 2, 64, 0, True),    # the top of the wgmma route, causal
+    (2, 209, 2, 64, 1, False),   # three whole steps and one group
+    (1, 257, 2, 64, 1, False),   # the first shape past it: mma.sync
 ])
 def test_rope_backward_rotates_bit_identically(cuda_device, b, n, h, d, prefix, causal):
     """bf16 K3r rotates q and k as the plain version does, bit for bit, in
@@ -581,8 +588,9 @@ def test_flash_kernels_match_plain_versions(cuda_device, b, n, nk, h, causal, d,
 def test_bf16_attention_backward_is_deterministic(cuda_device, impl):
     """K5, K10b, K3 and K3r write each gradient element once, from one
     thread, with no atomics: two bf16 runs on the same inputs give the same
-    bits (N = 197, and 577 where the passes walk chunks of 256 rows)."""
-    for b, n, h in ((2, 197, 12), (1, 577, 2)):
+    bits (N = 197, 128 and 256 on the wgmma kernels; 257, and 577 where the
+    passes walk chunks of 256 rows)."""
+    for b, n, h in ((2, 197, 12), (2, 128, 2), (2, 256, 2), (1, 257, 2), (1, 577, 2)):
         q, k, v = _inputs(b, n, n, h, 64, cuda_device, torch.bfloat16)
         do = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(
             device=cuda_device).manual_seed(2)).to(torch.bfloat16)
@@ -602,6 +610,46 @@ def test_bf16_attention_backward_is_deterministic(cuda_device, impl):
             di = fl.flash_di(o, do)
             runs = [fl.flash_attention_bwd(q, k, v, do, l, m, di) for _ in range(2)]
         assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("impl", ["fusedp", "fusedp_rope", "fused"])
+@pytest.mark.parametrize("n,nk,wgmma", [(256, 256, True), (76, 255, True), (257, 257, False),
+                                        (76, 300, False)])
+def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
+    """bf16 K3, K3r and K5 at D = 64 run the wgmma backward
+    (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel) where n and nk are at most
+    256, and attn_mma_bwd.cuh's mma.sync kernels past that (N = 257; Nk =
+    300), by the profiler's kernel names."""
+    if impl == "fusedp_rope" and n != nk:
+        pytest.skip("K3r is self-attention")
+    q, k, v = _inputs(1, n, nk, 2, 64, cuda_device, torch.bfloat16)
+    if impl == "fused":
+        q, k, v = (t.transpose(1, 2).reshape(2, -1, 64).contiguous() for t in (q, k, v))
+        o, lse = fa.fused_attention_grouped(q, k, v)
+        names = _device_kernels(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, o, lse))
+    elif impl == "fusedp":
+        o, lse = fa.fused_attention_packed(q, k, v)
+        names = _device_kernels(lambda: fa.fused_attention_packed_bwd(q, k, v, o, o, lse))
+    else:
+        q, k, v, _, tab = _rope_inputs(1, n, 2, 64, 1, cuda_device, torch.bfloat16)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=2, rope=tab)
+        names = _device_kernels(
+            lambda: fa.fused_attention_packed_bwd(q, k, v, o, o, lse, heads=2, rope=tab))
+    assert len(names) == 2
+    for name in names:
+        assert ("wgmma_bwd_" in name) == wgmma and "mma_bwd_" in name
 
 
 def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):

@@ -147,6 +147,30 @@ def test_attention_forwards_reach_wgmma(source):
     assert "constexpr int kWgKeys = 256;" in fwd and "constexpr int kWgDim = 64;" in fwd
 
 
+@pytest.mark.parametrize("source,call,routed", [
+    ("packed_attn_bwd.cu", "launch_mma_bwd<D, false, ROPE>(", True),  # K3, K3r
+    ("grouped_attn.cu", "launch_bwd<T, D, false>(", True),  # K5
+    ("flash_attn.cu", "launch_bwd<T, D, true>(", False),  # K10b
+])
+def test_attention_backwards_reach_wgmma(source, call, routed):
+    """K3, K3r and K5 reach the Hopper backward on wgmma, K10b does not:
+    `wgmma.cuh` keys each source's build through `attn_mma_bwd.cuh`, and the
+    launcher they share sends bf16 at D = 64 with n and nk at most 256 to
+    `launch_wgmma_bwd` unless FLASH (the source's template flag). Every
+    wgmma pass ends in a straight-line step of 1 to 4 groups: no TAIL = 0
+    instantiation (the kernels run only on the card)."""
+    assert "wgmma.cuh" in build._headers(build.CSRC / source)
+    assert call in (build.CSRC / source).read_text()
+    assert ("FLASH" not in call and "true" not in call.split("<")[1]) == routed
+    bwd = (build.CSRC / "attn_mma_bwd.cuh").read_text()
+    launcher = bwd[bwd.index("int launch_mma_bwd("):]
+    assert "if constexpr (D == kWgDim && !FLASH) {" in launcher
+    assert "if (n <= kWgKeys && nk <= kWgKeys)" in launcher
+    assert "return launch_wgmma_bwd<ROPE>(" in launcher
+    tails = re.findall(r"std::integral_constant<int, (\d+)>\(\)", bwd)
+    assert sorted(map(int, tails)) == [1, 2, 3, 4]
+
+
 def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
     """K2 and K3r take the rotation from one `rope.cuh`, and an edit to that
     header changes the build key of each source that includes it."""

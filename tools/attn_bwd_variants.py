@@ -4,21 +4,24 @@ and K10b, `mrclip_tpu_torch/csrc/attn_mma_bwd.cuh`) beside variants of its
 design, on one CUDA card, in turns within one process.
 
     python3 tools/attn_bwd_variants.py [--out build/attn_bwd_variants.json]
+                                       [--variants committed,mma_sync_route]
 
 Each variant is the committed sources with text edits to that header, built
 by nvcc into `build/variants/<name>/` and bound in place of the package's
 own libraries:
-  committed    the sources as they are;
-  one_subtile  a resident block takes one 64-row (dq) or 64-key (dkv)
-               sub-tile and stages K, V (Q, dO) for it alone: the staged
-               operands are read from device memory once per sub-tile, not
-               once per (sample, head);
-  dq_k64       the dq pass steps 64 keys at a time, not 32;
-  dkv_q32      the dkv pass steps 32 queries at a time, not 16;
-  dkv_lb2      the dkv pass's resident kernel at two blocks per SM (255
-               registers), not three (168);
+  committed      the sources as they are: K3, K3r and K5 at D = 64 with n
+                 and nk <= 256 on wgmma (wgmma_bwd_dq_kernel,
+                 wgmma_bwd_dkv_kernel), K10b on mma.sync;
+  mma_sync_route the wgmma route disabled: K3, K3r and K5 on the mma.sync
+                 kernels (mma_bwd_dq_kernel, mma_bwd_dkv_kernel) that it
+                 replaced;
+  no_causal_skip the wgmma passes compute every step of a causal sub-tile,
+                 the steps wholly masked too (as the wgmma forward does);
+  one_subtile    a wgmma block takes one 64-row (dq) or 64-key (dk/dv)
+                 sub-tile and stages K and V (Q and dO) for it alone;
 and, to find where K3r's rotation time goes (its results are then wrong,
-so K3r is timed, not checked; K3, K5 and K10b are unchanged):
+so K3r is timed, not checked; K3, K5 and K10b are unchanged), on both
+routes:
   rope_no_reg  K3r leaves the register operand (Q in the dq pass, K in the
                dk/dv pass) unrotated;
   rope_no_smem K3r leaves the staged operand (K, Q) unrotated;
@@ -30,7 +33,8 @@ chip_smoke.py), and times K3, K5 and K10b at ViT-B-16 vision b256, text
 b256 (N = 98, causal) and EVA02-B-16's text ctx 77 b256, and K3r (with K3
 beside it) at EVA02-B-16's vision b256 with its rope_cat_2d table: medians
 of 7 rounds of CUDA-event readings, the variants in turns within each
-round. Needs one CUDA card; imports no JAX.
+round, and the profiler's device time per call (medians of 7 windows).
+Needs one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,23 +63,36 @@ HEADER = "attn_mma_bwd.cuh"
 # the package's own loaders: each variant's backward is bound beside the
 # committed forward
 LOADERS = (fa.load_grouped_kernels, fl.load_kernels)
-# K3r's rope steps, each taken out by one edit (a count of occurrences)
-NO_REG = ("if constexpr (ROPE) rotate_frag_a<D>(", "if constexpr (false) rotate_frag_a<D>(", 3)
-NO_SMEM = ("rotate_rows<D>(", "if (false) rotate_rows<D>(", 4)
+# K3r's rope steps, each taken out by edits (with a count of occurrences),
+# in the mma.sync kernels and in the wgmma kernels
+NO_REG = [("if constexpr (ROPE) rotate_frag_a<D>(", "if constexpr (false) rotate_frag_a<D>(", 4)]
+NO_SMEM = [("rotate_rows<D>(sk_a", "if (false) rotate_rows<D>(sk_a", 2),
+           ("rotate_rows<D>(sq_a", "if (false) rotate_rows<D>(sq_a", 2),
+           ("rotate_swz(s", "if (false) rotate_swz(s", 2)]
 NO_UNROT = ("if constexpr (ROPE) unrotate_frag_c<D>(", "if constexpr (false) unrotate_frag_c<D>(",
-            2)
+            4)
 ROPE_ABLATIONS = ("rope_no_reg", "rope_no_smem", "rope_no_unrot", "rope_none")
 VARIANTS = {
     "committed": [],
-    "one_subtile": [("constexpr int kMost = kMaxRows / kMmaRows;", "constexpr int kMost = 1;")],
-    "dq_k64": [("constexpr int kDqKeys = 32;", "constexpr int kDqKeys = 64;")],
-    "dkv_q32": [("constexpr int kDkvQueries = 16;", "constexpr int kDkvQueries = 32;")],
-    "dkv_lb2": [("__launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)\n    mma_bwd_dkv_kernel(",
-                 "__launch_bounds__(kMmaThreads, 2)\n    mma_bwd_dkv_kernel(")],
-    "rope_no_reg": [NO_REG],
-    "rope_no_smem": [NO_SMEM],
+    "mma_sync_route": [("if (n <= kWgKeys && nk <= kWgKeys)\n      return launch_wgmma_bwd<",
+                        "if (false)\n      return launch_wgmma_bwd<")],
+    "no_causal_skip": [
+        ("const int steps = CAUSAL ? min(full, row0 / kMmaRows + 1) : full;",
+         "const int steps = full;"),
+        ("if (!CAUSAL || 64 * full < row0 + kMmaRows)", "if (true)"),
+        ("for (int tt = CAUSAL ? kr0 / kMmaRows : 0; tt < full; ++tt)",
+         "for (int tt = 0; tt < full; ++tt)")],
+    "one_subtile": [
+        ("wgmma_bwd_dq_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads)",
+         "wgmma_bwd_dq_kernel<ROPE, kCausal, kTail><<<dim3(batch, tiles_q, heads)"),
+        ("(groups_k - 1) / 4,\n        tiles_q);", "(groups_k - 1) / 4,\n        1);"),
+        ("wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads)",
+         "wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail><<<dim3(batch, tiles_k, heads)"),
+        ("(groups_q - 1) / 4,\n        tiles_k);", "(groups_q - 1) / 4,\n        1);")],
+    "rope_no_reg": NO_REG,
+    "rope_no_smem": NO_SMEM,
     "rope_no_unrot": [NO_UNROT],
-    "rope_none": [NO_REG, NO_SMEM, NO_UNROT],
+    "rope_none": [*NO_REG, *NO_SMEM, NO_UNROT],
 }
 SHAPES = {"vision_b256": dict(cs.VISION, b=cs.TRAIN_BATCH),
           "text_b256": dict(cs.TEXT, b=cs.TRAIN_BATCH),
@@ -184,14 +201,17 @@ def check(tag, got, want):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/attn_bwd_variants.json")
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names to build and time (default: all)")
     args = ap.parse_args()
+    variants = {name: VARIANTS[name] for name in args.variants.split(",")}
     if not torch.cuda.is_available():
         print("attn_bwd_variants: no CUDA device available", file=sys.stderr)
         return 1
     name, smi = cs.phase_card()
     fa.load_bwd_kernel()  # the package's own K3 library, whose argtypes the variants take
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # the variants build together
-        done = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS, VARIANTS.values())))
+    with ThreadPoolExecutor(len(variants)) as pool:  # the variants build together
+        done = dict(zip(variants, pool.map(build_variant, variants, variants.values())))
     built = {}
     for var, (fns, lines) in done.items():
         built[var] = fns
@@ -202,10 +222,13 @@ def main() -> int:
 
     def timed(sname, shape, fns):
         med, reads = cs.median_ms(fns, 20)
-        result["shapes"][sname] = {"shape": shape, "median_ms": med, "readings": reads}
+        dev = cs.device_ms(fns)
+        result["shapes"][sname] = {"shape": shape, "median_ms": med, "readings": reads,
+                                   "device_ms": dev}
         for key in fns:
             cs.log(f"[time] {sname} {key}: {med[key]:.4f} ms (readings "
-                   f"{min(reads[key]):.4f}-{max(reads[key]):.4f}, median of {cs.FWD_RUNS})")
+                   f"{min(reads[key]):.4f}-{max(reads[key]):.4f}, median of {cs.FWD_RUNS}); "
+                   f"device {cs.fmt_ms(dev[key])} ms")
 
     for sname, shape in SHAPES.items():
         k5_args, k10b_args, k3_args = inputs(shape, gen)
