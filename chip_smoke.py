@@ -25,11 +25,14 @@ fails:
              causal and not (two bf16 K3r runs bit-equal there);
              which device kernels bf16 and fp32 K1, K2, K3 and K3r run
              (profiler: bf16 K1 on attn_mma_fwd.cuh's wgmma_fwd_kernel, and
-             on mma_fwd_kernel at N = 577, K2 on mma_fwd_kernel; bf16 K3/K3r
-             (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64 with N and
-             Nk <= 256, on its mma_bwd_* at N = 257 and 577, Nk = 300 and D
-             = 32, K10b on mma_bwd_*, each name in its own profiler group;
-             fp32 on packed_attn_bwd.cu's FMA kernels);
+             on mma_fwd_kernel at N = 577, K2 on wgmma_fwd_kernel's ROPE form
+             at N <= 256 and on mma_fwd_kernel at N = 257 and 577; bf16
+             K3/K3r (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64
+             with N and Nk <= 256, on its mma_bwd_* at N = 257 and 577, Nk =
+             300 and D = 32, K10b on wgmma_bwd_*'s FLASH form at the vision,
+             N = 256 and causal ctx 77 shapes and on mma_bwd_* at N = 577,
+             each name in its own profiler group; fp32 on packed_attn_bwd.cu's
+             FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
              B in {100, 256, 333} and with distinct labels; timings beside
              the plain versions, the bounds and SDPA (forward, and backward;
@@ -45,7 +48,7 @@ fails:
              at the edges of the bf16 tensor-core tiles (as K1's), bf16 and
              fp32, which device kernels bf16 and fp32 K4, K5, K10 and K10b
              run (profiler; bf16 K4 and K10 on wgmma_fwd_kernel, K10 at N =
-             577 on mma_fwd_kernel),
+             577 on mma_fwd_kernel; K10b as above),
              two bf16 K5 and K10b runs bit-equal, timed at the b256 shapes of
              phases 8 and 9 beside K1 (K4) and K4/K5 (K10/K10b), the
              backward too as medians of 7 and the profiler's device time;
@@ -176,20 +179,16 @@ TILE_EDGES += [dict(b=2, n=n, nk=n, h=2, d=64, causal=c)
 PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, causal=c)
                                            for c in (False, True)),
                   dict(b=2, n=76, nk=300, h=2, d=64, causal=False)]
-MMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
-               design="mma.sync bf16, K/V bf16 in shared memory")
-# K1, K4 and K10 with one key block of at most 256 keys at D = 64 (every
-# main-path shape); K2, several key blocks, longer walks and D = 32 stay on
-# MMA_FWD's mma_fwd_kernel
+# K1, K4, K10 and K2 with one key block of at most 256 keys at D = 64
+# (every main-path shape); several key blocks, longer walks and D = 32 stay
+# on mma_fwd_kernel
 WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
-                 design="wgmma bf16 (m64n64k16 and m64n16k16, A in registers, K and V read "
-                        "through 128-byte-swizzled shared memory), each row's scores whole in "
-                        "registers, one exp per score")
-MMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
-               design="mma.sync bf16, two passes (dq, then dk/dv), Q/dO or K/V fragments in "
-                      "registers, the other pair bf16 in shared memory")
-# K3, K3r and K5 at D = 64 with n and nk at most 256 (every main-path
-# shape); K10b, D = 32 and longer walks stay on MMA_BWD's mma_bwd_* kernels
+                 design="wgmma bf16 (wgmma_fwd_kernel: m64n64k16 and m64n16k16, A in "
+                        "registers, K and V read through 128-byte-swizzled shared memory), each "
+                        "row's scores whole in registers, one exp per score; mma.sync "
+                        "(mma_fwd_kernel) over several key blocks, past 256 keys and at D = 32")
+# K3, K3r, K5 and K10b at D = 64 with n and nk at most 256 (every
+# main-path shape); D = 32 and longer walks stay on the mma_bwd_* kernels
 WGMMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
                  design="wgmma bf16 (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel: m64n64k16 and "
                         "m64n16k16, A in registers, the staged pair read K-major and MN-major "
@@ -500,7 +499,7 @@ def phase_kernel_fwd():
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = qkv_slices(VISION, dtype, gen)
         calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=VISION["h"])
-    names = device_kernels("K1", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, ",
+    names = device_kernels("K1", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, false, ",
                                          torch.float32: "packed_attn_fwd_kernel<64, false>"})
     chunked = dict(VISION, b=4, n=577, nk=577, h=4)  # past 256 keys: the chunked walk
     q, k, v = qkv_slices(chunked, torch.bfloat16, gen)
@@ -775,8 +774,18 @@ def phase_kernel_rope():
         q, k, v, _, tab = rope_inputs(ROPE_VISION, dtype, gen)
         calls[dtype] = lambda q=q, k=k, v=v, tab=tab: fa.fused_attention_packed(
             q, k, v, heads=ROPE_VISION["h"], rope=tab)
-    names = device_kernels("K2", calls, {torch.bfloat16: "mma_fwd_kernel<64, false, false, true>",
-                                         torch.float32: "packed_attn_fwd_kernel<64, true>"})
+    names = device_kernels("K2", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, true, ",
+                                         torch.float32: "packed_attn_fwd_kernel<64, true>"},
+                           group=K2_GROUP)
+    for n in (256, 257, 577):  # the top of the wgmma route, and past it
+        shape = dict(ROPE_VISION, b=2, n=n, nk=n, h=2)
+        q, k, v, _, tab = rope_inputs(shape, torch.bfloat16, gen)
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, tab=tab:
+                fa.fused_attention_packed(q, k, v, heads=2, rope=tab)}
+        names[f"bf16_n{n}"] = device_kernels(
+            f"K2 N={n}", call, {torch.bfloat16: "wgmma_fwd_kernel<false, true, " if n <= 256
+                                else "mma_fwd_kernel<64, false, false, true>"},
+            avoid=None if n <= 256 else "wgmma", group=K2_GROUP)["bfloat16"]
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, _, tab = rope_inputs(ROPE_VISION, dtype, gen)
@@ -864,8 +873,10 @@ def phase_kernel_rope():
         "max_abs_err_fp32": worst["fwd"][torch.float32],
         **common, **fwd256,
         # bf16; fp32 runs packed_attn_fwd.cu's FMA kernel
-        "source": MMA_FWD["source"],
-        "design": MMA_FWD["design"] + ", q and k rotated in shared memory (rope.cuh rotate_pair_f32)",
+        "source": WGMMA_FWD["source"],
+        "design": WGMMA_FWD["design"] + "; q and k rotated in shared memory (rope.cuh "
+                  "rotate_pair_f32): K once in the swizzled tile, each Q sub-tile before its "
+                  "barrier",
         "entry": "mrclip_tpu_torch/csrc/packed_attn_fwd.cu::packed_attn_rope_fwd",
         "device_kernels": names,
         "library": library + " (forward)",
@@ -995,7 +1006,7 @@ def phase_kernel_grouped():
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(VISION, dtype)
         calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_grouped(q, k, v)
-    names_fwd = device_kernels("K4", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, ",
+    names_fwd = device_kernels("K4", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, false, ",
                                              torch.float32: "rows_fwd_kernel<float, 64, false>"})
 
     def timings(shape):
@@ -1096,8 +1107,22 @@ def phase_kernel_flash():
         di = fl.flash_di(o, o)
         calls[dtype] = lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di: fl.flash_attention_bwd(
             q, k, v, o, l, m, di)
-    names = device_kernels("K10b", calls, {torch.bfloat16: "mma_bwd_", torch.float32: "rows_bwd_"},
-                           avoid="wgmma", group=K10B_GROUP)
+    names = device_kernels("K10b", calls, {torch.bfloat16: "wgmma_bwd_",
+                                           torch.float32: "rows_bwd_"}, group=K10B_GROUP)
+    # the causal text shape (ctx 77) on the wgmma pair's CAUSAL form, the
+    # top of its route, and N = 577 (several jax key blocks) on mma.sync
+    for tag, shape in (("text77", dict(TEXT77, b=2)), ("n256", dict(VISION, b=2, n=256, nk=256)),
+                       ("n577", dict(VISION, b=2, n=577, nk=577))):
+        q, k, v = inputs(shape, torch.bfloat16)
+        o, l, m = fl.flash_attention(q, k, v, is_causal=shape["causal"])
+        di = fl.flash_di(o, o)
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di, c=shape["causal"]:
+                fl.flash_attention_bwd(q, k, v, o, l, m, di, is_causal=c)}
+        wgmma = shape["n"] <= 256  # wgmma_bwd_*<FLASH, ROPE, CAUSAL, TAIL>
+        want = f"_kernel<true, false, {str(shape['causal']).lower()}, " if wgmma else "mma_bwd_"
+        names[f"bf16_{tag}"] = device_kernels(
+            f"K10b {tag}", call, {torch.bfloat16: want}, avoid=None if wgmma else "wgmma",
+            group=K10B_GROUP)["bfloat16"]
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(VISION, dtype)
@@ -1173,7 +1198,7 @@ def phase_kernel_flash():
         "max_abs_err": worst[torch.bfloat16][1], "max_abs_err_fp32": worst[torch.float32][1],
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
-        **common, **bwd256, **MMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
+        **common, **bwd256, **WGMMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
         "entry": "mrclip_tpu_torch/csrc/flash_attn.cu::flash_attn_bwd",
         "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
@@ -1774,9 +1799,11 @@ def grad_cosines(a: dict, b: dict):
 # Device kernels by (lower-cased) name -> the layer they belong to (first
 # match wins). The rope instantiations of the packed attention kernels and
 # the flash instantiations of the row and tensor-core kernels carry the
-# template flag `true` in their names (the wgmma backward's first flag is
-# ROPE: K3r's group comes before K3/K5's, whose "mma_bwd_" every
-# wgmma_bwd_ name holds); phase 3 asserts where K3, K3r, K5 and K10b land.
+# template flag `true` in their names (the wgmma kernels' flags are FLASH,
+# then ROPE: K2's group comes before K1/K4's, and K10b's and K3r's before
+# K3/K5's, whose "mma_bwd_" every wgmma_bwd_ name holds); phase 3 asserts
+# where K2, K3, K3r, K5 and K10b land.
+K2_GROUP = "K2 packed_attn_rope_fwd"
 K10B_GROUP = "K10b flash_attn_bwd"
 K3R_GROUP = "K3r packed_attn_rope_bwd"
 K3_GROUP = "K3 packed_attn_bwd / K5 grouped_attn_bwd"
@@ -1785,16 +1812,17 @@ KERNEL_GROUPS = [
     ("K9 dw_conv_bwd", ("dw_bwd_kernel", "dw_wgrad_sum_kernel")),
     ("convolution (cuDNN: stem, downsamples)", ("convolution", "cudnn", "fprop", "dgrad",
                                                 "wgrad", "conv2d", "depthwise")),
-    ("K2 packed_attn_rope_fwd", ("mma_fwd_kernel<64, false, false, true>",
-                                 "packed_attn_fwd_kernel<64, true>")),
+    (K2_GROUP, ("wgmma_fwd_kernel<false, true", "mma_fwd_kernel<64, false, false, true>",
+                "packed_attn_fwd_kernel<64, true>")),
     ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ", "mma_fwd_kernel<64, true",
                             "rows_fwd_kernel<float, 64, true>")),
     # one instantiation: K1 under fusedp, K4 under fused
     ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
-    (K10B_GROUP, ("mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
+    (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
+                  "mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
                   "rows_bwd_dq_kernel<float, 64, true>", "rows_bwd_dkv_kernel<float, 64, true>")),
-    (K3R_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
+    (K3R_GROUP, ("wgmma_bwd_dq_kernel<false, true", "wgmma_bwd_dkv_kernel<false, true",
                  "mma_bwd_dq_kernel<64, false, false, true>",
                  "mma_bwd_dkv_kernel<64, false, false, true>",
                  "mma_bwd_dq_kernel<64, false, true, true>",  # past 256 rows

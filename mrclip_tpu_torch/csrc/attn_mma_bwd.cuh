@@ -50,11 +50,12 @@
 // not 8 (about 1.0 GB, 0.30 ms at 3.35 TB/s at vision b256).
 //
 // Two families of kernels, chosen by shape in launch_mma_bwd:
-//   wgmma_bwd_dq_kernel and wgmma_bwd_dkv_kernel<ROPE, CAUSAL, TAIL>, on
-//     Hopper's warpgroup products (wgmma.cuh): bf16 K3, K3r and K5 at D =
-//     64 with n and nk at most 256, every main-path shape of the three;
+//   wgmma_bwd_dq_kernel and wgmma_bwd_dkv_kernel<FLASH, ROPE, CAUSAL,
+//     TAIL>, on Hopper's warpgroup products (wgmma.cuh): bf16 K3, K3r, K5
+//     and K10b at D = 64 with n and nk at most 256, every main-path shape of
+//     the four;
 //   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
-//     Ampere's mma.sync: K10b (FLASH), D = 32 and past 256 rows.
+//     Ampere's mma.sync: D = 32 and past 256 rows.
 //
 // wgmma kernels: one warpgroup (128 threads) per block walks every 64-row
 // (dq pass) or 64-key (dk/dv pass) sub-tile of its (sample, head), grid
@@ -66,7 +67,8 @@
 //     (m64n16k16 for S and dP; N = 197 computes 208 keys, not 256). TAIL
 //     and CAUSAL are template arguments, not runtime branches between
 //     products (in the wgmma forward ptxas then copied accumulators and
-//     waited after every wgmma): 8 instantiations a pass, 16 with ROPE. A
+//     waited after every wgmma): 8 instantiations a pass, 16 with ROPE
+//     (packed_attn_bwd.cu), 8 with FLASH (flash_attn.cu). A
 //     TAIL of 0 (a loop's last pass ending the walk) is not used: its ROPE
 //     instantiations gave wrong gradients on the H100 at two or more whole
 //     steps (N = 113-128, 177-192, 241-256), even with the identity table,
@@ -76,15 +78,18 @@
 //     K^T and MN-major (transpose bit, the same tile) for dQ += dS K, V
 //     K-major for dP = dO V^T. Q and dO are this warp's A fragments, read
 //     from device memory by 32-bit loads (dq_rows, with O to take delta =
-//     rowsum(dO O) and write it for the dk/dv pass). Per step, S and dP
-//     are two commit groups: P = 2^(S sl2 - lse) is taken while dP is
-//     still on the tensor cores, then dS = P (dP - delta) scale in the
+//     rowsum(dO O) and write it for the dk/dv pass; K10b reads m, l and di
+//     instead, takes 1 / l by __fdiv_rn and writes nothing but dQ). Per
+//     step, S and dP are two commit groups: P = 2^(S sl2 - lse) (K10b:
+//     2^(S sl2 - m) (1 / l), the plain version's order) is taken while dP
+//     is still on the tensor cores, then dS = P (dP - delta) scale in the
 //     accumulator's registers, rounded to bf16 into the A fragments of dQ
 //     += dS K;
 //   - dk/dv pass: Q and dO staged in the swizzle with the rows' lse and
-//     delta in fp32 shared memory; K and V by sub-tile into rows of D + 8
-//     elements by cp.async, the next sub-tile's copy under this one's
-//     products, this warp's A fragments read by ldmatrix. Per step S^T = K
+//     delta (K10b: m, di and 1 / l, 4 bytes a row more) in fp32 shared
+//     memory; K and V by sub-tile into rows of D + 8 elements by cp.async,
+//     the next sub-tile's copy under this one's products, this warp's A
+//     fragments read by ldmatrix. Per step S^T = K
 //     Q^T and dP^T = V dO^T are two commit groups; P^T and dV += round(P^T)
 //     dO are issued while dP^T is computed, then dS^T and dK += round(dS^T)
 //     Q (dO and Q read MN-major); dV is stored first;
@@ -100,8 +105,9 @@
 //     dQ and dK un-rotated in the accumulator's registers (mma.sync's C
 //     layout, chunk after chunk);
 //   - shared memory: 1 KB of alignment slack and two tiles of 128-byte rows
-//     (dk/dv: plus 8 bytes a row of statistics and two 9 KB sub-tiles):
-//     54,272 and 74,368 bytes at N = 197; two blocks an SM (the dq pass's
+//     (dk/dv: plus 8 bytes a row of statistics, 12 for K10b, and two 9 KB
+//     sub-tiles): 54,272 and 74,368 bytes at N = 197 (K10b's dk/dv 75,200),
+//     at most 88,064 at 256 rows; two blocks an SM (the dq pass's
 //     registers allow three).
 // What holds them back (PERF.md): the two passes' bytes (13 tensors, 0.30
 // ms at peak bandwidth at vision b256) at about 60% of peak bandwidth, and
@@ -112,7 +118,7 @@
 // which kernels each shape runs; tools/attn_bwd_variants.py times them
 // beside the mma.sync route (the route disabled by a text edit).
 //
-// mma.sync kernels (K10b, D = 32, past 256 rows):
+// mma.sync kernels (D = 32, past 256 rows):
 //   - dq pass, grid (batch or groups, row blocks, heads), four warps of 16
 //     query rows: Q and dO fragments read once from device memory into
 //     registers (32-bit loads in the mma A layout; K5 also reads O so, takes
@@ -219,34 +225,6 @@ __device__ __forceinline__ void store_frag_c(bf16* base, long long rs, const flo
     uint32_t* p = reinterpret_cast<uint32_t*>(base + row * rs + 2 * t);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) p[4 * j] = pack_bf16(acc[j][2 * i], acc[j][2 * i + 1]);
-  }
-}
-
-// K3r: this warp's A fragments of rows [r0, r0 + 16) (load_frag_a's)
-// rotated in registers by the [n, 2D] table. In the m16n8k16 A layout each
-// 32-bit register holds the pair (2i, 2i + 1) of one row, so a lane rotates
-// its own words (rotate_word), reading the pair's sin and cos words of the
-// table. No branch: a row past n reads row n - 1's table and keeps its 0,
-// so that every table load can be issued before the first is used.
-template <int D>
-__device__ __forceinline__ void rotate_frag_a(uint32_t (&f)[D / 16][4],
-                                              const bf16* __restrict__ tab, int r0, int n,
-                                              int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bool in0 = r0 + g < n, in1 = r0 + g + 8 < n;
-  // the sin words of rows g and g + 8 at column 2t; the cos words D / 2 on
-  const uint32_t* t0 =
-      reinterpret_cast<const uint32_t*>(tab + min(r0 + g, n - 1) * (2 * D)) + t;
-  const uint32_t* t1 =
-      reinterpret_cast<const uint32_t*>(tab + min(r0 + g + 8, n - 1) * (2 * D)) + t;
-#pragma unroll
-  for (int ds = 0; ds < D / 16; ++ds) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {  // rows g (e even), g + 8 (odd); columns + 8 from e = 2
-      const uint32_t* w = (e & 1 ? t1 : t0) + 8 * ds + 4 * (e >> 1);
-      const uint32_t y = rotate_word(f[ds][e], __ldg(w), __ldg(w + D / 2));
-      f[ds][e] = (e & 1 ? in1 : in0) ? y : 0u;
-    }
   }
 }
 
@@ -672,10 +650,12 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
 
 // Shared-memory bytes of the wgmma backward for `rows` staged rows (a
 // multiple of 16): alignment slack and two tiles of 128-byte rows (K and V,
-// or Q and dO); the dk/dv pass also the rows' lse and delta in fp32 and a
-// sub-tile of 64 rows each of K and V in rows of D + 8 elements.
-constexpr int wg_bwd_smem(int rows, bool dkv) {
-  return 1024 + 2 * rows * 128 + (dkv ? 2 * rows * 4 + 2 * kMmaRows * (kWgDim + 8) * 2 : 0);
+// or Q and dO); the dk/dv pass also the rows' statistics in fp32 (lse and
+// delta; FLASH: m, di and 1 / l) and a sub-tile of 64 rows each of K and V
+// in rows of D + 8 elements.
+constexpr int wg_bwd_smem(int rows, bool dkv, bool flash) {
+  return 1024 + 2 * rows * 128 +
+         (dkv ? (flash ? 3 : 2) * rows * 4 + 2 * kMmaRows * (kWgDim + 8) * 2 : 0);
 }
 
 // The accumulator of an m64n64 wgmma (d[4 j + e]) as mma.sync's C
@@ -683,34 +663,6 @@ constexpr int wg_bwd_smem(int rows, bool dkv) {
 // unrotate_frag_c.
 __device__ __forceinline__ float (&as_frag_c(float (&d)[kWgDim / 2]))[kWgDim / 8][4] {
   return *reinterpret_cast<float(*)[kWgDim / 8][4]>(&d);
-}
-
-// K3r: rows [0, len) that stage_swz staged at `dst` rotated in place, row
-// r by table row r (rotate_rows's arithmetic in the swizzled tile). Each
-// thread takes the 16-byte pieces it copied itself (piece c = threadIdx % 8
-// of rows threadIdx / 8 + 16 m), so its own cp.async wait has landed them,
-// four pieces' loads in flight at once; the caller's fence_proxy_async and
-// barrier publish the rotated rows to wgmma. The zero-filled rows past len
-// stay as they are.
-__device__ __forceinline__ void rotate_swz(uint32_t dst, const bf16* __restrict__ tab, int len) {
-  constexpr int kStep = kMmaThreads / 8;  // rows between a thread's pieces
-  const int c = threadIdx.x & 7;
-  for (int r0 = threadIdx.x >> 3; r0 < len; r0 += 4 * kStep) {
-    uint4 x[4], sn[4], cs[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {  // a row past len reloads the thread's first
-      const int r = r0 + u * kStep < len ? r0 + u * kStep : r0;
-      const uint4* t = reinterpret_cast<const uint4*>(tab + r * (2 * kWgDim) + c * 8);
-      x[u] = lds16(dst + swz128(r, c));
-      sn[u] = __ldg(t);
-      cs[u] = __ldg(t + kWgDim / 8);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (r0 + u * kStep < len)
-        sts16(dst + swz128(r0 + u * kStep, c), rotate_piece(x[u], sn[u], cs[u]));
-    }
-  }
 }
 
 // NG 16-row groups of a score-like product into d (8 NG fp32): A (64 x 64,
@@ -753,19 +705,19 @@ __device__ __forceinline__ void pack_frag_a(uint32_t (&a)[NG][4], const float* x
 }
 
 // dq pass, NG 16-key groups from key k0 of the staged K (desc dk) and V
-// (dv): S = Q K^T and dP = dO V^T in one batch, P = 2^(S sl2 - lse) and dS
-// = P (dP - delta) scale in the accumulator's registers (keys >= nk and,
-// CAUSAL, keys past the row to -inf, so P = 0), dS rounded into the A
-// fragments of acc += dS K, K read MN-major from the same tile. st2: this
-// lane's rows' lse in log2 units; dl: their delta; r0: the lane's first
-// row, wrow0 the warp's.
-template <int NG, bool CAUSAL>
+// (dv): S = Q K^T and dP = dO V^T in one batch, P = 2^(S sl2 - lse) (FLASH:
+// 2^(S sl2 - m) (1 / l)) and dS = P (dP - delta) scale in the accumulator's
+// registers (keys >= nk and, CAUSAL, keys past the row to -inf, so P = 0),
+// dS rounded into the A fragments of acc += dS K, K read MN-major from the
+// same tile. st2: this lane's rows' lse (m) in log2 units; inv: their 1 / l
+// (FLASH); dl: their delta (di); r0: the lane's first row, wrow0 the warp's.
+template <int NG, bool FLASH, bool CAUSAL>
 __device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
                                         const uint32_t (&qf)[kWgDim / 16][4],
                                         const uint32_t (&dof)[kWgDim / 16][4],
-                                        const float (&st2)[2], const float (&dl)[2], uint64_t dk,
-                                        uint64_t dv, int k0, int wrow0, int r0, int nk, float sl2,
-                                        float scale, int t) {
+                                        const float (&st2)[2], const float (&inv)[2],
+                                        const float (&dl)[2], uint64_t dk, uint64_t dv, int k0,
+                                        int wrow0, int r0, int nk, float sl2, float scale, int t) {
   float s[8 * NG], dp[8 * NG];
   wgmma_fence();
   wg_scores<NG>(s, qf, dk);
@@ -785,7 +737,10 @@ __device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
       }
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] = ex2(fmaf(x[e], sl2, -st2[e >> 1]));  // P
+    for (int e = 0; e < 4; ++e) {  // P
+      x[e] = ex2(fmaf(x[e], sl2, -st2[e >> 1]));
+      if constexpr (FLASH) x[e] *= inv[e >> 1];
+    }
   }
   wgmma_wait<0>();
   fence_regs<8 * NG>(dp);
@@ -801,17 +756,19 @@ __device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
 }
 
 // dk/dv pass, NG 16-query groups from query c0 of the staged Q (desc dq)
-// and dO (ddo) with their statistics (s_st: lse in log2 units, s_dl:
-// delta): S^T = K Q^T and dP^T = V dO^T in one batch; P^T and dS^T in the
-// accumulator's registers (queries >= n and, CAUSAL, queries before the key
-// to -inf); dva += round(P^T) dO and dka += round(dS^T) Q, dO and Q read
-// MN-major. key0: this lane's first key, wk0 the warp's.
-template <int NG, bool CAUSAL>
+// and dO (ddo) with their statistics (s_st: lse (FLASH: m) in log2 units,
+// s_inv: 1 / l (FLASH), s_dl: delta (di)): S^T = K Q^T and dP^T = V dO^T
+// in one batch; P^T and dS^T in the accumulator's registers (queries >= n
+// and, CAUSAL, queries before the key to -inf); dva += round(P^T) dO and
+// dka += round(dS^T) Q, dO and Q read MN-major. key0: this lane's first
+// key, wk0 the warp's.
+template <int NG, bool FLASH, bool CAUSAL>
 __device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[kWgDim / 2],
                                          const uint32_t (&kf)[kWgDim / 16][4],
                                          const uint32_t (&vf)[kWgDim / 16][4], const float* s_st,
-                                         const float* s_dl, uint64_t dq, uint64_t ddo, int c0,
-                                         int wk0, int key0, int n, float sl2, float scale, int t) {
+                                         const float* s_inv, const float* s_dl, uint64_t dq,
+                                         uint64_t ddo, int c0, int wk0, int key0, int n, float sl2,
+                                         float scale, int t) {
   float s[8 * NG], dp[8 * NG];
   wgmma_fence();
   wg_scores<NG>(s, kf, dq);
@@ -834,6 +791,11 @@ __device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[e] = ex2(fmaf(x[e], sl2, -(e & 1 ? st.y : st.x)));  // P^T
+    if constexpr (FLASH) {
+      const float2 il = *reinterpret_cast<const float2*>(s_inv + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] *= e & 1 ? il.y : il.x;
+    }
   }
   uint32_t pa[NG][4], da[NG][4];
   pack_frag_a<NG>(pa, s);
@@ -859,19 +821,21 @@ __device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[
   fence_regs<kWgDim / 2>(dka);
 }
 
-// dq pass on wgmma (K3, K5 and, with ROPE, K3r at D = 64, n and nk <= 256):
-// dQ and delta for the query rows of one block of one (sample, head), stat
-// lse. The staged keys are 16 (4 full + TAIL) rows, TAIL 1 to 4: `full`
-// whole 64-key steps in a loop, then one straight-line step of TAIL 16-key
-// groups. The header's note says how.
-template <bool ROPE, bool CAUSAL, int TAIL>
+// dq pass on wgmma (K3, K5, K10b (FLASH) and, with ROPE, K3r at D = 64, n
+// and nk <= 256): dQ for the query rows of one block of one (sample, head);
+// K3/K5/K3r: stat_a = lse, delta taken and written; K10b: stat_a = l,
+// stat_b = m, delta = di read. The staged keys are 16 (4 full + TAIL)
+// rows, TAIL 1 to 4: `full` whole 64-key steps in a loop, then one
+// straight-line step of TAIL 16-key groups. The header's note says how.
+template <bool FLASH, bool ROPE, bool CAUSAL, int TAIL>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     wgmma_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ tab,
                         const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, float* __restrict__ delta,
-                        bf16* __restrict__ dq, int n, int nk, int heads, Strides st, float scale,
-                        int full, int iters) {
+                        const float* __restrict__ stat_a, const float* __restrict__ stat_b,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int n, int nk,
+                        int heads, Strides st, float scale, int full, int iters) {
+  static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   constexpr int D = kWgDim;
   const int rows = 16 * (4 * full + TAIL);
   extern __shared__ __align__(16) unsigned char wg_smem[];
@@ -901,7 +865,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     uint32_t qf[D / 16][4], dof[D / 16][4];
     float st2[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f}, dl[2] = {0.f, 0.f};
     // the first sub-tile's under the copies; rows past n read 0
-    dq_rows<D, false, ROPE>(qf, dof, st2, inv, dl, q, tab, o, dout, lse, nullptr, delta, st, b,
+    dq_rows<D, FLASH, ROPE>(qf, dof, st2, inv, dl, q, tab, o, dout, stat_a, stat_b, delta, st, b,
                             hd, sb, wrow0, n, lane);
     if (it == 0) {
       if constexpr (ROPE) {
@@ -919,27 +883,28 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     // every row of it, so skipped, and so is a tail step past that row
     const int steps = CAUSAL ? min(full, row0 / kMmaRows + 1) : full;
     for (int tt = 0; tt < steps; ++tt)
-      dq_step<4, CAUSAL>(acc, qf, dof, st2, dl, dk + 512 * tt, dv + 512 * tt, 64 * tt, wrow0, r0,
-                         nk, sl2, scale, lane & 3);
+      dq_step<4, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * tt, dv + 512 * tt, 64 * tt,
+                                wrow0, r0, nk, sl2, scale, lane & 3);
     if (!CAUSAL || 64 * full < row0 + kMmaRows)
-      dq_step<TAIL, CAUSAL>(acc, qf, dof, st2, dl, dk + 512 * full, dv + 512 * full, 64 * full,
-                            wrow0, r0, nk, sl2, scale, lane & 3);
+      dq_step<TAIL, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * full, dv + 512 * full,
+                                   64 * full, wrow0, r0, nk, sl2, scale, lane & 3);
     if constexpr (ROPE) unrotate_frag_c<D>(as_frag_c(acc), tab, wrow0, n, lane);
     store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, as_frag_c(acc), wrow0, n, lane);
   }
 }
 
 // dk/dv pass on wgmma: dK and dV for the keys of one block of one (sample,
-// head), delta from the dq pass. The staged query rows are 16 (4 full +
-// TAIL), walked as the dq pass walks its keys.
-template <bool ROPE, bool CAUSAL, int TAIL>
+// head), statistics as the dq pass's (delta from it, or di). The staged
+// query rows are 16 (4 full + TAIL), walked as the dq pass walks its keys.
+template <bool FLASH, bool ROPE, bool CAUSAL, int TAIL>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     wgmma_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ tab,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int n, int nk, int heads, Strides st, float scale,
-                         int full, int iters) {
+                         const bf16* __restrict__ dout, const float* __restrict__ stat_a,
+                         const float* __restrict__ stat_b, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int nk, int heads,
+                         Strides st, float scale, int full, int iters) {
+  static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   constexpr int D = kWgDim;
   const int rows = 16 * (4 * full + TAIL);
   extern __shared__ __align__(16) unsigned char wg_smem[];
@@ -948,8 +913,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const uint32_t sdo = sq + rows * 128;
   float* s_st = reinterpret_cast<float*>(wg_smem + (sdo + rows * 128 - raw));
   float* s_dl = s_st + rows;
+  float* s_inv = s_dl + rows;  // FLASH only
+  constexpr int kStats = FLASH ? 3 : 2;
   constexpr uint32_t kTileBytes = kMmaRows * (D + 8) * 2;
-  const uint32_t sk = sdo + rows * 128 + 2 * rows * 4, sv = sk + kTileBytes;
+  const uint32_t sk = sdo + rows * 128 + kStats * rows * 4, sv = sk + kTileBytes;
 
   const long long b = blockIdx.x;
   const int h = blockIdx.z;
@@ -971,7 +938,12 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   cp_async_commit();
   for (int i = threadIdx.x; i < rows; i += kMmaThreads) {
     const bool in = i < n;
-    s_st[i] = in ? lse[sb + i] * kLog2e : 0.f;
+    if constexpr (FLASH) {  // 1 / l as stage_queries takes it
+      s_st[i] = in ? stat_b[sb + i] * kLog2e : 0.f;
+      s_inv[i] = in ? __fdiv_rn(1.f, stat_a[sb + i]) : 1.f;
+    } else {
+      s_st[i] = in ? stat_a[sb + i] * kLog2e : 0.f;
+    }
     s_dl[i] = in ? delta[sb + i] : 0.f;
   }
   const uint64_t dq = wgmma_desc(sq, 16, 1024), ddo = wgmma_desc(sdo, 16, 1024);
@@ -1013,10 +985,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     // causal: the 64-query steps before the sub-tile's first key see none
     // of its keys, so they are skipped; the tail step's queries are the last
     for (int tt = CAUSAL ? kr0 / kMmaRows : 0; tt < full; ++tt)
-      dkv_step<4, CAUSAL>(dka, dva, kf, vf, s_st, s_dl, dq + 512 * tt, ddo + 512 * tt, 64 * tt,
-                          wk0, key0, n, sl2, scale, lane & 3);
-    dkv_step<TAIL, CAUSAL>(dka, dva, kf, vf, s_st, s_dl, dq + 512 * full, ddo + 512 * full,
-                           64 * full, wk0, key0, n, sl2, scale, lane & 3);
+      dkv_step<4, FLASH, CAUSAL>(dka, dva, kf, vf, s_st, s_inv, s_dl, dq + 512 * tt,
+                                 ddo + 512 * tt, 64 * tt, wk0, key0, n, sl2, scale, lane & 3);
+    dkv_step<TAIL, FLASH, CAUSAL>(dka, dva, kf, vf, s_st, s_inv, s_dl, dq + 512 * full,
+                                  ddo + 512 * full, 64 * full, wk0, key0, n, sl2, scale, lane & 3);
     // dV first: its registers are free before dK's un-rotation
     store_frag_c<D>(dv + b * st.dv_bs + hd, st.dv_rs, as_frag_c(dva), wk0, nk, lane);
     if constexpr (ROPE) unrotate_frag_c<D>(as_frag_c(dka), tab, wk0, nk, lane);
@@ -1043,24 +1015,25 @@ cudaError_t with_tail(int groups, Fn&& fn) {
 
 // Launches the wgmma backward (n and nk at most kWgKeys, D = 64), dq pass
 // first; one block walks every 64-row (64-key) sub-tile of its (sample,
-// head). Returns the first cudaError_t.
-template <bool ROPE>
+// head). Statistics as launch_mma_bwd's. Returns the first cudaError_t.
+template <bool FLASH, bool ROPE>
 int launch_wgmma_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* tab, const bf16* o,
-                     const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
-                     bf16* dv, int batch, int n, int nk, int heads, const Strides& st,
-                     float scale, int causal, cudaStream_t stream) {
+                     const bf16* dout, const float* stat_a, const float* stat_b, float* delta,
+                     bf16* dq, bf16* dk, bf16* dv, int batch, int n, int nk, int heads,
+                     const Strides& st, float scale, int causal, cudaStream_t stream) {
   const int groups_k = (nk + 15) / 16, tiles_q = (n + kMmaRows - 1) / kMmaRows;
   auto dq_pass = [&](auto is_causal, auto tail) {
     constexpr bool kCausal = decltype(is_causal)::value;
     constexpr int kTail = decltype(tail)::value;
     static std::atomic<unsigned long long> done{0};
-    const cudaError_t e = allow_smem(wgmma_bwd_dq_kernel<ROPE, kCausal, kTail>,
-                                     wg_bwd_smem(kWgKeys, false), done);
+    const cudaError_t e = allow_smem(wgmma_bwd_dq_kernel<FLASH, ROPE, kCausal, kTail>,
+                                     wg_bwd_smem(kWgKeys, false, FLASH), done);
     if (e != cudaSuccess) return e;
-    wgmma_bwd_dq_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
-                                                wg_bwd_smem(16 * groups_k, false), stream>>>(
-        q, k, v, tab, o, dout, lse, delta, dq, n, nk, heads, st, scale, (groups_k - 1) / 4,
-        tiles_q);
+    wgmma_bwd_dq_kernel<FLASH, ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
+                                                       wg_bwd_smem(16 * groups_k, false, FLASH),
+                                                       stream>>>(
+        q, k, v, tab, o, dout, stat_a, stat_b, delta, dq, n, nk, heads, st, scale,
+        (groups_k - 1) / 4, tiles_q);
     return cudaGetLastError();
   };
   cudaError_t err =
@@ -1071,13 +1044,14 @@ int launch_wgmma_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* ta
     constexpr bool kCausal = decltype(is_causal)::value;
     constexpr int kTail = decltype(tail)::value;
     static std::atomic<unsigned long long> done{0};
-    const cudaError_t e = allow_smem(wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail>,
-                                     wg_bwd_smem(kWgKeys, true), done);
+    const cudaError_t e = allow_smem(wgmma_bwd_dkv_kernel<FLASH, ROPE, kCausal, kTail>,
+                                     wg_bwd_smem(kWgKeys, true, FLASH), done);
     if (e != cudaSuccess) return e;
-    wgmma_bwd_dkv_kernel<ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
-                                                 wg_bwd_smem(16 * groups_q, true), stream>>>(
-        q, k, v, tab, dout, lse, delta, dk, dv, n, nk, heads, st, scale, (groups_q - 1) / 4,
-        tiles_k);
+    wgmma_bwd_dkv_kernel<FLASH, ROPE, kCausal, kTail><<<dim3(batch, 1, heads), kMmaThreads,
+                                                        wg_bwd_smem(16 * groups_q, true, FLASH),
+                                                        stream>>>(
+        q, k, v, tab, dout, stat_a, stat_b, delta, dk, dv, n, nk, heads, st, scale,
+        (groups_q - 1) / 4, tiles_k);
     return cudaGetLastError();
   };
   err = causal ? with_tail<true>(groups_q, dkv_pass) : with_tail<false>(groups_q, dkv_pass);
@@ -1100,12 +1074,12 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab,
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
   const bf16 *vp = static_cast<const bf16*>(v), *dop = static_cast<const bf16*>(dout);
   const bf16* tp = static_cast<const bf16*>(tab);
-  if constexpr (D == kWgDim && !FLASH) {
+  if constexpr (D == kWgDim) {
     if (n <= kWgKeys && nk <= kWgKeys)
-      return launch_wgmma_bwd<ROPE>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop, stat_a,
-                                    delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                                    static_cast<bf16*>(dv), batch, n, nk, heads, st, scale,
-                                    causal, stream);
+      return launch_wgmma_bwd<FLASH, ROPE>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop,
+                                           stat_a, stat_b, delta, static_cast<bf16*>(dq),
+                                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
+                                           n, nk, heads, st, scale, causal, stream);
   }
   // resident: the rows staged, rounded up to 16, and the sub-tiles a block
   // walks; chunked: kMaxChunk and one

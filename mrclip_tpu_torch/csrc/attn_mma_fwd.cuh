@@ -30,16 +30,16 @@
 //
 // Two kernels, chosen by shape in launch_mma_fwd, the launcher all four
 // reach:
-//   wgmma_fwd_kernel<FLASH, G>, on Hopper's warpgroup products (wgmma.cuh):
-//     K1, K4 and K10 with one key block of nk <= 256 keys at D = 64,
-//     without the rope: every main-path shape of K1, K4 and K10 (N = 197,
-//     98, 77, 64). G = ceil(nk / 16) is a template argument, one
-//     instantiation per G (1..16): runtime branches between the products
-//     made ptxas copy the accumulators and wait after every wgmma, and hold
-//     255 registers with spills.
-//   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K2
-//     (the rope rotated in shared memory), K10 over several jax key blocks
-//     (MULTI, N > 256), K1 and K4 past 256 keys (the chunked walk), and D =
+//   wgmma_fwd_kernel<FLASH, ROPE, G>, on Hopper's warpgroup products
+//     (wgmma.cuh): K1, K4, K10 and K2 (ROPE) with one key block of nk <=
+//     256 keys at D = 64: every main-path shape of the four (N = 197, 98,
+//     77, 64). G = ceil(nk / 16) is a template argument, one instantiation
+//     per G (1..16) and ROPE: runtime branches between the products made
+//     ptxas copy the accumulators and wait after every wgmma, and hold 255
+//     registers with spills.
+//   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K10
+//     over several jax key blocks (MULTI, N > 256), K1, K2 and K4 past 256
+//     keys (the chunked walk; K2's rope rotated in shared memory), and D =
 //     32.
 //
 // wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
@@ -51,6 +51,20 @@
 //     by sub-tile into rows padded for ldmatrix, two tiles, the next one's
 //     copy overlapping this one; each warp's ldmatrix fragments of its 16
 //     rows are the register A operand of S;
+//   - K2 (ROPE) rotates as the plain version does (rope.cuh's
+//     rotate_pair_f32, one rounding: bit-identical), each thread the
+//     16-byte pieces it copied itself once its cp.async wait has landed
+//     them, before the barrier that publishes them, the table rows read by
+//     16-byte loads (L1/L2: 50 KB at N = 197): K once per (sample, head) in
+//     the swizzled tile while V still lands, then fence.proxy.async
+//     (rotate_swz); each Q sub-tile in its padded rows (rotate_rows), so
+//     the barrier that already publishes the tile publishes the rotation
+//     too. Rotating each warp's Q A fragments in registers instead
+//     (rotate_frag_a, 32-bit table loads, eight 16-byte rows a load) read
+//     0.2326 ms against 0.2050 at EVA02 vision b256 on the H100; loading
+//     every piece's table words before K lands spilled (PERF.md, section
+//     6). Either rotation alone costs about as much as both: the first
+//     table reads of a block come from L2 under the copies' load;
 //   - S = Q K^T once: wgmma m64n64k16 over the whole 64-key tiles and
 //     m64n16k16 over the 16-key groups of the tail (N = 197 computes 208
 //     keys, not 256); each row's scores stay whole in registers (8 G fp32 a
@@ -68,24 +82,24 @@
 //     mma_fwd_kernel takes a second exp, fp32 ulps before the rounding;
 //   - O = P V on wgmma m64n64k16, one 16-key group a step, V read MN-major
 //     (transpose bit, no copy); o rounded to bf16 and stored through the
-//     warp's rows of the Q tile by 16-byte stores; lse = m + log l (K1, K4)
-//     or l and m (K10); rows >= n store nothing.
+//     warp's rows of the Q tile by 16-byte stores; lse = m + log l (K1, K4,
+//     K2) or l and m (K10); rows >= n store nothing.
 // Sub-tile waste at N = 197: 197 rows compute 256 rows of each product,
 // and 197 keys 208. Shared memory: 1 KB of alignment slack, K and V 2 KB
 // each per 16-key group, two Q tiles of 9 KB: 72,704 bytes at N = 197 (G =
 // 13), 85,000 at 256 keys; two blocks an SM (__launch_bounds__(128, 2)).
 // Registers (-Xptxas -v in build.py's log, sm_90a): 74 (G = 1) to 185 (G
-// = 16), 164 at G = 13, 104 at G = 7, 88 at G = 5, the same for K10; no
-// spill, no serialized wgmma.
+// = 16), 164 at G = 13, 104 at G = 7, 88 at G = 5, the same for K10; K2
+// 90 (G <= 5) to 182, 160 at G = 13; no spill, no serialized wgmma.
 //
-// mma_fwd_kernel (K2, MULTI, past 256 keys, D = 32) keeps every product on
+// mma_fwd_kernel (MULTI, past 256 keys, D = 32) keeps every product on
 // the tensor cores and reads K and V from device memory once per (sample,
 // head) where a block holds them:
 //   - four warps of 16 query rows walk sub-tiles of 64 rows; where one chunk
-//     holds every key (K2's main-path shape) K and V stay staged and a
+//     holds every key (D = 32 up to 256 keys) K and V stay staged and a
 //     block walks up to 256 query rows, so K and V leave device memory once
-//     per (sample, head) at N = 197 (one block per 64 rows read them four
-//     times there and took nearly twice as long on the H100); the grid is
+//     per (sample, head) (one block per 64 rows read them four times at N =
+//     197 and took nearly twice as long on the H100); the grid is
 //     (batch or groups, row blocks, heads);
 //   - Q, K and V staged in bf16 in dynamic shared memory by 16-byte
 //     cp.async (one row's head slice is D * 2 bytes, so the same copy takes
@@ -106,12 +120,12 @@
 //     staged, and again for each chunk copied again past 256 keys; V's copy
 //     still overlaps the rotation and pass A; zero-filled rows are left
 //     alone;
-//   - a chunk is up to 256 keys, the whole K and V of one jax key block
-//     (K2's main-path shape, N = 197); V's copy overlaps
-//     pass A. K1, K2 and K4 past 256 keys walk chunks of 256, copied again
-//     in pass B. Whole chunks, not double-buffered 64-key tiles: jax's
-//     blocks are at most 256 keys, so one copy per block serves both passes
-//     and the recompute of pass B reads shared memory only;
+//   - a chunk is up to 256 keys, the whole K and V of one jax key block;
+//     V's copy overlaps pass A. K1, K2 and K4 past 256 keys walk chunks of
+//     256, copied again in pass B. Whole chunks, not double-buffered 64-key
+//     tiles: jax's blocks are at most 256 keys, so one copy per block
+//     serves both passes and the recompute of pass B reads shared memory
+//     only;
 //   - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 out) with Q's fragments
 //     loaded once by ldmatrix, 64 keys at a time, scaled in fp32; keys past
 //     the chunk and causal pairs (key > query) set to -inf, so their exp is
@@ -307,6 +321,37 @@ __device__ __forceinline__ void rotate_rows(uint32_t dst, const bf16* __restrict
       sts16(a1, rotate_piece(x1, s1, k1));
     } else {
       sts16(a, rotate_piece(x0, s0, k0));
+    }
+  }
+}
+
+// K3r: this warp's A fragments of rows [r0, r0 + 16) rotated in registers
+// by the [n, 2D] table. In mma.sync's m16n8k16 A layout, which is also
+// wgmma's register A (attn_mma_bwd.cuh's load_frag_a, or ldmatrix), each
+// 32-bit register holds the pair (2i, 2i + 1) of one row, so a lane rotates
+// its own words (rotate_word), reading the pair's sin and cos words of the
+// table. No branch: a row past n reads row n - 1's table and is set to 0,
+// so that every table load can be issued before the first is used. K2's
+// wgmma form rotates its Q sub-tile with rotate_rows instead (faster on the
+// H100: the header's note).
+template <int D>
+__device__ __forceinline__ void rotate_frag_a(uint32_t (&f)[D / 16][4],
+                                              const bf16* __restrict__ tab, int r0, int n,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool in0 = r0 + g < n, in1 = r0 + g + 8 < n;
+  // the sin words of rows g and g + 8 at column 2t; the cos words D / 2 on
+  const uint32_t* t0 =
+      reinterpret_cast<const uint32_t*>(tab + min(r0 + g, n - 1) * (2 * D)) + t;
+  const uint32_t* t1 =
+      reinterpret_cast<const uint32_t*>(tab + min(r0 + g + 8, n - 1) * (2 * D)) + t;
+#pragma unroll
+  for (int ds = 0; ds < D / 16; ++ds) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rows g (e even), g + 8 (odd); columns + 8 from e = 2
+      const uint32_t* w = (e & 1 ? t1 : t0) + 8 * ds + 4 * (e >> 1);
+      const uint32_t y = rotate_word(f[ds][e], __ldg(w), __ldg(w + D / 2));
+      f[ds][e] = (e & 1 ? in1 : in0) ? y : 0u;
     }
   }
 }
@@ -704,16 +749,47 @@ __device__ __forceinline__ void stage_swz(uint32_t dst, const bf16* src, long lo
   }
 }
 
-// K1 and K4 (FLASH = false: stat_a = lse) and K10 with one key block (FLASH
-// = true: stat_a = l, stat_b = m), D = 64, nk <= 16 G. One warpgroup walks
+// K2, K3r: rows [0, len) that stage_swz staged at `dst` rotated in place,
+// row r by table row r (rotate_rows's arithmetic in the swizzled tile).
+// Each thread takes the 16-byte pieces it copied itself (piece c =
+// threadIdx % 8 of rows threadIdx / 8 + 16 m), so its own cp.async wait has
+// landed them, four pieces' loads in flight at once; the caller's
+// fence_proxy_async and barrier publish the rotated rows to wgmma. The
+// zero-filled rows past len stay as they are.
+__device__ __forceinline__ void rotate_swz(uint32_t dst, const bf16* __restrict__ tab, int len) {
+  constexpr int kStep = kMmaThreads / 8;  // rows between a thread's pieces
+  const int c = threadIdx.x & 7;
+  for (int r0 = threadIdx.x >> 3; r0 < len; r0 += 4 * kStep) {
+    uint4 x[4], sn[4], cs[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // a row past len reloads the thread's first
+      const int r = r0 + u * kStep < len ? r0 + u * kStep : r0;
+      const uint4* t = reinterpret_cast<const uint4*>(tab + r * (2 * kWgDim) + c * 8);
+      x[u] = lds16(dst + swz128(r, c));
+      sn[u] = __ldg(t);
+      cs[u] = __ldg(t + kWgDim / 8);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r0 + u * kStep < len)
+        sts16(dst + swz128(r0 + u * kStep, c), rotate_piece(x[u], sn[u], cs[u]));
+    }
+  }
+}
+
+// K1 and K4 (FLASH = false: stat_a = lse), K10 with one key block (FLASH =
+// true: stat_a = l, stat_b = m) and K2 (ROPE: q and k rotated by the [n,
+// 2D] table `tab`, self-attention), D = 64, nk <= 16 G. One warpgroup walks
 // `iters` sub-tiles of 64 query rows with K and V staged once, computing G
 // 16-key groups of scores for each; the header's note says how.
-template <bool FLASH, int G>
+template <bool FLASH, bool ROPE, int G>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     wgmma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ stat_a, float* __restrict__ stat_b, int n, int nk,
-                     int heads, Strides st, float scale, int causal, int iters) {
+                     const bf16* __restrict__ v, const bf16* __restrict__ tab,
+                     bf16* __restrict__ o, float* __restrict__ stat_a,
+                     float* __restrict__ stat_b, int n, int nk, int heads, Strides st,
+                     float scale, int causal, int iters) {
+  static_assert(!(FLASH && ROPE), "the rope forward is K2's");
   constexpr int D = kWgDim;
   constexpr int kN64 = G / 4;  // whole 64-key tiles of S (n64), then G % 4 groups (n16)
   constexpr uint32_t kQBytes = kMmaRows * (D + 8) * 2;
@@ -748,10 +824,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const bool next = it + 1 < tiles;
     if (it == 0) {
       cp_async_wait<1>();  // Q and K
+      if constexpr (ROPE) rotate_swz(sk, tab, nk);  // K2: K rotated once, while V lands
       fence_proxy_async();
     } else {
       cp_async_wait<0>();
     }
+    // K2: this sub-tile's Q rows rotated in place, each thread its own
+    // pieces (its cp.async wait landed them), published by the barrier
+    if constexpr (ROPE) rotate_rows<D>(sq, tab, row0, min(kMmaRows, n - row0));
     __syncthreads();  // Q (and K) landed; every warp is done with the other Q tile
     if (next) {  // the next sub-tile's Q copy overlaps this one
       const int r1 = row0 + kMmaRows;
@@ -890,42 +970,44 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-// Launches wgmma_fwd_kernel<FLASH, G> for the least G >= `groups` (16-key
-// groups of nk, 1 .. kWgKeys / 16).
-template <bool FLASH, int G = 1>
-int launch_wgmma_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
-                     float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
-                     float scale, int causal, int groups, cudaStream_t stream) {
+// Launches wgmma_fwd_kernel<FLASH, ROPE, G> for the least G >= `groups`
+// (16-key groups of nk, 1 .. kWgKeys / 16).
+template <bool FLASH, bool ROPE, int G = 1>
+int launch_wgmma_fwd(const void* q, const void* k, const void* v, const void* tab, void* o,
+                     float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
+                     const Strides& st, float scale, int causal, int groups,
+                     cudaStream_t stream) {
   if constexpr (G < kWgKeys / 16) {
     if (groups > G)
-      return launch_wgmma_fwd<FLASH, G + 1>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
-                                            scale, causal, groups, stream);
+      return launch_wgmma_fwd<FLASH, ROPE, G + 1>(q, k, v, tab, o, stat_a, stat_b, batch, n, nk,
+                                                  heads, st, scale, causal, groups, stream);
   }
   static std::atomic<unsigned long long> done{0};
   const int smem = wg_smem_bytes(16 * G);
-  const cudaError_t err = allow_smem(wgmma_fwd_kernel<FLASH, G>, smem, done);
+  const cudaError_t err = allow_smem(wgmma_fwd_kernel<FLASH, ROPE, G>, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n + kMmaRows - 1) / kMmaRows;
   const int iters = tiles < kMaxRows / kMmaRows ? tiles : kMaxRows / kMmaRows;
   const dim3 grid(batch, (tiles + iters - 1) / iters, heads);
-  wgmma_fwd_kernel<FLASH, G><<<grid, kMmaThreads, smem, stream>>>(
+  wgmma_fwd_kernel<FLASH, ROPE, G><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, iters);
+      static_cast<const bf16*>(tab), static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st,
+      scale, causal, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
 // `tab`: K2's [n, 2D] rope table (ROPE), else unused. One key block of at
-// most kWgKeys keys at D = 64 without the rope takes wgmma_fwd_kernel, the
-// rest mma_fwd_kernel.
+// most kWgKeys keys at D = 64 takes wgmma_fwd_kernel (K2 too, in its ROPE
+// form), the rest mma_fwd_kernel.
 template <int D, bool FLASH, bool MULTI, bool ROPE = false>
 int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab, void* o,
                    float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
                    const Strides& st, float scale, int causal, int blk_q, int blk_k, int nblk,
                    cudaStream_t stream) {
-  if constexpr (D == kWgDim && !MULTI && !ROPE) {
+  if constexpr (D == kWgDim && !MULTI) {
     if (nblk == 1 && nk <= kWgKeys)
-      return launch_wgmma_fwd<FLASH>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st, scale,
-                                     causal, (nk + 15) / 16, stream);
+      return launch_wgmma_fwd<FLASH, ROPE>(q, k, v, tab, o, stat_a, stat_b, batch, n, nk, heads,
+                                           st, scale, causal, (nk + 15) / 16, stream);
   }
   const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -53,7 +53,9 @@
 // forward in attn_mma_fwd.cuh (K and V staged in bf16 by 16-byte copies;
 // one key block of at most 256 keys at D = 64 on wgmma),
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
-// statistics m and 1 / l, and di, read per query row). fp32 runs on the
+// statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
+// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32 on
+// mma.sync). fp32 runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
 // only q, k, v are kept).

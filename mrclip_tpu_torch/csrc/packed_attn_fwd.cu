@@ -34,8 +34,9 @@
 //   bf16: attn_mma_fwd.cuh's tensor-core forward that K4 runs (K1 is the
 //     same instantiation, with the packed strides): wgmma_fwd_kernel, on
 //     Hopper's wgmma, at D = 64 with at most 256 keys (every main-path
-//     shape of K1), mma_fwd_kernel otherwise; K2 sets mma_fwd_kernel's ROPE
-//     flag, which rotates the staged Q and K rows in shared memory.
+//     shape of K1 and K2), mma_fwd_kernel otherwise; K2 sets either
+//     kernel's ROPE flag: each rotates the staged K rows once per (sample,
+//     head) and each staged Q sub-tile in shared memory.
 //     Its 16-byte copies need the views' base pointers and batch and row
 //     strides to be multiples of 16 bytes, which the wrapper checks;
 //   fp32: packed_attn_fwd_kernel below, on the FMA pipes (TF32 products

@@ -372,8 +372,9 @@ def test_rope_kernels_match_plain_versions(cuda_device, b, n, h, d, prefix, caus
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,n,h,d,prefix,causal", [
-    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer: K stays staged, rotated once
-    (1, 257, 2, 64, 1, False),   # two chunks, K rotated again in pass B
+    (2, 197, 12, 64, 1, False),  # EVA02-B/16 layer (wgmma): K rotated once in shared memory
+    (2, 256, 2, 64, 1, True),    # the top of the wgmma route, causal
+    (1, 257, 2, 64, 1, False),   # mma.sync: two chunks, K rotated again in pass B
     (1, 577, 2, 64, 1, True),    # three chunks, causal
     (2, 50, 2, 32, 1, False),    # head dim 32
 ])
@@ -382,11 +383,13 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
     """K2 equals, bit for bit, the same attention on q and k rotated
     beforehand by the plain version's arithmetic (`_rope_rotate`: fp32, each
     product and sum rounded once, one rounding to q's type): K2 with the
-    identity table (sin 0, cos 1, which rotates exactly), and K1 wherever K1
-    runs K2's kernel (all but the bf16 wgmma route, one key block of at most
-    256 keys at D = 64). So the kernel's rotation is the plain version's,
-    and the CLS row, whose table row is the identity, stays exactly the
-    unrotated q and k."""
+    identity table (sin 0, cos 1, which rotates exactly), and K1, which
+    runs K2's kernel without the rotation on every route (bf16
+    wgmma_fwd_kernel at one key block of at most 256 keys and D = 64, K
+    and each Q sub-tile rotated in shared memory; mma_fwd_kernel past it
+    and at D = 32; fp32 on the FMA kernel). So the kernel's rotation is the
+    plain version's, and the CLS row, whose table row is the identity,
+    stays exactly the unrotated q and k."""
     q, k, v, _, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, dtype)
     o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
     sin, cos = (t[:, None] for t in tab.float().chunk(2, dim=-1))  # [N, 1, D]
@@ -398,10 +401,7 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
     qr, kr = rotated(q), rotated(k)
     assert torch.equal(qr[:, :prefix], q[:, :prefix]) and torch.equal(kr[:, :prefix], k[:, :prefix])
     identity = torch.cat([torch.zeros_like(tab[:, :d]), torch.ones_like(tab[:, d:])], dim=-1)
-    same_kernel = [dict(rope=identity)]
-    if not (dtype == torch.bfloat16 and d == 64 and n <= 256):
-        same_kernel.append({})  # K1
-    for kw in same_kernel:
+    for kw in (dict(rope=identity), {}):  # K2 with the identity table, K1
         o1, lse1 = fa.fused_attention_packed(qr, kr, v, is_causal=causal, heads=h, **kw)
         torch.cuda.synchronize()
         assert torch.equal(o, o1) and torch.equal(lse, lse1)
@@ -624,18 +624,22 @@ def _device_kernels(fn):
     return {ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
 
 
-@pytest.mark.parametrize("impl", ["fusedp", "fusedp_rope", "fused"])
+@pytest.mark.parametrize("impl", ["fusedp", "fusedp_rope", "fused", "flash"])
 @pytest.mark.parametrize("n,nk,wgmma", [(256, 256, True), (76, 255, True), (257, 257, False),
                                         (76, 300, False)])
 def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
-    """bf16 K3, K3r and K5 at D = 64 run the wgmma backward
+    """bf16 K3, K3r, K5 and K10b at D = 64 run the wgmma backward
     (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel) where n and nk are at most
     256, and attn_mma_bwd.cuh's mma.sync kernels past that (N = 257; Nk =
     300), by the profiler's kernel names."""
     if impl == "fusedp_rope" and n != nk:
         pytest.skip("K3r is self-attention")
     q, k, v = _inputs(1, n, nk, 2, 64, cuda_device, torch.bfloat16)
-    if impl == "fused":
+    if impl == "flash":
+        o, l, m = fl.flash_attention(q, k, v)
+        di = fl.flash_di(o, o)
+        names = _device_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, l, m, di))
+    elif impl == "fused":
         q, k, v = (t.transpose(1, 2).reshape(2, -1, 64).contiguous() for t in (q, k, v))
         o, lse = fa.fused_attention_grouped(q, k, v)
         names = _device_kernels(lambda: fa.fused_attention_grouped_bwd(q, k, v, o, o, lse))
@@ -650,6 +654,21 @@ def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
     assert len(names) == 2
     for name in names:
         assert ("wgmma_bwd_" in name) == wgmma and "mma_bwd_" in name
+
+
+@pytest.mark.parametrize("n,wgmma", [(197, True), (256, True), (257, False)])
+def test_bf16_rope_forward_route_by_shape(cuda_device, n, wgmma):
+    """bf16 K2 at D = 64 runs wgmma_fwd_kernel's ROPE form with one key
+    block of at most 256 keys, and mma_fwd_kernel's past that (N = 257), by
+    the profiler's kernel names."""
+    q, k, v, _, tab = _rope_inputs(1, n, 2, 64, 1, cuda_device, torch.bfloat16)
+    names = _device_kernels(lambda: fa.fused_attention_packed(q, k, v, heads=2, rope=tab))
+    assert len(names) == 1
+    name = names.pop()
+    if wgmma:
+        assert "wgmma_fwd_kernel<false, true, " in name
+    else:
+        assert "mma_fwd_kernel<64, false, false, true>" in name and "wgmma" not in name
 
 
 def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):

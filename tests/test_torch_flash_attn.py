@@ -48,13 +48,15 @@ def test_plain_forward_matches_jax_kernel(n, causal, d):
     assert np.abs(got.numpy() - want).max() < 1e-4
 
 
-@pytest.mark.parametrize("n,causal", [(197, False), (98, True), (257, False), (257, True),
-                                      (577, False)])
+@pytest.mark.parametrize("n,causal", [(197, False), (98, True), (77, True), (256, False),
+                                      (256, True), (257, False), (257, True), (577, False)])
 def test_plain_gradients_match_jax_kernels(n, causal):
     """fp32: dq, dk, dv through `FlashAttention` (plain K10, di outside,
     plain K10b) against jax.grad through `flash_attention_unpadded`, each to
-    1e-4. JAX's side takes `save_residuals=True`: its default remat wrapper
-    cannot be partial-evaluated in interpret mode (tests/test_flash_attn.py)."""
+    1e-4: at EVA02-B-16's causal text shape (77), the top of the bf16 K10b's
+    wgmma route (256, causal and not) and past it. JAX's side takes
+    `save_residuals=True`: its default remat wrapper cannot be
+    partial-evaluated in interpret mode (tests/test_flash_attn.py)."""
     q, k, v, do = _inputs(n, seed=1)
 
     def loss(q_, k_, v_):

@@ -131,42 +131,48 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels, includes)
 
 @pytest.mark.parametrize("source", ["packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu"])
 def test_attention_forwards_reach_wgmma(source):
-    """K1, K4 and K10 reach the Hopper forward on wgmma: `wgmma.cuh` is among
-    the headers that key their build, it emits `wgmma.mma_async`, and the
-    one launcher they share routes one key block of at most 256 keys at D =
-    64 without the rope to `wgmma_fwd_kernel` (the kernel itself runs only
-    on the card)."""
+    """K1, K2, K4 and K10 reach the Hopper forward on wgmma: `wgmma.cuh` is
+    among the headers that key their build, it emits `wgmma.mma_async`, and
+    the one launcher they share routes one key block of at most 256 keys at
+    D = 64, with the rope (K2) or without, to `wgmma_fwd_kernel` (the
+    kernel itself runs only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
     header = (build.CSRC / "wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
     assert "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16" in header
     fwd = (build.CSRC / "attn_mma_fwd.cuh").read_text()
     launcher = fwd[fwd.index("int launch_mma_fwd("):]
+    assert "if constexpr (D == kWgDim && !MULTI) {" in launcher
     assert "if (nblk == 1 && nk <= kWgKeys)" in launcher
-    assert "return launch_wgmma_fwd<FLASH>(" in launcher
+    assert "return launch_wgmma_fwd<FLASH, ROPE>(" in launcher
     assert "constexpr int kWgKeys = 256;" in fwd and "constexpr int kWgDim = 64;" in fwd
 
 
-@pytest.mark.parametrize("source,call,routed", [
+@pytest.mark.parametrize("source,call,writes_delta", [
     ("packed_attn_bwd.cu", "launch_mma_bwd<D, false, ROPE>(", True),  # K3, K3r
     ("grouped_attn.cu", "launch_bwd<T, D, false>(", True),  # K5
-    ("flash_attn.cu", "launch_bwd<T, D, true>(", False),  # K10b
+    ("flash_attn.cu", "launch_bwd<T, D, true>(", False),  # K10b: di from outside
 ])
-def test_attention_backwards_reach_wgmma(source, call, routed):
-    """K3, K3r and K5 reach the Hopper backward on wgmma, K10b does not:
-    `wgmma.cuh` keys each source's build through `attn_mma_bwd.cuh`, and the
-    launcher they share sends bf16 at D = 64 with n and nk at most 256 to
-    `launch_wgmma_bwd` unless FLASH (the source's template flag). Every
-    wgmma pass ends in a straight-line step of 1 to 4 groups: no TAIL = 0
+def test_attention_backwards_reach_wgmma(source, call, writes_delta):
+    """K3, K3r, K5 and K10b reach the Hopper backward on wgmma: `wgmma.cuh`
+    keys each source's build through `attn_mma_bwd.cuh`, and the launcher
+    they share sends bf16 at D = 64 with n and nk at most 256 to
+    `launch_wgmma_bwd` whatever the source's FLASH flag (K10b's, which reads
+    m, l and di where the others take lse and write delta). Every wgmma
+    pass ends in a straight-line step of 1 to 4 groups: no TAIL = 0
     instantiation (the kernels run only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
     assert call in (build.CSRC / source).read_text()
-    assert ("FLASH" not in call and "true" not in call.split("<")[1]) == routed
+    assert ("FLASH" not in call and "true" not in call.split("<")[1]) == writes_delta
     bwd = (build.CSRC / "attn_mma_bwd.cuh").read_text()
     launcher = bwd[bwd.index("int launch_mma_bwd("):]
-    assert "if constexpr (D == kWgDim && !FLASH) {" in launcher
+    assert "if constexpr (D == kWgDim) {" in launcher and "!FLASH" not in launcher
     assert "if (n <= kWgKeys && nk <= kWgKeys)" in launcher
-    assert "return launch_wgmma_bwd<ROPE>(" in launcher
+    assert "return launch_wgmma_bwd<FLASH, ROPE>(" in launcher
+    # the FLASH passes read di; only the others' dq pass writes delta
+    dq_rows = bwd[bwd.index("void dq_rows("):bwd.index("void dq_walk(")]
+    flash, other = dq_rows.split("} else {", 1)
+    assert "delta[sb + row] =" not in flash and "delta[sb + row] = dl[i]" in other
     tails = re.findall(r"std::integral_constant<int, (\d+)>\(\)", bwd)
     assert sorted(map(int, tails)) == [1, 2, 3, 4]
 

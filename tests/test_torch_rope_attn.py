@@ -25,9 +25,10 @@ from test_torch_fused_attn_bwd import TILE_EDGES, bf16_bars
 # torch's default of one thread per core in each of them oversubscribes the CPU.
 torch.set_num_threads(1)
 
-# (B, N, H, D): the EVA02-B/16 layer with its 14 x 14 rope table, and the
-# JAX package's own small rope case (tests/test_fused_attn.py)
-SHAPES = [(2, 197, 12, 64), (2, 19, 3, 8)]
+# (B, N, H, D): the EVA02-B/16 layer with its 14 x 14 rope table, the top
+# of the bf16 K2's and K3r's wgmma route (256 keys), and the JAX package's
+# own small rope case (tests/test_fused_attn.py)
+SHAPES = [(2, 197, 12, 64), (1, 256, 2, 64), (2, 19, 3, 8)]
 
 
 def _inputs(b, n, h, d, prefix, seed=0):
