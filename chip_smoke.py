@@ -147,7 +147,15 @@ VISION = dict(b=32, n=197, nk=197, h=12, d=64, causal=False)  # ViT-B-16, batch 
 TEXT = dict(b=32, n=98, nk=98, h=8, d=64, causal=True)  # its text tower, context 98
 TRAIN_BATCH = 256
 EMBED = 512  # ViT-B-16's embedding width: the D of the loss kernels
-SUPCON_CASES = [(256, 32), (100, 32), (333, 32), (256, None)]  # (B, label classes | distinct)
+# K6/K7: (B, label classes | None for distinct labels, D): the train batch,
+# ragged batches, the edges of ops/pallas_loss.plan's 32-row tiles and
+# splits (31, 33, 127, 129, 257) and of its 64 x 128 gradient tiles (1000),
+# D = 30 (element-by-element copies) and 1024 (the gradients in two
+# 512-wide slices, own rows streamed)
+SUPCON_CASES = [(256, 32, EMBED), (100, 32, EMBED), (333, 32, EMBED), (256, None, EMBED),
+                *((n, 32, EMBED) for n in (31, 33, 127, 129, 257, 1000)),
+                (1000, 32, 30), (256, 32, 1024)]
+SUPCON_BIG = 8192  # a global batch of the 8k-32k the fused loss exists for
 EDGES = [dict(b=4, n=n, nk=n, h=4, d=64, causal=c) for n in (1, 50, 257) for c in (False, True)]
 EDGES += [dict(b=2, n=76, nk=255, h=2, d=64, causal=False),  # kv length != q length
           dict(b=3, n=33, nk=33, h=2, d=32, causal=True)]  # head dim 32
@@ -376,16 +384,18 @@ def flash_bound(b, n, nk, h, d, causal, dtype, backward=False):
     return _bound(nbytes, (10 if backward else 4) * b * h * _pairs(n, nk, causal) * d, dtype)
 
 
-def supcon_bound(kind, nq, nk, d):
+def supcon_bound(kind, nq, nk, d, scratch=0):
     """K6 'stats': 2*Nq*Nk*D operations, q and k read, 4 row vectors written;
     K7 'grad_q'/'grad_k': 4*Nq*Nk*D (the logit tile and the gradient
-    product), q, k, labels and 3 row vectors read, dq (+ds) or dk written."""
+    product), q, k, labels and 3 row vectors read, dq (+ds) or dk written.
+    `scratch`: fp32 partials a split call also writes and reads back (not
+    part of the function; the bound with them is reported beside it)."""
     if kind == "stats":
         nbytes, ops = 4 * (nq + nk) * d + 4 * (nq + nk) + 16 * nq, 2 * nq * nk * d
     else:
         out = nq * d + nq if kind == "grad_q" else nk * d
         nbytes, ops = 4 * (nq + nk) * d + 4 * (nq + nk) + 12 * nq + 4 * out, 4 * nq * nk * d
-    return _bound(nbytes, ops, torch.float32)
+    return _bound(nbytes + 8 * scratch, ops, torch.float32)
 
 
 def qkv_slices(shape, dtype, gen):
@@ -1206,9 +1216,9 @@ def phase_kernel_flash():
     }]
 
 
-def supcon_inputs(n, classes, gen):
-    q = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
-    k = torch.nn.functional.normalize(torch.randn(n, EMBED, device="cuda", generator=gen), dim=-1)
+def supcon_inputs(n, classes, gen, d=EMBED):
+    q = torch.nn.functional.normalize(torch.randn(n, d, device="cuda", generator=gen), dim=-1)
+    k = torch.nn.functional.normalize(torch.randn(n, d, device="cuda", generator=gen), dim=-1)
     labels = (torch.arange(n, device="cuda") if classes is None else
               torch.randint(0, classes, (n,), device="cuda", generator=gen)).to(torch.int32)
     scale = torch.tensor([1 / 0.07], device="cuda")
@@ -1216,16 +1226,36 @@ def supcon_inputs(n, classes, gen):
     return q, k, labels, scale, gbar
 
 
+SUPCON_MERGE = {"supcon_stats": "supcon_stats_merge", "supcon_grad_q": "supcon_sum_splits",
+                "supcon_grad_k": "supcon_sum_splits"}
+
+
+def supcon_plans(q, k):
+    """ops/pallas_loss.plan of each K6/K7 kernel on these operands, as the
+    wrappers cut the call."""
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+
+    return {f"supcon_{kind}": pl._plan_for(kind, q, k) for kind in pl.TILES}
+
+
+def plan_text(p):
+    return (f"{p.tm}x{p.tn} tiles, {p.splits} split(s) of {p.per_split}, {p.blocks} blocks"
+            + (", own rows resident" if p.resident else "") + ("" if p.wide else ", element copies"))
+
+
 def phase_kernel_supcon():
-    """K6 and K7 against their plain versions in fp32; timings at B = 256
-    (the train step) and 8192."""
+    """K6 and K7 against their plain versions in fp32 at every SUPCON_CASES
+    shape, two runs bit-equal, timings at B = 256 (the train step) and 8192
+    (event medians and the profiler's device time), and the pallas-loss
+    forward+backward at B = 8192 against the dense loss."""
+    from mrclip_tpu_torch.losses import multipositive_clip_loss
     from mrclip_tpu_torch.ops import pallas_loss as pl
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"supcon_stats": 0.0, "supcon_grad_q": 0.0, "supcon_grad_k": 0.0}
     worst_abs = dict(worst)
-    for n, classes in SUPCON_CASES:
-        q, k, labels, scale, gbar = supcon_inputs(n, classes, gen)
+    for n, classes, d in SUPCON_CASES:
+        q, k, labels, scale, gbar = supcon_inputs(n, classes, gen, d)
         stats = pl.supcon_stats(q, k, labels, labels, scale)
         want = pl.supcon_stats_ref(q, k, labels, labels, scale)
         m, s, _, cnt = want
@@ -1241,11 +1271,12 @@ def phase_kernel_supcon():
             "supcon_grad_k": rel_err(dk, want_dk),
         }
         ok = max(errs.values()) <= SUPCON_TOL
-        log(f"[kernel] K6/K7 B={n} D={EMBED} labels={classes or 'distinct'} fp32: "
-            + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items()) + f" (tol {SUPCON_TOL}) "
-            + ("ok" if ok else "FAIL"))
+        plans = supcon_plans(q, k)
+        log(f"[kernel] K6/K7 B={n} D={d} labels={classes or 'distinct'} fp32: "
+            + ", ".join(f"{k_} {e:.3e} ({plan_text(plans[k_])})" for k_, e in errs.items())
+            + f" (tol {SUPCON_TOL}) " + ("ok" if ok else "FAIL"))
         if not ok:
-            raise AssertionError(f"supcon kernels disagree with their plain versions at B={n}")
+            raise AssertionError(f"supcon kernels disagree with their plain versions at B={n} D={d}")
         abs_errs = {
             "supcon_stats": max(abs_err(g, w) for g, w in zip(stats, want)),
             "supcon_grad_q": max(abs_err(dq, want_dq), abs_err(ds_rows, want_ds)),
@@ -1255,30 +1286,59 @@ def phase_kernel_supcon():
             worst[name] = max(worst[name], e)
             worst_abs[name] = max(worst_abs[name], abs_errs[name])
 
-    def timings(n):
+    def calls(n):
         q, k, labels, scale, gbar = supcon_inputs(n, 32, gen)
         m, s, _, cnt = pl.supcon_stats_ref(q, k, labels, labels, scale)
         cnt = cnt.clamp(min=1.0)
-        calls = {
-            "supcon_stats": (lambda: pl.supcon_stats(q, k, labels, labels, scale),
-                             lambda: pl.supcon_stats_ref(q, k, labels, labels, scale), "stats"),
-            "supcon_grad_q": (lambda: pl.supcon_grad_q(q, k, labels, labels, scale, m, s, cnt, gbar),
-                              lambda: pl.supcon_grad_q_ref(q, k, labels, labels, scale, m, s, cnt,
-                                                           gbar), "grad_q"),
-            "supcon_grad_k": (lambda: pl.supcon_grad_k(q, k, labels, labels, scale, m, s, cnt, gbar),
-                              lambda: pl.supcon_grad_k_ref(q, k, labels, labels, scale, m, s, cnt,
-                                                           gbar), "grad_k"),
+        args = (q, k, labels, labels, scale, m, s, cnt, gbar)
+        return supcon_plans(q, k), {
+            "supcon_stats": (lambda: pl.supcon_stats(*args[:5]),
+                             lambda: pl.supcon_stats_ref(*args[:5]), "stats"),
+            "supcon_grad_q": (lambda: pl.supcon_grad_q(*args), lambda: pl.supcon_grad_q_ref(*args),
+                              "grad_q"),
+            "supcon_grad_k": (lambda: pl.supcon_grad_k(*args), lambda: pl.supcon_grad_k_ref(*args),
+                              "grad_k"),
         }
+
+    # every kernel splits its walk at B = 256: two runs merge their partials
+    # in the same order, without atomics
+    plans, fns = calls(TRAIN_BATCH)
+    same = {}
+    for name, (kernel, _, _) in fns.items():
+        first, second = kernel(), kernel()
+        first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+        same[name] = plans[name].splits > 1 and all(
+            torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[kernel] K6/K7 B={TRAIN_BATCH} D={EMBED}: two runs bit-equal (split plans): {same}")
+    if not all(same.values()):
+        raise AssertionError(f"supcon kernels are not deterministic at a split shape: {same}")
+
+    def timings(n):
+        plans, fns = calls(n)
+        runs = 3 if n >= SUPCON_BIG else FWD_RUNS
+        timed = {name: kernel for name, (kernel, _, _) in fns.items()}
+        timed.update({f"{name} plain": plain for name, (_, plain, _) in fns.items()})
+        med, readings = median_ms(timed, 5 if n >= SUPCON_BIG else 50, runs=runs)
+        dev = device_ms(timed, launches=3 if n >= SUPCON_BIG else 10, runs=runs)
         out = {}
-        for name, (kernel, plain, kind) in calls.items():
-            ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 10)
+        for name, (_, _, kind) in fns.items():
+            p = plans[name]
             bound, by = supcon_bound(kind, n, n, EMBED)
-            log(f"[kernel] {name} fp32 B={n} D={EMBED}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound * 1e3:.2f} us ({by})")
-            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            bound_p, by_p = supcon_bound(kind, n, n, EMBED, p.scratch + p.scratch_ds)
+            log(f"[kernel] {name} fp32 B={n} D={EMBED} ({plan_text(p)}): kernel "
+                f"{med[name]:.4f} ms, device {fmt_ms(dev[name])} ms; plain "
+                f"{med[name + ' plain']:.4f} ms, device {fmt_ms(dev[name + ' plain'])} ms; bound "
+                f"{bound * 1e3:.2f} us ({by}), with the partials {bound_p * 1e3:.2f} us ({by_p}); "
+                f"readings {spread({name: readings[name]})}")
+            out[name] = dict(ms=med[name], device_ms=dev[name], plain_ms=med[name + " plain"],
+                             plain_device_ms=dev[name + " plain"], bound_ms=bound, bound_by=by,
+                             plan=dict(tile=[p.tm, p.tn], splits=p.splits, blocks=p.blocks,
+                                       resident=p.resident, scratch_floats=p.scratch + p.scratch_ds,
+                                       merge=SUPCON_MERGE[name] if p.splits > 1 else None))
         return out
 
-    b256, b8192 = timings(TRAIN_BATCH), timings(8192)
+    b256, big = timings(TRAIN_BATCH), timings(SUPCON_BIG)
+    loss_big = phase_loss_big(pl, multipositive_clip_loss, gen)
     tpu = {"supcon_stats": ":37 (_fwd_kernel, via _stats :155)",
            "supcon_grad_q": ":76 (_grad_q_kernel, via _bwd :229)",
            "supcon_grad_k": ":106 (_grad_k_kernel, via _bwd :229)"}
@@ -1296,8 +1356,56 @@ def phase_kernel_supcon():
         **b256[name],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SupCon row statistics or their gradients",
-        "b8192": b8192[name],
+        "merge_kernel": SUPCON_MERGE[name],
+        "launch_counts": "one per call, the merge kernel included",
+        "bit_equal_runs": same[name],
+        f"b{SUPCON_BIG}": big[name],
+        f"loss_b{SUPCON_BIG}": loss_big,
     } for name in worst]
+
+
+def phase_loss_big(pl, multipositive_clip_loss, gen):
+    """The two-direction pallas loss (K6 + K7, each twice) forward+backward at
+    B = SUPCON_BIG, D = EMBED through pallas_multipositive_clip_loss against
+    the dense multipositive_clip_loss on the same inputs: loss within 1e-4
+    relative, gradient cosine (features and logit scale) >= 0.9999; both
+    timed."""
+    img, txt, labels, _, _ = supcon_inputs(SUPCON_BIG, 32, gen)
+    img, txt = img.requires_grad_(), txt.requires_grad_()
+    scale = torch.tensor(1 / 0.07, device="cuda", requires_grad=True)
+    results = {}
+    for key, fn in (("pallas", pl.pallas_multipositive_clip_loss),
+                    ("dense", multipositive_clip_loss)):
+        loss = fn(img, txt, labels, scale)["loss"]
+        loss.backward()
+        results[key] = (loss.item(), {n: t.grad.clone() for n, t in
+                                      (("img", img), ("txt", txt), ("scale", scale))})
+        for t in (img, txt, scale):
+            t.grad = None
+    (lp, gp), (ld, gd) = results["pallas"], results["dense"]
+    whole, _, _ = grad_cosines({n: g.reshape(-1) for n, g in gp.items()},
+                               {n: g.reshape(-1) for n, g in gd.items()})
+
+    def fwd_bwd(fn):
+        def run():
+            fn(img, txt, labels, scale)["loss"].backward()
+            for t in (img, txt, scale):
+                t.grad = None
+        return run
+
+    ms = {key: cuda_ms(fwd_bwd(fn), 3) for key, fn in
+          (("pallas", pl.pallas_multipositive_clip_loss), ("dense", multipositive_clip_loss))}
+    ok = abs(lp - ld) <= 1e-4 * abs(ld) and whole >= 0.9999
+    log(f"[kernel] pallas vs dense loss B={SUPCON_BIG} D={EMBED} fp32: loss {lp:.7f} vs {ld:.7f} "
+        f"(rel {abs(lp - ld) / abs(ld):.2e}, tol 1e-4); gradient cosine {whole:.7f} (>= 0.9999); "
+        f"forward+backward {ms['pallas']:.4f} ms (pallas) vs {ms['dense']:.4f} ms (dense) "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"the pallas loss disagrees with the dense one at B={SUPCON_BIG}")
+    del img, txt, results, gp, gd
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": abs(lp - ld) / abs(ld), "grad_cosine": whole,
+            "pallas_fwd_bwd_ms": ms["pallas"], "dense_fwd_bwd_ms": ms["dense"]}
 
 
 def dw_bound(b, h, w, c, k, dtype, backward=False):

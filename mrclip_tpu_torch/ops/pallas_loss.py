@@ -14,7 +14,11 @@ version only for CPU tensors. `MultipositiveLoss` binds them for autograd
 (the JAX package's custom VJP), and `pallas_multipositive_clip_loss` is the
 two-direction, `delta`-weighted loss that `create_loss(pallas_loss=True)`
 returns. The kernels mask their own ragged tiles, so any batch size works
-without the TPU version's block fitting.
+without the TPU version's block fitting. How a launch cuts its work (the
+logit tile, the splits of the walk and their merge, the copy width and the
+scratch) is decided here, by `plan`, so the CPU tests check that it covers
+every row and key once; `merge_stats_ref` and `supcon_stats_split_ref` /
+`supcon_grad_split_ref` are the plain versions of a split call.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -31,20 +36,36 @@ from . import build
 
 __all__ = [
     "MultipositiveLoss",
+    "Plan",
+    "merge_stats_ref",
     "pallas_multipositive_clip_loss",
     "pallas_multipositive_loss",
     "supcon_grad_k",
     "supcon_grad_k_ref",
     "supcon_grad_q",
     "supcon_grad_q_ref",
+    "supcon_grad_split_ref",
     "supcon_stats",
     "supcon_stats_ref",
+    "supcon_stats_split_ref",
     "launches",
+    "plan",
     "reset_launches",
     "load_kernels",
 ]
 
 _EPS = 1e-12
+
+# Columns of D a gradient block accumulates (csrc/supcon_loss.cu's kDS).
+DS = 512
+# the logit tiles (own rows, walk rows) each kernel is built for, largest first
+TILES = {"stats": ((128, 128), (32, 32)),
+         "grad_q": ((64, 128), (32, 32)), "grad_k": ((64, 128), (32, 32))}
+# blocks of a tile an SM holds (ptxas's registers: the 128-row statistics
+# block and the gradient blocks, with their dq/dk accumulators, one each)
+BLOCKS_PER_SM = {("stats", 128): 1, ("stats", 32): 2,
+                 ("grad_q", 64): 1, ("grad_q", 32): 1, ("grad_k", 64): 1, ("grad_k", 32): 1}
+H100_SMS = 132
 
 # Launches of each CUDA kernel since import or the last reset_launches().
 launches = {"supcon_stats": 0, "supcon_grad_q": 0, "supcon_grad_k": 0}
@@ -62,18 +83,22 @@ def _count_launch(name: str) -> None:
         launches[name] += 1
 
 
+# The C entries' arguments: tensors, then ints (sizes and the plan), then
+# the stream.
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+KERNEL_ARGTYPES = {
+    "supcon_stats": [_ptr] * 10 + [_int] * 8 + [_ptr],
+    "supcon_grad_q": [_ptr] * 13 + [_int] * 10 + [_ptr],
+    "supcon_grad_k": [_ptr] * 11 + [_int] * 10 + [_ptr],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernels():
     """Build (at first use) and bind the three C entry points."""
     lib = build.load_library("supcon_loss")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    fns = {
-        "supcon_stats": [ptr] * 9 + [i] * 3 + [ptr],
-        "supcon_grad_q": [ptr] * 11 + [i] * 3 + [ptr],
-        "supcon_grad_k": [ptr] * 10 + [i] * 3 + [ptr],
-    }
     out = {}
-    for name, argtypes in fns.items():
+    for name, argtypes in KERNEL_ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -117,6 +142,129 @@ def supcon_grad_k_ref(q, k, labels_q, labels_k, scale, m, s, cnt, gbar):
     return coeff.T @ q.float()
 
 
+def _tiles(n: int, t: int) -> int:
+    return -(-n // t)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K6 or K7 launch cuts its work, as the kernels run it. A block
+    owns `tm` rows of its side (query rows for 'stats' and 'grad_q', keys
+    for 'grad_k') and walks tiles of `tn` rows of the other side; the grid
+    is `own_tiles` x `splits` x `dslices`. Split s walks tiles [s *
+    per_split, (s + 1) * per_split) of the `walk_tiles` (the last maybe
+    fewer; none empty). `dslices`: 512-wide slices of D of the gradients (1
+    for 'stats'). `resident`: a gradient block holds its own rows, all of D
+    (D <= 512), in shared memory for its whole walk, and streams only the
+    walk rows. `wide`: 16-byte copies. `scratch` (`scratch_ds`): fp32
+    elements of the partials (of grad_q's ds partials) that a split call
+    writes and its merge reads; 0 with one split. The kernels size their
+    own shared memory from the tile."""
+
+    kind: str
+    tm: int
+    tn: int
+    own_tiles: int
+    walk_tiles: int
+    splits: int
+    per_split: int
+    dslices: int
+    resident: bool
+    wide: bool
+    scratch: int
+    scratch_ds: int
+
+    @property
+    def blocks(self) -> int:
+        return self.own_tiles * self.splits * self.dslices
+
+    def walk_ranges(self, n_walk: int) -> list[tuple[int, int]]:
+        """[start, stop) of the walk rows of each split, in split order."""
+        step = self.per_split * self.tn
+        return [(s * step, min((s + 1) * step, n_walk)) for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(nq: int, nk: int, d: int, kind: str, aligned: bool = True, sms: int = H100_SMS, *,
+         tile: Optional[tuple[int, int]] = None, splits: Optional[int] = None,
+         resident: Optional[bool] = None) -> Plan:
+    """The tile, walk splits, copy width and scratch of one call of `kind`
+    ('stats', 'grad_q' or 'grad_k') on a card of `sms` SMs. The tile is
+    the first of TILES[kind] whose (own tiles) x (walk tiles) reaches
+    `sms`, else the last. The walk is split so that the grid fills the
+    card's blocks (sms x BLOCKS_PER_SM) at most, into `splits`
+    runs of equal tiles (the last maybe shorter), each a partial merged in
+    split order (no atomics: two runs give the same bits). 16-byte copies
+    (`wide`) need d % 4 == 0 and q and k 16-byte aligned (`aligned`);
+    otherwise the kernels stage element by element. A gradient block keeps
+    its own rows resident where D <= 512. `tile`, `splits` and `resident`
+    (False) override the choice (tools/supcon_variants.py)."""
+    if kind not in TILES:
+        raise ValueError(f"plan: kind must be one of {sorted(TILES)}; got {kind!r}")
+    own, walk = (nk, nq) if kind == "grad_k" else (nq, nk)
+    if tile is None:
+        tile = next((t for t in TILES[kind] if _tiles(own, t[0]) * _tiles(walk, t[1]) >= sms),
+                    TILES[kind][-1])
+    elif tile not in TILES[kind]:
+        raise ValueError(f"plan: {kind} is built for tiles {TILES[kind]}; got {tile}")
+    tm, tn = tile
+    own_tiles, walk_tiles = _tiles(own, tm), _tiles(walk, tn)
+    dslices = 1 if kind == "stats" else _tiles(d, DS)
+    if splits is None:
+        slots = sms * BLOCKS_PER_SM[kind, tm]
+        splits = slots // (own_tiles * dslices)
+    splits = max(1, min(splits, walk_tiles))
+    per_split = _tiles(walk_tiles, splits)
+    splits = _tiles(walk_tiles, per_split)
+    if splits == 1:
+        scratch = scratch_ds = 0
+    elif kind == "stats":
+        scratch, scratch_ds = 4 * splits * nq, 0
+    else:
+        scratch = splits * own * d
+        scratch_ds = splits * nq if kind == "grad_q" else 0
+    resident = kind != "stats" and d <= DS and resident is not False
+    return Plan(kind, tm, tn, own_tiles, walk_tiles, splits, per_split, dslices, resident,
+                aligned and d % 4 == 0, scratch, scratch_ds)
+
+
+def merge_stats_ref(parts):
+    """Plain version of K6's merge: `parts` [4, splits, Nq] (m, s, pos_sum,
+    pos_cnt of each split) -> (m, s, pos_sum, pos_cnt) [Nq]; m = max m_k,
+    s = sum_k s_k exp(m_k - m), the rest summed, in split order."""
+    pm, pss, pps, ppc = parts
+    m = pm.amax(dim=0)
+    s, ps, pc = (torch.zeros_like(m) for _ in range(3))
+    for sp in range(pm.shape[0]):
+        s = s + pss[sp] * torch.exp(pm[sp] - m)
+        ps = ps + pps[sp]
+        pc = pc + ppc[sp]
+    return m, s, ps, pc
+
+
+def supcon_stats_split_ref(q, k, labels_q, labels_k, scale, p: Plan):
+    """K6 as plan `p` cuts it, in plain PyTorch: `supcon_stats_ref` over
+    each split's keys, then `merge_stats_ref`."""
+    parts = [torch.stack(supcon_stats_ref(q, k[a:b], labels_q, labels_k[a:b], scale))
+             for a, b in p.walk_ranges(k.shape[0])]
+    return merge_stats_ref(torch.stack(parts, dim=1))
+
+
+def supcon_grad_split_ref(q, k, labels_q, labels_k, scale, m, s, cnt, gbar, p: Plan):
+    """K7 as plan `p` cuts it, in plain PyTorch: grad_q's (dq, ds_rows) as
+    the sums in split order of `supcon_grad_q_ref` over each split's keys;
+    grad_k's dk as those of `supcon_grad_k_ref` over each split's rows."""
+    ranges = p.walk_ranges(q.shape[0] if p.kind == "grad_k" else k.shape[0])
+    if p.kind == "grad_k":
+        parts = [supcon_grad_k_ref(q[a:b], k, labels_q[a:b], labels_k, scale, m[a:b], s[a:b],
+                                   cnt[a:b], gbar) for a, b in ranges]
+        return functools.reduce(torch.add, parts)
+    parts = [supcon_grad_q_ref(q, k[a:b], labels_q, labels_k[a:b], scale, m, s, cnt, gbar)
+             for a, b in ranges]
+    return (functools.reduce(torch.add, [dq for dq, _ in parts]),
+            functools.reduce(torch.add, [ds for _, ds in parts]))
+
+
 def _kernel_args(name, q, k, labels_q, labels_k, scalars, rows=()):
     """Check what the kernels take and return the contiguous operands."""
     if q.device.type != "cuda":
@@ -147,14 +295,60 @@ def _kernel_args(name, q, k, labels_q, labels_k, scalars, rows=()):
     return [t.contiguous() for t in tensors]
 
 
-def _launch(name, *args):
-    fn = load_kernels()[name]
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(kind, q, k, **overrides) -> Plan:
+    aligned = q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
+    return plan(q.shape[0], k.shape[0], q.shape[1], kind, aligned, _sm_count(q.device.index),
+                **overrides)
+
+
+def _scratch(n, like):
+    return torch.empty(n, dtype=torch.float32, device=like.device) if n else None
+
+
+def _launch(name, fn, *args):
+    fn = fn or load_kernels()[name]
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _count_launch(name)
+
+
+def _run_stats(q, k, lq, lk, sc, p: Plan, fn=None):
+    """Launch K6 (and its merge) as plan `p` cuts it, through `fn` (the bound
+    `supcon_stats`; the package's by default); counted once."""
+    outs = [torch.empty(q.shape[0], dtype=torch.float32, device=q.device) for _ in range(4)]
+    _launch("supcon_stats", fn, q, k, lq, lk, sc, *outs, _scratch(p.scratch, q), q.shape[0],
+            k.shape[0], q.shape[1], p.tm, p.tn, p.splits, p.per_split, int(p.wide))
+    return tuple(outs)
+
+
+def _run_grad_q(q, k, lq, lk, sc, gb, m, s, cnt, p: Plan, fn=None):
+    """Launch K7's grad_q (and its sums) as plan `p` cuts it, through `fn`
+    as `_run_stats`; counted once."""
+    dq = torch.empty_like(q)
+    ds_rows = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+    _launch("supcon_grad_q", fn, q, k, lq, lk, m, s, cnt, sc, gb, dq, ds_rows,
+            _scratch(p.scratch, q), _scratch(p.scratch_ds, q), q.shape[0], k.shape[0],
+            q.shape[1], p.tm, p.tn, p.splits, p.per_split, p.dslices, int(p.resident),
+            int(p.wide))
+    return dq, ds_rows
+
+
+def _run_grad_k(q, k, lq, lk, sc, gb, m, s, cnt, p: Plan, fn=None):
+    """Launch K7's grad_k (and its sum) as plan `p` cuts it, through `fn`
+    as `_run_stats`; counted once."""
+    dk = torch.empty_like(k)
+    _launch("supcon_grad_k", fn, q, k, lq, lk, m, s, cnt, sc, gb, dk, _scratch(p.scratch, q),
+            q.shape[0], k.shape[0], q.shape[1], p.tm, p.tn, p.splits, p.per_split, p.dslices,
+            int(p.resident), int(p.wide))
+    return dk
 
 
 def supcon_stats(q, k, labels_q, labels_k, scale):
@@ -164,9 +358,7 @@ def supcon_stats(q, k, labels_q, labels_k, scale):
     if q.device.type == "cpu":
         return supcon_stats_ref(q, k, labels_q, labels_k, scale)
     q, k, lq, lk, sc = _kernel_args("supcon_stats", q, k, labels_q, labels_k, (scale,))
-    outs = [torch.empty(q.shape[0], dtype=torch.float32, device=q.device) for _ in range(4)]
-    _launch("supcon_stats", q, k, lq, lk, sc, *outs, q.shape[0], k.shape[0], q.shape[1])
-    return tuple(outs)
+    return _run_stats(q, k, lq, lk, sc, _plan_for("stats", q, k))
 
 
 def supcon_grad_q(q, k, labels_q, labels_k, scale, m, s, cnt, gbar):
@@ -177,11 +369,7 @@ def supcon_grad_q(q, k, labels_q, labels_k, scale, m, s, cnt, gbar):
         return supcon_grad_q_ref(q, k, labels_q, labels_k, scale, m, s, cnt, gbar)
     q, k, lq, lk, sc, gb, m, s, cnt = _kernel_args(
         "supcon_grad_q", q, k, labels_q, labels_k, (scale, gbar), (m, s, cnt))
-    dq = torch.empty_like(q)
-    ds_rows = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
-    _launch("supcon_grad_q", q, k, lq, lk, m, s, cnt, sc, gb, dq, ds_rows,
-            q.shape[0], k.shape[0], q.shape[1])
-    return dq, ds_rows
+    return _run_grad_q(q, k, lq, lk, sc, gb, m, s, cnt, _plan_for("grad_q", q, k))
 
 
 def supcon_grad_k(q, k, labels_q, labels_k, scale, m, s, cnt, gbar):
@@ -190,10 +378,7 @@ def supcon_grad_k(q, k, labels_q, labels_k, scale, m, s, cnt, gbar):
         return supcon_grad_k_ref(q, k, labels_q, labels_k, scale, m, s, cnt, gbar)
     q, k, lq, lk, sc, gb, m, s, cnt = _kernel_args(
         "supcon_grad_k", q, k, labels_q, labels_k, (scale, gbar), (m, s, cnt))
-    dk = torch.empty_like(k)
-    _launch("supcon_grad_k", q, k, lq, lk, m, s, cnt, sc, gb, dk,
-            q.shape[0], k.shape[0], q.shape[1])
-    return dk
+    return _run_grad_k(q, k, lq, lk, sc, gb, m, s, cnt, _plan_for("grad_k", q, k))
 
 
 class MultipositiveLoss(torch.autograd.Function):

@@ -243,8 +243,16 @@ def _supcon_inputs(n, d, n_labels, device, seed=0):
             torch.from_numpy(labels).to(device))
 
 
+# the tiles' and splits' edges (32-row tiles, 64 x 128 gradient tiles at B =
+# 1000 and past), D = 30 (element-by-element copies) and 1024 (two 512-wide
+# slices of the gradients, own rows streamed)
+SUPCON_EDGES = [(n, 512, 32) for n in (31, 33, 127, 129, 257, 1000)]
+SUPCON_EDGES += [(100, 30, 32), (1000, 30, 32), (256, 1024, 32)]
+
+
 @pytest.mark.parametrize("n,d,n_labels", [(32, 128, 5), (12, 16, 3), (20, 32, None),
-                                          (100, 512, 32), (333, 512, 32), (256, 512, None)])
+                                          (100, 512, 32), (333, 512, 32), (256, 512, None),
+                                          *SUPCON_EDGES])
 def test_supcon_kernels_match_plain_versions(cuda_device, n, d, n_labels):
     """K6 and K7 in fp32 against their plain versions: max |err| / max
     |plain| <= 1e-5 (fp32 FMA sums in another order, TF32 off)."""
@@ -266,6 +274,25 @@ def test_supcon_kernels_match_plain_versions(cuda_device, n, d, n_labels):
     for g, w in ((dq, want_dq), (ds_rows, want_ds), (dk, want_dk)):
         assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-5
     assert all(pl.launches[name] == before[name] + 1 for name in pl.launches)
+
+
+def test_supcon_kernels_are_deterministic(cuda_device):
+    """At B = 256 each kernel splits its walk and merges the partials in
+    split order, without atomics: two runs give the same bits."""
+    q, k, labels = _supcon_inputs(256, 512, 32, cuda_device, seed=3)
+    scale = torch.tensor([14.0], device=cuda_device)
+    gbar = torch.tensor([0.7 / 256], device=cuda_device)
+    assert all(pl._plan_for(kind, q, k).splits > 1 for kind in pl.TILES)
+    m, s, _, cnt = pl.supcon_stats_ref(q, k, labels, labels, scale)
+    cnt = cnt.clamp(min=1.0)
+
+    def run():
+        return (*pl.supcon_stats(q, k, labels, labels, scale),
+                *pl.supcon_grad_q(q, k, labels, labels, scale, m, s, cnt, gbar),
+                pl.supcon_grad_k(q, k, labels, labels, scale, m, s, cnt, gbar))
+
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_supcon_kernels_refuse_what_they_cannot_take(cuda_device):
