@@ -103,9 +103,25 @@ fails:
              timed steps and a pallas-loss step with 73 K8 + 73 K9 each, a
              profiled step (K8 and K9 in their own groups, no depthwise
              kernel in "other"), peak memory, and the step on cuDNN's
-             convolution.
-Each path (4 to 11) runs with the launch counts set to 0 just before it and
-reads them just after. The last three lines are the kernels JSON, the card's
+             convolution;
+ 12. objectives: ViT-B-16 as phase 5 with MR-CLIP's frozen temperature
+             (logit_scale_trainable=False: ln 10, in no parameter tree) and
+             text dropout 0.1 (masks from the step's CUDA generator), TE/TR
+             from the labels as the JAX package's synthetic data makes them:
+             the TE/TR distance-weighted loss's gradients against plain
+             attention (same weights, same masks), the dropout's masks
+             following the generator, one warm-up and 3 timed distance steps
+             (24 K1 + 24 K3 each; logit_scale unchanged, no moments); one
+             checked step each of vision-only (build_vision_only_step, 12 K1
+             + 12 K3), lam, distill (a second ViT-B-16 as the frozen teacher,
+             48 K1 + 24 K3) and SigLIP (logit_bias -10 gets a gradient), each
+             step's loss held, on its own captured outputs, against the same
+             function in float64 on the CPU (1e-4); and the chunked loss
+             against the dense one at B = 8192, D = 512 (loss 1e-4, gradient
+             cosine 0.9999), timed beside the dense and pallas losses with
+             the peak memory of each.
+Each path (4 to 12; phase 12 has five, one per objective) runs with the
+launch counts set to 0 just before it and reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
 """
@@ -2294,6 +2310,280 @@ def phase_encode(model_name, attn_impl, kernel, card, exported):
     return main_path, perf
 
 
+# Phase 12: MR-CLIP's other objectives on the ViT-B-16 'fusedp' b256 step,
+# with the frozen temperature and text dropout. Each path: its loss flags,
+# the kernels' exact launches per step, and how many steps (one warm-up and
+# three timed for the distance loss, one checked step for each other)
+OBJECTIVE_PATHS = {
+    "train_distance": dict(flags=dict(multipositiveloss=True, distance=True, delta=0.5),
+                           per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24}),
+    # image-only (build_vision_only_step; the flags name its loss): the
+    # vision tower's 12 layers, each way
+    "train_vision_only": dict(flags=dict(multipositiveloss=True, visiononly=True),
+                              per_step={"packed_attn_fwd": 12, "packed_attn_bwd": 12}),
+    "train_lam": dict(flags=dict(lam=0.3), per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24}),
+    "train_siglip": dict(flags=dict(siglip=True),
+                         per_step={"packed_attn_fwd": 24, "packed_attn_bwd": 24}),
+    # the frozen teacher's forward: 24 K1 more, no K3
+    "train_distill": dict(flags=dict(distill=True),
+                          per_step={"packed_attn_fwd": 48, "packed_attn_bwd": 24}),
+}
+TEXT_DROPOUT = 0.1
+DISTANCE_TIMED = 3
+
+
+def objective_loss(apply, feats, batch, device, dtype):
+    """The loss `apply` (a `make_loss_apply` of the path's `create_loss`)
+    on captured model outputs `feats` and the batch, every float tensor
+    moved to `device` in `dtype`."""
+    def move(t):
+        return t.detach().to(device, dtype if t.is_floating_point() else None)
+
+    return apply({k: move(v) for k, v in feats.items()},
+                 {k: move(v) for k, v in batch.items()})["loss"]
+
+
+def phase_chunked_loss_big(gen):
+    """The chunked multipositive loss (ops/fused_loss.py, 1024-key chunks)
+    forward+backward at B = SUPCON_BIG, D = EMBED against the dense loss on
+    the same inputs: loss within 1e-4 relative, gradient cosine (features
+    and scale) >= 0.9999; each of the chunked, dense and pallas losses timed
+    (event mean of 3) with its peak memory above what was allocated before
+    the call; the chunked loss's peak must be the dense loss's or less."""
+    from mrclip_tpu_torch.losses import multipositive_clip_loss
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+    from mrclip_tpu_torch.ops.fused_loss import chunked_multipositive_clip_loss
+
+    img, txt, labels, _, _ = supcon_inputs(SUPCON_BIG, 32, gen)
+    img, txt = img.requires_grad_(), txt.requires_grad_()
+    scale = torch.tensor(1 / 0.07, device="cuda", requires_grad=True)
+    fns = {"chunked": chunked_multipositive_clip_loss, "dense": multipositive_clip_loss,
+           "pallas": pl.pallas_multipositive_clip_loss}
+    results, peak, ms = {}, {}, {}
+
+    def fwd_bwd(fn):
+        def run():
+            loss = fn(img, txt, labels, scale)["loss"]
+            loss.backward()
+            for t in (img, txt, scale):
+                t.grad = None
+            return loss
+        return run
+
+    for key, fn in fns.items():
+        loss = fn(img, txt, labels, scale)["loss"]
+        loss.backward()
+        results[key] = (loss.item(), {n: t.grad.clone() for n, t in
+                                      (("img", img), ("txt", txt), ("scale", scale))})
+        for t in (img, txt, scale):
+            t.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd(fn)()
+        torch.cuda.synchronize()
+        peak[key] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        ms[key] = cuda_ms(fwd_bwd(fn), 3)
+    (lc, gc), (ld, gd) = results["chunked"], results["dense"]
+    whole, _, _ = grad_cosines({n: g.reshape(-1) for n, g in gc.items()},
+                               {n: g.reshape(-1) for n, g in gd.items()})
+    ok = abs(lc - ld) <= 1e-4 * abs(ld) and whole >= 0.9999 and peak["chunked"] <= peak["dense"]
+    log(f"[objectives] chunked vs dense loss B={SUPCON_BIG} D={EMBED} fp32: loss {lc:.7f} vs "
+        f"{ld:.7f} (rel {abs(lc - ld) / abs(ld):.2e}, tol 1e-4); gradient cosine {whole:.7f} "
+        f"(>= 0.9999); forward+backward ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + "; peak memory MB " + ", ".join(f"{k} {v:.1f}" for k, v in peak.items())
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"the chunked loss disagrees with the dense one at B={SUPCON_BIG} "
+                             "or needs more memory")
+    del img, txt, results, gc, gd
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": abs(lc - ld) / abs(ld), "grad_cosine": whole,
+            **{f"{k}_fwd_bwd_ms": v for k, v in ms.items()},
+            **{f"{k}_peak_mb": v for k, v in peak.items()}}
+
+
+def phase_objectives(entries, card):
+    """Phase 12: full-width ViT-B-16 (bf16 compute, fp32 params, 'fusedp',
+    tanh GELU) at b256 with MR-CLIP's frozen temperature
+    (logit_scale_trainable=False, ln 10) and text dropout 0.1, trained with
+    the other objectives; TE/TR from the labels as the JAX package's
+    synthetic data makes them. Returns ({path: launches}, {path: per-step
+    launches}, perf)."""
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops.image_ops import normalize_images
+    from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
+                                           make_loss_apply)
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+    from mrclip_tpu_torch.train import build_vision_only_step
+
+    tag = "[objectives]"
+    opts = dict(precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                logit_scale_trainable=False, text_dropout=TEXT_DROPOUT)
+    t0 = time.perf_counter()
+    model = build_model("ViT-B-16", "pallas", rng_seed=0, **opts)
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = create_train_state(model, tx)
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, 32, (TRAIN_BATCH,)).astype(np.int32)
+    batch = {  # uint8 canvases, normalised inside the step; TE/TR (s) from the labels
+        "images": torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, 224, 224, 3)).astype(np.uint8)).cuda(),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (TRAIN_BATCH, model.context_length)).astype(np.int64)).cuda(),
+        "labels": torch.from_numpy(labels).cuda(),
+        "echo_time": torch.from_numpy((0.01 * (labels + 1)).astype(np.float32)).cuda(),
+        "repetition_time": torch.from_numpy((0.5 * (labels + 1)).astype(np.float32)).cuda(),
+    }
+
+    def prep(b):
+        return dict(b, images=normalize_images(b["images"]))
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def apply_of(path):
+        return make_loss_apply(create_loss(SimpleNamespace(
+            model="ViT-B-16", gather_with_grad=True, **OBJECTIVE_PATHS[path]["flags"])))
+
+    frozen = model.logit_scale.clone()
+    log(f"{tag} ViT-B-16 b{TRAIN_BATCH} 'fusedp', logit_scale_trainable=False "
+        f"(exp {frozen.exp().item():.6f}), text_dropout={TEXT_DROPOUT}, built in "
+        f"{time.perf_counter() - t0:.1f} s; logit_scale among the params: "
+        f"{'logit_scale' in state.params}")
+    if "logit_scale" in state.params or "logit_scale" in state.opt_state.mu:
+        raise AssertionError("the frozen temperature is among the trained parameters")
+
+    # checks at the initial weights (their launches are not the main path's):
+    # the distance step's gradients against plain attention, the same
+    # weights and the same dropout masks (the same generator seed)
+    dist_apply = apply_of("train_distance")
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    g_kernel, l_kernel = loss_and_grads(model, dist_apply, state.params, prep(batch), gen(0))
+    plain = build_model("ViT-B-16", "pallas", pretrained=weights,
+                        **dict(opts, attn_impl="xla"))
+    g_plain, l_plain = loss_and_grads(plain, dist_apply, dict(plain.named_parameters()),
+                                      prep(batch), gen(0))
+    del plain
+    lk, lp = l_kernel["loss"].item(), l_plain["loss"].item()
+    whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
+    through = [n for n in g_kernel if n.endswith(VIT_PROJ)]
+    dead = [n for n in through if g_kernel[n].abs().max().item() == 0]
+    del g_kernel, g_plain
+    torch.cuda.empty_cache()
+    ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= 0.999 and worst >= 0.99
+          and through and not dead)
+    log(f"{tag} distance loss, kernel path vs plain attention, same weights, batch and dropout "
+        f"masks: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); "
+        f"gradient cosine whole {whole:.6f} (>= 0.999), min per tensor {worst:.6f} at "
+        f"{worst_name} (>= 0.99); {len(through) - len(dead)}/{len(through)} in_proj weights with "
+        f"a gradient {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the distance step's gradients disagree with the plain step")
+    # text dropout: the masks follow the generator
+    with torch.no_grad():
+        model.train()
+        drops = [dist_apply(model(prep(batch)["images"], batch["tokens"], generator=gen(s)),
+                            batch)["loss"].item() for s in (5, 5, 6)]
+    ok = drops[0] == drops[1] != drops[2]
+    log(f"{tag} text dropout {TEXT_DROPOUT} from a CUDA generator: losses {drops} (seeds 5, 5, 6; "
+        f"equal, equal, different) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the text dropout does not follow the step's generator")
+
+    paths, per_step, checks, perf = {}, {}, {}, {}
+    teacher = None
+
+    def run(path, step_fn, steps, timed=0):
+        """`steps` steps of the path with the counts set to 0 before and read
+        after; the model outputs of the last step captured by forward hooks
+        (the student's and, for distill, the teacher's)."""
+        nonlocal state
+        seen = {}
+        hooks = [model.register_forward_hook(lambda m, i, o: seen.update(o))]
+        if teacher is not None:
+            hooks.append(teacher.register_forward_hook(
+                lambda m, i, o: seen.update({f"dist_{k}": v for k, v in o.items()})))
+        reset_counts()
+        wants, got, losses, times = [], [], [], []
+        for i in range(steps):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, prep(batch), gen(100 + i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            got.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+            wants.append(OBJECTIVE_PATHS[path]["per_step"])
+            losses.append(metrics["loss"].item())
+        paths[path] = launch_counts()  # read right after the path
+        per_step[path] = OBJECTIVE_PATHS[path]["per_step"]
+        for h in hooks:
+            h.remove()
+        apply = apply_of(path)
+        card_loss = objective_loss(apply, seen, batch, batch["labels"].device, torch.float32).item()
+        ref = objective_loss(apply, seen, batch, "cpu", torch.float64).item()
+        rel = abs(card_loss - ref) / abs(ref)
+        ok = (all(np.isfinite(losses)) and got == wants and rel <= 1e-4
+              and abs(losses[-1] - card_loss) <= 1e-4 * abs(ref))
+        log(f"{tag} {path}: {steps} step(s), losses {', '.join(f'{x:.6f}' for x in losses)}; "
+            f"launches per step {got} (want {wants}); the last step's loss on its own outputs: "
+            f"card fp32 {card_loss:.7f}, CPU float64 {ref:.7f} (rel {rel:.2e}, tol 1e-4) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} the {path} path failed its checks")
+        checks[path] = {"losses": losses, "loss_rel_err_vs_float64": rel}
+        return times[-timed:] if timed else times
+
+    # the distance main path: one warm-up and DISTANCE_TIMED timed steps
+    times = run("train_distance", build_train_step(model, dist_apply, tx), 1 + DISTANCE_TIMED,
+                timed=DISTANCE_TIMED)
+    step_ms = statistics.mean(times)
+    ok = torch.equal(model.logit_scale, frozen) and "logit_scale" not in state.opt_state.mu
+    log(f"{tag} logit_scale after {state.step} steps: exp {model.logit_scale.exp().item():.6f}, "
+        f"unchanged {torch.equal(model.logit_scale, frozen)}, no moments "
+        f"{'logit_scale' not in state.opt_state.mu} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the frozen temperature moved or has moments")
+    phase5 = entries["packed_attn_fwd"].get("training", {}).get("train_step_ms")
+    perf["distance_step_ms"] = step_ms
+    perf["distance_step_ms_readings"] = times
+    perf["distance_pairs_per_s"] = TRAIN_BATCH / step_ms * 1e3
+    perf["phase5_dense_step_ms"] = phase5
+    log(f"{tag} distance step b{TRAIN_BATCH}: {step_ms:.2f} ms mean of {DISTANCE_TIMED} "
+        f"(readings {', '.join(f'{x:.2f}' for x in times)}), {perf['distance_pairs_per_s']:.1f} "
+        f"pairs/s; phase 5's dense step {fmt_ms(phase5)} ms | {card}")
+
+    run("train_vision_only", build_vision_only_step(model, tx), 1)
+    run("train_lam", build_train_step(model, apply_of("train_lam"), tx), 1)
+
+    # distill: a second ViT-B-16 (seed 1) as the frozen teacher
+    teacher = build_model("ViT-B-16", "pallas", rng_seed=1, **opts)
+    run("train_distill", build_train_step(model, apply_of("train_distill"), tx, teacher=teacher), 1)
+    teacher = None
+    del model, state
+    torch.cuda.empty_cache()
+
+    # SigLIP on a model with a learned bias (init -10)
+    model = build_model("ViT-B-16", "pallas", rng_seed=0, init_logit_bias=-10.0, **opts)
+    state = create_train_state(model, tx)
+    bias0 = model.logit_bias.item()
+    run("train_siglip", build_train_step(model, apply_of("train_siglip"), tx), 1)
+    mu = state.opt_state.mu["logit_bias"].float().abs().item()
+    ok = mu > 0 and model.logit_bias.item() != bias0
+    log(f"{tag} SigLIP logit_bias {bias0:.6f} -> {model.logit_bias.item():.6f}, first moment "
+        f"{mu:.3e} (its gradient reached it) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the SigLIP bias got no gradient")
+    del model, state
+    torch.cuda.empty_cache()
+
+    perf["chunked_loss_b8192"] = phase_chunked_loss_big(torch.Generator(device="cuda").manual_seed(12))
+    perf["checks"] = checks
+    log(f"{tag} breakdown: " + json.dumps(perf))
+    return paths, per_step, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2328,6 +2618,9 @@ def main() -> int:
     paths["serve_mobileclip"], k8["serving"] = phase_serve_mobileclip(entries, smi)
     paths["train_mobileclip"], per_step["train_mobileclip"], k8["training"] = phase_train(
         "MobileCLIP-S1", entries, smi, attn_impl="bf16", timed=3)
+    obj_paths, obj_per_step, fwd["objectives"] = phase_objectives(entries, smi)
+    paths.update(obj_paths)
+    per_step.update(obj_per_step)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -2339,7 +2632,8 @@ def main() -> int:
                 "serve_flash": ["flash_attn_fwd"],
                 "serve_mobileclip": ["dw_conv_fwd", "packed_attn_fwd"],
                 "train_mobileclip": [*TRAIN_PATHS["MobileCLIP-S1", "bf16"]["per_step"],
-                                     *PALLAS_STEP]}
+                                     *PALLAS_STEP],
+                **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

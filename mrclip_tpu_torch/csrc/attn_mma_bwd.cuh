@@ -69,10 +69,20 @@
 //     products (in the wgmma forward ptxas then copied accumulators and
 //     waited after every wgmma): 8 instantiations a pass, 16 with ROPE
 //     (packed_attn_bwd.cu), 8 with FLASH (flash_attn.cu). A
-//     TAIL of 0 (a loop's last pass ending the walk) is not used: its ROPE
-//     instantiations gave wrong gradients on the H100 at two or more whole
-//     steps (N = 113-128, 177-192, 241-256), even with the identity table,
-//     and the same arithmetic is right as a straight-line last step;
+//     TAIL of 0 (a loop's last pass ending the walk) is not used. Built
+//     (tools/attn_bwd_sanitize.py's `tail0` edit), every such instantiation
+//     is wrong at two or more whole steps (N = 113-128, 177-192, 241-256):
+//     K3, K3r and K10b at N = 128, 192 and 256 on the H100 err by 0.64-0.97
+//     of the largest plain gradient, the committed kernels by at most
+//     0.0031. The cause is the compiler's register allocation (nvcc
+//     12.9), not a missing wait or fence: in the TAIL-0 SASS every dk/dv
+//     loop, and K3r's dq loop, packs P^T and dS^T (dS) into the registers
+//     that hold the loop-carried A operands K and V (Q and dO), so the
+//     loop's next pass multiplies those; each pass ends in the same wgmma
+//     wait in both builds, and none of the 64 committed instantiations'
+//     loops writes a carried A operand (the tool reads every one's SASS and
+//     fails if one does). compute-sanitizer (2025.2.1) refuses the card
+//     ("Device not supported"), so racecheck and synccheck did not run;
 //   - dq pass: K and V staged by 16-byte cp.async in the 128-byte swizzle
 //     (wgmma.cuh), rows nk .. 16 G - 1 zero; K is read K-major for S = Q
 //     K^T and MN-major (transpose bit, the same tile) for dQ += dS K, V
@@ -999,9 +1009,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // fn(std::bool_constant<CAUSAL>(), std::integral_constant<int, TAIL>()):
 // the instantiation of a wgmma backward pass over `groups` (>= 1) 16-row
 // groups, TAIL = (groups - 1) % 4 + 1 of them in its straight-line last
-// step. A last step of 4 groups, not a loop's last pass: the rope
-// instantiations whose loop of whole steps ran last (TAIL 0) gave wrong
-// gradients on the H100 at 2 or more whole steps (ptxas; PERF.md).
+// step. A last step of 4 groups, not a loop's last pass: where the loop of
+// whole steps ends the walk (TAIL 0), the compiler gives the loop-carried
+// A operands' registers to the packed P and dS, and every such instantiation
+// is wrong at 2 or more whole steps (the header's note).
 template <bool CAUSAL, typename Fn>
 cudaError_t with_tail(int groups, Fn&& fn) {
   using C = std::bool_constant<CAUSAL>;

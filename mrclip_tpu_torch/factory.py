@@ -16,12 +16,21 @@ import re
 from copy import deepcopy
 from functools import partial
 from pathlib import Path
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from .losses.contrastive import clip_loss, multipositive_clip_loss
+from .losses.contrastive import (
+    clip_loss,
+    distill_clip_loss,
+    multipositive_clip_loss,
+    multipositive_clip_loss_vision_only,
+    multipositive_clip_loss_with_distance,
+    multipositive_clip_loss_with_vision,
+    siglip_loss,
+)
 from .models import CLIP
+from .ops.fused_loss import chunked_multipositive_clip_loss
 from .ops.pallas_loss import pallas_multipositive_clip_loss
 from .utils import resolve_device
 
@@ -135,13 +144,14 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
 
 def model_from_config(
     cfg: dict, *, precision: str = "fp32", attn_impl: str = "xla", gelu_approx: bool = False,
-    dw_impl: Optional[str] = None,
+    dw_impl: Optional[str] = None, logit_scale_trainable: bool = True,
 ) -> CLIP:
     """An uninitialized CLIP on the CPU for a resolved config dict, its
     depthwise convolutions (MobileCLIP) on `dw_impl` ('pallas' or 'xla';
-    without one, MRCLIP_DW_IMPL decides). The other arguments are kept on
-    the module as `build_args`, from which `serving.export_model` writes
-    what rebuilding it takes."""
+    without one, MRCLIP_DW_IMPL decides), its temperature learned or, with
+    `logit_scale_trainable=False`, fixed at ln 10. The other arguments are
+    kept on the module as `build_args`, from which `serving.export_model`
+    writes what rebuilding it takes."""
     if "multimodal_cfg" in cfg:
         raise NotImplementedError("CoCa is not ported (ROADMAP: later slice 4, other towers)")
     model = CLIP(
@@ -155,12 +165,14 @@ def model_from_config(
         attn_impl=attn_impl,
         dtype=cast_dtype(precision),
         dw_impl=dw_impl,
+        logit_scale_trainable=logit_scale_trainable,
     )
     model.build_args = {
         "model_cfg": deepcopy(cfg),
         "precision": precision,
         "attn_impl": attn_impl,
         "gelu_approx": bool(gelu_approx),
+        "logit_scale_trainable": bool(logit_scale_trainable),
     }
     return model
 
@@ -185,8 +197,15 @@ def create_model(
     precision: str = "fp32",
     *,
     device=None,
+    force_quick_gelu: bool = False,
+    force_patch_dropout: Optional[float] = None,
+    force_image_size: Optional[Union[int, Tuple[int, int]]] = None,
+    force_context_length: Optional[int] = None,
+    text_dropout: float = 0.0,
+    logit_scale_trainable: bool = True,
     attn_impl: str = "xla",
     gelu_approx: bool = False,
+    init_params: bool = True,
     rng_seed: int = 0,
     **model_kwargs,
 ) -> CLIP:
@@ -196,9 +215,15 @@ def create_model(
     `pretrained`: an open_clip-layout state dict, or the path of a `.pt`
     holding one (optionally under "state_dict", optionally "module."
     prefixed); it loads with `strict=True`. Without it, parameters are drawn
-    from a `torch.Generator` seeded with `rng_seed`. `model_kwargs`
-    override top-level config keys (e.g. `init_logit_bias`); the JAX
-    package's other options (scan_layers, remat, force_*) raise.
+    from a `torch.Generator` seeded with `rng_seed`, unless `init_params` is
+    False (a load follows). The JAX package's options as there:
+    `force_quick_gelu`, `force_image_size` and `force_context_length` set
+    the config's `quick_gelu`, vision `image_size` and text
+    `context_length`; `text_dropout` (MR-CLIP's --textdropout) the text
+    blocks' dropout; `logit_scale_trainable=False` (--logitscaletrainable)
+    fixes the temperature at ln 10. `model_kwargs` override top-level config
+    keys (e.g. `init_logit_bias`); its other options (scan_layers, remat,
+    force_patch_dropout) raise.
     """
     dev = resolve_device(device)
     model_name = model_name.replace("/", "-")
@@ -206,55 +231,67 @@ def create_model(
     if cfg is None:
         raise RuntimeError(f"Model config for {model_name} not found; available: {list_models()}")
     unported = sorted(set(model_kwargs) - set(_CFG_KEYS))
+    if force_patch_dropout is not None:
+        unported.append("force_patch_dropout")
     if unported:
         raise NotImplementedError(
             f"create_model options {unported} are not ported: scan_layers is an XLA "
             "compile-time choice the unrolled stack has no use for; training is ported "
-            "but remat (grad_checkpointing, remat_policy) is not (ROADMAP: later slice 3, "
-            "the training CLI's options); force_* overrides come with the other configs "
-            "(ROADMAP: later slice 2)"
+            "but remat (grad_checkpointing, remat_policy) is not (ROADMAP: modules item 3, "
+            "the training CLI's options); force_patch_dropout comes with the ViT's patch "
+            "dropout (ROADMAP: modules item 4, the other configs)"
         )
+    if force_quick_gelu:
+        cfg["quick_gelu"] = True
+    if force_image_size is not None:
+        cfg["vision_cfg"]["image_size"] = force_image_size
+    if force_context_length is not None:
+        cfg["text_cfg"]["context_length"] = force_context_length
+    if text_dropout:
+        cfg["text_cfg"]["dropout"] = text_dropout
     cfg.update(model_kwargs)
 
     model = model_from_config(
-        cfg, precision=precision, attn_impl=attn_impl, gelu_approx=gelu_approx
+        cfg, precision=precision, attn_impl=attn_impl, gelu_approx=gelu_approx,
+        logit_scale_trainable=logit_scale_trainable,
     )
     if pretrained is not None:
         model.load_state_dict(_load_open_clip(pretrained), strict=True)
-    else:
+    elif init_params:
         _init_weights(model, torch.Generator().manual_seed(rng_seed))
     return model.to(dev).eval()
 
 
-def _unported_loss(what: str, roadmap: str):
-    raise NotImplementedError(f"the {what} loss is not ported (ROADMAP: {roadmap})")
-
-
 def create_loss(args) -> Callable[..., dict]:
-    """Loss from the CLI flags, as the JAX package dispatches them: dense
-    `multipositiveloss` (`delta`), its fused-kernel form with
-    `pallas_loss`, or the plain symmetric `clip_loss`. `args` is any object
-    with the flags as attributes; the losses of other slices raise."""
+    """Loss from the CLI flags, dispatched as the JAX package dispatches
+    them: `distill`; `siglip` (`loss_dist_impl`); `multipositiveloss` with
+    `visiononly`, `distance` (`delta`), `pallas_loss` (the fused kernels),
+    `chunked_loss` (`loss_chunk_size`, default 1024) or dense (`delta`);
+    `lam`; else plain `clip_loss`. `args` is any object with the flags as
+    attributes. CoCa's captioning loss raises."""
     get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
+    gather = get("gather_with_grad", True)
 
     if get("distill"):
-        _unported_loss("distill", "later slice 2, other losses")
+        return partial(distill_clip_loss, gather_with_grad=gather)
     if "coca" in (get("model", "") or "").lower():
-        _unported_loss("CoCa captioning", "later slice 4, other towers")
+        raise NotImplementedError(
+            "the CoCa captioning loss is not ported (ROADMAP: modules item 5, other towers)")
     if get("siglip"):
-        _unported_loss("SigLIP", "later slice 2, other losses")
+        return partial(siglip_loss, impl=get("loss_dist_impl", "bidir"))
     if get("multipositiveloss"):
         if get("visiononly"):
-            _unported_loss("vision-only multipositive", "later slice 2, other losses")
+            return partial(multipositive_clip_loss_vision_only, gather_with_grad=gather)
         if get("distance"):
-            _unported_loss("distance-weighted multipositive", "later slice 2, other losses")
+            return partial(multipositive_clip_loss_with_distance, delta=get("delta", 0.5),
+                           gather_with_grad=gather)
         if get("pallas_loss"):
             return partial(pallas_multipositive_clip_loss, delta=get("delta", 0.5),
-                           gather_with_grad=get("gather_with_grad", True))
+                           gather_with_grad=gather)
         if get("chunked_loss"):
-            _unported_loss("chunked multipositive", "later slice 2, other losses")
-        return partial(multipositive_clip_loss, delta=get("delta", 0.5),
-                       gather_with_grad=get("gather_with_grad", True))
+            return partial(chunked_multipositive_clip_loss, delta=get("delta", 0.5),
+                           chunk_size=get("loss_chunk_size", 1024), gather_with_grad=gather)
+        return partial(multipositive_clip_loss, delta=get("delta", 0.5), gather_with_grad=gather)
     if get("lam"):
-        _unported_loss("multipositive-with-vision (lam)", "later slice 2, other losses")
-    return partial(clip_loss, gather_with_grad=get("gather_with_grad", True))
+        return partial(multipositive_clip_loss_with_vision, lam=get("lam"), gather_with_grad=gather)
+    return partial(clip_loss, gather_with_grad=gather)

@@ -260,7 +260,6 @@ def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
         "proj_bias": cfg.proj_bias,
         "final_ln_after_pool": cfg.final_ln_after_pool,
         "output_tokens": cfg.output_tokens,
-        "text dropout": cfg.dropout > 0,
     }, "text tower", "later slice 2, other configs")
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "text")
     return TextTransformer(
@@ -276,11 +275,18 @@ def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
         ln_eps=ln_eps,
         attn_impl=attn_impl,
         dtype=dtype,
+        dropout=cfg.dropout,
     )
 
 
 class CLIP(nn.Module):
-    """Dual-tower CLIP producing L2-normalized embeddings + logit scale."""
+    """Dual-tower CLIP producing L2-normalized embeddings + logit scale.
+
+    `logit_scale_trainable=False` is MR-CLIP's frozen temperature: the
+    scale is fixed at ln 10 whatever `init_logit_scale` says (the JAX
+    package's constant, the reference's `torch.ones(lshape) * np.log(10)`),
+    held as a non-persistent buffer, so it is in neither the state dict nor
+    the trained parameters."""
 
     def __init__(
         self,
@@ -294,6 +300,7 @@ class CLIP(nn.Module):
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
         dw_impl: Optional[str] = None,
+        logit_scale_trainable: bool = True,
     ):
         super().__init__()
         act = True if quick_gelu else act_impl
@@ -309,7 +316,10 @@ class CLIP(nn.Module):
         self.transformer = text.transformer
         self.ln_final = text.ln_final
         self.text_projection = text.text_projection
-        self.logit_scale = nn.Parameter(torch.tensor(float(init_logit_scale)))
+        if logit_scale_trainable:
+            self.logit_scale = nn.Parameter(torch.tensor(float(init_logit_scale)))
+        else:
+            self.register_buffer("logit_scale", torch.tensor(math.log(10.0)), persistent=False)
         self.logit_bias = (
             nn.Parameter(torch.tensor(float(init_logit_bias)))
             if init_logit_bias is not None else None
@@ -319,8 +329,10 @@ class CLIP(nn.Module):
         feats = self.visual(images)
         return F.normalize(feats, dim=-1, eps=0.0) if normalize else feats
 
-    def encode_text(self, tokens: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        feats = encode_tokens(self, tokens)
+    def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator`: the source of the text dropout's masks in train mode."""
+        feats = encode_tokens(self, tokens, generator)
         return F.normalize(feats, dim=-1, eps=0.0) if normalize else feats
 
     def get_logits(self, images: torch.Tensor, tokens: torch.Tensor):
@@ -333,12 +345,15 @@ class CLIP(nn.Module):
         return logits_per_image, logits_per_image.T
 
     def forward(self, images: Optional[torch.Tensor] = None,
-                tokens: Optional[torch.Tensor] = None) -> dict:
+                tokens: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """`generator`: the step's source of randomness (the text dropout's
+        masks in train mode), as the JAX package's `dropout` rng."""
         out = {}
         if images is not None:
             out["image_features"] = self.encode_image(images, normalize=True)
         if tokens is not None:
-            out["text_features"] = self.encode_text(tokens, normalize=True)
+            out["text_features"] = self.encode_text(tokens, normalize=True, generator=generator)
         out["logit_scale"] = self.logit_scale.exp()
         if self.logit_bias is not None:
             out["logit_bias"] = self.logit_bias

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +33,7 @@ __all__ = [
     "quick_gelu",
     "LayerScale",
     "MLP",
+    "dropout",
     "SwiGLU",
     "MultiHeadAttention",
     "EvaAttention",
@@ -137,6 +138,20 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """Tanh-approximate GELU (the --gelu-approx throughput mode)."""
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `nn.Dropout(rate)` in train mode: keep each element with
+    probability 1 - rate, scaled by 1 / (1 - rate), else 0. The mask is
+    drawn from `generator` (on x's device), never from the global RNG, so
+    the same generator state gives the same mask."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs the step's torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerScale(nn.Module):

@@ -36,6 +36,7 @@ class TextTransformer(nn.Module):
         ln_eps: float = 1e-5,
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.context_length = context_length
@@ -44,24 +45,27 @@ class TextTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio, ls_init_value, act,
-            is_causal=True, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype,
+            is_causal=True, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype, dropout=dropout,
         )
         self.ln_final = LayerNorm(width, eps=ln_eps)
         self.text_projection = (
             nn.Parameter(torch.zeros(width, output_dim)) if output_dim is not None else None
         )
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return encode_tokens(self, tokens)
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return encode_tokens(self, tokens, generator)
 
 
-def encode_tokens(tower: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    """`tokens`: [B, L] int token ids, zero-padded after EOT -> [B, output_dim]."""
+def encode_tokens(tower: nn.Module, tokens: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """`tokens`: [B, L] int token ids, zero-padded after EOT -> [B, output_dim].
+    `generator`: the source of the blocks' dropout masks in train mode."""
     dt = tower.compute_dtype
     seq_len = tokens.shape[1]
     x = tower.token_embedding(tokens.long()).to(dt)
     x = x + tower.positional_embedding[:seq_len].to(dt)
-    x = tower.transformer(x)
+    x = tower.transformer(x, generator)
     x = tower.ln_final(x)
     pooled, _ = text_global_pool(x, tokens, "argmax")
     if tower.text_projection is not None:

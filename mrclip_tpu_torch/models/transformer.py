@@ -15,13 +15,16 @@ import torch
 from torch import nn
 
 from .layers import (MLP, EvaAttention, LayerNorm, LayerScale, MultiHeadAttention, SwiGLU,
-                     gelu_exact)
+                     dropout, gelu_exact)
 
 __all__ = ["EvaBlock", "ResidualAttentionBlock", "Transformer", "text_global_pool"]
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN block: x += attn(ln_1(x)); x += mlp(ln_2(x))."""
+    """Pre-LN block: x += ls_1(drop(attn(ln_1(x)))); x += ls_2(drop(mlp(ln_2(x)))).
+    `dropout` (the text tower's, MR-CLIP's --textdropout) drops each
+    branch before its LayerScale in train mode, from the forward's
+    `generator`."""
 
     def __init__(
         self,
@@ -34,9 +37,11 @@ class ResidualAttentionBlock(nn.Module):
         attn_impl: str = "xla",
         ln_eps: float = 1e-5,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.is_causal = is_causal
+        self.dropout = dropout
         self.ln_1 = LayerNorm(width, eps=ln_eps)
         self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
         self.ln_2 = LayerNorm(width, eps=ln_eps)
@@ -47,9 +52,11 @@ class ResidualAttentionBlock(nn.Module):
         else:
             self.ls_1 = self.ls_2 = nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls_1(self.attn(self.ln_1(x), is_causal=self.is_causal))
-        return x + self.ls_2(self.mlp(self.ln_2(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        y = self.attn(self.ln_1(x), is_causal=self.is_causal)
+        x = x + self.ls_1(dropout(y, rate, generator))
+        return x + self.ls_2(dropout(self.mlp(self.ln_2(x)), rate, generator))
 
 
 class EvaBlock(nn.Module):
@@ -88,6 +95,7 @@ class Transformer(nn.Module):
         attn_impl: str = "xla",
         ln_eps: float = 1e-5,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.width = width
@@ -95,14 +103,14 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(
                 width, heads, mlp_ratio, ls_init_value, act, is_causal,
-                attn_impl, ln_eps, dtype,
+                attn_impl, ln_eps, dtype, dropout,
             )
             for _ in range(layers)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x)
+            x = block(x, generator)
         return x
 
 

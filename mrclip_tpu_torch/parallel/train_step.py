@@ -10,8 +10,9 @@
   `scale_by_learning_rate` operation by operation, roundings included
   (`torch.optim.AdamW` cannot keep a bf16 first moment beside fp32
   parameters).
-- One train step: forward in train mode, the contrastive loss, the
-  gradients, the update, and the logit-scale clamp to ln(100).
+- One train step: forward in train mode (text dropout from the step's
+  generator; a frozen teacher's forward for the distill loss), the loss,
+  the gradients, the update, and the logit-scale clamp to ln(100).
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer's moments in place (no second copy of either
@@ -34,6 +35,7 @@ __all__ = [
     "AdamW",
     "AdamWState",
     "LOGIT_SCALE_MAX",
+    "apply_updates",
     "TrainState",
     "build_eval_step",
     "build_train_step",
@@ -209,13 +211,26 @@ def _clamp_logit_scale(params: Params) -> None:
 
 
 # Loss function -> ordered positional arguments, each taken from the batch
-# or the model output. Keyed by "<module>.<qualname>"; unknown losses fail.
+# or the model output (the JAX package's argument orders). Keyed by
+# "<module>.<qualname>"; unknown losses fail.
 _MP_SPEC = ("image_features", "text_features", "labels", "logit_scale")
 _LOSS_ARG_SPECS: dict = {
     "mrclip_tpu_torch.losses.contrastive.clip_loss": (
         "image_features", "text_features", "logit_scale"),
     "mrclip_tpu_torch.losses.contrastive.multipositive_clip_loss": _MP_SPEC,
+    "mrclip_tpu_torch.ops.fused_loss.chunked_multipositive_clip_loss": _MP_SPEC,
     "mrclip_tpu_torch.ops.pallas_loss.pallas_multipositive_clip_loss": _MP_SPEC,
+    "mrclip_tpu_torch.losses.contrastive.multipositive_clip_loss_with_vision": _MP_SPEC,
+    "mrclip_tpu_torch.losses.contrastive.multipositive_clip_loss_with_distance": (
+        "image_features", "text_features", "labels",
+        "echo_time", "repetition_time", "logit_scale"),
+    "mrclip_tpu_torch.losses.contrastive.multipositive_clip_loss_vision_only": (
+        "image_features", "labels", "logit_scale"),
+    "mrclip_tpu_torch.losses.contrastive.siglip_loss": (
+        "image_features", "text_features", "logit_scale", "logit_bias"),
+    "mrclip_tpu_torch.losses.contrastive.distill_clip_loss": (
+        "image_features", "text_features", "logit_scale",
+        "dist_image_features", "dist_text_features", "dist_logit_scale"),
 }
 # Fields sourced from the data batch; everything else comes from model_out.
 _BATCH_FIELDS = frozenset({"labels", "echo_time", "repetition_time"})
@@ -231,6 +246,8 @@ def _resolve_loss_arg(name: str, model_out: dict, batch: dict):
             raise ValueError(f"loss requires batch['{name}'] but the batch has "
                              f"{sorted(batch)}")
         return batch[name]
+    if name == "logit_bias":  # a model without one: SigLIP with a zero bias
+        return model_out.get("logit_bias", torch.tensor(0.0, device=model_out["logit_scale"].device))
     if name not in model_out:
         raise ValueError(f"loss requires model output '{name}' but the model produced "
                          f"{sorted(model_out)}")
@@ -255,16 +272,48 @@ def make_loss_apply(loss_fn: Callable[..., dict], mesh=None) -> Callable[[dict, 
     return loss_apply
 
 
+def _model_out(model: nn.Module, batch: dict, generator: Optional[torch.Generator] = None,
+               teacher: Optional[nn.Module] = None) -> dict:
+    """The train-mode forward (dropout masks from `generator`) and, with a
+    `teacher`, its eval-mode forward without gradients as the distillation
+    targets `dist_image_features`, `dist_text_features` and
+    `dist_logit_scale`."""
+    model.train()
+    out = model(batch["images"], batch["tokens"], generator=generator)
+    if teacher is not None:
+        teacher.eval()
+        with torch.no_grad():
+            t_out = teacher(batch["images"], batch["tokens"])
+        out = dict(out, dist_image_features=t_out["image_features"],
+                   dist_text_features=t_out["text_features"],
+                   dist_logit_scale=t_out["logit_scale"])
+    return out
+
+
+def _grads(loss: torch.Tensor, params: Params) -> Params:
+    """Gradients by name; a parameter the loss does not reach gets zeros."""
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    return dict(zip(params, grads))
+
+
 def loss_and_grads(model: nn.Module, loss_apply: Callable[[dict, dict], dict],
-                   params: Params, batch: dict):
+                   params: Params, batch: dict, generator: Optional[torch.Generator] = None,
+                   teacher: Optional[nn.Module] = None):
     """(grads by name, loss dict) of one train-mode forward and backward.
     A parameter the loss does not reach gets a zero gradient."""
-    model.train()
-    out = model(batch["images"], batch["tokens"])
-    ldict = loss_apply(out, batch)
-    grads = torch.autograd.grad(ldict["loss"], list(params.values()),
-                                allow_unused=True, materialize_grads=True)
-    return dict(zip(params, grads)), {k: v.detach() for k, v in ldict.items()}
+    ldict = loss_apply(_model_out(model, batch, generator, teacher), batch)
+    return _grads(ldict["loss"], params), {k: v.detach() for k, v in ldict.items()}
+
+
+def apply_updates(tx: AdamW, state: TrainState, grads: Params, ldict: dict):
+    """The update, the logit-scale clamp and the metrics (the loss dict and
+    `grad_norm`, the global L2 norm of the gradients): (state, metrics)."""
+    grad_norm = global_norm(grads.values())
+    opt_state = tx.update(grads, state.opt_state, state.params, grad_norm=grad_norm)
+    _clamp_logit_scale(state.params)
+    metrics = dict(ldict, grad_norm=grad_norm)
+    return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
 
 def build_train_step(
@@ -275,29 +324,29 @@ def build_train_step(
     *,
     accum_freq: int = 1,
     cached_features_accum: bool = False,
+    teacher: Optional[nn.Module] = None,
 ):
     """The train step `step_fn(state, batch, generator=None) -> (state,
     metrics)`.
 
     batch: {'images': [N, H, W, 3] normalised float, 'tokens': [N, L],
-    'labels': [N]} on the model's device. `generator` is the step's source
-    of randomness; this slice's towers draw none. metrics: the loss dict
-    and `grad_norm` (the global L2 norm of the gradients), as tensors on
-    the device. Parameters and moments are updated in place.
+    'labels': [N]} on the model's device, and 'echo_time' and
+    'repetition_time' [N] for the distance loss. `generator` is the step's
+    source of randomness: the text dropout draws its masks from it (a CUDA
+    generator for a model on the card), and a model with dropout needs one.
+    `teacher`: a frozen model for the distill loss, run in eval mode without
+    gradients on the same batch. metrics: the loss dict and `grad_norm`, as
+    tensors on the device. Parameters and moments are updated in place.
     """
     _no_mesh(mesh, "build_train_step")
     if accum_freq != 1 or cached_features_accum:
         raise NotImplementedError(
             "gradient accumulation (accum_freq > 1, plain or cached-feature) is not "
-            "ported (ROADMAP: later slice 3, the training CLI's options)")
+            "ported (ROADMAP: modules item 3, the training CLI's options)")
 
     def step_fn(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
-        grads, ldict = loss_and_grads(model, loss_apply, state.params, batch)
-        grad_norm = global_norm(grads.values())
-        opt_state = tx.update(grads, state.opt_state, state.params, grad_norm=grad_norm)
-        _clamp_logit_scale(state.params)
-        metrics = dict(ldict, grad_norm=grad_norm)
-        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+        grads, ldict = loss_and_grads(model, loss_apply, state.params, batch, generator, teacher)
+        return apply_updates(tx, state, grads, ldict)
 
     return step_fn
 

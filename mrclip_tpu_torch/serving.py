@@ -118,6 +118,7 @@ def load_exported(path: str, device=None) -> ServedModel:
     model = model_from_config(
         meta["model_cfg"], precision=meta["precision"], attn_impl=meta["attn_impl"],
         gelu_approx=meta["gelu_approx"], dw_impl=meta.get("dw_impl"),
+        logit_scale_trainable=meta.get("logit_scale_trainable", True),
     )
     model.load_state_dict(sd, strict=True)
     return ServedModel(model.to(dev).eval(), meta)

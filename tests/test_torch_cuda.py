@@ -925,3 +925,45 @@ def test_small_mobileclip_train_step_gradients_through_the_kernels(cuda_device, 
             cos = torch.nn.functional.cosine_similarity(
                 g.flatten().double(), grads["xla"][name].flatten().double(), dim=0)
             assert cos.item() >= 0.99, name
+
+
+def test_chunked_loss_matches_the_dense_loss_at_b2048(cuda_device):
+    """The streamed multipositive loss (ops/fused_loss.py, torch ops with a
+    recomputing backward) against the dense one on the card, fp32 with TF32
+    off, B = 2048, D = 512, 1024-key chunks: loss to 1e-5 relative and the
+    gradients of the features and the scale to 1e-4 of their largest
+    element; its peak memory below the dense loss's."""
+    from mrclip_tpu_torch.losses import multipositive_clip_loss
+    from mrclip_tpu_torch.ops.fused_loss import chunked_multipositive_clip_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img, txt = (torch.nn.functional.normalize(
+        torch.randn(2048, 512, device="cuda", generator=gen), dim=-1) for _ in range(2))
+    labels = torch.randint(0, 32, (2048,), device="cuda", generator=gen)
+    results = {}
+    for key, fn in (("chunked", chunked_multipositive_clip_loss), ("dense", multipositive_clip_loss)):
+        a, b = img.clone().requires_grad_(), txt.clone().requires_grad_()
+        s = torch.tensor(14.0, device="cuda", requires_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = fn(a, b, labels, s)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        results[key] = (loss.item(), [a.grad, b.grad, s.grad],
+                        torch.cuda.max_memory_allocated() - base)
+    (lc, gc, mc), (ld, gd, md) = results["chunked"], results["dense"]
+    assert abs(lc - ld) <= 1e-5 * abs(ld)
+    for x, y in zip(gc, gd):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4 * y.abs().max().item())
+    assert mc < md
+
+
+def test_text_dropout_draws_from_a_cuda_generator(cuda_device):
+    """Text dropout on the card: the masks come from the step's CUDA
+    generator (the same seed, the same features; another seed, others)."""
+    model = create_model("ViT-B-32-mini", device="cuda", text_dropout=0.25).train()
+    tokens = torch.randint(1, 49408, (4, 32), device="cuda")
+    runs = [model.encode_text(tokens, generator=torch.Generator(device="cuda").manual_seed(s))
+            for s in (1, 1, 2)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])

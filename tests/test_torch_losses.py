@@ -22,10 +22,16 @@ from mrclip_tpu_torch.factory import create_loss
 from mrclip_tpu_torch.losses import (
     arange_cross_entropy,
     clip_loss,
+    distill_clip_loss,
     multi_positive_cross_entropy_loss,
     multipositive_clip_loss,
+    multipositive_clip_loss_vision_only,
+    multipositive_clip_loss_with_distance,
+    multipositive_clip_loss_with_vision,
     pos_mask_from_labels,
+    siglip_loss,
 )
+from mrclip_tpu_torch.ops.fused_loss import chunked_multipositive_clip_loss
 from mrclip_tpu_torch.ops.image_ops import normalize_images
 from mrclip_tpu_torch.ops.pallas_loss import pallas_multipositive_clip_loss
 
@@ -134,22 +140,37 @@ def _args(**kw):
     return SimpleNamespace(**base)
 
 
-@pytest.mark.parametrize("flags,fn,delta", [
-    (dict(multipositiveloss=True, delta=0.3), multipositive_clip_loss, 0.3),
-    (dict(multipositiveloss=True, pallas_loss=True), pallas_multipositive_clip_loss, 0.5),
-    (dict(), clip_loss, None),
+@pytest.mark.parametrize("flags,fn,keywords", [
+    (dict(multipositiveloss=True, delta=0.3), multipositive_clip_loss, dict(delta=0.3)),
+    (dict(multipositiveloss=True, pallas_loss=True), pallas_multipositive_clip_loss,
+     dict(delta=0.5)),
+    (dict(), clip_loss, dict()),
+    (dict(distill=True), distill_clip_loss, dict()),
+    (dict(siglip=True, loss_dist_impl="shift"), siglip_loss, dict(impl="shift")),
+    (dict(multipositiveloss=True, visiononly=True), multipositive_clip_loss_vision_only, dict()),
+    (dict(multipositiveloss=True, distance=True, delta=0.2), multipositive_clip_loss_with_distance,
+     dict(delta=0.2)),
+    (dict(multipositiveloss=True, chunked_loss=True, loss_chunk_size=256),
+     chunked_multipositive_clip_loss, dict(delta=0.5, chunk_size=256)),
+    (dict(lam=0.5), multipositive_clip_loss_with_vision, dict(lam=0.5)),
 ])
-def test_create_loss_dispatches_this_slices_losses(flags, fn, delta):
+def test_create_loss_dispatches_this_slices_losses(flags, fn, keywords):
+    """The JAX package's dispatch order: distill, CoCa, siglip, then the
+    multipositive forms (visiononly, distance, pallas, chunked, dense),
+    lam, clip_loss; each with its flags bound."""
     loss = create_loss(_args(**flags))
     assert loss.func is fn
-    assert loss.keywords.get("delta") == delta
+    for key, value in keywords.items():
+        assert loss.keywords[key] == value, key
+    assert "delta" in keywords or "delta" not in loss.keywords
 
 
-@pytest.mark.parametrize("flags", [
-    dict(distill=True), dict(model="coca_ViT-B-32"), dict(siglip=True),
-    dict(multipositiveloss=True, visiononly=True), dict(multipositiveloss=True, distance=True),
-    dict(multipositiveloss=True, chunked_loss=True), dict(lam=0.5),
-])
+def test_create_loss_chunk_size_defaults_to_1024():
+    loss = create_loss(_args(multipositiveloss=True, chunked_loss=True))
+    assert loss.func is chunked_multipositive_clip_loss and loss.keywords["chunk_size"] == 1024
+
+
+@pytest.mark.parametrize("flags", [dict(model="coca_ViT-B-32")])
 def test_create_loss_refuses_other_slices(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_loss(_args(**flags))
@@ -161,5 +182,5 @@ def test_losses_refuse_a_device_axis(fn):
     args = (x, x, torch.zeros(2, dtype=torch.int32), torch.tensor(1.0))
     if fn is clip_loss:
         args = (x, x, torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="item 6, multi-GPU"):
         fn(*args, axis_name="data")

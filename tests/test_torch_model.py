@@ -190,13 +190,25 @@ def test_create_model_options_outside_the_slice_raise(option):
 
 
 def test_text_dropout_raises():
-    """MR-CLIP's text dropout is not ported: a text tower asked for it
-    raises and names it, rather than building one that drops nothing; the
-    default (no dropout) still builds."""
+    """MR-CLIP's text dropout, once refused, now builds: a text tower asked
+    for it drops each block's branches in train mode (masks from the
+    forward's generator) and nothing in eval mode, and train mode without a
+    generator raises rather than draw from the global RNG; the vision tower
+    keeps none."""
     text_cfg = dict(get_model_config("ViT-B-32-mini")["text_cfg"], dropout=0.5)
-    with pytest.raises(NotImplementedError, match="text dropout.*ROADMAP"):
-        create_model("ViT-B-32-mini", text_cfg=text_cfg, device="cpu")
-    create_model("ViT-B-32-mini", device="cpu")
+    model = create_model("ViT-B-32-mini", text_cfg=text_cfg, device="cpu")
+    assert all(b.dropout == 0.5 for b in model.transformer.resblocks)
+    assert all(b.dropout == 0.0 for b in model.visual.transformer.resblocks)
+    tokens = torch.randint(1, 49408, (2, 32), generator=torch.Generator().manual_seed(0))
+    model.eval()
+    plain = model.encode_text(tokens)
+    model.train()
+    dropped = model.encode_text(tokens, generator=torch.Generator().manual_seed(0))
+    assert not torch.allclose(plain, dropped)
+    with pytest.raises(ValueError, match="Generator"):
+        model.encode_text(tokens)
+    model.eval()
+    torch.testing.assert_close(model.encode_text(tokens), plain, rtol=0, atol=0)
 
 
 def test_params_do_not_depend_on_the_attention_impl(pair):

@@ -129,7 +129,7 @@ def build_variant(name, edits):
                                f"{count[0] if count else 1} times")
         text = text.replace(old, new)
     header.write_text(text)
-    libs, lines = {}, []
+    lines = []
     for lib in ("grouped_attn", "flash_attn", "packed_attn_bwd"):
         out = src / f"lib{lib}.so"
         proc = subprocess.run(build.nvcc_command(src / f"{lib}.cu", out, build._find_nvcc()),
@@ -144,7 +144,14 @@ def build_variant(name, edits):
             elif ("registers" in line or "spill" in line) and (
                     "mma_bwd" in entry or (name == "committed" and "mma_fwd" in entry)):
                 lines.append(f"{lib} {entry}: {line.strip()}")
-        libs[lib] = ctypes.CDLL(str(out))
+    return bind_variant(src), lines
+
+
+def bind_variant(src):
+    """(K5 bwd fn, K10b bwd fn, K3 fn, K3r fn) of the grouped, flash and
+    packed-backward libraries built by `build_variant` in `src`."""
+    libs = {lib: ctypes.CDLL(str(Path(src) / f"lib{lib}.so"))
+            for lib in ("grouped_attn", "flash_attn", "packed_attn_bwd")}
     k5 = libs["grouped_attn"].grouped_attn_bwd
     k5.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -156,7 +163,7 @@ def build_variant(name, edits):
     k3r = libs["packed_attn_bwd"].packed_attn_rope_bwd
     k3r.argtypes = fa.load_rope_bwd_kernel().argtypes
     k5.restype = k10b.restype = k3.restype = k3r.restype = ctypes.c_int
-    return (k5, k10b, k3, k3r), lines
+    return k5, k10b, k3, k3r
 
 
 def inputs(shape, gen):
