@@ -8,8 +8,9 @@ fails:
   1. card:   name, power limit, PyTorch and CUDA versions, TF32 off for fp32
              products;
   2. build:  every CUDA source in `mrclip_tpu_torch/csrc` (one nvcc each, all
-             started together), with registers and spills from ptxas for
-             every instantiation, and the instantiations that spill;
+             started together; `png_unfilter.cu` is host code), with
+             registers and spills from ptxas for every instantiation, and
+             the instantiations that spill;
   3. kernel: each kernel against its plain PyTorch version on the card: K1
              (attention forward) and K3 (attention backward) at the served and
              trained shapes and ragged edges, bf16 and fp32, q/k/v/o/dO as
@@ -120,8 +121,29 @@ fails:
              against the dense one at B = 8192, D = 512 (loss 1e-4, gradient
              cosine 0.9999), timed beside the dense and pallas losses with
              the peak memory of each.
-Each path (4 to 12; phase 12 has five, one per objective) runs with the
-launch counts set to 0 just before it and reads them just after. The last three lines are the kernels JSON, the card's
+ 13. cli:    MR-CLIP's own main path from MRI volumes: 40 synthetic NIfTI
+             volumes (208 x 192 x 222 int16, the port's writer) with BIDS
+             sidecars over five protocols go through `python -m
+             mrclip_tpu_torch.preprocessing` slices, captions, label and
+             split (row counts, labels in range, disjoint volumes); the PNG
+             decode (the compiled unfilter) and host transform rates; then
+             `python -m mrclip_tpu_torch.train.main` trains full-width
+             ViT-B-16 at 224 px, b256, `fusedp` + `--pallas-loss
+             --multipositiveloss`, csv, amp, for 2 epochs with a val pass
+             after each (and a profiler window), and `--resume latest
+             --epochs 3` exactly one more: the checkpoints and results,
+             finite losses and metrics, the exact K1/K3/K6/K7 launches of
+             each epoch (phase 5's per step times the steps) and K1's of
+             each val pass, read from the runs' logs; the epoch-2 checkpoint
+             restored onto the card bit-equal; a batch of the CLI's data
+             (its first sampler indices and seed; augmentation draws of its
+             own) under the kernels against plain attention and the dense
+             loss (phase 5's bars); the loader's rate, the H2D copy of a pinned batch,
+             the CLI's pairs/s and data-time share.
+Each path (4 to 13; phase 12 has five, one per objective; phase 13's train
+and val runs are "cli" and "cli_eval", counted by the runs themselves)
+runs with the launch counts set to 0 just before it and reads them just
+after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
 """
@@ -437,14 +459,16 @@ def phase_card():
 
 SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn",
            "dw_conv")
+HOST_SOURCES = ("png_unfilter",)  # host code only: the PNG reader's unfilter (phase 13)
 
 
 def phase_build():
     from mrclip_tpu_torch.ops import build, dw_conv, flash_attn, fused_attn, pallas_loss
 
     t0 = time.perf_counter()
-    build.load_libraries(SOURCES)  # one nvcc per source, all started together
-    log(f"[build] {len(SOURCES)} sources built in {time.perf_counter() - t0:.2f} s wall")
+    build.load_libraries(SOURCES + HOST_SOURCES)  # one nvcc per source, all started together
+    log(f"[build] {len(SOURCES)} kernel sources and {len(HOST_SOURCES)} host source built in "
+        f"{time.perf_counter() - t0:.2f} s wall")
     spills = []
     for name in SOURCES:
         info = build.build_info(name)
@@ -1705,21 +1729,6 @@ def phase_serve(kernel_entry, card):
     return {"packed_attn_fwd": main_path_launches}, per_pair, perf
 
 
-def launch_counts():
-    """Every kernel's launches since the last reset, by kernel name."""
-    from mrclip_tpu_torch.ops import dw_conv as dc
-    from mrclip_tpu_torch.ops import flash_attn as fl
-    from mrclip_tpu_torch.ops import fused_attn as fa
-    from mrclip_tpu_torch.ops import pallas_loss as pl
-
-    return {"packed_attn_fwd": fa.launches, "packed_attn_bwd": fa.bwd_launches,
-            "packed_attn_rope_fwd": fa.rope_launches,
-            "packed_attn_rope_bwd": fa.rope_bwd_launches,
-            "grouped_attn_fwd": fa.grouped_launches, "grouped_attn_bwd": fa.grouped_bwd_launches,
-            "flash_attn_fwd": fl.launches, "flash_attn_bwd": fl.bwd_launches, **pl.launches,
-            **dc.launches}
-
-
 def reset_counts():
     from mrclip_tpu_torch.ops import dw_conv as dc
     from mrclip_tpu_torch.ops import flash_attn as fl
@@ -1750,6 +1759,7 @@ def phase_serve_mobileclip(entries, card):
     same weights on cuDNN's convolution and plain attention; throughput
     under both convolution choices (the same attention)."""
     from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
     from mrclip_tpu_torch.serving import ServedModel, export_model, load_exported, save_exported
 
     t0 = time.perf_counter()
@@ -1782,7 +1792,7 @@ def phase_serve_mobileclip(entries, card):
                           ("text_b256", served.encode_text, tokens)):
         before = launch_counts()
         feats[key] = unit_rows(enc(arg), len(arg), embed)
-        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        calls.append(launches_since(before))
     main_path = launch_counts()  # read right after the served run
     want = [{"packed_attn_fwd": 4, "dw_conv_fwd": 73}] * 2 + [{"packed_attn_fwd": 12}]
     log(f"[serve-mobileclip] launches per call (image b32, image b256, text b256): {calls} "
@@ -1833,6 +1843,7 @@ def phase_serve_mobileclip(entries, card):
 def phase_serve_eva02(entries, card):
     """EVA02-B-16 through the serving entry points: export, load, encode."""
     from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
     from mrclip_tpu_torch.factory import create_model
     from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
@@ -1860,7 +1871,7 @@ def phase_serve_eva02(entries, card):
                           ("text_b256", served.encode_text, tokens)):
         before = launch_counts()
         feats[key] = unit_rows(enc(arg), len(arg), embed)
-        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        calls.append(launches_since(before))
     main_path = launch_counts()  # read right after the served run
     want = [{"packed_attn_rope_fwd": 12}, {"packed_attn_rope_fwd": 12}, {"packed_attn_fwd": 12}]
     log(f"[serve-eva02] launches per call (image b32, image b256, text b256): {calls} "
@@ -2062,6 +2073,7 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
     from types import SimpleNamespace
 
     from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
     from mrclip_tpu_torch.ops import pallas_loss as pl
     from mrclip_tpu_torch.ops.image_ops import normalize_images
     from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
@@ -2154,7 +2166,7 @@ def phase_train(model_name, entries, card, attn_impl="fusedp", timed=5, pallas_s
         nonlocal state
         before = launch_counts()
         state, metrics = step_fn(state, prep(batch))
-        per_step.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        per_step.append(launches_since(before))
         wants.append(want)
         losses.append(metrics["loss"])
         return metrics
@@ -2253,6 +2265,7 @@ def phase_encode(model_name, attn_impl, kernel, card, exported):
     `inference_mode`. Each call launches `kernel` 12 times and no other
     kernel; the features agree with the same weights under plain attention."""
     from mrclip_tpu_torch.factory import create_model, get_model_config
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
     from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
     tag = f"[serve-{attn_impl}]"
@@ -2279,7 +2292,7 @@ def phase_encode(model_name, attn_impl, kernel, card, exported):
     for _ in range(2):
         before = launch_counts()
         feats = unit_rows(encode(images), TRAIN_BATCH, embed)
-        calls.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+        calls.append(launches_since(before))
     main_path = launch_counts()  # read right after the run
     want = [{kernel: 12}] * 2
     plain = create_model(model_name, pretrained=weights, precision="bf16", attn_impl="xla")
@@ -2413,6 +2426,7 @@ def phase_objectives(entries, card):
     from types import SimpleNamespace
 
     from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
     from mrclip_tpu_torch.ops.image_ops import normalize_images
     from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
                                            make_loss_apply)
@@ -2513,7 +2527,7 @@ def phase_objectives(entries, card):
             state, metrics = step_fn(state, prep(batch), gen(100 + i))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-            got.append({k: v - before[k] for k, v in launch_counts().items() if v != before[k]})
+            got.append(launches_since(before))
             wants.append(OBJECTIVE_PATHS[path]["per_step"])
             losses.append(metrics["loss"].item())
         paths[path] = launch_counts()  # read right after the path
@@ -2584,6 +2598,326 @@ def phase_objectives(entries, card):
     return paths, per_step, perf
 
 
+# The training CLI from MRI volumes (phase 13): `CLI_*` size the run; a CPU
+# rehearsal may cut them.
+CLI_MODEL = "ViT-B-16"
+CLI_DEVICE = "cuda"
+CLI_BATCH = TRAIN_BATCH
+CLI_VOLUMES = 40  # 50 slices each; a 60/20/20 split: 1200 train rows (4 steps), 400 val
+CLI_SHAPE = (208, 192, 222)  # 208 x 192 slices along the last axis, int16 voxels
+CLI_SLICES = range(122, 221, 2)  # the slices the captions and split steps keep
+CLI_PER_STEP = {**TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], **PALLAS_STEP}
+CLI_EVAL_PER_BATCH = {"packed_attn_fwd": 24}  # 12 vision + 12 text layers
+CLI_TIMEOUT = 900
+
+
+def _run_cli(tag, args, log_path):
+    """`python -m <args>` from the checkout's root, its output in `log_path`;
+    raises with the output's tail when it exits non-zero."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root, stdout=out,
+                              stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT)
+    seconds = time.perf_counter() - t
+    with open(log_path) as f:
+        text = f.read()
+    log(f"{tag} python -m {' '.join(args[:2])}: exit {proc.returncode} in {seconds:.1f} s")
+    if proc.returncode != 0:
+        log(text[-6000:])
+        raise AssertionError(f"{tag} python -m {args[0]} {args[1]} exited {proc.returncode}")
+    return text, seconds
+
+
+def _cli_log(path):
+    """(per-step (epoch, loss, data s, batch s), {epoch: train launches},
+    {epoch: eval launches}) from a train CLI's out.log."""
+    import re
+
+    steps, train, evals = [], {}, {}
+    step_re = re.compile(r"Train Epoch: (\d+) \[.*\] Loss: (\S+) Data \(t\): (\S+) Batch \(t\): "
+                         r"([\d.]+),")
+    launch_re = re.compile(r"(Train|Eval) Epoch: (\d+) kernel launches: (\{.*\})")
+    with open(path) as f:
+        for line in f:
+            m = step_re.search(line)
+            if m:
+                steps.append((int(m[1]), float(m[2]), float(m[3]), float(m[4])))
+            m = launch_re.search(line)
+            if m:
+                (train if m[1] == "Train" else evals)[int(m[2])] = json.loads(m[3])
+    return steps, train, evals
+
+
+def _scaled(per_step, n):
+    return {k: v * n for k, v in per_step.items()}
+
+
+def phase_cli(card):
+    """Phase 13: MR-CLIP's own main path from MRI volumes. Synthetic NIfTI
+    volumes (the port's writer) with BIDS sidecars go through the
+    preprocessing CLI (slices, captions, label, split); the training CLI
+    trains `CLI_MODEL` on the CSVs for two epochs with a val pass after each,
+    then `--resume latest --epochs 3` trains exactly one more. Checks the
+    runs' files, finite losses and metrics, the exact K1/K3/K6/K7 launches
+    per epoch and K1's per val pass, the saved state restored bit-equal onto
+    the card, and a batch of the CLI's data under the kernels against plain
+    attention and the dense loss. Returns ({path: launches}, {path: per-step
+    or per-batch launches}, perf)."""
+    import random
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import checkpoint as ckpt
+    from mrclip_tpu_torch.data import get_data, png
+    from mrclip_tpu_torch.data.table import read_table
+    from mrclip_tpu_torch.factory import (create_loss, create_model, create_model_and_transforms,
+                                          get_tokenizer)
+    from mrclip_tpu_torch.parallel import create_optimizer, create_train_state, make_loss_apply
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+    from mrclip_tpu_torch.preprocessing import extract_image_id
+    from mrclip_tpu_torch.preprocessing.synthetic import write_study
+    from mrclip_tpu_torch.train.loop import _to_device
+    from mrclip_tpu_torch.train.params import parse_args
+    from mrclip_tpu_torch.transforms import image_transform
+
+    tag = "[cli]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="mrclip_cli_")
+    root = tmp.name
+    raw, work = os.path.join(root, "raw"), os.path.join(root, "work")
+    perf = {}
+
+    # 1. data: int16 volumes and their sidecars, several protocols
+    t = time.perf_counter()
+    write_study(raw, CLI_VOLUMES, shape=CLI_SHAPE, slices=CLI_SLICES, seed=13, dtype=np.int16)
+    perf["write_volumes_s"] = time.perf_counter() - t
+    log(f"{tag} {CLI_VOLUMES} NIfTI volumes {CLI_SHAPE} int16 with sidecars in "
+        f"{perf['write_volumes_s']:.1f} s")
+
+    # 2. the preprocessing CLI, step by step
+    pre = "mrclip_tpu_torch.preprocessing"
+    os.makedirs(os.path.join(work, "split"))
+    steps = [("slices", "--input", raw, "--output", os.path.join(work, "slices")),
+             ("captions", "--input", os.path.join(work, "slices"), "--rawdata", raw, "--output",
+              os.path.join(work, "cap", "captions.csv")),
+             ("label", "--input", os.path.join(work, "cap", "*.csv"), "--output",
+              os.path.join(work, "lab")),
+             ("split", "--input", os.path.join(work, "lab"), "--output", os.path.join(work, "split"),
+              "--train-ratio", "0.6", "--val-ratio", "0.2")]
+    for step in steps:
+        _, perf[f"preprocess_{step[0]}_s"] = _run_cli(tag, [pre, *step],
+                                                       os.path.join(root, f"pre_{step[0]}.log"))
+    with open(os.path.join(work, "lab", "label_dict.json")) as f:
+        n_labels = len(json.load(f))
+    splits = {s: read_table(os.path.join(work, "split", f"{s}.csv"))[1]
+              for s in ("train", "val", "test")}
+    vols = {s: {extract_image_id(r["filepath"]) for r in rows} for s, rows in splits.items()}
+    labels = [int(r["label"]) for rows in splits.values() for r in rows]
+    n_slices = len(os.listdir(os.path.join(work, "slices")))
+    ok = (n_slices == CLI_VOLUMES * len(CLI_SLICES)
+          and sum(map(len, splits.values())) == n_slices and n_labels >= 3
+          and all(0 <= x < n_labels for x in labels)
+          and not (vols["train"] & vols["val"] or vols["train"] & vols["test"]
+                   or vols["val"] & vols["test"])
+          and len(splits["train"]) >= 4 * CLI_BATCH and len(splits["val"]) >= CLI_BATCH)
+    log(f"{tag} preprocessing: {n_slices} slices, {n_labels} labels, rows train "
+        f"{len(splits['train'])} / val {len(splits['val'])} / test {len(splits['test'])}, "
+        f"volumes {len(vols['train'])} / {len(vols['val'])} / {len(vols['test'])} (disjoint) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} the preprocessing CLI's outputs failed their checks")
+
+    # 3. host rates on this machine: PNG decode, the transforms, one thread
+    files = [r["filepath"] for r in splits["train"][:200]]
+    t = time.perf_counter()
+    pixels = [png.read_png(p) for p in files]
+    perf["png_decode_images_per_s"] = len(files) / (time.perf_counter() - t)
+    perf["png_unfilter_backend"] = png.unfilter_backend()
+    with open(files[0], "rb") as f:
+        raw, h, w, ch = png.parse_png(f.read())
+    t = time.perf_counter()
+    for _ in range(20):
+        png._unfilter_numpy(np.frombuffer(raw, np.uint8), h, w * ch, ch)
+    perf["png_unfilter_numpy_ms"] = (time.perf_counter() - t) / 20 * 1e3
+    for name, fn in (("train", image_transform(224, True)), ("eval", image_transform(224, False))):
+        random.seed(0)
+        t = time.perf_counter()
+        for p in pixels[:100]:
+            fn(p)
+        perf[f"{name}_transform_images_per_s"] = 100 / (time.perf_counter() - t)
+    log(f"{tag} host, one thread: PNG decode ({perf['png_unfilter_backend']} unfilter) "
+        f"{perf['png_decode_images_per_s']:.1f} images/s ({CLI_SHAPE[0]} x {CLI_SHAPE[1]}; the "
+        f"numpy unfilter {perf['png_unfilter_numpy_ms']:.2f} ms an image); train transform "
+        f"{perf['train_transform_images_per_s']:.1f} images/s, eval transform "
+        f"{perf['eval_transform_images_per_s']:.1f} images/s (224 px)")
+
+    # 4. the training CLI: two epochs with val, then one more from the saved state
+    workers = os.cpu_count() or 4
+    logs = os.path.join(root, "logs")
+    flags = ["--train-data", os.path.join(work, "split", "train.csv"),
+             "--val-data", os.path.join(work, "split", "val.csv"), "--csv-caption-key", "text",
+             "--model", CLI_MODEL, "--attn-impl", "fusedp", "--pallas-loss",
+             "--multipositiveloss", "--dataset-type", "csv", "--batch-size", str(CLI_BATCH),
+             "--val-frequency", "1", "--precision", "amp", "--workers", str(workers),
+             "--lr", "1e-4", "--wd", "0.2", "--skip-scheduler", "--bf16-moments",
+             "--gelu-approx", "--seed", "0", "--log-every-n-steps", "1", "--logs", logs,
+             "--name", "cli", "--device", CLI_DEVICE]
+    train_mod = "mrclip_tpu_torch.train.main"
+    _, perf["cli_run1_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", "2", "--profile-dir",
+                                           os.path.join(root, "trace")],
+                                     os.path.join(root, "train1.log"))
+    run = os.path.join(logs, "cli")
+    ckdir = os.path.join(run, "checkpoints")
+    saved2 = ckpt.load_checkpoint(ckdir, 2)
+    _, perf["cli_run2_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", "3", "--resume",
+                                           "latest"], os.path.join(root, "train2.log"))
+    steps, train_launch, eval_launch = _cli_log(os.path.join(run, "out.log"))
+    with open(os.path.join(run, "out.log")) as f:  # where the runs' time went
+        for line in f:
+            if any(k in line for k in ("Model:", "Start epoch", "Saved checkpoint", "resuming",
+                                       "wrote a profiler trace", "Eval Epoch: ")) \
+                    and "kernel launches" not in line:
+                log(f"{tag}   out.log {line.strip()[:150]}")
+    with open(os.path.join(ckdir, "results.jsonl")) as f:
+        results = [json.loads(line) for line in f]
+    with open(os.path.join(run, "out.log")) as f:
+        text = f.read()
+    n_steps = len(splits["train"]) // CLI_BATCH
+    n_val = -(-len(splits["val"]) // CLI_BATCH)
+    want_train = _scaled(CLI_PER_STEP, n_steps)
+    want_eval = _scaled(CLI_EVAL_PER_BATCH, n_val)
+    finite = (all(np.isfinite(s[1]) for s in steps)
+              and all(np.isfinite(v) for r in results for v in r.values()
+                      if isinstance(v, (int, float))))
+    traces = os.listdir(os.path.join(root, "trace")) if os.path.isdir(
+        os.path.join(root, "trace")) else []
+    ok = (sorted(ckpt.saved_steps(ckdir)) == [1, 2, 3] and [r["epoch"] for r in results] == [1, 2, 3]
+          and [s[0] for s in steps] == [e for e in range(3) for _ in range(n_steps)]
+          and "=> resuming checkpoint (epoch 2)" in text and finite
+          and train_launch == {e: want_train for e in range(3)}
+          and eval_launch == {e: want_eval for e in (1, 2, 3)} and traces)
+    log(f"{tag} train CLI: {len(steps)} steps over 3 epochs ({n_steps} a epoch, b{CLI_BATCH}, "
+        f"{workers} loader threads), the third resumed from epoch 2; losses "
+        + ", ".join(f"{s[1]:.4f}" for s in steps) + "; val R@1 i2t "
+        + ", ".join(f"{r.get('image_to_text_general_R@1', float('nan')):.3f}" for r in results)
+        + f"; launches per train epoch {train_launch.get(0)} (want {want_train}), per val pass "
+        f"{eval_launch.get(1)} (want {want_eval}); checkpoints {sorted(ckpt.saved_steps(ckdir))}; "
+        f"profiler trace {traces} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} the training CLI's runs failed their checks: "
+                             f"{train_launch} {eval_launch} {results}")
+    # throughput and the data-time share over every logged step, and over the
+    # steps after each epoch's first (whose batches the loader makes while the
+    # first waits)
+    steady = [s for i, s in enumerate(steps) if i % n_steps]
+    data_s, batch_s = sum(s[2] for s in steady), sum(s[3] for s in steady)
+    all_data, all_batch = sum(s[2] for s in steps), sum(s[3] for s in steps)
+    perf.update(cli_pairs_per_s=CLI_BATCH * len(steps) / all_batch,
+                cli_data_time_share=all_data / all_batch,
+                cli_steady_pairs_per_s=CLI_BATCH * len(steady) / batch_s,
+                cli_steady_batch_ms=batch_s / len(steady) * 1e3,
+                cli_steady_data_time_share=data_s / batch_s,
+                cli_first_step_s=[s[3] for i, s in enumerate(steps) if i % n_steps == 0],
+                cli_first_step_data_s=[s[2] for i, s in enumerate(steps) if i % n_steps == 0])
+    log(f"{tag} train CLI, all {len(steps)} steps: {perf['cli_pairs_per_s']:.1f} pairs/s, "
+        f"data-time share {perf['cli_data_time_share']:.3f}; each epoch's first step "
+        + ", ".join(f"{x:.2f}" for x in perf["cli_first_step_s"]) + " s (data "
+        + ", ".join(f"{x:.2f}" for x in perf["cli_first_step_data_s"]) + " s); the steps after "
+        f"it {perf['cli_steady_batch_ms']:.1f} ms a step, {perf['cli_steady_pairs_per_s']:.1f} "
+        f"pairs/s, data-time share {perf['cli_steady_data_time_share']:.3f} (phase 5's bare step "
+        f"on random uint8 images is the card's side of it) | {card}")
+
+    # 5. the resumed state: the epoch-2 checkpoint loaded onto the card, bit-equal
+    args = parse_args([*flags, "--epochs", "3", "--workers", str(workers)])
+    args.device, args.rank, args.world_size = CLI_DEVICE, 0, 1
+    model, preprocess_train, preprocess_val = create_model_and_transforms(
+        CLI_MODEL, precision="amp", device=CLI_DEVICE, attn_impl="fusedp", gelu_approx=True,
+        rng_seed=0)
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = ckpt.load_checkpoint(ckdir, 2, template=create_train_state(model, tx))
+    same = (state.step == saved2["step"] == 2 * n_steps
+            and all(torch.equal(state.params[k].cpu(), v) for k, v in saved2["params"].items())
+            and all(torch.equal(state.opt_state.mu[k].cpu(), v)
+                    for k, v in saved2["opt_state"]["mu"].items())
+            and all(torch.equal(state.opt_state.nu[k].cpu(), v)
+                    for k, v in saved2["opt_state"]["nu"].items())
+            and all(v.dtype == torch.bfloat16 for v in state.opt_state.mu.values()))
+    log(f"{tag} epoch-2 checkpoint restored onto {CLI_DEVICE}: step {state.step}, "
+        f"{len(saved2['params'])} parameters and both moments (first in bf16) bit-equal "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{tag} the restored state differs from the checkpoint")
+    del state, saved2, tx
+    torch.cuda.empty_cache()
+
+    # 6. a batch of the CLI's data at its first epoch's sampler indices,
+    # with the initial weights of --seed 0, under the kernels and the pallas
+    # loss vs plain attention and the dense loss; the copy of its images to
+    # the card. One worker here, so its crops, angles and flips are its own
+    # draws: the CLI's workers drew theirs from the global `random` in
+    # another order.
+    random.seed(0)
+    np.random.seed(0)
+    tokenizer = get_tokenizer(CLI_MODEL)
+    args.workers = 1  # one batch: one thread makes it fastest (PERF.md, PR 17)
+    data = get_data(args, (preprocess_train, preprocess_val), tokenizer=tokenizer)
+    loader = data["train"].dataloader
+    data["train"].set_epoch(0)
+    host_batch = next(iter(loader))
+    images = host_batch["images"]
+    pinned = torch.is_tensor(images) and images.is_pinned()
+    dev = torch.device(CLI_DEVICE)
+    if dev.type == "cuda":
+        copies = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            host_batch["images"].to(dev, non_blocking=True)
+            end.record()
+            torch.cuda.synchronize()
+            copies.append(start.elapsed_time(end))
+        perf["h2d_images_ms"] = statistics.median(copies)
+    else:
+        perf["h2d_images_ms"] = None
+    nbytes = images.numel() * images.element_size() if torch.is_tensor(images) else images.nbytes
+    rate = ("not measured" if perf["h2d_images_ms"] is None
+            else f"{nbytes / perf['h2d_images_ms'] / 1e6:.2f} GB/s")
+    log(f"{tag} H2D copy of a pinned ({pinned}) {nbytes / 1e6:.1f} MB image batch from the "
+        f"loader: {fmt_ms(perf['h2d_images_ms'])} ms ({rate}), median of 5 | {card}")
+    batch = _to_device(host_batch, dev)
+    pallas = make_loss_apply(create_loss(args))
+    dense = make_loss_apply(create_loss(SimpleNamespace(**{**vars(args), "pallas_loss": False})))
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    g_kernel, l_kernel = loss_and_grads(model, pallas, dict(model.named_parameters()), batch)
+    plain = create_model(CLI_MODEL, pretrained=weights, precision="amp", device=CLI_DEVICE,
+                         attn_impl="xla", gelu_approx=True)
+    g_plain, l_plain = loss_and_grads(plain, dense, dict(plain.named_parameters()), batch)
+    lk, lp = l_kernel["loss"].item(), l_plain["loss"].item()
+    whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
+    ok = np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= 0.999 and worst >= 0.99
+    log(f"{tag} a batch of the CLI's data (its first sampler indices, initial weights of "
+        f"--seed 0): "
+        f"fusedp + pallas loss {lk:.6f} vs plain attention + dense loss {lp:.6f} (rel "
+        f"{abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine whole {whole:.6f} (>= 0.999), "
+        f"min per tensor {worst:.6f} at {worst_name} (>= 0.99) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} the CLI's batch disagrees between kernels and plain")
+    perf.update(first_batch_loss_kernel=lk, first_batch_loss_plain=lp, first_batch_cosine=whole)
+    del model, plain, g_kernel, g_plain, batch, host_batch, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase wall {perf['phase_s']:.1f} s | {card}")
+    log(f"{tag} breakdown: " + json.dumps(perf))
+    tmp.cleanup()
+    launches = {k: sum(e.get(k, 0) for e in train_launch.values()) for k in want_train}
+    eval_launches = {k: sum(e.get(k, 0) for e in eval_launch.values()) for k in want_eval}
+    return ({"cli": launches, "cli_eval": eval_launches},
+            {"cli": CLI_PER_STEP, "cli_eval": CLI_EVAL_PER_BATCH}, perf)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2621,6 +2955,9 @@ def main() -> int:
     obj_paths, obj_per_step, fwd["objectives"] = phase_objectives(entries, smi)
     paths.update(obj_paths)
     per_step.update(obj_per_step)
+    cli_paths, cli_per_step, fwd["cli"] = phase_cli(smi)
+    paths.update(cli_paths)
+    per_step.update(cli_per_step)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -2633,7 +2970,8 @@ def main() -> int:
                 "serve_mobileclip": ["dw_conv_fwd", "packed_attn_fwd"],
                 "train_mobileclip": [*TRAIN_PATHS["MobileCLIP-S1", "bf16"]["per_step"],
                                      *PALLAS_STEP],
-                **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()}}
+                **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()},
+                "cli": [*CLI_PER_STEP], "cli_eval": [*CLI_EVAL_PER_BATCH]}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -1,6 +1,7 @@
 """Model factory and JSON config registry of the port (counterpart of
 `mrclip_tpu/factory.py`: `list_models`, `get_model_config`,
-`add_model_config`, `create_model`, `create_loss`).
+`add_model_config`, `get_tokenizer`, `create_model`,
+`create_model_and_transforms`, `create_loss`).
 
 The registry scans the port's own `model_configs/` (byte-identical copies of
 the JAX package's files). `create_model` returns a `CLIP` module on its
@@ -29,16 +30,21 @@ from .losses.contrastive import (
     multipositive_clip_loss_with_vision,
     siglip_loss,
 )
+from .constants import DEFAULT_CONTEXT_LENGTH
 from .models import CLIP
 from .ops.fused_loss import chunked_multipositive_clip_loss
 from .ops.pallas_loss import pallas_multipositive_clip_loss
+from .tokenizer import SimpleTokenizer
+from .transforms import PreprocessCfg, image_transform_v2, merge_preprocess_dict
 from .utils import resolve_device
 
 __all__ = [
     "list_models",
     "get_model_config",
     "add_model_config",
+    "get_tokenizer",
     "create_model",
+    "create_model_and_transforms",
     "create_loss",
     "model_from_config",
     "cast_dtype",
@@ -89,6 +95,20 @@ def add_model_config(path) -> None:
     """Register model configs from a file or directory."""
     _MODEL_CONFIG_PATHS.append(Path(path))
     _rescan_model_configs()
+
+
+def get_tokenizer(model_name: str = "", context_length: Optional[int] = None, **kwargs):
+    """The model's tokenizer: the CLIP BPE tokenizer at the config's context
+    length (default 98) with the config's `tokenizer_kwargs`; HF tokenizers
+    raise."""
+    text_config = (get_model_config(model_name) or {}).get("text_cfg", {})
+    tokenizer_kwargs = dict(text_config.get("tokenizer_kwargs", {}), **kwargs)
+    if context_length is None:
+        context_length = text_config.get("context_length", DEFAULT_CONTEXT_LENGTH)
+    if "hf_tokenizer_name" in text_config:
+        raise NotImplementedError(
+            "HF tokenizers are not ported (ROADMAP: modules item 5, the other towers)")
+    return SimpleTokenizer(context_length=context_length, **tokenizer_kwargs)
 
 
 def cast_dtype(precision: str) -> torch.dtype:
@@ -260,6 +280,38 @@ def create_model(
     elif init_params:
         _init_weights(model, torch.Generator().manual_seed(rng_seed))
     return model.to(dev).eval()
+
+
+def create_model_and_transforms(
+    model_name: str,
+    pretrained: Optional[Union[str, dict]] = None,
+    precision: str = "fp32",
+    *,
+    image_mean: Optional[Tuple[float, ...]] = None,
+    image_std: Optional[Tuple[float, ...]] = None,
+    image_interpolation: Optional[str] = None,
+    image_resize_mode: Optional[str] = None,
+    aug_cfg=None,
+    **kwargs,
+):
+    """(model, train transform, eval transform): `create_model` and the
+    host transforms of the model's `PreprocessCfg` (OpenAI mean and std,
+    bicubic, shortest-edge resize at the config's image size, unless
+    overridden here). The pretrained registry's per-tag preprocessing is not
+    ported: `pretrained` is a state dict or a file."""
+    model = create_model(model_name, pretrained, precision, **kwargs)
+    cfg = get_model_config(model_name.replace("/", "-")) or {}
+    overlay = {
+        "mean": image_mean,
+        "std": image_std,
+        "interpolation": image_interpolation,
+        "resize_mode": image_resize_mode,
+        "size": kwargs.get("force_image_size") or cfg.get("vision_cfg", {}).get("image_size"),
+    }
+    pp_cfg = PreprocessCfg(**merge_preprocess_dict(PreprocessCfg(), overlay))
+    train_t = image_transform_v2(pp_cfg, is_train=True, aug_cfg=aug_cfg)
+    eval_t = image_transform_v2(pp_cfg, is_train=False)
+    return model, train_t, eval_t
 
 
 def create_loss(args) -> Callable[..., dict]:

@@ -189,18 +189,22 @@ def create_optimizer(
 @dataclasses.dataclass
 class TrainState:
     """Step count, the model's trainable parameters by name (the module's
-    own tensors) and the optimizer state."""
+    own tensors), the optimizer state and the constants: the frozen
+    `logit_scale` buffer of a model built with `logit_scale_trainable=False`
+    (the module's own tensor; a checkpoint saves it)."""
 
     step: int
     params: Params
     opt_state: AdamWState
+    constants: Params = dataclasses.field(default_factory=dict)
 
 
 def create_train_state(model: nn.Module, tx: AdamW, mesh=None) -> TrainState:
     """The train state of `model`'s trainable parameters (mesh=None only)."""
     _no_mesh(mesh, "create_train_state")
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-    return TrainState(step=0, params=params, opt_state=tx.init(params))
+    constants = {n: b for n, b in model.named_buffers() if n == "logit_scale"}
+    return TrainState(step=0, params=params, opt_state=tx.init(params), constants=constants)
 
 
 @torch.no_grad()

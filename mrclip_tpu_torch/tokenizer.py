@@ -4,7 +4,7 @@
 Token ids are those of the JAX package (and of the reference open_clip) for
 the shipped `bpe_simple_vocab_16e6.txt.gz`. Output is an int32 ndarray
 `[n, context_length]`. The HF tokenizers and the context-overflow reduction
-strategies are not ported yet (ROADMAP, "data and CLI").
+strategies are not ported yet (ROADMAP: modules item 3).
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from __future__ import annotations
 import gzip
 import html
 import os
+import string
 from functools import lru_cache
-from typing import List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 
@@ -70,12 +71,33 @@ def whitespace_clean(text: str) -> str:
     return " ".join(text.split()).strip()
 
 
-def get_clean_fn(kind: str):
+def canonicalize_text(
+    text: str,
+    *,
+    keep_punctuation_exact_string: Optional[str] = None,
+    trans_punctuation: dict = str.maketrans("", "", string.punctuation),
+) -> str:
+    """Underscores to spaces, punctuation dropped (except inside
+    `keep_punctuation_exact_string`), lower case, whitespace collapsed."""
+    text = text.replace("_", " ")
+    if keep_punctuation_exact_string:
+        text = keep_punctuation_exact_string.join(
+            part.translate(trans_punctuation) for part in text.split(keep_punctuation_exact_string)
+        )
+    else:
+        text = text.translate(trans_punctuation)
+    text = text.lower()
+    return " ".join(text.split()).strip()
+
+
+def get_clean_fn(kind: str) -> Callable[[str], str]:
+    if kind == "canonicalize":
+        return lambda x: canonicalize_text(basic_clean(x))
     if kind == "lower":
         return lambda x: whitespace_clean(basic_clean(x)).lower()
     if kind == "whitespace":
         return lambda x: whitespace_clean(basic_clean(x))
-    raise NotImplementedError(f"clean function {kind!r} is not ported (ROADMAP: data and CLI)")
+    raise ValueError(f"Invalid clean function ({kind}).")
 
 
 class SimpleTokenizer:

@@ -967,3 +967,67 @@ def test_text_dropout_draws_from_a_cuda_generator(cuda_device):
     runs = [model.encode_text(tokens, generator=torch.Generator(device="cuda").manual_seed(s))
             for s in (1, 1, 2)]
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+
+
+def test_png_decode_through_the_compiled_unfilter(cuda_device, tmp_path):
+    """Where nvcc is (the card's machine), the PNG reader unfilters in the
+    host C function built from csrc/png_unfilter.cu; it gives the numpy
+    unfilter's bytes for every filter type and the pixels written."""
+    from mrclip_tpu_torch.data import png
+
+    assert png.unfilter_backend() == "compiled"
+    rng = np.random.RandomState(0)
+    for bpp in (1, 2, 3, 4):
+        rows = rng.randint(0, 256, (40, 33 * bpp + 1)).astype(np.uint8)
+        rows[:, 0] = np.arange(40) % 5
+        raw = rows.tobytes()
+        np.testing.assert_array_equal(png.unfilter(raw, 40, 33 * bpp, bpp),
+                                      png._unfilter_numpy(rows.reshape(-1), 40, 33 * bpp, bpp))
+        img = (rng.rand(37, 29, bpp) * 50 + np.arange(29)[None, :, None] * 6).astype(np.uint8)
+        img = img[..., 0] if bpp == 1 else img
+        png.write_png(tmp_path / f"x{bpp}.png", img)
+        np.testing.assert_array_equal(png.read_png(str(tmp_path / f"x{bpp}.png")), img)
+
+
+def test_training_cli_one_epoch_on_the_card(cuda_device, tmp_path):
+    """The preprocessing CLI on a small synthetic study, then the training
+    CLI on the card for one epoch with a val pass (ViT-B-32-mini, fusedp,
+    the pallas loss): K1/K3/K6/K7 launched per step as the model's layers
+    say, finite results, a checkpoint that loads back bit-equal."""
+    import json
+
+    from mrclip_tpu_torch import checkpoint as ckpt
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
+    from mrclip_tpu_torch.preprocessing import __main__ as pre_cli
+    from mrclip_tpu_torch.preprocessing.synthetic import write_study
+    from mrclip_tpu_torch.train import main as train_main
+
+    write_study(str(tmp_path / "raw"), 8, shape=(64, 60, 224), slices=range(122, 142, 2), seed=1)
+    pre_cli.main(["slices", "--input", str(tmp_path / "raw"), "--output", str(tmp_path / "s")])
+    pre_cli.main(["captions", "--input", str(tmp_path / "s"), "--rawdata", str(tmp_path / "raw"),
+                  "--output", str(tmp_path / "cap" / "c.csv")])
+    pre_cli.main(["label", "--input", str(tmp_path / "cap" / "*.csv"), "--output",
+                  str(tmp_path / "lab")])
+    (tmp_path / "split").mkdir()
+    pre_cli.main(["split", "--input", str(tmp_path / "lab"), "--output", str(tmp_path / "split"),
+                  "--train-ratio", "0.5", "--val-ratio", "0.25"])
+    before = launch_counts()
+    state = train_main.main([
+        "--train-data", str(tmp_path / "split" / "train.csv"),
+        "--val-data", str(tmp_path / "split" / "val.csv"), "--csv-caption-key", "text",
+        "--model", "ViT-B-32-mini", "--attn-impl", "fusedp", "--pallas-loss",
+        "--multipositiveloss", "--batch-size", "16", "--epochs", "1", "--precision", "amp",
+        "--workers", "2", "--logs", str(tmp_path / "logs"), "--name", "r"])
+    launched = launches_since(before)
+    steps = 40 // 16  # 4 volumes x 10 slices, drop_last
+    layers = get_model_config("ViT-B-32-mini")
+    per_pass = layers["vision_cfg"]["layers"] + layers["text_cfg"]["layers"]
+    assert state.step == steps
+    assert launched == {"packed_attn_fwd": per_pass * (steps + 2), "packed_attn_bwd": per_pass * steps,
+                        "supcon_stats": 2 * steps, "supcon_grad_q": 2 * steps,
+                        "supcon_grad_k": 2 * steps}  # the val pass: 20 rows, 2 batches of K1
+    res = json.loads((tmp_path / "logs" / "r" / "checkpoints" / "results.jsonl").read_text())
+    assert all(np.isfinite(v) for v in res.values() if isinstance(v, float))
+    saved = ckpt.load_checkpoint(str(tmp_path / "logs" / "r" / "checkpoints"))
+    for k, v in state.params.items():
+        assert v.is_cuda and torch.equal(v.detach().cpu(), saved["params"][k])

@@ -18,6 +18,7 @@ from mrclip_tpu_torch.factory import create_model
 from mrclip_tpu_torch.ops import build
 from mrclip_tpu_torch.parallel import create_optimizer, create_train_state
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
+from mrclip_tpu_torch.train import main as train_main
 
 # One intra-op thread: the suite runs in several worker processes at once, and
 # torch's default of one thread per core in each of them oversubscribes the CPU.
@@ -27,20 +28,27 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORTS_NO_JAX = """
 import sys
+for blocked in ("PIL", "pandas"):  # an import of either anywhere in the port fails loudly
+    sys.modules[blocked] = None
 import chip_smoke, mrclip_tpu_torch
 import mrclip_tpu_torch.export, mrclip_tpu_torch.serve, mrclip_tpu_torch.ops.fused_attn
 import mrclip_tpu_torch.ops.flash_attn, mrclip_tpu_torch.ops.dw_conv, mrclip_tpu_torch.models.fastvit
 import mrclip_tpu_torch.ops.pallas_loss, mrclip_tpu_torch.ops.image_ops, mrclip_tpu_torch.ops.pos_embed
 import mrclip_tpu_torch.models.vision, mrclip_tpu_torch.models.transformer, mrclip_tpu_torch.weights
 import mrclip_tpu_torch.losses, mrclip_tpu_torch.parallel, mrclip_tpu_torch.train
+import mrclip_tpu_torch.preprocessing, mrclip_tpu_torch.preprocessing.__main__
+import mrclip_tpu_torch.preprocessing.synthetic, mrclip_tpu_torch.data, mrclip_tpu_torch.transforms
+import mrclip_tpu_torch.checkpoint, mrclip_tpu_torch.train.loop, mrclip_tpu_torch.train.main
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu", "PIL", "pandas")
+             and sys.modules[m] is not None)
 print(bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """Nor PIL or pandas, which the card's machine does not have."""
     proc = subprocess.run([sys.executable, "-c", _IMPORTS_NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -60,7 +68,7 @@ def artifact(tmp_path_factory):
 
 @pytest.mark.parametrize("entry", ["create_model", "create_model EVA02-B-16",
                                    "create_model MobileCLIP-S1", "load_exported", "make_server",
-                                   "serve.main", "export.main", "train"])
+                                   "serve.main", "export.main", "train", "train.main"])
 def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry):
     """The training path runs on its model's device, so it too stops at
     create_model without a card unless given device='cpu'."""
@@ -75,6 +83,9 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
         "serve.main": lambda: serve.main(["--model", artifact, "--port", "0"]),
         "export.main": lambda: export_cli.main(
             ["--model", "ViT-B-32-mini", "--output", str(tmp_path / "x.mrclip")]),
+        "train.main": lambda: train_main.main(
+            ["--model", "ViT-B-32-mini", "--dataset-type", "synthetic", "--logs",
+             str(tmp_path / "logs")]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -87,6 +98,10 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
     "model_configs/MobileCLIP-S1.json",
     "model_configs/MobileCLIP-S2.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
+    "assets/bin_intervals_et_20_rt_20.json",
+    "preprocessing/binning.py",
+    "preprocessing/captions.py",
+    "train/metrics.py",
 ])
 def test_copied_files_are_byte_identical(rel):
     assert filecmp.cmp(ROOT / "mrclip_tpu" / rel, ROOT / "mrclip_tpu_torch" / rel, shallow=False)
@@ -237,6 +252,13 @@ def test_package_data_ships_every_included_header():
     shipped = {p for g in globs for p in pkg.glob(g)}
     sources = sorted(build.CSRC.glob("*.cu")) + sorted(build.CSRC.glob("*.cuh"))
     assert len(sources) >= 7 and set(sources) <= shipped
+    assert pkg / "assets" / "bin_intervals_et_20_rt_20.json" in shipped
+    from setuptools import find_packages
+
+    found = find_packages(str(ROOT), include=tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["packages"]["find"]["include"])
+    assert {"mrclip_tpu_torch.preprocessing", "mrclip_tpu_torch.data",
+            "mrclip_tpu_torch.train"} <= set(found)
     for src in sources:
         for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
             assert build.CSRC / name in shipped, f"{src.name} includes {name}, which is not shipped"
