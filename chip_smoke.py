@@ -140,10 +140,32 @@ fails:
              own) under the kernels against plain attention and the dense
              loss (phase 5's bars); the loader's rate, the H2D copy of a pinned batch,
              the CLI's pairs/s and data-time share.
-Each path (4 to 13; phase 12 has five, one per objective; phase 13's train
-and val runs are "cli" and "cli_eval", counted by the runs themselves)
-runs with the launch counts set to 0 just before it and reads them just
-after. The last three lines are the kernels JSON, the card's
+ 14. options: the training CLI's options on full-width models, b256, bf16,
+             'fusedp', the pallas loss. Remat on ViT-B-16: each policy
+             (full, dots, mlp_only) one step against none from the same
+             weights and batch (phase 5's bars, bit-equality stated), its
+             exact launches (K1 twice per layer, K3 once), peak memory and
+             the median of 3 timed steps (full must peak below none);
+             EVA02-B-16 (K2/K3r) and MobileCLIP-S1 (K8/K9) one checked remat
+             step each. Accumulation: the cached mode at 4 x 64 against one
+             b256 step, the plain mode's loss against its four b64 losses,
+             the exact launches (K6/K7 at B = 256 cached, 64 plain), the
+             cached mode at 4 x 256 timed beside b256. sgd, lion (bf16 mu)
+             and adafactor one step each from captured gradients against the
+             same optimizer in float64 on the CPU. --lock-image and --freeze
+             --freezelast: frozen parameters bit-unchanged, the others moved,
+             grad_norm over every gradient; MobileCLIP-S1 with
+             --lock-image-freeze-bn-stats. Then `python -m
+             mrclip_tpu_torch.train.main` on synthetic data (224 px): cached
+             accumulation + remat dots + lion + --freeze --freezelast + the
+             pallas loss for an epoch with val and `--resume latest` for one
+             more (the restored state bit-equal), adafactor and sgd for one
+             short epoch, --visiononly for an epoch with its eval; the exact
+             launches of each from its log.
+Each path (4 to 14; phase 12 has five, one per objective; phase 13's train
+and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
+counted by the runs themselves) runs with the launch counts set to 0 just
+before it and reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
 """
@@ -2918,6 +2940,514 @@ def phase_cli(card):
             {"cli": CLI_PER_STEP, "cli_eval": CLI_EVAL_PER_BATCH}, perf)
 
 
+# The training CLI's options (phase 14): remat, accumulation, the other
+# optimizers, locking and freezing, and the CLI under them. `OPT_*` size
+# the phase; a CPU rehearsal may cut them.
+REMAT_POLICIES = (None, "full", "dots", "mlp_only")
+REMAT_TIMED = 3
+ACCUM = 4
+ACCUM_BIG = 256  # rows per microbatch of the cached mode's timed step (A x 256 = 1024)
+OPT_LR = {"sgd": 1e-3, "lion": 1e-4, "adafactor": 1e-3}
+OPT_CLI_BATCH = 128
+OPT_CLI_SAMPLES = {"options": 256, "adafactor": 256, "sgd": 256, "visiononly": 256}
+
+
+def set_remat(model, policy):
+    """Remat every transformer stack of `model` under `policy` (None: off)
+    and, for FastViT, its RepMixer blocks; the blocks read the policy at
+    each call, so one set of weights serves every policy."""
+    from mrclip_tpu_torch.models.fastvit import FastViT
+    from mrclip_tpu_torch.models.transformer import Transformer
+    from mrclip_tpu_torch.models.vision import EvaVisionTransformer
+
+    for m in model.modules():
+        if isinstance(m, (Transformer, EvaVisionTransformer, FastViT)):
+            m.remat = policy
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradients it is given and moves nothing:
+    a step's gradients, whatever the accumulation mode."""
+
+    def init(self, params):
+        from types import SimpleNamespace
+        return SimpleNamespace(count=0)
+
+    def update(self, grads, state, params, grad_norm=None):
+        self.grads, self.grad_norm = grads, grad_norm
+        return state
+
+
+def supcon_rows(pl):
+    """Wrap the K6/K7 wrappers of `pl` to record the rows of each call;
+    returns (the list they append to, an undo)."""
+    rows, real = [], {}
+    for name in ("supcon_stats", "supcon_grad_q", "supcon_grad_k"):
+        real[name] = getattr(pl, name)
+
+        def wrapped(q, k, *a, _name=name):
+            rows.append((_name, q.shape[0], k.shape[0]))
+            return real[_name](q, k, *a)
+
+        setattr(pl, name, wrapped)
+    return rows, lambda: [setattr(pl, n, f) for n, f in real.items()]
+
+
+def check_grads(tag, what, got, want, lg, lw, scale_logit=1):
+    """Phase 5's bars: loss within 1e-2 relative, gradient cosine >= 0.999
+    whole and >= 0.99 per tensor of 1e4 or more elements; `scale_logit`
+    multiplies want's temperature gradient first. Returns (ok, bit-equal)."""
+    if scale_logit != 1 and "logit_scale" in want:
+        want = dict(want, logit_scale=want["logit_scale"] * scale_logit)
+    whole, worst, worst_name = grad_cosines(got, want)
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    ok = np.isfinite(lg) and abs(lg - lw) <= 1e-2 * abs(lw) and whole >= 0.999 and worst >= 0.99
+    log(f"{tag} {what}: loss {lg:.6f} vs {lw:.6f} (rel {abs(lg - lw) / abs(lw):.2e}); gradient "
+        f"cosine whole {whole:.7f}, min per tensor {worst:.7f} at {worst_name}; bit-equal "
+        f"{equal} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} {what}: gradients disagree")
+    return ok, equal
+
+
+def phase_options(card):
+    """Phase 14: remat, accumulation, sgd/lion/adafactor and locking on
+    full-width models at b256 (bf16, 'fusedp', the pallas loss), then the
+    training CLI under those options. Returns ({path: launches}, {path:
+    per-step launches}, perf)."""
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
+    from mrclip_tpu_torch.ops import pallas_loss as pl
+    from mrclip_tpu_torch.ops.image_ops import normalize_images
+    from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
+                                           make_loss_apply)
+    from mrclip_tpu_torch.parallel.freeze import build_trainable_mask, chain_with_mask
+    from mrclip_tpu_torch.parallel.optim import global_norm
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+
+    tag = "[options]"
+    t_phase = time.perf_counter()
+    dev = torch.device(CLI_DEVICE)
+    paths, per_step, perf = {}, {}, {}
+    args = dict(multipositiveloss=True, delta=0.5, gather_with_grad=True)
+    pallas = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=True)))
+
+    def make_batch(n, size, ctx, seed=0):
+        rng = np.random.RandomState(seed)
+        return {
+            "images": normalize_images(torch.from_numpy(
+                rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)).to(dev)),
+            "tokens": torch.from_numpy(rng.randint(1, 49408, (n, ctx)).astype(np.int64)).to(dev),
+            "labels": torch.from_numpy(rng.randint(0, 32, (n,)).astype(np.int32)).to(dev),
+        }
+
+    def grads_at(model, batch, peak=False):
+        """(grads, loss, launches, peak bytes above the start) of one
+        forward and backward."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        g, ld = loss_and_grads(model, pallas, dict(model.named_parameters()), batch)
+        torch.cuda.synchronize()
+        return g, ld["loss"].item(), launches_since(before), torch.cuda.max_memory_allocated() - base
+
+    # 1. remat on ViT-B-16 b256: each policy's gradients against none's, its
+    # launches, peak memory and step time
+    model = build_model("ViT-B-16", "pallas", precision="bf16", attn_impl="fusedp",
+                        gelu_approx=True, rng_seed=0)
+    batch = make_batch(TRAIN_BATCH, model.visual.image_size[0], model.context_length)
+    remat = {}
+    g_none = None
+    for policy in REMAT_POLICIES:
+        set_remat(model, policy)
+        g, loss, got, peak = grads_at(model, batch)
+        want = {"packed_attn_fwd": 24 * (1 if policy is None else 2), "packed_attn_bwd": 24,
+                **PALLAS_STEP}
+        if policy is None:
+            g_none, l_none = g, loss
+            equal = True
+        else:
+            _, equal = check_grads(tag, f"remat {policy} vs none, ViT-B-16 b{TRAIN_BATCH}", g,
+                                   g_none, loss, l_none)
+        del g
+        remat[str(policy)] = {"launches": got, "want": want, "peak_gb": peak / 1e9,
+                              "bit_equal_to_none": equal}
+        if got != want:
+            raise AssertionError(f"{tag} remat {policy}: launches {got}, want {want}")
+    del g_none
+    torch.cuda.empty_cache()
+    # the main path: each policy's train step, one warm-up and REMAT_TIMED timed
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = create_train_state(model, tx)
+    step = build_train_step(model, pallas, tx)
+    reset_counts()
+    for policy in REMAT_POLICIES:
+        set_remat(model, policy)
+        times = []
+        for i in range(1 + REMAT_TIMED):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            got = launches_since(before)
+            if got != remat[str(policy)]["want"] or not np.isfinite(metrics["loss"].item()):
+                raise AssertionError(f"{tag} remat {policy} step: launches {got}")
+        remat[str(policy)]["step_ms"] = statistics.median(times[1:])
+        remat[str(policy)]["step_ms_readings"] = times[1:]
+    paths["options_remat"] = launch_counts()
+    per_step["options_remat"] = remat["full"]["want"]
+    for policy, r in remat.items():
+        log(f"{tag} remat {policy}: K1/K3 per step {r['launches'].get('packed_attn_fwd')}/"
+            f"{r['launches'].get('packed_attn_bwd')}, peak {r['peak_gb']:.2f} GB above the "
+            f"weights, step {r['step_ms']:.2f} ms (median of {REMAT_TIMED}: "
+            + ", ".join(f"{x:.2f}" for x in r["step_ms_readings"]) + f") | {card}")
+    if not remat["full"]["peak_gb"] < remat["None"]["peak_gb"]:
+        raise AssertionError(f"{tag} remat full does not peak below no remat")
+    perf["remat_vit_b16"] = remat
+    set_remat(model, None)
+    del state, step, tx
+    torch.cuda.empty_cache()
+
+    # 2. accumulation on ViT-B-16: the cached mode at A x 64 against one b256
+    # step, the plain mode against its four b64 losses
+    m = TRAIN_BATCH // ACCUM
+    rec = GradRecorder()
+    state = create_train_state(model, rec)
+    rows, undo = supcon_rows(pl)
+    out = {}
+    try:
+        for name, kw in (("unsplit", {}), ("cached", dict(accum_freq=ACCUM, cached_features_accum=True)),
+                         ("plain", dict(accum_freq=ACCUM))):
+            rows.clear()
+            before = launch_counts()
+            _, metrics = build_train_step(model, pallas, rec, **kw)(state, batch)
+            torch.cuda.synchronize()
+            out[name] = (metrics["loss"].item(), rec.grads, launches_since(before), list(rows))
+    finally:
+        undo()
+    (lu, gu, cu, ru), (lc, gc, cc, rc), (lp, gp, cp, rp) = (out[k] for k in ("unsplit", "cached", "plain"))
+    check_grads(tag, f"cached accumulation {ACCUM} x {m} vs one b{TRAIN_BATCH} step (the "
+                f"temperature's gradient {ACCUM}x)", gc, gu, lc, lu, scale_logit=ACCUM)
+    with torch.no_grad():
+        model.train()
+        micro = [pallas(model(batch["images"][i * m:(i + 1) * m], batch["tokens"][i * m:(i + 1) * m]),
+                        {"labels": batch["labels"][i * m:(i + 1) * m]})["loss"].item()
+                 for i in range(ACCUM)]
+    mean = sum(micro) / ACCUM
+    want_c = {"packed_attn_fwd": 48 * ACCUM, "packed_attn_bwd": 24 * ACCUM,
+              **{k: 2 * ACCUM for k in PALLAS_STEP}}
+    want_p = {"packed_attn_fwd": 24 * ACCUM, "packed_attn_bwd": 24 * ACCUM,
+              **{k: 2 * ACCUM for k in PALLAS_STEP}}
+    ok = (abs(lp - mean) <= 1e-5 * abs(mean) and cc == want_c and cp == want_p
+          and {r[1:] for r in rc} == {(TRAIN_BATCH, TRAIN_BATCH)} and {r[1:] for r in rp} == {(m, m)}
+          and len(rc) == len(rp) == 6 * ACCUM)
+    log(f"{tag} plain accumulation {ACCUM} x {m}: loss {lp:.7f}, the mean of its {ACCUM} b{m} "
+        f"losses {mean:.7f} (rel {abs(lp - mean) / abs(mean):.2e}, tol 1e-5); launches per "
+        f"optimizer step cached {cc} (want {want_c}), plain {cp} (want {want_p}); K6/K7 rows x "
+        f"keys cached {sorted({r[1:] for r in rc})}, plain {sorted({r[1:] for r in rp})} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} the accumulation modes failed their checks")
+    del gu, gc, gp, out, state, rec
+    torch.cuda.empty_cache()
+    # the main path: the cached mode at A x 256 (1024 rows through K6/K7)
+    # and plain A x 64 beside one b256 step, AdamW
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = create_train_state(model, tx)
+    big = make_batch(ACCUM * ACCUM_BIG, model.visual.image_size[0], model.context_length, seed=1)
+    accum = {}
+    reset_counts()
+    for name, b, kw in (("b256", batch, {}),
+                        (f"cached_{ACCUM}x{ACCUM_BIG}", big,
+                         dict(accum_freq=ACCUM, cached_features_accum=True)),
+                        (f"plain_{ACCUM}x{m}", batch, dict(accum_freq=ACCUM))):
+        step = build_train_step(model, pallas, tx, **kw)
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(2):
+            state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        accum[name] = {"step_ms": (time.perf_counter() - t) / 2 * 1e3,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "loss": metrics["loss"].item()}
+        log(f"{tag} {name}: {accum[name]['step_ms']:.2f} ms per optimizer step (mean of 2), "
+            f"{len(b['labels']) / accum[name]['step_ms'] * 1e3:.1f} pairs/s, peak "
+            f"{accum[name]['peak_gb']:.2f} GB, loss {accum[name]['loss']:.5f} | {card}")
+    paths["options_accum"] = launch_counts()
+    per_step["options_accum"] = want_c
+    perf["accumulation"] = accum
+    del state, step, tx, big
+    torch.cuda.empty_cache()
+
+    # 3. the optimizers: one step each from captured gradients, against the
+    # same optimizer on the CPU in float64
+    g_card, _, _, _ = grads_at(model, batch)
+    params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    g_cpu = {k: v.double().cpu() for k, v in g_card.items()}
+    p_cpu = {k: v.double().cpu() for k, v in params0.items()}
+    optim = {}
+    for opt in ("sgd", "lion", "adafactor"):
+        tx = create_optimizer(lr=OPT_LR[opt], wd=0.2, opt=opt,
+                              moments_dtype="bfloat16" if opt == "lion" else None)
+        ref_tx = create_optimizer(lr=OPT_LR[opt], wd=0.2, opt=opt)
+        params = {k: v.clone() for k, v in params0.items()}
+        t = time.perf_counter()
+        st = tx.update(g_card, tx.init(params), params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ref_p = {k: v.clone() for k, v in p_cpu.items()}
+        ref = ref_tx.update(g_cpu, ref_tx.init(ref_p), ref_p)
+        worst_p, flips, n_el = 0.0, 0, 0
+        for k, p in params.items():
+            got, want, p0 = p.double().cpu(), ref_p[k], p_cpu[k]
+            step_max = (want - p0).abs().max().item()
+            err = (got - want).abs()
+            if opt == "lion":  # a flipped sign moves an element by 2 lr
+                flips += int((err > OPT_LR[opt]).sum())
+                err = torch.where(err > OPT_LR[opt], torch.zeros_like(err), err)
+            worst_p = max(worst_p, ((err - 2.0 ** -22 * want.abs()).clamp_min(0).max().item())
+                          / max(step_max, 1e-30))
+            n_el += p.numel()
+        worst_s = 0.0
+        for field in ("trace", "mu", "v_row", "v_col", "v"):
+            if not hasattr(st, field):
+                continue
+            for k, v in getattr(st, field).items():
+                want = getattr(ref, field)[k]
+                worst_s = max(worst_s, (v.double().cpu() - want).abs().max().item()
+                              / max(want.abs().max().item(), 1e-30))
+        state_tol = 2.0 ** -8 if opt == "lion" else 1e-5
+        ok = worst_p <= 1e-3 and worst_s <= state_tol and flips / n_el <= 1e-4
+        optim[opt] = {"update_ms": ms, "param_err_of_largest_update": worst_p,
+                      "state_rel_err": worst_s, "sign_flip_share": flips / n_el}
+        log(f"{tag} {opt} (lr {OPT_LR[opt]}, wd 0.2{', bf16 mu' if opt == 'lion' else ''}) one step "
+            f"on the card vs float64 on the CPU: parameters within {worst_p:.2e} of each tensor's "
+            f"largest update past one fp32 rounding (<= 1e-3), state {worst_s:.2e} of its largest "
+            f"(<= {state_tol:g}), elements with a flipped sign {flips} of {n_el} "
+            f"({flips / n_el:.2e}, <= 1e-4); update {ms:.1f} ms host {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {opt} disagrees with its float64 run")
+        del params, st
+    perf["optimizers"] = optim
+    del g_cpu, p_cpu, ref_p, ref
+    torch.cuda.empty_cache()
+
+    # 4. locking and freezing: frozen parameters bit-unchanged, the others
+    # move, grad_norm over every gradient
+    with torch.no_grad():
+        for k, v in model.named_parameters():
+            v.copy_(params0[k])
+    full_norm = global_norm(g_card.values()).item()
+    freeze = {}
+    for name, flags in (("--lock-image", dict(lock_image=True)),
+                        ("--freeze --freezelast", dict(freeze=True, freezelast=True))):
+        tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+        state = create_train_state(model, tx)
+        mask = build_trainable_mask(state.params, SimpleNamespace(**flags))
+        tx = chain_with_mask(tx, mask)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        state, metrics = build_train_step(model, pallas, tx)(state, batch)
+        torch.cuda.synchronize()
+        frozen = [k for k, v in mask.items() if v == 0.0]
+        still = all(torch.equal(state.params[k], before[k]) for k in frozen)
+        moved = sum(not torch.equal(state.params[k], before[k]) for k in mask if mask[k] == 1.0)
+        norm = metrics["grad_norm"].item()
+        ok = (frozen and still and moved == len(mask) - len(frozen)
+              and abs(norm - full_norm) <= 1e-3 * full_norm)
+        freeze[name] = {"frozen": len(frozen), "trainable_moved": moved, "grad_norm": norm}
+        log(f"{tag} {name}: {len(frozen)} frozen tensors bit-unchanged "
+            f"{still}, {moved} of {len(mask) - len(frozen)} others moved; grad_norm {norm:.6f} "
+            f"vs every gradient's {full_norm:.6f} (the frozen towers counted) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {name} failed its checks")
+        with torch.no_grad():
+            for k, v in model.named_parameters():
+                v.copy_(params0[k])
+        del state, tx
+    perf["freezing"] = freeze
+    del model, params0, g_card, batch
+    torch.cuda.empty_cache()
+
+    # 5. EVA02-B-16 (K2/K3r) and MobileCLIP-S1 (K8/K9) under remat: one
+    # checked step each against no remat
+    for name, attn, want in (
+            ("EVA02-B-16", "fusedp", {"packed_attn_rope_fwd": 24, "packed_attn_fwd": 24,
+                                      "packed_attn_rope_bwd": 12, "packed_attn_bwd": 12,
+                                      **PALLAS_STEP}),
+            ("MobileCLIP-S1", "bf16", {"dw_conv_fwd": 73 + 72, "dw_conv_bwd": 73,
+                                       **PALLAS_STEP})):
+        model = build_model(name, "pallas", precision="bf16", attn_impl=attn, gelu_approx=True,
+                            rng_seed=0)
+        size = model.visual.image_size[0]
+        b = make_batch(TRAIN_BATCH, size, model.context_length)
+        bufs = {k: v.clone() for k, v in model.named_buffers()}
+        n_bn = sum(isinstance(mod, torch.nn.modules.batchnorm._BatchNorm) for mod in model.modules())
+        g0, l0, c0, _ = grads_at(model, b)
+        g0 = {k: v.float() for k, v in g0.items()}
+        set_remat(model, "dots")
+        reset_counts()
+        g1, l1, c1, _ = grads_at(model, b)
+        key = "options_remat_" + ("eva02" if name.startswith("EVA") else "mobileclip")
+        paths[key], per_step[key] = launch_counts(), want
+        check_grads(tag, f"{name} remat dots vs none", g1, g0, l1, l0)
+        same_bufs = all(torch.equal(v, bufs[k]) for k, v in model.named_buffers())
+        ok = c1 == want and same_bufs
+        log(f"{tag} {name} remat dots: launches {c1} (want {want}; without remat {c0}); "
+            f"BatchNorm modules {n_bn}, buffers unchanged {same_bufs} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {name} under remat failed its checks")
+        if name == "MobileCLIP-S1":
+            # --lock-image --lock-image-freeze-bn-stats: the tower's parameters
+            # and statistics unchanged by a step
+            set_remat(model, None)
+            tx = create_optimizer(lr=1e-4, wd=0.2)
+            state = create_train_state(model, tx)
+            tx = chain_with_mask(tx, build_trainable_mask(state.params,
+                                                          SimpleNamespace(lock_image=True)))
+            vis = {k: v.detach().clone() for k, v in state.params.items() if k.startswith("visual.")}
+            state, _ = build_train_step(model, pallas, tx, freeze_bn_subtrees=("visual",))(state, b)
+            torch.cuda.synchronize()
+            ok = (all(torch.equal(state.params[k], v) for k, v in vis.items())
+                  and all(torch.equal(v, bufs[k]) for k, v in model.named_buffers()))
+            log(f"{tag} MobileCLIP-S1 --lock-image --lock-image-freeze-bn-stats: {len(vis)} visual "
+                f"tensors and the {sum(1 for _ in model.buffers())} buffers (BatchNorm "
+                f"statistics: none in the from-scratch FastViT) unchanged {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} the locked MobileCLIP-S1 tower moved")
+            del state, tx
+        del model, g0, g1, b
+        torch.cuda.empty_cache()
+
+    # 6. the CLI under the options
+    cli_paths, cli_per_step, perf["cli"] = phase_options_cli(card)
+    paths.update(cli_paths)
+    per_step.update(cli_per_step)
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase wall {perf['phase_s']:.1f} s | {card}")
+    log(f"{tag} breakdown: " + json.dumps(perf))
+    return paths, per_step, perf
+
+
+OPT_CLI_RUNS = {
+    # name: (flags, per optimizer step, per val batch)
+    "options": (["--accum-freq", "2", "--cached-features-accum", "--grad-checkpointing",
+                 "--remat-policy", "dots", "--opt", "lion", "--bf16-moments", "--freeze",
+                 "--freezelast", "--pallas-loss"],
+                {"packed_attn_fwd": 48 * 2 + 24 * 2, "packed_attn_bwd": 24 * 2,
+                 **{k: 2 * 2 for k in PALLAS_STEP}}, {"packed_attn_fwd": 24}),
+    "adafactor": (["--opt", "adafactor", "--pallas-loss"],
+                  {"packed_attn_fwd": 24, "packed_attn_bwd": 24, **PALLAS_STEP}, None),
+    "sgd": (["--opt", "sgd", "--pallas-loss"],
+            {"packed_attn_fwd": 24, "packed_attn_bwd": 24, **PALLAS_STEP}, None),
+    "visiononly": (["--visiononly"], {"packed_attn_fwd": 12, "packed_attn_bwd": 12},
+                   {"packed_attn_fwd": 12}),
+}
+
+
+def phase_options_cli(card):
+    """`python -m mrclip_tpu_torch.train.main` on `--dataset-type
+    synthetic` (224 px) under the options of OPT_CLI_RUNS: the first for one
+    epoch with a val pass and `--resume latest` for exactly one more (the
+    restored state bit-equal to its checkpoint), adafactor and sgd for one
+    short epoch, the vision-only path for one epoch with its eval (its
+    metrics in results.jsonl); the exact launches of each epoch and val pass
+    from the runs' logs."""
+    from mrclip_tpu_torch import checkpoint as ckpt
+    from mrclip_tpu_torch.factory import create_model
+    from mrclip_tpu_torch.parallel import create_optimizer, create_train_state
+
+    tag = "[options-cli]"
+    tmp = tempfile.TemporaryDirectory(prefix="mrclip_options_")
+    logs = os.path.join(tmp.name, "logs")
+    paths, per_step, perf = {}, {}, {}
+    mod = "mrclip_tpu_torch.train.main"
+    for run, (flags, want_step, want_eval) in OPT_CLI_RUNS.items():
+        batch = OPT_CLI_BATCH if run == "options" else 2 * OPT_CLI_BATCH
+        accum = 2 if run == "options" else 1
+        n_steps = OPT_CLI_SAMPLES[run] // (batch * accum)
+        common = ["--dataset-type", "synthetic", "--train-num-samples", str(OPT_CLI_SAMPLES[run]),
+                  "--model", CLI_MODEL, "--attn-impl", "fusedp", "--multipositiveloss",
+                  "--batch-size", str(batch), "--precision", "amp", "--workers", "8",
+                  "--lr", "1e-4", "--wd", "0.2", "--skip-scheduler", "--gelu-approx",
+                  "--seed", "0", "--log-every-n-steps", "1", "--logs", logs, "--name", run,
+                  "--device", CLI_DEVICE, *flags]
+        if want_eval is not None:  # the synthetic val set is as large as the train set
+            common += ["--val-data", "synthetic"]
+        _, perf[f"{run}_s"] = _run_cli(tag, [mod, *common, "--epochs", "1"],
+                                       os.path.join(tmp.name, f"{run}.log"))
+        epochs = 1
+        ckdir = os.path.join(logs, run, "checkpoints")
+        if run == "options":
+            saved = ckpt.load_checkpoint(ckdir, 1)
+            _, perf[f"{run}_resume_s"] = _run_cli(
+                tag, [mod, *common, "--epochs", "2", "--resume", "latest"],
+                os.path.join(tmp.name, f"{run}_resume.log"))
+            epochs = 2
+        steps, train_launch, eval_launch = _cli_log(os.path.join(logs, run, "out.log"))
+        want_train = _scaled(want_step, n_steps)
+        n_val = -(-OPT_CLI_SAMPLES[run] // batch)
+        want_ev = None if want_eval is None else _scaled(want_eval, n_val)
+        with open(os.path.join(logs, run, "out.log")) as f:
+            text = f.read()
+        results = []
+        if want_eval is not None:
+            with open(os.path.join(ckdir, "results.jsonl")) as f:
+                results = [json.loads(line) for line in f]
+        losses = [float(x) for x in __import__("re").findall(r"Loss: (\S+) ", text)]
+        ok = (train_launch == {e: want_train for e in range(epochs)}
+              and (want_eval is None
+                   or eval_launch == {e: want_ev for e in range(1, epochs + 1)})
+              and all(np.isfinite(losses)) and len(losses) >= epochs * n_steps
+              and ckpt.saved_steps(ckdir)[-1] == epochs)
+        if run == "visiononly":
+            ok = ok and "image_to_image_R@1" in results[-1] and "vision_only_val_loss" in results[-1]
+        if run == "options":
+            ok = ok and "=> resuming checkpoint (epoch 1)" in text and "Frozen: " in text
+        log(f"{tag} {run} ({' '.join(flags)}): {epochs} epoch(s) of {n_steps} optimizer steps "
+            f"(b{batch} x {accum}); losses {', '.join(f'{x:.4f}' for x in losses)}; launches per "
+            f"epoch {train_launch.get(0)} (want {want_train})"
+            + (f", per val pass {eval_launch.get(1)} (want {want_ev})" if want_ev is not None
+               else "")
+            + (f"; results {sorted(k for k in results[-1] if 'R@1' in k or 'val_loss' in k)}"
+               if results else "") + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} the {run} CLI run failed its checks: {train_launch} "
+                                 f"{eval_launch}")
+        paths[f"cli_{run}"] = {k: sum(e.get(k, 0) for e in train_launch.values()) for k in want_train}
+        per_step[f"cli_{run}"] = want_step
+        if run == "options":
+            # the resumed optimizer state: the epoch-1 checkpoint onto the card, bit-equal
+            model = create_model(CLI_MODEL, precision="amp", device=CLI_DEVICE, attn_impl="fusedp",
+                                 gelu_approx=True, rng_seed=0)
+            tx = create_optimizer(lr=1e-4, wd=0.2, opt="lion", moments_dtype="bfloat16")
+            state = ckpt.load_checkpoint(ckdir, 1, template=create_train_state(model, tx))
+            same = (state.step == saved["step"] == n_steps and state.opt_state.count == n_steps
+                    and all(torch.equal(state.params[k].cpu(), v) for k, v in saved["params"].items())
+                    and all(torch.equal(state.opt_state.mu[k].cpu(), v)
+                            for k, v in saved["opt_state"]["mu"].items())
+                    and all(v.dtype == torch.bfloat16 for v in state.opt_state.mu.values()))
+            after = ckpt.load_checkpoint(ckdir, 2)
+            same = same and after["opt_state"]["count"] == 2 * n_steps
+            log(f"{tag} the epoch-1 checkpoint restored onto {CLI_DEVICE}: step {state.step}, "
+                f"parameters and Lion's bf16 mu bit-equal {same}; epoch 2 counts "
+                f"{after['opt_state']['count']} steps {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{tag} the resumed Lion state differs from its checkpoint")
+            del model, state, tx, saved, after
+            if CLI_DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    tmp.cleanup()
+    return paths, per_step, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2958,6 +3488,9 @@ def main() -> int:
     cli_paths, cli_per_step, fwd["cli"] = phase_cli(smi)
     paths.update(cli_paths)
     per_step.update(cli_per_step)
+    opt_paths, opt_per_step, fwd["options"] = phase_options(smi)
+    paths.update(opt_paths)
+    per_step.update(opt_per_step)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -2971,7 +3504,8 @@ def main() -> int:
                 "train_mobileclip": [*TRAIN_PATHS["MobileCLIP-S1", "bf16"]["per_step"],
                                      *PALLAS_STEP],
                 **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()},
-                "cli": [*CLI_PER_STEP], "cli_eval": [*CLI_EVAL_PER_BATCH]}
+                "cli": [*CLI_PER_STEP], "cli_eval": [*CLI_EVAL_PER_BATCH],
+                **{path: [*want] for path, want in opt_per_step.items()}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -2,8 +2,10 @@
 `mrclip_tpu/checkpoint.py`, whose orbax manager becomes `torch.save`).
 
 A checkpoint is one file, `<ckpt_dir>/step_<N>.pt`: the step, the trainable
-parameters by name, the AdamW state (count, first moments in their stored
-type, so bf16 moments stay bf16, second moments) and the state's constants
+parameters by name, the optimizer state (its count and each of its tensors
+by parameter name, in their stored types: AdamW's `mu` (bf16 stays bf16)
+and `nu`, SGD's `trace`, Lion's `mu`, Adafactor's `v_row`, `v_col` and
+`v`) and the state's constants
 (the frozen `logit_scale` buffer of a model built with
 `logit_scale_trainable=False`), each tensor a CPU copy. It is written to a
 temporary file and moved into place with `os.replace`, so a reader sees a
@@ -46,6 +48,11 @@ def _cpu(tensors: dict) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+def _opt_tensors(opt: Any) -> dict:
+    """The optimizer state's fields that hold tensors by name."""
+    return {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt) if f.name != "count"}
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, *, keep: Optional[int] = None) -> str:
     """Save the train state as step `step`; returns the file written."""
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -53,7 +60,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any, *, keep: Optional[int]
     payload = {
         "step": int(state.step),
         "params": _cpu(state.params),
-        "opt_state": {"count": int(opt.count), "mu": _cpu(opt.mu), "nu": _cpu(opt.nu)},
+        "opt_state": {"count": int(opt.count),
+                      **{k: _cpu(v) for k, v in _opt_tensors(opt).items()}},
         "constants": _cpu(getattr(state, "constants", None) or {}),
     }
     path = checkpoint_path(ckpt_dir, step)
@@ -103,8 +111,12 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, template: Any = N
         return payload
     _copy_into(template.params, payload["params"], "parameters")
     opt = template.opt_state
-    _copy_into(opt.mu, payload["opt_state"]["mu"], "first moments")
-    _copy_into(opt.nu, payload["opt_state"]["nu"], "second moments")
+    saved_opt = payload["opt_state"]
+    if set(saved_opt) != {"count", *_opt_tensors(opt)}:
+        raise KeyError(f"checkpoint optimizer state {sorted(saved_opt)} does not match the "
+                       f"state's {type(opt).__name__} ({sorted(_opt_tensors(opt))})")
+    for k, v in _opt_tensors(opt).items():
+        _copy_into(v, saved_opt[k], f"optimizer state {k!r}")
     _copy_into(getattr(template, "constants", None) or {}, payload.get("constants", {}),
                "constants")
     opt = dataclasses.replace(opt, count=payload["opt_state"]["count"])

@@ -165,13 +165,15 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
 def model_from_config(
     cfg: dict, *, precision: str = "fp32", attn_impl: str = "xla", gelu_approx: bool = False,
     dw_impl: Optional[str] = None, logit_scale_trainable: bool = True,
+    remat: Optional[str] = None,
 ) -> CLIP:
     """An uninitialized CLIP on the CPU for a resolved config dict, its
     depthwise convolutions (MobileCLIP) on `dw_impl` ('pallas' or 'xla';
     without one, MRCLIP_DW_IMPL decides), its temperature learned or, with
-    `logit_scale_trainable=False`, fixed at ln 10. The other arguments are
-    kept on the module as `build_args`, from which `serving.export_model`
-    writes what rebuilding it takes."""
+    `logit_scale_trainable=False`, fixed at ln 10, its blocks remat'd under
+    the policy `remat` if given. The other arguments are kept on the module
+    as `build_args`, from which `serving.export_model` writes what
+    rebuilding it takes."""
     if "multimodal_cfg" in cfg:
         raise NotImplementedError("CoCa is not ported (ROADMAP: later slice 4, other towers)")
     model = CLIP(
@@ -186,6 +188,7 @@ def model_from_config(
         dtype=cast_dtype(precision),
         dw_impl=dw_impl,
         logit_scale_trainable=logit_scale_trainable,
+        remat=remat,
     )
     model.build_args = {
         "model_cfg": deepcopy(cfg),
@@ -223,6 +226,8 @@ def create_model(
     force_context_length: Optional[int] = None,
     text_dropout: float = 0.0,
     logit_scale_trainable: bool = True,
+    grad_checkpointing: bool = False,
+    remat_policy: str = "dots",
     attn_impl: str = "xla",
     gelu_approx: bool = False,
     init_params: bool = True,
@@ -241,9 +246,11 @@ def create_model(
     the config's `quick_gelu`, vision `image_size` and text
     `context_length`; `text_dropout` (MR-CLIP's --textdropout) the text
     blocks' dropout; `logit_scale_trainable=False` (--logitscaletrainable)
-    fixes the temperature at ln 10. `model_kwargs` override top-level config
-    keys (e.g. `init_logit_bias`); its other options (scan_layers, remat,
-    force_patch_dropout) raise.
+    fixes the temperature at ln 10; `grad_checkpointing` remats every
+    block of both towers under `remat_policy` ('full', 'dots' or
+    'mlp_only'; FastViT's RepMixer blocks always 'full'). `model_kwargs`
+    override top-level config keys (e.g. `init_logit_bias`); its other
+    options (scan_layers, force_patch_dropout) raise.
     """
     dev = resolve_device(device)
     model_name = model_name.replace("/", "-")
@@ -256,10 +263,8 @@ def create_model(
     if unported:
         raise NotImplementedError(
             f"create_model options {unported} are not ported: scan_layers is an XLA "
-            "compile-time choice the unrolled stack has no use for; training is ported "
-            "but remat (grad_checkpointing, remat_policy) is not (ROADMAP: modules item 3, "
-            "the training CLI's options); force_patch_dropout comes with the ViT's patch "
-            "dropout (ROADMAP: modules item 4, the other configs)"
+            "compile-time choice the unrolled stack has no use for; force_patch_dropout "
+            "comes with the ViT's patch dropout (ROADMAP: modules item 4, the other configs)"
         )
     if force_quick_gelu:
         cfg["quick_gelu"] = True
@@ -274,6 +279,7 @@ def create_model(
     model = model_from_config(
         cfg, precision=precision, attn_impl=attn_impl, gelu_approx=gelu_approx,
         logit_scale_trainable=logit_scale_trainable,
+        remat=remat_policy if grad_checkpointing else None,
     )
     if pretrained is not None:
         model.load_state_dict(_load_open_clip(pretrained), strict=True)

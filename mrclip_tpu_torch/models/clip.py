@@ -140,7 +140,7 @@ _EVA02_DIMS = {"base": (768, 12, 12), "large": (1024, 24, 16)}  # width, layers,
 
 
 def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
-                       attn_impl: str) -> EvaVisionTransformer:
+                       attn_impl: str, remat: Optional[str]) -> EvaVisionTransformer:
     """The EVA02-B/L tower of the JAX package's `_build_timm_vit_tower`
     (`eva02_{base,large}_patch*_clip_{224,336}`): SwiGLU hidden
     int(width * 8/3) with sub-LN, inner attention LN, zero k bias, axial 2D
@@ -171,11 +171,12 @@ def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
         ln_eps=1e-6,
         attn_impl=attn_impl,
         dtype=dtype,
+        remat=remat,
     )
 
 
 def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.dtype,
-                        attn_impl: str, dw_impl: Optional[str]) -> FastViT:
+                        attn_impl: str, dw_impl: Optional[str], remat: Optional[str]) -> FastViT:
     """The MobileCLIP tower of the JAX package's `_build_timm_vit_tower`
     (`fastvit_mci{0,1,2}`) in its from-scratch form (`norm='ln'`,
     `stem='2conv'`)."""
@@ -201,22 +202,25 @@ def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.d
         attn_impl=attn_impl,
         dtype=dtype,
         dw_impl=dw_impl,
+        remat=remat,
     )
 
 
 def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
-                       attn_impl: str = "xla", dw_impl: Optional[str] = None):
+                       attn_impl: str = "xla", dw_impl: Optional[str] = None,
+                       remat: Optional[str] = None):
     """The plain open_clip ViT, the EVA02-B/L or the FastViT/MCi tower
     (its depthwise convolutions on `dw_impl`; without one, MRCLIP_DW_IMPL
-    decides); other vision towers raise."""
+    decides), its blocks remat'd under the policy `remat` if given; other
+    vision towers raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
     if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
-        return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl)  # SwiGLU: no act
+        return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl, remat)  # SwiGLU: no act
     if cfg.timm_model_name and (cfg.timm_model_name.startswith("fastvit_")
                                 or cfg.timm_model_name == "vit_base_mci_224"):
-        return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl, dw_impl)
+        return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl, dw_impl, remat)
     _reject({
         f"timm tower {cfg.timm_model_name!r}": cfg.timm_model_name,
         "the ModifiedResNet tower": isinstance(cfg.layers, (tuple, list)),
@@ -243,13 +247,15 @@ def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
         ln_eps=ln_eps,
         attn_impl=attn_impl,
         dtype=dtype,
+        remat=remat,
     )
 
 
 def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
                      dtype: torch.dtype = torch.float32,
-                     attn_impl: str = "xla") -> TextTransformer:
-    """The causal open_clip text transformer; other text towers raise."""
+                     attn_impl: str = "xla", remat: Optional[str] = None) -> TextTransformer:
+    """The causal open_clip text transformer (its blocks remat'd under the
+    policy `remat` if given); other text towers raise."""
     cfg = _filter_cfg(CLIPTextCfg, text_cfg)
     _reject({f"HF text tower {cfg.hf_model_name!r}": cfg.hf_model_name},
             "text tower", "later slice 4, other towers")
@@ -276,6 +282,7 @@ def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
         attn_impl=attn_impl,
         dtype=dtype,
         dropout=cfg.dropout,
+        remat=remat,
     )
 
 
@@ -286,7 +293,9 @@ class CLIP(nn.Module):
     scale is fixed at ln 10 whatever `init_logit_scale` says (the JAX
     package's constant, the reference's `torch.ones(lshape) * np.log(10)`),
     held as a non-persistent buffer, so it is in neither the state dict nor
-    the trained parameters."""
+    the trained parameters. `remat`, a `transformer.REMAT_POLICIES` name,
+    recomputes each block of both towers in the backward (the JAX package's
+    `remat` and `remat_policy`)."""
 
     def __init__(
         self,
@@ -301,15 +310,17 @@ class CLIP(nn.Module):
         dtype: torch.dtype = torch.float32,
         dw_impl: Optional[str] = None,
         logit_scale_trainable: bool = True,
+        remat: Optional[str] = None,
     ):
         super().__init__()
         act = True if quick_gelu else act_impl
         self.compute_dtype = dtype
         self.visual = build_vision_tower(
-            embed_dim, vision_cfg or CLIPVisionCfg(), act, dtype, attn_impl, dw_impl
+            embed_dim, vision_cfg or CLIPVisionCfg(), act, dtype, attn_impl, dw_impl, remat
         )
         # open_clip inlines the text tower's parts at the root of CLIP
-        text = build_text_tower(embed_dim, text_cfg or CLIPTextCfg(), act, dtype, attn_impl)
+        text = build_text_tower(embed_dim, text_cfg or CLIPTextCfg(), act, dtype, attn_impl,
+                                remat)
         self.context_length = text.context_length
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding

@@ -24,9 +24,12 @@ Parameter names are the JAX tree's (`stem_conv1`, `stage0_block0.mixer_dw`,
 as open_clip's `transformer.resblocks.N`. No public open_clip or timm
 layout holds this deploy form (timm's `fastvit_mci1` carries the
 reparameterisation branches and BatchNorm), so the port's rule of open_clip
-names gives way here. The Apple-checkpoint import form (`norm='affine'`,
-`stem='3conv'`), MobileCLIP-B's hybrid ViT, `output_tokens` and remat are
-not ported (ROADMAP: later slice 4, other towers).
+names gives way here; it holds no BatchNorm. Under `remat` each RepMixer
+block is recomputed whole (the JAX package's `nn.remat` there takes no
+policy) and the attention stage's blocks under the policy named. The
+Apple-checkpoint import form (`norm='affine'`, `stem='3conv'`),
+MobileCLIP-B's hybrid ViT and `output_tokens` are not ported (ROADMAP:
+later slice 4, other towers).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from torch import nn
 
 from ..utils import to_2tuple
 from .layers import DepthwiseConv, LayerNorm, Linear, gelu_exact
-from .transformer import Transformer
+from .transformer import Transformer, remat_call
 
 __all__ = ["FASTVIT_DIMS", "Conv2d", "FastViT", "RepMixerBlock"]
 
@@ -130,9 +133,11 @@ class FastViT(nn.Module):
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
         dw_impl: Optional[str] = None,
+        remat: Optional[str] = None,
     ):
         super().__init__()
         self.image_size = to_2tuple(image_size)
+        self.remat = remat
         if any(s % 32 for s in self.image_size):
             raise ValueError(f"image_size {image_size} not divisible by 32")
         self.width = dims[3]
@@ -151,7 +156,7 @@ class FastViT(nn.Module):
         self.pos_emb_dw = DepthwiseConv(c[3], 7, dtype=dtype, impl=dw_impl)
         self.transformer = Transformer(
             c[3], depths[3], max(1, c[3] // 64), mlp_ratio, None, act,
-            is_causal=False, attn_impl=attn_impl, ln_eps=1e-6, dtype=dtype,
+            is_causal=False, attn_impl=attn_impl, ln_eps=1e-6, dtype=dtype, remat=remat,
         )
         hidden = int(c[3] * head_expand)
         self.head_conv = Linear(c[3], hidden, dtype=dtype)
@@ -165,7 +170,8 @@ class FastViT(nn.Module):
             if s > 0:
                 x = getattr(self, f"downsample{s}")(x)
             for i in range(self.depths[s]):
-                x = getattr(self, f"stage{s}_block{i}")(x)
+                block = getattr(self, f"stage{s}_block{i}")
+                x = block(x) if self.remat is None else remat_call(block, x)
         x = self.downsample3(x)
         x = x + self.pos_emb_dw(x)  # RepCPE
         b, h, w, c = x.shape

@@ -38,6 +38,7 @@ __all__ = [
     "MultiHeadAttention",
     "EvaAttention",
     "apply_rope_cat",
+    "attn_out_saved",
     "ATTN_IMPLS",
     "ROPE_IN_COMPUTE_DTYPE",
 ]
@@ -58,6 +59,24 @@ __all__ = [
 ATTN_IMPLS = ("xla", "manual", "bf16", "flash", "fused", "fusedp")
 # the options that rotate (and so build the rope table) in the compute type
 ROPE_IN_COMPUTE_DTYPE = ("bf16", "flash", "fused", "fusedp")
+
+
+class _Marker:
+    """A context whose `depth` is non-zero inside it."""
+
+    depth = 0
+
+    def __enter__(self):
+        self.depth += 1
+
+    def __exit__(self, *exc):
+        self.depth -= 1
+
+
+# Marks the attention branch's last projection, the JAX package's
+# `checkpoint_name(y, "attn_out")`: the 'mlp_only' remat policy keeps its
+# output (models/transformer.py).
+attn_out_saved = _Marker()
 
 
 def _check_attn_impl(attn_impl: str) -> None:
@@ -280,7 +299,9 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, *, is_causal: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
         qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
-        return self.out_proj(_attend(qkv, self.num_heads, self.attn_impl, is_causal, None))
+        out = _attend(qkv, self.num_heads, self.attn_impl, is_causal, None)
+        with attn_out_saved:
+            return self.out_proj(out)
 
 
 class EvaAttention(nn.Module):
@@ -316,5 +337,6 @@ class EvaAttention(nn.Module):
         return F.linear(x.to(dt), weight, torch.cat([bq, torch.zeros_like(bq), bv]))
 
     def forward(self, x: torch.Tensor, *, rope: torch.Tensor | None = None) -> torch.Tensor:
-        out = _attend(self.qkv(x), self.num_heads, self.attn_impl, False, rope)
-        return self.proj(self.norm(out))
+        out = self.norm(_attend(self.qkv(x), self.num_heads, self.attn_impl, False, rope))
+        with attn_out_saved:
+            return self.proj(out)

@@ -37,6 +37,7 @@ class TextTransformer(nn.Module):
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
         dropout: float = 0.0,
+        remat: Optional[str] = None,
     ):
         super().__init__()
         self.context_length = context_length
@@ -46,6 +47,7 @@ class TextTransformer(nn.Module):
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio, ls_init_value, act,
             is_causal=True, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype, dropout=dropout,
+            remat=remat,
         )
         self.ln_final = LayerNorm(width, eps=ln_eps)
         self.text_projection = (

@@ -2,22 +2,112 @@
 `mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled, and
 the EVA02 block (`EvaBlock`: SwiGLU with sub-LN, inner attention LN, rope).
 
-The JAX package's `scan_layers` and `remat` are compile-time choices of
-XLA with no counterpart here; cross-attention and post-norm blocks belong
-to towers not ported yet (ROADMAP: other configs and towers).
+Per-block remat (the JAX package's `remat`, open_clip's
+`grad_checkpointing`) is `remat_call`: `torch.utils.checkpoint` without
+reentrance, under the JAX package's three policies (`REMAT_POLICIES`).
+The JAX package's `scan_layers` is a compile-time choice of XLA with no
+counterpart here; cross-attention and post-norm blocks belong to towers
+not ported yet (ROADMAP: other configs and towers).
 """
 
 from __future__ import annotations
 
+import contextlib
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .layers import (MLP, EvaAttention, LayerNorm, LayerScale, MultiHeadAttention, SwiGLU,
-                     dropout, gelu_exact)
+                     attn_out_saved, dropout, gelu_exact)
 
-__all__ = ["EvaBlock", "ResidualAttentionBlock", "Transformer", "text_global_pool"]
+__all__ = ["EvaBlock", "REMAT_POLICIES", "ResidualAttentionBlock", "Transformer", "remat_call",
+           "running_stats", "text_global_pool"]
+
+# The JAX package's policies (models/transformer.py REMAT_POLICIES):
+# 'full' recomputes the whole block in the backward; 'dots' keeps the
+# products with a weight (no batch dimension: `mm`, `addmm`) and recomputes
+# the rest, attention included; 'mlp_only' keeps only the attention
+# branch's output (its last projection, where `layers.attn_out_saved` marks
+# it: JAX's `attn_out` tag) and recomputes the rest. The attention kernels
+# write outputs the dispatcher sees only as `empty`, which no policy keeps:
+# the recompute runs their autograd Function again and launches them again.
+REMAT_POLICIES = ("full", "dots", "mlp_only")
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _WEIGHT_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _keep_attn_out(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _WEIGHT_PRODUCTS and attn_out_saved.depth
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICY_FNS = {"dots": _keep_dots, "mlp_only": _keep_attn_out}
+
+
+def _check_policy(policy: Optional[str]) -> None:
+    if policy is not None and policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} is not one of {REMAT_POLICIES}")
+
+
+def running_stats(module: nn.Module) -> list:
+    """(buffer, copy) of every BatchNorm running statistic under `module`."""
+    return [(b, b.clone()) for m in module.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm) for b in m.buffers()]
+
+
+@contextlib.contextmanager
+def _as_in_forward(module: nn.Module, generator: Optional[torch.Generator], snapshot):
+    """The recompute sees what the forward saw: the generator at its
+    state before the block (so dropout draws the same masks), and BatchNorm
+    running statistics that the recompute's train-mode forward does not move
+    a second time. Both come back as they were after."""
+    now = generator.get_state() if generator is not None else None
+    stats = running_stats(module)
+    if generator is not None:
+        generator.set_state(snapshot)
+    try:
+        yield
+    finally:
+        if generator is not None:
+            generator.set_state(now)
+        with torch.no_grad():
+            for b, saved in stats:
+                b.copy_(saved)
+
+
+def remat_call(module: nn.Module, *args, policy: str = "full",
+               generator: Optional[torch.Generator] = None):
+    """`module(*args)` with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, no reentrance) under `policy`; a plain call
+    where no gradient is recorded. `generator`, the source of the module's
+    dropout masks, is passed in `args` too: an explicit generator is no part
+    of the global RNG state that checkpointing preserves, so its state is
+    taken here and set again for the recompute."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    snapshot = generator.get_state() if generator is not None else None
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return module(*a)
+        with _as_in_forward(module, generator, snapshot):
+            return module(*a)
+
+    kw = {}
+    if policy != "full":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _POLICY_FNS[policy])
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -81,7 +171,8 @@ class EvaBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Stack of residual attention blocks (`resblocks.N` as in open_clip)."""
+    """Stack of residual attention blocks (`resblocks.N` as in open_clip);
+    each block remat'd under `remat` (a `REMAT_POLICIES` name) if given."""
 
     def __init__(
         self,
@@ -96,10 +187,13 @@ class Transformer(nn.Module):
         ln_eps: float = 1e-5,
         dtype: torch.dtype = torch.float32,
         dropout: float = 0.0,
+        remat: Optional[str] = None,
     ):
         super().__init__()
+        _check_policy(remat)
         self.width = width
         self.layers = layers
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(
                 width, heads, mlp_ratio, ls_init_value, act, is_causal,
@@ -110,7 +204,10 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x, generator)
+            if self.remat is None:
+                x = block(x, generator)
+            else:
+                x = remat_call(block, x, generator, policy=self.remat, generator=generator)
         return x
 
 

@@ -21,7 +21,7 @@ from ..ops.fused_attn import rope_table
 from ..ops.pos_embed import rope_cat_2d
 from ..utils import to_2tuple
 from .layers import ROPE_IN_COMPUTE_DTYPE, LayerNorm, Linear, gelu_exact
-from .transformer import EvaBlock, Transformer
+from .transformer import EvaBlock, Transformer, _check_policy, remat_call
 
 __all__ = ["EvaVisionTransformer", "VisionTransformer"]
 
@@ -58,6 +58,7 @@ class VisionTransformer(nn.Module):
         ln_eps: float = 1e-5,
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
+        remat: Optional[str] = None,
     ):
         super().__init__()
         self.image_size = to_2tuple(image_size)
@@ -76,7 +77,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width, eps=ln_eps)
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio, ls_init_value, act,
-            is_causal=False, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype,
+            is_causal=False, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype, remat=remat,
         )
         self.ln_post = LayerNorm(width, eps=ln_eps)
         self.proj = (
@@ -118,7 +119,7 @@ class EvaVisionTransformer(nn.Module):
     where q and k rotate in it ('bf16', 'flash', 'fused', and the kernels of
     'fusedp'), in fp32 for 'xla' and 'manual', as the JAX package casts it.
     It is a buffer outside the state dict, so it follows the module's
-    device.
+    device. `remat` (a `REMAT_POLICIES` name) remats each block.
     """
 
     def __init__(
@@ -134,8 +135,10 @@ class EvaVisionTransformer(nn.Module):
         ln_eps: float = 1e-6,
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
+        remat: Optional[str] = None,
     ):
         super().__init__()
+        _check_policy(remat)
         self.image_size = to_2tuple(image_size)
         self.patch_size = to_2tuple(patch_size)
         self.grid_size = (
@@ -144,6 +147,7 @@ class EvaVisionTransformer(nn.Module):
         )
         self.width = width
         self.compute_dtype = dtype
+        self.remat = remat
         gh, gw = self.grid_size
         # plain containers, so the parameters carry timm's names
         self.trunk = nn.Module()
@@ -170,6 +174,9 @@ class EvaVisionTransformer(nn.Module):
         cls = trunk.cls_token.to(dt).expand(x.shape[0], 1, self.width)
         x = torch.cat([cls, x], dim=1) + trunk.pos_embed.to(dt)
         for block in trunk.blocks:
-            x = block(x, rope=self.rope)
+            if self.remat is None:
+                x = block(x, self.rope)
+            else:
+                x = remat_call(block, x, self.rope, policy=self.remat)
         x = trunk.norm(x)
         return self.head.proj(x[:, 0])

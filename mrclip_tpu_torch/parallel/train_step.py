@@ -1,24 +1,22 @@
-"""Train state, optimizer and train step of the port (counterpart of
+"""Train state and train step of the port (counterpart of
 `mrclip_tpu/parallel/train_step.py`), on one device.
 
-- AdamW with the JAX package's weight-decay mask (no decay for parameters
-  with fewer than two dimensions or whose name holds `bn`, `batchnorm` or
-  `logit`), optional global-norm clipping, lr as a float or a step -> lr
-  schedule, and the first moment stored in `moments_dtype`. It is the
-  port's own, in plain tensor code, following optax 0.2.6's
-  `clip_by_global_norm` + `scale_by_adam` + `add_decayed_weights` +
-  `scale_by_learning_rate` operation by operation, roundings included
-  (`torch.optim.AdamW` cannot keep a bf16 first moment beside fp32
-  parameters).
+- The optimizers (AdamW, SGD, Lion, Adafactor, the JAX package's
+  weight-decay mask) are `parallel/optim.py`'s, re-exported here.
 - One train step: forward in train mode (text dropout from the step's
   generator; a frozen teacher's forward for the distill loss), the loss,
-  the gradients, the update, and the logit-scale clamp to ln(100).
+  the gradients, the update (masked for frozen parameters by
+  `parallel/freeze.py`), and the logit-scale clamp to ln(100).
+- Gradient accumulation over `accum_freq` consecutive microbatches of the
+  batch, plain (the microbatch gradients averaged) or cached-feature (a
+  no-gradient pass caches every microbatch's features; each microbatch is
+  then run again with gradients, its live features spliced into the cached
+  batch, and the gradients summed), as the JAX package has them.
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer's moments in place (no second copy of either
-lives on the card); the returned state holds the same tensors. Gradient
-accumulation (both modes), the device mesh and the other optimizers raise
-`NotImplementedError` naming their ROADMAP slice.
+lives on the card); the returned state holds the same tensors. The device
+mesh raises `NotImplementedError` naming its ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -30,6 +28,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+from ..models.transformer import running_stats
+from .optim import AdamW, AdamWState, _wd_mask, create_optimizer, global_norm  # noqa: F401
 
 __all__ = [
     "AdamW",
@@ -57,135 +58,6 @@ def _no_mesh(mesh, what: str) -> None:
             f"{what}: a device mesh is not ported (ROADMAP: later slice 5, multi-GPU)")
 
 
-def _wd_mask(params: Params) -> Dict[str, bool]:
-    """True where weight decay applies: not for ndim < 2 (biases, norms,
-    embeddings' scalars) nor for anything bn-like or the logit scale/bias.
-    Leading singleton dims do not count, so timm's `cls_token` [1, 1, W]
-    and `pos_embed` [1, N, W] decide as the JAX package's `class_embedding`
-    [W] and `positional_embedding` [N, W] do."""
-
-    def decide(name: str, p: torch.Tensor) -> bool:
-        name = name.lower()
-        shape = list(p.shape)
-        while shape and shape[0] == 1:
-            shape.pop(0)
-        if len(shape) < 2:
-            return False
-        return not ("bn" in name or "batchnorm" in name or "logit" in name)
-
-    return {name: decide(name, p) for name, p in params.items()}
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32 (optax.global_norm).
-    One multi-tensor norm that accumulates in fp64: PyTorch's fp32 CPU norm
-    adds one element after another and drifts (1.9e-4 relative on 6.3M
-    elements, the size of a token embedding table), where XLA sums
-    pairwise."""
-    norms = torch._foreach_norm([t.float() for t in tensors], 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
-
-
-@dataclasses.dataclass
-class AdamWState:
-    count: int
-    mu: Params
-    nu: Params
-
-
-class AdamW:
-    """optax.adamw (with an optional clip_by_global_norm in front) on a
-    dict of named parameters, updated in place."""
-
-    def __init__(self, lr, b1: float, b2: float, eps: float, wd: float,
-                 grad_clip_norm: Optional[float], mu_dtype: Optional[torch.dtype]):
-        self.lr, self.b1, self.b2, self.eps, self.wd = lr, b1, b2, eps, wd
-        self.grad_clip_norm = grad_clip_norm
-        self.mu_dtype = mu_dtype
-
-    def init(self, params: Params) -> AdamWState:
-        return AdamWState(
-            count=0,
-            mu={n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for n, p in params.items()},
-            nu={n: torch.zeros_like(p) for n, p in params.items()},
-        )
-
-    @torch.no_grad()
-    def update(self, grads: Params, state: AdamWState, params: Params,
-               grad_norm: Optional[torch.Tensor] = None) -> AdamWState:
-        """One step: moments and parameters change in place; returns the
-        state with the count advanced. `grad_norm`, when the caller has it,
-        saves recomputing it for the clip. The fp32 arithmetic runs as
-        multi-tensor operations over every parameter (`torch._foreach_*`);
-        only the two steps that mix mu's stored type with fp32 go tensor by
-        tensor."""
-        b1, b2 = self.b1, self.b2
-        lr = self.lr(state.count) if callable(self.lr) else self.lr
-        count = state.count + 1
-        # optax: 1 - decay**count in fp32, the moments divided by it
-        bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** count)
-        bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** count)
-        names = list(params)
-        p = [params[n] for n in names]
-        g = [grads[n].float() for n in names]
-        mu_prev = [state.mu[n] for n in names]
-        nu = [state.nu[n] for n in names]
-        if self.grad_clip_norm is not None:
-            g_norm = global_norm(g) if grad_norm is None else grad_norm
-            keep = g_norm < self.grad_clip_norm
-            g = [torch.where(keep, x, x / g_norm * self.grad_clip_norm) for x in g]
-        # mu = (1 - b1) g + b1 mu: b1 * mu in mu's own type with b1 rounded to
-        # it (JAX's weak typing), added in fp32; mu stays unrounded until it
-        # is stored
-        b1_stored = float(torch.tensor(b1, dtype=mu_prev[0].dtype)) if mu_prev else b1
-        mu = torch._foreach_mul(g, 1 - b1)
-        torch._foreach_add_(mu, torch._foreach_mul(mu_prev, b1_stored))
-        # nu = (1 - b2) g^2 + b2 nu, fp32
-        g2 = torch._foreach_mul(g, g)
-        torch._foreach_mul_(g2, 1 - b2)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, g2)
-        # update = mu_hat / (sqrt(nu_hat) + eps) [+ wd p], then * -lr
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        update = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(update, den)
-        mask = _wd_mask(params)
-        decay = [i for i, n in enumerate(names) if mask[n]]
-        if decay:
-            torch._foreach_add_([update[i] for i in decay],
-                                torch._foreach_mul([p[i] for i in decay], self.wd))
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(p, update)
-        torch._foreach_copy_(mu_prev, mu)  # the cast to moments_dtype happens here, last
-        return AdamWState(count=count, mu=state.mu, nu=state.nu)
-
-
-def create_optimizer(
-    *,
-    lr: Callable[[int], float] | float,
-    beta1: float = 0.9,
-    beta2: float = 0.98,
-    eps: float = 1e-6,
-    wd: float = 0.2,
-    grad_clip_norm: Optional[float] = None,
-    opt: str = "adamw",
-    moments_dtype: Optional[str] = None,
-) -> AdamW:
-    """AdamW with the JAX package's defaults (b1 0.9, b2 0.98, eps 1e-6,
-    wd 0.2) and weight-decay mask; `moments_dtype='bfloat16'` stores the
-    first moment in bf16. Other optimizers raise."""
-    if opt != "adamw":
-        raise NotImplementedError(
-            f"opt={opt!r} is not ported; the port has adamw (ROADMAP: later slice 3, "
-            "the training CLI's options)")
-    mu_dtype = getattr(torch, moments_dtype) if moments_dtype else None
-    if mu_dtype is not None and not isinstance(mu_dtype, torch.dtype):
-        raise ValueError(f"moments_dtype={moments_dtype!r} is not a torch dtype")
-    return AdamW(lr, beta1, beta2, eps, wd, grad_clip_norm, mu_dtype)
-
-
 @dataclasses.dataclass
 class TrainState:
     """Step count, the model's trainable parameters by name (the module's
@@ -195,11 +67,11 @@ class TrainState:
 
     step: int
     params: Params
-    opt_state: AdamWState
+    opt_state: object
     constants: Params = dataclasses.field(default_factory=dict)
 
 
-def create_train_state(model: nn.Module, tx: AdamW, mesh=None) -> TrainState:
+def create_train_state(model: nn.Module, tx, mesh=None) -> TrainState:
     """The train state of `model`'s trainable parameters (mesh=None only)."""
     _no_mesh(mesh, "create_train_state")
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
@@ -310,7 +182,7 @@ def loss_and_grads(model: nn.Module, loss_apply: Callable[[dict, dict], dict],
     return _grads(ldict["loss"], params), {k: v.detach() for k, v in ldict.items()}
 
 
-def apply_updates(tx: AdamW, state: TrainState, grads: Params, ldict: dict):
+def apply_updates(tx, state: TrainState, grads: Params, ldict: dict):
     """The update, the logit-scale clamp and the metrics (the loss dict and
     `grad_norm`, the global L2 norm of the gradients): (state, metrics)."""
     grad_norm = global_norm(grads.values())
@@ -320,15 +192,33 @@ def apply_updates(tx: AdamW, state: TrainState, grads: Params, ldict: dict):
     return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
 
+def _micro(batch: dict, accum_freq: int, i: int) -> dict:
+    """Microbatch `i` of `accum_freq` consecutive ones (the JAX package's
+    `micro(i)`: rows i*m .. (i+1)*m - 1)."""
+    n = len(batch["images"])
+    if n % accum_freq:
+        raise ValueError(f"a batch of {n} rows does not split into {accum_freq} microbatches")
+    m = n // accum_freq
+    return {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+
+
+def _add_(total: Optional[Params], grads: Params) -> Params:
+    if total is None:
+        return grads
+    torch._foreach_add_(list(total.values()), [grads[n] for n in total])
+    return total
+
+
 def build_train_step(
     model: nn.Module,
     loss_apply: Callable[[dict, dict], dict],
-    tx: AdamW,
+    tx,
     mesh=None,
     *,
     accum_freq: int = 1,
     cached_features_accum: bool = False,
     teacher: Optional[nn.Module] = None,
+    freeze_bn_subtrees: tuple = (),
 ):
     """The train step `step_fn(state, batch, generator=None) -> (state,
     metrics)`.
@@ -341,16 +231,73 @@ def build_train_step(
     `teacher`: a frozen model for the distill loss, run in eval mode without
     gradients on the same batch. metrics: the loss dict and `grad_norm`, as
     tensors on the device. Parameters and moments are updated in place.
+
+    With `accum_freq` A > 1, N = A m and the step runs A microbatches of m
+    consecutive rows: plain, each microbatch's loss and gradients on its own
+    rows, the gradients averaged; with `cached_features_accum`, pass 1
+    caches every microbatch's features in train mode without gradients,
+    pass 2 runs each microbatch again with gradients (from the generator
+    state its pass-1 forward started from, so it draws the same dropout
+    masks), its live rows spliced into the cache, the loss on all N rows
+    and the gradients summed. Either way metrics are {'loss': the mean of
+    the A losses, 'grad_norm'}. BatchNorm running statistics move in every
+    train-mode forward, in order; under `freeze_bn_subtrees` (towers such
+    as 'visual') they are put back after the step
+    (`--lock-image-freeze-bn-stats`).
     """
     _no_mesh(mesh, "build_train_step")
-    if accum_freq != 1 or cached_features_accum:
-        raise NotImplementedError(
-            "gradient accumulation (accum_freq > 1, plain or cached-feature) is not "
-            "ported (ROADMAP: modules item 3, the training CLI's options)")
+    if accum_freq < 1:
+        raise ValueError(f"accum_freq must be >= 1, got {accum_freq}")
+
+    def single(state, batch, generator):
+        return loss_and_grads(model, loss_apply, state.params, batch, generator, teacher)
+
+    def plain(state, batch, generator):
+        grads, loss_sum = None, 0.0
+        for i in range(accum_freq):
+            g, ld = loss_and_grads(model, loss_apply, state.params, _micro(batch, accum_freq, i),
+                                   generator, teacher)
+            grads, loss_sum = _add_(grads, g), loss_sum + ld["loss"]
+        torch._foreach_mul_(list(grads.values()), 1.0 / accum_freq)
+        return grads, {"loss": loss_sum / accum_freq}
+
+    def cached(state, batch, generator):
+        micro = [_micro(batch, accum_freq, i) for i in range(accum_freq)]
+        starts, img, txt = [], [], []
+        model.train()
+        with torch.no_grad():
+            for mb in micro:
+                starts.append(generator.get_state() if generator is not None else None)
+                out = model(mb["images"], mb["tokens"], generator=generator)
+                img.append(out["image_features"])
+                txt.append(out["text_features"])
+        end = generator.get_state() if generator is not None else None
+        grads, loss_sum = None, 0.0
+        for i, mb in enumerate(micro):
+            if generator is not None:
+                generator.set_state(starts[i])
+            out = model(mb["images"], mb["tokens"], generator=generator)
+            spliced = dict(out, image_features=torch.cat([*img[:i], out["image_features"],
+                                                          *img[i + 1:]]),
+                           text_features=torch.cat([*txt[:i], out["text_features"],
+                                                    *txt[i + 1:]]))
+            loss = loss_apply(spliced, batch)["loss"]
+            grads, loss_sum = _add_(grads, _grads(loss, state.params)), loss_sum + loss.detach()
+        if generator is not None:
+            generator.set_state(end)
+        return grads, {"loss": loss_sum / accum_freq}
+
+    compute = single if accum_freq == 1 else cached if cached_features_accum else plain
 
     def step_fn(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None):
-        grads, ldict = loss_and_grads(model, loss_apply, state.params, batch, generator, teacher)
-        return apply_updates(tx, state, grads, ldict)
+        frozen_stats = [s for tower in freeze_bn_subtrees if hasattr(model, tower)
+                        for s in running_stats(getattr(model, tower))]
+        grads, ldict = compute(state, batch, generator)
+        state, metrics = apply_updates(tx, state, grads, ldict)
+        with torch.no_grad():
+            for b, saved in frozen_stats:
+                b.copy_(saved)
+        return state, metrics
 
     return step_fn
 

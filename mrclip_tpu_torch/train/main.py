@@ -4,22 +4,24 @@
 The JAX package's flags (`train/params.py`) plus `--device`: the run trains
 on the CUDA card unless `--device cpu` is given, and raises without a card.
 It does: experiment naming, `out.log`, `params.txt`, `checkpoints/`,
-`--copy-codebase`; the model and its transforms; the tokenizer/vocabulary
-check; the data; the schedule, AdamW and the train state; `--resume
-latest|path`; `--test`; the loss and the train step (the text dropout's
-masks from a generator on the model's device, seeded from `--seed` and the
-epoch); the epochs with `--save-frequency`, `--save-most-recent`,
-`--delete-previous-checkpoint` and `--val-frequency`. Tensorboard and wandb
-warn and carry on when they are not installed.
+`--copy-codebase`; the model (remat under `--grad-checkpointing
+--remat-policy`) and its transforms; the tokenizer/vocabulary check; the
+data; the schedule, the optimizer (`--opt adamw|sgd|lion|adafactor`), the
+update mask of `--lock-image*`, `--lock-text*`, `--freeze` and
+`--freezelast`, and the train state; `--resume latest|path`; `--test`; the
+loss and the train step (`--accum-freq`, `--cached-features-accum`; the
+text dropout's masks from a generator on the model's device, seeded from
+`--seed` and the epoch), or the image-only step, epoch loop and eval of
+`--visiononly --multipositiveloss`; the epochs with `--save-frequency`,
+`--save-most-recent`, `--delete-previous-checkpoint` and
+`--val-frequency`. Tensorboard and wandb warn and carry on when they are
+not installed.
 
 What the port does not have yet raises `NotImplementedError` naming its
 ROADMAP item, before anything is written: the device mesh (`--mesh-fsdp`,
-`--mesh-tp` > 1), gradient accumulation (`--accum-freq` > 1,
-`--cached-features-accum`), remat (`--grad-checkpointing`), the sgd, lion
-and adafactor optimizers, tower locking and freezing, `--device-augment`,
-`--remote-sync`, the vision-only epoch loop (`--visiononly` with
-`--multipositiveloss`), `--linear`, and the data options `data.get_data`
-refuses.
+`--mesh-tp` > 1), `--device-augment`, `--remote-sync`, `--linear`, and the
+data options `data.get_data` refuses. `--accum-freq` > 1 with the
+vision-only path raises `ValueError`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,11 +47,13 @@ from ..parallel import (
     create_train_state,
     make_loss_apply,
 )
+from ..parallel.freeze import build_trainable_mask, chain_with_mask
 from ..utils import resolve_device
 from .logger import setup_logging
 from .loop import evaluate, linear_probe, test_metrics, train_one_epoch
 from .params import parse_args
 from .scheduler import create_scheduler
+from .vision_only import build_vision_only_step, evaluate_vision_only, train_one_epoch_vision_only
 
 def random_seed(seed=42, rank=0):
     np.random.seed(seed + rank)
@@ -64,25 +68,16 @@ def _refuse_unported(args) -> None:
 
     if args.mesh_fsdp > 1 or args.mesh_tp > 1:
         no("a device mesh (--mesh-fsdp/--mesh-tp > 1)", "modules item 6, multi-GPU")
-    if args.accum_freq > 1 or args.cached_features_accum:
-        no("gradient accumulation (--accum-freq > 1, --cached-features-accum)",
-           "modules item 3, the training CLI's options")
-    if args.grad_checkpointing:
-        no("remat (--grad-checkpointing)", "modules item 3, the training CLI's options")
-    if args.opt != "adamw":
-        no(f"--opt {args.opt}", "modules item 3, the training CLI's options")
-    if args.lock_image or args.lock_text or args.freeze or args.freezelast:
-        no("tower locking and freezing (--lock-image, --lock-text, --freeze, --freezelast)",
-           "modules item 6, parallel/freeze.py")
     if args.device_augment:
         no("--device-augment", "modules item 3, ops/image_ops.random_augment_batch")
     if args.remote_sync:
         no("--remote-sync", "modules item 3, train/file_utils.py")
-    if args.visiononly and args.multipositiveloss:
-        no("the vision-only epoch loop (--visiononly --multipositiveloss; its step is "
-           "train.vision_only.build_vision_only_step)", "modules item 3, train/vision_only.py")
     if args.linear:
         no("--linear", "modules item 3, linear_probe")
+    if args.visiononly and args.multipositiveloss and args.accum_freq > 1:
+        raise ValueError(
+            "--accum-freq > 1 is not supported with --visiononly: the vision-only step has no "
+            "microbatch accumulation (drop the flag or use the image-text path)")
 
 
 def main(args=None):
@@ -136,6 +131,8 @@ def main(args=None):
         force_patch_dropout=args.force_patch_dropout,
         force_image_size=tuple(args.force_image_size) if args.force_image_size else None,
         logit_scale_trainable=not args.logitscaletrainable,
+        grad_checkpointing=args.grad_checkpointing,
+        remat_policy=args.remat_policy,
         attn_impl=args.attn_impl,
         gelu_approx=args.gelu_approx,
         text_dropout=args.textdropout,
@@ -171,7 +168,8 @@ def main(args=None):
     data = get_data(args, (preprocess_train, preprocess_val), epoch=0, tokenizer=tokenizer)
     assert len(data), "At least one train or val dataset must be specified."
 
-    # optimizer + schedule
+    # optimizer + schedule; the train loader's batches hold accum_freq *
+    # batch_size rows, so its length counts optimizer steps
     steps_per_epoch = len(data["train"].dataloader) if "train" in data else 0
     total_steps = steps_per_epoch * args.epochs
     schedule = None if args.skip_scheduler else create_scheduler(args, total_steps)
@@ -183,9 +181,15 @@ def main(args=None):
         wd=args.wd,
         grad_clip_norm=args.grad_clip_norm,
         opt=args.opt,
+        momentum=args.momentum,
         moments_dtype="bfloat16" if args.bf16_moments else None,
     )
     state = create_train_state(model, tx)
+    mask = build_trainable_mask(state.params, args)
+    if mask is not None:
+        tx = chain_with_mask(tx, mask)
+        logging.info(f"Frozen: {sum(v == 0.0 for v in mask.values())} of {len(mask)} "
+                     "parameter tensors (their updates masked)")
 
     # resume
     start_epoch = 0
@@ -217,7 +221,15 @@ def main(args=None):
                                precision=args.precision, device=device)
         logging.info(f"Distilling from {args.distill_model} ({args.distill_pretrained})")
 
-    step_fn = build_train_step(model, make_loss_apply(create_loss(args)), tx, teacher=teacher)
+    vision_only = args.visiononly and args.multipositiveloss
+    if vision_only:
+        step_fn = build_vision_only_step(model, tx)
+    else:
+        step_fn = build_train_step(
+            model, make_loss_apply(create_loss(args)), tx, accum_freq=args.accum_freq,
+            cached_features_accum=args.cached_features_accum, teacher=teacher,
+            freeze_bn_subtrees=("visual",) if args.lock_image and args.lock_image_freeze_bn_stats
+            else ())
     generator = torch.Generator(device=device)
 
     writer = None
@@ -239,8 +251,12 @@ def main(args=None):
 
     for epoch in range(start_epoch, args.epochs):
         logging.info(f"Start epoch {epoch}")
-        state, _ = train_one_epoch(step_fn, state, data, epoch, args, schedule, writer,
-                                   generator=generator)
+        if vision_only:
+            state, _ = train_one_epoch_vision_only(step_fn, state, data, epoch, args, schedule,
+                                                   generator=generator)
+        else:
+            state, _ = train_one_epoch(step_fn, state, data, epoch, args, schedule, writer,
+                                       generator=generator)
         completed_epoch = epoch + 1
 
         if (completed_epoch == args.epochs or args.save_most_recent
@@ -253,8 +269,11 @@ def main(args=None):
             (args.val_frequency and completed_epoch % args.val_frequency == 0)
             or completed_epoch == args.epochs
         ):
-            evaluate(model, state, data, completed_epoch, args, eval_step=eval_step,
-                     writer=writer, tokenizer=tokenizer)
+            if vision_only:
+                evaluate_vision_only(model, state, data, completed_epoch, args)
+            else:
+                evaluate(model, state, data, completed_epoch, args, eval_step=eval_step,
+                         writer=writer, tokenizer=tokenizer)
 
     if writer is not None:
         writer.close()

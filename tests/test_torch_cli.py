@@ -209,14 +209,8 @@ def test_checkpoint_round_trip(tmp_path, moments):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-fsdp", "2"], "modules item 6"),
     (["--mesh-tp", "2"], "modules item 6"),
-    (["--accum-freq", "2"], "modules item 3"),
-    (["--cached-features-accum"], "modules item 3"),
-    (["--grad-checkpointing"], "modules item 3"),
-    (["--opt", "lion"], "modules item 3"),
-    (["--lock-image"], "parallel/freeze.py"),
     (["--device-augment"], "random_augment_batch"),
     (["--remote-sync", "s3://x"], "file_utils"),
-    (["--visiononly", "--multipositiveloss"], "vision_only"),
     (["--linear"], "linear_probe"),
     (["--train-data", "shards-{0..3}.tar", "--logs", "LOGS"], "data/shards.py"),
     (["--native-loader", "--dataset-type", "synthetic", "--logs", "LOGS"], "native_loader"),

@@ -1031,3 +1031,77 @@ def test_training_cli_one_epoch_on_the_card(cuda_device, tmp_path):
     saved = ckpt.load_checkpoint(str(tmp_path / "logs" / "r" / "checkpoints"))
     for k, v in state.params.items():
         assert v.is_cuda and torch.equal(v.detach().cpu(), saved["params"][k])
+
+
+def _mini_batch(device, n=8, seed=0):
+    rng = np.random.RandomState(seed)
+    return {
+        "images": normalize_images(torch.from_numpy(
+            rng.randint(0, 256, (n, 64, 64, 3)).astype(np.uint8)).to(device)),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (n, 32))).to(device),
+        "labels": torch.from_numpy(rng.randint(0, 3, n).astype(np.int32)).to(device),
+    }
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "mlp_only"])
+def test_remat_vit_mini_step_matches_no_remat(cuda_device, policy):
+    """ViT-B-32-mini, fp32, 'fusedp', text dropout 0.1 from a CUDA
+    generator: the remat'd step's loss and gradients against the step
+    without remat from the same weights and seed (1e-5 of each tensor's
+    largest element: the kernels recompute the same values), K1 launched
+    twice per layer (forward and recompute) and K3 once."""
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=False))()
+    apply = make_loss_apply(create_loss(args))
+    batch = _mini_batch(cuda_device)
+    runs = {}
+    for remat in (False, True):
+        model = create_model("ViT-B-32-mini", attn_impl="fusedp", rng_seed=0, text_dropout=0.1,
+                             grad_checkpointing=remat, remat_policy=policy)
+        layers = len(model.transformer.resblocks) + len(model.visual.transformer.resblocks)
+        fa.reset_launches()
+        grads, ldict = loss_and_grads(model, apply, dict(model.named_parameters()), batch,
+                                      torch.Generator(device="cuda").manual_seed(4))
+        torch.cuda.synchronize()
+        runs[remat] = (grads, ldict["loss"].item(), fa.launches, fa.bwd_launches)
+    (g1, l1, f1, b1), (g0, l0, f0, b0) = runs[True], runs[False]
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    assert (f0, b0, f1, b1) == (layers, layers, 2 * layers, layers)
+    for name, g in g1.items():
+        assert (g - g0[name]).abs().max().item() <= 1e-5 * (g0[name].abs().max().item() + 1e-12), name
+
+
+def test_cached_accumulation_step_matches_the_unsplit_step(cuda_device):
+    """ViT-B-32-mini, fp32, 'fusedp' + the pallas loss (K6/K7): the cached
+    mode at A = 2 against one step on the same 16 rows: loss to 1e-5
+    relative, the summed gradients to 1e-4 of each tensor's largest element
+    (the temperature's twice the unsplit one: each pass's loss reaches it in
+    full), and each pass launching K6 and K7 twice over all 16 rows."""
+    from mrclip_tpu_torch.parallel import build_train_step
+
+    args = type("Args", (), dict(multipositiveloss=True, delta=0.5, pallas_loss=True))()
+    apply = make_loss_apply(create_loss(args))
+    batch = _mini_batch(cuda_device, n=16)
+
+    class Recorder:
+        def init(self, params):
+            return type("S", (), {"count": 0})()
+
+        def update(self, grads, state, params, grad_norm=None):
+            self.grads = {k: v.clone() for k, v in grads.items()}
+            return state
+
+    out = {}
+    for accum in (1, 2):
+        model = create_model("ViT-B-32-mini", attn_impl="fusedp", rng_seed=0)
+        rec = Recorder()
+        step = build_train_step(model, apply, rec, accum_freq=accum, cached_features_accum=True)
+        pl.reset_launches()
+        _, metrics = step(create_train_state(model, rec), batch)
+        torch.cuda.synchronize()
+        out[accum] = (metrics["loss"].item(), rec.grads, dict(pl.launches))
+    (l1, g1, c1), (l2, g2, c2) = out[1], out[2]
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    assert c1 == {k: 2 for k in c1} and c2 == {k: 4 for k in c2}
+    for name, g in g1.items():
+        want = g * (2 if name == "logit_scale" else 1)
+        assert (g2[name] - want).abs().max().item() <= 1e-4 * (want.abs().max().item() + 1e-12), name

@@ -41,7 +41,7 @@ from mrclip_tpu_torch.ops import dw_conv as dc
 from mrclip_tpu_torch.ops.image_ops import normalize_images
 from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
                                        make_loss_apply)
-from mrclip_tpu_torch.parallel.train_step import _wd_mask
+from mrclip_tpu_torch.parallel.train_step import _wd_mask, loss_and_grads
 from mrclip_tpu_torch.serving import export_model, load_exported, save_exported
 
 # One intra-op thread: the suite runs in several worker processes at once, and
@@ -385,6 +385,26 @@ def test_forms_outside_the_slice_raise(key, value, match):
         model_from_config(cfg)
 
 
-def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("MobileCLIP-S1", device="cpu", grad_checkpointing=True)
+def test_remat_raises(monkeypatch):
+    """Remat, once refused, now builds: MobileCLIP-S1 (narrow) under
+    `grad_checkpointing` recomputes each RepMixer block whole and the
+    attention stage under the policy, and its dense-loss step's gradients
+    are bit-equal to the step's without remat (the CPU's recompute repeats
+    the forward's arithmetic); an unknown policy raises."""
+    _use_dims(monkeypatch, NARROW)
+    images, tokens, labels = _batch(64, n=4)
+    batch = {"images": normalize_images(torch.from_numpy(images)),
+             "tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    apply = make_loss_apply(create_loss(SimpleNamespace(
+        multipositiveloss=True, delta=0.5, model="MobileCLIP-S1", gather_with_grad=True)))
+    grads = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = create_model("MobileCLIP-S1", device="cpu", vision_cfg=_vision(64),
+                             text_cfg=TEXT_CFG, grad_checkpointing=remat, remat_policy="mlp_only")
+        assert model.visual.remat == ("mlp_only" if remat else None)
+        grads[remat], _ = loss_and_grads(model, apply, dict(model.named_parameters()), batch)
+    for name, g in grads[True].items():
+        assert torch.equal(g, grads[False][name]), name
+    with pytest.raises(ValueError, match="remat policy"):
+        create_model("MobileCLIP-S1", device="cpu", grad_checkpointing=True, remat_policy="x")

@@ -182,8 +182,7 @@ def test_options_outside_the_slice_raise(tower, key, value):
         model_from_config(cfg)
 
 
-@pytest.mark.parametrize("option", [{"scan_layers": True}, {"grad_checkpointing": True},
-                                    {"force_patch_dropout": 0.5}])
+@pytest.mark.parametrize("option", [{"scan_layers": True}, {"force_patch_dropout": 0.5}])
 def test_create_model_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model("ViT-B-32-mini", device="cpu", **option)

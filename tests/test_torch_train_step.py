@@ -258,15 +258,9 @@ def test_eval_step_returns_features_in_eval_mode():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, a, tx: build_train_step(m, a, tx, accum_freq=2),
-    lambda m, a, tx: build_train_step(m, a, tx, cached_features_accum=True),
     lambda m, a, tx: build_train_step(m, a, tx, mesh=object()),
     lambda m, a, tx: create_train_state(m, tx, mesh=object()),
     lambda m, a, tx: make_loss_apply(create_loss(_loss_args(False)), mesh=object()),
-    lambda m, a, tx: create_optimizer(lr=1e-4, opt="lion"),
-    lambda m, a, tx: create_optimizer(lr=1e-4, opt="sgd"),
-    lambda m, a, tx: create_optimizer(lr=1e-4, opt="adafactor"),
-    lambda m, a, tx: create_model("ViT-B-32-mini", device="cpu", grad_checkpointing=True),
 ])
 def test_refusals_name_their_roadmap_slice(call):
     model = create_model("ViT-B-32-mini", device="cpu")
