@@ -162,10 +162,26 @@ fails:
              more (the restored state bit-equal), adafactor and sgd for one
              short epoch, --visiononly for an epoch with its eval; the exact
              launches of each from its log.
-Each path (4 to 14; phase 12 has five, one per objective; phase 13's train
+ 15. fast input: the native data path and the augmentation on the card.
+             The port's C++ loader library built on the card's host (the
+             compiler, its flags and the zlib it links printed); its
+             load_batch (cover, bicubic) and augment_batch (the MR-CLIP warp
+             and blur) on a b256 of phase 13's slices to 224 px, images/s
+             on 1 thread and on every core, beside phase 13's host
+             transforms; random_augment_batch (with and without the colour
+             extras), eval_preprocess_batch and normalize_images on the card
+             at b256 from 256 x 256 uint8 canvases (CUDA events), the
+             deterministic apply and the eval preprocessing on the card
+             against the CPU on the same draws (1e-4); then the training
+             CLI on phase 13's CSVs under --native-loader (2 epochs, a val
+             pass each) and --device-augment (1 epoch): exact K1/K3/K6/K7
+             launches per epoch and K1's per val pass, finite losses and
+             metrics, pairs/s and the data-time share beside phase 13's.
+Each path (4 to 15; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
-counted by the runs themselves) runs with the launch counts set to 0 just
-before it and reads them just after. The last three lines are the kernels JSON, the card's
+phase 15's "fast_native", "fast_device" and their "_eval", counted by the
+runs themselves) runs with the launch counts set to 0 just before it and
+reads them just after. The last three lines are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card
 and imports no JAX.
 """
@@ -2675,6 +2691,35 @@ def _scaled(per_step, n):
     return {k: v * n for k, v in per_step.items()}
 
 
+def _cli_flags(work, logs, name, workers):
+    """The training CLI's flags of phases 13 and 15 on the study in `work`:
+    ViT-B-16 b256 `fusedp`, the pallas loss, amp, a val pass each epoch."""
+    return ["--train-data", os.path.join(work, "split", "train.csv"),
+            "--val-data", os.path.join(work, "split", "val.csv"), "--csv-caption-key", "text",
+            "--model", CLI_MODEL, "--attn-impl", "fusedp", "--pallas-loss",
+            "--multipositiveloss", "--dataset-type", "csv", "--batch-size", str(CLI_BATCH),
+            "--val-frequency", "1", "--precision", "amp", "--workers", str(workers),
+            "--lr", "1e-4", "--wd", "0.2", "--skip-scheduler", "--bf16-moments",
+            "--gelu-approx", "--seed", "0", "--log-every-n-steps", "1", "--logs", logs,
+            "--name", name, "--device", CLI_DEVICE]
+
+
+def _cli_rates(steps, n_steps):
+    """Pairs/s and the data-time share over every logged step, and over the
+    steps after each epoch's first (whose batches the loader makes while
+    the first waits); the first steps' seconds and data seconds."""
+    steady = [s for i, s in enumerate(steps) if i % n_steps]
+    data_s, batch_s = sum(s[2] for s in steady), sum(s[3] for s in steady)
+    all_data, all_batch = sum(s[2] for s in steps), sum(s[3] for s in steps)
+    return dict(cli_pairs_per_s=CLI_BATCH * len(steps) / all_batch,
+                cli_data_time_share=all_data / all_batch,
+                cli_steady_pairs_per_s=CLI_BATCH * len(steady) / batch_s if steady else None,
+                cli_steady_batch_ms=batch_s / len(steady) * 1e3 if steady else None,
+                cli_steady_data_time_share=data_s / batch_s if steady else None,
+                cli_first_step_s=[s[3] for i, s in enumerate(steps) if i % n_steps == 0],
+                cli_first_step_data_s=[s[2] for i, s in enumerate(steps) if i % n_steps == 0])
+
+
 def phase_cli(card):
     """Phase 13: MR-CLIP's own main path from MRI volumes. Synthetic NIfTI
     volumes (the port's writer) with BIDS sidecars go through the
@@ -2685,7 +2730,8 @@ def phase_cli(card):
     per epoch and K1's per val pass, the saved state restored bit-equal onto
     the card, and a batch of the CLI's data under the kernels against plain
     attention and the dense loss. Returns ({path: launches}, {path: per-step
-    or per-batch launches}, perf)."""
+    or per-batch launches}, perf, the study: its temporary directory, the
+    preprocessed `work` directory and the split rows, for phase 15)."""
     import random
     from types import SimpleNamespace
 
@@ -2776,14 +2822,7 @@ def phase_cli(card):
     # 4. the training CLI: two epochs with val, then one more from the saved state
     workers = os.cpu_count() or 4
     logs = os.path.join(root, "logs")
-    flags = ["--train-data", os.path.join(work, "split", "train.csv"),
-             "--val-data", os.path.join(work, "split", "val.csv"), "--csv-caption-key", "text",
-             "--model", CLI_MODEL, "--attn-impl", "fusedp", "--pallas-loss",
-             "--multipositiveloss", "--dataset-type", "csv", "--batch-size", str(CLI_BATCH),
-             "--val-frequency", "1", "--precision", "amp", "--workers", str(workers),
-             "--lr", "1e-4", "--wd", "0.2", "--skip-scheduler", "--bf16-moments",
-             "--gelu-approx", "--seed", "0", "--log-every-n-steps", "1", "--logs", logs,
-             "--name", "cli", "--device", CLI_DEVICE]
+    flags = _cli_flags(work, logs, "cli", workers)
     train_mod = "mrclip_tpu_torch.train.main"
     _, perf["cli_run1_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", "2", "--profile-dir",
                                            os.path.join(root, "trace")],
@@ -2828,19 +2867,7 @@ def phase_cli(card):
     if not ok:
         raise AssertionError(f"{tag} the training CLI's runs failed their checks: "
                              f"{train_launch} {eval_launch} {results}")
-    # throughput and the data-time share over every logged step, and over the
-    # steps after each epoch's first (whose batches the loader makes while the
-    # first waits)
-    steady = [s for i, s in enumerate(steps) if i % n_steps]
-    data_s, batch_s = sum(s[2] for s in steady), sum(s[3] for s in steady)
-    all_data, all_batch = sum(s[2] for s in steps), sum(s[3] for s in steps)
-    perf.update(cli_pairs_per_s=CLI_BATCH * len(steps) / all_batch,
-                cli_data_time_share=all_data / all_batch,
-                cli_steady_pairs_per_s=CLI_BATCH * len(steady) / batch_s,
-                cli_steady_batch_ms=batch_s / len(steady) * 1e3,
-                cli_steady_data_time_share=data_s / batch_s,
-                cli_first_step_s=[s[3] for i, s in enumerate(steps) if i % n_steps == 0],
-                cli_first_step_data_s=[s[2] for i, s in enumerate(steps) if i % n_steps == 0])
+    perf.update(_cli_rates(steps, n_steps))
     log(f"{tag} train CLI, all {len(steps)} steps: {perf['cli_pairs_per_s']:.1f} pairs/s, "
         f"data-time share {perf['cli_data_time_share']:.3f}; each epoch's first step "
         + ", ".join(f"{x:.2f}" for x in perf["cli_first_step_s"]) + " s (data "
@@ -2933,11 +2960,11 @@ def phase_cli(card):
     perf["phase_s"] = time.perf_counter() - t_phase
     log(f"{tag} phase wall {perf['phase_s']:.1f} s | {card}")
     log(f"{tag} breakdown: " + json.dumps(perf))
-    tmp.cleanup()
     launches = {k: sum(e.get(k, 0) for e in train_launch.values()) for k in want_train}
     eval_launches = {k: sum(e.get(k, 0) for e in eval_launch.values()) for k in want_eval}
+    study = {"tmp": tmp, "work": work, "splits": splits}  # phase 15 trains on it again
     return ({"cli": launches, "cli_eval": eval_launches},
-            {"cli": CLI_PER_STEP, "cli_eval": CLI_EVAL_PER_BATCH}, perf)
+            {"cli": CLI_PER_STEP, "cli_eval": CLI_EVAL_PER_BATCH}, perf, study)
 
 
 # The training CLI's options (phase 14): remat, accumulation, the other
@@ -3448,6 +3475,224 @@ def phase_options_cli(card):
     return paths, per_step, perf
 
 
+# The fast input path (phase 15): the native C++ loader and the augmentation
+# and eval preprocessing on the card, on phase 13's study. `FAST_*` size it;
+# a CPU rehearsal may cut them.
+FAST_CANVAS = 256  # the canvas random_augment_batch takes to 224 on the card
+FAST_SIZE = (224, 224)
+FAST_TIMED = 10
+FAST_APPLY_ROWS = 64  # rows of the card-vs-CPU apply check (the CPU's share is slow)
+FAST_APPLY_TOL = 1e-4  # normalised values: fp32 order and the card's FMAs
+FAST_JITTER = dict(color_jitter=(0.4, 0.4, 0.4, 0.1), color_jitter_prob=0.8,
+                   gray_scale_prob=0.2)
+FAST_RUNS = {"native": (["--native-loader"], 2), "device": (["--device-augment"], 1)}
+
+
+def _host_images_per_s(fn, n):
+    """Images/s of one fn() that makes n images, after one warm call (the
+    files then sit in the page cache: warm reads)."""
+    out, status = fn()
+    if not (status == 0).all():
+        raise AssertionError(f"[fast-input] {int((status != 0).sum())} of {n} images failed")
+    t = time.perf_counter()
+    fn()
+    return n / (time.perf_counter() - t)
+
+
+def phase_fast_input(card, study, cli_perf):
+    """Phase 15: the fast input path. Builds the native library (the port's
+    C++ copy, the system compiler, zlib); times its `load_batch` (cover,
+    bicubic) and `augment_batch` (the MR-CLIP warp and blur) on a b256 of
+    phase 13's slices at 1 thread and every core, beside phase 13's host
+    transforms; times `random_augment_batch` and `eval_preprocess_batch` on
+    the card at b256 from 256 x 256 uint8 canvases to 224 x 224 and holds the
+    deterministic apply (with the colour extras) and the eval preprocessing
+    on the card against the CPU on the same draws; then trains the CLI on
+    phase 13's CSVs under `--native-loader` (two epochs, a val pass each)
+    and `--device-augment` (one epoch): the exact launches per epoch and
+    per val pass, finite losses and metrics, pairs/s and the data-time
+    share beside phase 13's. Returns ({path: launches}, {path: per-step or
+    per-batch launches}, perf) and removes the study."""
+    from mrclip_tpu_torch import native
+    from mrclip_tpu_torch.ops import build, image_ops
+
+    tag = "[fast-input]"
+    t_phase = time.perf_counter()
+    perf = {}
+
+    # 1. the host library, built here from the checkout's sources
+    t = time.perf_counter()
+    native.library()
+    perf["build_s"] = time.perf_counter() - t
+    info = build.build_info("mrclip_native")
+    cxx = subprocess.run([build._find_cxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    ldd = subprocess.run(["ldd", info["path"]], capture_output=True, text=True).stdout
+    zlib = next((line.strip() for line in ldd.splitlines() if "libz." in line), "no libz in ldd")
+    how = (f"built in {perf['build_s']:.2f} s: {info['command']}" if "command" in info else
+           f"loaded, built earlier with {' '.join(build.HOST_CXX_FLAGS + build.HOST_LIBS)}")
+    log(f"{tag} native library {info['path']} {how}; compiler {cxx}; zlib: {zlib}")
+
+    # 2. the host side: one b256 of phase 13's train slices
+    paths = [r["filepath"] for r in study["splits"]["train"][:CLI_BATCH]]
+    n = len(paths)
+    mats = native.augment_matrices(np.random.RandomState(0), n,
+                                   src_sizes=[native.png_size(p) for p in paths])
+    sigmas = np.random.RandomState(1).uniform(0.1, 2.0, n).astype(np.float32)
+    cores = os.cpu_count() or 1
+    for k in (1, cores):
+        perf[f"load_{k}t_images_per_s"] = _host_images_per_s(lambda: native.load_batch(
+            paths, FAST_SIZE, num_threads=k, resize_mode="cover", interpolation="bicubic"), n)
+        perf[f"augment_{k}t_images_per_s"] = _host_images_per_s(lambda: native.augment_batch(
+            paths, FAST_SIZE, mats, sigmas, num_threads=k), n)
+    log(f"{tag} host, b{n} of {CLI_SHAPE[0]} x {CLI_SHAPE[1]} slices to {FAST_SIZE[0]} px "
+        f"(warm file cache): native load_batch (cover, bicubic) "
+        f"{perf['load_1t_images_per_s']:.1f} images/s on 1 thread, "
+        f"{perf[f'load_{cores}t_images_per_s']:.1f} on {cores}; native "
+        f"augment_batch (warp + blur) {perf['augment_1t_images_per_s']:.1f} on 1, "
+        f"{perf[f'augment_{cores}t_images_per_s']:.1f} on {cores}; phase 13's host transforms "
+        f"on 1 thread: train {cli_perf['train_transform_images_per_s']:.1f}, eval "
+        f"{cli_perf['eval_transform_images_per_s']:.1f} | {card}")
+
+    # where one train batch of the native loader's producer goes: its
+    # Python (header sizes, matrices, tokens) around the C++ call, and the
+    # pinned copy
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch.data.loader import _pinned
+    from mrclip_tpu_torch.data.native_loader import NativeBatchLoader
+    from mrclip_tpu_torch.factory import get_tokenizer
+
+    dev = torch.device(CLI_DEVICE)
+    rows = study["splits"]["train"][:n]
+    ds = SimpleNamespace(images=paths, captions=[r["text"] for r in rows],
+                         labels=[int(r["label"]) for r in rows])
+    loader = NativeBatchLoader(ds, n, canvas_size=FAST_SIZE, tokenizer=get_tokenizer(CLI_MODEL),
+                               num_threads=cores, augment=True)
+    parts = {
+        "sizes": lambda: [native.png_size(p) for p in paths],
+        "matrices": lambda: native.augment_matrices(np.random.RandomState(0), n,
+                                                    src_sizes=[native.png_size(p) for p in paths]),
+        "c++": lambda: native.augment_batch(paths, FAST_SIZE, mats, sigmas, num_threads=cores),
+        "first_batch": lambda: loader._make_batch(range(n)),  # each caption tokenised once
+        "batch": lambda: loader._make_batch(range(n)),  # from the token cache, as later
+    }
+    producer = {}
+    for name, fn in parts.items():
+        t = time.perf_counter()
+        out = fn()
+        producer[name] = (time.perf_counter() - t) * 1e3
+    producer["pin"] = None
+    if dev.type == "cuda":
+        t = time.perf_counter()
+        _pinned(out)
+        producer["pin"] = (time.perf_counter() - t) * 1e3
+    perf["producer_ms"] = producer
+    log(f"{tag} native producer, one b{n} train batch, host clock: PNG header sizes "
+        f"{producer['sizes']:.1f} ms, augment_matrices (sizes included) "
+        f"{producer['matrices']:.1f}, the C++ decode + warp + blur on {cores} threads "
+        f"{producer['c++']:.1f}; the whole _make_batch {producer['first_batch']:.1f} with the "
+        f"captions tokenised, {producer['batch']:.1f} from the token cache; the pinned copy "
+        f"{fmt_ms(producer['pin'])} | {card}")
+
+    # 3. the card side at b256, from 256 x 256 canvases of the same slices
+    canvases, _ = native.load_batch(paths, (FAST_CANVAS, FAST_CANVAS), num_threads=cores,
+                                    resize_mode="cover")
+    x = torch.from_numpy(canvases).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = {
+        "random_augment_ms": lambda: image_ops.random_augment_batch(x, gen, out_size=FAST_SIZE),
+        "random_augment_colour_ms": lambda: image_ops.random_augment_batch(
+            x, gen, out_size=FAST_SIZE, **FAST_JITTER),
+        "eval_preprocess_ms": lambda: image_ops.eval_preprocess_batch(x, out_size=FAST_SIZE),
+        "normalize_ms": lambda: image_ops.normalize_images(x),
+    }
+    for name, fn in timed.items():
+        perf[name] = cuda_ms(fn, FAST_TIMED) if dev.type == "cuda" else None
+    rows = FAST_APPLY_ROWS
+    draws = image_ops.draw_augment(rows, (FAST_CANVAS, FAST_CANVAS),
+                                   torch.Generator().manual_seed(3), out_size=FAST_SIZE,
+                                   **FAST_JITTER)
+    kw = dict(out_size=FAST_SIZE, color_jitter=FAST_JITTER["color_jitter"])
+    on_card = image_ops.apply_augment(x[:rows], draws, **kw).cpu()
+    on_cpu = image_ops.apply_augment(x[:rows].cpu(), draws, **kw)
+    perf["apply_max_abs_err"] = float((on_card - on_cpu).abs().max())
+    ev_card = image_ops.eval_preprocess_batch(x[:rows], out_size=FAST_SIZE).cpu()
+    ev_cpu = image_ops.eval_preprocess_batch(x[:rows].cpu(), out_size=FAST_SIZE)
+    perf["eval_max_abs_err"] = float((ev_card - ev_cpu).abs().max())
+    ok = (perf["apply_max_abs_err"] <= FAST_APPLY_TOL and perf["eval_max_abs_err"] <= FAST_APPLY_TOL
+          and bool(torch.isfinite(on_card).all()) and on_card.shape == (rows, *FAST_SIZE, 3))
+    log(f"{tag} card, b{n} from {FAST_CANVAS}^2 uint8 to {FAST_SIZE[0]}^2: random_augment_batch "
+        f"{fmt_ms(perf['random_augment_ms'])} ms (with the colour extras "
+        f"{fmt_ms(perf['random_augment_colour_ms'])}), eval_preprocess_batch "
+        f"{fmt_ms(perf['eval_preprocess_ms'])}, normalize_images {fmt_ms(perf['normalize_ms'])} "
+        f"(CUDA events, mean of {FAST_TIMED}); the apply on the card vs the CPU on the same "
+        f"draws (b{rows}, colour extras): max|err| {perf['apply_max_abs_err']:.2e}, the eval "
+        f"preprocessing {perf['eval_max_abs_err']:.2e} (tol {FAST_APPLY_TOL}) "
+        f"{'ok' if ok else 'FAIL'} | {card}")
+    if not ok:
+        raise AssertionError(f"{tag} the card's augmentation disagrees with the CPU's")
+    del x, on_card, on_cpu, ev_card, ev_cpu
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 4. the training CLI on phase 13's CSVs under each option
+    logs = os.path.join(study["tmp"].name, "fast_logs")
+    n_steps = len(study["splits"]["train"]) // CLI_BATCH
+    n_val = -(-len(study["splits"]["val"]) // CLI_BATCH)
+    want_train, want_eval = _scaled(CLI_PER_STEP, n_steps), _scaled(CLI_EVAL_PER_BATCH, n_val)
+    paths_out, per_step = {}, {}
+    for run, (extra, epochs) in FAST_RUNS.items():
+        name = f"fast_{run}"
+        _, perf[f"{run}_run_s"] = _run_cli(
+            tag, ["mrclip_tpu_torch.train.main", *_cli_flags(study["work"], logs, name, cores),
+                  *extra, "--epochs", str(epochs)], os.path.join(study["tmp"].name, f"{name}.log"))
+        steps, train_launch, eval_launch = _cli_log(os.path.join(logs, name, "out.log"))
+        with open(os.path.join(logs, name, "checkpoints", "results.jsonl")) as f:
+            results = [json.loads(line) for line in f]
+        finite = (all(np.isfinite(st[1]) for st in steps)
+                  and all(np.isfinite(v) for r in results for v in r.values()
+                          if isinstance(v, (int, float))))
+        ok = (finite and len(steps) == epochs * n_steps
+              and [r["epoch"] for r in results] == list(range(1, epochs + 1))
+              and train_launch == {e: want_train for e in range(epochs)}
+              and eval_launch == {e: want_eval for e in range(1, epochs + 1)})
+        rates = _cli_rates(steps, n_steps)
+        perf[run] = rates
+        log(f"{tag} train CLI {' '.join(extra)}: {len(steps)} steps over {epochs} epoch(s) "
+            f"({n_steps} an epoch, b{CLI_BATCH}, {cores} threads), losses "
+            + ", ".join(f"{st[1]:.4f}" for st in steps) + "; val R@1 i2t "
+            + ", ".join(f"{r.get('image_to_text_general_R@1', float('nan')):.3f}" for r in results)
+            + f"; launches per epoch {train_launch.get(0)} (want {want_train}), per val pass "
+            f"{eval_launch.get(1)} (want {want_eval}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} the {' '.join(extra)} CLI run failed its checks: "
+                                 f"{train_launch} {eval_launch} {results}")
+        steady = ("n/a (one step an epoch)" if rates["cli_steady_pairs_per_s"] is None else
+                  f"{rates['cli_steady_batch_ms']:.1f} ms a step, "
+                  f"{rates['cli_steady_pairs_per_s']:.1f} pairs/s, data-time share "
+                  f"{rates['cli_steady_data_time_share']:.3f}")
+        log(f"{tag} train CLI {' '.join(extra)}, all {len(steps)} steps: "
+            f"{rates['cli_pairs_per_s']:.1f} pairs/s, data-time share "
+            f"{rates['cli_data_time_share']:.3f}; each epoch's first step "
+            + ", ".join(f"{v:.2f}" for v in rates["cli_first_step_s"]) + " s (data "
+            + ", ".join(f"{v:.2f}" for v in rates["cli_first_step_data_s"]) + f" s); after it "
+            f"{steady}. Phase 13 (the host transforms) in this run: "
+            f"{cli_perf['cli_pairs_per_s']:.1f} pairs/s, share "
+            f"{cli_perf['cli_data_time_share']:.3f}; after each first step "
+            f"{cli_perf['cli_steady_pairs_per_s']:.1f} pairs/s, share "
+            f"{cli_perf['cli_steady_data_time_share']:.3f} | {card}")
+        paths_out[name] = {k: sum(e.get(k, 0) for e in train_launch.values()) for k in want_train}
+        paths_out[f"{name}_eval"] = {k: sum(e.get(k, 0) for e in eval_launch.values())
+                                     for k in want_eval}
+        per_step[name], per_step[f"{name}_eval"] = CLI_PER_STEP, CLI_EVAL_PER_BATCH
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase wall {perf['phase_s']:.1f} s | {card}")
+    log(f"{tag} breakdown: " + json.dumps(perf))
+    study["tmp"].cleanup()
+    return paths_out, per_step, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3485,12 +3730,15 @@ def main() -> int:
     obj_paths, obj_per_step, fwd["objectives"] = phase_objectives(entries, smi)
     paths.update(obj_paths)
     per_step.update(obj_per_step)
-    cli_paths, cli_per_step, fwd["cli"] = phase_cli(smi)
+    cli_paths, cli_per_step, fwd["cli"], study = phase_cli(smi)
     paths.update(cli_paths)
     per_step.update(cli_per_step)
     opt_paths, opt_per_step, fwd["options"] = phase_options(smi)
     paths.update(opt_paths)
     per_step.update(opt_per_step)
+    fast_paths, fast_per_step, fwd["fast_input"] = phase_fast_input(smi, study, fwd["cli"])
+    paths.update(fast_paths)
+    per_step.update(fast_per_step)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -3505,7 +3753,8 @@ def main() -> int:
                                      *PALLAS_STEP],
                 **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()},
                 "cli": [*CLI_PER_STEP], "cli_eval": [*CLI_EVAL_PER_BATCH],
-                **{path: [*want] for path, want in opt_per_step.items()}}
+                **{path: [*want] for path, want in opt_per_step.items()},
+                **{path: [*want] for path, want in fast_per_step.items()}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -3,9 +3,11 @@ and synthetic datasets, the samplers, the threaded loader and `get_data`,
 which builds the train/val `DataInfo`s from the CLI flags.
 
 Dataset types `csv`, `csv-unique-sampler` (`--unique3d` too), `synthetic`
-and `auto` on a `.csv`/`.tsv` path are ported. Webdataset shards (and
-`auto` on `.tar`), `--native-loader`, `--tabular` and the ImageNet zero-shot
-sets raise `NotImplementedError` before any loader is built.
+and `auto` on a `.csv`/`.tsv` path are ported, and with `--native-loader`
+the CSV sets load through the C++ library (`NativeBatchLoader`: uint8
+canvases, the train ones augmented there). Webdataset shards (and `auto` on
+`.tar`), `--tabular` and the ImageNet zero-shot sets raise
+`NotImplementedError` before any loader is built.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+from ..utils import to_2tuple
 from .csv_dataset import (
     CsvDataset,
     CsvTabularDataset,
@@ -23,6 +26,7 @@ from .csv_dataset import (
     extract_times,
 )
 from .loader import DataLoader, default_collate
+from .native_loader import NativeBatchLoader
 from .png import read_png, write_png
 from .synthetic import SyntheticDataset
 
@@ -34,6 +38,7 @@ __all__ = [
     "Unique3DSampler",
     "SyntheticDataset",
     "DataLoader",
+    "NativeBatchLoader",
     "DataInfo",
     "default_collate",
     "get_data",
@@ -108,6 +113,9 @@ def _build_csv(args, path, transform, tokenizer, is_train: bool):
         sampler = DistributedSampler(len(dataset), rank, world_size, shuffle=True, seed=seed)
     else:
         sampler = DistributedSampler(len(dataset), 0, 1, shuffle=False)
+    if getattr(args, "native_loader", False):
+        return DataInfo(_native_loader(args, dataset, sampler, transform, tokenizer, is_train),
+                        sampler)
     loader = DataLoader(
         dataset,
         batch_size=_loader_batch(args, is_train),
@@ -117,6 +125,45 @@ def _build_csv(args, path, transform, tokenizer, is_train: bool):
         pin_memory=_pin(args),
     )
     return DataInfo(loader, sampler)
+
+
+def _native_loader(args, dataset, sampler, transform, tokenizer, is_train: bool):
+    """`--native-loader`: the C++ loader with the model's preprocess config
+    (the transform's `cfg`): canvases of `--image-size`, train batches
+    augmented by the C++ warp under the validated `--aug-cfg`, eval batches
+    resized by `--image-resize-mode` or the config's mode ('cover' when
+    neither says) and its interpolation (bicubic unless 'bilinear'); the
+    loader carries the config, whose mean and std normalise on the card."""
+    from ..transforms import AugmentationCfg, validate_aug_cfg
+
+    aug = None
+    if is_train and getattr(args, "aug_cfg", None):
+        raw = args.aug_cfg
+        aug = AugmentationCfg(**raw) if isinstance(raw, dict) else raw
+        validate_aug_cfg(aug, backend="native")
+    pp = getattr(transform, "cfg", None)
+    eval_interp = getattr(pp, "interpolation", None) or "bicubic"
+    if eval_interp not in ("bicubic", "bilinear"):
+        eval_interp = "bicubic"  # 'random' is a train-time choice
+    loader = NativeBatchLoader(
+        dataset,
+        batch_size=_loader_batch(args, is_train),
+        sampler=sampler,
+        canvas_size=to_2tuple(getattr(args, "image_size", 224)),
+        tokenizer=tokenizer,
+        with_times=bool(getattr(args, "distance", False)),
+        num_threads=getattr(args, "workers", 0),
+        drop_last=is_train,
+        augment=is_train,
+        aug_cfg=aug,
+        eval_resize_mode=getattr(args, "image_resize_mode", None)
+        or getattr(pp, "resize_mode", None) or "cover",
+        eval_interpolation=eval_interp,
+        seed=getattr(args, "seed", 0),
+        pin_memory=_pin(args),
+    )
+    loader.preprocess_cfg = pp
+    return loader
 
 
 def _build_synthetic(args, transform, tokenizer, is_train: bool):
@@ -157,9 +204,6 @@ def _refuse_unported(args, paths) -> None:
         if dtype == "webdataset":
             raise NotImplementedError(
                 f"webdataset shards ({path}) are not ported ({_ROADMAP}: data/shards.py)")
-    if getattr(args, "native_loader", False):
-        raise NotImplementedError(
-            f"--native-loader is not ported ({_ROADMAP}: data/native_loader.py and native.py)")
     if paths and getattr(args, "tabular", False):
         raise NotImplementedError(f"--tabular is not ported ({_ROADMAP}: CsvTabularDataset)")
     for flag in ("imagenet_val", "imagenet_v2"):

@@ -2,12 +2,17 @@
 `mrclip_tpu/train/loop.py`).
 
 - `train_one_epoch`: per-step schedule, the batch copied to the card from
-  pinned memory (`non_blocking`), samples/s and loss meters, the metrics of
+  pinned memory (`non_blocking`), then `augment_fn` (`--device-augment`) on
+  the images as the loader made them, or, without it, uint8 images (the
+  native loader's) normalised with the loader's mean and std; samples/s
+  and loss meters, the metrics of
   each step read one step late so the host does not wait for the card, the
   log line of the JAX package, an optional `torch.profiler` window
   (`--profile-dir`: a Chrome trace of epoch 0, always stopped once
   started), and the kernels launched in the epoch;
-- `evaluate`: the val loss (multipositive from the labels, else CLIP's),
+- `evaluate`: uint8 batches (the native loader's canvases) resized,
+  cropped and normalised on the card (`_maybe_preprocess_images`); the val
+  loss (multipositive from the labels, else CLIP's),
   i2t/t2i losses, the retrieval metrics of `get_clip_metrics` (capped at
   10k features unless `--metrics`), the `--tracepreds` dump and
   `results.jsonl`;
@@ -32,8 +37,9 @@ import torch
 
 from ..losses import clip_loss, multipositive_clip_loss
 from ..ops import launch_counts, launches_since
-from ..ops.image_ops import normalize_images
+from ..ops.image_ops import eval_preprocess_batch, normalize_images
 from ..parallel import build_eval_step
+from ..utils import to_2tuple
 from .metrics import get_clip_metrics, volume_voting_metrics
 
 __all__ = [
@@ -86,21 +92,41 @@ def _device_of(state) -> torch.device:
     return next(iter(state.params.values())).device
 
 
-def _to_device(batch: dict, device: torch.device, pp=None) -> dict:
+def _to_device(batch: dict, device: torch.device) -> dict:
     """The batch's arrays as tensors on `device` (strings dropped): from
-    pinned memory the copies are asynchronous. uint8 images are normalised
-    there with the loader's mean and std."""
+    pinned memory the copies are asynchronous."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, list):
             continue
         t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
         out[k] = t.to(device, non_blocking=True)
-    images = out.get("images")
-    if images is not None and images.dtype == torch.uint8:
-        kw = {} if pp is None else {"mean": tuple(pp.mean), "std": tuple(pp.std)}
-        out["images"] = normalize_images(images, **kw)
     return out
+
+
+def _mean_std(pp) -> dict:
+    """{'mean', 'std'} of a loader's PreprocessCfg, or {} (the defaults)."""
+    if pp is None or getattr(pp, "mean", None) is None:
+        return {}
+    return {"mean": tuple(pp.mean), "std": tuple(pp.std)}
+
+
+def _maybe_preprocess_images(batch: dict, args, pp=None) -> dict:
+    """uint8 images (the native loader's canvases) through the eval
+    preprocessing on the card: resized to `--image-size`, cropped and
+    normalised with the loader's mean and std (`pp`, its PreprocessCfg)."""
+    images = batch.get("images")
+    if images is not None and images.dtype == torch.uint8:
+        size = to_2tuple(getattr(args, "image_size", 224))
+        batch = dict(batch, images=eval_preprocess_batch(images, out_size=size,
+                                                         **_mean_std(pp)))
+    return batch
+
+
+def _augment_seed(seed: int, epoch: int, i: int) -> int:
+    """The seed of step `i`'s augmentation draws: --seed, the epoch and
+    2 i + 1, as the JAX package folds them into its key."""
+    return ((seed * 1_000_003 + epoch) * 1_000_003 + 2 * i + 1) % 2**63
 
 
 def _sync(device: torch.device) -> None:
@@ -117,15 +143,22 @@ def train_one_epoch(
     schedule: Optional[Callable] = None,
     writer=None,
     generator: Optional[torch.Generator] = None,
+    augment_fn: Optional[Callable] = None,
 ):
     """One epoch of train steps. Returns (state, epoch_metrics). `generator`
     is the text dropout's source of masks; it is seeded here from --seed and
-    the epoch, so a resumed run draws what an uninterrupted one drew."""
+    the epoch, so a resumed run draws what an uninterrupted one drew.
+    `augment_fn(images, generator)` (`--device-augment`) runs on the card on
+    the loader's images, its generator seeded from --seed, the epoch and the
+    step; without it uint8 images are normalised with the loader's mean and
+    std."""
     data["train"].set_epoch(epoch)
     loader = data["train"].dataloader
     device = _device_of(state)
     if generator is not None:
         generator.manual_seed(args.seed + epoch)
+    aug_generator = torch.Generator(device=device) if augment_fn is not None else None
+    mean_std = _mean_std(getattr(loader, "preprocess_cfg", None))
     num_batches = len(loader)
     epoch_samples = num_batches * args.batch_size * args.accum_freq
     sample_digits = math.ceil(math.log(max(epoch_samples, 10), 10))
@@ -156,7 +189,12 @@ def train_one_epoch(
                     _stop_trace(prof, profile_dir, epoch)
                     prof = None
             step = num_batches * epoch + i
-            batch = _to_device(batch, device, getattr(loader, "preprocess_cfg", None))
+            batch = _to_device(batch, device)
+            if augment_fn is not None:
+                aug_generator.manual_seed(_augment_seed(args.seed, epoch, i))
+                batch["images"] = augment_fn(batch["images"], aug_generator)
+            elif batch["images"].dtype == torch.uint8:
+                batch["images"] = normalize_images(batch["images"], **mean_std)
             data_time_m.update(time.time() - end)
 
             state, metrics = step_fn(state, batch, generator=generator)
@@ -247,7 +285,8 @@ def evaluate(model, state, data, epoch: int, args, eval_step=None, writer=None,
 
     for batch in loader:
         captions = batch.pop("caption", None)
-        device_batch = _to_device(batch, device, getattr(loader, "preprocess_cfg", None))
+        device_batch = _maybe_preprocess_images(
+            _to_device(batch, device), args, getattr(loader, "preprocess_cfg", None))
         out = eval_step(device_batch)
         img_f, txt_f = out["image_features"], out["text_features"]
         scale = float(out["logit_scale"])
@@ -380,8 +419,9 @@ def test_metrics(model, state, data, args, tokenizer=None) -> dict:
     # 2. encode the images; per-image ranks against all unique texts
     img_feats, img_labels = [], []
     for batch in loader:
-        images = _to_device({"images": batch["images"]}, device,
-                            getattr(loader, "preprocess_cfg", None))["images"]
+        images = _maybe_preprocess_images(
+            _to_device({"images": batch["images"]}, device), args,
+            getattr(loader, "preprocess_cfg", None))["images"]
         img_feats.append(model(images, None)["image_features"].float().cpu().numpy())
         img_labels.append(np.asarray(batch["labels"]))
     img = np.concatenate(img_feats)
@@ -474,13 +514,16 @@ def test_metrics(model, state, data, args, tokenizer=None) -> dict:
 
 @torch.no_grad()
 def get_features(model, state, loader) -> tuple:
-    """Frozen image features + labels, as numpy."""
+    """Frozen image features + labels, as numpy; uint8 images through the
+    eval preprocessing at their own size."""
     device = _device_of(state)
     model.eval()
     feats, labels = [], []
     for batch in loader:
-        images = _to_device({"images": batch["images"]}, device,
-                            getattr(loader, "preprocess_cfg", None))["images"]
+        images = _to_device({"images": batch["images"]}, device)["images"]
+        if images.dtype == torch.uint8:
+            images = eval_preprocess_batch(images, out_size=tuple(images.shape[1:3]),
+                                           **_mean_std(getattr(loader, "preprocess_cfg", None)))
         feats.append(model(images, None)["image_features"].float().cpu().numpy())
         labels.append(np.asarray(batch["labels"]))
     return np.concatenate(feats), np.concatenate(labels)

@@ -14,13 +14,19 @@ text dropout's masks from a generator on the model's device, seeded from
 `--seed` and the epoch), or the image-only step, epoch loop and eval of
 `--visiononly --multipositiveloss`; the epochs with `--save-frequency`,
 `--save-most-recent`, `--delete-previous-checkpoint` and
-`--val-frequency`. Tensorboard and wandb warn and carry on when they are
-not installed.
+`--val-frequency`; `--native-loader` (the C++ loader, `data.get_data`) and
+`--device-augment` (the MR-CLIP augmentation on the card on whatever the
+loader made, `ops.image_ops.random_augment_batch` at `--image-size` with
+`--force-image-size` folded in, its draws seeded from `--seed`, the epoch
+and the step; as in the JAX package it augments the CSV loader's
+transformed images, or the native loader's warped canvases, a second
+time). Tensorboard and wandb warn and carry on when they are not
+installed.
 
 What the port does not have yet raises `NotImplementedError` naming its
 ROADMAP item, before anything is written: the device mesh (`--mesh-fsdp`,
-`--mesh-tp` > 1), `--device-augment`, `--remote-sync`, `--linear`, and the
-data options `data.get_data` refuses. `--accum-freq` > 1 with the
+`--mesh-tp` > 1), `--remote-sync`, `--linear`, and the data options
+`data.get_data` refuses. `--accum-freq` > 1 with the
 vision-only path raises `ValueError`, as in the JAX package.
 """
 
@@ -32,6 +38,7 @@ import random
 import shutil
 import sys
 from datetime import datetime
+from functools import partial
 
 import numpy as np
 import torch
@@ -47,8 +54,10 @@ from ..parallel import (
     create_train_state,
     make_loss_apply,
 )
+from ..ops.image_ops import random_augment_batch
 from ..parallel.freeze import build_trainable_mask, chain_with_mask
-from ..utils import resolve_device
+from ..transforms import AugmentationCfg, validate_aug_cfg
+from ..utils import resolve_device, to_2tuple
 from .logger import setup_logging
 from .loop import evaluate, linear_probe, test_metrics, train_one_epoch
 from .params import parse_args
@@ -68,8 +77,6 @@ def _refuse_unported(args) -> None:
 
     if args.mesh_fsdp > 1 or args.mesh_tp > 1:
         no("a device mesh (--mesh-fsdp/--mesh-tp > 1)", "modules item 6, multi-GPU")
-    if args.device_augment:
-        no("--device-augment", "modules item 3, ops/image_ops.random_augment_batch")
     if args.remote_sync:
         no("--remote-sync", "modules item 3, train/file_utils.py")
     if args.linear:
@@ -78,6 +85,21 @@ def _refuse_unported(args) -> None:
         raise ValueError(
             "--accum-freq > 1 is not supported with --visiononly: the vision-only step has no "
             "microbatch accumulation (drop the flag or use the image-text path)")
+
+
+def _device_augment(args):
+    """`--device-augment`: `random_augment_batch(images, generator)` at
+    `args.image_size` (which folds in --force-image-size) with the
+    validated `--aug-cfg`'s scale, ratio and colour extras."""
+    aug = (AugmentationCfg(**args.aug_cfg) if isinstance(args.aug_cfg, dict)
+           else args.aug_cfg or AugmentationCfg())
+    validate_aug_cfg(aug, backend="device")
+    return partial(random_augment_batch, out_size=to_2tuple(args.image_size),
+                   crop_scale=tuple(aug.scale or (0.9, 1.0)),
+                   ratio=tuple(aug.ratio or (3.0 / 4.0, 4.0 / 3.0)),
+                   color_jitter=tuple(aug.color_jitter) if aug.color_jitter else None,
+                   color_jitter_prob=aug.color_jitter_prob or 0.0,
+                   gray_scale_prob=aug.gray_scale_prob or 0.0)
 
 
 def main(args=None):
@@ -231,6 +253,7 @@ def main(args=None):
             freeze_bn_subtrees=("visual",) if args.lock_image and args.lock_image_freeze_bn_stats
             else ())
     generator = torch.Generator(device=device)
+    augment_fn = _device_augment(args) if args.device_augment else None
 
     writer = None
     if "tensorboard" in (args.report_to or ""):
@@ -256,7 +279,7 @@ def main(args=None):
                                                    generator=generator)
         else:
             state, _ = train_one_epoch(step_fn, state, data, epoch, args, schedule, writer,
-                                       generator=generator)
+                                       generator=generator, augment_fn=augment_fn)
         completed_epoch = epoch + 1
 
         if (completed_epoch == args.epochs or args.save_most_recent

@@ -189,7 +189,9 @@ def parse_args(args=None) -> argparse.Namespace:
     p.add_argument("--mesh-tp", type=int, default=1, help="tensor-parallel mesh axis size")
     p.add_argument(
         "--device-augment", default=False, action="store_true",
-        help="run train augmentations on the device (not ported: raises)",
+        help="run the MR-CLIP train augmentation (crop, affine, flip, blur, colour extras, "
+             "normalise) on the card on the loader's images (as in the JAX package, on top "
+             "of the host transform or the native loader's warp)",
     )
     p.add_argument(
         "--cached-features-accum", default=False, action="store_true",
@@ -209,8 +211,9 @@ def parse_args(args=None) -> argparse.Namespace:
     p.add_argument("--caption-chunk-size", type=int, default=16,
                    help="sequence chunk for the CoCa streaming captioning CE")
     p.add_argument("--native-loader", default=False, action="store_true",
-                   help="C++ threaded PNG decode feeding uint8 canvases "
-                        "(pair with --device-augment)")
+                   help="C++ threaded PNG decode, resize and train warp into uint8 "
+                        "canvases (built from the package's C++ sources with the system "
+                        "compiler; --workers threads, 0 = every core)")
 
     # torch-only flags: accepted, ignored
     for flag in _IGNORED_TORCH_FLAGS:

@@ -2,7 +2,10 @@
 (counterpart of `mrclip_tpu/train/vision_only.py`): the model is called
 with images only, and the image<->image logits feed the vision-only
 multipositive SupCon (`multipositive_clip_loss_vision_only`); retrieval
-ranks images against images, each image's own row left out.
+ranks images against images, each image's own row left out. Images reach
+the model as the loader made them: under `--native-loader` its uint8
+canvases, unnormalised, as in the JAX package (whose vision-only loop takes
+no `augment_fn` and normalises nothing either).
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def train_one_epoch_vision_only(step_fn, state, data, epoch: int, args, schedule
     counts0 = launch_counts()
     end = time.time()
     for i, batch in enumerate(loader):
-        batch = _to_device(batch, device, getattr(loader, "preprocess_cfg", None))
+        batch = _to_device(batch, device)
         state, metrics = step_fn(state, batch, generator)
         losses_m["loss"].update(float(metrics["loss"]), args.batch_size)
         batch_time_m.update(time.time() - end)
@@ -91,7 +94,7 @@ def evaluate_vision_only(model, state, data, epoch: int, args) -> dict:
     feats, labels = [], []
     cum_loss, n = 0.0, 0
     for batch in loader:
-        batch = _to_device(batch, device, getattr(loader, "preprocess_cfg", None))
+        batch = _to_device(batch, device)
         img_f = model(batch["images"], None)["image_features"]
         ldict = multipositive_clip_loss_vision_only(img_f, batch["labels"], scale)
         cum_loss += float(ldict["loss"]) * img_f.shape[0]

@@ -209,11 +209,9 @@ def test_checkpoint_round_trip(tmp_path, moments):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-fsdp", "2"], "modules item 6"),
     (["--mesh-tp", "2"], "modules item 6"),
-    (["--device-augment"], "random_augment_batch"),
     (["--remote-sync", "s3://x"], "file_utils"),
     (["--linear"], "linear_probe"),
     (["--train-data", "shards-{0..3}.tar", "--logs", "LOGS"], "data/shards.py"),
-    (["--native-loader", "--dataset-type", "synthetic", "--logs", "LOGS"], "native_loader"),
     (["--force-patch-dropout", "0.5", "--dataset-type", "synthetic", "--logs", "LOGS"],
      "modules item 4"),
 ])

@@ -989,18 +989,11 @@ def test_png_decode_through_the_compiled_unfilter(cuda_device, tmp_path):
         np.testing.assert_array_equal(png.read_png(str(tmp_path / f"x{bpp}.png")), img)
 
 
-def test_training_cli_one_epoch_on_the_card(cuda_device, tmp_path):
-    """The preprocessing CLI on a small synthetic study, then the training
-    CLI on the card for one epoch with a val pass (ViT-B-32-mini, fusedp,
-    the pallas loss): K1/K3/K6/K7 launched per step as the model's layers
-    say, finite results, a checkpoint that loads back bit-equal."""
-    import json
-
-    from mrclip_tpu_torch import checkpoint as ckpt
-    from mrclip_tpu_torch.ops import launch_counts, launches_since
+def _cli_study(tmp_path):
+    """A small synthetic study through the preprocessing CLI: 40 train rows
+    (4 volumes of 10 slices, 64 x 60), 20 val rows."""
     from mrclip_tpu_torch.preprocessing import __main__ as pre_cli
     from mrclip_tpu_torch.preprocessing.synthetic import write_study
-    from mrclip_tpu_torch.train import main as train_main
 
     write_study(str(tmp_path / "raw"), 8, shape=(64, 60, 224), slices=range(122, 142, 2), seed=1)
     pre_cli.main(["slices", "--input", str(tmp_path / "raw"), "--output", str(tmp_path / "s")])
@@ -1011,13 +1004,27 @@ def test_training_cli_one_epoch_on_the_card(cuda_device, tmp_path):
     (tmp_path / "split").mkdir()
     pre_cli.main(["split", "--input", str(tmp_path / "lab"), "--output", str(tmp_path / "split"),
                   "--train-ratio", "0.5", "--val-ratio", "0.25"])
+    return ["--train-data", str(tmp_path / "split" / "train.csv"),
+            "--val-data", str(tmp_path / "split" / "val.csv"), "--csv-caption-key", "text",
+            "--model", "ViT-B-32-mini", "--attn-impl", "fusedp", "--pallas-loss",
+            "--multipositiveloss", "--batch-size", "16", "--epochs", "1", "--precision", "amp",
+            "--workers", "2", "--logs", str(tmp_path / "logs"), "--name", "r"]
+
+
+def test_training_cli_one_epoch_on_the_card(cuda_device, tmp_path):
+    """The preprocessing CLI on a small synthetic study, then the training
+    CLI on the card for one epoch with a val pass (ViT-B-32-mini, fusedp,
+    the pallas loss): K1/K3/K6/K7 launched per step as the model's layers
+    say, finite results, a checkpoint that loads back bit-equal."""
+    import json
+
+    from mrclip_tpu_torch import checkpoint as ckpt
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
+    from mrclip_tpu_torch.train import main as train_main
+
+    flags = _cli_study(tmp_path)
     before = launch_counts()
-    state = train_main.main([
-        "--train-data", str(tmp_path / "split" / "train.csv"),
-        "--val-data", str(tmp_path / "split" / "val.csv"), "--csv-caption-key", "text",
-        "--model", "ViT-B-32-mini", "--attn-impl", "fusedp", "--pallas-loss",
-        "--multipositiveloss", "--batch-size", "16", "--epochs", "1", "--precision", "amp",
-        "--workers", "2", "--logs", str(tmp_path / "logs"), "--name", "r"])
+    state = train_main.main(flags)
     launched = launches_since(before)
     steps = 40 // 16  # 4 volumes x 10 slices, drop_last
     layers = get_model_config("ViT-B-32-mini")
@@ -1105,3 +1112,94 @@ def test_cached_accumulation_step_matches_the_unsplit_step(cuda_device):
     for name, g in g1.items():
         want = g * (2 if name == "logit_scale" else 1)
         assert (g2[name] - want).abs().max().item() <= 1e-4 * (want.abs().max().item() + 1e-12), name
+
+
+def test_augment_apply_on_the_card_matches_the_cpu(cuda_device):
+    """The MR-CLIP augmentation's deterministic apply (warp past the image,
+    blur, colour jitter, greyscale, normalise) and the eval preprocessing
+    on the card against the CPU on the same draws and canvases, 1e-4; the
+    draws themselves from a CUDA generator."""
+    from mrclip_tpu_torch.ops import image_ops
+
+    rng = np.random.RandomState(0)
+    jitter = dict(color_jitter=(0.4, 0.4, 0.4, 0.1), color_jitter_prob=0.8, gray_scale_prob=0.3)
+    for x in (torch.from_numpy(rng.randint(0, 256, (12, 72, 80, 3)).astype(np.uint8)),
+              torch.from_numpy(rng.uniform(-2, 2, (12, 72, 80, 3)).astype(np.float32))):
+        draws = image_ops.draw_augment(12, (72, 80), torch.Generator().manual_seed(1),
+                                       out_size=(64, 64), translate=(0.5, 0.5), **jitter)
+        kw = dict(out_size=(64, 64), color_jitter=jitter["color_jitter"])
+        card = image_ops.apply_augment(x.to(cuda_device), draws, **kw)
+        assert card.is_cuda and card.dtype == torch.float32
+        np.testing.assert_allclose(card.cpu().numpy(),
+                                   image_ops.apply_augment(x, draws, **kw).numpy(), atol=1e-4,
+                                   rtol=0)
+        ev = image_ops.eval_preprocess_batch(x.to(cuda_device), out_size=(64, 64))
+        np.testing.assert_allclose(ev.cpu().numpy(), image_ops.eval_preprocess_batch(
+            x, out_size=(64, 64)).numpy(), atol=1e-4, rtol=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    out = image_ops.random_augment_batch(x.to(cuda_device), gen, out_size=(64, 64), **jitter)
+    assert out.is_cuda and out.shape == (12, 64, 64, 3) and torch.isfinite(out).all()
+
+
+def test_native_loader_hands_out_pinned_batches(cuda_device, tmp_path):
+    """With pin_memory the native loader's batches are page-locked tensors,
+    the source of asynchronous copies to the card, equal to the unpinned
+    ones."""
+    from mrclip_tpu_torch.data import NativeBatchLoader
+    from mrclip_tpu_torch.data.png import write_png
+
+    paths = []
+    for i in range(8):
+        write_png(tmp_path / f"{i}.png", np.random.RandomState(i).randint(
+            0, 256, (40, 36)).astype(np.uint8))
+        paths.append(str(tmp_path / f"{i}.png"))
+
+    class Set:
+        images, captions, labels = paths, [f"c{i % 3}" for i in range(8)], [i % 3 for i in range(8)]
+
+        def __len__(self):
+            return 8
+
+    def tok(texts):
+        return np.ones((len(texts), 4), np.int32)
+
+    for augment in (True, False):
+        kw = dict(batch_size=4, canvas_size=(32, 32), tokenizer=tok, num_threads=2,
+                  augment=augment, seed=1)
+        pinned = list(NativeBatchLoader(Set(), pin_memory=True, **kw))
+        plain = list(NativeBatchLoader(Set(), **kw))
+        assert len(pinned) == len(plain) == 2
+        for p, q in zip(pinned, plain):
+            for k in ("images", "labels", "tokens"):
+                assert torch.is_tensor(p[k]) and p[k].is_pinned()
+                on_card = p[k].to(cuda_device, non_blocking=True)
+                torch.cuda.synchronize()
+                np.testing.assert_array_equal(on_card.cpu().numpy(), q[k])
+            assert p["images"].dtype == torch.uint8
+
+
+@pytest.mark.parametrize("flags", [["--native-loader"], ["--device-augment"],
+                                   ["--native-loader", "--device-augment"]])
+def test_training_cli_fast_input_on_the_card(cuda_device, tmp_path, flags):
+    """The training CLI on the card under the fast input options: the same
+    K1/K3/K6/K7 launches as without them, finite losses and metrics."""
+    import json
+
+    from mrclip_tpu_torch.ops import launch_counts, launches_since
+    from mrclip_tpu_torch.train import main as train_main
+
+    args = _cli_study(tmp_path)
+    before = launch_counts()
+    state = train_main.main([*args, *flags])
+    launched = launches_since(before)
+    steps = 40 // 16
+    layers = get_model_config("ViT-B-32-mini")
+    per_pass = layers["vision_cfg"]["layers"] + layers["text_cfg"]["layers"]
+    assert state.step == steps
+    assert launched == {"packed_attn_fwd": per_pass * (steps + 2), "packed_attn_bwd": per_pass * steps,
+                        "supcon_stats": 2 * steps, "supcon_grad_q": 2 * steps,
+                        "supcon_grad_k": 2 * steps}
+    res = json.loads((tmp_path / "logs" / "r" / "checkpoints" / "results.jsonl").read_text())
+    assert all(np.isfinite(v) for v in res.values() if isinstance(v, float))
+    log = (tmp_path / "logs" / "r" / "out.log").read_text()
+    assert "Train Epoch: 0 [32/32 (100%)]" in log

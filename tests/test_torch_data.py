@@ -317,7 +317,6 @@ def test_get_data_lengths_equal_jax(csv_set, dataset_type, unique3d):
 @pytest.mark.parametrize("flags,match", [
     (dict(train_data="shards-{000..003}.tar", dataset_type="auto"), "data/shards.py"),
     (dict(dataset_type="webdataset"), "data/shards.py"),
-    (dict(native_loader=True), "native_loader"),
     (dict(tabular=True), "CsvTabularDataset"),
     (dict(imagenet_val="/x"), "zero_shot"),
     (dict(imagenet_v2="/x"), "zero_shot"),

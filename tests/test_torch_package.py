@@ -40,7 +40,8 @@ import mrclip_tpu_torch.preprocessing, mrclip_tpu_torch.preprocessing.__main__
 import mrclip_tpu_torch.preprocessing.synthetic, mrclip_tpu_torch.data, mrclip_tpu_torch.transforms
 import mrclip_tpu_torch.checkpoint, mrclip_tpu_torch.train.loop, mrclip_tpu_torch.train.main
 import mrclip_tpu_torch.parallel.optim, mrclip_tpu_torch.parallel.freeze
-import mrclip_tpu_torch.train.vision_only
+import mrclip_tpu_torch.train.vision_only, mrclip_tpu_torch.native
+import mrclip_tpu_torch.data.native_loader
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mrclip_tpu", "PIL", "pandas")
              and sys.modules[m] is not None)
