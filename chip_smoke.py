@@ -177,7 +177,30 @@ fails:
              pass each) and --device-augment (1 epoch): exact K1/K3/K6/K7
              launches per epoch and K1's per val pass, finite losses and
              metrics, pairs/s and the data-time share beside phase 13's.
-Each path (4 to 15; phase 12 has five, one per objective; phase 13's train
+ 16. wide:   the attention kernels at the head dims of the large public
+             towers, 80 (ViT-H-14), 88 (ViT-g-14) and 104 (ViT-bigG-14; 88
+             and 104 padded to 96 and 112 columns inside the kernels): K1/K3,
+             K4/K5 and K10/K10b against their plain versions with phase 3's
+             bars, bf16 and fp32, at the towers' vision shape (N 257, H 16)
+             at b32 and b256 and at the tile edges (N 1, 15, 17, 65, 257,
+             causal and not; 400: K10's two key blocks); which device kernels
+             they run (mma.sync: the wgmma route stays at D = 64 and at most
+             256 keys); timings at b256 and b32 beside SDPA and the bounds.
+             Then ViT-g-14 and ViT-bigG-14 at full width and depth (random
+             weights drawn on the card from seed 0, bf16, 'fusedp', remat
+             'full') served at b32
+             (against their plain attention) and trained one step at b32,
+             peak memory each; ViT-H-14 at full width and depth trained with
+             the pallas loss under remat 'full' at b256 (gradients against
+             plain attention at b32 first, also under 'fused' and 'flash':
+             K4/K5, K10/K10b at D = 80; 1 warm-up and 3 timed steps, 112 K1
+             and 56 K3 each, by head dim; a profiled step), then exported
+             and served by serve.py's HTTP server (K1 32 times at D = 80 per
+             image call, 24 at D = 64 per text call), held against the same
+             weights' fp32 plain path by cosine, timed through ServedModel at
+             b32 and b256, and its attention under 'fused' and 'flash' (K4,
+             K10 at D = 80) against its plain attention.
+Each path (4 to 16; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
 runs themselves) runs with the launch counts set to 0 just before it and
@@ -1978,6 +2001,7 @@ def grad_cosines(a: dict, b: dict):
 # where K2, K3, K3r, K5 and K10b land.
 K2_GROUP = "K2 packed_attn_rope_fwd"
 K10B_GROUP = "K10b flash_attn_bwd"
+ATTN_DIMS = (32, 64, 80, 88, 104)  # the attention kernels' head dims (fused_attn.HEAD_DIMS)
 K3R_GROUP = "K3r packed_attn_rope_bwd"
 K3_GROUP = "K3 packed_attn_bwd / K5 grouped_attn_bwd"
 KERNEL_GROUPS = [
@@ -1987,14 +2011,16 @@ KERNEL_GROUPS = [
                                                 "wgrad", "conv2d", "depthwise")),
     (K2_GROUP, ("wgmma_fwd_kernel<false, true", "mma_fwd_kernel<64, false, false, true>",
                 "packed_attn_fwd_kernel<64, true>")),
-    ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ", "mma_fwd_kernel<64, true",
-                            "rows_fwd_kernel<float, 64, true>")),
+    ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ",
+                            *(f"mma_fwd_kernel<{d}, true" for d in ATTN_DIMS),
+                            *(f"rows_fwd_kernel<float, {d}, true>" for d in ATTN_DIMS))),
     # one instantiation: K1 under fusedp, K4 under fused
     ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
     (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
-                  "mma_bwd_dq_kernel<64, true", "mma_bwd_dkv_kernel<64, true",
-                  "rows_bwd_dq_kernel<float, 64, true>", "rows_bwd_dkv_kernel<float, 64, true>")),
+                  *(f"mma_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS for p in ("dq", "dkv")),
+                  *(f"rows_bwd_{p}_kernel<float, {d}, true>" for d in ATTN_DIMS
+                    for p in ("dq", "dkv")))),
     (K3R_GROUP, ("wgmma_bwd_dq_kernel<false, true", "wgmma_bwd_dkv_kernel<false, true",
                  "mma_bwd_dq_kernel<64, false, false, true>",
                  "mma_bwd_dkv_kernel<64, false, false, true>",
@@ -3693,6 +3719,619 @@ def phase_fast_input(card, study, cli_perf):
     return paths_out, per_step, perf
 
 
+# Phase 16: the attention kernels at the head widths of the large public
+# CLIP towers (ViT-H-14 80, ViT-g-14 88, ViT-bigG-14 104), and those towers
+# at full width through the serving and training entry points
+WIDE_MODELS = {80: "ViT-H-14", 88: "ViT-g-14", 104: "ViT-bigG-14"}
+# their vision towers: 16 x 16 patches of 14 px and the class token, 16 heads
+WIDE_VISION = dict(b=32, n=257, nk=257, h=16, causal=False)
+# the tensor-core tiles' edges; N = 400: K10's two jax key blocks of 256,
+# each staged in two chunks past D = 80 (attn_mma_fwd.cuh's mma_max_chunk)
+WIDE_EDGES = [dict(b=2, n=n, nk=n, h=2, causal=c) for n in (1, 15, 17, 65, 257)
+              for c in (False, True)] + [dict(b=2, n=400, nk=400, h=2, causal=False)]
+WIDE_TIMED = 3  # timed ViT-H-14 steps at b256
+WIDE_STEP_BATCH = 32  # ViT-g-14 and ViT-bigG-14: one step each
+# served bf16 features (kernels) against the same weights' fp32 plain path:
+# bf16 rounding through 32 vision and 24 text layers, not summation order
+WIDE_SERVE_COS = 0.99
+# the train step's whole gradient, kernel vs plain attention, both bf16: the
+# two paths' roundings drift apart layer by layer, and these towers have 56
+# to 80 layers against ViT-B-16's 24 (phase 5 reads 0.9999 there, ViT-H-14
+# 0.9987 at b32); a wrong kernel falls far below
+WIDE_GRAD_COS = 0.995
+ATTN_PAIRS = {"K1/K3": ("packed_attn_fwd", "packed_attn_bwd"),
+              "K4/K5": ("grouped_attn_fwd", "grouped_attn_bwd"),
+              "K10/K10b": ("flash_attn_fwd", "flash_attn_bwd")}
+
+
+def wide_pairs(shape, dtype, gen):
+    """K1/K3, K4/K5 and K10/K10b on one set of inputs (q, k, v as the column
+    slices of one projection; the grouped copies for K4/K5, [B, N, H, D]
+    views for K10/K10b): {pair: ((kernel o, stats), (plain o, stats), stat
+    kinds, kernel grads, plain grads)}."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    h, d, causal = shape["h"], shape["d"], shape["causal"]
+    q, k, v = qkv_slices(shape, dtype, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    out = {}
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+    got = fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal, heads=h)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h)
+    want = fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal, heads=h)
+    out["K1/K3"] = ((o, [lse]), (o_ref, [lse_ref]), ["lse"], got, want)
+    qg, kg, vg, dog = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v, do))
+    o, lse = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
+    got = fa.fused_attention_grouped_bwd(qg, kg, vg, o, dog, lse, is_causal=causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.fused_attention_ref(qg, kg, vg, is_causal=causal)
+    want = fa.fused_attention_bwd_ref(qg, kg, vg, o, dog, lse, is_causal=causal)
+    out["K4/K5"] = ((o, [lse]), (o_ref, [lse_ref]), ["lse"], got, want)
+    q3, k3, v3, do3 = (t.unflatten(-1, (h, d)) for t in (q, k, v, do))
+    o, l, m = fl.flash_attention(q3, k3, v3, is_causal=causal)
+    di = fl.flash_di(o, do3)
+    got = fl.flash_attention_bwd(q3, k3, v3, do3, l, m, di, is_causal=causal)
+    torch.cuda.synchronize()
+    o_ref, l_ref, m_ref = fl.flash_attention_ref(q3, k3, v3, is_causal=causal)
+    want = fl.flash_attention_bwd_ref(q3, k3, v3, do3, l, m, di, is_causal=causal)
+    out["K10/K10b"] = ((o, [l, m]), (o_ref, [l_ref, m_ref]), ["l", "m"], got, want)
+    return out
+
+
+def wide_timings(shape, gen):
+    """bf16 K1, K4, K10 and SDPA's forward, K3, K5, K10b and SDPA's backward
+    at one shape: medians of FWD_RUNS event readings and the profiler's
+    device time per launch, the plain versions' times, the bounds; two runs
+    of each backward bit-equal. {kernel name: timing dict}."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    bf16 = torch.bfloat16
+    h, d, causal = shape["h"], shape["d"], shape["causal"]
+    q, k, v = qkv_slices(shape, bf16, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(bf16)
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+    qg, kg, vg, dog = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v, do))
+    og, lseg = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
+    q3, k3, v3, do3 = (t.unflatten(-1, (h, d)) for t in (q, k, v, do))
+    of, l, m = fl.flash_attention(q3, k3, v3, is_causal=causal)
+    di = fl.flash_di(of, do3)
+    q4, k4, v4, do4 = (t.transpose(1, 2) for t in (q3, k3, v3, do3))
+    fwd = {"packed_attn_fwd": lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h),
+           "grouped_attn_fwd": lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+           "flash_attn_fwd": lambda: fl.flash_attention(q3, k3, v3, is_causal=causal),
+           "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=causal)}
+    bwd = {"packed_attn_bwd": lambda: fa.fused_attention_packed_bwd(
+               q, k, v, o, do, lse, is_causal=causal, heads=h),
+           "grouped_attn_bwd": lambda: fa.fused_attention_grouped_bwd(
+               qg, kg, vg, og, dog, lseg, is_causal=causal),
+           "flash_attn_bwd": lambda: fl.flash_attention_bwd(
+               q3, k3, v3, do3, l, m, di, is_causal=causal)}
+    plain = {"packed_attn_fwd": lambda: fa.fused_attention_packed_ref(
+                 q, k, v, is_causal=causal, heads=h),
+             "grouped_attn_fwd": lambda: fa.fused_attention_ref(qg, kg, vg, is_causal=causal),
+             "flash_attn_fwd": lambda: fl.flash_attention_ref(q3, k3, v3, is_causal=causal),
+             "packed_attn_bwd": lambda: fa.fused_attention_packed_bwd_ref(
+                 q, k, v, o, do, lse, is_causal=causal, heads=h),
+             "grouped_attn_bwd": lambda: fa.fused_attention_bwd_ref(
+                 qg, kg, vg, og, dog, lseg, is_causal=causal),
+             "flash_attn_bwd": lambda: fl.flash_attention_bwd_ref(
+                 q3, k3, v3, do3, l, m, di, is_causal=causal)}
+    t_fwd, r_fwd = median_ms(fwd, 20)
+    t_bwd, r_bwd = median_ms(bwd, 10)
+    dev = {**device_ms(fwd), **device_ms(bwd)}
+    _, sdpa_bwd = sdpa_ms(q4, k4, v4, do4, causal)
+    args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
+    bounds = {"packed_attn_fwd": attention_bound(**args, dtype=bf16),
+              "grouped_attn_fwd": attention_bound(**args, dtype=bf16),
+              "flash_attn_fwd": flash_bound(**args, dtype=bf16),
+              "packed_attn_bwd": attention_bwd_bound(**args, dtype=bf16),
+              "grouped_attn_bwd": attention_bwd_bound(**args, dtype=bf16),
+              "flash_attn_bwd": flash_bound(**args, dtype=bf16, backward=True)}
+    out = {}
+    for name, fn in {**fwd, **bwd}.items():
+        if name == "sdpa":
+            continue
+        is_bwd = name in bwd
+        if is_bwd and not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
+            raise AssertionError(f"two bf16 {name} runs at {shape} differ")
+        out[name] = dict(
+            ms=(t_bwd if is_bwd else t_fwd)[name], device_ms=dev[name],
+            readings=(r_bwd if is_bwd else r_fwd)[name],
+            plain_ms=cuda_ms(plain[name], 2, warmup=1),
+            library_ms=sdpa_bwd if is_bwd else t_fwd["sdpa"],
+            library_device_ms=None if is_bwd else dev["sdpa"],
+            bound_ms=bounds[name][0], bound_by=bounds[name][1])
+        t = out[name]
+        log(f"[widths] {name} bf16 {shape}: kernel {t['ms']:.4f} ms (median of {FWD_RUNS}; "
+            f"readings {min(t['readings']):.4f}-{max(t['readings']):.4f}), device "
+            f"{fmt_ms(t['device_ms'])} ms per launch; plain {t['plain_ms']:.4f} ms; SDPA "
+            f"{'backward (fwd+bwd - fwd) ' if is_bwd else ''}{t['library_ms']:.4f} ms"
+            + ("" if is_bwd else f" (device {fmt_ms(t['library_device_ms'])})")
+            + f"; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})"
+            + ("; two runs bit-equal" if is_bwd else ""))
+    return out
+
+
+def phase_kernel_widths():
+    """K1/K3, K4/K5 and K10/K10b at head dims 80, 88 and 104 against their
+    plain versions with phase 3's bars, bf16 and fp32, forward and backward:
+    the three towers' vision shape at b32 and b256 (N 257, H 16) and the
+    tensor-core tiles' edges (N 1, 15, 17, 65, 257, causal and not); which
+    device kernels each runs (bf16: mma_fwd_kernel, mma_bwd_*; the wgmma
+    route stays at D = 64 with at most 256 keys); timings at b256 and b32.
+    Returns {kernel name: {d: results}}."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    widths = {name: {} for pair in ATTN_PAIRS.values() for name in pair}
+    for d, model in WIDE_MODELS.items():
+        t0 = time.perf_counter()
+        worst = {pair: {bf16: [0.0, 0.0, 0.0], fp32: [0.0, 0.0, 0.0]} for pair in ATTN_PAIRS}
+        shapes = [dict(WIDE_VISION, d=d), dict(WIDE_VISION, d=d, b=TRAIN_BATCH),
+                  *(dict(s, d=d) for s in WIDE_EDGES)]
+        for shape in shapes:
+            for dtype in (bf16, fp32):
+                for pair, (fwd_out, ref_out, kinds, got, want) in wide_pairs(shape, dtype, gen).items():
+                    errs = check_attention(pair, shape, dtype, (fwd_out, ref_out, kinds), (got, want))
+                    worst[pair][dtype] = [max(a, b) for a, b in zip(worst[pair][dtype], errs)]
+        log(f"[widths] D = {d} ({model}): {len(shapes)} shapes x bf16, fp32 x 3 kernel pairs "
+            f"checked in {time.perf_counter() - t0:.1f} s")
+
+        shape = dict(WIDE_VISION, d=d)
+        h = shape["h"]
+        names = {}
+        for dtype in (bf16, fp32):
+            q, k, v = qkv_slices(shape, dtype, gen)
+            o, lse = fa.fused_attention_packed(q, k, v, heads=h)
+            qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
+            og, lseg = fa.fused_attention_grouped(qg, kg, vg)
+            q3, k3, v3 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+            of, l, m = fl.flash_attention(q3, k3, v3)
+            di = fl.flash_di(of, of)
+            calls = {
+                "packed_attn_fwd": lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=h),
+                "packed_attn_bwd": lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
+                    q, k, v, o, o, lse, heads=h),
+                "grouped_attn_fwd": lambda qg=qg, kg=kg, vg=vg: fa.fused_attention_grouped(qg, kg, vg),
+                "grouped_attn_bwd": lambda qg=qg, kg=kg, vg=vg, og=og, lseg=lseg:
+                    fa.fused_attention_grouped_bwd(qg, kg, vg, og, og, lseg),
+                "flash_attn_fwd": lambda q3=q3, k3=k3, v3=v3: fl.flash_attention(q3, k3, v3),
+                "flash_attn_bwd": lambda q3=q3, k3=k3, v3=v3, of=of, l=l, m=m, di=di:
+                    fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
+            wants = {  # N = 257: K10 walks jax's three key blocks of 128 (MULTI)
+                "packed_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
+                                    f"packed_attn_fwd_kernel<{d}, false>", None),
+                "grouped_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
+                                     f"rows_fwd_kernel<float, {d}, false>", None),
+                "flash_attn_fwd": (f"mma_fwd_kernel<{d}, true, true, false>",
+                                   f"rows_fwd_kernel<float, {d}, true>", None),
+                "packed_attn_bwd": ("mma_bwd_", "attn_bwd_", K3_GROUP),
+                "grouped_attn_bwd": ("mma_bwd_", "rows_bwd_", K3_GROUP),
+                "flash_attn_bwd": ("mma_bwd_", "rows_bwd_", K10B_GROUP)}
+            for name, (want_bf16, want_fp32, group) in wants.items():
+                want = want_bf16 if dtype == bf16 else want_fp32
+                seen = device_kernels(f"{name} D={d}", {dtype: calls[name]}, {dtype: want},
+                                      avoid="wgmma", group=group)
+                names.setdefault(name, {}).update(seen)
+        timed = {"b256": wide_timings(dict(shape, b=TRAIN_BATCH), gen),
+                 "b32": wide_timings(shape, gen)}
+        for pair, (fwd_name, bwd_name) in ATTN_PAIRS.items():
+            for name, i in ((fwd_name, 0), (bwd_name, 1)):
+                widths[name][d] = dict(
+                    model=model, max_abs_err=worst[pair][bf16][i],
+                    max_abs_err_fp32=worst[pair][fp32][i],
+                    **({"max_rel_err": worst[pair][bf16][2],
+                        "max_rel_err_fp32": worst[pair][fp32][2]} if i else {}),
+                    device_kernels=names[name], b256=timed["b256"][name], b32=timed["b32"][name])
+    return widths
+
+
+class attention_impl:
+    """Within the block, every attention module of `model` runs `impl`
+    (the plain 'xla', or another kernel path) on the same weights; the
+    modules' own choice is put back after."""
+
+    def __init__(self, model, impl):
+        self.mods = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        self.impl, self.saved = impl, [m.attn_impl for m in self.mods]
+
+    def __enter__(self):
+        for m in self.mods:
+            m.attn_impl = self.impl
+
+    def __exit__(self, *exc):
+        for m, impl in zip(self.mods, self.saved):
+            m.attn_impl = impl
+
+
+def wide_layers(model_name):
+    """(vision layers, vision head dim, text layers, text head dim) of a
+    model config."""
+    from mrclip_tpu_torch.factory import get_model_config
+
+    cfg = get_model_config(model_name)
+    vis, txt = cfg["vision_cfg"], cfg["text_cfg"]
+    return vis["layers"], vis["head_width"], txt["layers"], txt["width"] // txt["heads"]
+
+
+def build_on_card(name, seed=0, pretrained=None, **kw):
+    """`create_model(name, pretrained, **kw)` with its parameters made on
+    the card and, without `pretrained`, its random init (the factory's
+    `_init_weights`: the same recipe) drawn from a CUDA generator seeded
+    with `seed`: no pass on the host's CPU over 2.5 B parameters
+    (ViT-bigG-14 took 43.5 s that way)."""
+    from mrclip_tpu_torch import factory
+
+    with torch.device("cuda"):
+        model = factory.create_model(name, pretrained, init_params=False, device="cuda", **kw)
+        if pretrained is None:
+            factory._init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def wide_images(n, size, seed):
+    from mrclip_tpu_torch import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+
+    rng = np.random.RandomState(seed)
+    mean, std = np.asarray(OPENAI_DATASET_MEAN), np.asarray(OPENAI_DATASET_STD)
+    # 4 decimals keep each 224 x 224 image near 1 MB of JSON
+    return np.round((rng.rand(n, size, size, 3) - mean) / std, 4).astype(np.float32)
+
+
+def phase_serve_h14(card):
+    """ViT-H-14 at full width and depth (random weights from seed 0, bf16
+    compute, fp32 params, 'fusedp') exported, loaded and served by
+    serve.py's HTTP server on 127.0.0.1: health, concurrent image and text
+    requests and a score, K1 launched 32 times at D = 80 per image call and
+    24 times at D = 64 per text call; the served features against the same
+    weights' fp32 plain path on the card by cosine; `encode_image` at b32
+    and b256 and `encode_text` at b256 through `ServedModel`; then the same
+    model's attention modules under 'fused' and 'flash' (K4, K10 at D = 80)
+    at b32 against its plain attention. Returns ({path: launches}, {path:
+    launches by width}, perf)."""
+    from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
+    from mrclip_tpu_torch.serve import make_server
+    from mrclip_tpu_torch.serving import export_model, save_exported
+
+    name = "ViT-H-14"
+    n_vis, d_vis, n_txt, d_txt = wide_layers(name)
+    t0 = time.perf_counter()
+    model = build_on_card(name, precision="bf16", attn_impl="fusedp")
+    exported = export_model(model)
+    del model
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "vit_h_14.mrclip")
+    save_exported(exported, path)
+    t_build = time.perf_counter() - t0
+    server = make_server(path, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    log(f"[serve-h14] {name} built and exported ({os.path.getsize(path) / 1e9:.2f} GB) in "
+        f"{t_build:.1f} s; loaded and serving at {base} in {time.perf_counter() - t0:.1f} s")
+    embed = exported.meta["model_cfg"]["embed_dim"]
+    images = wide_images(8, 224, 0)
+    texts = [CAPTIONS[i % 4] for i in range(8)]
+    try:
+        reset_counts()  # the served main path starts here
+        health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+        if health.get("ok") is not True or health["meta"]["attn_impl"] != "fusedp":
+            raise AssertionError(f"bad /health answer: {health}")
+        with ThreadPoolExecutor(8) as pool:
+            img_futs = [pool.submit(post, base, "/encode_image",
+                                    {"images": images[2 * i:2 * i + 2].tolist()}) for i in range(4)]
+            txt_futs = [pool.submit(post, base, "/encode_text", {"texts": texts[2 * i:2 * i + 2]})
+                        for i in range(4)]
+            img_feats = np.concatenate([unit_rows(f.result()["features"], 2, embed) for f in img_futs])
+            txt_feats = np.concatenate([unit_rows(f.result()["features"], 2, embed) for f in txt_futs])
+        score = post(base, "/score", {"images": images[:1].tolist(), "texts": texts[:2]})["logits"]
+        served_path = nonzero(launch_counts())  # read right after the served run
+        by_width = launch_counts_by_width()
+    finally:
+        server.shutdown()
+        server.server_close()
+    want = exported.meta["logit_scale"] * img_feats[:1] @ txt_feats[:2].T
+    if np.asarray(score).shape != (1, 2) or np.abs(np.asarray(score) - want).max() > 0.5:
+        raise AssertionError(f"/score {score} vs features {want}")
+    k1 = by_width.get("packed_attn_fwd", {})
+    calls = {d: k1.get(d, 0) // n for d, n in ((d_vis, n_vis), (d_txt, n_txt))}
+    ok = (set(k1) == {d_vis, d_txt} and all(calls.values())
+          and all(k1[d] == calls[d] * n for d, n in ((d_vis, n_vis), (d_txt, n_txt)))
+          and set(served_path) == {"packed_attn_fwd"})
+    log(f"[serve-h14] /health ok; 4x2 images, 4x2 captions and 1 score answered; launches "
+        f"{served_path}, by head dim {by_width} (want {n_vis} a vision call at D = {d_vis}, "
+        f"{n_txt} a text call at D = {d_txt}: {calls[d_vis]} image and {calls[d_txt]} text "
+        f"device calls) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the served path's launches are not whole tower calls")
+
+    t0 = time.perf_counter()
+    plain = build_on_card(name, pretrained=exported.state_dict, precision="fp32", attn_impl="xla")
+    tokens = SimpleTokenizer()(texts)
+    with torch.inference_mode():
+        ref_img = plain.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
+        ref_txt = plain.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
+    del plain
+    torch.cuda.empty_cache()
+    cos_img, cos_txt = cosine_rows(img_feats, ref_img).min(), cosine_rows(txt_feats, ref_txt).min()
+    ok = min(cos_img, cos_txt) >= WIDE_SERVE_COS
+    log(f"[serve-h14] served (bf16, K1) vs the fp32 plain path, same weights (built in "
+        f"{time.perf_counter() - t0:.1f} s): min cosine image {cos_img:.6f}, text {cos_txt:.6f} "
+        f"(>= {WIDE_SERVE_COS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"served {name} features disagree with the fp32 plain path")
+
+    served = server.served  # the server's own model, its HTTP run done
+    perf = {"min_cosine_vs_fp32_plain": float(min(cos_img, cos_txt))}
+    for bsz in (32, 256):
+        batch = np.ascontiguousarray(np.resize(images, (bsz, 224, 224, 3)))
+        before = launch_counts_by_width()
+        served.encode_image(batch)
+        got = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()}
+               for k, v in launch_counts_by_width().items()}
+        if got.get("packed_attn_fwd", {}).get(d_vis) != n_vis:
+            raise AssertionError(f"encode_image b{bsz}: launches by width {got}")
+        t = time.perf_counter()
+        for _ in range(3):
+            served.encode_image(batch)
+        perf[f"served_encode_image_b{bsz}_imgs_per_s"] = bsz * 3 / (time.perf_counter() - t)
+    tok256 = np.resize(tokens, (256, tokens.shape[1]))
+    served.encode_text(tok256)
+    t = time.perf_counter()
+    for _ in range(3):
+        served.encode_text(tok256)
+    perf["served_encode_text_b256_texts_per_s"] = 256 * 3 / (time.perf_counter() - t)
+    x = torch.from_numpy(np.resize(images, (256, 224, 224, 3))).cuda()
+    with torch.inference_mode():
+        perf["device_encode_image_b256_ms_fusedp"] = cuda_ms(
+            lambda: served.model.encode_image(x, normalize=True), 3, warmup=1)
+    log(f"[serve-h14] throughput on {card}: " + json.dumps(perf))
+
+    # the other two attention paths at D = 80, same weights, against plain
+    x32 = x[:32]
+    with torch.inference_mode(), attention_impl(served.model, "xla"):
+        ref = served.model.encode_image(x32, normalize=True).float()
+    paths, widths = {"serve_h14": served_path}, {"serve_h14": by_width}
+    for impl, kernel in (("fused", "grouped_attn_fwd"), ("flash", "flash_attn_fwd")):
+        reset_counts()  # this path starts here
+        with torch.inference_mode(), attention_impl(served.model, impl):
+            feats = served.model.encode_image(x32, normalize=True).float()
+        torch.cuda.synchronize()
+        paths[f"serve_h14_{impl}"] = nonzero(launch_counts())
+        widths[f"serve_h14_{impl}"] = launch_counts_by_width()
+        cos = torch.nn.functional.cosine_similarity(feats, ref, dim=-1).min().item()
+        ok = (widths[f"serve_h14_{impl}"] == {kernel: {d_vis: n_vis}}
+              and paths[f"serve_h14_{impl}"] == {kernel: n_vis} and cos >= 0.999)
+        log(f"[serve-h14] encode_image b32 under {impl!r}: launches {paths[f'serve_h14_{impl}']} "
+            f"(want {{{kernel!r}: {n_vis}}}, D = {d_vis}); min cosine vs plain attention, same "
+            f"weights {cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} under {impl} failed its checks")
+    del served, server, x, x32
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return paths, widths, perf
+
+
+def wide_batch(model, n, seed):
+    rng = np.random.RandomState(seed)
+    size, ctx = model.visual.image_size[0], model.context_length
+    return {  # uint8 canvases as the loader ships them; normalised inside the step
+        "images": torch.from_numpy(rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)).cuda(),
+        "tokens": torch.from_numpy(rng.randint(1, 49408, (n, ctx)).astype(np.int64)).cuda(),
+        "labels": torch.from_numpy(rng.randint(0, 32, (n,)).astype(np.int32)).cuda(),
+    }
+
+
+# a loss_and_grads under remat 'full' launches each attention layer's
+# forward kernel twice (the recompute), 'flash' three times (its backward
+# recomputes the forward too), and the backward kernel once
+WIDE_GRAD_PATHS = {"fused": ("grouped_attn_fwd", 2, "grouped_attn_bwd"),
+                   "flash": ("flash_attn_fwd", 3, "flash_attn_bwd")}
+
+
+def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, impls=()):
+    """The multipositive train step (AdamW, bf16 first moment, the pallas
+    loss, bf16 compute, remat 'full' as `model` was built) on `model`:
+    gradients at the initial weights against the same model's plain
+    attention at b32 (phase 5's loss bar; WIDE_GRAD_COS), also with its
+    attention under each of `impls` ('fused', 'flash': exact launches, by
+    head dim, each its own path), then `steps` steps at `batch_size` (the
+    first a warm-up when there are several) with the exact launches of
+    each, by head dim too. Returns (launches, launches by width, per-step
+    launches, perf, {impl: (launches, launches by width)})."""
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width, launches_since
+    from mrclip_tpu_torch.ops.image_ops import normalize_images
+    from mrclip_tpu_torch.parallel import (build_train_step, create_optimizer, create_train_state,
+                                           make_loss_apply)
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+
+    n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    args = dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True)
+    loss = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=True)))
+
+    def prep(b):
+        return dict(b, images=normalize_images(b["images"]))
+
+    small = prep(wide_batch(model, WIDE_STEP_BATCH, 1))
+    params = dict(model.named_parameters())
+    with attention_impl(model, "xla"):
+        g_plain, l_plain = loss_and_grads(model, loss, params, small)
+    lp = l_plain["loss"].item()
+    grad_paths = {}
+    for impl in ("fusedp", *impls):
+        reset_counts()  # a path of its own: this impl's kernels at b32
+        with attention_impl(model, impl):
+            g_kernel, l_kernel = loss_and_grads(model, loss, params, small)
+        torch.cuda.synchronize()
+        counts, by_width = nonzero(launch_counts()), launch_counts_by_width()
+        lk = l_kernel["loss"].item()
+        whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
+        through = [n for n in g_kernel if n.endswith(VIT_PROJ)]
+        dead = [n for n in through if g_kernel[n].abs().max().item() == 0]
+        del g_kernel
+        ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= WIDE_GRAD_COS
+              and worst >= 0.99 and len(through) == n_vis + n_txt and not dead)
+        if impl in WIDE_GRAD_PATHS:
+            fwd_name, per_layer, bwd_name = WIDE_GRAD_PATHS[impl]
+            want = {fwd_name: per_layer * (n_vis + n_txt), bwd_name: n_vis + n_txt, **PALLAS_STEP}
+            want_width = {fwd_name: {d_vis: per_layer * n_vis, d_txt: per_layer * n_txt},
+                          bwd_name: {d_vis: n_vis, d_txt: n_txt}}
+            ok = ok and counts == want and by_width == want_width
+            grad_paths[impl] = (counts, by_width)
+        log(f"{tag} {impl} vs the same model's plain attention, b{WIDE_STEP_BATCH}: loss "
+            f"{lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine "
+            f"whole {whole:.6f} (>= {WIDE_GRAD_COS}), min per tensor {worst:.6f} at {worst_name} "
+            f"(>= 0.99); {len(through) - len(dead)}/{len(through)} in_proj weights with a "
+            f"gradient; launches {counts}, by head dim {by_width} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{model_name}: the {impl} step's gradients disagree with plain")
+    del g_plain
+    torch.cuda.empty_cache()
+
+    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    state = create_train_state(model, tx)
+    step = build_train_step(model, loss, tx)
+    batch = wide_batch(model, batch_size, 0)
+    want = {"packed_attn_fwd": 2 * (n_vis + n_txt), "packed_attn_bwd": n_vis + n_txt,
+            **PALLAS_STEP}  # remat 'full': K1 again in each block's backward
+    want_width = {"packed_attn_fwd": {d_vis: 2 * n_vis, d_txt: 2 * n_txt} if d_vis != d_txt
+                  else {d_vis: 2 * (n_vis + n_txt)},
+                  "packed_attn_bwd": {d_vis: n_vis, d_txt: n_txt} if d_vis != d_txt
+                  else {d_vis: n_vis + n_txt}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path starts here
+    per_step, per_width, losses, times = [], [], [], []
+    for _ in range(steps):
+        before, before_w = launch_counts(), launch_counts_by_width()
+        t = time.perf_counter()
+        state, metrics = step(state, prep(batch))
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append((time.perf_counter() - t) * 1e3)
+        per_step.append(launches_since(before))
+        after = launch_counts_by_width()
+        per_width.append({k: {d: n - before_w.get(k, {}).get(d, 0) for d, n in v.items()
+                              if n != before_w.get(k, {}).get(d, 0)}
+                          for k, v in after.items() if k in want_width})
+    torch.cuda.synchronize()
+    launches, by_width = nonzero(launch_counts()), launch_counts_by_width()  # read right after
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = times[1:] if steps > 1 else times
+    step_ms = statistics.median(timed)
+    ok = (all(np.isfinite(losses)) and all(p == want for p in per_step)
+          and all(w == want_width for w in per_width) and state.step == steps)
+    log(f"{tag} {model_name} b{batch_size}, remat 'full', pallas loss: {steps} steps, losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + f"; step ms {', '.join(f'{x:.1f}' for x in times)}"
+        f"; launches per step {per_step[0]} (want {want}), by head dim {per_width[0]} (want "
+        f"{want_width}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {model_name} train main path failed its checks")
+    perf = {"batch": batch_size, "steps": steps, "step_ms": step_ms, "step_ms_all": times,
+            "pairs_per_s": batch_size / step_ms * 1e3, "peak_memory_gb": peak,
+            "params_m": sum(p.numel() for p in params.values()) / 1e6}
+    if profile:  # one more step, after the main path's counts were read
+        perf["profiled_step"] = profile_step(lambda: step(state, prep(batch)), tag)
+    log(f"{tag} {model_name} b{batch_size} step {step_ms:.1f} ms"
+        f"{' (median of the timed steps)' if steps > 1 else ''}, {perf['pairs_per_s']:.1f} "
+        f"pairs/s, peak memory {peak:.2f} GB ({perf['params_m']:.1f} M params) | {card}")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, by_width, want, perf, grad_paths
+
+
+def phase_train_h14(card):
+    """ViT-H-14 at full width and depth (random weights drawn on the card
+    from seed 0, the served model's), bf16, 'fusedp', remat 'full': gradients against plain
+    attention at b32, also with the attention under 'fused' and 'flash'
+    (K4/K5 and K10/K10b at D = 80, each a path), then one warm-up and
+    WIDE_TIMED timed steps at b256: 112 K1 (64 at D = 80, 48 at D = 64) and
+    56 K3 (32 at D = 80) each, pairs/s, peak memory; one profiled step."""
+    t0 = time.perf_counter()
+    model = build_on_card("ViT-H-14", precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                          grad_checkpointing=True, remat_policy="full")
+    log(f"[train-h14] ViT-H-14 built on the card in {time.perf_counter() - t0:.1f} s")
+    out = wide_step("ViT-H-14", model, TRAIN_BATCH, 1 + WIDE_TIMED, card, "[train-h14]",
+                    profile=True, impls=("fused", "flash"))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_models(card):
+    """ViT-g-14 and ViT-bigG-14 at full width and depth (random weights
+    from seed 0, bf16, 'fusedp', remat 'full'): `encode_image` at b32 and
+    `encode_text` at b32 through `ServedModel`, K1 once per layer at each
+    tower's head dim, the features against the same model's plain
+    attention; then one train step at b32 (gradients against plain
+    attention first), peak memory. Returns {path: launches}, {path:
+    launches by width}, {path: per-step launches}, perf."""
+    from mrclip_tpu_torch import SimpleTokenizer
+    from mrclip_tpu_torch.factory import get_model_config
+    from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
+    from mrclip_tpu_torch.serving import ServedModel
+
+    paths, widths, per_step, perf = {}, {}, {}, {}
+    images = wide_images(WIDE_STEP_BATCH, 224, 3)
+    tokens = np.resize(SimpleTokenizer()(CAPTIONS), (WIDE_STEP_BATCH, 98))
+    for name in ("ViT-g-14", "ViT-bigG-14"):
+        key = name.lower().replace("-", "_").replace("vit_", "")
+        n_vis, d_vis, n_txt, d_txt = wide_layers(name)
+        t0 = time.perf_counter()
+        model = build_on_card(name, precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                              grad_checkpointing=True, remat_policy="full")
+        served = ServedModel(model, {})
+        log(f"[wide] {name} built on the card in {time.perf_counter() - t0:.1f} s")
+        reset_counts()  # the served path starts here
+        img = served.encode_image(images)
+        txt = served.encode_text(tokens)
+        paths[f"serve_{key}"] = nonzero(launch_counts())  # read right after the run
+        widths[f"serve_{key}"] = by_width = launch_counts_by_width()
+        want = ({d_vis: n_vis, d_txt: n_txt} if d_vis != d_txt else {d_vis: n_vis + n_txt})
+        with torch.inference_mode(), attention_impl(model, "xla"):
+            ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
+            ref_txt = model.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
+        cos = min(cosine_rows(img, ref_img).min(), cosine_rows(txt, ref_txt).min())
+        ok = (img.shape == (WIDE_STEP_BATCH, get_model_config(name)["embed_dim"])
+              and np.isfinite(img).all()
+              and np.isfinite(txt).all() and by_width == {"packed_attn_fwd": want}
+              and cos >= 0.999)
+        log(f"[wide] {name} encode_image b{WIDE_STEP_BATCH} + encode_text b{WIDE_STEP_BATCH}: "
+            f"features {img.shape}, launches by head dim {by_width} (want "
+            f"{{'packed_attn_fwd': {want}}}); min cosine vs the same model's plain attention "
+            f"{cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serving {name} failed its checks")
+        t = time.perf_counter()
+        for _ in range(3):
+            served.encode_image(images)
+        perf[f"{key}_served_encode_image_b{WIDE_STEP_BATCH}_imgs_per_s"] = (
+            3 * WIDE_STEP_BATCH / (time.perf_counter() - t))
+        launches, by_width, want_step, step_perf, _ = wide_step(
+            name, model, WIDE_STEP_BATCH, 1, card, "[wide]")
+        paths[f"train_{key}"], widths[f"train_{key}"] = launches, by_width
+        per_step[f"train_{key}"] = want_step
+        perf[f"{key}_train"] = step_perf
+        del model, served
+        torch.cuda.empty_cache()
+    return paths, widths, per_step, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3739,6 +4378,21 @@ def main() -> int:
     fast_paths, fast_per_step, fwd["fast_input"] = phase_fast_input(smi, study, fwd["cli"])
     paths.update(fast_paths)
     per_step.update(fast_per_step)
+    # phase 16: the attention kernels at head dims 80, 88 and 104, and the
+    # towers that need them
+    # (the HTTP server's worker threads keep its model to the end: it comes last)
+    widths = phase_kernel_widths()
+    big_paths, wide_widths, big_per_step, big_perf = phase_wide_models(smi)
+    paths.update(big_paths)
+    per_step.update(big_per_step)
+    (paths["train_h14"], wide_widths["train_h14"], per_step["train_h14"], h14_train,
+     h14_grads) = phase_train_h14(smi)
+    for impl, (counts, by_width) in h14_grads.items():  # K4/K5 and K10/K10b at D = 80
+        paths[f"grads_h14_{impl}"], wide_widths[f"grads_h14_{impl}"] = counts, by_width
+    wide_paths, serve_widths, h14_serve = phase_serve_h14(smi)
+    paths.update(wide_paths)
+    wide_widths.update(serve_widths)
+    fwd["wide_models"] = {"serve_h14": h14_serve, "train_h14": h14_train, **big_perf}
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -3754,7 +4408,12 @@ def main() -> int:
                 **{path: [*spec["per_step"]] for path, spec in OBJECTIVE_PATHS.items()},
                 "cli": [*CLI_PER_STEP], "cli_eval": [*CLI_EVAL_PER_BATCH],
                 **{path: [*want] for path, want in opt_per_step.items()},
-                **{path: [*want] for path, want in fast_per_step.items()}}
+                **{path: [*want] for path, want in fast_per_step.items()},
+                **{path: [*counts] for path, counts in wide_paths.items()},
+                **{path: [*want] for path, want in big_per_step.items()},
+                "train_h14": [*per_step["train_h14"]],
+                **{f"grads_h14_{impl}": [fwd_name, bwd_name, *PALLAS_STEP]
+                   for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
@@ -3764,6 +4423,15 @@ def main() -> int:
         entry["launches_by_path"] = by_path
         entry["launches_per_step"] = {p: per_step[p].get(kname, 0) for p in per_step}
         entry["card"] = smi
+        if kname in widths:  # phase 16: the same kernel at head dims 80, 88 and 104
+            entry["widths"] = {str(d): res for d, res in widths[kname].items()}
+            entry["launches_at_new_widths"] = {
+                str(d): sum(w.get(kname, {}).get(d, 0) for w in wide_widths.values())
+                for d in WIDE_MODELS}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in widths[kname].values()))
+            entry["max_abs_err_fp32"] = max(entry["max_abs_err_fp32"],
+                                            *(r["max_abs_err_fp32"] for r in widths[kname].values()))
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -55,7 +55,8 @@
 //     and K10b at D = 64 with n and nk at most 256, every main-path shape of
 //     the four;
 //   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
-//     Ampere's mma.sync: D = 32 and past 256 rows.
+//     Ampere's mma.sync: D = 32, past 256 rows, and D = 80, 88 and 104
+//     (ViT-H/g/bigG-14, N = 257; no rope).
 //
 // wgmma kernels: one warpgroup (128 threads) per block walks every 64-row
 // (dq pass) or 64-key (dk/dv pass) sub-tile of its (sample, head), grid
@@ -174,6 +175,17 @@
 // recomputed products, not device memory, set the pace; a warp's S -> P ->
 // dS -> product chain runs in series. Dynamic shared memory: 2 ch (D + 8) *
 // 2 bytes for a chunk of ch rows (dkv: plus 12 ch of statistics).
+// The wide head dims (D = 80, 88, 104; attn_mma_fwd.cuh's note): rows and
+// fragments P = pad16(D) wide, the pad staged as zeros (stage_rows) or read
+// as zeros (load_frag_a: the upper 8 columns of the last 16), so dQ, dK and
+// dV carry zeros in the pad and store_frag_c writes the first D columns.
+// dK and dV at P = 112 hold 2 x 14 x 4 fp32 accumulators a thread beside
+// K's and V's 2 x 7 x 4 fragments: two blocks an SM (__launch_bounds__(128,
+// 2), up to 255 registers: dq 169 / 183 / 201 resident and 202 / 212 / 246
+// chunked, dkv 201 / 218 / 244 and 224 / 229 / 253 at 80 / 88 / 104, none
+// spilling), and chunks of at most mma_bwd_max_chunk rows, which leave
+// shared memory for two blocks: at N = 257 both passes are resident at D =
+// 80, the dq pass at 88, neither at 104.
 
 #pragma once
 
@@ -195,38 +207,52 @@ constexpr int kDkvQueries = 16;  // queries per step of the dkv pass
 
 template <int D>
 constexpr int mma_bwd_dq_smem(int ch) {  // K and V chunks
-  return 2 * ch * (D + 8) * 2;
+  return 2 * ch * (pad16(D) + 8) * 2;
 }
 
 template <int D>
 constexpr int mma_bwd_dkv_smem(int ch) {  // Q and dO chunks, three fp32 stats
-  return 2 * ch * (D + 8) * 2 + 3 * ch * 4;
+  return 2 * ch * (pad16(D) + 8) * 2 + 3 * ch * 4;
+}
+
+// The most rows the dq (DKV = false) or dkv pass stages at once: kMaxChunk
+// at D <= 64, else as many as leave two blocks an SM (the forward's
+// kTwoBlocksSmem; dq / dkv: 320 / 304 at D = 80, 272 / 256 at 88, 240 / 224
+// at 104), at most kMaxResident.
+template <int D, bool DKV>
+constexpr int mma_bwd_max_chunk() {
+  if (D <= 64) return kMaxChunk;
+  const int fit = (kTwoBlocksSmem / (DKV ? mma_bwd_dkv_smem<D>(1) : mma_bwd_dq_smem<D>(1))) & ~15;
+  return fit < kMaxResident ? fit : kMaxResident;
 }
 
 // This warp's A fragments (mma m16n8k16, row-major) of rows [r0, r0 + 16)
 // of one (sample, head)'s D columns, read from device memory by 32-bit
-// loads (row stride rs elements); rows >= n read 0.
+// loads (row stride rs elements); rows >= n and the pad columns [D,
+// pad16(D)) read 0.
 template <int D>
-__device__ __forceinline__ void load_frag_a(uint32_t (&f)[D / 16][4], const bf16* base,
+__device__ __forceinline__ void load_frag_a(uint32_t (&f)[pad16(D) / 16][4], const bf16* base,
                                             long long rs, int r0, int n, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const bool in0 = r0 + g < n, in1 = r0 + g + 8 < n;
   const uint32_t* p0 = reinterpret_cast<const uint32_t*>(base + (r0 + g) * rs + 2 * t);
   const uint32_t* p1 = reinterpret_cast<const uint32_t*>(base + (r0 + g + 8) * rs + 2 * t);
 #pragma unroll
-  for (int ds = 0; ds < D / 16; ++ds) {
+  for (int ds = 0; ds < pad16(D) / 16; ++ds) {
+    const bool hi = 16 * ds + 8 < D;  // columns 16 ds + 8 .. + 15 (D is a multiple of 8)
     f[ds][0] = in0 ? __ldg(p0 + 8 * ds) : 0u;
     f[ds][1] = in1 ? __ldg(p1 + 8 * ds) : 0u;
-    f[ds][2] = in0 ? __ldg(p0 + 8 * ds + 4) : 0u;
-    f[ds][3] = in1 ? __ldg(p1 + 8 * ds + 4) : 0u;
+    f[ds][2] = in0 && hi ? __ldg(p0 + 8 * ds + 4) : 0u;
+    f[ds][3] = in1 && hi ? __ldg(p1 + 8 * ds + 4) : 0u;
   }
 }
 
-// Rows [r0, r0 + 16) of an accumulator (C layout) rounded to bf16 and
-// stored, rows >= n not.
+// Rows [r0, r0 + 16) of an accumulator (C layout, pad16(D) columns) rounded
+// to bf16 and stored, its first D columns; rows >= n not.
 template <int D>
-__device__ __forceinline__ void store_frag_c(bf16* base, long long rs, const float (&acc)[D / 8][4],
-                                             int r0, int n, int lane) {
+__device__ __forceinline__ void store_frag_c(bf16* base, long long rs,
+                                             const float (&acc)[pad16(D) / 8][4], int r0, int n,
+                                             int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -360,7 +386,8 @@ __device__ __forceinline__ void dkv_tile(float (&dka)[D / 8][4], float (&dva)[D 
 // inv: 1 / l (K10b); dl: delta, taken here and written for the dkv pass
 // (K3, K5), or di (K10b)).
 template <int D, bool FLASH, bool ROPE>
-__device__ __forceinline__ void dq_rows(uint32_t (&qf)[D / 16][4], uint32_t (&dof)[D / 16][4],
+__device__ __forceinline__ void dq_rows(uint32_t (&qf)[pad16(D) / 16][4],
+                                        uint32_t (&dof)[pad16(D) / 16][4],
                                         float (&st2)[2], float (&inv)[2], float (&dl)[2],
                                         const bf16* q, const bf16* tab, const bf16* o,
                                         const bf16* dout, const float* stat_a,
@@ -384,11 +411,11 @@ __device__ __forceinline__ void dq_rows(uint32_t (&qf)[D / 16][4], uint32_t (&do
   } else {
     // delta = rowsum(dO * O) in fp32: O read in the A layout, each lane's
     // products summed, then over the quad that shares a row
-    uint32_t of[D / 16][4];
+    uint32_t of[pad16(D) / 16][4];
     load_frag_a<D>(of, o + b * st.o_bs + hd, st.o_rs, wrow0, n, lane);
     float part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int ds = 0; ds < D / 16; ++ds) {
+    for (int ds = 0; ds < pad16(D) / 16; ++ds) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         part[e & 1] = fmaf(bf16_lo(dof[ds][e]), bf16_lo(of[ds][e]), part[e & 1]);
@@ -436,18 +463,20 @@ __device__ __forceinline__ void dq_walk(float (&acc)[D / 8][4], const uint32_t (
 // CHUNKED: one sub-tile, the keys staged in chunks of `ch` (a multiple of
 // 16, at most kMaxChunk), two blocks an SM.
 template <int D, bool FLASH, bool CHUNKED, bool ROPE>
-__global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
+__global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
     mma_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ tab,
                       const bf16* __restrict__ o, const bf16* __restrict__ dout,
                       const float* __restrict__ stat_a, const float* __restrict__ stat_b,
                       float* __restrict__ delta, bf16* __restrict__ dq, int n, int nk, int heads,
                       Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64, "head dim");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
+  constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const uint32_t sk_a = static_cast<uint32_t>(__cvta_generic_to_shared(mma_smem));
-  const uint32_t sv_a = sk_a + ch * (D + 8) * 2;
+  const uint32_t sv_a = sk_a + ch * (P + 8) * 2;
 
   const long long b = blockIdx.x;
   const int h = blockIdx.z;
@@ -475,11 +504,11 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
     const int kend = causal ? min(nk, last + 1) : nk;
     const int w_keys = wrow0 >= n ? INT_MIN : causal ? min(n - 1, wrow0 + 15) + 1 : INT_MAX;
 
-    uint32_t qf[D / 16][4], dof[D / 16][4];
+    uint32_t qf[P / 16][4], dof[P / 16][4];
     float st2[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f}, dl[2] = {0.f, 0.f};
-    float acc[D / 8][4];
+    float acc[P / 8][4];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < P / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
     if constexpr (CHUNKED) {
       for (int c0 = 0; c0 < kend; c0 += ch) {
@@ -494,7 +523,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         cp_async_wait<0>();
         if constexpr (ROPE) rotate_rows<D>(sk_a, tab, c0, c1 - c0);
         __syncthreads();
-        dq_walk<D, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, c0, c1, min(c1, w_keys), wrow0,
+        dq_walk<P, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, c0, c1, min(c1, w_keys), wrow0,
                           causal, sl2, scale, lane);
       }
     } else {
@@ -509,7 +538,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         cp_async_wait<0>();
         __syncthreads();
       }
-      dq_walk<D, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, 0, kend, min(kend, w_keys),
+      dq_walk<P, FLASH>(acc, qf, dof, st2, inv, dl, sk_a, sv_a, 0, kend, min(kend, w_keys),
                         wrow0, causal, sl2, scale, lane);
     }
     if (wrow0 < n) {
@@ -573,19 +602,21 @@ __device__ __forceinline__ void dkv_walk(float (&dka)[D / 8][4], float (&dva)[D 
 // `iters` sub-tiles of kMmaRows keys; CHUNKED: one sub-tile, the query
 // rows staged in chunks of `ch`, two blocks an SM.
 template <int D, bool FLASH, bool CHUNKED, bool ROPE>
-__global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
+__global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
     mma_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ tab,
                        const bf16* __restrict__ dout, const float* __restrict__ stat_a,
                        const float* __restrict__ stat_b, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int nk, int heads,
                        Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64, "head dim");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
+  constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const uint32_t sq_a = static_cast<uint32_t>(__cvta_generic_to_shared(mma_smem));
-  const uint32_t sdo_a = sq_a + ch * (D + 8) * 2;
-  float* s_st = reinterpret_cast<float*>(mma_smem + 2 * ch * (D + 8) * 2);
+  const uint32_t sdo_a = sq_a + ch * (P + 8) * 2;
+  float* s_st = reinterpret_cast<float*>(mma_smem + 2 * ch * (P + 8) * 2);
   float* s_inv = s_st + ch;
   float* s_dl = s_inv + ch;
 
@@ -607,10 +638,10 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
     const int wk0 = kr0 + 16 * warp;  // this warp's keys: wk0 .. wk0 + 15
     const bool live = wk0 < nk;
 
-    uint32_t kf[D / 16][4], vf[D / 16][4];
-    float dka[D / 8][4], dva[D / 8][4];
+    uint32_t kf[P / 16][4], vf[P / 16][4];
+    float dka[P / 8][4], dva[P / 8][4];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < P / 8; ++j) {
       dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
       dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
     }
@@ -632,7 +663,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         if constexpr (ROPE) rotate_rows<D>(sq_a, tab, c0, c1 - c0);
         __syncthreads();
         if (live)
-          dkv_walk<D, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, c0, c1, wk0,
+          dkv_walk<P, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, c0, c1, wk0,
                              causal, sl2, scale, lane);
       }
     } else {
@@ -647,7 +678,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED ? 2 : 3)
         __syncthreads();
       }
       if (live)
-        dkv_walk<D, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, 0, n, wk0, causal,
+        dkv_walk<P, FLASH>(dka, dva, kf, vf, s_st, s_inv, s_dl, sq_a, sdo_a, 0, n, wk0, causal,
                            sl2, scale, lane);
     }
     if (live) {  // dV first: its registers are free before dK's un-rotation
@@ -1093,39 +1124,40 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab,
                                            n, nk, heads, st, scale, causal, stream);
   }
   // resident: the rows staged, rounded up to 16, and the sub-tiles a block
-  // walks; chunked: kMaxChunk and one
-  auto plan = [&](int len, int tiles, int& ch, int& it) {
-    const bool resident = len <= kMaxChunk;
-    ch = resident ? (len + 15) & ~15 : kMaxChunk;
-    it = resident ? (tiles < kMost ? tiles : kMost) : 1;
+  // walks; chunked: the pass's most rows (mma_bwd_max_chunk) and one
+  auto plan = [&](int len, int tiles, int most, int& ch, int& it) {
+    const bool resident = len <= most;
+    ch = resident ? (len + 15) & ~15 : most;
+    it = resident ? even_iters(tiles, kMost) : 1;
     return resident;
   };
+  constexpr int kDqMost = mma_bwd_max_chunk<D, false>(), kDkvMost = mma_bwd_max_chunk<D, true>();
   int ch = 0, it = 0;
 
   const int tiles_q = (n + kMmaRows - 1) / kMmaRows;
   auto dq_pass = [&](auto kernel, std::atomic<unsigned long long>& flag) {
-    const cudaError_t e = allow_smem(kernel, mma_bwd_dq_smem<D>(kMaxChunk), flag);
+    const cudaError_t e = allow_smem(kernel, mma_bwd_dq_smem<D>(kDqMost), flag);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(batch, (tiles_q + it - 1) / it, heads), kMmaThreads, mma_bwd_dq_smem<D>(ch),
              stream>>>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop, stat_a, stat_b, delta,
                        static_cast<bf16*>(dq), n, nk, heads, st, scale, causal, ch, it);
     return cudaGetLastError();
   };
-  cudaError_t err = plan(nk, tiles_q, ch, it)
+  cudaError_t err = plan(nk, tiles_q, kDqMost, ch, it)
                         ? dq_pass(mma_bwd_dq_kernel<D, FLASH, false, ROPE>, done[0])
                         : dq_pass(mma_bwd_dq_kernel<D, FLASH, true, ROPE>, done[1]);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int tiles_k = (nk + kMmaRows - 1) / kMmaRows;
   auto dkv_pass = [&](auto kernel, std::atomic<unsigned long long>& flag) {
-    const cudaError_t e = allow_smem(kernel, mma_bwd_dkv_smem<D>(kMaxChunk), flag);
+    const cudaError_t e = allow_smem(kernel, mma_bwd_dkv_smem<D>(kDkvMost), flag);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(batch, (tiles_k + it - 1) / it, heads), kMmaThreads, mma_bwd_dkv_smem<D>(ch),
              stream>>>(qp, kp, vp, tp, dop, stat_a, stat_b, delta, static_cast<bf16*>(dk),
                        static_cast<bf16*>(dv), n, nk, heads, st, scale, causal, ch, it);
     return cudaGetLastError();
   };
-  err = plan(n, tiles_k, ch, it) ? dkv_pass(mma_bwd_dkv_kernel<D, FLASH, false, ROPE>, done[2])
+  err = plan(n, tiles_k, kDkvMost, ch, it) ? dkv_pass(mma_bwd_dkv_kernel<D, FLASH, false, ROPE>, done[2])
                                  : dkv_pass(mma_bwd_dkv_kernel<D, FLASH, true, ROPE>, done[3]);
   return static_cast<int>(err);
 }

@@ -39,8 +39,9 @@
 //     registers with spills.
 //   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K10
 //     over several jax key blocks (MULTI, N > 256), K1, K2 and K4 past 256
-//     keys (the chunked walk; K2's rope rotated in shared memory), and D =
-//     32.
+//     keys (the chunked walk; K2's rope rotated in shared memory), D = 32,
+//     and K1, K4 and K10 at D = 80, 88 and 104 (ViT-H-14, ViT-g-14,
+//     ViT-bigG-14; no rope), whose vision towers have N = 257.
 //
 // wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
 // sub-tiles of 64 query rows of one (sample, head), grid (batch or groups,
@@ -153,6 +154,19 @@
 // spilling 60 bytes (the N = 577 path, off the main paths). The rotation
 // pass takes two pieces per step: four spilled at D = 64, one timed slower
 // on the H100.
+// The wide head dims (D = 80, 88, 104): mma.sync m16n8k16 steps D by 16, so
+// 88 and 104 are padded to P = pad16(D) = 96 and 112 columns: stage_rows
+// zero-fills the pad pieces of every Q, K and V row (no source bytes), Q's
+// fragments, S = Q K^T over P / 16 k-steps and O = P V over P / 8 n-tiles
+// then carry zeros in the pad (they add nothing to S), and only the first
+// D columns of o are stored. Rows of P + 8 elements (176, 208, 240 bytes:
+// an odd number of 16-byte units) keep ldmatrix free of bank conflicts, as
+// at 64 and 32. Two blocks an SM (__launch_bounds__(128, 2): 212, 236 and
+// 255 registers for K1/K4 at 80, 88, 104; K10's several-block form 255,
+// spilling 32 bytes at 104) and chunks of at most mma_max_chunk<D>() keys
+// (288, 240, 208), which leave shared memory for two blocks: N = 257 at D
+// = 80 is staged once for 3 or 2 of its 5 sub-tiles (even_iters); at 88 and
+// 104 in two chunks copied again in pass B, as D = 64 past 256 keys.
 
 #pragma once
 
@@ -172,8 +186,13 @@ namespace {
 
 constexpr int kMmaRows = 64;  // query rows per sub-tile, 16 per warp
 constexpr int kMmaThreads = 128;
-constexpr int kMaxChunk = 256;  // keys staged at once
+constexpr int kMaxChunk = 256;  // keys staged at once (D <= 64)
 constexpr int kMaxRows = 256;   // query rows per block while K and V stay staged
+// Past D = 64 the staged chunk is sized to leave two blocks an SM (228 KB of
+// shared memory, 1 KB of it reserved a block), up to kMaxResident rows: N =
+// 257 (ViT-L/H/g/bigG-14's vision towers) in one chunk where that fits.
+constexpr int kTwoBlocksSmem = 113 * 1024;
+constexpr int kMaxResident = 320;
 constexpr int kWgKeys = 256;    // wgmma_fwd_kernel: the most keys, all scores in registers
 constexpr int kWgDim = 64;      // wgmma_fwd_kernel's head dim: one 128-byte row
 constexpr float kLog2e = 1.4426950408889634f;
@@ -181,11 +200,29 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
-// Shared-memory bytes: the Q tile and `ch` rows each of K and V, rows of D
-// + 8 elements.
+// Shared-memory bytes: the Q tile and `ch` rows each of K and V, rows of
+// pad16(D) + 8 elements.
 template <int D>
 constexpr int mma_smem_bytes(int ch) {
-  return (kMmaRows + 2 * ch) * (D + 8) * 2;
+  return (kMmaRows + 2 * ch) * (pad16(D) + 8) * 2;
+}
+
+// The most keys mma_fwd_kernel stages at once: kMaxChunk at D <= 64 (whose
+// main-path shapes run wgmma; its mma.sync walks past 256 keys stay as
+// they were measured), else as many as leave two blocks an SM (288 at D =
+// 80, 240 at 88, 208 at 104), at most kMaxResident.
+template <int D>
+constexpr int mma_max_chunk() {
+  if (D <= 64) return kMaxChunk;
+  const int fit = ((kTwoBlocksSmem / ((pad16(D) + 8) * 2) - kMmaRows) / 2) & ~15;
+  return fit < kMaxResident ? fit : kMaxResident;
+}
+
+// Sub-tiles a block walks where its staged rows serve them all: at most
+// `most`, spread evenly over the fewest blocks (5 as 3 + 2, not 4 + 1).
+inline int even_iters(int tiles, int most) {
+  const int blocks = (tiles + most - 1) / most;
+  return (tiles + blocks - 1) / blocks;
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
@@ -245,17 +282,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // Rows [0, len) of one (sample, head)'s D columns (row stride rs elements)
-// into shared rows of D + 8 elements at `dst`, by 16-byte copies; rows
-// [len, len rounded up to 16) are zero-filled (no source bytes).
+// into shared rows of pad16(D) + 8 elements at `dst`, by 16-byte copies;
+// rows [len, len rounded up to 16) and the pad columns [D, pad16(D)) (D =
+// 88, 104) are zero-filled (no source bytes).
 template <int D>
 __device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long long rs,
                                            int len) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces per row
+  constexpr int P = pad16(D);
+  constexpr int kChunks = P / 8;  // 16-byte pieces per shared row
   const int rows = (len + 15) & ~15;
   for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
     const int r = i / kChunks, c = i % kChunks;
-    const bool in = r < len;
-    cp_async16(dst + (r * (D + 8) + c * 8) * 2, src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
+    const bool in = r < len && (P == D || c < D / 8);
+    cp_async16(dst + (r * (P + 8) + c * 8) * 2, src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
   }
 }
 
@@ -304,6 +343,7 @@ __device__ __forceinline__ uint4 rotate_piece(const uint4& x, const uint4& sn, c
 template <int D>
 __device__ __forceinline__ void rotate_rows(uint32_t dst, const bf16* __restrict__ tab, int p0,
                                             int len) {
+  static_assert(pad16(D) == D, "rope takes D = 32 and 64");
   constexpr int kChunks = D / 8;                    // 16-byte pieces per row, as stage_rows
   constexpr int kStep = kMmaThreads / kChunks;      // rows between a thread's pieces
   constexpr uint32_t kRowBytes = kStep * (D + 8) * 2;
@@ -498,20 +538,22 @@ __device__ __forceinline__ void pass_b_tile(float (&acc)[D / 8][4], float (&ls)[
 // Where one chunk holds every key, K and V are staged (and K rotated) once
 // for all the sub-tiles.
 template <int D, bool FLASH, bool MULTI, bool ROPE>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, D > 64 ? 2 : 3)
     mma_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ tab,
                    bf16* __restrict__ o, float* __restrict__ stat_a,
                    float* __restrict__ stat_b, int n, int nk, int heads, Strides st, float scale,
                    int causal, int blk_q, int blk_k, int nblk, int ch, int iters) {
-  static_assert(D == 32 || D == 64, "head dim");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
+  constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(FLASH || !MULTI, "K4 walks one key block");
   static_assert(!(FLASH && ROPE), "the rope forward is K2's");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* sq = reinterpret_cast<bf16*>(mma_smem);
   const uint32_t sq_a = static_cast<uint32_t>(__cvta_generic_to_shared(sq));
-  const uint32_t sk_a = sq_a + kMmaRows * (D + 8) * 2;
-  const uint32_t sv_a = sk_a + ch * (D + 8) * 2;
+  const uint32_t sk_a = sq_a + kMmaRows * (P + 8) * 2;
+  const uint32_t sv_a = sk_a + ch * (P + 8) * 2;
 
   const long long b = blockIdx.x;
   const int h = blockIdx.z;
@@ -540,11 +582,11 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
     const int w_keys = wrow0 >= n ? INT_MIN : causal ? min(n - 1, wrow0 + 15) + 1 : INT_MAX;
     const int qblk = row0 / blk_q;  // jax's query block (kMmaRows | blk_q)
 
-    uint32_t qf[D / 16][4];
+    uint32_t qf[P / 16][4];
     bool have_q = false;
-    float acc[D / 8][4];
+    float acc[P / 8][4];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < P / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m to base 2
 
     for (int c = 0; c < nblk; ++c) {
@@ -582,8 +624,8 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
         if (!have_q) {  // Q's copy came before the first chunk's K
           const int mi = lane >> 3, rr = lane & 7;
 #pragma unroll
-          for (int ds = 0; ds < D / 16; ++ds)
-            ldsm_x4<false>(qf[ds], sq_a + ((16 * warp + (mi & 1) * 8 + rr) * (D + 8) +
+          for (int ds = 0; ds < P / 16; ++ds)
+            ldsm_x4<false>(qf[ds], sq_a + ((16 * warp + (mi & 1) * 8 + rr) * (P + 8) +
                                            16 * ds + (mi >> 1) * 8) * 2);
           have_q = true;
         }
@@ -591,17 +633,17 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
         for (int s0 = c0; s0 < wend; s0 += 64) {
           const bool mask = !(s0 + 64 <= c1 && (!causal || s0 + 63 <= wrow0));
           if (s0 + 64 <= wend)
-            pass_a_tile<D, MULTI, true>(m, l, mb, qf, sk_a, s0 - c0, 4, s0, c1, r0, mask,
+            pass_a_tile<P, MULTI, true>(m, l, mb, qf, sk_a, s0 - c0, 4, s0, c1, r0, mask,
                                         causal, sl2, lane);
           else
-            pass_a_tile<D, MULTI, false>(m, l, mb, qf, sk_a, s0 - c0, (wend - s0 + 15) / 16, s0,
+            pass_a_tile<P, MULTI, false>(m, l, mb, qf, sk_a, s0 - c0, (wend - s0 + 15) / 16, s0,
                                          c1, r0, true, causal, sl2, lane);
         }
       }
 
       // pass B: P.V over the block, S recomputed from shared memory
       float mo[2], ls[2] = {0.f, 0.f};
-      float cur[D / 8][4];  // MULTI: this block's P.V
+      float cur[P / 8][4];  // MULTI: this block's P.V
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if constexpr (MULTI) {
@@ -613,7 +655,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
       }
       if constexpr (MULTI) {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) cur[j][0] = cur[j][1] = cur[j][2] = cur[j][3] = 0.f;
+        for (int j = 0; j < P / 8; ++j) cur[j][0] = cur[j][1] = cur[j][2] = cur[j][3] = 0.f;
       }
       for (int ci = 0; ci < nch; ++ci) {
         const int c0 = kb0 + ci * ch, c1 = min(kend, c0 + ch);
@@ -635,17 +677,17 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
           const int groups = full ? 4 : (wend - s0 + 15) / 16;
           if constexpr (MULTI) {  // the block's P.V apart, for jax's update
             if (full)
-              pass_b_tile<D, true, true>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+              pass_b_tile<P, true, true>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
                                          r0, mask, causal, sl2, lane);
             else
-              pass_b_tile<D, true, false>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+              pass_b_tile<P, true, false>(cur, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
                                           r0, true, causal, sl2, lane);
           } else {
             if (full)
-              pass_b_tile<D, false, true>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
+              pass_b_tile<P, false, true>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0, c1,
                                           r0, mask, causal, sl2, lane);
             else
-              pass_b_tile<D, false, false>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0,
+              pass_b_tile<P, false, false>(acc, ls, mo, qf, sk_a, sv_a, s0 - c0, groups, s0,
                                            c1, r0, true, causal, sl2, lane);
           }
         }
@@ -661,7 +703,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
           const float inv = l_new == 0.f ? 1.f : __fdiv_rn(1.f, l_new);
           const float f = __fmul_rn(l_corr, inv);
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < P / 8; ++j) {
 #pragma unroll
             for (int e = 2 * i; e < 2 * i + 2; ++e)
               acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], f), __fmul_rn(cur[j][e], inv));
@@ -672,14 +714,15 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
       }
     }
 
-    // o through this warp's 16 rows of the Q tile, 16 bytes per store
+    // o through this warp's 16 rows of the Q tile, 16 bytes per store; the
+    // first D columns only
     __syncwarp();
-    bf16* so = sq + 16 * warp * (D + 8);
+    bf16* so = sq + 16 * warp * (P + 8);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(so + g * (D + 8) + 8 * j + 2 * t) =
+      *reinterpret_cast<uint32_t*>(so + g * (P + 8) + 8 * j + 2 * t) =
           pack_bf16(acc[j][0], acc[j][1]);
-      *reinterpret_cast<uint32_t*>(so + (g + 8) * (D + 8) + 8 * j + 2 * t) =
+      *reinterpret_cast<uint32_t*>(so + (g + 8) * (P + 8) + 8 * j + 2 * t) =
           pack_bf16(acc[j][2], acc[j][3]);
     }
     __syncwarp();
@@ -689,7 +732,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
       const int row = wrow0 + r;
       if (row < n)
         *reinterpret_cast<uint4*>(o + b * st.o_bs + row * st.o_rs + hd + 8 * c8) =
-            *reinterpret_cast<const uint4*>(so + r * (D + 8) + 8 * c8);
+            *reinterpret_cast<const uint4*>(so + r * (P + 8) + 8 * c8);
     }
     if (t == 0) {
 #pragma unroll
@@ -728,7 +771,8 @@ cudaError_t allow_smem(Kernel* kernel, int bytes, std::atomic<unsigned long long
 template <int D, bool FLASH, bool MULTI, bool ROPE>
 cudaError_t allow_mma_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem(mma_fwd_kernel<D, FLASH, MULTI, ROPE>, mma_smem_bytes<D>(kMaxChunk), done);
+  return allow_smem(mma_fwd_kernel<D, FLASH, MULTI, ROPE>, mma_smem_bytes<D>(mma_max_chunk<D>()),
+                    done);
 }
 
 // Shared-memory bytes of wgmma_fwd_kernel for `kr` staged key rows (a
@@ -1011,13 +1055,14 @@ int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab,
   }
   const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one jax block (at most 256 keys when there are several) per chunk
+  // one jax block (at most 256 keys when there are several) per chunk, or
+  // as much of it as mma_max_chunk allows
   const int keys = blk_k < nk ? blk_k : nk;
-  const int ch = keys >= kMaxChunk ? kMaxChunk : (keys + 15) & ~15;
+  constexpr int kMost = mma_max_chunk<D>();
+  const int ch = keys >= kMost ? kMost : (keys + 15) & ~15;
   // K and V resident: one block walks up to kMaxRows query rows
   const int tiles = (n + kMmaRows - 1) / kMmaRows;
-  const int most = nblk == 1 && nk <= ch ? kMaxRows / kMmaRows : 1;
-  const int iters = tiles < most ? tiles : most;
+  const int iters = nblk == 1 && nk <= ch ? even_iters(tiles, kMaxRows / kMmaRows) : 1;
   const dim3 grid(batch, (tiles + iters - 1) / iters, heads);
   mma_fwd_kernel<D, FLASH, MULTI, ROPE><<<grid, kMmaThreads, mma_smem_bytes<D>(ch), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -15,8 +15,9 @@
 //     row max m, [B, H, N] fp32; di = rowsum(O * dO) comes from outside.
 //
 // Both walk one 64-row query tile per block with four lanes per row
-// (attn_tile.cuh), stage 64-key tiles of K and V through shared memory in
-// fp32, and keep every score in registers. The grid is (batch, tile, head).
+// (attn_tile.cuh), stage tiles of kStage<D> keys of K and V (64, or 32 past
+// D = 80) through shared memory in fp32, rows padded to pad16(D) columns of
+// which those past D are zero, and keep every score in registers. The grid is (batch, tile, head).
 // These kernels are the fp32 forward and backward only (TF32 products would
 // miss the fp32 bar of the plain versions, 1e-4): bf16 runs on the tensor
 // cores, the forward in attn_mma_fwd.cuh and the backward in
@@ -74,13 +75,23 @@ struct Strides {
 };
 
 // Rows [0, len) of one tensor (this head's D columns) into shared memory as
-// fp32. CONTIG: the rows are one contiguous span (row stride D, the grouped
-// layout), copied with 16-byte loads; otherwise element by element along
-// each strided row.
+// fp32, in rows of pad16(D) whose columns past D are zero. CONTIG: the rows
+// are one contiguous span (row stride D, the grouped layout), copied with
+// 16-byte loads (by row where D is padded); otherwise element by element
+// along each strided row.
 template <typename T, int D, bool CONTIG>
-__device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src,
+__device__ __forceinline__ void stage_tile(float (*dst)[pad16(D)], const T* src,
                                            long long rs, int len) {
-  if constexpr (CONTIG) {
+  constexpr int P = pad16(D);
+  if constexpr (CONTIG && P != D) {  // fp32 rows of D / 4 pieces, the pad zero
+    static_assert(sizeof(T) == 4, "the padded widths stage fp32 only");
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(&dst[0][0]);
+    for (int i = threadIdx.x; i < len * (P / 4); i += kThreads) {
+      const int r = i / (P / 4), c = i % (P / 4);
+      d4[i] = c < D / 4 ? s4[r * (D / 4) + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else if constexpr (CONTIG) {
     constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
     float4* d4 = reinterpret_cast<float4*>(&dst[0][0]);
@@ -99,10 +110,10 @@ __device__ __forceinline__ void stage_tile(float (*dst)[D], const T* src,
       }
     }
   } else {
-    for (int i = threadIdx.x; i < len * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      dst[r][d] = load_f(src + (long long)r * rs + d);
+    for (int i = threadIdx.x; i < len * P; i += kThreads) {
+      const int r = i / P;
+      const int d = i % P;
+      dst[r][d] = d < D ? load_f(src + (long long)r * rs + d) : 0.f;
     }
   }
 }
@@ -118,8 +129,9 @@ __global__ void __launch_bounds__(kThreads)
                     int n, int nk, int heads, Strides st, float scale,
                     int causal, int blk_q, int blk_k, int nblk) {
   static_assert(sizeof(T) == 4, "the bf16 forward is attn_mma_fwd.cuh's");
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int P = pad16(D), KS = kStage<D>;
+  __shared__ __align__(16) float ks[KS][P];
+  __shared__ __align__(16) float vs[KS][P];
 
   const long long b = blockIdx.x;
   const int tile = blockIdx.y;
@@ -130,9 +142,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long hd = (long long)h * D;
   const bool single = nblk == 1;
 
-  float4 qr[D / 16], acc[D / 16], cur[D / 16];
+  float4 qr[P / 16], acc[P / 16], cur[P / 16];
   load_row<T, D>(qr, q + b * st.q_bs + row * st.q_rs + hd, sub, live);
-  zero_row<D>(acc);
+  zero_row<P>(acc);
   const T* kb = k + b * st.k_bs + hd;
   const T* vb = v + b * st.v_bs + hd;
   // keys past the tile's last row are masked for all its rows (causal)
@@ -149,14 +161,14 @@ __global__ void __launch_bounds__(kThreads)
 
     // pass A: the block's max; its online sum of exp(s - max)
     float mc = -INFINITY, lc = 0.f;
-    for (int k0 = kb0; k0 < kend; k0 += kTile) {
-      const int len = min(kTile, kend - k0);
+    for (int k0 = kb0; k0 < kend; k0 += KS) {
+      const int len = min(KS, kend - k0);
       __syncthreads();  // every thread is done with the previous tile
       stage_tile<T, D, !FLASH>(ks, kb + (long long)k0 * st.k_rs, st.k_rs, len);
       __syncthreads();
       for (int j = 0; j < len; ++j) {
         // every lane takes part in the shuffles, masked or not
-        const float s = __fmul_rn(lane_sum(dot_part<D>(qr, ks[j], sub)), scale);
+        const float s = __fmul_rn(lane_sum(dot_part<P>(qr, ks[j], sub)), scale);
         if (!live || (causal && k0 + j > row)) continue;
         if (s > mc) {
           lc = __fadd_rn(__fmul_rn(lc, expf(mc - s)), 1.f);
@@ -172,16 +184,16 @@ __global__ void __launch_bounds__(kThreads)
     const float l_corr = single || !live ? 0.f : __fmul_rn(expf(m - m_next), l);
 
     // pass B: P.V over the block
-    zero_row<D>(cur);
+    zero_row<P>(cur);
     float ls = 0.f;
-    for (int k0 = kb0; k0 < kend; k0 += kTile) {
-      const int len = min(kTile, kend - k0);
+    for (int k0 = kb0; k0 < kend; k0 += KS) {
+      const int len = min(KS, kend - k0);
       __syncthreads();
       stage_tile<T, D, !FLASH>(ks, kb + (long long)k0 * st.k_rs, st.k_rs, len);
       stage_tile<T, D, !FLASH>(vs, vb + (long long)k0 * st.v_rs, st.v_rs, len);
       __syncthreads();
       for (int j = 0; j < len; ++j) {
-        const float s = __fmul_rn(lane_sum(dot_part<D>(qr, ks[j], sub)), scale);
+        const float s = __fmul_rn(lane_sum(dot_part<P>(qr, ks[j], sub)), scale);
         if (!live || (causal && k0 + j > row)) continue;
         float p = expf(s - m_next);
         if (single) {
@@ -190,13 +202,13 @@ __global__ void __launch_bounds__(kThreads)
           ls = __fadd_rn(ls, p);
           p = round_to(p, q);
         }
-        axpy<D>(cur, p, vs[j], sub);
+        axpy<P>(cur, p, vs[j], sub);
       }
     }
 
     if (single) {
 #pragma unroll
-      for (int y = 0; y < D / 16; ++y) acc[y] = cur[y];
+      for (int y = 0; y < P / 16; ++y) acc[y] = cur[y];
       m = mc;
       l = lc;
     } else {
@@ -204,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
       const float inv = l_new == 0.f ? 1.f : __fdiv_rn(1.f, l_new);
       const float f = __fmul_rn(l_corr, inv);
 #pragma unroll
-      for (int y = 0; y < D / 16; ++y) {
+      for (int y = 0; y < P / 16; ++y) {
         acc[y].x = __fadd_rn(__fmul_rn(acc[y].x, f), __fmul_rn(cur[y].x, inv));
         acc[y].y = __fadd_rn(__fmul_rn(acc[y].y, f), __fmul_rn(cur[y].y, inv));
         acc[y].z = __fadd_rn(__fmul_rn(acc[y].z, f), __fmul_rn(cur[y].z, inv));
@@ -258,8 +270,9 @@ __global__ void __launch_bounds__(kThreads)
                        int nk, int heads, Strides st, float scale,
                        int causal) {
   static_assert(sizeof(T) == 4, "the bf16 backward is attn_mma_bwd.cuh's");
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int P = pad16(D), KS = kStage<D>;
+  __shared__ __align__(16) float ks[KS][P];
+  __shared__ __align__(16) float vs[KS][P];
 
   const long long b = blockIdx.x;
   const int tile = blockIdx.y;
@@ -270,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long hd = (long long)h * D;
   const long long si = (b * heads + h) * n + row;
 
-  float4 qr[D / 16], dor[D / 16], acc[D / 16];
+  float4 qr[P / 16], dor[P / 16], acc[P / 16];
   load_row<T, D>(qr, q + b * st.q_bs + row * st.q_rs + hd, sub, live);
   load_row<T, D>(dor, dout + b * st.do_bs + row * st.do_rs + hd, sub, live);
   float dl, stat, inv_l = 1.f;
@@ -284,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
     load_row<T, D>(acc, o + b * st.o_bs + row * st.o_rs + hd, sub, live);
     float part = 0.f;
 #pragma unroll
-    for (int y = 0; y < D / 16; ++y) {
+    for (int y = 0; y < P / 16; ++y) {
       part = fmaf(dor[y].x, acc[y].x, part);
       part = fmaf(dor[y].y, acc[y].y, part);
       part = fmaf(dor[y].z, acc[y].z, part);
@@ -294,24 +307,24 @@ __global__ void __launch_bounds__(kThreads)
     if (live && sub == 0) delta[si] = dl;
     stat = live ? stat_a[si] : 0.f;
   }
-  zero_row<D>(acc);
+  zero_row<P>(acc);
 
   const int kv_end = causal ? min(nk, (tile + 1) * kTile) : nk;
   const T* kb = k + b * st.k_bs + hd;
   const T* vb = v + b * st.v_bs + hd;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    const int len = min(kTile, kv_end - k0);
+  for (int k0 = 0; k0 < kv_end; k0 += KS) {
+    const int len = min(KS, kv_end - k0);
     __syncthreads();  // every thread is done with the previous tile
     stage_tile<T, D, !FLASH>(ks, kb + (long long)k0 * st.k_rs, st.k_rs, len);
     stage_tile<T, D, !FLASH>(vs, vb + (long long)k0 * st.v_rs, st.v_rs, len);
     __syncthreads();
     for (int j = 0; j < len; ++j) {
       // every lane takes part in the shuffles, masked or not
-      const float s = lane_sum(dot_part<D>(qr, ks[j], sub));
-      const float dp = lane_sum(dot_part<D>(dor, vs[j], sub));
+      const float s = lane_sum(dot_part<P>(qr, ks[j], sub));
+      const float dp = lane_sum(dot_part<P>(dor, vs[j], sub));
       if (!live || (causal && k0 + j > row)) continue;  // P is exactly 0
       const float p = prob<FLASH>(s, scale, stat, inv_l);
-      axpy<D>(acc, dscore(p, dp, dl, scale, q), ks[j], sub);
+      axpy<P>(acc, dscore(p, dp, dl, scale, q), ks[j], sub);
     }
   }
   if (!live) return;
@@ -329,11 +342,12 @@ __global__ void __launch_bounds__(kThreads)
                         T* __restrict__ dv, int n, int nk, int heads,
                         Strides st, float scale, int causal) {
   static_assert(sizeof(T) == 4, "the bf16 backward is attn_mma_bwd.cuh's");
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float stat_s[kTile];   // lse (K5) or m (K10b)
-  __shared__ float inv_s[kTile];    // 1 / l (K10b)
-  __shared__ float delta_s[kTile];  // delta (K5) or di (K10b)
+  constexpr int P = pad16(D), KS = kStage<D>;
+  __shared__ __align__(16) float qs[KS][P];
+  __shared__ __align__(16) float dos[KS][P];
+  __shared__ float stat_s[KS];   // lse (K5) or m (K10b)
+  __shared__ float inv_s[KS];    // 1 / l (K10b)
+  __shared__ float delta_s[KS];  // delta (K5) or di (K10b)
 
   const long long b = blockIdx.x;
   const int tile = blockIdx.y;
@@ -343,19 +357,19 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = key < nk;
   const long long hd = (long long)h * D;
 
-  float4 kr[D / 16], vr[D / 16], dk_acc[D / 16], dv_acc[D / 16];
+  float4 kr[P / 16], vr[P / 16], dk_acc[P / 16], dv_acc[P / 16];
   load_row<T, D>(kr, k + b * st.k_bs + key * st.k_rs + hd, sub, live);
   load_row<T, D>(vr, v + b * st.v_bs + key * st.v_rs + hd, sub, live);
-  zero_row<D>(dk_acc);
-  zero_row<D>(dv_acc);
+  zero_row<P>(dk_acc);
+  zero_row<P>(dv_acc);
 
   // Causal: queries before this tile's first key see none of its keys.
   const int q_begin = causal ? tile * kTile : 0;
   const T* qb = q + b * st.q_bs + hd;
   const T* db = dout + b * st.do_bs + hd;
   const long long sb = (b * heads + h) * n;
-  for (int q0 = q_begin; q0 < n; q0 += kTile) {
-    const int len = min(kTile, n - q0);
+  for (int q0 = q_begin; q0 < n; q0 += KS) {
+    const int len = min(KS, n - q0);
     __syncthreads();
     stage_tile<T, D, !FLASH>(qs, qb + (long long)q0 * st.q_rs, st.q_rs, len);
     stage_tile<T, D, !FLASH>(dos, db + (long long)q0 * st.do_rs, st.do_rs, len);
@@ -368,12 +382,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     for (int i = 0; i < len; ++i) {
       // every lane takes part in the shuffles, masked or not
-      const float s = lane_sum(dot_part<D>(kr, qs[i], sub));
-      const float dp = lane_sum(dot_part<D>(vr, dos[i], sub));
+      const float s = lane_sum(dot_part<P>(kr, qs[i], sub));
+      const float dp = lane_sum(dot_part<P>(vr, dos[i], sub));
       if (!live || (causal && key > q0 + i)) continue;  // P is exactly 0
       const float p = prob<FLASH>(s, scale, stat_s[i], inv_s[i]);
-      axpy<D>(dv_acc, round_to(p, q), dos[i], sub);
-      axpy<D>(dk_acc, dscore(p, dp, delta_s[i], scale, q), qs[i], sub);
+      axpy<P>(dv_acc, round_to(p, q), dos[i], sub);
+      axpy<P>(dk_acc, dscore(p, dp, delta_s[i], scale, q), qs[i], sub);
     }
   }
   if (!live) return;

@@ -54,8 +54,9 @@
 // one key block of at most 256 keys at D = 64 on wgmma),
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
 // statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
-// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32 on
-// mma.sync). fp32 runs on the
+// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 80,
+// 88 and 104 on mma.sync, 88 and 104 padded to 96 and 112 columns). fp32
+// runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
 // only q, k, v are kept).
@@ -108,6 +109,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
   }
+  if (head_dim == 80) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
+    MRCLIP_LAUNCH(float, 80);
+  }
+  if (head_dim == 88) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
+    MRCLIP_LAUNCH(float, 88);
+  }
+  if (head_dim == 104) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
+    MRCLIP_LAUNCH(float, 104);
+  }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -137,6 +150,18 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
+  }
+  if (head_dim == 80) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
+    MRCLIP_LAUNCH(float, 80);
+  }
+  if (head_dim == 88) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
+    MRCLIP_LAUNCH(float, 88);
+  }
+  if (head_dim == 104) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
+    MRCLIP_LAUNCH(float, 104);
   }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -32,9 +32,10 @@
 // takes delta, then a dk/dv pass; Q, dO or K, V fragments in registers, the
 // other pair staged once per group where the group has at most 256 rows).
 // fp32 takes one block per (group, 64-row query tile), four lanes per row,
-// 64-key K/V tiles staged in fp32 (attn_rows.cuh): the forward walks the
-// keys twice; the backward is K3's two passes (dQ + delta per query tile;
-// dK, dV per key tile).
+// K/V tiles of 64 keys (32 past D = 80) staged in fp32 (attn_rows.cuh): the
+// forward walks the keys twice; the backward is K3's two passes (dQ + delta
+// per query tile; dK, dV per key tile). Head dims 32, 64, 80, 88 and 104;
+// 88 and 104 padded to 96 and 112 columns inside both families.
 //
 // Bound on an H100 SXM. Forward, ViT-B/16 vision at b256 (B*H = 3072
 // groups, N = 197, D = 64, bf16): q, k, v read and o written once (4 x 77.5
@@ -89,6 +90,18 @@ extern "C" int grouped_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
   }
+  if (head_dim == 80) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
+    MRCLIP_LAUNCH(float, 80);
+  }
+  if (head_dim == 88) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
+    MRCLIP_LAUNCH(float, 88);
+  }
+  if (head_dim == 104) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
+    MRCLIP_LAUNCH(float, 104);
+  }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -116,6 +129,18 @@ extern "C" int grouped_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
+  }
+  if (head_dim == 80) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
+    MRCLIP_LAUNCH(float, 80);
+  }
+  if (head_dim == 88) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
+    MRCLIP_LAUNCH(float, 88);
+  }
+  if (head_dim == 104) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
+    MRCLIP_LAUNCH(float, 104);
   }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

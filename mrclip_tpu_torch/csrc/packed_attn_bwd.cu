@@ -60,7 +60,9 @@
 // Both recompute S and dP. Four threads share a row (pass A) or a key
 // (pass B); each owns the float4 groups g = sub + 4*y of the head dimension,
 // so the four lanes read four neighbouring 16-byte words of a shared-memory
-// row (no bank conflicts) and two shuffles finish each dot product. A causal
+// row (no bank conflicts) and two shuffles finish each dot product. Rows are
+// pad16(D) wide in registers and shared memory, zero past D (D = 88, 104;
+// attn_tile.cuh), and kStage<D> rows are staged at once. A causal
 // tile skips the key (pass A) or query (pass B) tiles wholly above the
 // diagonal; ragged edges are masked in the kernel. In K3r each lane owns
 // whole float4 groups, so both members of every rotation pair sit in one
@@ -113,15 +115,18 @@ __device__ __forceinline__ void rope_row(float4 (&r)[D / 16], const float* t,
 }
 
 // Stage rows [0, len) of two packed tensors (this head's D columns)
-// into shared memory; rows past len are zero. With ROPE the rows of `a`
-// rotate on the way in, row r by table row r0 + r.
+// into shared memory rows of pad16(D); rows past len and columns past D are
+// zero. With ROPE (D = 32, 64) the rows of `a` rotate on the way in, row r
+// by table row r0 + r.
 template <int D, bool ROPE>
-__device__ __forceinline__ void stage(float (*a_s)[D], float (*b_s)[D],
+__device__ __forceinline__ void stage(float (*a_s)[pad16(D)], float (*b_s)[pad16(D)],
                                       const float* a, long long a_rs,
                                       const float* b, long long b_rs, int len,
                                       const float* tab, int r0) {
+  constexpr int P = pad16(D);
   if constexpr (ROPE) {  // one (row, pair) per step
-    for (int i = threadIdx.x; i < kTile * (D / 2); i += kThreads) {
+    static_assert(P == D, "rope takes D = 32 and 64");
+    for (int i = threadIdx.x; i < kStage<D> * (D / 2); i += kThreads) {
       const int r = i / (D / 2);
       const int d = 2 * (i % (D / 2));
       float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
@@ -140,10 +145,10 @@ __device__ __forceinline__ void stage(float (*a_s)[D], float (*b_s)[D],
       b_s[r][d + 1] = b1;
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      const bool in = r < len;
+    for (int i = threadIdx.x; i < kStage<D> * P; i += kThreads) {
+      const int r = i / P;
+      const int d = i % P;
+      const bool in = r < len && d < D;
       a_s[r][d] = in ? load_f(a + (long long)r * a_rs + d) : 0.f;
       b_s[r][d] = in ? load_f(b + (long long)r * b_rs + d) : 0.f;
     }
@@ -163,8 +168,9 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ delta, float* __restrict__ dq,
                        int n, int nk, int heads, Strides st, float scale,
                        int causal) {
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int P = pad16(D), KS = kStage<D>;
+  __shared__ __align__(16) float ks[KS][P];
+  __shared__ __align__(16) float vs[KS][P];
 
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
@@ -174,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = row < n;
   const long long hd = (long long)h * D;
 
-  float4 qr[D / 16], dor[D / 16], acc[D / 16];
+  float4 qr[P / 16], dor[P / 16], acc[P / 16];
   load_row<float, D>(qr, q + b * st.q_bs + row * st.q_rs + hd, sub, live);
   if constexpr (ROPE) {
     if (live) rope_row<D, false>(qr, tab + (long long)row * (2 * D), sub);
@@ -185,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
   load_row<float, D>(acc, o + b * st.o_bs + row * st.o_rs + hd, sub, live);
   float part = 0.f;
 #pragma unroll
-  for (int y = 0; y < D / 16; ++y) {
+  for (int y = 0; y < P / 16; ++y) {
     part = fmaf(dor[y].x, acc[y].x, part);
     part = fmaf(dor[y].y, acc[y].y, part);
     part = fmaf(dor[y].z, acc[y].z, part);
@@ -201,20 +207,20 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(nk, (tile + 1) * kTile) : nk;
   const float* kb = k + b * st.k_bs + hd;
   const float* vb = v + b * st.v_bs + hd;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    const int len = min(kTile, kv_end - k0);
+  for (int k0 = 0; k0 < kv_end; k0 += KS) {
+    const int len = min(KS, kv_end - k0);
     __syncthreads();  // every thread is done with the previous tile
     stage<D, ROPE>(ks, vs, kb + (long long)k0 * st.k_rs, st.k_rs,
                       vb + (long long)k0 * st.v_rs, st.v_rs, len, tab, k0);
     __syncthreads();
     for (int j = 0; j < len; ++j) {
       // every lane takes part in the shuffles, masked or not
-      const float s = lane_sum(dot_part<D>(qr, ks[j], sub));
-      const float dp = lane_sum(dot_part<D>(dor, vs[j], sub));
+      const float s = lane_sum(dot_part<P>(qr, ks[j], sub));
+      const float dp = lane_sum(dot_part<P>(dor, vs[j], sub));
       if (!live || (causal && k0 + j > row)) continue;  // P is exactly 0
       const float p = expf(s * scale - lse_r);
       const float ds = p * (dp - dl) * scale;
-      axpy<D>(acc, ds, ks[j], sub);
+      axpy<P>(acc, ds, ks[j], sub);
     }
   }
   if (!live) return;
@@ -238,10 +244,11 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ dk, float* __restrict__ dv, int n,
                         int nk, int heads, Strides st, float scale,
                         int causal) {
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  constexpr int P = pad16(D), KS = kStage<D>;
+  __shared__ __align__(16) float qs[KS][P];
+  __shared__ __align__(16) float dos[KS][P];
+  __shared__ float lse_s[KS];
+  __shared__ float delta_s[KS];
 
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
@@ -251,31 +258,31 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = key < nk;
   const long long hd = (long long)h * D;
 
-  float4 kr[D / 16], vr[D / 16], dk_acc[D / 16], dv_acc[D / 16];
+  float4 kr[P / 16], vr[P / 16], dk_acc[P / 16], dv_acc[P / 16];
   load_row<float, D>(kr, k + b * st.k_bs + key * st.k_rs + hd, sub, live);
   if constexpr (ROPE) {
     if (live) rope_row<D, false>(kr, tab + (long long)key * (2 * D), sub);
   }
   load_row<float, D>(vr, v + b * st.v_bs + key * st.v_rs + hd, sub, live);
 #pragma unroll
-  for (int y = 0; y < D / 16; ++y) {
+  for (int y = 0; y < P / 16; ++y) {
     dk_acc[y] = make_float4(0.f, 0.f, 0.f, 0.f);
     dv_acc[y] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
   // Causal: queries before this tile's first key see none of its keys
-  // (query tiles start at multiples of kTile too).
+  // (query tiles start at multiples of KS, which divides kTile).
   const int q_begin = causal ? tile * kTile : 0;
   const float* qb = q + b * st.q_bs + hd;
   const float* db = dout + b * st.do_bs + hd;
   const float* lb = lse + (b * heads + h) * n;
   const float* deltab = delta + (b * heads + h) * n;
-  for (int q0 = q_begin; q0 < n; q0 += kTile) {
-    const int len = min(kTile, n - q0);
+  for (int q0 = q_begin; q0 < n; q0 += KS) {
+    const int len = min(KS, n - q0);
     __syncthreads();
     stage<D, ROPE>(qs, dos, qb + (long long)q0 * st.q_rs, st.q_rs,
                       db + (long long)q0 * st.do_rs, st.do_rs, len, tab, q0);
-    if (threadIdx.x < kTile) {
+    if (threadIdx.x < KS) {
       const bool in = threadIdx.x < len;
       lse_s[threadIdx.x] = in ? lb[q0 + threadIdx.x] : 0.f;
       delta_s[threadIdx.x] = in ? deltab[q0 + threadIdx.x] : 0.f;
@@ -283,13 +290,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     for (int i = 0; i < len; ++i) {
       // every lane takes part in the shuffles, masked or not
-      const float s = lane_sum(dot_part<D>(kr, qs[i], sub));
-      const float dp = lane_sum(dot_part<D>(vr, dos[i], sub));
+      const float s = lane_sum(dot_part<P>(kr, qs[i], sub));
+      const float dp = lane_sum(dot_part<P>(vr, dos[i], sub));
       if (!live || (causal && key > q0 + i)) continue;  // P is exactly 0
       const float p = expf(s * scale - lse_s[i]);
       const float ds = p * (dp - delta_s[i]) * scale;
-      axpy<D>(dv_acc, p, dos[i], sub);
-      axpy<D>(dk_acc, ds, qs[i], sub);
+      axpy<P>(dv_acc, p, dos[i], sub);
+      axpy<P>(dk_acc, ds, qs[i], sub);
     }
   }
   if (!live) return;
@@ -325,9 +332,9 @@ int launch_fma(const void* q, const void* k, const void* v, const void* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both entry points, by type and head dim (64 | 32): bf16 on the tensor
-// cores (K5's form: delta at (b * heads + h) * n + row of the [B, H, N]
-// scratch), fp32 on the FMA kernels.
+// Both entry points, by type and head dim (64 | 32, and for K3 80 | 88 |
+// 104): bf16 on the tensor cores (K5's form: delta at (b * heads + h) * n +
+// row of the [B, H, N] scratch), fp32 on the FMA kernels.
 template <bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const void* tab,
              const void* o, const void* dout, const void* lse, void* delta,
@@ -354,6 +361,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH_MMA(32);
     MRCLIP_LAUNCH(32);
+  }
+  if constexpr (!ROPE) {  // the rope tables are D = 32 and 64 only
+    if (head_dim == 80) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(80);
+      MRCLIP_LAUNCH(80);
+    }
+    if (head_dim == 88) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(88);
+      MRCLIP_LAUNCH(88);
+    }
+    if (head_dim == 104) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(104);
+      MRCLIP_LAUNCH(104);
+    }
   }
 #undef MRCLIP_LAUNCH_MMA
 #undef MRCLIP_LAUNCH

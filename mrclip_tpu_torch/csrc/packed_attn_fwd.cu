@@ -75,10 +75,11 @@
 namespace {
 
 constexpr int kRows = 64;  // query rows per block, one thread each (fp32)
-constexpr int kKeys = 64;  // keys per shared-memory K/V tile
 constexpr int kChunk = 8;  // keys scored together per online-softmax update
 
-// The fp32 forward (bf16 runs attn_mma_fwd.cuh's kernels).
+// The fp32 forward (bf16 runs attn_mma_fwd.cuh's kernels), any D that is a
+// multiple of 4; K/V tiles of kKeys keys (attn_tile.cuh's kStage<D>: 64 up
+// to D = 80, 32 past it, so the two tiles stay under 48 KB).
 template <int D, bool ROPE>
 __global__ void __launch_bounds__(kRows)
     packed_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -88,6 +89,7 @@ __global__ void __launch_bounds__(kRows)
                            long long q_bs, long long q_rs, long long k_bs,
                            long long k_rs, long long v_bs, long long v_rs,
                            float scale, int causal) {
+  constexpr int kKeys = kStage<D>;
   __shared__ __align__(16) float ks[kKeys][D];
   __shared__ __align__(16) float vs[kKeys][D];
 
@@ -219,9 +221,10 @@ int launch(const void* q, const void* k, const void* v, const void* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both entry points, by type and head dim (64 | 32): bf16 on the tensor
-// cores, one key block of all nk keys (K4's form: o [B, N, H*D] contiguous,
-// lse [B, H, N] at (b * heads + h) * n + row), fp32 on the FMA kernel.
+// Both entry points, by type and head dim (64 | 32, and for K1 80 | 88 |
+// 104): bf16 on the tensor cores, one key block of all nk keys (K4's form:
+// o [B, N, H*D] contiguous, lse [B, H, N] at (b * heads + h) * n + row),
+// fp32 on the FMA kernel.
 template <bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const void* tab,
              void* o, void* lse, int is_bf16, int batch, int n, int nk,
@@ -246,6 +249,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH_MMA(32);
     MRCLIP_LAUNCH(32);
+  }
+  if constexpr (!ROPE) {  // the rope tables are D = 32 and 64 only
+    if (head_dim == 80) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(80);
+      MRCLIP_LAUNCH(80);
+    }
+    if (head_dim == 88) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(88);
+      MRCLIP_LAUNCH(88);
+    }
+    if (head_dim == 104) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(104);
+      MRCLIP_LAUNCH(104);
+    }
   }
 #undef MRCLIP_LAUNCH_MMA
 #undef MRCLIP_LAUNCH

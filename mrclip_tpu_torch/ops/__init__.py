@@ -18,6 +18,25 @@ def launch_counts() -> dict:
             **dc.launches}
 
 
+def launch_counts_by_width() -> dict:
+    """The attention kernels' launches since their module's last
+    `reset_launches`, by kernel name and head dim: {name: {d: count}}."""
+    from . import flash_attn as fl
+    from . import fused_attn as fa
+
+    kernels = ((fa, {"launches": "packed_attn_fwd", "bwd_launches": "packed_attn_bwd",
+                     "rope_launches": "packed_attn_rope_fwd",
+                     "rope_bwd_launches": "packed_attn_rope_bwd",
+                     "grouped_launches": "grouped_attn_fwd",
+                     "grouped_bwd_launches": "grouped_attn_bwd"}),
+               (fl, {"launches": "flash_attn_fwd", "bwd_launches": "flash_attn_bwd"}))
+    out: dict = {}
+    for module, names in kernels:
+        for (counter, d), n in module.width_launches.items():
+            out.setdefault(names[counter], {})[d] = n
+    return out
+
+
 def launches_since(before: dict) -> dict:
     """The kernels launched since the `launch_counts()` snapshot `before`,
     with their counts."""

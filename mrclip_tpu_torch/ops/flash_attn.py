@@ -40,7 +40,7 @@ import threading
 import torch
 
 from . import build
-from .fused_attn import check_rows_aligned_16
+from .fused_attn import check_head_dim, check_rows_aligned_16
 
 __all__ = [
     "FlashAttention",
@@ -51,6 +51,7 @@ __all__ = [
     "flash_attention_unpadded",
     "flash_di",
     "launches",
+    "width_launches",
     "bwd_launches",
     "load_kernels",
     "pick_block",
@@ -59,13 +60,14 @@ __all__ = [
 
 _LANE = 128
 _MASK = -0.7 * float(torch.finfo(torch.float32).max)  # jax's DEFAULT_MASK_VALUE
-_HEAD_DIMS = (32, 64)
 
 # Launches since import or the last reset_launches() of K10 (forward) and
 # K10b (backward, both passes); one wrapper call counts one launch.
 launches = 0
 bwd_launches = 0
 _COUNTERS = ("launches", "bwd_launches")
+# The same launches by (counter name, head dim).
+width_launches: dict[tuple[str, int], int] = {}
 _count_lock = threading.Lock()
 
 
@@ -73,11 +75,13 @@ def reset_launches() -> None:
     with _count_lock:
         for name in _COUNTERS:
             globals()[name] = 0
+        width_launches.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, d: int) -> None:
     with _count_lock:
         globals()[name] += 1
+        width_launches[name, d] = width_launches.get((name, d), 0) + 1
 
 
 def _pad(n: int) -> int:
@@ -199,7 +203,7 @@ def load_kernels():
 
 def _check(name, ts):
     """Refuse what K10/K10b cannot take: `[B, L, H, D]` views on one CUDA
-    device, fp32 or bf16 of one type, head dim 32 or 64, heads contiguous
+    device, fp32 or bf16 of one type, a head dim of fused_attn.HEAD_DIMS, heads contiguous
     within a row, base pointer and batch and row strides multiples of 16
     bytes (the forward copies each row's head slice in 16-byte pieces)."""
     first = ts[0]
@@ -213,8 +217,7 @@ def _check(name, ts):
     if any(t.dim() != 4 for t in ts):
         raise ValueError(f"{name}: expected [B, L, H, D] tensors; got {[tuple(t.shape) for t in ts]}")
     d = first.shape[3]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
+    check_head_dim(name, d)
     if any(t.stride(3) != 1 or t.stride(2) != d for t in ts):
         raise ValueError(f"{name}: the heads of a row must be contiguous (strides [.., D, 1])")
     check_rows_aligned_16(name, ts)
@@ -267,7 +270,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    _count("launches")
+    _count("launches", d)
     return o, l, m
 
 
@@ -300,7 +303,7 @@ def flash_attention_bwd(
             )
         if err != 0:
             raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")
-        _count("bwd_launches")
+        _count("bwd_launches", d)
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return dq, dk, dv

@@ -70,7 +70,11 @@ __all__ = [
     "rope_table",
     "rows_aligned_16",
     "check_rows_aligned_16",
+    "check_head_dim",
+    "HEAD_DIMS",
+    "ROPE_HEAD_DIMS",
     "launches",
+    "width_launches",
     "bwd_launches",
     "rope_launches",
     "rope_bwd_launches",
@@ -85,7 +89,11 @@ __all__ = [
 ]
 
 _NEG = -1e30  # the TPU kernel's additive causal mask value
-_HEAD_DIMS = (32, 64)
+# Head dims the CUDA kernels take: ViT-B/L (64), the small towers (32),
+# ViT-H-14 (80), ViT-g-14 (88) and ViT-bigG-14 (104); the rope kernels (K2,
+# K3r) take EVA02's 64 and 32 only. flash_attn.py takes the same.
+HEAD_DIMS = (32, 64, 80, 88, 104)
+ROPE_HEAD_DIMS = (32, 64)
 
 # Launches since import or the last reset_launches() of the packed forward
 # (K1), backward (K3), rope forward (K2) and rope backward (K3r) and of the
@@ -99,6 +107,8 @@ grouped_launches = 0
 grouped_bwd_launches = 0
 _COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches",
              "grouped_launches", "grouped_bwd_launches")
+# The same launches by (counter name, head dim).
+width_launches: dict[tuple[str, int], int] = {}
 _count_lock = threading.Lock()
 
 
@@ -106,11 +116,22 @@ def reset_launches() -> None:
     with _count_lock:
         for name in _COUNTERS:
             globals()[name] = 0
+        width_launches.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, d: int) -> None:
     with _count_lock:
         globals()[name] += 1
+        width_launches[name, d] = width_launches.get((name, d), 0) + 1
+
+
+def check_head_dim(name: str, d: int, rope: bool = False) -> None:
+    """Refuse, with ValueError naming it, a head dim the CUDA kernels do not
+    take (`HEAD_DIMS`; `ROPE_HEAD_DIMS` with a rope table)."""
+    dims = ROPE_HEAD_DIMS if rope else HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"{name}: kernel takes head dim {dims}{' with rope' if rope else ''}; "
+                         f"got {d}")
 
 
 def _as_packed(t: torch.Tensor, heads):
@@ -258,8 +279,8 @@ def load_rope_kernel():
 
 def _check_kernel_inputs(name, packed, d):
     """Refuse what the CUDA kernels cannot take: packed `[B, L, H*D]` views
-    on one CUDA device, fp32 or bf16 of one type, head dim 32 or 64, a
-    contiguous packed head dimension."""
+    on one CUDA device, fp32 or bf16 of one type, a head dim of `HEAD_DIMS`,
+    a contiguous packed head dimension."""
     first = packed[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -268,8 +289,7 @@ def _check_kernel_inputs(name, packed, d):
     if first.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != first.dtype for t in packed):
         raise TypeError(f"{name}: kernel takes fp32 or bf16 tensors of one type; got "
                         f"{[t.dtype for t in packed]}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
+    check_head_dim(name, d)
     if any(t.stride(2) != 1 for t in packed):
         raise ValueError(f"{name}: the packed head dimension must be contiguous")
 
@@ -296,7 +316,8 @@ def check_rows_aligned_16(name, tensors):
 
 def _check_kernel_table(name, rope, q3, nk, d):
     """Refuse a rope table the kernels cannot take: `[N, 2D]`, q's type and
-    device, contiguous; self-attention only."""
+    device, contiguous; self-attention only; D in `ROPE_HEAD_DIMS`."""
+    check_head_dim(name, d, rope=True)
     _check_table(rope, q3.shape[1], nk, d, q3.dtype)
     if rope.device != q3.device:
         raise ValueError(f"{name}: rope table on {rope.device}, q on {q3.device}")
@@ -314,7 +335,8 @@ def fused_attention_packed(
     k, v: the same with Nk rows (Nk may differ from N). `rope`: an `[N, 2D]`
     sin||cos table in q's type (`rope_table`) by which q and k rotate inside
     the kernel (K2; self-attention, Nk = N). Returns (o in q's layout and
-    type, lse [B, H, N] fp32). bf16 and fp32, head dim 32 or 64; in bf16 the
+    type, lse [B, H, N] fp32). bf16 and fp32, head dim in `HEAD_DIMS` (32 or
+    64 with `rope`); in bf16 the
     base pointers (the table's too) and batch and row strides must be
     multiples of 16 bytes (the tensor-core kernel reads rows in 16-byte
     pieces). CPU tensors take the plain version; CUDA tensors launch the
@@ -355,7 +377,7 @@ def fused_attention_packed(
     entry = "packed_attn_fwd" if rope is None else "packed_attn_rope_fwd"
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    _count("launches" if rope is None else "rope_launches")
+    _count("launches" if rope is None else "rope_launches", d)
     return o.reshape(q.shape), lse
 
 
@@ -504,7 +526,7 @@ def fused_attention_packed_bwd(
         entry = "packed_attn_bwd" if rope is None else "packed_attn_rope_bwd"
         if err != 0:
             raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-        _count("bwd_launches" if rope is None else "rope_bwd_launches")
+        _count("bwd_launches" if rope is None else "rope_bwd_launches", d)
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return tuple(t.reshape(like.shape) for t, like in zip(out, (q, k, v)))
@@ -589,8 +611,8 @@ def _check_grouped(name, ts, n, nk, d):
     """Refuse what K4/K5 cannot take: contiguous, 16-byte aligned `[G, L,
     D]` tiles on one CUDA device (so the row and group strides are
     multiples of 16 bytes: K4 copies rows in 16-byte pieces), fp32 or bf16
-    of one type, head dim 32 or 64; q-like tensors with N rows, k-like with
-    Nk."""
+    of one type, a head dim of `HEAD_DIMS`; q-like tensors with N rows,
+    k-like with Nk."""
     first = ts[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -599,8 +621,7 @@ def _check_grouped(name, ts, n, nk, d):
     if first.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != first.dtype for t in ts):
         raise TypeError(f"{name}: kernel takes fp32 or bf16 tensors of one type; got "
                         f"{[t.dtype for t in ts]}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: kernel takes head dim {_HEAD_DIMS}; got {d}")
+    check_head_dim(name, d)
     if any(t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the grouped tiles must be contiguous [G, L, D] tensors "
                          "whose base pointer is a multiple of 16 bytes")
@@ -637,7 +658,7 @@ def fused_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         )
     if err != 0:
         raise RuntimeError(f"grouped_attn_fwd launch failed: cudaError {err}")
-    _count("grouped_launches")
+    _count("grouped_launches", d)
     return o, lse
 
 
@@ -670,7 +691,7 @@ def fused_attention_grouped_bwd(
             )
         if err != 0:
             raise RuntimeError(f"grouped_attn_bwd launch failed: cudaError {err}")
-        _count("grouped_bwd_launches")
+        _count("grouped_bwd_launches", d)
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return dq, dk, dv

@@ -98,12 +98,14 @@ class _Optimizer:
         return g
 
     def _decay(self, update: List[torch.Tensor], p: List[torch.Tensor], names: List[str]):
-        """update += wd * p where weight decay applies."""
+        """update += wd * p where weight decay applies, 32 tensors at a time
+        (the wd * p temporaries stay small beside 2.5 B parameters)."""
         mask = _wd_mask(dict(zip(names, p)))
         decay = [i for i, n in enumerate(names) if mask[n]]
-        if decay:
-            torch._foreach_add_([update[i] for i in decay],
-                                torch._foreach_mul([p[i] for i in decay], self.wd))
+        for k in range(0, len(decay), 32):
+            idx = decay[k:k + 32]
+            torch._foreach_add_([update[i] for i in idx],
+                                torch._foreach_mul([p[i] for i in idx], self.wd))
 
     def _apply(self, p: List[torch.Tensor], update: List[torch.Tensor], names: List[str]):
         """p += update, each frozen parameter's update multiplied by 0."""
@@ -168,16 +170,21 @@ class AdamW(_Optimizer):
         torch._foreach_mul_(g2, 1 - b2)
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, g2)
-        # update = mu_hat / (sqrt(nu_hat) + eps) [+ wd p], then * -lr
+        del g2
+        torch._foreach_copy_(mu_prev, mu)  # the cast to moments_dtype; mu stays fp32 below
+        # update = mu_hat / (sqrt(nu_hat) + eps) [+ wd p], then * -lr, in
+        # mu's buffers: two parameter-sized fp32 temporaries at most (mu and
+        # den), not four
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        update = torch._foreach_div(mu, bc1)
+        update = mu
+        torch._foreach_div_(update, bc1)
         torch._foreach_div_(update, den)
+        del den
         self._decay(update, p, names)
         torch._foreach_mul_(update, -lr)
         self._apply(p, update, names)
-        torch._foreach_copy_(mu_prev, mu)  # the cast to moments_dtype happens here, last
         return AdamWState(count=count, mu=state.mu, nu=state.nu)
 
 

@@ -117,7 +117,8 @@ def make_server(
     device=None,
 ):
     """An HTTP server over the artifact, loaded on `device` (CUDA unless
-    given; raises without a card). Call `serve_forever()` on it."""
+    given; raises without a card), the `ServedModel` as its `served`. Call
+    `serve_forever()` on it."""
     served = load_exported(artifact_path, device=device)
     tokenizer = SimpleTokenizer(context_length=served.meta.get("context_length", 98))
     if max_batch > 1:
@@ -182,7 +183,9 @@ def make_server(
             except Exception as e:  # surface shape/dtype issues to the client
                 return self._json(500, {"error": str(e)})
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.served = served  # the loaded model, for a caller in the same process
+    return server
 
 
 def main(argv=None):

@@ -715,6 +715,48 @@ def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):
         fl.flash_attention_bwd(q, k, v, o, l.double(), m, l)
 
 
+# ViT-H-14's, ViT-g-14's and ViT-bigG-14's head dims (88 and 104 padded to
+# 96 and 112 columns inside the kernels) at the tensor-core tiles' edges,
+# past 256 rows (the chunked walk; K10's three key blocks), at their vision
+# towers' 16 heads and at N = 400 (K10's two key blocks of 256, each staged
+# in two chunks past D = 80)
+WIDE_DIMS = (80, 88, 104)
+WIDE_SHAPES = [(2, n, n, 2, c) for n in (1, 15, 17, 65, 257) for c in (False, True)]
+WIDE_SHAPES += [(2, 257, 257, 16, False), (1, 400, 400, 2, False), (1, 400, 400, 2, True)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,nk,h,causal", WIDE_SHAPES)
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("kernels", ["K1", "K3", "K4/K5", "K10/K10b"])
+def test_kernels_match_plain_versions_at_wide_head_dims(cuda_device, kernels, d, b, n, nk, h,
+                                                        causal, dtype, tol):
+    """The tests above, with their bars, at head dims 80, 88 and 104."""
+    test = {"K1": test_kernel_matches_plain_version,
+            "K3": test_backward_kernel_matches_plain_version,
+            "K4/K5": test_grouped_kernels_match_plain_versions,
+            "K10/K10b": test_flash_kernels_match_plain_versions}[kernels]
+    test(cuda_device, b, n, nk, h, causal, d, dtype, tol)
+
+
+@pytest.mark.parametrize("d", [72, 112])
+def test_kernels_refuse_head_dims_they_do_not_take(cuda_device, d):
+    """D = 72 (SigLIP's and ViTamin's towers) and 112 (EVA02-E) are not
+    built: each wrapper raises before a launch, naming the width; the rope
+    kernels take 32 and 64 only."""
+    q, k, v = _inputs(1, 16, 16, 2, d, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match=f"head dim .*; got {d}$"):
+        fa.fused_attention_packed(q, k, v)
+    with pytest.raises(ValueError, match=f"head dim .*; got {d}$"):
+        fa.fused_attention_grouped(*(t[:, :, 0].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match=f"head dim .*; got {d}$"):
+        fl.flash_attention(q, k, v)
+    q, k, v = _inputs(1, 16, 16, 2, 80, cuda_device, torch.bfloat16)
+    table = torch.zeros(16, 160, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="with rope; got 80"):
+        fa.fused_attention_packed(q, k, v, rope=table)
+
+
 def test_flash_kernel_refuses_views_off_16_bytes(cuda_device):
     """K10 copies each row's head slice in 16-byte pieces: a view whose row
     stride or base pointer is not a multiple of 16 bytes is refused, and

@@ -100,6 +100,43 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     assert fa.launches == 0
 
 
+# The head dims of ViT-H-14 (80), ViT-g-14 (88) and ViT-bigG-14 (104), at
+# the bf16 kernel's tile edges (16-row fragments, 64-row sub-tiles); B = 2,
+# H = 2
+WIDE = [(n, c, d) for n in (1, 17, 65) for c in (False, True) for d in (80, 88, 104)]
+
+
+@pytest.mark.parametrize("n,causal,d", WIDE)
+def test_plain_version_matches_jax_at_wide_head_dims(n, causal, d):
+    """fp32: o and lse of the plain K1 against JAX's packed kernel
+    (`_pfwd_impl`, interpret mode) to 1e-4."""
+    b, h = 2, 2
+    q, k, v = _inputs(b, n, n, h, d, seed=d)
+    o, lse = fa.fused_attention_packed_ref(
+        *(torch.from_numpy(x).reshape(b, n, h * d) for x in (q, k, v)), is_causal=causal,
+        heads=h)
+    want_o, want_lse = _pfwd_impl(*(jnp.asarray(x).reshape(b, n, h * d) for x in (q, k, v)),
+                                  d, causal, True)
+    assert o.shape == (b, n, h * d) and lse.shape == (b, h, n)
+    assert np.abs(o.numpy() - np.asarray(want_o)).max() < 1e-4
+    assert np.abs(lse.numpy() - np.asarray(want_lse)).max() < 1e-4
+
+
+@pytest.mark.parametrize("d", [72, 112, 16, 128])
+def test_kernels_refuse_other_head_dims_by_name(d):
+    """The wrappers' width check (run before any launch) names the head
+    dim: the kernels take 32, 64, 80, 88 and 104 (D = 72 waits for SigLIP's
+    and ViTamin's towers, 112 for EVA02-E), and the rope kernels 32 and 64."""
+    for name in ("fused_attention_packed", "fused_attention_grouped", "flash_attention"):
+        with pytest.raises(ValueError, match=f"{name}: kernel takes head dim .*; got {d}$"):
+            fa.check_head_dim(name, d)
+    for d_ok in fa.HEAD_DIMS:
+        fa.check_head_dim("fused_attention_packed", d_ok)
+    assert fa.HEAD_DIMS == (32, 64, 80, 88, 104) and fa.ROPE_HEAD_DIMS == (32, 64)
+    with pytest.raises(ValueError, match="with rope; got 80"):
+        fa.check_head_dim("fused_attention_packed", 80, rope=True)
+
+
 def test_no_fallback_for_other_devices_and_bad_layouts():
     """Only a CPU tensor reaches the plain version: any other device goes to
     the kernel path, which raises on what the kernel cannot take."""

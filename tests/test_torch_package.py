@@ -100,6 +100,13 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
     "model_configs/EVA02-B-16.json",
     "model_configs/MobileCLIP-S1.json",
     "model_configs/MobileCLIP-S2.json",
+    "model_configs/ViT-B-32.json",
+    "model_configs/ViT-L-14.json",
+    "model_configs/ViT-L-14-336.json",
+    "model_configs/ViT-H-14.json",
+    "model_configs/ViT-H-14-378.json",
+    "model_configs/ViT-g-14.json",
+    "model_configs/ViT-bigG-14.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
     "assets/bin_intervals_et_20_rt_20.json",
     "preprocessing/binning.py",
