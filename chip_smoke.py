@@ -199,8 +199,35 @@ fails:
              image call, 24 at D = 64 per text call), held against the same
              weights' fp32 plain path by cosine, timed through ServedModel at
              b32 and b256, and its attention under 'fused' and 'flash' (K4,
-             K10 at D = 80) against its plain attention.
-Each path (4 to 16; phase 12 has five, one per objective; phase 13's train
+             K10 at D = 80) against its plain attention; after
+             `server_close` the card holds none of it (the batcher threads
+             end).
+ 17. siglip: the SigLIP and CLIPA families. K1/K3, K4/K5 and K10/K10b at
+             D = 72 (ViT-SO400M-SigLIP's towers, padded to 80 columns inside
+             the kernels) against their plain versions with phase 16's
+             bars, bf16 and fp32, at SO400M's vision shapes (N 256 at b256
+             and b32, N 729 at b32: 378 and 384 px, no CLS), its non-causal
+             text (N 64, b256) and the tile edges; which device kernels they
+             run; timings at those four shapes beside SDPA and the bounds.
+             Then ViT-SO400M-14-SigLIP at full width and depth (random
+             weights drawn on the card from seed 0, bf16, 'fusedp'): the
+             export's logit scale and bias, served through ServedModel
+             (K1 27 + 27 at D = 72 a b32 image and text call) against its
+             plain attention and the same weights' fp32 plain path,
+             `logits` with the bias, images/s at b32 and b256 and captions/s
+             at b256; trained with the SigLIP loss under remat 'full' at
+             b256 (gradients against plain attention at b32 first, also
+             under 'fused' and 'flash': K4/K5, K10/K10b at D = 72; 1 warm-up
+             and 3 timed steps, 108 K1 and 54 K3 each; a profiled step);
+             ViT-B-16-SigLIP-512 (N = 1024 at D = 64) and
+             ViT-bigG-14-CLIPA-336 (N = 577 at D = 104) served one b32 batch
+             each against their plain attention. The run ends with the
+             count of torch.profiler windows and of those that recorded no
+             device event, by phase.
+Phases 16 and 17's kernel checks and timings run right after the build
+(late in a long process the profiler loses the device records of short
+windows), their models after phase 15.
+Each path (4 to 17; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
 runs themselves) runs with the launch counts set to 0 just before it and
@@ -211,6 +238,8 @@ and imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import statistics
@@ -401,27 +430,57 @@ def median_ms(fns: dict, iters: int, runs: int = FWD_RUNS) -> tuple[dict, dict]:
     return {key: statistics.median(v) for key, v in reads.items()}, reads
 
 
+# The profiler windows this run opened, those that recorded no device event,
+# the phase each was opened in: `main` logs them at the end.
+PROFILER = {"phase": "", "windows": 0, "empty": 0, "first_empty": None, "empty_by_phase": {}}
+
+
+@contextlib.contextmanager
+def profiled():
+    """A torch.profiler window over CPU and CUDA activity (CUPTI), counted
+    in PROFILER with whether it recorded any device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield prof
+    PROFILER["windows"] += 1
+    if not any(ev.device_type == DeviceType.CUDA for ev in prof.events()):
+        PROFILER["empty"] += 1
+        phase = PROFILER["phase"]
+        PROFILER["empty_by_phase"][phase] = PROFILER["empty_by_phase"].get(phase, 0) + 1
+        if PROFILER["first_empty"] is None:
+            PROFILER["first_empty"] = (PROFILER["windows"], phase)
+
+
 def device_ms(fns: dict, launches: int = 10, runs: int = FWD_RUNS) -> dict:
     """Median over `runs` torch.profiler windows of each of `fns`' device
     time per call (the kernels that `launches` back-to-back calls ran): the
     kernel's own time, which cuda_ms exceeds where the host takes longer to
-    issue a call than the card takes to run it. None where the profiler
-    records no device time."""
+    issue a call than the card takes to run it. The profiler can lose some
+    or all of a window's device records (PROFILER): only whole windows are
+    read, those where every device kernel of the fn's windows appears a
+    multiple of `launches` times; None where fewer than half are whole."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     reads = {key: [] for key in fns}
     for _ in range(runs):
         for key, fn in fns.items():
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiled() as prof:
                 for _ in range(launches):
                     fn()
                 torch.cuda.synchronize()
-            total = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-                        if ev.device_type == DeviceType.CUDA)
-            reads[key].append(total / launches / 1e3)
-    return {key: statistics.median(v) if all(v) else None for key, v in reads.items()}
+            kernels = {ev.key: (ev.count, getattr(ev, "self_device_time_total", 0.0))
+                       for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+            reads[key].append(kernels)
+    out = {}
+    for key, windows in reads.items():
+        names = set().union(*windows)
+        whole = [sum(t for _, t in w.values()) / launches / 1e3 for w in windows
+                 if w and set(w) == names and all(n % launches == 0 for n, _ in w.values())]
+        out[key] = statistics.median(whole) if 2 * len(whole) > runs else None
+    return out
 
 
 def fmt_ms(ms) -> str:
@@ -559,17 +618,21 @@ def device_kernels(tag, calls, want, avoid=None, group=None):
     (the kernel the type routes to) and not `avoid` (a kernel whose name
     holds want's: "wgmma_bwd_" holds "mma_bwd_"), and, with `group`, unless
     `kernel_group` puts each name in that profiler group. "not measured"
-    where the profiler records no device kernel."""
+    where three profiler windows record no device kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     names = {}
     for dtype, fn in calls.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        seen = []
+        for _ in range(3):  # a window that records nothing is tried again
             torch.cuda.synchronize()
-        seen = sorted({ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA})
+            with profiled() as prof:
+                fn()
+                torch.cuda.synchronize()
+            seen = sorted({ev.key for ev in prof.key_averages()
+                           if ev.device_type == DeviceType.CUDA})
+            if seen:
+                break
         key = str(dtype)[6:]
         names[key] = seen or "not measured"
         ok = not seen or all(want[dtype] in name and not (avoid and avoid in name)
@@ -2001,7 +2064,7 @@ def grad_cosines(a: dict, b: dict):
 # where K2, K3, K3r, K5 and K10b land.
 K2_GROUP = "K2 packed_attn_rope_fwd"
 K10B_GROUP = "K10b flash_attn_bwd"
-ATTN_DIMS = (32, 64, 80, 88, 104)  # the attention kernels' head dims (fused_attn.HEAD_DIMS)
+ATTN_DIMS = (32, 64, 72, 80, 88, 104)  # the attention kernels' head dims (fused_attn.HEAD_DIMS)
 K3R_GROUP = "K3r packed_attn_rope_bwd"
 K3_GROUP = "K3 packed_attn_bwd / K5 grouped_attn_bwd"
 KERNEL_GROUPS = [
@@ -2049,10 +2112,9 @@ def profile_step(run, tag="[train]"):
     the host, so that share is an upper bound). {} if no device time was
     recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2067,10 +2129,12 @@ def profile_step(run, tag="[train]"):
         groups[kernel_group(ev.key)] += ms
     busy = sum(groups.values())
     if busy == 0:
-        log(f"{tag} profiler recorded no device time: breakdown by kernel not measured")
+        log(f"{tag} profiler recorded no device time (window {PROFILER['windows']} of the run): "
+            "breakdown by kernel not measured")
         return {}
+    records = sum(count for _, count, _ in kernels)
     log(f"{tag} profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
-        f"{1 - busy / wall_ms:.3f}; by group (ms): "
+        f"{1 - busy / wall_ms:.3f}, {records} device records; by group (ms): "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
@@ -2084,7 +2148,7 @@ def profile_step(run, tag="[train]"):
 # exact launches per dense step (one per attention layer per direction;
 # 'flash' launches K10 again in the backward) and which parameters are the
 # attention's input projections.
-VIT_PROJ = ("attn.in_proj_weight",)
+VIT_PROJ = ("attn.in_proj_weight", "attn.qkv.weight")  # open_clip's ViT, timm's (SigLIP)
 EVA_PROJ = ("attn.q_proj.weight", "attn.k_proj.weight", "attn.v_proj.weight")
 DW_WEIGHTS = ("mixer_dw.weight", "ffn.conv_dw.weight", "pos_emb_dw.weight")
 # `weights`: the parameters whose gradient comes through the path's kernels;
@@ -3856,6 +3920,82 @@ def wide_timings(shape, gen):
     return out
 
 
+def width_checks(shapes, gen):
+    """K1/K3, K4/K5 and K10/K10b against their plain versions at `shapes`
+    (phase 3's bars), bf16 and fp32. Returns {pair: {dtype: [max |o err|,
+    max |grad err|, max relative grad err]}}."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    worst = {pair: {bf16: [0.0, 0.0, 0.0], fp32: [0.0, 0.0, 0.0]} for pair in ATTN_PAIRS}
+    for shape in shapes:
+        for dtype in (bf16, fp32):
+            for pair, (fwd_out, ref_out, kinds, got, want) in wide_pairs(shape, dtype, gen).items():
+                errs = check_attention(pair, shape, dtype, (fwd_out, ref_out, kinds), (got, want))
+                worst[pair][dtype] = [max(a, b) for a, b in zip(worst[pair][dtype], errs)]
+    return worst
+
+
+def width_device_kernels(shape, gen):
+    """Which device kernels the six run at `shape` (profiler), bf16 and
+    fp32: mma_fwd_kernel and mma_bwd_* in bf16 (the wgmma route is D = 64
+    only), the FMA kernels in fp32; K10 in its several-block (MULTI) form
+    where jax walks more than one key block. {kernel name: {dtype: names}}."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    bf16 = torch.bfloat16
+    h, d = shape["h"], shape["d"]
+    multi = "true" if fl._blocks(shape["n"], shape["nk"])[2] > 1 else "false"
+    wants = {
+        "packed_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
+                            f"packed_attn_fwd_kernel<{d}, false>", None),
+        "grouped_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
+                             f"rows_fwd_kernel<float, {d}, false>", None),
+        "flash_attn_fwd": (f"mma_fwd_kernel<{d}, true, {multi}, false>",
+                           f"rows_fwd_kernel<float, {d}, true>", None),
+        "packed_attn_bwd": ("mma_bwd_", "attn_bwd_", K3_GROUP),
+        "grouped_attn_bwd": ("mma_bwd_", "rows_bwd_", K3_GROUP),
+        "flash_attn_bwd": ("mma_bwd_", "rows_bwd_", K10B_GROUP)}
+    names = {}
+    for dtype in (bf16, torch.float32):
+        q, k, v = qkv_slices(shape, dtype, gen)
+        o, lse = fa.fused_attention_packed(q, k, v, heads=h)
+        qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
+        og, lseg = fa.fused_attention_grouped(qg, kg, vg)
+        q3, k3, v3 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+        of, l, m = fl.flash_attention(q3, k3, v3)
+        di = fl.flash_di(of, of)
+        calls = {
+            "packed_attn_fwd": lambda: fa.fused_attention_packed(q, k, v, heads=h),
+            "packed_attn_bwd": lambda: fa.fused_attention_packed_bwd(q, k, v, o, o, lse, heads=h),
+            "grouped_attn_fwd": lambda: fa.fused_attention_grouped(qg, kg, vg),
+            "grouped_attn_bwd": lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, og, lseg),
+            "flash_attn_fwd": lambda: fl.flash_attention(q3, k3, v3),
+            "flash_attn_bwd": lambda: fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
+        for name, (want_bf16, want_fp32, group) in wants.items():
+            want = want_bf16 if dtype == bf16 else want_fp32
+            seen = device_kernels(f"{name} D={d} N={shape['n']}", {dtype: calls[name]},
+                                  {dtype: want}, avoid="wgmma", group=group)
+            names.setdefault(name, {}).update(seen)
+    return names
+
+
+def width_results(model, worst, names, timed):
+    """{kernel name: the results phase 16 and 17 record for one head dim}:
+    the worst errors of `width_checks`, the device kernels, and the timings
+    of `wide_timings` under their labels."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = {}
+    for pair, (fwd_name, bwd_name) in ATTN_PAIRS.items():
+        for name, i in ((fwd_name, 0), (bwd_name, 1)):
+            out[name] = dict(
+                model=model, max_abs_err=worst[pair][bf16][i],
+                max_abs_err_fp32=worst[pair][fp32][i],
+                **({"max_rel_err": worst[pair][bf16][2],
+                    "max_rel_err_fp32": worst[pair][fp32][2]} if i else {}),
+                device_kernels=names[name], **{label: t[name] for label, t in timed.items()})
+    return out
+
+
 def phase_kernel_widths():
     """K1/K3, K4/K5 and K10/K10b at head dims 80, 88 and 104 against their
     plain versions with phase 3's bars, bf16 and fp32, forward and backward:
@@ -3864,71 +4004,21 @@ def phase_kernel_widths():
     device kernels each runs (bf16: mma_fwd_kernel, mma_bwd_*; the wgmma
     route stays at D = 64 with at most 256 keys); timings at b256 and b32.
     Returns {kernel name: {d: results}}."""
-    from mrclip_tpu_torch.ops import flash_attn as fl
-    from mrclip_tpu_torch.ops import fused_attn as fa
-
     gen = torch.Generator(device="cuda").manual_seed(16)
-    bf16, fp32 = torch.bfloat16, torch.float32
     widths = {name: {} for pair in ATTN_PAIRS.values() for name in pair}
     for d, model in WIDE_MODELS.items():
         t0 = time.perf_counter()
-        worst = {pair: {bf16: [0.0, 0.0, 0.0], fp32: [0.0, 0.0, 0.0]} for pair in ATTN_PAIRS}
         shapes = [dict(WIDE_VISION, d=d), dict(WIDE_VISION, d=d, b=TRAIN_BATCH),
                   *(dict(s, d=d) for s in WIDE_EDGES)]
-        for shape in shapes:
-            for dtype in (bf16, fp32):
-                for pair, (fwd_out, ref_out, kinds, got, want) in wide_pairs(shape, dtype, gen).items():
-                    errs = check_attention(pair, shape, dtype, (fwd_out, ref_out, kinds), (got, want))
-                    worst[pair][dtype] = [max(a, b) for a, b in zip(worst[pair][dtype], errs)]
+        worst = width_checks(shapes, gen)
         log(f"[widths] D = {d} ({model}): {len(shapes)} shapes x bf16, fp32 x 3 kernel pairs "
             f"checked in {time.perf_counter() - t0:.1f} s")
-
-        shape = dict(WIDE_VISION, d=d)
-        h = shape["h"]
-        names = {}
-        for dtype in (bf16, fp32):
-            q, k, v = qkv_slices(shape, dtype, gen)
-            o, lse = fa.fused_attention_packed(q, k, v, heads=h)
-            qg, kg, vg = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v))
-            og, lseg = fa.fused_attention_grouped(qg, kg, vg)
-            q3, k3, v3 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
-            of, l, m = fl.flash_attention(q3, k3, v3)
-            di = fl.flash_di(of, of)
-            calls = {
-                "packed_attn_fwd": lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=h),
-                "packed_attn_bwd": lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
-                    q, k, v, o, o, lse, heads=h),
-                "grouped_attn_fwd": lambda qg=qg, kg=kg, vg=vg: fa.fused_attention_grouped(qg, kg, vg),
-                "grouped_attn_bwd": lambda qg=qg, kg=kg, vg=vg, og=og, lseg=lseg:
-                    fa.fused_attention_grouped_bwd(qg, kg, vg, og, og, lseg),
-                "flash_attn_fwd": lambda q3=q3, k3=k3, v3=v3: fl.flash_attention(q3, k3, v3),
-                "flash_attn_bwd": lambda q3=q3, k3=k3, v3=v3, of=of, l=l, m=m, di=di:
-                    fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
-            wants = {  # N = 257: K10 walks jax's three key blocks of 128 (MULTI)
-                "packed_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
-                                    f"packed_attn_fwd_kernel<{d}, false>", None),
-                "grouped_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
-                                     f"rows_fwd_kernel<float, {d}, false>", None),
-                "flash_attn_fwd": (f"mma_fwd_kernel<{d}, true, true, false>",
-                                   f"rows_fwd_kernel<float, {d}, true>", None),
-                "packed_attn_bwd": ("mma_bwd_", "attn_bwd_", K3_GROUP),
-                "grouped_attn_bwd": ("mma_bwd_", "rows_bwd_", K3_GROUP),
-                "flash_attn_bwd": ("mma_bwd_", "rows_bwd_", K10B_GROUP)}
-            for name, (want_bf16, want_fp32, group) in wants.items():
-                want = want_bf16 if dtype == bf16 else want_fp32
-                seen = device_kernels(f"{name} D={d}", {dtype: calls[name]}, {dtype: want},
-                                      avoid="wgmma", group=group)
-                names.setdefault(name, {}).update(seen)
+        shape = dict(WIDE_VISION, d=d)  # N = 257: K10 walks jax's three key blocks of 128
+        names = width_device_kernels(shape, gen)
         timed = {"b256": wide_timings(dict(shape, b=TRAIN_BATCH), gen),
                  "b32": wide_timings(shape, gen)}
-        for pair, (fwd_name, bwd_name) in ATTN_PAIRS.items():
-            for name, i in ((fwd_name, 0), (bwd_name, 1)):
-                widths[name][d] = dict(
-                    model=model, max_abs_err=worst[pair][bf16][i],
-                    max_abs_err_fp32=worst[pair][fp32][i],
-                    **({"max_rel_err": worst[pair][bf16][2],
-                        "max_rel_err_fp32": worst[pair][fp32][2]} if i else {}),
-                    device_kernels=names[name], b256=timed["b256"][name], b32=timed["b32"][name])
+        for name, res in width_results(model, worst, names, timed).items():
+            widths[name][d] = res
     return widths
 
 
@@ -3952,12 +4042,19 @@ class attention_impl:
 
 def wide_layers(model_name):
     """(vision layers, vision head dim, text layers, text head dim) of a
-    model config."""
+    model config (a timm SigLIP tower's from the port's timm ViT table)."""
     from mrclip_tpu_torch.factory import get_model_config
+    from mrclip_tpu_torch.models import clip
 
     cfg = get_model_config(model_name)
     vis, txt = cfg["vision_cfg"], cfg["text_cfg"]
-    return vis["layers"], vis["head_width"], txt["layers"], txt["width"] // txt["heads"]
+    if vis.get("timm_model_name"):
+        width, layers, heads = clip._TIMM_VIT_DIMS[
+            clip._TIMM_VIT.match(vis["timm_model_name"]).group(1)]
+        n_vis, d_vis = layers, width // heads
+    else:
+        n_vis, d_vis = vis["layers"], vis.get("head_width", 64)
+    return n_vis, d_vis, txt["layers"], txt["width"] // txt["heads"]
 
 
 def build_on_card(name, seed=0, pretrained=None, **kw):
@@ -4124,12 +4221,22 @@ def phase_serve_h14(card):
     return paths, widths, perf
 
 
+def by_dim(*counts):
+    """{head dim: launches} summed over the towers' `counts`."""
+    out = {}
+    for c in counts:
+        for d, n in c.items():
+            out[d] = out.get(d, 0) + n
+    return out
+
+
 def wide_batch(model, n, seed):
     rng = np.random.RandomState(seed)
     size, ctx = model.visual.image_size[0], model.context_length
+    vocab = model.token_embedding.num_embeddings
     return {  # uint8 canvases as the loader ships them; normalised inside the step
         "images": torch.from_numpy(rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)).cuda(),
-        "tokens": torch.from_numpy(rng.randint(1, 49408, (n, ctx)).astype(np.int64)).cuda(),
+        "tokens": torch.from_numpy(rng.randint(1, vocab, (n, ctx)).astype(np.int64)).cuda(),
         "labels": torch.from_numpy(rng.randint(0, 32, (n,)).astype(np.int32)).cuda(),
     }
 
@@ -4141,9 +4248,11 @@ WIDE_GRAD_PATHS = {"fused": ("grouped_attn_fwd", 2, "grouped_attn_bwd"),
                    "flash": ("flash_attn_fwd", 3, "flash_attn_bwd")}
 
 
-def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, impls=()):
+def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, impls=(),
+              siglip=False):
     """The multipositive train step (AdamW, bf16 first moment, the pallas
-    loss, bf16 compute, remat 'full' as `model` was built) on `model`:
+    loss; with `siglip`, SigLIP's sigmoid loss with its learned bias; bf16
+    compute, remat 'full' as `model` was built) on `model`:
     gradients at the initial weights against the same model's plain
     attention at b32 (phase 5's loss bar; WIDE_GRAD_COS), also with its
     attention under each of `impls` ('fused', 'flash': exact launches, by
@@ -4161,8 +4270,11 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
     from mrclip_tpu_torch.parallel.train_step import loss_and_grads
 
     n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
-    args = dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True)
-    loss = make_loss_apply(create_loss(SimpleNamespace(**args, pallas_loss=True)))
+    args = (dict(siglip=True, loss_dist_impl="bidir", model=model_name) if siglip else
+            dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True,
+                 pallas_loss=True))
+    loss = make_loss_apply(create_loss(SimpleNamespace(**args)))
+    loss_kernels = {} if siglip else PALLAS_STEP  # the pallas loss's K6/K7 a step
 
     def prep(b):
         return dict(b, images=normalize_images(b["images"]))
@@ -4188,15 +4300,15 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
               and worst >= 0.99 and len(through) == n_vis + n_txt and not dead)
         if impl in WIDE_GRAD_PATHS:
             fwd_name, per_layer, bwd_name = WIDE_GRAD_PATHS[impl]
-            want = {fwd_name: per_layer * (n_vis + n_txt), bwd_name: n_vis + n_txt, **PALLAS_STEP}
-            want_width = {fwd_name: {d_vis: per_layer * n_vis, d_txt: per_layer * n_txt},
-                          bwd_name: {d_vis: n_vis, d_txt: n_txt}}
+            want = {fwd_name: per_layer * (n_vis + n_txt), bwd_name: n_vis + n_txt, **loss_kernels}
+            want_width = {fwd_name: by_dim({d_vis: per_layer * n_vis}, {d_txt: per_layer * n_txt}),
+                          bwd_name: by_dim({d_vis: n_vis}, {d_txt: n_txt})}
             ok = ok and counts == want and by_width == want_width
             grad_paths[impl] = (counts, by_width)
         log(f"{tag} {impl} vs the same model's plain attention, b{WIDE_STEP_BATCH}: loss "
             f"{lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-2); gradient cosine "
             f"whole {whole:.6f} (>= {WIDE_GRAD_COS}), min per tensor {worst:.6f} at {worst_name} "
-            f"(>= 0.99); {len(through) - len(dead)}/{len(through)} in_proj weights with a "
+            f"(>= 0.99); {len(through) - len(dead)}/{len(through)} in_proj/qkv weights with a "
             f"gradient; launches {counts}, by head dim {by_width} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{model_name}: the {impl} step's gradients disagree with plain")
@@ -4208,11 +4320,9 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
     step = build_train_step(model, loss, tx)
     batch = wide_batch(model, batch_size, 0)
     want = {"packed_attn_fwd": 2 * (n_vis + n_txt), "packed_attn_bwd": n_vis + n_txt,
-            **PALLAS_STEP}  # remat 'full': K1 again in each block's backward
-    want_width = {"packed_attn_fwd": {d_vis: 2 * n_vis, d_txt: 2 * n_txt} if d_vis != d_txt
-                  else {d_vis: 2 * (n_vis + n_txt)},
-                  "packed_attn_bwd": {d_vis: n_vis, d_txt: n_txt} if d_vis != d_txt
-                  else {d_vis: n_vis + n_txt}}
+            **loss_kernels}  # remat 'full': K1 again in each block's backward
+    want_width = {"packed_attn_fwd": by_dim({d_vis: 2 * n_vis}, {d_txt: 2 * n_txt}),
+                  "packed_attn_bwd": by_dim({d_vis: n_vis}, {d_txt: n_txt})}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path starts here
@@ -4236,7 +4346,8 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
     step_ms = statistics.median(timed)
     ok = (all(np.isfinite(losses)) and all(p == want for p in per_step)
           and all(w == want_width for w in per_width) and state.step == steps)
-    log(f"{tag} {model_name} b{batch_size}, remat 'full', pallas loss: {steps} steps, losses "
+    log(f"{tag} {model_name} b{batch_size}, remat 'full', {'siglip' if siglip else 'pallas'} "
+        f"loss: {steps} steps, losses "
         + ", ".join(f"{x:.5f}" for x in losses) + f"; step ms {', '.join(f'{x:.1f}' for x in times)}"
         f"; launches per step {per_step[0]} (want {want}), by head dim {per_width[0]} (want "
         f"{want_width}) {'ok' if ok else 'FAIL'}")
@@ -4273,6 +4384,39 @@ def phase_train_h14(card):
     return out
 
 
+def serve_against_plain(name, served, images, tokens, tag):
+    """`encode_image` and `encode_text` through `served` (a ServedModel under
+    'fusedp'), its launches read right after: K1 once a layer at each
+    tower's head dim; the features against the same model's plain attention
+    (same weights and compute type) by cosine (>= 0.999). Returns
+    (launches, launches by width, image features)."""
+    from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
+
+    n_vis, d_vis, n_txt, d_txt = wide_layers(name)
+    model = served.model
+    reset_counts()  # the served path starts here
+    img = served.encode_image(images)
+    txt = served.encode_text(tokens)
+    launches = nonzero(launch_counts())  # read right after the run
+    by_width = launch_counts_by_width()
+    want = by_dim({d_vis: n_vis}, {d_txt: n_txt})
+    with torch.inference_mode(), attention_impl(model, "xla"):
+        ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
+        ref_txt = model.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
+    cos = min(cosine_rows(img, ref_img).min(), cosine_rows(txt, ref_txt).min())
+    embed = model.text_projection.weight.shape[0] if isinstance(
+        model.text_projection, torch.nn.Module) else model.text_projection.shape[1]
+    ok = (img.shape == (len(images), embed) and np.isfinite(img).all() and np.isfinite(txt).all()
+          and by_width == {"packed_attn_fwd": want} and cos >= 0.999)
+    log(f"{tag} {name} encode_image b{len(images)} ({images.shape[1]} px) + encode_text "
+        f"b{len(tokens)} (ctx {tokens.shape[1]}): features {img.shape}, launches by head dim "
+        f"{by_width} (want {{'packed_attn_fwd': {want}}}); min cosine vs the same model's plain "
+        f"attention {cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"serving {name} failed its checks")
+    return launches, by_width, img
+
+
 def phase_wide_models(card):
     """ViT-g-14 and ViT-bigG-14 at full width and depth (random weights
     from seed 0, bf16, 'fusedp', remat 'full'): `encode_image` at b32 and
@@ -4282,8 +4426,6 @@ def phase_wide_models(card):
     attention first), peak memory. Returns {path: launches}, {path:
     launches by width}, {path: per-step launches}, perf."""
     from mrclip_tpu_torch import SimpleTokenizer
-    from mrclip_tpu_torch.factory import get_model_config
-    from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
     from mrclip_tpu_torch.serving import ServedModel
 
     paths, widths, per_step, perf = {}, {}, {}, {}
@@ -4291,32 +4433,13 @@ def phase_wide_models(card):
     tokens = np.resize(SimpleTokenizer()(CAPTIONS), (WIDE_STEP_BATCH, 98))
     for name in ("ViT-g-14", "ViT-bigG-14"):
         key = name.lower().replace("-", "_").replace("vit_", "")
-        n_vis, d_vis, n_txt, d_txt = wide_layers(name)
         t0 = time.perf_counter()
         model = build_on_card(name, precision="bf16", attn_impl="fusedp", gelu_approx=True,
                               grad_checkpointing=True, remat_policy="full")
         served = ServedModel(model, {})
         log(f"[wide] {name} built on the card in {time.perf_counter() - t0:.1f} s")
-        reset_counts()  # the served path starts here
-        img = served.encode_image(images)
-        txt = served.encode_text(tokens)
-        paths[f"serve_{key}"] = nonzero(launch_counts())  # read right after the run
-        widths[f"serve_{key}"] = by_width = launch_counts_by_width()
-        want = ({d_vis: n_vis, d_txt: n_txt} if d_vis != d_txt else {d_vis: n_vis + n_txt})
-        with torch.inference_mode(), attention_impl(model, "xla"):
-            ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
-            ref_txt = model.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
-        cos = min(cosine_rows(img, ref_img).min(), cosine_rows(txt, ref_txt).min())
-        ok = (img.shape == (WIDE_STEP_BATCH, get_model_config(name)["embed_dim"])
-              and np.isfinite(img).all()
-              and np.isfinite(txt).all() and by_width == {"packed_attn_fwd": want}
-              and cos >= 0.999)
-        log(f"[wide] {name} encode_image b{WIDE_STEP_BATCH} + encode_text b{WIDE_STEP_BATCH}: "
-            f"features {img.shape}, launches by head dim {by_width} (want "
-            f"{{'packed_attn_fwd': {want}}}); min cosine vs the same model's plain attention "
-            f"{cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"serving {name} failed its checks")
+        paths[f"serve_{key}"], widths[f"serve_{key}"], _ = serve_against_plain(
+            name, served, images, tokens, "[wide]")
         t = time.perf_counter()
         for _ in range(3):
             served.encode_image(images)
@@ -4332,6 +4455,195 @@ def phase_wide_models(card):
     return paths, widths, per_step, perf
 
 
+# Phase 17: the SigLIP and CLIPA families. The attention kernels at head
+# dim 72 (ViT-SO400M-SigLIP's vision and text towers: 1152 wide, 16 heads),
+# SO400M served and trained at full width and depth, and one served batch
+# each of the longest sequences the port's configs reach
+SIGLIP_MODEL = "ViT-SO400M-14-SigLIP"
+SIGLIP_D = 72
+SIGLIP_SHAPES = {  # no CLS token; the text is non-causal
+    "b256": dict(b=TRAIN_BATCH, n=256, nk=256, h=16, d=SIGLIP_D, causal=False),  # 224 px / 14
+    "b32": dict(b=32, n=256, nk=256, h=16, d=SIGLIP_D, causal=False),
+    "n729_b32": dict(b=32, n=729, nk=729, h=16, d=SIGLIP_D, causal=False),  # 378 and 384 px
+    "text_b256": dict(b=TRAIN_BATCH, n=64, nk=64, h=16, d=SIGLIP_D, causal=False),  # ctx 64
+}
+SIGLIP_TIMED = 3  # timed SO400M steps at b256 after one warm-up
+# one served b32 batch each against plain attention: ViT-B-16-SigLIP-512's
+# N = 1024 at D = 64 (32 x 32 patches, no CLS) and ViT-bigG-14-CLIPA-336's N
+# = 577 at D = 104
+LONG_MODELS = ("ViT-B-16-SigLIP-512", "ViT-bigG-14-CLIPA-336")
+
+
+def phase_kernel_siglip():
+    """K1/K3, K4/K5 and K10/K10b at D = 72 against their plain versions with
+    phase 3's and phase 16's bars, bf16 and fp32, forward and backward, at
+    SO400M's shapes (vision N 256 at b256 and b32, N 729 at b32, non-causal
+    text N 64 at b256; 16 heads) and the tensor-core tiles' edges; which
+    device kernels each runs at N = 256 and 729; timed at the four shapes
+    (event and device ms, the plain version, SDPA, the bound). Returns
+    {kernel name: {72: results}}."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    t0 = time.perf_counter()
+    shapes = [*SIGLIP_SHAPES.values(), *(dict(s, d=SIGLIP_D) for s in WIDE_EDGES)]
+    worst = width_checks(shapes, gen)
+    log(f"[siglip] D = {SIGLIP_D} ({SIGLIP_MODEL}): {len(shapes)} shapes x bf16, fp32 x 3 "
+        f"kernel pairs checked in {time.perf_counter() - t0:.1f} s")
+    names = width_device_kernels(SIGLIP_SHAPES["b32"], gen)
+    for name, seen in width_device_kernels(SIGLIP_SHAPES["n729_b32"], gen).items():
+        for key, kernels in seen.items():
+            names[name][f"{key}_n729"] = kernels
+    timed = {label: wide_timings(shape, gen) for label, shape in SIGLIP_SHAPES.items()}
+    return {name: {SIGLIP_D: res}
+            for name, res in width_results(SIGLIP_MODEL, worst, names, timed).items()}
+
+
+def siglip_inputs(model, n, seed):
+    """n normalised images at the model's size and n token ids of its
+    context from its vocabulary (the hub tokenizer is not ported)."""
+    size, ctx = model.visual.image_size[0], model.context_length
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(1, model.token_embedding.num_embeddings, (n, ctx)).astype(np.int64)
+    return wide_images(n, size, seed), tokens
+
+
+def phase_serve_so400m(card):
+    """ViT-SO400M-14-SigLIP at full width and depth (random weights drawn on
+    the card from seed 0, bf16 compute, fp32 params, 'fusedp') through
+    `ServedModel`: `export_model`'s meta carries the logit scale and bias;
+    `encode_image` and `encode_text` at b32 with K1 once a layer at D = 72
+    (27 + 27) against the same model's plain attention, then against the
+    same weights' fp32 plain path (WIDE_SERVE_COS); `logits` with the bias;
+    `encode_image` at b32 and b256 and `encode_text` at b256 timed. Returns
+    ({path: launches}, {path: launches by width}, perf)."""
+    from mrclip_tpu_torch.ops import launch_counts_by_width
+    from mrclip_tpu_torch.serving import ServedModel, export_model
+
+    name = SIGLIP_MODEL
+    n_vis, d_vis, n_txt, d_txt = wide_layers(name)
+    t0 = time.perf_counter()
+    model = build_on_card(name, precision="bf16", attn_impl="fusedp")
+    exported = export_model(model)
+    meta = exported.meta
+    ok = abs(meta["logit_bias"] + 10.0) < 1e-6 and abs(meta["logit_scale"] - 10.0) < 1e-4
+    log(f"[serve-so400m] {name} built on the card and exported in "
+        f"{time.perf_counter() - t0:.1f} s ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} "
+        f"M params): meta logit_scale {meta['logit_scale']:.6f} (exp of ln 10), logit_bias "
+        f"{meta['logit_bias']} (-10) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the export does not carry the logit scale and bias")
+    served = ServedModel(model, meta)
+    images, tokens = siglip_inputs(model, 32, 17)
+    launches, by_width, img = serve_against_plain(name, served, images, tokens, "[serve-so400m]")
+    paths, widths = {"serve_so400m": launches}, {"serve_so400m": by_width}
+
+    txt = served.encode_text(tokens)
+    logits = served.logits(images[:4], tokens[:8])  # its own b4 and b8 calls
+    want = 10.0 * served.encode_image(images[:4]) @ served.encode_text(tokens[:8]).T - 10.0
+    err = np.abs(logits - want).max()
+    t0 = time.perf_counter()
+    plain = build_on_card(name, pretrained=exported.state_dict, precision="fp32", attn_impl="xla")
+    del exported
+    with torch.inference_mode():
+        ref_img = plain.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
+        ref_txt = plain.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
+    del plain
+    torch.cuda.empty_cache()
+    cos_img, cos_txt = cosine_rows(img, ref_img).min(), cosine_rows(txt, ref_txt).min()
+    ok = min(cos_img, cos_txt) >= WIDE_SERVE_COS and logits.shape == (4, 8) and err < 1e-3
+    log(f"[serve-so400m] served (bf16, K1) vs the fp32 plain path, same weights (built in "
+        f"{time.perf_counter() - t0:.1f} s): min cosine image {cos_img:.6f}, text {cos_txt:.6f} "
+        f"(>= {WIDE_SERVE_COS}); logits {logits.shape} = 10 img txt^T - 10 within {err:.2e} "
+        f"(range {logits.min():.3f} to {logits.max():.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"served {name} disagrees with the fp32 plain path or its bias")
+
+    perf = {"min_cosine_vs_fp32_plain": float(min(cos_img, cos_txt)),
+            "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    for bsz in (32, 256):
+        batch = np.ascontiguousarray(np.resize(images, (bsz, *images.shape[1:])))
+        before = launch_counts_by_width()
+        served.encode_image(batch)
+        got = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()}
+               for k, v in launch_counts_by_width().items()}
+        if got.get("packed_attn_fwd", {}).get(d_vis) != n_vis:
+            raise AssertionError(f"encode_image b{bsz}: launches by width {got}")
+        t = time.perf_counter()
+        for _ in range(3):
+            served.encode_image(batch)
+        perf[f"served_encode_image_b{bsz}_imgs_per_s"] = bsz * 3 / (time.perf_counter() - t)
+    tok256 = np.resize(tokens, (256, tokens.shape[1]))
+    served.encode_text(tok256)
+    t = time.perf_counter()
+    for _ in range(3):
+        served.encode_text(tok256)
+    perf["served_encode_text_b256_texts_per_s"] = 256 * 3 / (time.perf_counter() - t)
+    x = torch.from_numpy(np.resize(images, (256, *images.shape[1:]))).cuda()
+    with torch.inference_mode():
+        perf["device_encode_image_b256_ms_fusedp"] = cuda_ms(
+            lambda: model.encode_image(x, normalize=True), 3, warmup=1)
+    log(f"[serve-so400m] throughput on {card}: " + json.dumps(perf))
+    del served, model, x
+    torch.cuda.empty_cache()
+    return paths, widths, perf
+
+
+def phase_train_so400m(card):
+    """ViT-SO400M-14-SigLIP at full width and depth (random weights drawn on
+    the card from seed 0), bf16, 'fusedp', remat 'full', the SigLIP sigmoid
+    loss with its learned bias: gradients against plain attention at b32,
+    also with the attention under 'fused' and 'flash' (K4/K5 and K10/K10b
+    at D = 72, each a path), then one warm-up and SIGLIP_TIMED timed steps
+    at b256: 108 K1 and 54 K3 each, all at D = 72; pairs/s, peak memory; one
+    profiled step."""
+    t0 = time.perf_counter()
+    model = build_on_card(SIGLIP_MODEL, precision="bf16", attn_impl="fusedp",
+                          grad_checkpointing=True, remat_policy="full")
+    log(f"[train-so400m] {SIGLIP_MODEL} built on the card in {time.perf_counter() - t0:.1f} s")
+    out = wide_step(SIGLIP_MODEL, model, TRAIN_BATCH, 1 + SIGLIP_TIMED, card, "[train-so400m]",
+                    profile=True, impls=("fused", "flash"), siglip=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_long(card):
+    """One served b32 batch each of LONG_MODELS at full width and depth
+    (random weights from seed 0, bf16, 'fusedp') through `ServedModel`:
+    ViT-B-16-SigLIP-512 (vision N = 1024 at D = 64, text N = 64) and
+    ViT-bigG-14-CLIPA-336 (vision N = 577 at D = 104, avg pool and no
+    ln_pre; non-causal text N = 32 at D = 64), K1 once a layer, against the
+    same model's plain attention. Returns ({path: launches}, {path:
+    launches by width}, perf)."""
+    from mrclip_tpu_torch.serving import ServedModel
+
+    paths, widths, perf = {}, {}, {}
+    for name in LONG_MODELS:
+        key = "serve_" + name.lower().replace("-", "_").replace("vit_", "")
+        t0 = time.perf_counter()
+        model = build_on_card(name, precision="bf16", attn_impl="fusedp")
+        log(f"[serve-long] {name} built on the card in {time.perf_counter() - t0:.1f} s")
+        served = ServedModel(model, {})
+        images, tokens = siglip_inputs(model, 32, 18)
+        paths[key], widths[key], _ = serve_against_plain(name, served, images, tokens,
+                                                         "[serve-long]")
+        x = torch.from_numpy(images).cuda()
+        with torch.inference_mode():
+            perf[f"{key}_device_encode_image_b32_ms"] = cuda_ms(
+                lambda: model.encode_image(x, normalize=True), 3, warmup=1)
+        log(f"[serve-long] {name} encode_image b32 on the card: "
+            f"{perf[f'{key}_device_encode_image_b32_ms']:.2f} ms | {card}")
+        del served, model, x
+        torch.cuda.empty_cache()
+    return paths, widths, perf
+
+
+def mark(phase, t0):
+    """Log the run's seconds so far as `phase` starts; its profiler windows
+    are counted under it."""
+    PROFILER["phase"] = phase
+    log(f"[time] {phase} starts at {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4339,14 +4651,27 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mrclip_tpu_torch  # noqa: F401 - outside a checkout this fails before any output
 
+    t0 = time.perf_counter()
     name, smi = phase_card()
+    mark("2 build", t0)
     phase_build()
+    # phases 16 and 17's kernel checks and timings come first: they read
+    # device kernels and times from many short profiler windows, and late in
+    # a long process the profiler loses windows' device records (PROFILER,
+    # tools/profiler_windows.py)
+    mark("16 kernels", t0)
+    widths = phase_kernel_widths()
+    mark("17 kernels", t0)
+    for kname, res in phase_kernel_siglip().items():
+        widths[kname].update(res)
+    mark("3 kernel", t0)
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
                                       *phase_kernel_supcon(), *phase_kernel_grouped(),
                                       *phase_kernel_flash(), *phase_kernel_dw()]}
     fwd, rope_fwd = entries["packed_attn_fwd"], entries["packed_attn_rope_fwd"]
     k4, k10, k8 = entries["grouped_attn_fwd"], entries["flash_attn_fwd"], entries["dw_conv_fwd"]
     paths, per_step = {}, {}
+    mark("4-11 serve and train", t0)
     paths["serve"], fwd["launches_per_pair"], fwd["serving"] = phase_serve(fwd, smi)
     paths["train"], per_step["train"], fwd["training"] = phase_train("ViT-B-16", entries, smi)
     paths["serve_eva02"], rope_fwd["serving"] = phase_serve_eva02(entries, smi)
@@ -4366,22 +4691,24 @@ def main() -> int:
     paths["serve_mobileclip"], k8["serving"] = phase_serve_mobileclip(entries, smi)
     paths["train_mobileclip"], per_step["train_mobileclip"], k8["training"] = phase_train(
         "MobileCLIP-S1", entries, smi, attn_impl="bf16", timed=3)
+    mark("12 objectives", t0)
     obj_paths, obj_per_step, fwd["objectives"] = phase_objectives(entries, smi)
     paths.update(obj_paths)
     per_step.update(obj_per_step)
+    mark("13 cli", t0)
     cli_paths, cli_per_step, fwd["cli"], study = phase_cli(smi)
     paths.update(cli_paths)
     per_step.update(cli_per_step)
+    mark("14 options", t0)
     opt_paths, opt_per_step, fwd["options"] = phase_options(smi)
     paths.update(opt_paths)
     per_step.update(opt_per_step)
+    mark("15 fast input", t0)
     fast_paths, fast_per_step, fwd["fast_input"] = phase_fast_input(smi, study, fwd["cli"])
     paths.update(fast_paths)
     per_step.update(fast_per_step)
-    # phase 16: the attention kernels at head dims 80, 88 and 104, and the
-    # towers that need them
-    # (the HTTP server's worker threads keep its model to the end: it comes last)
-    widths = phase_kernel_widths()
+    # phase 16's models: the towers at head dims 80, 88 and 104
+    mark("16 models", t0)
     big_paths, wide_widths, big_per_step, big_perf = phase_wide_models(smi)
     paths.update(big_paths)
     per_step.update(big_per_step)
@@ -4389,10 +4716,33 @@ def main() -> int:
      h14_grads) = phase_train_h14(smi)
     for impl, (counts, by_width) in h14_grads.items():  # K4/K5 and K10/K10b at D = 80
         paths[f"grads_h14_{impl}"], wide_widths[f"grads_h14_{impl}"] = counts, by_width
+    held = torch.cuda.memory_allocated()
     wide_paths, serve_widths, h14_serve = phase_serve_h14(smi)
+    gc.collect()  # the server's handler class, a cycle, held the model too
+    kept = torch.cuda.memory_allocated() - held
+    log(f"[serve-h14] card memory after server_close: {kept / 1e9:+.3f} GB against before the "
+        f"server (its batcher threads ended and the model went with them) "
+        f"{'ok' if kept < 0.5e9 else 'FAIL'}")
+    if kept >= 0.5e9:
+        raise AssertionError("the served ViT-H-14 outlived its server")
     paths.update(wide_paths)
     wide_widths.update(serve_widths)
     fwd["wide_models"] = {"serve_h14": h14_serve, "train_h14": h14_train, **big_perf}
+    # phase 17's models: ViT-SO400M-14-SigLIP and the longest sequences
+    mark("17 models", t0)
+    so400m_paths, so400m_widths, so400m_serve = phase_serve_so400m(smi)
+    paths.update(so400m_paths)
+    wide_widths.update(so400m_widths)
+    (paths["train_so400m"], wide_widths["train_so400m"], per_step["train_so400m"], so400m_train,
+     so400m_grads) = phase_train_so400m(smi)
+    for impl, (counts, by_width) in so400m_grads.items():  # K4/K5 and K10/K10b at D = 72
+        paths[f"grads_so400m_{impl}"], wide_widths[f"grads_so400m_{impl}"] = counts, by_width
+    long_paths, long_widths, long_perf = phase_serve_long(smi)
+    paths.update(long_paths)
+    wide_widths.update(long_widths)
+    fwd["siglip_models"] = {"serve_so400m": so400m_serve, "train_so400m": so400m_train,
+                            **long_perf}
+    mark("end", t0)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
                 "train": [*TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], *PALLAS_STEP],
@@ -4413,25 +4763,34 @@ def main() -> int:
                 **{path: [*want] for path, want in big_per_step.items()},
                 "train_h14": [*per_step["train_h14"]],
                 **{f"grads_h14_{impl}": [fwd_name, bwd_name, *PALLAS_STEP]
-                   for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()}}
+                   for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()},
+                "serve_so400m": ["packed_attn_fwd"],
+                "train_so400m": [*per_step["train_so400m"]],
+                **{f"grads_so400m_{impl}": [fwd_name, bwd_name]
+                   for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()},
+                **{path: ["packed_attn_fwd"] for path in long_paths}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
+    new_dims = (*WIDE_MODELS, SIGLIP_D)
     for kname, entry in entries.items():
         by_path = {p: counts.get(kname, 0) for p, counts in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         entry["launches_per_step"] = {p: per_step[p].get(kname, 0) for p in per_step}
         entry["card"] = smi
-        if kname in widths:  # phase 16: the same kernel at head dims 80, 88 and 104
+        if kname in widths:  # phases 16 and 17: the same kernel at head dims 72 to 104
             entry["widths"] = {str(d): res for d, res in widths[kname].items()}
             entry["launches_at_new_widths"] = {
                 str(d): sum(w.get(kname, {}).get(d, 0) for w in wide_widths.values())
-                for d in WIDE_MODELS}
+                for d in new_dims}
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        *(r["max_abs_err"] for r in widths[kname].values()))
             entry["max_abs_err_fp32"] = max(entry["max_abs_err_fp32"],
                                             *(r["max_abs_err_fp32"] for r in widths[kname].values()))
+    log(f"[profiler] {PROFILER['windows']} windows opened, {PROFILER['empty']} recorded no "
+        f"device event; the first such: {PROFILER['first_empty']} (window, phase); by phase "
+        f"{PROFILER['empty_by_phase']}")
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -175,7 +175,7 @@
 // recomputed products, not device memory, set the pace; a warp's S -> P ->
 // dS -> product chain runs in series. Dynamic shared memory: 2 ch (D + 8) *
 // 2 bytes for a chunk of ch rows (dkv: plus 12 ch of statistics).
-// The wide head dims (D = 80, 88, 104; attn_mma_fwd.cuh's note): rows and
+// The wide head dims (D = 72, 80, 88, 104; attn_mma_fwd.cuh's note): rows and
 // fragments P = pad16(D) wide, the pad staged as zeros (stage_rows) or read
 // as zeros (load_frag_a: the upper 8 columns of the last 16), so dQ, dK and
 // dV carry zeros in the pad and store_frag_c writes the first D columns.
@@ -217,7 +217,7 @@ constexpr int mma_bwd_dkv_smem(int ch) {  // Q and dO chunks, three fp32 stats
 
 // The most rows the dq (DKV = false) or dkv pass stages at once: kMaxChunk
 // at D <= 64, else as many as leave two blocks an SM (the forward's
-// kTwoBlocksSmem; dq / dkv: 320 / 304 at D = 80, 272 / 256 at 88, 240 / 224
+// kTwoBlocksSmem; dq / dkv: 320 / 304 at D = 72 and 80, 272 / 256 at 88, 240 / 224
 // at 104), at most kMaxResident.
 template <int D, bool DKV>
 constexpr int mma_bwd_max_chunk() {
@@ -470,7 +470,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
                       const float* __restrict__ stat_a, const float* __restrict__ stat_b,
                       float* __restrict__ delta, bf16* __restrict__ dq, int n, int nk, int heads,
                       Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
@@ -609,7 +609,7 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
                        const float* __restrict__ stat_b, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int nk, int heads,
                        Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");

@@ -154,8 +154,9 @@
 // spilling 60 bytes (the N = 577 path, off the main paths). The rotation
 // pass takes two pieces per step: four spilled at D = 64, one timed slower
 // on the H100.
-// The wide head dims (D = 80, 88, 104): mma.sync m16n8k16 steps D by 16, so
-// 88 and 104 are padded to P = pad16(D) = 96 and 112 columns: stage_rows
+// The wide head dims (D = 72, 80, 88, 104): mma.sync m16n8k16 steps D by 16,
+// so 72, 88 and 104 are padded to P = pad16(D) = 80, 96 and 112 columns,
+// each by one 16-byte piece (8 columns) a row: stage_rows
 // zero-fills the pad pieces of every Q, K and V row (no source bytes), Q's
 // fragments, S = Q K^T over P / 16 k-steps and O = P V over P / 8 n-tiles
 // then carry zeros in the pad (they add nothing to S), and only the first
@@ -210,7 +211,7 @@ constexpr int mma_smem_bytes(int ch) {
 // The most keys mma_fwd_kernel stages at once: kMaxChunk at D <= 64 (whose
 // main-path shapes run wgmma; its mma.sync walks past 256 keys stay as
 // they were measured), else as many as leave two blocks an SM (288 at D =
-// 80, 240 at 88, 208 at 104), at most kMaxResident.
+// 72 and 80, 240 at 88, 208 at 104), at most kMaxResident.
 template <int D>
 constexpr int mma_max_chunk() {
   if (D <= 64) return kMaxChunk;
@@ -284,7 +285,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // Rows [0, len) of one (sample, head)'s D columns (row stride rs elements)
 // into shared rows of pad16(D) + 8 elements at `dst`, by 16-byte copies;
 // rows [len, len rounded up to 16) and the pad columns [D, pad16(D)) (D =
-// 88, 104) are zero-filled (no source bytes).
+// 72, 88, 104) are zero-filled (no source bytes).
 template <int D>
 __device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long long rs,
                                            int len) {
@@ -544,7 +545,7 @@ __global__ void __launch_bounds__(kMmaThreads, D > 64 ? 2 : 3)
                    bf16* __restrict__ o, float* __restrict__ stat_a,
                    float* __restrict__ stat_b, int n, int nk, int heads, Strides st, float scale,
                    int causal, int blk_q, int blk_k, int nblk, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(FLASH || !MULTI, "K4 walks one key block");

@@ -7,13 +7,13 @@
 // neighbouring 16-byte words of a shared-memory row (no bank conflicts) and
 // two shuffles finish each dot product.
 //
-// Head dims that are not a multiple of 16 (88, 104) are padded: a row in
+// Head dims that are not a multiple of 16 (72, 88, 104) are padded: a row in
 // registers and in shared memory is pad16(D) columns wide, the columns from
 // D on zero, so each lane keeps whole float4 groups and every product is
 // the unpadded one (the zeros add nothing); only the first D columns are
-// read from and written to device memory. The pad costs 9% (D = 88) and 8%
-// (D = 104) more FMAs; a lane layout that divides D (float2 groups, 11 or 13
-// a lane) would waste none, but halves the width of each shared-memory read
+// read from and written to device memory. The pad costs 11% (D = 72), 9%
+// (D = 88) and 8% (D = 104) more FMAs; a lane layout that divides D (float2
+// groups, 9, 11 or 13 a lane) would waste none, but halves the width of each shared-memory read
 // and needs a second set of these helpers.
 
 #pragma once

@@ -55,7 +55,8 @@
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
 // statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
 // = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 80,
-// 88 and 104 on mma.sync, 88 and 104 padded to 96 and 112 columns). fp32
+// 88 and 104 on mma.sync, 72, 88 and 104 padded to 80, 96 and 112
+// columns; D = 72 on mma.sync too). fp32
 // runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
@@ -109,6 +110,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
   }
+  if (head_dim == 72) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
+    MRCLIP_LAUNCH(float, 72);
+  }
   if (head_dim == 80) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
     MRCLIP_LAUNCH(float, 80);
@@ -150,6 +155,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
+  }
+  if (head_dim == 72) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
+    MRCLIP_LAUNCH(float, 72);
   }
   if (head_dim == 80) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);

@@ -34,8 +34,8 @@
 // fp32 takes one block per (group, 64-row query tile), four lanes per row,
 // K/V tiles of 64 keys (32 past D = 80) staged in fp32 (attn_rows.cuh): the
 // forward walks the keys twice; the backward is K3's two passes (dQ + delta
-// per query tile; dK, dV per key tile). Head dims 32, 64, 80, 88 and 104;
-// 88 and 104 padded to 96 and 112 columns inside both families.
+// per query tile; dK, dV per key tile). Head dims 32, 64, 72, 80, 88 and
+// 104; 72, 88 and 104 padded to 80, 96 and 112 columns inside both families.
 //
 // Bound on an H100 SXM. Forward, ViT-B/16 vision at b256 (B*H = 3072
 // groups, N = 197, D = 64, bf16): q, k, v read and o written once (4 x 77.5
@@ -90,6 +90,10 @@ extern "C" int grouped_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
   }
+  if (head_dim == 72) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
+    MRCLIP_LAUNCH(float, 72);
+  }
   if (head_dim == 80) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
     MRCLIP_LAUNCH(float, 80);
@@ -129,6 +133,10 @@ extern "C" int grouped_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 32) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
     MRCLIP_LAUNCH(float, 32);
+  }
+  if (head_dim == 72) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
+    MRCLIP_LAUNCH(float, 72);
   }
   if (head_dim == 80) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);

@@ -61,7 +61,7 @@
 // (pass B); each owns the float4 groups g = sub + 4*y of the head dimension,
 // so the four lanes read four neighbouring 16-byte words of a shared-memory
 // row (no bank conflicts) and two shuffles finish each dot product. Rows are
-// pad16(D) wide in registers and shared memory, zero past D (D = 88, 104;
+// pad16(D) wide in registers and shared memory, zero past D (D = 72, 88, 104;
 // attn_tile.cuh), and kStage<D> rows are staged at once. A causal
 // tile skips the key (pass A) or query (pass B) tiles wholly above the
 // diagonal; ragged edges are masked in the kernel. In K3r each lane owns
@@ -332,7 +332,7 @@ int launch_fma(const void* q, const void* k, const void* v, const void* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both entry points, by type and head dim (64 | 32, and for K3 80 | 88 |
+// Both entry points, by type and head dim (64 | 32, and for K3 72 | 80 | 88 |
 // 104): bf16 on the tensor cores (K5's form: delta at (b * heads + h) * n +
 // row of the [B, H, N] scratch), fp32 on the FMA kernels.
 template <bool ROPE>
@@ -363,6 +363,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
     MRCLIP_LAUNCH(32);
   }
   if constexpr (!ROPE) {  // the rope tables are D = 32 and 64 only
+    if (head_dim == 72) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(72);
+      MRCLIP_LAUNCH(72);
+    }
     if (head_dim == 80) {
       if (is_bf16) MRCLIP_LAUNCH_MMA(80);
       MRCLIP_LAUNCH(80);

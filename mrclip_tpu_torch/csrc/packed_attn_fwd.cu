@@ -221,7 +221,7 @@ int launch(const void* q, const void* k, const void* v, const void* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both entry points, by type and head dim (64 | 32, and for K1 80 | 88 |
+// Both entry points, by type and head dim (64 | 32, and for K1 72 | 80 | 88 |
 // 104): bf16 on the tensor cores, one key block of all nk keys (K4's form:
 // o [B, N, H*D] contiguous, lse [B, H, N] at (b * heads + h) * n + row),
 // fp32 on the FMA kernel.
@@ -251,6 +251,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
     MRCLIP_LAUNCH(32);
   }
   if constexpr (!ROPE) {  // the rope tables are D = 32 and 64 only
+    if (head_dim == 72) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(72);
+      MRCLIP_LAUNCH(72);
+    }
     if (head_dim == 80) {
       if (is_bf16) MRCLIP_LAUNCH_MMA(80);
       MRCLIP_LAUNCH(80);

@@ -116,7 +116,7 @@ def cast_dtype(precision: str) -> torch.dtype:
     if precision.startswith("pure_"):
         raise NotImplementedError(
             f"precision={precision!r} (low-precision weights) is not ported "
-            "(ROADMAP: later slice 6, int8 and export)"
+            "(ROADMAP: modules item 7, int8 and export)"
         )
     if precision in ("bf16", "amp_bf16", "amp_bfloat16", "fp16", "amp", "amp_fp16"):
         # as in the JAX package, fp16 requests map to bf16
@@ -150,7 +150,8 @@ def _init_weights(model: CLIP, generator: torch.Generator) -> None:
         elif name.endswith("mixer_scale"):
             torch.nn.init.ones_(p)
         elif name in ("visual.class_embedding", "visual.positional_embedding",
-                      "visual.trunk.cls_token", "visual.trunk.pos_embed"):
+                      "visual.trunk.cls_token", "visual.trunk.pos_embed",
+                      "visual.trunk.attn_pool.latent"):
             _normal_(p, model.visual.width ** -0.5, generator)
         elif p.dim() == 4:  # convolutions [out, in / groups, kh, kw]: fan_in = p[0].numel()
             _normal_(p, p[0].numel() ** -0.5, generator)
@@ -175,7 +176,7 @@ def model_from_config(
     as `build_args`, from which `serving.export_model` writes what
     rebuilding it takes."""
     if "multimodal_cfg" in cfg:
-        raise NotImplementedError("CoCa is not ported (ROADMAP: later slice 4, other towers)")
+        raise NotImplementedError("CoCa is not ported (ROADMAP: modules item 5, the other towers)")
     model = CLIP(
         embed_dim=cfg["embed_dim"],
         vision_cfg=cfg["vision_cfg"],
@@ -334,7 +335,7 @@ def create_loss(args) -> Callable[..., dict]:
         return partial(distill_clip_loss, gather_with_grad=gather)
     if "coca" in (get("model", "") or "").lower():
         raise NotImplementedError(
-            "the CoCa captioning loss is not ported (ROADMAP: modules item 5, other towers)")
+            "the CoCa captioning loss is not ported (ROADMAP: modules item 5, the other towers)")
     if get("siglip"):
         return partial(siglip_loss, impl=get("loss_dist_impl", "bidir"))
     if get("multipositiveloss"):

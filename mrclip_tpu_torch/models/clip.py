@@ -1,12 +1,14 @@
 """CLIP assembly of the port (counterpart of `mrclip_tpu/models/clip.py`):
-the plain ViT, the EVA02-B/L or the FastViT/MCi (MobileCLIP-S1/S2) tower and
-the causal text tower, L2-normalized embeddings and a learned temperature.
+the plain ViT (with CLIPA's options), the timm SigLIP ViT, the EVA02-B/L or
+the FastViT/MCi (MobileCLIP-S1/S2) tower and the open_clip text tower
+(causal or not, any pool, a projection with or without bias), L2-normalized
+embeddings, a learned temperature and SigLIP's logit bias.
 
 Attribute names follow open_clip's CLIP, whose text tower is inlined at the
 root, so the state dict that `mrclip_tpu.hub.export_torch_state_dict` writes
-(and an open_clip `.pt` of the same model) loads with `strict=True`.
-Configuration options of towers outside this slice raise
-`NotImplementedError` naming the ROADMAP slice that will port them.
+(and an open_clip `.pt` of the same model; a CustomTextCLIP's `text.`
+prefix is dropped on load) loads with `strict=True`. Configuration options
+not ported yet raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch import nn
 from .fastvit import FASTVIT_DIMS, FastViT
 from .layers import gelu_exact, gelu_tanh, quick_gelu
 from .text import TextTransformer, encode_tokens
-from .vision import EvaVisionTransformer, VisionTransformer
+from .vision import EvaVisionTransformer, SiglipVisionTransformer, VisionTransformer
 
 __all__ = ["CLIP", "CLIPVisionCfg", "CLIPTextCfg", "build_vision_tower", "build_text_tower"]
 
@@ -129,6 +131,11 @@ def _filter_cfg(cfg_cls, d):
     return cfg_cls(**{k: v for k, v in dict(d).items() if k in names})
 
 
+# The ROADMAP items (its "Still to port: modules") that refusals name
+OTHER_CONFIGS = "modules item 4, the other configs"
+OTHER_TOWERS = "modules item 5, the other towers"
+
+
 def _reject(unsupported: dict, what: str, roadmap: str) -> None:
     for name, bad in unsupported.items():
         if bad:
@@ -154,7 +161,7 @@ def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
         "patch dropout with rope": cfg.patch_dropout > 0,
         f"timm_proj={cfg.timm_proj!r} (linear only)": cfg.timm_proj != "linear",
         "timm_proj_bias": cfg.timm_proj_bias,
-    }, "EVA02 tower", "later slice 2, other configs")
+    }, "EVA02 tower", OTHER_CONFIGS)
     if cfg.timm_pool not in ("token", "tok", ""):
         raise NotImplementedError(
             f"timm_pool={cfg.timm_pool!r} unsupported for EVA02 (token pooling only)")
@@ -186,7 +193,7 @@ def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.d
         "the Apple-checkpoint import form (timm_deploy_import: norm='affine', stem='3conv')":
             cfg.timm_deploy_import,
         "output_tokens": cfg.output_tokens,
-    }, "MobileCLIP tower", "later slice 4, other towers")
+    }, "MobileCLIP tower", OTHER_TOWERS)
     if name not in FASTVIT_DIMS:
         raise NotImplementedError(
             f"timm fastvit variant '{name}' has no stage table; supported: "
@@ -206,14 +213,65 @@ def _build_fastvit_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.d
     )
 
 
+# timm's ViT sizes: width, layers, heads (the JAX package's table), and
+# SigLIP's shape-optimized 400M MLP (hidden 4304)
+_TIMM_VIT_DIMS = {
+    "tiny": (192, 12, 3),
+    "small": (384, 12, 6),
+    "base": (768, 12, 12),
+    "large": (1024, 24, 16),
+    "huge": (1280, 32, 16),
+    "so400m": (1152, 27, 16),
+}
+_TIMM_VIT_MLP_RATIO = {"so400m": 4304 / 1152}
+_TIMM_VIT = re.compile(
+    r"vit_(tiny|small|base|large|huge|so400m)_patch(\d+)((?:_[a-z0-9]+)*?)_(\d+)$")
+
+
+def _build_siglip_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.dtype,
+                        attn_impl: str, remat: Optional[str]) -> SiglipVisionTransformer:
+    """The SigLIP branch of the JAX package's `_build_timm_vit_tower`
+    (`vit_{size}_patch{P}_siglip_{RES}`) as the released configs set it
+    (`timm_pool='map'`, `timm_proj='none'`, so embed_dim == width): no CLS
+    token, no ln_pre, the MAP pool, LN eps 1e-6, GELU with the tanh
+    approximation unless the config asks for another activation."""
+    m = _TIMM_VIT.match(cfg.timm_model_name)
+    size, patch, res = m.group(1), int(m.group(2)), int(m.group(4))
+    width, layers, heads = _TIMM_VIT_DIMS[size]
+    _reject({
+        f"timm_pool={cfg.timm_pool!r} (map only)": cfg.timm_pool not in ("map", ""),
+        f"timm_proj={cfg.timm_proj!r} (none only)": cfg.timm_proj not in ("none", ""),
+        "timm_proj_bias": cfg.timm_proj_bias,
+        "drop path (timm_drop_path)": cfg.timm_drop_path,
+    }, "SigLIP tower", OTHER_CONFIGS)
+    if embed_dim != width:
+        raise ValueError(f"SigLIP tower {cfg.timm_model_name!r} with timm_proj=none needs "
+                         f"embed_dim == width ({width}), got {embed_dim}")
+    return SiglipVisionTransformer(
+        image_size=cfg.image_size or res,
+        patch_size=patch,
+        width=width,
+        layers=layers,
+        heads=heads,
+        mlp_ratio=_TIMM_VIT_MLP_RATIO.get(size, 4.0),
+        # timm's SigLIP definitions fix gelu_tanh (big_vision's GELU); only a
+        # quick-GELU or act_kwargs override changes it
+        act=gelu_tanh if act is gelu_exact else act,
+        ln_eps=1e-6,
+        attn_impl=attn_impl,
+        dtype=dtype,
+        remat=remat,
+    )
+
+
 def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
                        attn_impl: str = "xla", dw_impl: Optional[str] = None,
                        remat: Optional[str] = None):
-    """The plain open_clip ViT, the EVA02-B/L or the FastViT/MCi tower
-    (its depthwise convolutions on `dw_impl`; without one, MRCLIP_DW_IMPL
-    decides), its blocks remat'd under the policy `remat` if given; other
-    vision towers raise."""
+    """The plain open_clip ViT, the timm SigLIP ViT, the EVA02-B/L or the
+    FastViT/MCi tower (its depthwise convolutions on `dw_impl`; without one,
+    MRCLIP_DW_IMPL decides), its blocks remat'd under the policy `remat` if
+    given; other vision towers raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
     if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
@@ -221,19 +279,21 @@ def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
     if cfg.timm_model_name and (cfg.timm_model_name.startswith("fastvit_")
                                 or cfg.timm_model_name == "vit_base_mci_224"):
         return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl, dw_impl, remat)
+    m = _TIMM_VIT.match(cfg.timm_model_name or "")
+    if m and "_siglip" in m.group(3):
+        return _build_siglip_tower(embed_dim, cfg, act, dtype, attn_impl, remat)
     _reject({
         f"timm tower {cfg.timm_model_name!r}": cfg.timm_model_name,
         "the ModifiedResNet tower": isinstance(cfg.layers, (tuple, list)),
-    }, "vision tower", "later slice 4, other towers")
+    }, "vision tower", OTHER_TOWERS)
     _reject({
         "patch dropout": cfg.patch_dropout > 0,
         "attentional pooling": cfg.attentional_pool,
-        "no_ln_pre": cfg.no_ln_pre,
         f"pos_embed_type={cfg.pos_embed_type!r}": cfg.pos_embed_type != "learnable",
-        "final_ln_after_pool": cfg.final_ln_after_pool,
-        f"pool_type={cfg.pool_type!r}": cfg.pool_type != "tok",
+        f"pool_type={cfg.pool_type!r} (tok and avg are ported)":
+            cfg.pool_type not in ("tok", "avg"),
         "output_tokens": cfg.output_tokens,
-    }, "vision tower", "later slice 2, other configs")
+    }, "vision tower", OTHER_CONFIGS)
     return VisionTransformer(
         image_size=cfg.image_size,
         patch_size=cfg.patch_size,
@@ -248,25 +308,26 @@ def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
         attn_impl=attn_impl,
         dtype=dtype,
         remat=remat,
+        no_ln_pre=cfg.no_ln_pre,
+        pool_type=cfg.pool_type,
+        final_ln_after_pool=cfg.final_ln_after_pool,
     )
 
 
 def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
                      dtype: torch.dtype = torch.float32,
                      attn_impl: str = "xla", remat: Optional[str] = None) -> TextTransformer:
-    """The causal open_clip text transformer (its blocks remat'd under the
-    policy `remat` if given); other text towers raise."""
+    """The open_clip text transformer, causal unless `no_causal_mask`, with
+    its pool and projection options (its blocks remat'd under the policy
+    `remat` if given); other text towers raise."""
     cfg = _filter_cfg(CLIPTextCfg, text_cfg)
     _reject({f"HF text tower {cfg.hf_model_name!r}": cfg.hf_model_name},
-            "text tower", "later slice 4, other towers")
+            "text tower", OTHER_TOWERS)
     _reject({
         "embed_cls (CoCa)": cfg.embed_cls,
-        "no_causal_mask": cfg.no_causal_mask,
-        f"pool_type={cfg.pool_type!r}": cfg.pool_type != "argmax",
-        "proj_bias": cfg.proj_bias,
         "final_ln_after_pool": cfg.final_ln_after_pool,
         "output_tokens": cfg.output_tokens,
-    }, "text tower", "later slice 2, other configs")
+    }, "text tower", OTHER_CONFIGS)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "text")
     return TextTransformer(
         context_length=cfg.context_length,
@@ -283,6 +344,9 @@ def build_text_tower(embed_dim: int, text_cfg, quick_gelu_act=False,
         dtype=dtype,
         dropout=cfg.dropout,
         remat=remat,
+        no_causal_mask=cfg.no_causal_mask,
+        pool_type=cfg.pool_type,
+        proj_bias=cfg.proj_bias,
     )
 
 
@@ -322,6 +386,7 @@ class CLIP(nn.Module):
         text = build_text_tower(embed_dim, text_cfg or CLIPTextCfg(), act, dtype, attn_impl,
                                 remat)
         self.context_length = text.context_length
+        self.text_pool_type = text.pool_type
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding
         self.transformer = text.transformer
@@ -343,7 +408,7 @@ class CLIP(nn.Module):
     def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`generator`: the source of the text dropout's masks in train mode."""
-        feats = encode_tokens(self, tokens, generator)
+        feats = encode_tokens(self, tokens, generator, self.text_pool_type)
         return F.normalize(feats, dim=-1, eps=0.0) if normalize else feats
 
     def get_logits(self, images: torch.Tensor, tokens: torch.Tensor):

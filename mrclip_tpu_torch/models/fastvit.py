@@ -29,7 +29,7 @@ block is recomputed whole (the JAX package's `nn.remat` there takes no
 policy) and the attention stage's blocks under the policy named. The
 Apple-checkpoint import form (`norm='affine'`, `stem='3conv'`),
 MobileCLIP-B's hybrid ViT and `output_tokens` are not ported (ROADMAP:
-later slice 4, other towers).
+modules item 5, the other towers).
 """
 
 from __future__ import annotations

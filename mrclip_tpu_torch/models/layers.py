@@ -37,6 +37,9 @@ __all__ = [
     "SwiGLU",
     "MultiHeadAttention",
     "EvaAttention",
+    "MAPHead",
+    "TimmAttention",
+    "TimmMlp",
     "apply_rope_cat",
     "attn_out_saved",
     "ATTN_IMPLS",
@@ -198,6 +201,20 @@ class MLP(nn.Module):
         return self.c_proj(self.act(self.c_fc(x)))
 
 
+class TimmMlp(nn.Module):
+    """timm's `Mlp` (`fc1` -> act -> `fc2`): `MLP` in timm's names."""
+
+    def __init__(self, width: int, hidden: int, act: Callable = gelu_exact,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(width, hidden, dtype=dtype)
+        self.fc2 = Linear(hidden, width, dtype=dtype)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
 class SwiGLU(nn.Module):
     """The EVA02 FFN, split-gate layout with sub-LN (the JAX package's
     `SwiGLU(use_norm=True, fused_gate=False)`, timm `layers/mlp.py`):
@@ -340,3 +357,65 @@ class EvaAttention(nn.Module):
         out = self.norm(_attend(self.qkv(x), self.num_heads, self.attn_impl, False, rope))
         with attn_out_saved:
             return self.proj(out)
+
+
+class TimmAttention(nn.Module):
+    """timm ViT self-attention (`qkv` [3W, W] with its bias, `proj`): the
+    JAX package's `MultiHeadAttention` (`in_proj`, `out_proj`) in the names
+    of open_clip's timm-wrapped SigLIP tower."""
+
+    def __init__(self, width: int, num_heads: int, attn_impl: str = "xla",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_attn_impl(attn_impl)
+        if width % num_heads:
+            raise ValueError(f"width {width} is not a multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        self.attn_impl = attn_impl
+        self.qkv = Linear(width, 3 * width, dtype=dtype)
+        self.proj = Linear(width, width, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, *, is_causal: bool = False) -> torch.Tensor:
+        out = _attend(self.qkv(x), self.num_heads, self.attn_impl, is_causal, None)
+        with attn_out_saved:
+            return self.proj(out)
+
+
+class MAPHead(nn.Module):
+    """timm's `AttentionPoolLatent`, SigLIP's "map" pool (the JAX package's
+    `MAPHead`): one learned latent query attends over all tokens, then a
+    residual MLP on the normed result:
+
+        y = proj(softmax(q(latent) k(x)^T / sqrt(dh)) v(x));  y + mlp(norm(y))
+
+    The scores are a product in the compute type, the softmax in fp32 and
+    the probabilities cast back before the product with v, as JAX computes
+    them: plain products, no attention kernel (one query a head). Names are
+    timm's: `latent` [1, 1, W], `q`, `kv`, `proj`, `norm`, `mlp.fc1`/`fc2`."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
+                 act: Callable = gelu_exact, ln_eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.compute_dtype = dtype
+        self.latent = nn.Parameter(torch.zeros(1, 1, width))
+        self.q = Linear(width, width, dtype=dtype)
+        self.kv = Linear(width, 2 * width, dtype=dtype)
+        self.proj = Linear(width, width, dtype=dtype)
+        self.norm = LayerNorm(width, eps=ln_eps)
+        self.mlp = TimmMlp(width, int(width * mlp_ratio), act=act, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`: [B, N, W] -> [B, W]."""
+        b, n, w = x.shape
+        h = self.num_heads
+        q = self.q(self.latent.to(self.compute_dtype).expand(b, 1, w))
+        k, v = self.kv(x).chunk(2, dim=-1)
+        q = q.reshape(b, 1, h, -1).transpose(1, 2)  # [B, H, 1, dh]
+        k, v = (t.reshape(b, n, h, -1).transpose(1, 2) for t in (k, v))  # [B, H, N, dh]
+        scores = (q @ k.transpose(-1, -2)) * (w // h) ** -0.5
+        probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        y = self.proj((probs @ v).transpose(1, 2).reshape(b, 1, w))
+        y = y + self.mlp(self.norm(y))
+        return y[:, 0]

@@ -7,7 +7,7 @@ Per-block remat (the JAX package's `remat`, open_clip's
 reentrance, under the JAX package's three policies (`REMAT_POLICIES`).
 The JAX package's `scan_layers` is a compile-time choice of XLA with no
 counterpart here; cross-attention and post-norm blocks belong to towers
-not ported yet (ROADMAP: other configs and towers).
+not ported yet (ROADMAP: modules items 4 and 5).
 """
 
 from __future__ import annotations
@@ -22,10 +22,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .layers import (MLP, EvaAttention, LayerNorm, LayerScale, MultiHeadAttention, SwiGLU,
-                     attn_out_saved, dropout, gelu_exact)
+                     TimmAttention, TimmMlp, attn_out_saved, dropout, gelu_exact)
 
-__all__ = ["EvaBlock", "REMAT_POLICIES", "ResidualAttentionBlock", "Transformer", "remat_call",
-           "running_stats", "text_global_pool"]
+__all__ = ["EvaBlock", "REMAT_POLICIES", "ResidualAttentionBlock", "TimmBlock", "Transformer",
+           "remat_call", "running_stats", "text_global_pool"]
 
 # The JAX package's policies (models/transformer.py REMAT_POLICIES):
 # 'full' recomputes the whole block in the backward; 'dots' keeps the
@@ -167,6 +167,26 @@ class EvaBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), rope=rope)
+        return x + self.mlp(self.norm2(x))
+
+
+class TimmBlock(nn.Module):
+    """timm's ViT `Block` (`norm1`, `attn.qkv`, `attn.proj`, `norm2`,
+    `mlp.fc1`, `mlp.fc2`), the SigLIP tower's: the JAX package's
+    `ResidualAttentionBlock` without LayerScale or dropout. x += attn(norm1(x));
+    x += mlp(norm2(x))."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio: float, act: Callable = gelu_exact,
+                 attn_impl: str = "xla", ln_eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = LayerNorm(width, eps=ln_eps)
+        self.attn = TimmAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
+        self.norm2 = LayerNorm(width, eps=ln_eps)
+        self.mlp = TimmMlp(width, int(width * mlp_ratio), act=act, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
 

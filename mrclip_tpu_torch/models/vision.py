@@ -1,7 +1,9 @@
 """ViT image encoders of the port (counterparts of
 `mrclip_tpu/models/vision.py::VisionTransformer`): the plain open_clip ViT
-(patchify, CLS, learnable position embedding, ln_pre, transformer, `tok`
-pool, ln_post, proj) and the EVA02 tower (`EvaVisionTransformer`).
+(patchify, CLS, learnable position embedding, ln_pre unless `no_ln_pre`,
+transformer, `tok` or `avg` pool with ln_post before or after it, proj),
+the EVA02 tower (`EvaVisionTransformer`) and the SigLIP tower
+(`SiglipVisionTransformer`: no CLS, the MAP pool, timm's names).
 
 Images are NHWC `[B, H, W, 3]` float, already normalized, as in the JAX
 package. Patchify is the JAX package's reshape plus one matmul; the weight
@@ -20,10 +22,10 @@ from torch import nn
 from ..ops.fused_attn import rope_table
 from ..ops.pos_embed import rope_cat_2d
 from ..utils import to_2tuple
-from .layers import ROPE_IN_COMPUTE_DTYPE, LayerNorm, Linear, gelu_exact
-from .transformer import EvaBlock, Transformer, _check_policy, remat_call
+from .layers import ROPE_IN_COMPUTE_DTYPE, LayerNorm, Linear, MAPHead, gelu_exact
+from .transformer import EvaBlock, TimmBlock, Transformer, _check_policy, remat_call
 
-__all__ = ["EvaVisionTransformer", "VisionTransformer"]
+__all__ = ["EvaVisionTransformer", "SiglipVisionTransformer", "VisionTransformer"]
 
 
 def _patch_embed(images: torch.Tensor, conv: nn.Conv2d, grid_size, dt) -> torch.Tensor:
@@ -43,7 +45,18 @@ def _patch_embed(images: torch.Tensor, conv: nn.Conv2d, grid_size, dt) -> torch.
     return x if conv.bias is None else x + conv.bias.to(dt)
 
 
+def _grid(image_size, patch_size):
+    image_size, patch_size = to_2tuple(image_size), to_2tuple(patch_size)
+    return image_size, patch_size, (image_size[0] // patch_size[0],
+                                    image_size[1] // patch_size[1])
+
+
 class VisionTransformer(nn.Module):
+    """The open_clip ViT. `no_ln_pre` leaves out ln_pre (CLIPA); `pool_type`
+    'tok' takes the CLS row, 'avg' the mean of the patch rows; ln_post
+    comes before the pool, or after it with `final_ln_after_pool`, as in
+    the JAX package."""
+
     def __init__(
         self,
         image_size=224,
@@ -59,14 +72,16 @@ class VisionTransformer(nn.Module):
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
         remat: Optional[str] = None,
+        no_ln_pre: bool = False,
+        pool_type: str = "tok",
+        final_ln_after_pool: bool = False,
     ):
         super().__init__()
-        self.image_size = to_2tuple(image_size)
-        self.patch_size = to_2tuple(patch_size)
-        self.grid_size = (
-            self.image_size[0] // self.patch_size[0],
-            self.image_size[1] // self.patch_size[1],
-        )
+        if pool_type not in ("tok", "avg"):
+            raise ValueError(f"pool_type={pool_type!r} is not 'tok' or 'avg'")
+        self.pool_type = pool_type
+        self.final_ln_after_pool = final_ln_after_pool
+        self.image_size, self.patch_size, self.grid_size = _grid(image_size, patch_size)
         self.width = width
         self.compute_dtype = dtype
         ph, pw = self.patch_size
@@ -74,7 +89,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.zeros(width))
         n_pos = self.grid_size[0] * self.grid_size[1] + 1
         self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
-        self.ln_pre = LayerNorm(width, eps=ln_eps)
+        self.ln_pre = None if no_ln_pre else LayerNorm(width, eps=ln_eps)
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio, ls_init_value, act,
             is_causal=False, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype, remat=remat,
@@ -92,10 +107,14 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(dt).expand(b, 1, self.width)
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(dt)
-        x = self.ln_pre(x)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         x = self.transformer(x)
-        x = self.ln_post(x)
-        pooled = x[:, 0]
+        if not self.final_ln_after_pool:
+            x = self.ln_post(x)
+        pooled = x[:, 1:].mean(dim=1) if self.pool_type == "avg" else x[:, 0]
+        if self.final_ln_after_pool:
+            pooled = self.ln_post(pooled)
         if self.proj is not None:
             pooled = pooled @ self.proj.to(pooled.dtype)
         return pooled
@@ -139,12 +158,7 @@ class EvaVisionTransformer(nn.Module):
     ):
         super().__init__()
         _check_policy(remat)
-        self.image_size = to_2tuple(image_size)
-        self.patch_size = to_2tuple(patch_size)
-        self.grid_size = (
-            self.image_size[0] // self.patch_size[0],
-            self.image_size[1] // self.patch_size[1],
-        )
+        self.image_size, self.patch_size, self.grid_size = _grid(image_size, patch_size)
         self.width = width
         self.compute_dtype = dtype
         self.remat = remat
@@ -180,3 +194,61 @@ class EvaVisionTransformer(nn.Module):
                 x = remat_call(block, x, self.rope, policy=self.remat)
         x = trunk.norm(x)
         return self.head.proj(x[:, 0])
+
+
+class SiglipVisionTransformer(nn.Module):
+    """The SigLIP image encoder (the JAX package's `VisionTransformer` as
+    `_build_timm_vit_tower` configures it for `vit_*_patch*_siglip_*` with
+    the released configs' `timm_pool='map'`, `timm_proj='none'`): patchify
+    with bias, a learned position embedding and no CLS token, no ln_pre,
+    pre-norm `TimmBlock`s, the final norm, then the MAP head; no
+    projection, so the output is `width` wide.
+
+    Parameter names are those of open_clip's timm-wrapped tower:
+    `trunk.{patch_embed.proj, pos_embed [1, N, W], blocks.N, norm,
+    attn_pool}`. `remat` (a `REMAT_POLICIES` name) remats each block.
+    """
+
+    def __init__(
+        self,
+        image_size=224,
+        patch_size=16,
+        width: int = 768,
+        layers: int = 12,
+        heads: int = 12,
+        mlp_ratio: float = 4.0,
+        act: Callable = gelu_exact,
+        ln_eps: float = 1e-6,
+        attn_impl: str = "xla",
+        dtype: torch.dtype = torch.float32,
+        remat: Optional[str] = None,
+    ):
+        super().__init__()
+        _check_policy(remat)
+        self.image_size, self.patch_size, self.grid_size = _grid(image_size, patch_size)
+        self.width = width
+        self.compute_dtype = dtype
+        self.remat = remat
+        gh, gw = self.grid_size
+        # plain containers, so the parameters carry timm's names
+        self.trunk = nn.Module()
+        self.trunk.pos_embed = nn.Parameter(torch.zeros(1, gh * gw, width))
+        self.trunk.patch_embed = nn.Module()
+        self.trunk.patch_embed.proj = nn.Conv2d(3, width, self.patch_size, stride=self.patch_size)
+        self.trunk.blocks = nn.ModuleList(
+            TimmBlock(width, heads, mlp_ratio, act=act, attn_impl=attn_impl, ln_eps=ln_eps,
+                      dtype=dtype)
+            for _ in range(layers)
+        )
+        self.trunk.norm = LayerNorm(width, eps=ln_eps)
+        self.trunk.attn_pool = MAPHead(width, heads, mlp_ratio, act=act, ln_eps=ln_eps,
+                                       dtype=dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """`images`: [B, H, W, 3] float (already normalized) -> [B, width]."""
+        trunk = self.trunk
+        x = _patch_embed(images, trunk.patch_embed.proj, self.grid_size, self.compute_dtype)
+        x = x + trunk.pos_embed.to(x.dtype)
+        for block in trunk.blocks:
+            x = block(x) if self.remat is None else remat_call(block, x, policy=self.remat)
+        return trunk.attn_pool(trunk.norm(x))

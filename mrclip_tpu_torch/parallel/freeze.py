@@ -15,8 +15,8 @@ name) multiplies the final update, weight decay included
 (`chain_with_mask`). So `grad_norm`, the global-norm clip and the frozen
 parameters' moments count the frozen towers too, where open_clip's
 `requires_grad=False` would leave them out. The towers' parameters keep
-the port's names (open_clip's; timm's for EVA02, the JAX tree's for
-FastViT); `_tower_key` maps each to the JAX tree's key. Parameters of a
+the port's names (open_clip's; timm's for EVA02 and SigLIP, the JAX tree's
+for FastViT); `_tower_key` maps each to the JAX tree's key. Parameters of a
 tower outside the JAX package's group list (FastViT's stem, stages and
 head) are frozen with the tower and never unlocked, as there. HF text
 towers are not ported (ROADMAP: modules item 5), so neither is their
@@ -32,10 +32,10 @@ import torch
 
 __all__ = ["build_trainable_mask", "chain_with_mask"]
 
-# EVA02's timm names -> the JAX tree's keys
-_EVA02_KEYS = {"trunk.patch_embed.proj": "conv1", "trunk.cls_token": "class_embedding",
-               "trunk.pos_embed": "positional_embedding", "trunk.norm": "ln_post",
-               "head.proj": "proj"}
+# The EVA02 and SigLIP towers' timm names -> the JAX tree's keys
+_TIMM_KEYS = {"trunk.patch_embed.proj": "conv1", "trunk.cls_token": "class_embedding",
+              "trunk.pos_embed": "positional_embedding", "trunk.norm": "ln_post",
+              "trunk.attn_pool": "attn_pool", "head.proj": "proj"}
 
 
 def _tower_key(name: str) -> Tuple[Optional[str], str, Optional[int]]:
@@ -50,7 +50,7 @@ def _tower_key(name: str) -> Tuple[Optional[str], str, Optional[int]]:
     for prefix in ("transformer.resblocks.", "trunk.blocks."):
         if rest.startswith(prefix):
             return tower, "transformer", int(rest[len(prefix):].split(".")[0])
-    for timm, key in _EVA02_KEYS.items():
+    for timm, key in _TIMM_KEYS.items():
         if rest == timm or rest.startswith(timm + "."):
             return tower, key, None
     return tower, rest.split(".")[0], None

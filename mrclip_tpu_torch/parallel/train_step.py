@@ -55,7 +55,7 @@ Params = Dict[str, torch.Tensor]
 def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: a device mesh is not ported (ROADMAP: later slice 5, multi-GPU)")
+            f"{what}: a device mesh is not ported (ROADMAP: modules item 6, multi-GPU)")
 
 
 @dataclasses.dataclass

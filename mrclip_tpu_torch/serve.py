@@ -6,7 +6,9 @@ embeddings or image<->text scores. Stdlib-only (http.server),
 thread-per-request. Concurrent requests are DYNAMICALLY BATCHED per
 endpoint: a worker thread coalesces requests that arrive within
 `--batch-window-ms` (default 5) up to `--max-batch` (default 32) into one
-device call. Set `--max-batch 1` to disable.
+device call. Set `--max-batch 1` to disable. `server_close()` stops the
+workers once the requests queued before it are answered, so the model they
+hold can be freed.
 
 Run: `python -m mrclip_tpu_torch.serve --model model.mrclip --port 8080`
 
@@ -34,6 +36,8 @@ from .tokenizer import SimpleTokenizer
 
 __all__ = ["make_server", "main"]
 
+_STOP = object()  # the last item a closed batcher's queue takes
+
 
 class _Batcher:
     """Coalesce concurrent requests into one batched device call.
@@ -41,7 +45,8 @@ class _Batcher:
     Requests arriving within `window_s` of the first pending one are
     concatenated along axis 0 (up to `max_batch` rows) and answered from a
     single `fn` call. A dedicated worker thread per endpoint serializes
-    device access, so no extra lock is needed.
+    device access, so no extra lock is needed. `close()` ends the worker
+    after the requests queued before it; later calls raise.
     """
 
     def __init__(self, fn, max_batch: int = 32, window_s: float = 0.005):
@@ -49,7 +54,10 @@ class _Batcher:
         self.max_batch = max_batch
         self.window_s = window_s
         self.q: "queue.Queue" = queue.Queue()
-        threading.Thread(target=self._worker, daemon=True).start()
+        self._lock = threading.Lock()  # nothing is queued after _STOP
+        self._closed = False
+        self.thread = threading.Thread(target=self._worker, name="serve-batcher", daemon=True)
+        self.thread.start()
 
     def __call__(self, arr: np.ndarray) -> np.ndarray:
         arr = np.asarray(arr)
@@ -58,14 +66,28 @@ class _Batcher:
             # worker would raise outside any future's scope.
             raise ValueError("payload must be a batch (got a scalar)")
         fut: Future = Future()
-        self.q.put((arr, fut))
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the server is closed")
+            self.q.put((arr, fut))
         return fut.result()
+
+    def close(self) -> None:
+        """Answer what is queued, then end the worker and wait for it."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self.q.put(_STOP)
+        self.thread.join()
 
     def _worker(self):
         pending = []  # requests deferred from earlier groups, in order
         while True:
             first = pending.pop(0) if pending else self.q.get()
+            if first is _STOP:
+                return
             items = [first]
+            stop = False
             try:
                 deferred = []
                 rows = len(first[0])
@@ -82,6 +104,9 @@ class _Batcher:
                             nxt = self.q.get(timeout=remaining)
                         except queue.Empty:
                             break
+                    if nxt is _STOP:  # the last item: serve this group and what waits
+                        stop = True
+                        break
                     # Only coalesce compatible requests: same per-item shape
                     # and within the row cap. Everything else defers to the
                     # NEXT group rather than failing (or bloating) this one.
@@ -90,7 +115,7 @@ class _Batcher:
                         continue
                     items.append(nxt)
                     rows += len(nxt[0])
-                pending = deferred + pending
+                pending = deferred + pending + ([_STOP] if stop else [])
                 if len(items) == 1:
                     out = np.asarray(self.fn(items[0][0]))
                     items[0][1].set_result(out)
@@ -105,6 +130,18 @@ class _Batcher:
                 for _, fut in items:
                     if not fut.done():
                         fut.set_exception(e)
+
+
+class _Server(ThreadingHTTPServer):
+    """The HTTP server; `server_close` also ends the batcher threads, which
+    hold the model, so it can be freed with the server."""
+
+    batchers = ()
+
+    def server_close(self):
+        super().server_close()
+        for batcher in self.batchers:
+            batcher.close()
 
 
 def make_server(
@@ -183,9 +220,11 @@ def make_server(
             except Exception as e:  # surface shape/dtype issues to the client
                 return self._json(500, {"error": str(e)})
 
-    server = ThreadingHTTPServer((host, port), Handler)
+    server = _Server((host, port), Handler)
     server.served = served  # the loaded model, for a caller in the same process
+    server.batchers = (enc_img, enc_txt) if max_batch > 1 else ()
     return server
+
 
 
 def main(argv=None):

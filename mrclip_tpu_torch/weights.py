@@ -1,12 +1,16 @@
 """JAX-package parameters -> the port's state dict.
 
-The port's own copy of the plain-ViT, EVA02 (pre-norm) and causal-text part
-of `mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
+The port's own copy of the plain-ViT, EVA02 (pre-norm) and text part of
+`mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
 `mrclip_tpu` CLIP (a nested dict of arrays, unrolled `blocks_N` or
 scan-stacked `blocks/block` with a leading layer axis) and returns the
 open_clip-layout state dict that `mrclip_tpu_torch.models.CLIP` loads with
 `strict=True`; an EVA02 vision tower (one with SwiGLU MLPs) goes to the
-`visual.trunk.*` timm layout. A FastViT/MCi tower (MobileCLIP-S1/S2; hub's
+`visual.trunk.*` timm layout, and so does a SigLIP tower (no CLS token),
+as the inverse of `mrclip_tpu.convert.timm_vit_to_vision_params`, which hub's
+export refuses. A plain ViT without `ln_pre` (CLIPA) has no `visual.ln_pre`,
+and a text projection with a bias (a Dense) becomes
+`text_projection.{weight,bias}`. A FastViT/MCi tower (MobileCLIP-S1/S2; hub's
 export has no branch for it) keeps the Flax tree's names, with each
 convolution's HWIO kernel `[K, K, in / groups, out]` as the torch weight
 `[out, in / groups, K, K]` and its attention stage as
@@ -109,6 +113,29 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         put_ln(tp + "norm", vis["ln_post"])
         put("visual.head.proj.weight", np.asarray(vis["proj"]).T)
 
+    def put_siglip_trunk(vis):  # convert.timm_vit_to_vision_params, inverted
+        tp = "visual.trunk."
+        put(tp + "pos_embed", np.asarray(vis["positional_embedding"])[None])
+        put(tp + "patch_embed.proj.weight",
+            np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+        put(tp + "patch_embed.proj.bias", vis["conv1"]["bias"])
+        for i, blk in enumerate(_blocks(vis)):
+            bp = f"{tp}blocks.{i}."
+            put_ln(bp + "norm1", blk["ln_1"])
+            put_ln(bp + "norm2", blk["ln_2"])
+            put_dense(bp + "attn.qkv", blk["attn"]["in_proj"])
+            put_dense(bp + "attn.proj", blk["attn"]["out_proj"])
+            put_dense(bp + "mlp.fc1", blk["mlp"]["c_fc"])
+            put_dense(bp + "mlp.fc2", blk["mlp"]["c_proj"])
+        put_ln(tp + "norm", vis["ln_post"])
+        pool = vis["attn_pool"]
+        put(tp + "attn_pool.latent", pool["latent"])
+        for name in ("q", "kv", "proj"):
+            put_dense(f"{tp}attn_pool.{name}", pool[name])
+        put_ln(tp + "attn_pool.norm", pool["norm"])
+        put_dense(tp + "attn_pool.mlp.fc1", pool["mlp"]["c_fc"])
+        put_dense(tp + "attn_pool.mlp.fc2", pool["mlp"]["c_proj"])
+
     def put_tree(key, tree):  # FastViT: Conv, Dense and LayerNorm subtrees by their leaves
         if "kernel" in tree:  # Conv HWIO -> [out, in / groups, K, K]; Dense [in, out] -> [out, in]
             k = np.asarray(tree["kernel"])
@@ -124,11 +151,13 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     if "stem_conv1" in vis:
         put_tree("visual", {k: v for k, v in vis.items() if k != "transformer"})
         put_blocks(vis, "visual.")
-    elif "conv1" not in vis or "class_embedding" not in vis:
+    elif "conv1" not in vis:
         raise NotImplementedError(
-            "only the plain CLIP ViT, the EVA02 and the FastViT/MCi towers convert (ROADMAP: "
-            "later slice 4, other towers)"
+            "only the plain CLIP ViT, the SigLIP, the EVA02 and the FastViT/MCi towers convert "
+            "(ROADMAP: modules item 5, the other towers)"
         )
+    elif "class_embedding" not in vis:
+        put_siglip_trunk(vis)
     elif (blocks := _blocks(vis)) and ("fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"]):
         put_eva02_trunk(vis)
     else:
@@ -136,7 +165,8 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         put("visual.conv1.weight", np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))
         put("visual.class_embedding", vis["class_embedding"])
         put("visual.positional_embedding", vis["positional_embedding"])
-        put_ln("visual.ln_pre", vis["ln_pre"])
+        if "ln_pre" in vis:
+            put_ln("visual.ln_pre", vis["ln_pre"])
         put_ln("visual.ln_post", vis["ln_post"])
         put("visual.proj", vis["proj"])
         put_blocks(vis, "visual.")
@@ -145,12 +175,16 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     if txt is not None:
         if "token_embedding" not in txt:
             raise NotImplementedError(
-                "only the causal CLIP text tower converts (ROADMAP: later slice 4, other towers)"
+                "only the open_clip text tower converts (ROADMAP: modules item 5, the other "
+                "towers)"
             )
         put("token_embedding.weight", txt["token_embedding"]["embedding"])
         put("positional_embedding", txt["positional_embedding"])
         put_ln("ln_final", txt["ln_final"])
-        put("text_projection", txt["text_projection"])
+        if hasattr(txt["text_projection"], "items"):  # proj_bias: a Dense
+            put_dense("text_projection", txt["text_projection"])
+        else:
+            put("text_projection", txt["text_projection"])
         put_blocks(txt, "")
 
     if "logit_scale" in params:

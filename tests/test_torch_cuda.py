@@ -2,9 +2,9 @@
 packed attention forward and backward; K2 and K3r, the same with the rope
 rotated inside; K4 and K5, the grouped-layout attention; K10 and K10b, the
 flash attention; K6 and K7, the fused SupCon loss; K8 and K9, the depthwise
-convolution) against its plain version, their refusals, a small CLIP and
-MobileCLIP-S1 through them, and small train steps (ViT, EVA02, MobileCLIP)
-whose gradients come from the kernels.
+convolution) against its plain version, their refusals, a small CLIP,
+MobileCLIP-S1 and a narrow SigLIP at head dim 72 through them, and small
+train steps (ViT, EVA02, MobileCLIP) whose gradients come from the kernels.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -14,6 +14,8 @@ installed; on the card, from the repo root:
 
 (`--noconftest`: the suite's conftest.py sets up JAX.)
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -715,12 +717,13 @@ def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):
         fl.flash_attention_bwd(q, k, v, o, l.double(), m, l)
 
 
-# ViT-H-14's, ViT-g-14's and ViT-bigG-14's head dims (88 and 104 padded to
-# 96 and 112 columns inside the kernels) at the tensor-core tiles' edges,
+# ViT-SO400M-SigLIP's, ViT-H-14's, ViT-g-14's and ViT-bigG-14's head dims
+# (72, 88 and 104 padded to 80, 96 and 112 columns inside the kernels) at
+# the tensor-core tiles' edges,
 # past 256 rows (the chunked walk; K10's three key blocks), at their vision
 # towers' 16 heads and at N = 400 (K10's two key blocks of 256, each staged
 # in two chunks past D = 80)
-WIDE_DIMS = (80, 88, 104)
+WIDE_DIMS = (72, 80, 88, 104)
 WIDE_SHAPES = [(2, n, n, 2, c) for n in (1, 15, 17, 65, 257) for c in (False, True)]
 WIDE_SHAPES += [(2, 257, 257, 16, False), (1, 400, 400, 2, False), (1, 400, 400, 2, True)]
 
@@ -731,7 +734,7 @@ WIDE_SHAPES += [(2, 257, 257, 16, False), (1, 400, 400, 2, False), (1, 400, 400,
 @pytest.mark.parametrize("kernels", ["K1", "K3", "K4/K5", "K10/K10b"])
 def test_kernels_match_plain_versions_at_wide_head_dims(cuda_device, kernels, d, b, n, nk, h,
                                                         causal, dtype, tol):
-    """The tests above, with their bars, at head dims 80, 88 and 104."""
+    """The tests above, with their bars, at head dims 72, 80, 88 and 104."""
     test = {"K1": test_kernel_matches_plain_version,
             "K3": test_backward_kernel_matches_plain_version,
             "K4/K5": test_grouped_kernels_match_plain_versions,
@@ -739,11 +742,67 @@ def test_kernels_match_plain_versions_at_wide_head_dims(cuda_device, kernels, d,
     test(cuda_device, b, n, nk, h, causal, d, dtype, tol)
 
 
-@pytest.mark.parametrize("d", [72, 112])
+# SO400M-SigLIP's own shapes at D = 72: its vision tower at 224 px (N =
+# 256, no CLS) and at 378/384 px (N = 729: three 256-key chunks, not a
+# multiple of 64), and its non-causal text (N = 64), at 16 heads
+SIGLIP_SHAPES = [(4, 256, 256, 16, False), (2, 729, 729, 16, False), (8, 64, 64, 16, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,n,nk,h,causal", SIGLIP_SHAPES)
+@pytest.mark.parametrize("kernels", ["K1", "K3", "K4/K5", "K10/K10b"])
+def test_kernels_match_plain_versions_at_siglip_shapes(cuda_device, kernels, b, n, nk, h,
+                                                       causal, dtype, tol):
+    """The tests above, with their bars, at SO400M-SigLIP's shapes."""
+    test_kernels_match_plain_versions_at_wide_head_dims(cuda_device, kernels, 72, b, n, nk, h,
+                                                        causal, dtype, tol)
+
+
+@pytest.mark.parametrize("impl", ["fusedp", "fused", "flash"])
+def test_narrow_siglip_through_the_kernels_at_72_matches_plain_attention(cuda_device, impl,
+                                                                        monkeypatch):
+    """A narrow ViT-SO400M-14-SigLIP (vision and text 144 wide, 2 heads of
+    72, 2 layers; 224 px: N = 256, no CLS; non-causal text N = 64) in bf16
+    on the card: every attention layer launches the kernel at D = 72 in
+    each direction, the features and the loss's gradients agree with the
+    same weights under plain attention (cosine >= 0.999)."""
+    from mrclip_tpu_torch.models import clip
+
+    monkeypatch.setitem(clip._TIMM_VIT_DIMS, "so400m", (144, 2, 2))
+    name = "ViT-SO400M-14-SigLIP"
+    text = dict(get_model_config(name)["text_cfg"], width=144, heads=2, layers=2)
+    kw = dict(precision="bf16", rng_seed=0, text_cfg=text, embed_dim=144)
+    kernel = create_model(name, attn_impl=impl, **kw)
+    plain = create_model(name, attn_impl="xla", **kw)
+    rng = np.random.RandomState(72)
+    images = torch.from_numpy(rng.randn(4, 224, 224, 3).astype(np.float32)).to(cuda_device)
+    tokens = torch.from_numpy(rng.randint(1, 32000, (4, 64))).to(cuda_device)
+    fa.reset_launches()
+    fl.reset_launches()
+    with torch.inference_mode():
+        a = kernel(images, tokens)
+        b = plain(images, tokens)
+    want = {"fusedp": ("launches", fa), "fused": ("grouped_launches", fa),
+            "flash": ("launches", fl)}[impl]
+    assert want[1].width_launches == {(want[0], 72): 4}  # 2 vision + 2 text layers
+    for key in ("image_features", "text_features"):
+        cos = torch.nn.functional.cosine_similarity(a[key].float(), b[key].float(), dim=-1)
+        assert cos.min().item() >= 0.999, key
+    assert a["logit_bias"].item() == -10.0
+    loss = make_loss_apply(create_loss(SimpleNamespace(siglip=True, loss_dist_impl="bidir")))
+    batch = {"images": images, "tokens": tokens}
+    grads = [loss_and_grads(m, loss, dict(m.named_parameters()), batch)[0] for m in (kernel, plain)]
+    for key in ("visual.trunk.blocks.0.attn.qkv.weight", "transformer.resblocks.1.attn.in_proj_weight"):
+        g, w = grads[0][key].float().flatten(), grads[1][key].float().flatten()
+        assert g.abs().max().item() > 0, key
+        assert torch.nn.functional.cosine_similarity(g, w, dim=0).item() >= 0.999, key
+
+
+@pytest.mark.parametrize("d", [96, 112])
 def test_kernels_refuse_head_dims_they_do_not_take(cuda_device, d):
-    """D = 72 (SigLIP's and ViTamin's towers) and 112 (EVA02-E) are not
-    built: each wrapper raises before a launch, naming the width; the rope
-    kernels take 32 and 64 only."""
+    """D = 112 (EVA02-E) and 96 (no config) are not built: each wrapper
+    raises before a launch, naming the width; the rope kernels take 32 and
+    64 only."""
     q, k, v = _inputs(1, 16, 16, 2, d, cuda_device, torch.bfloat16)
     with pytest.raises(ValueError, match=f"head dim .*; got {d}$"):
         fa.fused_attention_packed(q, k, v)

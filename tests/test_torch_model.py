@@ -170,7 +170,7 @@ def test_same_seed_same_weights():
         ("vision_cfg", "timm_model_name", "vit_base_patch16_224"),
         ("vision_cfg", "layers", [3, 4, 6, 3]),
         ("vision_cfg", "patch_dropout", 0.5),
-        ("vision_cfg", "pool_type", "avg"),
+        ("vision_cfg", "pool_type", "map"),
         ("text_cfg", "hf_model_name", "roberta-base"),
         ("text_cfg", "embed_cls", True),
     ],

@@ -19,6 +19,7 @@ import optax
 import pytest
 import torch
 
+import mrclip_tpu.models.clip as jax_clip
 from mrclip_tpu.factory import create_model as jax_create_model
 from mrclip_tpu.parallel import create_optimizer as jax_create_optimizer
 from mrclip_tpu.parallel.freeze import build_trainable_mask as jax_build_trainable_mask
@@ -27,6 +28,7 @@ from mrclip_tpu.train import scheduler as jax_sched
 from mrclip_tpu_torch import checkpoint as ckpt
 from mrclip_tpu_torch import create_model, state_dict_from_flax
 from mrclip_tpu_torch.factory import get_model_config
+from mrclip_tpu_torch.models import clip as port_clip
 from mrclip_tpu_torch.parallel import create_optimizer, create_train_state
 from mrclip_tpu_torch.parallel.freeze import build_trainable_mask, chain_with_mask
 from mrclip_tpu_torch.train import scheduler
@@ -196,21 +198,36 @@ MASK_FLAGS = [
 
 def _mask_models():
     """(name, JAX params, port params) with 4 text layers, unrolled on both
-    sides: ViT-B-32-mini, a narrow MobileCLIP-S1 and EVA02-B-16 (its tree
-    only: the masks need no forward)."""
+    sides: ViT-B-32-mini, a narrow MobileCLIP-S1, EVA02-B-16, ViT-B-16-SigLIP
+    (its timm tower at 4 layers: both packages' `_TIMM_VIT_DIMS` patched
+    while it is built; non-causal text, biased projection) and
+    ViT-L-14-CLIPA (4 layers, no ln_pre); their trees only: the masks need
+    no forward."""
+    def vision(name, **kw):
+        return {"vision_cfg": dict(get_model_config(name)["vision_cfg"], **kw)}
+
+    siglip_text = dict(get_model_config("ViT-B-16-SigLIP")["text_cfg"], context_length=16,
+                       vocab_size=1000, width=64, heads=2, layers=4)
     out = []
-    for name, extra in (("ViT-B-32-mini", {}),
-                        ("EVA02-B-16", {"vision_cfg": dict(
-                            get_model_config("EVA02-B-16")["vision_cfg"], image_size=32)}),
-                        ("MobileCLIP-S1", {"vision_cfg": dict(
-                            get_model_config("MobileCLIP-S1")["vision_cfg"], image_size=64)})):
-        jm, _ = jax_create_model(name, init_params=False, scan_layers=False, attn_impl="xla",
-                                 text_cfg=VIT_TEXT, **extra)
-        size = extra.get("vision_cfg", {}).get("image_size", 64)
-        shapes = jax.eval_shape(lambda jm=jm, size=size: jm.init(
-            jax.random.key(0), jnp.zeros((1, size, size, 3)), jnp.zeros((1, 16), jnp.int32)))
+    for name, extra, text in (("ViT-B-32-mini", {}, VIT_TEXT),
+                              ("EVA02-B-16", vision("EVA02-B-16", image_size=32), VIT_TEXT),
+                              ("MobileCLIP-S1", vision("MobileCLIP-S1", image_size=64), VIT_TEXT),
+                              ("ViT-B-16-SigLIP", vision("ViT-B-16-SigLIP", image_size=32),
+                               siglip_text),
+                              ("ViT-L-14-CLIPA", vision("ViT-L-14-CLIPA", image_size=28, layers=4),
+                               dict(VIT_TEXT, pool_type="last", no_causal_mask=True))):
+        saved = jax_clip._TIMM_VIT_DIMS["base"], port_clip._TIMM_VIT_DIMS["base"]
+        jax_clip._TIMM_VIT_DIMS["base"] = port_clip._TIMM_VIT_DIMS["base"] = (768, 4, 12)
+        try:
+            jm, _ = jax_create_model(name, init_params=False, scan_layers=False,
+                                     attn_impl="xla", text_cfg=text, **extra)
+            size = extra.get("vision_cfg", {}).get("image_size", 64)
+            shapes = jax.eval_shape(lambda jm=jm, size=size: jm.init(
+                jax.random.key(0), jnp.zeros((1, size, size, 3)), jnp.zeros((1, 16), jnp.int32)))
+            model = create_model(name, device="cpu", init_params=False, text_cfg=text, **extra)
+        finally:
+            jax_clip._TIMM_VIT_DIMS["base"], port_clip._TIMM_VIT_DIMS["base"] = saved
         jparams = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
-        model = create_model(name, device="cpu", init_params=False, text_cfg=VIT_TEXT, **extra)
         out.append((name, jparams, dict(model.named_parameters())))
     return out
 

@@ -107,6 +107,25 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
     "model_configs/ViT-H-14-378.json",
     "model_configs/ViT-g-14.json",
     "model_configs/ViT-bigG-14.json",
+    "model_configs/ViT-B-16-plus-240.json",
+    "model_configs/ViT-B-32-256.json",
+    "model_configs/ViT-B-16-SigLIP.json",
+    "model_configs/ViT-B-16-SigLIP-256.json",
+    "model_configs/ViT-B-16-SigLIP-384.json",
+    "model_configs/ViT-B-16-SigLIP-512.json",
+    "model_configs/ViT-B-16-SigLIP-i18n-256.json",
+    "model_configs/ViT-L-16-SigLIP-256.json",
+    "model_configs/ViT-L-16-SigLIP-384.json",
+    "model_configs/ViT-SO400M-14-SigLIP.json",
+    "model_configs/ViT-SO400M-14-SigLIP-378.json",
+    "model_configs/ViT-SO400M-14-SigLIP-384.json",
+    "model_configs/ViT-SO400M-16-SigLIP-i18n-256.json",
+    "model_configs/ViT-L-14-CLIPA.json",
+    "model_configs/ViT-L-14-CLIPA-336.json",
+    "model_configs/ViT-H-14-CLIPA.json",
+    "model_configs/ViT-H-14-CLIPA-336.json",
+    "model_configs/ViT-bigG-14-CLIPA.json",
+    "model_configs/ViT-bigG-14-CLIPA-336.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
     "assets/bin_intervals_et_20_rt_20.json",
     "preprocessing/binning.py",

@@ -5,10 +5,13 @@ The served model carries the JAX package's ViT-B-32-mini weights, so the
 features the server returns are checked against JAX `model.apply`.
 """
 
+import gc
 import json
 import threading
 import urllib.error
 import urllib.request
+import weakref
+from concurrent.futures import Future
 
 import jax
 import numpy as np
@@ -155,6 +158,59 @@ def test_batcher_survives_malformed_payload():
     with pytest.raises(ValueError, match="batch"):
         b(np.float32(5.0))
     np.testing.assert_allclose(b(np.zeros((2, 3))), np.ones((2, 3)))
+
+
+def test_batcher_close_answers_queued_requests_then_ends():
+    """`close()` answers the requests queued before it, ends the worker,
+    and later calls raise: one request is held inside the device call while
+    two more wait in the queue behind it and the stop."""
+    entered, release = threading.Event(), threading.Event()
+    calls = []
+
+    def fn(arr):
+        entered.set()
+        release.wait(30)
+        calls.append(len(arr))
+        return arr + 1.0
+
+    b = _Batcher(fn, max_batch=8, window_s=0.0)
+    first = {}
+    t = threading.Thread(target=lambda: first.setdefault("out", b(np.zeros((1, 2)))))
+    t.start()
+    assert entered.wait(30)  # the worker is inside fn with the first request
+    queued = [Future() for _ in range(2)]
+    for i, fut in enumerate(queued):
+        b.q.put((np.full((1, 2), float(i + 1)), fut))
+    closer = threading.Thread(target=b.close)
+    closer.start()
+    release.set()
+    closer.join(timeout=30)
+    t.join(timeout=30)
+    assert not b.thread.is_alive() and not closer.is_alive()
+    np.testing.assert_allclose(first["out"], np.ones((1, 2)))
+    for i, fut in enumerate(queued):
+        np.testing.assert_allclose(fut.result(timeout=30), np.full((1, 2), i + 2.0))
+    assert sum(calls) == 3
+    with pytest.raises(RuntimeError, match="closed"):
+        b(np.zeros((1, 2)))
+    b.close()  # a second close is a no-op
+
+
+@pytest.mark.parametrize("max_batch", [32, 1])
+def test_server_close_ends_batcher_threads_and_frees_the_model(artifact, max_batch):
+    """After `shutdown()` and `server_close()` no batcher thread is left and
+    the served model is freed with the server (the batchers held it)."""
+    srv, base = _start(artifact, max_batch=max_batch)
+    threads = [b.thread for b in srv.batchers]
+    assert len(threads) == (2 if max_batch > 1 else 0) and all(t.is_alive() for t in threads)
+    assert len(_post(base, "/encode_text", {"texts": ["a"]})["features"]) == 1
+    model = weakref.ref(srv.served.model)
+    srv.shutdown()
+    srv.server_close()
+    assert not any(t.is_alive() for t in threads)
+    del srv
+    gc.collect()
+    assert model() is None
 
 
 def test_error_paths(server):
