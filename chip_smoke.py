@@ -221,13 +221,36 @@ fails:
              and 3 timed steps, 108 K1 and 54 K3 each; a profiled step);
              ViT-B-16-SigLIP-512 (N = 1024 at D = 64) and
              ViT-bigG-14-CLIPA-336 (N = 577 at D = 104) served one b32 batch
-             each against their plain attention. The run ends with the
-             count of torch.profiler windows and of those that recorded no
-             device event, by phase.
-Phases 16 and 17's kernel checks and timings run right after the build
+             each against their plain attention.
+ 18. eva:    the EVA family. K1/K3, K4/K5 and K10/K10b at D = 112
+             (EVA02-E-14's vision tower, 16 heads of 112, unpadded) against
+             their plain versions with phase 16's bars, bf16 and fp32, at
+             its vision shape (N 257, H 16) at b32 and b256 and the tile
+             edges; which device kernels they run; timings at b256 and b32
+             beside SDPA and the bounds. Then EVA02-E-14 at full width and
+             depth (4.7 B parameters drawn on the card from seed 0, the
+             vision q and k rows at 1/8 of the factory's std so that the
+             post-norm scores stay near unit std, bf16, 'fusedp', remat
+             'full'; post-norm blocks, fused qkv) served
+             through ServedModel (K1 64 at D = 112 + 24 at D = 64 a b32
+             image and text call) against its plain attention, images/s at
+             b32 and b256 and texts/s at b256; trained with the pallas loss
+             and Lion (a bf16 moment: AdamW's does not fit beside the
+             gradient check; the update 32 tensors at a time) at b32
+             (gradients against plain attention first, also under 'fused'
+             and 'flash': K4/K5, K10/K10b at D = 112; 1 warm-up and 4 timed
+             steps, 176 K1 and 88 K3 each; a profiled step), freed, the
+             card's memory checked;
+             EVA02-E-14-plus, EVA01-g-14 (D = 88, pre-norm) and
+             EVA02-L-14-336 (K2 at N = 577) served one b32 batch each
+             against their plain attention; EVA02-L-14 served at b32 and
+             b256 and trained one step at b32 (K2/K3r at N = 257). The run
+             ends with the count of torch.profiler windows and of those that
+             recorded no device event, by phase.
+Phases 16, 17 and 18's kernel checks and timings run right after the build
 (late in a long process the profiler loses the device records of short
 windows), their models after phase 15.
-Each path (4 to 17; phase 12 has five, one per objective; phase 13's train
+Each path (4 to 18; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
 runs themselves) runs with the launch counts set to 0 just before it and
@@ -2064,7 +2087,7 @@ def grad_cosines(a: dict, b: dict):
 # where K2, K3, K3r, K5 and K10b land.
 K2_GROUP = "K2 packed_attn_rope_fwd"
 K10B_GROUP = "K10b flash_attn_bwd"
-ATTN_DIMS = (32, 64, 72, 80, 88, 104)  # the attention kernels' head dims (fused_attn.HEAD_DIMS)
+ATTN_DIMS = (32, 64, 72, 80, 88, 104, 112)  # the kernels' head dims (fused_attn.HEAD_DIMS)
 K3R_GROUP = "K3r packed_attn_rope_bwd"
 K3_GROUP = "K3 packed_attn_bwd / K5 grouped_attn_bwd"
 KERNEL_GROUPS = [
@@ -4042,13 +4065,16 @@ class attention_impl:
 
 def wide_layers(model_name):
     """(vision layers, vision head dim, text layers, text head dim) of a
-    model config (a timm SigLIP tower's from the port's timm ViT table)."""
+    model config (a timm SigLIP or EVA tower's from the port's tables)."""
     from mrclip_tpu_torch.factory import get_model_config
     from mrclip_tpu_torch.models import clip
 
     cfg = get_model_config(model_name)
     vis, txt = cfg["vision_cfg"], cfg["text_cfg"]
-    if vis.get("timm_model_name"):
+    if eva := clip._eva_tower(vis.get("timm_model_name")):
+        width, layers, heads = clip._EVA_DIMS[eva[0]]
+        n_vis, d_vis = layers, width // heads
+    elif vis.get("timm_model_name"):
         width, layers, heads = clip._TIMM_VIT_DIMS[
             clip._TIMM_VIT.match(vis["timm_model_name"]).group(1)]
         n_vis, d_vis = layers, width // heads
@@ -4221,13 +4247,32 @@ def phase_serve_h14(card):
     return paths, widths, perf
 
 
-def by_dim(*counts):
-    """{head dim: launches} summed over the towers' `counts`."""
-    out = {}
-    for c in counts:
-        for d, n in c.items():
-            out[d] = out.get(d, 0) + n
-    return out
+def rope_tower(model_name):
+    """Whether the model's vision tower is EVA02-B/L's, whose attention
+    runs K2 (and K3r) with its rope under 'fusedp'."""
+    from mrclip_tpu_torch.factory import get_model_config
+    from mrclip_tpu_torch.models import clip
+
+    eva = clip._eva_tower(get_model_config(model_name)["vision_cfg"].get("timm_model_name"))
+    return eva is not None and eva[0] in ("base", "large")
+
+
+def tower_wants(model_name, fwd, bwd=None, per_layer=1):
+    """{kernel: {head dim: launches}} of one pass through both towers under
+    'fusedp' (`fwd`, `bwd`: the packed kernels' names; a rope vision tower's
+    run K2/K3r) or another path (its kernels' names): `per_layer` forward
+    launches a layer and, with `bwd`, one backward."""
+    n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    rope = fwd == "packed_attn_fwd" and rope_tower(model_name)
+    want = {}
+    for name, vis_name, n in ((fwd, "packed_attn_rope_fwd", per_layer),
+                              (bwd, "packed_attn_rope_bwd", 1)):
+        if name is None:
+            continue
+        for kernel, d, layers in ((vis_name if rope else name, d_vis, n_vis),
+                                  (name, d_txt, n_txt)):
+            want.setdefault(kernel, {})[d] = want.get(kernel, {}).get(d, 0) + n * layers
+    return want
 
 
 def wide_batch(model, n, seed):
@@ -4249,10 +4294,11 @@ WIDE_GRAD_PATHS = {"fused": ("grouped_attn_fwd", 2, "grouped_attn_bwd"),
 
 
 def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, impls=(),
-              siglip=False):
-    """The multipositive train step (AdamW, bf16 first moment, the pallas
-    loss; with `siglip`, SigLIP's sigmoid loss with its learned bias; bf16
-    compute, remat 'full' as `model` was built) on `model`:
+              siglip=False, opt="adamw"):
+    """The multipositive train step (`opt`, AdamW by default, with a bf16
+    first moment, the pallas loss; with `siglip`, SigLIP's sigmoid loss with
+    its learned bias; bf16 compute, remat 'full' as `model` was built) on
+    `model` (a rope tower's attention on K2/K3r):
     gradients at the initial weights against the same model's plain
     attention at b32 (phase 5's loss bar; WIDE_GRAD_COS), also with its
     attention under each of `impls` ('fused', 'flash': exact launches, by
@@ -4269,7 +4315,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
                                            make_loss_apply)
     from mrclip_tpu_torch.parallel.train_step import loss_and_grads
 
-    n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    n_vis, _, n_txt, _ = wide_layers(model_name)
     args = (dict(siglip=True, loss_dist_impl="bidir", model=model_name) if siglip else
             dict(multipositiveloss=True, delta=0.5, model=model_name, gather_with_grad=True,
                  pallas_loss=True))
@@ -4293,16 +4339,15 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
         counts, by_width = nonzero(launch_counts()), launch_counts_by_width()
         lk = l_kernel["loss"].item()
         whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
-        through = [n for n in g_kernel if n.endswith(VIT_PROJ)]
+        through = [n for n in g_kernel if n.endswith((*VIT_PROJ, EVA_PROJ[0]))]
         dead = [n for n in through if g_kernel[n].abs().max().item() == 0]
         del g_kernel
         ok = (np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and whole >= WIDE_GRAD_COS
               and worst >= 0.99 and len(through) == n_vis + n_txt and not dead)
         if impl in WIDE_GRAD_PATHS:
             fwd_name, per_layer, bwd_name = WIDE_GRAD_PATHS[impl]
-            want = {fwd_name: per_layer * (n_vis + n_txt), bwd_name: n_vis + n_txt, **loss_kernels}
-            want_width = {fwd_name: by_dim({d_vis: per_layer * n_vis}, {d_txt: per_layer * n_txt}),
-                          bwd_name: by_dim({d_vis: n_vis}, {d_txt: n_txt})}
+            want_width = tower_wants(model_name, fwd_name, bwd_name, per_layer)
+            want = {**{k: sum(v.values()) for k, v in want_width.items()}, **loss_kernels}
             ok = ok and counts == want and by_width == want_width
             grad_paths[impl] = (counts, by_width)
         log(f"{tag} {impl} vs the same model's plain attention, b{WIDE_STEP_BATCH}: loss "
@@ -4315,14 +4360,18 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
     del g_plain
     torch.cuda.empty_cache()
 
-    tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
+    n_params = sum(p.numel() for p in params.values())
+    per_param = {"adamw": 14, "lion": 10}[opt]  # fp32 param and grad, bf16 mu (+ fp32 nu)
+    log(f"{tag} {model_name}: {opt} with a bf16 first moment holds {per_param} B a parameter, "
+        f"{n_params * per_param / 1e9:.1f} GB for {n_params / 1e9:.3f} B parameters, before "
+        f"activations ({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB card)")
+    tx = create_optimizer(lr=1e-4, wd=0.2, opt=opt, moments_dtype="bfloat16")
     state = create_train_state(model, tx)
     step = build_train_step(model, loss, tx)
     batch = wide_batch(model, batch_size, 0)
-    want = {"packed_attn_fwd": 2 * (n_vis + n_txt), "packed_attn_bwd": n_vis + n_txt,
-            **loss_kernels}  # remat 'full': K1 again in each block's backward
-    want_width = {"packed_attn_fwd": by_dim({d_vis: 2 * n_vis}, {d_txt: 2 * n_txt}),
-                  "packed_attn_bwd": by_dim({d_vis: n_vis}, {d_txt: n_txt})}
+    # remat 'full': K1 (K2) again in each block's backward
+    want_width = tower_wants(model_name, "packed_attn_fwd", "packed_attn_bwd", 2)
+    want = {**{k: sum(v.values()) for k, v in want_width.items()}, **loss_kernels}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path starts here
@@ -4355,7 +4404,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
         raise AssertionError(f"the {model_name} train main path failed its checks")
     perf = {"batch": batch_size, "steps": steps, "step_ms": step_ms, "step_ms_all": times,
             "pairs_per_s": batch_size / step_ms * 1e3, "peak_memory_gb": peak,
-            "params_m": sum(p.numel() for p in params.values()) / 1e6}
+            "params_m": n_params / 1e6, "optimizer": opt}
     if profile:  # one more step, after the main path's counts were read
         perf["profiled_step"] = profile_step(lambda: step(state, prep(batch)), tag)
     log(f"{tag} {model_name} b{batch_size} step {step_ms:.1f} ms"
@@ -4392,14 +4441,13 @@ def serve_against_plain(name, served, images, tokens, tag):
     (launches, launches by width, image features)."""
     from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
 
-    n_vis, d_vis, n_txt, d_txt = wide_layers(name)
     model = served.model
     reset_counts()  # the served path starts here
     img = served.encode_image(images)
     txt = served.encode_text(tokens)
     launches = nonzero(launch_counts())  # read right after the run
     by_width = launch_counts_by_width()
-    want = by_dim({d_vis: n_vis}, {d_txt: n_txt})
+    want = tower_wants(name, "packed_attn_fwd")
     with torch.inference_mode(), attention_impl(model, "xla"):
         ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
         ref_txt = model.encode_text(torch.from_numpy(tokens).cuda(), normalize=True).float().cpu().numpy()
@@ -4407,10 +4455,10 @@ def serve_against_plain(name, served, images, tokens, tag):
     embed = model.text_projection.weight.shape[0] if isinstance(
         model.text_projection, torch.nn.Module) else model.text_projection.shape[1]
     ok = (img.shape == (len(images), embed) and np.isfinite(img).all() and np.isfinite(txt).all()
-          and by_width == {"packed_attn_fwd": want} and cos >= 0.999)
+          and by_width == want and cos >= 0.999)
     log(f"{tag} {name} encode_image b{len(images)} ({images.shape[1]} px) + encode_text "
         f"b{len(tokens)} (ctx {tokens.shape[1]}): features {img.shape}, launches by head dim "
-        f"{by_width} (want {{'packed_attn_fwd': {want}}}); min cosine vs the same model's plain "
+        f"{by_width} (want {want}); min cosine vs the same model's plain "
         f"attention {cos:.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"serving {name} failed its checks")
@@ -4515,11 +4563,9 @@ def phase_serve_so400m(card):
     same weights' fp32 plain path (WIDE_SERVE_COS); `logits` with the bias;
     `encode_image` at b32 and b256 and `encode_text` at b256 timed. Returns
     ({path: launches}, {path: launches by width}, perf)."""
-    from mrclip_tpu_torch.ops import launch_counts_by_width
     from mrclip_tpu_torch.serving import ServedModel, export_model
 
     name = SIGLIP_MODEL
-    n_vis, d_vis, n_txt, d_txt = wide_layers(name)
     t0 = time.perf_counter()
     model = build_on_card(name, precision="bf16", attn_impl="fusedp")
     exported = export_model(model)
@@ -4557,26 +4603,9 @@ def phase_serve_so400m(card):
     if not ok:
         raise AssertionError(f"served {name} disagrees with the fp32 plain path or its bias")
 
-    perf = {"min_cosine_vs_fp32_plain": float(min(cos_img, cos_txt)),
-            "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
-    for bsz in (32, 256):
-        batch = np.ascontiguousarray(np.resize(images, (bsz, *images.shape[1:])))
-        before = launch_counts_by_width()
-        served.encode_image(batch)
-        got = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()}
-               for k, v in launch_counts_by_width().items()}
-        if got.get("packed_attn_fwd", {}).get(d_vis) != n_vis:
-            raise AssertionError(f"encode_image b{bsz}: launches by width {got}")
-        t = time.perf_counter()
-        for _ in range(3):
-            served.encode_image(batch)
-        perf[f"served_encode_image_b{bsz}_imgs_per_s"] = bsz * 3 / (time.perf_counter() - t)
-    tok256 = np.resize(tokens, (256, tokens.shape[1]))
-    served.encode_text(tok256)
-    t = time.perf_counter()
-    for _ in range(3):
-        served.encode_text(tok256)
-    perf["served_encode_text_b256_texts_per_s"] = 256 * 3 / (time.perf_counter() - t)
+    perf = served_rates(name, served, images, tokens, {
+        "min_cosine_vs_fp32_plain": float(min(cos_img, cos_txt)),
+        "params_m": sum(p.numel() for p in model.parameters()) / 1e6})
     x = torch.from_numpy(np.resize(images, (256, *images.shape[1:]))).cuda()
     with torch.inference_mode():
         perf["device_encode_image_b256_ms_fusedp"] = cuda_ms(
@@ -4637,6 +4666,199 @@ def phase_serve_long(card):
     return paths, widths, perf
 
 
+# Phase 18: the EVA family. The attention kernels at head dim 112
+# (EVA02-E-14's vision tower: 1792 wide, 16 heads, N = 257), EVA02-E-14
+# served and trained at full width and depth, one served b32 batch each of
+# EVA02-E-14-plus, EVA01-g-14 (D = 88, fused qkv, pre-norm) and
+# EVA02-L-14-336 (K2 at N = 577), then EVA02-L-14 served and trained (K2/K3r
+# at N = 257)
+EVA_MODEL = "EVA02-E-14"
+EVA_D = 112
+EVA_SHAPES = {"b256": dict(WIDE_VISION, d=EVA_D, b=TRAIN_BATCH), "b32": dict(WIDE_VISION, d=EVA_D)}
+# EVA02-E-14 steps at b32: one warm-up, four timed (single steps read 0.86 to
+# 1.71 s on one card: the median of two was the host's)
+EVA_STEPS = 5
+# Lion with a bf16 moment: 10 B a parameter, 47 GB at 4.7 B; AdamW's 14 B
+# (66 GB) leaves no room for the gradients held against plain attention
+EVA_OPT = "lion"
+EVA_SERVED = ("EVA02-E-14-plus", "EVA01-g-14", "EVA02-L-14-336")
+EVA_LARGE = "EVA02-L-14"
+
+
+def tame_post_norm_scores(model):
+    """Scale the q and k rows of each post-norm vision block's qkv weight by
+    1 / sqrt(depth), in place. EVA02-E's post-norm blocks attend over the
+    raw residual stream, whose std grows as sqrt(l) under the factory's
+    random init: by layer 64 the scores' std is about 64 and each softmax
+    nearly an argmax, and the gradient is chaotic there (on the CPU,
+    tools/post_norm_grads.py: two fp32 attention paths give gradients at
+    cosine -0.03, bf16 against fp32 0.01; with this scale >= 0.9997).
+    Trained weights keep their scores in range; these random ones are made
+    to. Returns the scale (1 without post-norm blocks)."""
+    blocks = [b for b in model.visual.trunk.blocks if getattr(b, "post_norm", False)]
+    if not blocks:
+        return 1.0
+    scale = len(blocks) ** -0.5
+    with torch.no_grad():
+        for block in blocks:
+            w = block.attn.qkv.weight
+            w[: 2 * w.shape[1]] *= scale
+    return scale
+
+
+def phase_kernel_eva():
+    """K1/K3, K4/K5 and K10/K10b at D = 112 against their plain versions with
+    phase 3's and phase 16's bars, bf16 and fp32, forward and backward, at
+    EVA02-E-14's vision shape (N 257, H 16) at b32 and b256 and the
+    tensor-core tiles' edges; which device kernels each runs; timed at b256
+    and b32 (event and device ms, the plain version, SDPA, the bound; two
+    bf16 backward runs bit-equal). Returns {kernel name: {112: results}}."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    t0 = time.perf_counter()
+    shapes = [*EVA_SHAPES.values(), *(dict(s, d=EVA_D) for s in WIDE_EDGES)]
+    worst = width_checks(shapes, gen)
+    log(f"[eva] D = {EVA_D} ({EVA_MODEL}): {len(shapes)} shapes x bf16, fp32 x 3 kernel pairs "
+        f"checked in {time.perf_counter() - t0:.1f} s")
+    names = width_device_kernels(EVA_SHAPES["b32"], gen)
+    timed = {label: wide_timings(shape, gen) for label, shape in EVA_SHAPES.items()}
+    return {name: {EVA_D: res}
+            for name, res in width_results(EVA_MODEL, worst, names, timed).items()}
+
+
+def served_rates(name, served, images, tokens, perf):
+    """`encode_image` at b32 and b256 (each call launching the vision
+    kernel, K1 or K2, exactly once a layer) and `encode_text` at b256
+    through `served`, each timed over 3 calls after one: images/s and
+    texts/s into `perf`."""
+    from mrclip_tpu_torch.ops import launch_counts_by_width
+
+    n_vis, d_vis, _, _ = wide_layers(name)
+    want = {"packed_attn_rope_fwd" if rope_tower(name) else "packed_attn_fwd": {d_vis: n_vis}}
+    for bsz in (WIDE_STEP_BATCH, TRAIN_BATCH):
+        batch = np.ascontiguousarray(np.resize(images, (bsz, *images.shape[1:])))
+        before = launch_counts_by_width()
+        served.encode_image(batch)
+        got = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()
+                   if n != before.get(k, {}).get(d, 0)}
+               for k, v in launch_counts_by_width().items()}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{name} encode_image b{bsz}: launches by width {got}, "
+                                 f"want {want}")
+        t = time.perf_counter()
+        for _ in range(3):
+            served.encode_image(batch)
+        perf[f"served_encode_image_b{bsz}_imgs_per_s"] = bsz * 3 / (time.perf_counter() - t)
+    tok = np.resize(tokens, (TRAIN_BATCH, tokens.shape[1]))
+    served.encode_text(tok)
+    t = time.perf_counter()
+    for _ in range(3):
+        served.encode_text(tok)
+    perf[f"served_encode_text_b{TRAIN_BATCH}_texts_per_s"] = TRAIN_BATCH * 3 / (
+        time.perf_counter() - t)
+    return perf
+
+
+def phase_eva_e(card):
+    """EVA02-E-14 at full width and depth (4.7 B parameters drawn on the
+    card from seed 0, the vision q and k rows at 1/8 of the factory's std:
+    `tame_post_norm_scores`; fp32 params, bf16 compute, 'fusedp', remat
+    'full'):
+    `encode_image` and `encode_text` at b32 through `ServedModel` with K1
+    once a layer (64 at D = 112, 24 at D = 64) against the same model's
+    plain attention; `encode_image` at b32 and b256 and `encode_text` at
+    b256 timed; then the train step (EVA_OPT, the pallas loss): gradients at
+    b32 against plain attention, also under 'fused' and 'flash' (K4/K5 and
+    K10/K10b at D = 112, each a path), and EVA_STEPS steps at b32 with exact
+    launches (176 K1, 88 K3 a step) and the peak memory; one profiled
+    step. The model is freed after, and the card's memory checked. Returns
+    ({path: launches}, {path: launches by width}, {path: per-step
+    launches}, perf)."""
+    from mrclip_tpu_torch.serving import ServedModel
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_on_card(EVA_MODEL, precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                          grad_checkpointing=True, remat_policy="full")
+    n_params = sum(p.numel() for p in model.parameters())
+    scale = tame_post_norm_scores(model)
+    log(f"[eva-e] {EVA_MODEL} built on the card in {time.perf_counter() - t0:.1f} s "
+        f"({n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB); "
+        f"vision q and k rows scaled by {scale:.4f}")
+    served = ServedModel(model, {})
+    images, tokens = siglip_inputs(model, WIDE_STEP_BATCH, 18)
+    paths, widths, per_step = {}, {}, {}
+    paths["serve_eva_e"], widths["serve_eva_e"], _ = serve_against_plain(
+        EVA_MODEL, served, images, tokens, "[eva-e]")
+    perf = served_rates(EVA_MODEL, served, images, tokens, {"params_m": n_params / 1e6})
+    x = torch.from_numpy(np.resize(images, (TRAIN_BATCH, *images.shape[1:]))).cuda()
+    with torch.inference_mode():
+        perf[f"device_encode_image_b{TRAIN_BATCH}_ms_fusedp"] = cuda_ms(
+            lambda: model.encode_image(x, normalize=True), 3, warmup=1)
+    log(f"[eva-e] served throughput on {card}: " + json.dumps(perf))
+    del served, x
+    (paths["train_eva_e"], widths["train_eva_e"], per_step["train_eva_e"], train,
+     grads) = wide_step(EVA_MODEL, model, WIDE_STEP_BATCH, EVA_STEPS, card, "[eva-e]",
+                        profile=True, impls=("fused", "flash"), opt=EVA_OPT)
+    for impl, (counts, by_width) in grads.items():  # K4/K5 and K10/K10b at D = 112
+        paths[f"grads_eva_e_{impl}"], widths[f"grads_eva_e_{impl}"] = counts, by_width
+    perf = {"serve": perf, "train": train}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_allocated() - held
+    log(f"[eva-e] card memory after the model was freed: {kept / 1e9:+.3f} GB against before "
+        f"it was built {'ok' if kept < 0.5e9 else 'FAIL'}")
+    if kept >= 0.5e9:
+        raise AssertionError(f"{EVA_MODEL} outlived its phase")
+    return paths, widths, per_step, perf
+
+
+def phase_eva_family(card):
+    """One served b32 batch each of EVA_SERVED at full width and depth
+    (random weights from seed 0, bf16, 'fusedp') through `ServedModel`
+    against the same model's plain attention: EVA02-E-14-plus (D = 112,
+    text 32 x 1280), EVA01-g-14 (D = 88, fused qkv, pre-norm) and
+    EVA02-L-14-336 (K2 at N = 577, the rope rescaled from the 24 x 24 grid
+    to (16, 16)); then EVA02-L-14 served at b32 and b256 and one train step
+    at b32 (AdamW, the pallas loss; gradients against plain attention
+    first): K2/K3r at N = 257. Returns ({path: launches}, {path: launches
+    by width}, {path: per-step launches}, perf)."""
+    from mrclip_tpu_torch.serving import ServedModel
+
+    paths, widths, per_step, perf = {}, {}, {}, {}
+    for name in (*EVA_SERVED, EVA_LARGE):
+        key = name.lower().replace("-", "_")
+        t0 = time.perf_counter()
+        large = name == EVA_LARGE
+        model = build_on_card(name, precision="bf16", attn_impl="fusedp", gelu_approx=True,
+                              **(dict(grad_checkpointing=True, remat_policy="full") if large
+                                 else {}))
+        scale = tame_post_norm_scores(model)
+        log(f"[eva] {name} built on the card in {time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params; vision q and k "
+            f"rows scaled by {scale:.4f})")
+        served = ServedModel(model, {})
+        images, tokens = siglip_inputs(model, WIDE_STEP_BATCH, 19)
+        paths[f"serve_{key}"], widths[f"serve_{key}"], _ = serve_against_plain(
+            name, served, images, tokens, "[eva]")
+        x = torch.from_numpy(images).cuda()
+        with torch.inference_mode():
+            perf[f"{key}_device_encode_image_b32_ms"] = cuda_ms(
+                lambda: model.encode_image(x, normalize=True), 3, warmup=1)
+        log(f"[eva] {name} encode_image b32 ({images.shape[1]} px) on the card: "
+            f"{perf[f'{key}_device_encode_image_b32_ms']:.2f} ms | {card}")
+        del x
+        if large:
+            perf[f"{key}_serve"] = served_rates(name, served, images, tokens, {})
+            log(f"[eva] {name} served throughput on {card}: {json.dumps(perf[f'{key}_serve'])}")
+            (paths[f"train_{key}"], widths[f"train_{key}"], per_step[f"train_{key}"],
+             perf[f"{key}_train"], _) = wide_step(name, model, WIDE_STEP_BATCH, 1, card, "[eva]")
+        del served, model
+        torch.cuda.empty_cache()
+    return paths, widths, per_step, perf
+
+
 def mark(phase, t0):
     """Log the run's seconds so far as `phase` starts; its profiler windows
     are counted under it."""
@@ -4655,14 +4877,16 @@ def main() -> int:
     name, smi = phase_card()
     mark("2 build", t0)
     phase_build()
-    # phases 16 and 17's kernel checks and timings come first: they read
+    # phases 18, 16 and 17's kernel checks and timings come first: they read
     # device kernels and times from many short profiler windows, and late in
     # a long process the profiler loses windows' device records (PROFILER,
     # tools/profiler_windows.py)
+    mark("18 kernels", t0)
+    eva_widths = phase_kernel_eva()
     mark("16 kernels", t0)
     widths = phase_kernel_widths()
     mark("17 kernels", t0)
-    for kname, res in phase_kernel_siglip().items():
+    for kname, res in [*phase_kernel_siglip().items(), *eva_widths.items()]:
         widths[kname].update(res)
     mark("3 kernel", t0)
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
@@ -4742,6 +4966,14 @@ def main() -> int:
     wide_widths.update(long_widths)
     fwd["siglip_models"] = {"serve_so400m": so400m_serve, "train_so400m": so400m_train,
                             **long_perf}
+    # phase 18's models: EVA02-E-14, then the rest of the EVA family
+    mark("18 models", t0)
+    eva_paths, eva_widths, eva_per_step, eva_perf = phase_eva_e(smi)
+    fam_paths, fam_widths, fam_per_step, fam_perf = phase_eva_family(smi)
+    paths.update({**eva_paths, **fam_paths})
+    wide_widths.update({**eva_widths, **fam_widths})
+    per_step.update({**eva_per_step, **fam_per_step})
+    fwd["eva_models"] = {"eva02_e_14": eva_perf, **fam_perf}
     mark("end", t0)
     # every kernel of a path launched on it (the exact counts are checked inside)
     expected = {"serve": ["packed_attn_fwd"],
@@ -4768,18 +5000,20 @@ def main() -> int:
                 "train_so400m": [*per_step["train_so400m"]],
                 **{f"grads_so400m_{impl}": [fwd_name, bwd_name]
                    for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()},
-                **{path: ["packed_attn_fwd"] for path in long_paths}}
+                **{path: ["packed_attn_fwd"] for path in long_paths},
+                **{path: [*counts, *(PALLAS_STEP if path.startswith(("train_", "grads_")) else ())]
+                   for path, counts in {**eva_widths, **fam_widths}.items()}}
     missing = [(p, k) for p, ks in expected.items() for k in ks if not paths[p].get(k)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
-    new_dims = (*WIDE_MODELS, SIGLIP_D)
+    new_dims = (*WIDE_MODELS, SIGLIP_D, EVA_D)
     for kname, entry in entries.items():
         by_path = {p: counts.get(kname, 0) for p, counts in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         entry["launches_per_step"] = {p: per_step[p].get(kname, 0) for p in per_step}
         entry["card"] = smi
-        if kname in widths:  # phases 16 and 17: the same kernel at head dims 72 to 104
+        if kname in widths:  # phases 16 to 18: the same kernel at head dims 72 to 112
             entry["widths"] = {str(d): res for d, res in widths[kname].items()}
             entry["launches_at_new_widths"] = {
                 str(d): sum(w.get(kname, {}).get(d, 0) for w in wide_widths.values())

@@ -38,6 +38,7 @@ _EXPORTS = {
     "decode": "tokenizer",
     "tokenize": "tokenizer",
     "state_dict_from_flax": "weights",
+    "vision_layout_from_config": "weights",
 }
 
 __all__ = sorted(_EXPORTS)

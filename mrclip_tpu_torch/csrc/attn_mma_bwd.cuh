@@ -55,8 +55,9 @@
 //     and K10b at D = 64 with n and nk at most 256, every main-path shape of
 //     the four;
 //   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
-//     Ampere's mma.sync: D = 32, past 256 rows, and D = 80, 88 and 104
-//     (ViT-H/g/bigG-14, N = 257; no rope).
+//     Ampere's mma.sync: D = 32, past 256 rows, and D = 72, 80, 88, 104
+//     and 112 (ViT-SO400M, ViT-H/g/bigG-14, EVA01-g-14, EVA02-E-14; no
+//     rope).
 //
 // wgmma kernels: one warpgroup (128 threads) per block walks every 64-row
 // (dq pass) or 64-key (dk/dv pass) sub-tile of its (sample, head), grid
@@ -175,17 +176,19 @@
 // recomputed products, not device memory, set the pace; a warp's S -> P ->
 // dS -> product chain runs in series. Dynamic shared memory: 2 ch (D + 8) *
 // 2 bytes for a chunk of ch rows (dkv: plus 12 ch of statistics).
-// The wide head dims (D = 72, 80, 88, 104; attn_mma_fwd.cuh's note): rows and
+// The wide head dims (D = 72, 80, 88, 104, 112; attn_mma_fwd.cuh's note): rows and
 // fragments P = pad16(D) wide, the pad staged as zeros (stage_rows) or read
 // as zeros (load_frag_a: the upper 8 columns of the last 16), so dQ, dK and
 // dV carry zeros in the pad and store_frag_c writes the first D columns.
 // dK and dV at P = 112 hold 2 x 14 x 4 fp32 accumulators a thread beside
 // K's and V's 2 x 7 x 4 fragments: two blocks an SM (__launch_bounds__(128,
-// 2), up to 255 registers: dq 169 / 183 / 201 resident and 202 / 212 / 246
-// chunked, dkv 201 / 218 / 244 and 224 / 229 / 253 at 80 / 88 / 104, none
-// spilling), and chunks of at most mma_bwd_max_chunk rows, which leave
+// 2), up to 255 registers: dq 169 / 183 / 201 / 207 resident and 202 / 212
+// / 246 / 255 chunked, dkv 201 / 218 / 244 / 255 and 224 / 229 / 253 / 255
+// at 80 / 88 / 104 / 112; none spilling but the chunked passes at 112, P =
+// 112 with no zero column: dq 16 bytes, dkv 12 (K10b's 20; its chunked dq
+// takes 236), and chunks of at most mma_bwd_max_chunk rows, which leave
 // shared memory for two blocks: at N = 257 both passes are resident at D =
-// 80, the dq pass at 88, neither at 104.
+// 80, the dq pass at 88, neither at 104 or 112.
 
 #pragma once
 
@@ -218,7 +221,7 @@ constexpr int mma_bwd_dkv_smem(int ch) {  // Q and dO chunks, three fp32 stats
 // The most rows the dq (DKV = false) or dkv pass stages at once: kMaxChunk
 // at D <= 64, else as many as leave two blocks an SM (the forward's
 // kTwoBlocksSmem; dq / dkv: 320 / 304 at D = 72 and 80, 272 / 256 at 88, 240 / 224
-// at 104), at most kMaxResident.
+// at 104 and 112), at most kMaxResident.
 template <int D, bool DKV>
 constexpr int mma_bwd_max_chunk() {
   if (D <= 64) return kMaxChunk;
@@ -470,7 +473,8 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
                       const float* __restrict__ stat_a, const float* __restrict__ stat_b,
                       float* __restrict__ delta, bf16* __restrict__ dq, int n, int nk, int heads,
                       Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104 || D == 112,
+                "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");
@@ -609,7 +613,8 @@ __global__ void __launch_bounds__(kMmaThreads, CHUNKED || D > 64 ? 2 : 3)
                        const float* __restrict__ stat_b, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int nk, int heads,
                        Strides st, float scale, int causal, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104 || D == 112,
+                "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(!(FLASH && ROPE), "the rope backward is K3r's");

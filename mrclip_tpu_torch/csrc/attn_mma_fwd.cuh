@@ -40,8 +40,9 @@
 //   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K10
 //     over several jax key blocks (MULTI, N > 256), K1, K2 and K4 past 256
 //     keys (the chunked walk; K2's rope rotated in shared memory), D = 32,
-//     and K1, K4 and K10 at D = 80, 88 and 104 (ViT-H-14, ViT-g-14,
-//     ViT-bigG-14; no rope), whose vision towers have N = 257.
+//     and K1, K4 and K10 at D = 72, 80, 88, 104 and 112 (ViT-SO400M,
+//     ViT-H-14, ViT-g-14 and EVA01-g-14, ViT-bigG-14, EVA02-E-14; no
+//     rope).
 //
 // wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
 // sub-tiles of 64 query rows of one (sample, head), grid (batch or groups,
@@ -154,20 +155,22 @@
 // spilling 60 bytes (the N = 577 path, off the main paths). The rotation
 // pass takes two pieces per step: four spilled at D = 64, one timed slower
 // on the H100.
-// The wide head dims (D = 72, 80, 88, 104): mma.sync m16n8k16 steps D by 16,
-// so 72, 88 and 104 are padded to P = pad16(D) = 80, 96 and 112 columns,
+// The wide head dims (D = 72, 80, 88, 104, 112): mma.sync m16n8k16 steps D
+// by 16, so 72, 88 and 104 are padded to P = pad16(D) = 80, 96 and 112
+// columns (112 takes 104's layout with no pad column),
 // each by one 16-byte piece (8 columns) a row: stage_rows
 // zero-fills the pad pieces of every Q, K and V row (no source bytes), Q's
 // fragments, S = Q K^T over P / 16 k-steps and O = P V over P / 8 n-tiles
 // then carry zeros in the pad (they add nothing to S), and only the first
 // D columns of o are stored. Rows of P + 8 elements (176, 208, 240 bytes:
 // an odd number of 16-byte units) keep ldmatrix free of bank conflicts, as
-// at 64 and 32. Two blocks an SM (__launch_bounds__(128, 2): 212, 236 and
-// 255 registers for K1/K4 at 80, 88, 104; K10's several-block form 255,
-// spilling 32 bytes at 104) and chunks of at most mma_max_chunk<D>() keys
-// (288, 240, 208), which leave shared memory for two blocks: N = 257 at D
-// = 80 is staged once for 3 or 2 of its 5 sub-tiles (even_iters); at 88 and
-// 104 in two chunks copied again in pass B, as D = 64 past 256 keys.
+// at 64 and 32. Two blocks an SM (__launch_bounds__(128, 2): 212, 236, 255
+// and 249 registers for K1/K4 at 80, 88, 104, 112; K10's several-block form
+// 255, spilling 32 bytes at 104 and 40 at 112) and chunks of at most
+// mma_max_chunk<D>() keys (288, 240, 208, 208), which leave shared memory
+// for two blocks: N = 257 at D = 80 is staged once for 3 or 2 of its 5
+// sub-tiles (even_iters); at 88, 104 and 112 in two chunks copied again in
+// pass B, as D = 64 past 256 keys.
 
 #pragma once
 
@@ -211,7 +214,7 @@ constexpr int mma_smem_bytes(int ch) {
 // The most keys mma_fwd_kernel stages at once: kMaxChunk at D <= 64 (whose
 // main-path shapes run wgmma; its mma.sync walks past 256 keys stay as
 // they were measured), else as many as leave two blocks an SM (288 at D =
-// 72 and 80, 240 at 88, 208 at 104), at most kMaxResident.
+// 72 and 80, 240 at 88, 208 at 104 and 112), at most kMaxResident.
 template <int D>
 constexpr int mma_max_chunk() {
   if (D <= 64) return kMaxChunk;
@@ -545,7 +548,8 @@ __global__ void __launch_bounds__(kMmaThreads, D > 64 ? 2 : 3)
                    bf16* __restrict__ o, float* __restrict__ stat_a,
                    float* __restrict__ stat_b, int n, int nk, int heads, Strides st, float scale,
                    int causal, int blk_q, int blk_k, int nblk, int ch, int iters) {
-  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104, "head dim");
+  static_assert(D == 32 || D == 64 || D == 72 || D == 80 || D == 88 || D == 104 || D == 112,
+                "head dim");
   static_assert(!ROPE || D <= 64, "rope takes D = 32 and 64");
   constexpr int P = pad16(D);  // shared rows and fragments: D padded to 16 columns
   static_assert(FLASH || !MULTI, "K4 walks one key block");

@@ -34,7 +34,7 @@ __host__ __device__ constexpr int pad16(int d) { return (d + 15) & ~15; }
 
 // Rows of K and V (or Q and dO) staged at once by the fp32 kernels: their
 // two fp32 tiles of kStage<D> x pad16(D) stay under the 48 KB of static
-// shared memory (64 rows up to D = 80, 32 past it).
+// shared memory (64 rows up to D = 80, 32 past it: 88, 104 and 112).
 template <int D>
 constexpr int kStage = pad16(D) <= 80 ? kTile : kTile / 2;
 

@@ -54,9 +54,9 @@
 // one key block of at most 256 keys at D = 64 on wgmma),
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
 // statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
-// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 80,
-// 88 and 104 on mma.sync, 72, 88 and 104 padded to 80, 96 and 112
-// columns; D = 72 on mma.sync too). fp32
+// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 72,
+// 80, 88, 104 and 112 on mma.sync, 72, 88 and 104 padded to 80, 96 and
+// 112 columns). fp32
 // runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
@@ -126,6 +126,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
     MRCLIP_LAUNCH(float, 104);
   }
+  if (head_dim == 112) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
+    MRCLIP_LAUNCH(float, 112);
+  }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -171,6 +175,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 104) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
     MRCLIP_LAUNCH(float, 104);
+  }
+  if (head_dim == 112) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
+    MRCLIP_LAUNCH(float, 112);
   }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -34,8 +34,8 @@
 // fp32 takes one block per (group, 64-row query tile), four lanes per row,
 // K/V tiles of 64 keys (32 past D = 80) staged in fp32 (attn_rows.cuh): the
 // forward walks the keys twice; the backward is K3's two passes (dQ + delta
-// per query tile; dK, dV per key tile). Head dims 32, 64, 72, 80, 88 and
-// 104; 72, 88 and 104 padded to 80, 96 and 112 columns inside both families.
+// per query tile; dK, dV per key tile). Head dims 32, 64, 72, 80, 88,
+// 104 and 112; 72, 88 and 104 padded to 80, 96 and 112 columns inside both families.
 //
 // Bound on an H100 SXM. Forward, ViT-B/16 vision at b256 (B*H = 3072
 // groups, N = 197, D = 64, bf16): q, k, v read and o written once (4 x 77.5
@@ -106,6 +106,10 @@ extern "C" int grouped_attn_fwd(const void* q, const void* k, const void* v,
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
     MRCLIP_LAUNCH(float, 104);
   }
+  if (head_dim == 112) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
+    MRCLIP_LAUNCH(float, 112);
+  }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -149,6 +153,10 @@ extern "C" int grouped_attn_bwd(const void* q, const void* k, const void* v,
   if (head_dim == 104) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
     MRCLIP_LAUNCH(float, 104);
+  }
+  if (head_dim == 112) {
+    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
+    MRCLIP_LAUNCH(float, 112);
   }
 #undef MRCLIP_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -333,7 +333,7 @@ int launch_fma(const void* q, const void* k, const void* v, const void* tab,
 }
 
 // Both entry points, by type and head dim (64 | 32, and for K3 72 | 80 | 88 |
-// 104): bf16 on the tensor cores (K5's form: delta at (b * heads + h) * n +
+// 104 | 112): bf16 on the tensor cores (K5's form: delta at (b * heads + h) * n +
 // row of the [B, H, N] scratch), fp32 on the FMA kernels.
 template <bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const void* tab,
@@ -378,6 +378,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
     if (head_dim == 104) {
       if (is_bf16) MRCLIP_LAUNCH_MMA(104);
       MRCLIP_LAUNCH(104);
+    }
+    if (head_dim == 112) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(112);
+      MRCLIP_LAUNCH(112);
     }
   }
 #undef MRCLIP_LAUNCH_MMA

@@ -79,7 +79,9 @@ constexpr int kChunk = 8;  // keys scored together per online-softmax update
 
 // The fp32 forward (bf16 runs attn_mma_fwd.cuh's kernels), any D that is a
 // multiple of 4; K/V tiles of kKeys keys (attn_tile.cuh's kStage<D>: 64 up
-// to D = 80, 32 past it, so the two tiles stay under 48 KB).
+// to D = 80, 32 past it, so the two tiles stay under 48 KB). A thread keeps
+// its q and o rows in registers: at 255 registers D = 104 spills 8 bytes and
+// D = 112 36 (sm_90a, -Xptxas -v).
 template <int D, bool ROPE>
 __global__ void __launch_bounds__(kRows)
     packed_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -222,7 +224,7 @@ int launch(const void* q, const void* k, const void* v, const void* tab,
 }
 
 // Both entry points, by type and head dim (64 | 32, and for K1 72 | 80 | 88 |
-// 104): bf16 on the tensor cores, one key block of all nk keys (K4's form:
+// 104 | 112): bf16 on the tensor cores, one key block of all nk keys (K4's form:
 // o [B, N, H*D] contiguous, lse [B, H, N] at (b * heads + h) * n + row),
 // fp32 on the FMA kernel.
 template <bool ROPE>
@@ -266,6 +268,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
     if (head_dim == 104) {
       if (is_bf16) MRCLIP_LAUNCH_MMA(104);
       MRCLIP_LAUNCH(104);
+    }
+    if (head_dim == 112) {
+      if (is_bf16) MRCLIP_LAUNCH_MMA(112);
+      MRCLIP_LAUNCH(112);
     }
   }
 #undef MRCLIP_LAUNCH_MMA

@@ -1,6 +1,6 @@
 """CLIP assembly of the port (counterpart of `mrclip_tpu/models/clip.py`):
-the plain ViT (with CLIPA's options), the timm SigLIP ViT, the EVA02-B/L or
-the FastViT/MCi (MobileCLIP-S1/S2) tower and the open_clip text tower
+the plain ViT (with CLIPA's options), the timm SigLIP ViT, the EVA (EVA02-B/L/E,
+EVA01-g) or the FastViT/MCi (MobileCLIP-S1/S2) tower and the open_clip text tower
 (causal or not, any pool, a projection with or without bias), L2-normalized
 embeddings, a learned temperature and SigLIP's logit bias.
 
@@ -143,42 +143,61 @@ def _reject(unsupported: dict, what: str, roadmap: str) -> None:
 
 
 _EVA02 = re.compile(r"eva02_(base|large|enormous)_patch(\d+)(?:_plus)?_clip_(224|336)$")
-_EVA02_DIMS = {"base": (768, 12, 12), "large": (1024, 24, 16)}  # width, layers, heads
+_EVA_GIANT = re.compile(r"eva_giant_patch14(?:_clip)?_(224|336)$")
+# width, layers, heads: EVA02-B/L/E, and EVA01-g ("giant")
+_EVA_DIMS = {"base": (768, 12, 12), "large": (1024, 24, 16), "enormous": (1792, 64, 16),
+             "giant": (1408, 40, 16)}
+_EVA_MLP_RATIO = {"enormous": 15360 / 1792, "giant": 6144 / 1408}  # else SwiGLU's 8/3
 
 
-def _build_eva02_tower(embed_dim: int, cfg: CLIPVisionCfg, dtype: torch.dtype,
-                       attn_impl: str, remat: Optional[str]) -> EvaVisionTransformer:
-    """The EVA02-B/L tower of the JAX package's `_build_timm_vit_tower`
-    (`eva02_{base,large}_patch*_clip_{224,336}`): SwiGLU hidden
-    int(width * 8/3) with sub-LN, inner attention LN, zero k bias, axial 2D
-    rope on the (16, 16) pretraining grid, LN eps 1e-6."""
-    m = _EVA02.match(cfg.timm_model_name)
+def _eva_tower(name: Optional[str]):
+    """(size, patch, resolution) of an EVA tower name, or None."""
+    if m := _EVA02.match(name or ""):
+        return m.group(1), int(m.group(2)), int(m.group(3))
+    if m := _EVA_GIANT.match(name or ""):
+        return "giant", 14, int(m.group(1))
+    return None
+
+
+def _build_eva_tower(embed_dim: int, cfg: CLIPVisionCfg, act, dtype: torch.dtype,
+                     attn_impl: str, remat: Optional[str]) -> EvaVisionTransformer:
+    """The EVA towers of the JAX package's `_build_timm_vit_tower`, LN eps
+    1e-6 and a zero k bias in all: EVA02-B/L (`eva02_{base,large}_patch*
+    _clip_{224,336}`: SwiGLU hidden int(width * 8/3) with sub-LN, inner
+    attention LN, axial 2D rope on the (16, 16) pretraining grid), EVA02-E
+    (`eva02_enormous_*`: post-norm blocks, fused qkv, GELU MLP of 15360, no
+    rope) and EVA01-g (`eva_giant_patch14_{224,336}`: pre-norm blocks, fused
+    qkv, GELU MLP of 6144, no rope)."""
+    size, patch, res = _eva_tower(cfg.timm_model_name)
+    rope = size in ("base", "large")
     _reject({
-        "EVA02-E (eva02_enormous: post-norm blocks, no rope)": m.group(1) == "enormous",
-        "the fused SwiGLU gate (mlp_fused_gate)": cfg.mlp_fused_gate,
+        "the fused SwiGLU gate (mlp_fused_gate)": cfg.mlp_fused_gate and rope,
         "drop path (timm_drop_path)": cfg.timm_drop_path,
-        # JAX rejects it too: rope indexes patches by grid position
-        "patch dropout with rope": cfg.patch_dropout > 0,
+        # with rope JAX refuses it too: rope indexes patches by grid position
+        "patch dropout": cfg.patch_dropout > 0,
         f"timm_proj={cfg.timm_proj!r} (linear only)": cfg.timm_proj != "linear",
         "timm_proj_bias": cfg.timm_proj_bias,
-    }, "EVA02 tower", OTHER_CONFIGS)
+    }, "EVA tower", OTHER_CONFIGS)
     if cfg.timm_pool not in ("token", "tok", ""):
         raise NotImplementedError(
-            f"timm_pool={cfg.timm_pool!r} unsupported for EVA02 (token pooling only)")
-    width, layers, heads = _EVA02_DIMS[m.group(1)]
+            f"timm_pool={cfg.timm_pool!r} unsupported for EVA (token pooling only)")
+    width, layers, heads = _EVA_DIMS[size]
     return EvaVisionTransformer(
-        image_size=cfg.image_size or int(m.group(3)),
-        patch_size=int(m.group(2)),
+        image_size=cfg.image_size or res,
+        patch_size=patch,
         width=width,
         layers=layers,
         heads=heads,
-        mlp_ratio=4 * 2 / 3,
+        mlp_ratio=_EVA_MLP_RATIO.get(size, 4 * 2 / 3),
         output_dim=embed_dim,
         rope_ref_feat_shape=(16, 16),
         ln_eps=1e-6,
         attn_impl=attn_impl,
         dtype=dtype,
         remat=remat,
+        qkv_fused=not rope,
+        post_norm=size == "enormous",
+        act=act,
     )
 
 
@@ -268,14 +287,14 @@ def build_vision_tower(embed_dim: int, vision_cfg, quick_gelu_act=False,
                        dtype: torch.dtype = torch.float32,
                        attn_impl: str = "xla", dw_impl: Optional[str] = None,
                        remat: Optional[str] = None):
-    """The plain open_clip ViT, the timm SigLIP ViT, the EVA02-B/L or the
+    """The plain open_clip ViT, the timm SigLIP ViT, an EVA tower or the
     FastViT/MCi tower (its depthwise convolutions on `dw_impl`; without one,
     MRCLIP_DW_IMPL decides), its blocks remat'd under the policy `remat` if
     given; other vision towers raise."""
     cfg = _filter_cfg(CLIPVisionCfg, vision_cfg)
     act, ln_eps = _resolve_act_norm(quick_gelu_act, cfg.act_kwargs, cfg.norm_kwargs, "vision")
-    if cfg.timm_model_name and _EVA02.match(cfg.timm_model_name):
-        return _build_eva02_tower(embed_dim, cfg, dtype, attn_impl, remat)  # SwiGLU: no act
+    if _eva_tower(cfg.timm_model_name):  # SwiGLU (EVA02-B/L) takes no act
+        return _build_eva_tower(embed_dim, cfg, act, dtype, attn_impl, remat)
     if cfg.timm_model_name and (cfg.timm_model_name.startswith("fastvit_")
                                 or cfg.timm_model_name == "vit_base_mci_224"):
         return _build_fastvit_tower(embed_dim, cfg, act, dtype, attn_impl, dw_impl, remat)

@@ -4,7 +4,7 @@ Precision follows the JAX package: parameters stay fp32 and each layer
 computes in `dtype`. A dense layer casts its weight (and bias) to `dtype` at
 use, as `flax.linen.Dense(dtype=...)` does; LayerNorm takes its statistics in
 fp32 and returns the input's type. Parameter names are open_clip's (timm
-`eva.py`'s for the EVA02 parts: `EvaAttention`, `SwiGLU`), so an open_clip
+`eva.py`'s for the EVA parts: `EvaAttention`, `SwiGLU`), so an open_clip
 state dict loads with `strict=True`. `DepthwiseConv` keeps the JAX package's
 `kernel`/`bias` pair as the `weight [C, 1, K, K]` / `bias` of a depthwise
 `Conv2d`.
@@ -322,16 +322,21 @@ class MultiHeadAttention(nn.Module):
 
 
 class EvaAttention(nn.Module):
-    """EVA02 self-attention in timm `eva.py` parameter names: `q_proj`,
-    `k_proj` (no bias), `v_proj`, the sub-LN `norm` over the merged heads
-    and `proj`. The JAX package's `MultiHeadAttention` with `zero_k_bias`
-    (`ZeroKBiasQKV`), `inner_norm` and `rope`: one `[B, N, 3W]` projection
-    with the bias `[bq, 0, bv]` (the k bias is no parameter at all, so it
-    cannot drift), attention over its column slices, q and k rotated by the
-    rope table (`_attend`), LayerNorm, then `proj`."""
+    """EVA self-attention in timm `eva.py` parameter names. The JAX
+    package's `MultiHeadAttention` with `zero_k_bias` (`ZeroKBiasQKV`): one
+    `[B, N, 3W]` projection with the bias `[bq, 0, bv]` (the k bias is no
+    parameter at all, so it cannot drift), attention over its column slices
+    (`_attend`), then `proj`.
+
+    EVA02-B/L (timm `qkv_fused=False`): `q_proj`, `k_proj` (no bias),
+    `v_proj`, q and k rotated by the rope table, and the sub-LN `norm` over
+    the merged heads before `proj` (JAX `inner_norm`). EVA02-E and EVA01-g
+    (`qkv_fused=True`): one bias-free `qkv` weight [3W, W] beside the
+    `q_bias` and `v_bias` parameters, no rope and no norm."""
 
     def __init__(self, width: int, num_heads: int, attn_impl: str = "xla",
-                 ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+                 ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 qkv_fused: bool = False):
         super().__init__()
         _check_attn_impl(attn_impl)
         if width % num_heads:
@@ -339,22 +344,35 @@ class EvaAttention(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.compute_dtype = dtype
-        self.q_proj = Linear(width, width, dtype=dtype)
-        self.k_proj = Linear(width, width, bias=False, dtype=dtype)
-        self.v_proj = Linear(width, width, dtype=dtype)
-        self.norm = LayerNorm(width, eps=ln_eps)
+        self.qkv_fused = qkv_fused
+        if qkv_fused:
+            self.qkv = Linear(width, 3 * width, bias=False, dtype=dtype)
+            self.q_bias = nn.Parameter(torch.zeros(width))
+            self.v_bias = nn.Parameter(torch.zeros(width))
+            self.norm = None
+        else:
+            self.q_proj = Linear(width, width, dtype=dtype)
+            self.k_proj = Linear(width, width, bias=False, dtype=dtype)
+            self.v_proj = Linear(width, width, dtype=dtype)
+            self.norm = LayerNorm(width, eps=ln_eps)
         self.proj = Linear(width, width, dtype=dtype)
 
-    def qkv(self, x: torch.Tensor) -> torch.Tensor:
-        """The `ZeroKBiasQKV` projection: one F.linear over the concatenated
-        weights (each cast to the compute type) with the bias [bq, 0, bv]."""
+    def project_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """The `ZeroKBiasQKV` projection: one F.linear over the fused weight
+        (or the split ones concatenated), cast to the compute type, with
+        the bias [bq, 0, bv] put together once a call."""
         dt = self.compute_dtype
-        weight = torch.cat([m.weight.to(dt) for m in (self.q_proj, self.k_proj, self.v_proj)])
-        bq, bv = self.q_proj.bias.to(dt), self.v_proj.bias.to(dt)
+        if self.qkv_fused:
+            weight, bq, bv = self.qkv.weight.to(dt), self.q_bias.to(dt), self.v_bias.to(dt)
+        else:
+            weight = torch.cat([m.weight.to(dt) for m in (self.q_proj, self.k_proj, self.v_proj)])
+            bq, bv = self.q_proj.bias.to(dt), self.v_proj.bias.to(dt)
         return F.linear(x.to(dt), weight, torch.cat([bq, torch.zeros_like(bq), bv]))
 
     def forward(self, x: torch.Tensor, *, rope: torch.Tensor | None = None) -> torch.Tensor:
-        out = self.norm(_attend(self.qkv(x), self.num_heads, self.attn_impl, False, rope))
+        out = _attend(self.project_qkv(x), self.num_heads, self.attn_impl, False, rope)
+        if self.norm is not None:
+            out = self.norm(out)
         with attn_out_saved:
             return self.proj(out)
 

@@ -1,13 +1,15 @@
 """Transformer stack of the port (counterpart of
-`mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled, and
-the EVA02 block (`EvaBlock`: SwiGLU with sub-LN, inner attention LN, rope).
+`mrclip_tpu/models/transformer.py`): pre-LN residual blocks, unrolled, the
+EVA02-B/L block (`EvaBlock`: SwiGLU with sub-LN, inner attention LN, rope)
+and the EVA02-E / EVA01-g block (`EvaFusedBlock`: fused qkv, GELU MLP,
+post-norm or pre-norm).
 
 Per-block remat (the JAX package's `remat`, open_clip's
 `grad_checkpointing`) is `remat_call`: `torch.utils.checkpoint` without
 reentrance, under the JAX package's three policies (`REMAT_POLICIES`).
 The JAX package's `scan_layers` is a compile-time choice of XLA with no
-counterpart here; cross-attention and post-norm blocks belong to towers
-not ported yet (ROADMAP: modules items 4 and 5).
+counterpart here; cross-attention blocks belong to towers not ported yet
+(ROADMAP: modules item 5).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .layers import (MLP, EvaAttention, LayerNorm, LayerScale, MultiHeadAttention, SwiGLU,
                      TimmAttention, TimmMlp, attn_out_saved, dropout, gelu_exact)
 
-__all__ = ["EvaBlock", "REMAT_POLICIES", "ResidualAttentionBlock", "TimmBlock", "Transformer",
-           "remat_call", "running_stats", "text_global_pool"]
+__all__ = ["EvaBlock", "EvaFusedBlock", "REMAT_POLICIES", "ResidualAttentionBlock", "TimmBlock",
+           "Transformer", "remat_call", "running_stats", "text_global_pool"]
 
 # The JAX package's policies (models/transformer.py REMAT_POLICIES):
 # 'full' recomputes the whole block in the backward; 'dots' keeps the
@@ -166,6 +168,36 @@ class EvaBlock(nn.Module):
         self.mlp = SwiGLU(width, int(width * mlp_ratio), ln_eps=ln_eps, dtype=dtype)
 
     def forward(self, x: torch.Tensor, rope: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), rope=rope)
+        return x + self.mlp(self.norm2(x))
+
+
+class EvaFusedBlock(nn.Module):
+    """The EVA02-E and EVA01-g block in timm `eva.py` names (`norm1`,
+    `attn` with the fused `qkv` and `q_bias`/`v_bias`, `norm2`, `mlp.fc1`,
+    `mlp.fc2`): the JAX package's `ResidualAttentionBlock` with
+    `attn_zero_k_bias`, a plain MLP and no rope. Pre-norm (EVA01-g, timm
+    `EvaBlock`): x += attn(norm1(x)); x += mlp(norm2(x)). With `post_norm`
+    (EVA02-E, timm `EvaBlockPostNorm`) the branch output is normed before
+    it is added: x += norm1(attn(x)); x += norm2(mlp(x)). The 'mlp_only'
+    remat policy keeps the attention's projection, before `norm1`, where
+    JAX tags `attn_out`."""
+
+    def __init__(self, width: int, num_heads: int, mlp_ratio: float, post_norm: bool = False,
+                 act: Callable = gelu_exact, attn_impl: str = "xla", ln_eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.post_norm = post_norm
+        self.norm1 = LayerNorm(width, eps=ln_eps)
+        self.attn = EvaAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype,
+                                 qkv_fused=True)
+        self.norm2 = LayerNorm(width, eps=ln_eps)
+        self.mlp = TimmMlp(width, int(width * mlp_ratio), act=act, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, rope: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.post_norm:
+            x = x + self.norm1(self.attn(x, rope=rope))
+            return x + self.norm2(self.mlp(x))
         x = x + self.attn(self.norm1(x), rope=rope)
         return x + self.mlp(self.norm2(x))
 

@@ -2,8 +2,9 @@
 `mrclip_tpu/models/vision.py::VisionTransformer`): the plain open_clip ViT
 (patchify, CLS, learnable position embedding, ln_pre unless `no_ln_pre`,
 transformer, `tok` or `avg` pool with ln_post before or after it, proj),
-the EVA02 tower (`EvaVisionTransformer`) and the SigLIP tower
-(`SiglipVisionTransformer`: no CLS, the MAP pool, timm's names).
+the EVA towers (`EvaVisionTransformer`: EVA02-B/L/E, EVA01-g) and the
+SigLIP tower (`SiglipVisionTransformer`: no CLS, the MAP pool, timm's
+names).
 
 Images are NHWC `[B, H, W, 3]` float, already normalized, as in the JAX
 package. Patchify is the JAX package's reshape plus one matmul; the weight
@@ -23,7 +24,8 @@ from ..ops.fused_attn import rope_table
 from ..ops.pos_embed import rope_cat_2d
 from ..utils import to_2tuple
 from .layers import ROPE_IN_COMPUTE_DTYPE, LayerNorm, Linear, MAPHead, gelu_exact
-from .transformer import EvaBlock, TimmBlock, Transformer, _check_policy, remat_call
+from .transformer import (EvaBlock, EvaFusedBlock, TimmBlock, Transformer, _check_policy,
+                          remat_call)
 
 __all__ = ["EvaVisionTransformer", "SiglipVisionTransformer", "VisionTransformer"]
 
@@ -121,12 +123,14 @@ class VisionTransformer(nn.Module):
 
 
 class EvaVisionTransformer(nn.Module):
-    """The EVA02-B/L image encoder (the JAX package's `VisionTransformer`
-    as `_build_timm_vit_tower` configures it for `eva02_{base,large}_*`):
+    """The EVA image encoders (the JAX package's `VisionTransformer` as
+    `_build_timm_vit_tower` configures it for `eva02_*` and `eva_giant_*`):
     patchify with bias, CLS, learned absolute position embedding, no
-    ln_pre, pre-norm `EvaBlock`s with the axial 2D rope on q and k
-    (`rope_cat_2d`, identity on the CLS row), final norm, `tok` pool and a
-    bias-free linear head.
+    ln_pre, the blocks, final norm, `tok` pool and a bias-free linear head.
+    EVA02-B/L: pre-norm `EvaBlock`s with the axial 2D rope on q and k
+    (`rope_cat_2d`, identity on the CLS row). With `qkv_fused` (EVA02-E,
+    EVA01-g): `EvaFusedBlock`s with the GELU MLP `act` and no rope,
+    post-norm with `post_norm` (EVA02-E), else pre-norm (EVA01-g).
 
     Parameter names are those of open_clip's timm-wrapped tower, as
     `mrclip_tpu.hub.export_torch_state_dict` writes them:
@@ -138,7 +142,8 @@ class EvaVisionTransformer(nn.Module):
     where q and k rotate in it ('bf16', 'flash', 'fused', and the kernels of
     'fusedp'), in fp32 for 'xla' and 'manual', as the JAX package casts it.
     It is a buffer outside the state dict, so it follows the module's
-    device. `remat` (a `REMAT_POLICIES` name) remats each block.
+    device; None without rope. `remat` (a `REMAT_POLICIES` name) remats
+    each block.
     """
 
     def __init__(
@@ -155,6 +160,9 @@ class EvaVisionTransformer(nn.Module):
         attn_impl: str = "xla",
         dtype: torch.dtype = torch.float32,
         remat: Optional[str] = None,
+        qkv_fused: bool = False,
+        post_norm: bool = False,
+        act: Callable = gelu_exact,
     ):
         super().__init__()
         _check_policy(remat)
@@ -169,16 +177,23 @@ class EvaVisionTransformer(nn.Module):
         self.trunk.pos_embed = nn.Parameter(torch.zeros(1, gh * gw + 1, width))
         self.trunk.patch_embed = nn.Module()
         self.trunk.patch_embed.proj = nn.Conv2d(3, width, self.patch_size, stride=self.patch_size)
-        self.trunk.blocks = nn.ModuleList(
-            EvaBlock(width, heads, mlp_ratio, attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype)
-            for _ in range(layers)
-        )
+        if qkv_fused:
+            blocks = (EvaFusedBlock(width, heads, mlp_ratio, post_norm=post_norm, act=act,
+                                    attn_impl=attn_impl, ln_eps=ln_eps, dtype=dtype)
+                      for _ in range(layers))
+        else:
+            blocks = (EvaBlock(width, heads, mlp_ratio, attn_impl=attn_impl, ln_eps=ln_eps,
+                               dtype=dtype) for _ in range(layers))
+        self.trunk.blocks = nn.ModuleList(blocks)
         self.trunk.norm = LayerNorm(width, eps=ln_eps)
         self.head = nn.Module()
         self.head.proj = Linear(width, output_dim, bias=False, dtype=dtype)
-        rope = rope_cat_2d(width // heads, gh, gw, ref_feat_shape=rope_ref_feat_shape)
-        table_dtype = dtype if attn_impl in ROPE_IN_COMPUTE_DTYPE else torch.float32
-        self.register_buffer("rope", rope_table(rope, 1, table_dtype), persistent=False)
+        table = None
+        if not qkv_fused:
+            rope = rope_cat_2d(width // heads, gh, gw, ref_feat_shape=rope_ref_feat_shape)
+            table_dtype = dtype if attn_impl in ROPE_IN_COMPUTE_DTYPE else torch.float32
+            table = rope_table(rope, 1, table_dtype)
+        self.register_buffer("rope", table, persistent=False)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """`images`: [B, H, W, 3] float (already normalized) -> [B, output_dim]."""

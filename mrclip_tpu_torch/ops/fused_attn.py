@@ -90,10 +90,10 @@ __all__ = [
 
 _NEG = -1e30  # the TPU kernel's additive causal mask value
 # Head dims the CUDA kernels take: ViT-B/L and SigLIP-B/L (64), the small
-# towers (32), ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 (88) and
-# ViT-bigG-14 (104); the rope kernels (K2, K3r) take EVA02's 64 and 32 only.
-# flash_attn.py takes the same.
-HEAD_DIMS = (32, 64, 72, 80, 88, 104)
+# towers (32), ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 and
+# EVA01-g-14 (88), ViT-bigG-14 (104) and EVA02-E-14 (112); the rope kernels
+# (K2, K3r) take EVA02-B/L's 64 and 32 only. flash_attn.py takes the same.
+HEAD_DIMS = (32, 64, 72, 80, 88, 104, 112)
 ROPE_HEAD_DIMS = (32, 64)
 
 # Launches since import or the last reset_launches() of the packed forward

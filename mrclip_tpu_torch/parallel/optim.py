@@ -234,7 +234,10 @@ class LionState:
 class Lion(_Optimizer):
     """optax.lion: update = sign((1 - b1) g + b1 mu) [+ wd p], times -lr;
     mu = (1 - b2) g + b2 mu, stored in `mu_dtype` (b1 mu and b2 mu in mu's
-    own type, as AdamW's first moment)."""
+    own type, as AdamW's first moment). The step goes 32 tensors at a time:
+    its fp32 temporaries (the update and the new moment) then stay small
+    beside 4.7 B parameters (EVA02-E-14), where all at once they would be
+    two more parameter-sized buffers."""
 
     def __init__(self, lr, b1: float, b2: float, wd: float, grad_clip_norm: Optional[float],
                  mu_dtype: Optional[torch.dtype]):
@@ -250,20 +253,22 @@ class Lion(_Optimizer):
                grad_norm: Optional[torch.Tensor] = None) -> LionState:
         lr = self._lr(state.count)
         names = list(params)
-        p = [params[n] for n in names]
-        g = self._grads(grads, p, names, grad_norm)
-        mu_prev = [state.mu[n] for n in names]
-        if not names:
-            return LionState(count=state.count + 1, mu=state.mu)
-        update = torch._foreach_mul(g, 1 - self.b1)
-        torch._foreach_add_(update, torch._foreach_mul(mu_prev, _stored(self.b1, mu_prev[0])))
-        torch._foreach_sign_(update)
-        mu = torch._foreach_mul(g, 1 - self.b2)
-        torch._foreach_add_(mu, torch._foreach_mul(mu_prev, _stored(self.b2, mu_prev[0])))
-        self._decay(update, p, names)
-        torch._foreach_mul_(update, -lr)
-        self._apply(p, update, names)
-        torch._foreach_copy_(mu_prev, mu)
+        if self.grad_clip_norm is not None and grad_norm is None:
+            grad_norm = global_norm([grads[n] for n in names])  # the clip's, over all
+        for k in range(0, len(names), 32):
+            group = names[k:k + 32]
+            p = [params[n] for n in group]
+            g = self._grads(grads, p, group, grad_norm)
+            mu_prev = [state.mu[n] for n in group]
+            update = torch._foreach_mul(g, 1 - self.b1)
+            torch._foreach_add_(update, torch._foreach_mul(mu_prev, _stored(self.b1, mu_prev[0])))
+            torch._foreach_sign_(update)
+            mu = torch._foreach_mul(g, 1 - self.b2)
+            torch._foreach_add_(mu, torch._foreach_mul(mu_prev, _stored(self.b2, mu_prev[0])))
+            self._decay(update, p, group)
+            torch._foreach_mul_(update, -lr)
+            self._apply(p, update, group)
+            torch._foreach_copy_(mu_prev, mu)
         return LionState(count=state.count + 1, mu=state.mu)
 
 

@@ -1,12 +1,15 @@
 """JAX-package parameters -> the port's state dict.
 
-The port's own copy of the plain-ViT, EVA02 (pre-norm) and text part of
+The port's own copy of the plain-ViT, EVA and text part of
 `mrclip_tpu.hub.export_torch_state_dict`: it takes the Flax params of a
 `mrclip_tpu` CLIP (a nested dict of arrays, unrolled `blocks_N` or
 scan-stacked `blocks/block` with a leading layer axis) and returns the
 open_clip-layout state dict that `mrclip_tpu_torch.models.CLIP` loads with
-`strict=True`; an EVA02 vision tower (one with SwiGLU MLPs) goes to the
-`visual.trunk.*` timm layout, and so does a SigLIP tower (no CLS token),
+`strict=True`; an EVA02-B/L vision tower (one with SwiGLU MLPs) goes to the
+`visual.trunk.*` timm layout, and so does an EVA02-E or EVA01-g tower when
+`vision_layout` says so (its tree is a plain ViT's:
+`vision_layout_from_config` reads the layout off the model config, as hub's
+`_vision_layout_from_config` does), and a SigLIP tower (no CLS token),
 as the inverse of `mrclip_tpu.convert.timm_vit_to_vision_params`, which hub's
 export refuses. A plain ViT without `ln_pre` (CLIPA) has no `visual.ln_pre`,
 and a text projection with a bias (a Dense) becomes
@@ -24,7 +27,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "vision_layout_from_config"]
+
+# hub.export_torch_state_dict's `vision_layout` values: 'auto' reads the
+# tree; 'timm_eva02' is the EVA02-B/L trunk (split q/k/v, SwiGLU), which
+# 'auto' finds by its SwiGLU; 'timm_eva02_postnorm' the fused-qkv trunk of
+# EVA02-E and EVA01-g (`attn.qkv`, `q_bias`, `v_bias`, `mlp.fc1/fc2`)
+VISION_LAYOUTS = ("auto", "timm_eva02", "timm_eva02_postnorm")
+
+
+def vision_layout_from_config(model_config: dict) -> str:
+    """The `vision_layout` of a model config, by its timm tower name (the
+    JAX package's `hub._vision_layout_from_config`): EVA02-E and EVA01-g
+    trees cannot be told from a plain ViT's."""
+    name = (model_config.get("vision_cfg") or {}).get("timm_model_name") or ""
+    if name.startswith(("eva_giant", "eva02_enormous")):
+        return "timm_eva02_postnorm"
+    if name.startswith("eva02_"):
+        return "timm_eva02"
+    return "auto"
 
 
 def _blocks(tower: dict) -> list:
@@ -56,8 +77,12 @@ def _split_swiglu(mlp: dict) -> dict:
     return dict(mlp, fc1_g={"kernel": gk, "bias": gb}, fc1_x={"kernel": vk, "bias": vb})
 
 
-def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """Flax CLIP params -> {open_clip key: fp32 torch tensor}."""
+def state_dict_from_flax(params: dict, vision_layout: str = "auto") -> dict[str, torch.Tensor]:
+    """Flax CLIP params -> {open_clip key: fp32 torch tensor}. `vision_layout`
+    as hub's export takes it (`VISION_LAYOUTS`): pass
+    `vision_layout_from_config(cfg)` for an EVA02-E or EVA01-g model."""
+    if vision_layout not in VISION_LAYOUTS:
+        raise ValueError(f"vision_layout={vision_layout!r} is not one of {VISION_LAYOUTS}")
     params = params.get("params", params)
     sd: dict[str, torch.Tensor] = {}
 
@@ -86,7 +111,7 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
                 if ls in blk:
                     put(bp + f"{ls}.gamma", blk[ls]["gamma"])
 
-    def put_eva02_trunk(vis):  # hub.export_eva02_trunk, pre-norm branch
+    def put_eva02_trunk(vis, fused):  # hub.export_eva02_trunk (post_norm=fused)
         tp = "visual.trunk."
         put(tp + "cls_token", np.asarray(vis["class_embedding"]).reshape(1, 1, -1))
         put(tp + "pos_embed", np.asarray(vis["positional_embedding"])[None])
@@ -97,19 +122,27 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
             bp = f"{tp}blocks.{i}."
             put_ln(bp + "norm1", blk["ln_1"])
             put_ln(bp + "norm2", blk["ln_2"])
-            qw, kw, vw = np.split(np.asarray(blk["attn"]["in_proj"]["kernel"]).T, 3, axis=0)
+            qkv_w = np.asarray(blk["attn"]["in_proj"]["kernel"]).T  # [3W, W]
             qb, _, vb = np.split(np.asarray(blk["attn"]["in_proj"]["bias"]), 3)  # k bias is 0
-            put(bp + "attn.q_proj.weight", qw)
-            put(bp + "attn.q_proj.bias", qb)
-            put(bp + "attn.k_proj.weight", kw)
-            put(bp + "attn.v_proj.weight", vw)
-            put(bp + "attn.v_proj.bias", vb)
-            put_ln(bp + "attn.norm", blk["attn"]["norm"])
+            if fused:  # EVA02-E, EVA01-g: one qkv weight, the q and v biases apart
+                put(bp + "attn.qkv.weight", qkv_w)
+                put(bp + "attn.q_bias", qb)
+                put(bp + "attn.v_bias", vb)
+                put_dense(bp + "mlp.fc1", blk["mlp"]["c_fc"])
+                put_dense(bp + "mlp.fc2", blk["mlp"]["c_proj"])
+            else:
+                qw, kw, vw = np.split(qkv_w, 3, axis=0)
+                put(bp + "attn.q_proj.weight", qw)
+                put(bp + "attn.q_proj.bias", qb)
+                put(bp + "attn.k_proj.weight", kw)
+                put(bp + "attn.v_proj.weight", vw)
+                put(bp + "attn.v_proj.bias", vb)
+                put_ln(bp + "attn.norm", blk["attn"]["norm"])
+                mlp = _split_swiglu(blk["mlp"])
+                for name in ("fc1_g", "fc1_x", "fc2"):
+                    put_dense(bp + f"mlp.{name}", mlp[name])
+                put_ln(bp + "mlp.norm", mlp["norm"])
             put_dense(bp + "attn.proj", blk["attn"]["out_proj"])
-            mlp = _split_swiglu(blk["mlp"])
-            for name in ("fc1_g", "fc1_x", "fc2"):
-                put_dense(bp + f"mlp.{name}", mlp[name])
-            put_ln(bp + "mlp.norm", mlp["norm"])
         put_ln(tp + "norm", vis["ln_post"])
         put("visual.head.proj.weight", np.asarray(vis["proj"]).T)
 
@@ -153,13 +186,14 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         put_blocks(vis, "visual.")
     elif "conv1" not in vis:
         raise NotImplementedError(
-            "only the plain CLIP ViT, the SigLIP, the EVA02 and the FastViT/MCi towers convert "
+            "only the plain CLIP ViT, the SigLIP, the EVA and the FastViT/MCi towers convert "
             "(ROADMAP: modules item 5, the other towers)"
         )
     elif "class_embedding" not in vis:
         put_siglip_trunk(vis)
-    elif (blocks := _blocks(vis)) and ("fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"]):
-        put_eva02_trunk(vis)
+    elif vision_layout != "auto" or ((blocks := _blocks(vis)) and (
+            "fc1_g" in blocks[0]["mlp"] or "fc1" in blocks[0]["mlp"])):
+        put_eva02_trunk(vis, fused=vision_layout == "timm_eva02_postnorm")
     else:
         # [ph, pw, 3, W] -> open_clip conv layout [W, 3, ph, pw]
         put("visual.conv1.weight", np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1))

@@ -717,13 +717,14 @@ def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):
         fl.flash_attention_bwd(q, k, v, o, l.double(), m, l)
 
 
-# ViT-SO400M-SigLIP's, ViT-H-14's, ViT-g-14's and ViT-bigG-14's head dims
-# (72, 88 and 104 padded to 80, 96 and 112 columns inside the kernels) at
+# ViT-SO400M-SigLIP's, ViT-H-14's, ViT-g-14's, ViT-bigG-14's and
+# EVA02-E-14's head dims (72, 88 and 104 padded to 80, 96 and 112 columns
+# inside the kernels; 112 unpadded) at
 # the tensor-core tiles' edges,
 # past 256 rows (the chunked walk; K10's three key blocks), at their vision
 # towers' 16 heads and at N = 400 (K10's two key blocks of 256, each staged
 # in two chunks past D = 80)
-WIDE_DIMS = (72, 80, 88, 104)
+WIDE_DIMS = (72, 80, 88, 104, 112)
 WIDE_SHAPES = [(2, n, n, 2, c) for n in (1, 15, 17, 65, 257) for c in (False, True)]
 WIDE_SHAPES += [(2, 257, 257, 16, False), (1, 400, 400, 2, False), (1, 400, 400, 2, True)]
 
@@ -734,7 +735,7 @@ WIDE_SHAPES += [(2, 257, 257, 16, False), (1, 400, 400, 2, False), (1, 400, 400,
 @pytest.mark.parametrize("kernels", ["K1", "K3", "K4/K5", "K10/K10b"])
 def test_kernels_match_plain_versions_at_wide_head_dims(cuda_device, kernels, d, b, n, nk, h,
                                                         causal, dtype, tol):
-    """The tests above, with their bars, at head dims 72, 80, 88 and 104."""
+    """The tests above, with their bars, at head dims 72, 80, 88, 104 and 112."""
     test = {"K1": test_kernel_matches_plain_version,
             "K3": test_backward_kernel_matches_plain_version,
             "K4/K5": test_grouped_kernels_match_plain_versions,
@@ -798,9 +799,51 @@ def test_narrow_siglip_through_the_kernels_at_72_matches_plain_attention(cuda_de
         assert torch.nn.functional.cosine_similarity(g, w, dim=0).item() >= 0.999, key
 
 
-@pytest.mark.parametrize("d", [96, 112])
+@pytest.mark.parametrize("impl", ["fusedp", "fused", "flash"])
+def test_narrow_eva02_e_through_the_kernels_at_112_matches_plain_attention(cuda_device, impl,
+                                                                           monkeypatch):
+    """A narrow EVA02-E-14 (vision 224 wide, 2 heads of 112, 2 post-norm
+    layers with the fused qkv; text 224 wide, 2 heads of 112, causal, ctx
+    77) in bf16 on the card: every attention layer launches the kernel at D
+    = 112 in each direction, the features and the loss's gradients agree
+    with the same weights under plain attention (cosine >= 0.999)."""
+    from mrclip_tpu_torch.models import clip
+
+    monkeypatch.setitem(clip._EVA_DIMS, "enormous", (224, 2, 2))
+    name = "EVA02-E-14"
+    text = dict(get_model_config(name)["text_cfg"], width=224, heads=2, layers=2)
+    kw = dict(precision="bf16", rng_seed=0, text_cfg=text, embed_dim=64)
+    kernel = create_model(name, attn_impl=impl, **kw)
+    plain = create_model(name, attn_impl="xla", **kw)
+    rng = np.random.RandomState(112)
+    images = torch.from_numpy(rng.randn(4, 224, 224, 3).astype(np.float32)).to(cuda_device)
+    tokens = torch.from_numpy(rng.randint(1, 49408, (4, 77))).to(cuda_device)
+    fa.reset_launches()
+    fl.reset_launches()
+    with torch.inference_mode():
+        a = kernel(images, tokens)
+        b = plain(images, tokens)
+    want = {"fusedp": ("launches", fa), "fused": ("grouped_launches", fa),
+            "flash": ("launches", fl)}[impl]
+    assert want[1].width_launches == {(want[0], 112): 4}  # 2 vision + 2 text layers
+    for key in ("image_features", "text_features"):
+        cos = torch.nn.functional.cosine_similarity(a[key].float(), b[key].float(), dim=-1)
+        assert cos.min().item() >= 0.999, key
+    loss = make_loss_apply(create_loss(SimpleNamespace(
+        multipositiveloss=True, delta=0.5, model=name, gather_with_grad=True, pallas_loss=False)))
+    batch = {"images": images, "tokens": tokens,
+             "labels": torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=cuda_device)}
+    grads = [loss_and_grads(m, loss, dict(m.named_parameters()), batch)[0] for m in (kernel, plain)]
+    for key in ("visual.trunk.blocks.0.attn.qkv.weight", "visual.trunk.blocks.1.attn.q_bias",
+                "transformer.resblocks.1.attn.in_proj_weight"):
+        g, w = grads[0][key].float().flatten(), grads[1][key].float().flatten()
+        assert g.abs().max().item() > 0, key
+        assert torch.nn.functional.cosine_similarity(g, w, dim=0).item() >= 0.999, key
+
+
+@pytest.mark.parametrize("d", [96, 120])
 def test_kernels_refuse_head_dims_they_do_not_take(cuda_device, d):
-    """D = 112 (EVA02-E) and 96 (no config) are not built: each wrapper
+    """D = 96 and 120 (no config has either) are not built: each wrapper
     raises before a launch, naming the width; the rope kernels take 32 and
     64 only."""
     q, k, v = _inputs(1, 16, 16, 2, d, cuda_device, torch.bfloat16)

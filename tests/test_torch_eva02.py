@@ -387,8 +387,8 @@ def test_custom_text_checkpoint_loads():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("timm_model_name", "eva02_enormous_patch14_clip_224"),
-    ("timm_model_name", "eva_giant_patch14_224"),
+    ("timm_proj", "mlp"),
+    ("timm_proj_bias", True),
     ("mlp_fused_gate", True),
     ("timm_drop_path", 0.1),
     ("patch_dropout", 0.5),

@@ -34,15 +34,15 @@ def _inputs(n, d=64, seed=0):
     return tuple(rng.randn(B, n, H, d).astype(np.float32) for _ in range(4))
 
 
-# ViT-SO400M-SigLIP's head dim 72 and ViT-H/g/bigG-14's 80, 88, 104 at N =
-# 1, 17 and 65 (one jax block) and 257 (three)
-WIDE = [(n, c, d) for n in (1, 17, 65) for c in (False, True) for d in (72, 80, 88, 104)]
+# ViT-SO400M-SigLIP's head dim 72, ViT-H/g/bigG-14's 80, 88, 104 and
+# EVA02-E-14's 112 at N = 1, 17 and 65 (one jax block) and 257 (three)
+WIDE = [(n, c, d) for n in (1, 17, 65) for c in (False, True) for d in (72, 80, 88, 104, 112)]
 
 
 @pytest.mark.parametrize("n,causal,d", [(197, False, 64), (98, True, 64), (256, False, 64),
                                         (70, True, 64), (257, False, 64), (577, False, 64),
                                         (257, True, 32), *WIDE,
-                                        *((257, False, d) for d in (72, 80, 88, 104))])
+                                        *((257, False, d) for d in (72, 80, 88, 104, 112))])
 def test_plain_forward_matches_jax_kernel(n, causal, d):
     """fp32: o to 1e-4 (the same block walk in another summation order)."""
     q, k, v, _ = _inputs(n, d)
@@ -79,11 +79,11 @@ def test_plain_gradients_match_jax_kernels(n, causal):
         assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
 
 
-@pytest.mark.parametrize("n,causal,d", [*WIDE, (257, True, 104)])
+@pytest.mark.parametrize("n,causal,d", [*WIDE, (257, True, 104), (257, False, 112)])
 def test_plain_gradients_match_jax_kernels_at_wide_head_dims(n, causal, d):
     """fp32: as test_plain_gradients_match_jax_kernels at the head dims of
-    ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 (88) and ViT-bigG-14
-    (104), each gradient to 1e-4."""
+    ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 (88), ViT-bigG-14 (104)
+    and EVA02-E-14 (112), each gradient to 1e-4."""
     q, k, v, do = _inputs(n, d, seed=d)
 
     def loss(q_, k_, v_):

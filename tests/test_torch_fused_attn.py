@@ -100,10 +100,10 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     assert fa.launches == 0
 
 
-# The head dims of ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 (88) and
-# ViT-bigG-14 (104), at the bf16 kernel's tile edges (16-row fragments,
-# 64-row sub-tiles); B = 2, H = 2
-WIDE = [(n, c, d) for n in (1, 17, 65) for c in (False, True) for d in (72, 80, 88, 104)]
+# The head dims of ViT-SO400M-SigLIP (72), ViT-H-14 (80), ViT-g-14 (88),
+# ViT-bigG-14 (104) and EVA02-E-14 (112), at the bf16 kernel's tile edges
+# (16-row fragments, 64-row sub-tiles); B = 2, H = 2
+WIDE = [(n, c, d) for n in (1, 17, 65) for c in (False, True) for d in (72, 80, 88, 104, 112)]
 
 
 @pytest.mark.parametrize("n,causal,d", WIDE)
@@ -122,17 +122,17 @@ def test_plain_version_matches_jax_at_wide_head_dims(n, causal, d):
     assert np.abs(lse.numpy() - np.asarray(want_lse)).max() < 1e-4
 
 
-@pytest.mark.parametrize("d", [96, 112, 16, 128])
+@pytest.mark.parametrize("d", [96, 120, 16, 128])
 def test_kernels_refuse_other_head_dims_by_name(d):
     """The wrappers' width check (run before any launch) names the head
-    dim: the kernels take 32, 64, 72, 80, 88 and 104 (112 waits for
-    EVA02-E; no config has 96), and the rope kernels 32 and 64."""
+    dim: the kernels take 32, 64, 72, 80, 88, 104 and 112 (no config has 96
+    or 120), and the rope kernels 32 and 64."""
     for name in ("fused_attention_packed", "fused_attention_grouped", "flash_attention"):
         with pytest.raises(ValueError, match=f"{name}: kernel takes head dim .*; got {d}$"):
             fa.check_head_dim(name, d)
     for d_ok in fa.HEAD_DIMS:
         fa.check_head_dim("fused_attention_packed", d_ok)
-    assert fa.HEAD_DIMS == (32, 64, 72, 80, 88, 104) and fa.ROPE_HEAD_DIMS == (32, 64)
+    assert fa.HEAD_DIMS == (32, 64, 72, 80, 88, 104, 112) and fa.ROPE_HEAD_DIMS == (32, 64)
     with pytest.raises(ValueError, match="with rope; got 80"):
         fa.check_head_dim("fused_attention_packed", 80, rope=True)
 

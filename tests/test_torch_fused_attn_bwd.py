@@ -80,11 +80,11 @@ def test_plain_backward_follows_tpu_rounding_in_bf16(b, n, nk, h, causal, d):
 
 
 # The bf16 kernel's tile edges (16-row fragments, 32-key dq steps, 16-query
-# dkv steps, 64-row sub-tiles): N, causal, head dim (ViT-SO400M-SigLIP's 72
-# and ViT-H/g/bigG-14's 80, 88, 104 too: 72, 88 and 104 padded to 80, 96
-# and 112 in the kernels); B = 1, H = 2
+# dkv steps, 64-row sub-tiles): N, causal, head dim (ViT-SO400M-SigLIP's 72,
+# ViT-H/g/bigG-14's 80, 88, 104 and EVA02-E-14's 112 too: 72, 88 and 104
+# padded to 80, 96 and 112 in the kernels); B = 1, H = 2
 TILE_EDGES = [(n, c, d) for n in (1, 15, 17, 65) for c in (False, True)
-              for d in (32, 64, 72, 80, 88, 104)]
+              for d in (32, 64, 72, 80, 88, 104, 112)]
 
 
 def bf16_bars(got, want):

@@ -51,7 +51,7 @@ def _jax_lse(q, k, v, causal):
     return np.asarray(lse)[:, :n]
 
 
-@pytest.mark.parametrize("d", [64, 32, 72, 80, 88, 104])
+@pytest.mark.parametrize("d", [64, 32, 72, 80, 88, 104, 112])
 @pytest.mark.parametrize("n,nk,causal", SHAPES)
 def test_plain_forward_matches_jax_kernel(n, nk, causal, d):
     """fp32: o and lse to 1e-4 (the same math in another summation order)."""
@@ -68,7 +68,7 @@ def test_plain_forward_matches_jax_kernel(n, nk, causal, d):
     assert np.abs(lse.numpy() - _jax_lse(q, k, v, causal)).max() < 1e-4
 
 
-@pytest.mark.parametrize("d", [64, 32, 72, 80, 88, 104])
+@pytest.mark.parametrize("d", [64, 32, 72, 80, 88, 104, 112])
 @pytest.mark.parametrize("n,nk,causal", SHAPES)
 def test_gradients_match_jax_custom_vjp(n, nk, causal, d):
     """fp32: dq, dk, dv through `FusedAttention` (plain K4 then plain K5)

@@ -126,6 +126,12 @@ def test_entry_points_need_cuda_unless_asked(no_cuda, artifact, tmp_path, entry)
     "model_configs/ViT-H-14-CLIPA-336.json",
     "model_configs/ViT-bigG-14-CLIPA.json",
     "model_configs/ViT-bigG-14-CLIPA-336.json",
+    "model_configs/EVA02-E-14.json",
+    "model_configs/EVA02-E-14-plus.json",
+    "model_configs/EVA02-L-14.json",
+    "model_configs/EVA02-L-14-336.json",
+    "model_configs/EVA01-g-14.json",
+    "model_configs/EVA01-g-14-plus.json",
     "assets/bpe_simple_vocab_16e6.txt.gz",
     "assets/bin_intervals_et_20_rt_20.json",
     "preprocessing/binning.py",
