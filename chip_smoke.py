@@ -183,9 +183,16 @@ fails:
              K4/K5 and K10/K10b against their plain versions with phase 3's
              bars, bf16 and fp32, at the towers' vision shape (N 257, H 16)
              at b32 and b256 and at the tile edges (N 1, 15, 17, 65, 257,
-             causal and not; 400: K10's two key blocks); which device kernels
-             they run (mma.sync: the wgmma route stays at D = 64 and at most
-             256 keys); timings at b256 and b32 beside SDPA and the bounds.
+             causal and not; 400: K10's two key blocks), and at D = 64 at
+             ViT-L-14's vision shape (N 257, b32 and b256, causal and not at
+             b2); which device kernels they run and the route the libraries
+             name (bf16 forwards: attn_mma_fwd.cuh's wgmma_wide_fwd_kernel up
+             to 272 keys, K10's MULTI form past 256; backward: mma.sync);
+             two bf16 runs of each forward and backward bit-equal; timings at
+             b256 and b32 beside the forwards' mma.sync route of the same run
+             (a second build of the three forward sources under
+             build/variants/fwd_mma_sync/ with the wide route's reach cut to
+             no key, started with phase 2's), SDPA and the bounds.
              Then ViT-g-14 and ViT-bigG-14 at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp', remat
              'full') served at b32
@@ -208,7 +215,9 @@ fails:
              bars, bf16 and fp32, at SO400M's vision shapes (N 256 at b256
              and b32, N 729 at b32: 378 and 384 px, no CLS), its non-causal
              text (N 64, b256) and the tile edges; which device kernels they
-             run; timings at those four shapes beside SDPA and the bounds.
+             run (the forwards on wgmma_wide_fwd_kernel, N 729 on
+             mma_fwd_kernel); timings at those four shapes beside the
+             mma.sync route, SDPA and the bounds.
              Then ViT-SO400M-14-SigLIP at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp'): the
              export's logit scale and bias, served through ServedModel
@@ -227,7 +236,8 @@ fails:
              their plain versions with phase 16's bars, bf16 and fp32, at
              its vision shape (N 257, H 16) at b32 and b256 and the tile
              edges; which device kernels they run; timings at b256 and b32
-             beside SDPA and the bounds. Then EVA02-E-14 at full width and
+             beside the mma.sync route, SDPA and the bounds. Then EVA02-E-14
+             at full width and
              depth (4.7 B parameters drawn on the card from seed 0, the
              vision q and k rows at 1/8 of the factory's std so that the
              post-norm scores stay near unit std, bf16, 'fusedp', remat
@@ -249,7 +259,10 @@ fails:
              recorded no device event, by phase.
 Phases 16, 17 and 18's kernel checks and timings run right after the build
 (late in a long process the profiler loses the device records of short
-windows), their models after phase 15.
+windows), their models after phase 15. Their served and trained paths also
+read the forwards' launches by route (`ops.launch_counts_by_route`): every
+K1, K4 and K10 launch at D = 72-112 on wgmma_wide, at the text towers' D =
+64 on wgmma, K2 (EVA02-L-14) on mma_sync, none elsewhere.
 Each path (4 to 18; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
@@ -326,7 +339,7 @@ FLASH_CHECKED = [*CHECKED, *(dict(b=4, n=n, nk=n, h=4, d=64, causal=c)
 # forward's tiles: 16-key groups, 64-key sub-tiles, 16-row warps of a 64-row
 # block; and of the wgmma forward (D = 64): its 64-row sub-tile (N = 64,
 # 127, 128, 129, 193), its n64 tiles and n16 tail (48, 49, 208, 209) and
-# the top of its route (256 keys; N = 257 in EDGES takes mma_fwd_kernel)
+# the top of its route (256 keys; N = 257 in EDGES takes wgmma_wide_fwd_kernel)
 TILE_EDGES = [dict(b=2, n=n, nk=n, h=2, d=d, causal=c) for n in (1, 15, 16, 17, 63, 65, 255)
               for d in (32, 64) for c in (False, True)]
 TILE_EDGES += [dict(b=2, n=n, nk=n, h=2, d=64, causal=c)
@@ -339,13 +352,17 @@ PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, c
                                            for c in (False, True)),
                   dict(b=2, n=76, nk=300, h=2, d=64, causal=False)]
 # K1, K4, K10 and K2 with one key block of at most 256 keys at D = 64
-# (every main-path shape); several key blocks, longer walks and D = 32 stay
-# on mma_fwd_kernel
+# (every main-path shape); K1, K4 and K10 at D = 72-112 up to 272 keys and
+# at D = 64 from 257 to 272 keys on the wide wgmma kernel; longer walks, K2
+# past 256 keys and D = 32 stay on mma_fwd_kernel
 WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                  design="wgmma bf16 (wgmma_fwd_kernel: m64n64k16 and m64n16k16, A in "
                         "registers, K and V read through 128-byte-swizzled shared memory), each "
-                        "row's scores whole in registers, one exp per score; mma.sync "
-                        "(mma_fwd_kernel) over several key blocks, past 256 keys and at D = 32")
+                        "row's scores whole in registers, one exp per score; wgmma_wide_fwd_kernel "
+                        "at D = 72-112 (and 64 past 256 keys) up to 272 keys: K and V once per "
+                        "(sample, head) in 32-byte-swizzled 16-column slabs, P V on m64nDk16, "
+                        "K10's 128-key blocks as jax's update; mma.sync (mma_fwd_kernel) past 272 "
+                        "keys, K2 past 256 and at D = 32")
 # K3, K3r, K5 and K10b at D = 64 with n and nk at most 256 (every
 # main-path shape); D = 32 and longer walks stay on the mma_bwd_* kernels
 WGMMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
@@ -603,15 +620,105 @@ def phase_card():
 SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn",
            "dw_conv")
 HOST_SOURCES = ("png_unfilter",)  # host code only: the PNG reader's unfilter (phase 13)
+# The bf16 forward's mma.sync route (mma_fwd_kernel) at the shapes the wide
+# wgmma kernel took over, timed beside it in phases 16-18: K1's, K4's and
+# K10's sources built again from a copy of csrc/ whose wide route reaches no
+# key (attn_mma_fwd.cuh's fwd_route then names mma_sync there) and whose
+# launcher leaves the wide kernel out (not compiled: the build costs what
+# the forwards cost before it)
+FWD_SOURCES = ("packed_attn_fwd", "grouped_attn", "flash_attn")
+MMA_SYNC_EDITS = [("constexpr int kWideKeys = 272;", "constexpr int kWideKeys = 0;"),
+                  ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)",
+                   "  if constexpr (false) {\n    if (route == kRouteWide)")]
+MMA_SYNC_LIBS: dict = {}  # source name -> ctypes.CDLL of that build (phase_build)
+
+
+def build_fwd_variant(name, edits):
+    """The three forward sources built from a copy of csrc/ under
+    build/variants/fwd_<name>/ with `edits` ((old, new) texts of
+    attn_mma_fwd.cuh, each found once) applied, one nvcc each in parallel,
+    keyed by the edited sources as build.py keys the package's. Returns
+    {source: ctypes.CDLL}; raises with nvcc's output when a build fails."""
+    import ctypes
+    import shutil
+
+    from mrclip_tpu_torch.ops import build
+
+    root = build.build_dir().parent / "variants" / f"fwd_{name}"
+    csrc = root / "csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    shutil.copytree(build.CSRC, csrc)
+    header = csrc / "attn_mma_fwd.cuh"
+    text = header.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"variant {name}: the edit is not once in {header.name}: {old!r}")
+        text = text.replace(old, new)
+    header.write_text(text)
+
+    def one(src_name):
+        src = csrc / f"{src_name}.cu"
+        out = root / f"lib{src_name}-{build.source_key(src)}.so"
+        if not out.is_file():  # niced: beside the package's own build, it takes what is left
+            proc = subprocess.run(["nice", "-n", "10", *build.nvcc_command(
+                src, out, build._find_nvcc())], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on variant {name}'s {src_name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            (root / f"{src_name}.log").write_text(proc.stdout + proc.stderr)
+        return src_name, ctypes.CDLL(str(out))
+
+    with ThreadPoolExecutor(len(FWD_SOURCES)) as pool:
+        return dict(pool.map(one, FWD_SOURCES))
+
+
+@contextlib.contextmanager
+def fwd_libraries(libs):
+    """Within the block the K1, K4 and K10 wrappers launch the forwards of
+    `libs` (a `build_fwd_variant` build, bound as the package binds its
+    own; their backward entries are the package's code). Only timing
+    comparisons enter it: the launches it counts are not read."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    def bind(lib, like):
+        fn = getattr(lib, like.__name__)
+        fn.argtypes, fn.restype = like.argtypes, like.restype
+        return fn
+
+    k1 = bind(libs["packed_attn_fwd"], fa.load_kernel())
+    k4 = tuple(bind(libs["grouped_attn"], f) for f in fa.load_grouped_kernels())
+    k10 = tuple(bind(libs["flash_attn"], f) for f in fl.load_kernels())
+    saved = fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels
+    fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels = (
+        lambda: k1), (lambda: k4), (lambda: k10)
+    try:
+        yield
+    finally:
+        fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels = saved
+
+
+def on_libraries(fn, libs):
+    """fn run under `fwd_libraries(libs)`, for the timing loops."""
+    def call():
+        with fwd_libraries(libs):
+            return fn()
+    return call
+
 
 
 def phase_build():
     from mrclip_tpu_torch.ops import build, dw_conv, flash_attn, fused_attn, pallas_loss
 
     t0 = time.perf_counter()
-    build.load_libraries(SOURCES + HOST_SOURCES)  # one nvcc per source, all started together
+    with ThreadPoolExecutor(1) as pool:  # the mma.sync route's builds beside the package's
+        variant = pool.submit(build_fwd_variant, "mma_sync", MMA_SYNC_EDITS)
+        build.load_libraries(SOURCES + HOST_SOURCES)  # one nvcc per source, all started together
+        t_pkg = time.perf_counter() - t0
+        MMA_SYNC_LIBS.update(variant.result())
     log(f"[build] {len(SOURCES)} kernel sources and {len(HOST_SOURCES)} host source built in "
-        f"{time.perf_counter() - t0:.2f} s wall")
+        f"{t_pkg:.2f} s wall; the mma.sync route's {len(FWD_SOURCES)} forward sources beside "
+        f"them, all done in {time.perf_counter() - t0:.2f} s")
     spills = []
     for name in SOURCES:
         info = build.build_info(name)
@@ -2098,10 +2205,12 @@ KERNEL_GROUPS = [
     (K2_GROUP, ("wgmma_fwd_kernel<false, true", "mma_fwd_kernel<64, false, false, true>",
                 "packed_attn_fwd_kernel<64, true>")),
     ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ",
+                            *(f"wgmma_wide_fwd_kernel<{d}, true" for d in ATTN_DIMS),
                             *(f"mma_fwd_kernel<{d}, true" for d in ATTN_DIMS),
                             *(f"rows_fwd_kernel<float, {d}, true>" for d in ATTN_DIMS))),
     # one instantiation: K1 under fusedp, K4 under fused
-    ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "mma_fwd_kernel",
+    ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "wgmma_wide_fwd_kernel",
+                                                  "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
     (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
                   *(f"mma_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS for p in ("dq", "dkv")),
@@ -3810,6 +3919,9 @@ def phase_fast_input(card, study, cli_perf):
 # CLIP towers (ViT-H-14 80, ViT-g-14 88, ViT-bigG-14 104), and those towers
 # at full width through the serving and training entry points
 WIDE_MODELS = {80: "ViT-H-14", 88: "ViT-g-14", 104: "ViT-bigG-14"}
+# ViT-L-14's vision tower: D = 64 at the same N = 257, one key past the D =
+# 64 wgmma route (its rope sibling EVA02-L-14 runs K2 there)
+L14_MODEL = "ViT-L-14"
 # their vision towers: 16 x 16 patches of 14 px and the class token, 16 heads
 WIDE_VISION = dict(b=32, n=257, nk=257, h=16, causal=False)
 # the tensor-core tiles' edges; N = 400: K10's two jax key blocks of 256,
@@ -3870,8 +3982,10 @@ def wide_pairs(shape, dtype, gen):
 def wide_timings(shape, gen):
     """bf16 K1, K4, K10 and SDPA's forward, K3, K5, K10b and SDPA's backward
     at one shape: medians of FWD_RUNS event readings and the profiler's
-    device time per launch, the plain versions' times, the bounds; two runs
-    of each backward bit-equal. {kernel name: timing dict}."""
+    device time per launch, in turns with the forwards' mma.sync route
+    (MMA_SYNC_LIBS: "mma_sync_ms"), the plain versions' times, the bounds;
+    two runs of each forward and backward bit-equal. {kernel name: timing
+    dict}."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
@@ -3891,6 +4005,8 @@ def wide_timings(shape, gen):
            "flash_attn_fwd": lambda: fl.flash_attention(q3, k3, v3, is_causal=causal),
            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
                q4, k4, v4, is_causal=causal)}
+    fwd.update({f"{name}@mma_sync": on_libraries(fwd[name], MMA_SYNC_LIBS)
+                for name in ("packed_attn_fwd", "grouped_attn_fwd", "flash_attn_fwd")})
     bwd = {"packed_attn_bwd": lambda: fa.fused_attention_packed_bwd(
                q, k, v, o, do, lse, is_causal=causal, heads=h),
            "grouped_attn_bwd": lambda: fa.fused_attention_grouped_bwd(
@@ -3920,10 +4036,10 @@ def wide_timings(shape, gen):
               "flash_attn_bwd": flash_bound(**args, dtype=bf16, backward=True)}
     out = {}
     for name, fn in {**fwd, **bwd}.items():
-        if name == "sdpa":
+        if name == "sdpa" or "@" in name:
             continue
         is_bwd = name in bwd
-        if is_bwd and not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
+        if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
             raise AssertionError(f"two bf16 {name} runs at {shape} differ")
         out[name] = dict(
             ms=(t_bwd if is_bwd else t_fwd)[name], device_ms=dev[name],
@@ -3933,13 +4049,18 @@ def wide_timings(shape, gen):
             library_device_ms=None if is_bwd else dev["sdpa"],
             bound_ms=bounds[name][0], bound_by=bounds[name][1])
         t = out[name]
+        if not is_bwd:
+            t["mma_sync_ms"], t["mma_sync_device_ms"] = (t_fwd[f"{name}@mma_sync"],
+                                                         dev[f"{name}@mma_sync"])
         log(f"[widths] {name} bf16 {shape}: kernel {t['ms']:.4f} ms (median of {FWD_RUNS}; "
             f"readings {min(t['readings']):.4f}-{max(t['readings']):.4f}), device "
-            f"{fmt_ms(t['device_ms'])} ms per launch; plain {t['plain_ms']:.4f} ms; SDPA "
+            f"{fmt_ms(t['device_ms'])} ms per launch"
+            + ("" if is_bwd else f"; the mma.sync route {t['mma_sync_ms']:.4f} ms, device "
+                                 f"{fmt_ms(t['mma_sync_device_ms'])}")
+            + f"; plain {t['plain_ms']:.4f} ms; SDPA "
             f"{'backward (fwd+bwd - fwd) ' if is_bwd else ''}{t['library_ms']:.4f} ms"
             + ("" if is_bwd else f" (device {fmt_ms(t['library_device_ms'])})")
-            + f"; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})"
-            + ("; two runs bit-equal" if is_bwd else ""))
+            + f"; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); two runs bit-equal")
     return out
 
 
@@ -3957,24 +4078,41 @@ def width_checks(shapes, gen):
     return worst
 
 
+WIDE_FWD_KEYS = 272  # the wide wgmma forward's most keys (attn_mma_fwd.cuh's kWideKeys)
+
+
 def width_device_kernels(shape, gen):
     """Which device kernels the six run at `shape` (profiler), bf16 and
-    fp32: mma_fwd_kernel and mma_bwd_* in bf16 (the wgmma route is D = 64
-    only), the FMA kernels in fp32; K10 in its several-block (MULTI) form
-    where jax walks more than one key block. {kernel name: {dtype: names}}."""
+    fp32, and the route each forward's library names (`fwd_route`): the
+    bf16 forwards on wgmma_wide_fwd_kernel up to WIDE_FWD_KEYS keys (K10 in
+    its several-block MULTI form where jax walks more than one key block),
+    on mma_fwd_kernel past them, and on the mma.sync route's build on
+    mma_fwd_kernel; the bf16 backward on mma_bwd_* (its wgmma route is D =
+    64 up to 256 rows); the FMA kernels in fp32. {kernel name: {dtype:
+    names}}, the mma.sync route's under "bfloat16_mma_sync"."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     bf16 = torch.bfloat16
-    h, d = shape["h"], shape["d"]
-    multi = "true" if fl._blocks(shape["n"], shape["nk"])[2] > 1 else "false"
+    h, d, nk = shape["h"], shape["d"], shape["nk"]
+    nblk = fl._blocks(shape["n"], nk)[2]
+    multi = "true" if nblk > 1 else "false"
+    wide = nk <= WIDE_FWD_KEYS
+    route = "wgmma_wide" if wide else "mma_sync"
+    for library, flash in (("packed_attn_fwd", False), ("grouped_attn", False),
+                           ("flash_attn", True)):
+        got = fa.fwd_route(library, True, d, False, nk, nblk if flash else 1)
+        if got != route or fa.fwd_route(library, False, d, False, nk, 1) != "fma":
+            raise AssertionError(f"{library} names route {got} at D = {d}, {nk} keys, not {route}")
+    mma = {flash: f"mma_fwd_kernel<{d}, {flash}, {multi if flash == 'true' else 'false'}, false>"
+           for flash in ("false", "true")}
+    bf16_fwd = ({flash: f"wgmma_wide_fwd_kernel<{d}, {flash}, "
+                        f"{multi if flash == 'true' else 'false'}, " for flash in ("false", "true")}
+                if wide else mma)
     wants = {
-        "packed_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
-                            f"packed_attn_fwd_kernel<{d}, false>", None),
-        "grouped_attn_fwd": (f"mma_fwd_kernel<{d}, false, false, false>",
-                             f"rows_fwd_kernel<float, {d}, false>", None),
-        "flash_attn_fwd": (f"mma_fwd_kernel<{d}, true, {multi}, false>",
-                           f"rows_fwd_kernel<float, {d}, true>", None),
+        "packed_attn_fwd": (bf16_fwd["false"], f"packed_attn_fwd_kernel<{d}, false>", None),
+        "grouped_attn_fwd": (bf16_fwd["false"], f"rows_fwd_kernel<float, {d}, false>", None),
+        "flash_attn_fwd": (bf16_fwd["true"], f"rows_fwd_kernel<float, {d}, true>", None),
         "packed_attn_bwd": ("mma_bwd_", "attn_bwd_", K3_GROUP),
         "grouped_attn_bwd": ("mma_bwd_", "rows_bwd_", K3_GROUP),
         "flash_attn_bwd": ("mma_bwd_", "rows_bwd_", K10B_GROUP)}
@@ -3996,9 +4134,16 @@ def width_device_kernels(shape, gen):
             "flash_attn_bwd": lambda: fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
         for name, (want_bf16, want_fp32, group) in wants.items():
             want = want_bf16 if dtype == bf16 else want_fp32
+            avoid = None if dtype == bf16 and name.endswith("_fwd") and wide else "wgmma"
             seen = device_kernels(f"{name} D={d} N={shape['n']}", {dtype: calls[name]},
-                                  {dtype: want}, avoid="wgmma", group=group)
+                                  {dtype: want}, avoid=avoid, group=group)
             names.setdefault(name, {}).update(seen)
+            if dtype == bf16 and name.endswith("_fwd"):  # the route it replaced
+                flash = "true" if name == "flash_attn_fwd" else "false"
+                seen = device_kernels(f"{name} D={d} N={shape['n']} (mma.sync route build)",
+                                      {dtype: on_libraries(calls[name], MMA_SYNC_LIBS)},
+                                      {dtype: mma[flash]}, avoid="wgmma", group=group)
+                names[name]["bfloat16_mma_sync"] = seen["bfloat16"]
     return names
 
 
@@ -4023,16 +4168,19 @@ def phase_kernel_widths():
     """K1/K3, K4/K5 and K10/K10b at head dims 80, 88 and 104 against their
     plain versions with phase 3's bars, bf16 and fp32, forward and backward:
     the three towers' vision shape at b32 and b256 (N 257, H 16) and the
-    tensor-core tiles' edges (N 1, 15, 17, 65, 257, causal and not); which
-    device kernels each runs (bf16: mma_fwd_kernel, mma_bwd_*; the wgmma
-    route stays at D = 64 with at most 256 keys); timings at b256 and b32.
-    Returns {kernel name: {d: results}}."""
+    tensor-core tiles' edges (N 1, 15, 17, 65, 257, causal and not); the
+    same at D = 64 at ViT-L-14's vision shape and N = 257 at b2 (phase 3
+    holds D = 64's smaller edges), where the forwards leave wgmma_fwd_kernel
+    (256 keys) for the wide one; which device kernels each runs (bf16:
+    wgmma_wide_fwd_kernel up to 272 keys, mma_bwd_*); timings at b256 and
+    b32 beside the mma.sync route. Returns {kernel name: {d: results}}."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     widths = {name: {} for pair in ATTN_PAIRS.values() for name in pair}
-    for d, model in WIDE_MODELS.items():
+    for d, model in [*WIDE_MODELS.items(), (64, L14_MODEL)]:
         t0 = time.perf_counter()
+        edges = WIDE_EDGES if d != 64 else [s for s in WIDE_EDGES if s["n"] == 257]
         shapes = [dict(WIDE_VISION, d=d), dict(WIDE_VISION, d=d, b=TRAIN_BATCH),
-                  *(dict(s, d=d) for s in WIDE_EDGES)]
+                  *(dict(s, d=d) for s in edges)]
         worst = width_checks(shapes, gen)
         log(f"[widths] D = {d} ({model}): {len(shapes)} shapes x bf16, fp32 x 3 kernel pairs "
             f"checked in {time.perf_counter() - t0:.1f} s")
@@ -4161,6 +4309,7 @@ def phase_serve_h14(card):
         score = post(base, "/score", {"images": images[:1].tolist(), "texts": texts[:2]})["logits"]
         served_path = nonzero(launch_counts())  # read right after the served run
         by_width = launch_counts_by_width()
+        check_routes("[serve-h14] HTTP", by_width)
     finally:
         server.shutdown()
         server.server_close()
@@ -4233,6 +4382,7 @@ def phase_serve_h14(card):
         torch.cuda.synchronize()
         paths[f"serve_h14_{impl}"] = nonzero(launch_counts())
         widths[f"serve_h14_{impl}"] = launch_counts_by_width()
+        check_routes(f"[serve-h14] {impl}", widths[f"serve_h14_{impl}"])
         cos = torch.nn.functional.cosine_similarity(feats, ref, dim=-1).min().item()
         ok = (widths[f"serve_h14_{impl}"] == {kernel: {d_vis: n_vis}}
               and paths[f"serve_h14_{impl}"] == {kernel: n_vis} and cos >= 0.999)
@@ -4273,6 +4423,29 @@ def tower_wants(model_name, fwd, bwd=None, per_layer=1):
                                   (name, d_txt, n_txt)):
             want.setdefault(kernel, {})[d] = want.get(kernel, {}).get(d, 0) + n * layers
     return want
+
+
+FWD_KERNELS = ("packed_attn_fwd", "packed_attn_rope_fwd", "grouped_attn_fwd", "flash_attn_fwd")
+
+
+def check_routes(tag, by_width):
+    """Fails unless the forwards' launches since the last reset, by route
+    (`ops.launch_counts_by_route`), are those of `by_width` ({kernel: {d:
+    launches}}, read at the same time) on the routes of phases 16-18's
+    towers, all within 272 keys: D = 72-112 on wgmma_wide, the text towers'
+    D = 64 (context 77 at most) on wgmma, K2 (EVA02-L-14's rope tower, N =
+    257 and 577) on mma_sync. Returns the launches by route."""
+    from mrclip_tpu_torch.ops import launch_counts_by_route
+
+    got = launch_counts_by_route()
+    want = {k: {d: {"mma_sync" if k == "packed_attn_rope_fwd" else "wgmma" if d == 64
+                    else "wgmma_wide": n} for d, n in dims.items()}
+            for k, dims in by_width.items() if k in FWD_KERNELS}
+    ok = got == want
+    log(f"{tag} forward launches by route {got} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} forward launches off their route: {got}, want {want}")
+    return got
 
 
 def wide_batch(model, n, seed):
@@ -4337,6 +4510,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
             g_kernel, l_kernel = loss_and_grads(model, loss, params, small)
         torch.cuda.synchronize()
         counts, by_width = nonzero(launch_counts()), launch_counts_by_width()
+        check_routes(f"{tag} {impl} b{WIDE_STEP_BATCH}", by_width)
         lk = l_kernel["loss"].item()
         whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
         through = [n for n in g_kernel if n.endswith((*VIT_PROJ, EVA_PROJ[0]))]
@@ -4389,6 +4563,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
                           for k, v in after.items() if k in want_width})
     torch.cuda.synchronize()
     launches, by_width = nonzero(launch_counts()), launch_counts_by_width()  # read right after
+    check_routes(f"{tag} {steps} steps", by_width)
 
     peak = torch.cuda.max_memory_allocated() / 1e9
     timed = times[1:] if steps > 1 else times
@@ -4433,12 +4608,13 @@ def phase_train_h14(card):
     return out
 
 
-def serve_against_plain(name, served, images, tokens, tag):
+def serve_against_plain(name, served, images, tokens, tag, routes=True):
     """`encode_image` and `encode_text` through `served` (a ServedModel under
     'fusedp'), its launches read right after: K1 once a layer at each
-    tower's head dim; the features against the same model's plain attention
-    (same weights and compute type) by cosine (>= 0.999). Returns
-    (launches, launches by width, image features)."""
+    tower's head dim, on the routes of `check_routes` (`routes`; phase 17's
+    longest sequences run past them); the features against the same model's
+    plain attention (same weights and compute type) by cosine (>= 0.999).
+    Returns (launches, launches by width, image features)."""
     from mrclip_tpu_torch.ops import launch_counts, launch_counts_by_width
 
     model = served.model
@@ -4447,6 +4623,8 @@ def serve_against_plain(name, served, images, tokens, tag):
     txt = served.encode_text(tokens)
     launches = nonzero(launch_counts())  # read right after the run
     by_width = launch_counts_by_width()
+    if routes:
+        check_routes(tag, by_width)
     want = tower_wants(name, "packed_attn_fwd")
     with torch.inference_mode(), attention_impl(model, "xla"):
         ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
@@ -4654,7 +4832,7 @@ def phase_serve_long(card):
         served = ServedModel(model, {})
         images, tokens = siglip_inputs(model, 32, 18)
         paths[key], widths[key], _ = serve_against_plain(name, served, images, tokens,
-                                                         "[serve-long]")
+                                                         "[serve-long]", routes=False)
         x = torch.from_numpy(images).cuda()
         with torch.inference_mode():
             perf[f"{key}_device_encode_image_b32_ms"] = cuda_ms(

@@ -28,21 +28,25 @@
 // K4) and 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us
 // at 989 TFLOP/s): bound by bytes.
 //
-// Two kernels, chosen by shape in launch_mma_fwd, the launcher all four
-// reach:
+// Three kernels, chosen by shape in launch_mma_fwd, the launcher all four
+// reach, by fwd_route (the one source of the choice; the libraries' C entry
+// attn_fwd_route answers it for the wrappers' launch counts by route):
 //   wgmma_fwd_kernel<FLASH, ROPE, G>, on Hopper's warpgroup products
 //     (wgmma.cuh): K1, K4, K10 and K2 (ROPE) with one key block of nk <=
-//     256 keys at D = 64: every main-path shape of the four (N = 197, 98,
-//     77, 64). G = ceil(nk / 16) is a template argument, one instantiation
-//     per G (1..16) and ROPE: runtime branches between the products made
-//     ptxas copy the accumulators and wait after every wgmma, and hold 255
-//     registers with spills.
-//   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below: K10
-//     over several jax key blocks (MULTI, N > 256), K1, K2 and K4 past 256
-//     keys (the chunked walk; K2's rope rotated in shared memory), D = 32,
-//     and K1, K4 and K10 at D = 72, 80, 88, 104 and 112 (ViT-SO400M,
-//     ViT-H-14, ViT-g-14 and EVA01-g-14, ViT-bigG-14, EVA02-E-14; no
-//     rope).
+//     256 keys at D = 64: every main-path shape of the four at D = 64 (N =
+//     197, 98, 77, 64). G = ceil(nk / 16) is a template argument, one
+//     instantiation per G (1..16) and ROPE: runtime branches between the
+//     products made ptxas copy the accumulators and wait after every wgmma,
+//     and hold 255 registers with spills.
+//   wgmma_wide_fwd_kernel<D, FLASH, MULTI, G>, on warpgroup products too,
+//     below: K1, K4 and K10 without rope at D = 72, 80, 88, 104 and 112 up
+//     to kWideKeys = 272 keys (ViT-SO400M's towers, N 256 and 64; the
+//     vision towers of ViT-H/g/bigG-14, EVA01-g-14 and EVA02-E-14 at 224
+//     px, N 257), and at D = 64 from 257 to 272 keys (ViT-L-14's vision);
+//     K10 past 256 keys in jax's three key blocks of 128 (MULTI).
+//   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below:
+//     past 272 keys (N = 577, 729, 1024: the 336-512 px towers), K2 past 256
+//     keys (the chunked walk; its rope rotated in shared memory), D = 32.
 //
 // wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
 // sub-tiles of 64 query rows of one (sample, head), grid (batch or groups,
@@ -155,23 +159,78 @@
 // spilling 60 bytes (the N = 577 path, off the main paths). The rotation
 // pass takes two pieces per step: four spilled at D = 64, one timed slower
 // on the H100.
-// The wide head dims (D = 72, 80, 88, 104, 112): mma.sync m16n8k16 steps D
-// by 16, so 72, 88 and 104 are padded to P = pad16(D) = 80, 96 and 112
-// columns (112 takes 104's layout with no pad column),
-// each by one 16-byte piece (8 columns) a row: stage_rows
-// zero-fills the pad pieces of every Q, K and V row (no source bytes), Q's
-// fragments, S = Q K^T over P / 16 k-steps and O = P V over P / 8 n-tiles
-// then carry zeros in the pad (they add nothing to S), and only the first
-// D columns of o are stored. Rows of P + 8 elements (176, 208, 240 bytes:
-// an odd number of 16-byte units) keep ldmatrix free of bank conflicts, as
-// at 64 and 32. Two blocks an SM (__launch_bounds__(128, 2): 212, 236, 255
-// and 249 registers for K1/K4 at 80, 88, 104, 112; K10's several-block form
-// 255, spilling 32 bytes at 104 and 40 at 112) and chunks of at most
+// The wide head dims (D = 72, 80, 88, 104, 112) take mma_fwd_kernel past
+// 272 keys only: mma.sync m16n8k16 steps D by 16, so 72, 88 and 104 are
+// padded to P = pad16(D) = 80, 96 and 112 columns in both products (112
+// takes 104's layout with no pad column), each by one 16-byte piece a row
+// that stage_rows zero-fills (no source bytes); only the first D columns of
+// o are stored. Rows of P + 8 elements (176, 208, 240 bytes: an odd number
+// of 16-byte units) keep ldmatrix free of bank conflicts. Two blocks an SM
+// (__launch_bounds__(128, 2): 212-255 registers; K10's several-block form
+// spills 32 bytes at 104 and 40 at 112) and chunks of at most
 // mma_max_chunk<D>() keys (288, 240, 208, 208), which leave shared memory
-// for two blocks: N = 257 at D = 80 is staged once for 3 or 2 of its 5
-// sub-tiles (even_iters); at 88, 104 and 112 in two chunks copied again in
-// pass B, as D = 64 past 256 keys.
-
+// for two blocks.
+//
+// wgmma_wide_fwd_kernel (D = 64-112, nk <= 272), designed for Hopper where
+// mma_fwd_kernel took 1.41-2.6x SDPA's forward at N = 257 (PERF.md, section
+// 6). Bound at EVA02-E-14's vision b256 (N = 257, H = 16, D = 112): q, k, v
+// read and o written once, 947 MB: 0.2828 ms at 3.35 TB/s, against 121
+// GFLOP (0.122 ms at 989 TFLOP/s): bytes; ViT-H-14's (D = 80) 0.2024 ms.
+// What held mma_fwd_kernel back, and what this one does about each:
+//   1. the instruction: both products run on wgmma (A in registers, B read
+//      from shared memory through a descriptor), as wgmma_fwd_kernel;
+//   2. re-staging: K and V of one (sample, head) go into shared memory once
+//      and one block walks every 64-row sub-tile of it (N = 257: five), so
+//      they leave device memory once, where mma_fwd_kernel's 240- and
+//      208-key chunks read them about ten times at 88-112;
+//   3. recomputed scores: S is computed once, each row's scores whole in
+//      registers (8 G fp32 a thread: 136 at 272 keys), as wgmma_fwd_kernel;
+//   4. registers: 110 (G = 4) to 225 (D = 112, G = 17) for K1/K4, to 216
+//      for K10's one-block form, 203-254 for its several-block form
+//      (-Xptxas -v in build.py's log, sm_90a), no spill;
+//   5. padding: only Q K^T's depth is padded (k-steps of 16 over P); P V
+//      runs with n = D itself (m64nDk16, wgmma.cuh's wgmma_m64nNk16_mn).
+// Layout (wgmma.cuh): K and V in P / 16 slabs of 16 columns, each slab 16 G
+// rows of 32 bytes in the 32-byte swizzle, 512-byte aligned, rows nk .. 16
+// G - 1 and the pad columns zero-filled by the copies themselves (no source
+// bytes). Q K^T reads K K-major, k-step s from slab s (SBO 256; LBO not
+// read), on m64n64k16 over whole 64-key tiles and m64n16k16 over the 16-key
+// groups of the tail (G = 17: four n64 tiles and one n16 group); P V reads V
+// MN-major (transpose bit), n = D across the slabs (LBO = 16 G * 32, SBO
+// 256; n = 72 reads half of the fifth slab). No shared memory is wasted on
+// a part-filled 64-column slab, which the 128-byte swizzle would take: at D
+// = 80 that keeps K, V and two Q tiles within two blocks an SM (110,592
+// bytes at 272 keys). Q by sub-tile into rows of P + 8 elements for
+// ldmatrix, the A fragments of S in registers, two tiles a warpgroup, the
+// next one's copy overlapping this one; V's copy overlaps the first S.
+// Softmax and outputs as wgmma_fwd_kernel's (keys >= nk and causal pairs to
+// -inf, one ex2 a score, P = p * (1 / l) rounded to bf16, the TPU's order);
+// K10's several-block form keeps mma_fwd_kernel's MULTI arithmetic on the
+// scores in registers, block by block (multi_block), skipping a causal block
+// as jax does; its block sums taken key by key in that kernel's order, it
+// reads bit-equal to mma_fwd_kernel on the same inputs (o, l and m at N =
+// 257, D = 64-112, on the H100: both products accumulate the same k16 steps
+// in the same order). Summed in pairs, it differed by an fp32 ulp of l here
+// and there, and EVA02-E-14's chaotic 64-layer gradient (chip_smoke.py phase
+// 18) moved from 0.992665 to 0.988593 at its least tensor.
+// Geometry, by wide_smem_bytes and wide_wgs (shared memory: 1 KB of
+// alignment slack, K and V 2 * P / 16 * 16 G * 32 bytes, two Q tiles of 64 *
+// (P + 8) * 2 bytes a warpgroup): one warpgroup a block, two blocks an SM,
+// where two such blocks fit (D <= 80 at 272 keys: 89,088 bytes at D = 64,
+// 110,592 at 72 and 80), else two warpgroups a block sharing K and V, one
+// block an SM (D = 88, 104, 112 at 257 keys: 158,720 and 184,320 bytes), the
+// warpgroups taking alternate sub-tiles (N = 257: three and two). K1 with
+// one warpgroup at 88-112 read 19-20% slower, with two at <= 80 19-26%
+// slower (tools/attn_wide_fwd_variants.py, PERF.md). Blocks are ordered
+// head first, so that the blocks of neighbouring heads, whose rows lie side
+// by side in the packed [B, N, H*D] slices (and at D = 72, 88 and 104, 144,
+// 176 and 208 bytes, share a 32-byte sector), run together: sample first
+// read K1 1-23% slower, K4's contiguous tiles within 1%.
+// G (16-key groups) is a template argument: 4, 16 or 17 (the least that
+// holds nk; N = 257 computes 272 keys, 64 and 256 exactly), 17 alone at D =
+// 64 and for K10's several blocks. What still bounds it at 88-112: one block
+// an SM, so the next (sample, head)'s 104-122 KB of K and V cannot load
+// while this one's products run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -199,6 +258,8 @@ constexpr int kTwoBlocksSmem = 113 * 1024;
 constexpr int kMaxResident = 320;
 constexpr int kWgKeys = 256;    // wgmma_fwd_kernel: the most keys, all scores in registers
 constexpr int kWgDim = 64;      // wgmma_fwd_kernel's head dim: one 128-byte row
+constexpr int kWideKeys = 272;  // wgmma_wide_fwd_kernel: the most keys, 17 groups of 16
+constexpr int kWideTiles = 8;   // wgmma_wide_fwd_kernel: the most sub-tiles a block walks
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -289,17 +350,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // into shared rows of pad16(D) + 8 elements at `dst`, by 16-byte copies;
 // rows [len, len rounded up to 16) and the pad columns [D, pad16(D)) (D =
 // 72, 88, 104) are zero-filled (no source bytes).
-template <int D>
-__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long long rs,
-                                           int len) {
+// stage_rows_by: the same copied by THREADS threads, this one `tid`.
+template <int D, int THREADS>
+__device__ __forceinline__ void stage_rows_by(uint32_t dst, const bf16* src, long long rs,
+                                              int len, int tid) {
   constexpr int P = pad16(D);
   constexpr int kChunks = P / 8;  // 16-byte pieces per shared row
   const int rows = (len + 15) & ~15;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
+  for (int i = tid; i < rows * kChunks; i += THREADS) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r < len && (P == D || c < D / 8);
     cp_async16(dst + (r * (P + 8) + c * 8) * 2, src + (in ? r * rs + c * 8 : 0), in ? 16 : 0);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, long long rs,
+                                           int len) {
+  stage_rows_by<D, kMmaThreads>(dst, src, rs, len, threadIdx.x);
 }
 
 // The two bf16 of a 32-bit word as fp32: dim 2i in the low half.
@@ -1045,19 +1113,428 @@ int launch_wgmma_fwd(const void* q, const void* k, const void* v, const void* ta
   return static_cast<int>(cudaGetLastError());
 }
 
-// `tab`: K2's [n, 2D] rope table (ROPE), else unused. One key block of at
-// most kWgKeys keys at D = 64 takes wgmma_fwd_kernel (K2 too, in its ROPE
-// form), the rest mma_fwd_kernel.
+// Shared-memory bytes of wgmma_wide_fwd_kernel: alignment slack, K and V in
+// pad16(D) / 16 slabs of 16 G rows of 32 bytes each, two Q tiles (rows of
+// pad16(D) + 8 elements) for each of `wgs` warpgroups.
+__host__ __device__ constexpr int wide_smem_bytes(int d, int g, int wgs) {
+  return 1024 + 2 * (pad16(d) / 16) * (16 * g) * 32 + wgs * 2 * kMmaRows * (pad16(d) + 8) * 2;
+}
+
+// Warpgroups of wgmma_wide_fwd_kernel a block: one where two blocks of one
+// fit an SM's shared memory (D <= 80, or few keys), else two sharing K and
+// V (one block an SM: 88-112 at N = 257).
+template <int D, int G>
+__host__ __device__ constexpr int wide_wgs() {
+  return wide_smem_bytes(D, G, 1) <= kTwoBlocksSmem ? 1 : 2;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Rows [0, len) of one (sample, head)'s D columns (row stride rs elements)
+// into the 32-byte-swizzled slabs at `dst` (wgmma.cuh: R rows a slab) by
+// 16-byte copies from THREADS threads, this one `tid`; rows [len, R) and
+// the pad columns [D, pad16(D)) zero-filled (no source bytes).
+template <int D, int R, int THREADS>
+__device__ __forceinline__ void stage_slabs(uint32_t dst, const bf16* src, long long rs, int len,
+                                            int tid) {
+  constexpr int kPieces = pad16(D) / 8;  // 16-byte pieces of a row, two a slab
+  for (int i = tid; i < R * kPieces; i += THREADS) {
+    const int r = i / kPieces, c = i % kPieces;
+    const bool in = r < len && c < D / 8;
+    cp_async16(dst + (c >> 1) * (R * 32) + swz32(r, c & 1), src + (in ? r * rs + c * 8 : 0),
+               in ? 16 : 0);
+  }
+}
+
+// K10 over jax's key block of 16-key groups [G0, G1) of the scores `s`
+// (MULTI; wgmma_wide_fwd_kernel's registers): the block's row max mb, the
+// new max mo, p = 2^(s sl2 - mo) UNnormalised and rounded to bf16 for its
+// P V (into acc for the first block), then jax's update with each product
+// and sum rounded once (mma_fwd_kernel's MULTI form), where `visit` (a
+// live warp, a block jax visits); a block of no visit still runs its
+// products, on zero P where the warp is dead.
+template <int D, int G0, int G1>
+__device__ __forceinline__ void multi_block(float (&acc)[D / 2], float* s, float (&m)[2],
+                                            float (&l)[2], uint64_t dv, float sl2, bool visit) {
+  float mo[2], ls[2] = {0.f, 0.f};
+  uint32_t pa[G1 - G0][4];
+  if (visit) {
+    float mb[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j8 = 2 * G0; j8 < 2 * G1; ++j8) {
+      mb[0] = fmaxf(mb[0], fmaxf(s[4 * j8], s[4 * j8 + 1]));
+      mb[1] = fmaxf(mb[1], fmaxf(s[4 * j8 + 2], s[4 * j8 + 3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mo[i] = fmaxf(m[i], quad_max(mb[i]) * sl2);
+#pragma unroll
+    for (int kk = G0; kk < G1; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* x = s + 8 * kk + 2 * i;
+        x[0] = ex2(fmaf(x[0], sl2, -mo[i & 1]));
+        x[1] = ex2(fmaf(x[1], sl2, -mo[i & 1]));
+        ls[i & 1] += x[0];  // key by key, mma_fwd_kernel's order
+        ls[i & 1] += x[1];
+        pa[kk - G0][i] = pack_bf16(x[0], x[1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < G1 - G0; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+  }
+  float cur[D / 2];  // this block's P V
+  float* dst = G0 == 0 ? acc : cur;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = G0; kk < G1; ++kk) wgmma_m64nNk16_mn<D>(dst, pa[kk - G0], dv + 32 * kk, kk - G0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(dst);
+  if (!visit) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_blk = lane_sum(ls[i]);
+    const float l_corr = mo[i] == -INFINITY ? 0.f : __fmul_rn(ex2(m[i] - mo[i]), l[i]);
+    const float l_new = __fadd_rn(l_blk, l_corr);
+    const float inv = l_new == 0.f ? 1.f : __fdiv_rn(1.f, l_new);
+    const float f = __fmul_rn(l_corr, inv);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        float& a = acc[4 * jj + e];
+        if constexpr (G0 == 0) {
+          a = __fmul_rn(a, inv);  // jax: 0 * f + acc * inv
+        } else {
+          a = __fadd_rn(__fmul_rn(a, f), __fmul_rn(cur[4 * jj + e], inv));
+        }
+      }
+    }
+    m[i] = mo[i];
+    l[i] = l_new;
+  }
+}
+
+// K1 and K4 (FLASH = false: stat_a = lse) and K10 (FLASH: stat_a = l,
+// stat_b = m) without rope at D = 64-112 and nk <= 16 G <= kWideKeys: one
+// key block (MULTI = false), or jax's key blocks of 128 (MULTI: K10 at nk =
+// 257 .. 272). Each of the block's warpgroups walks every WGS-th of its
+// `iters` sub-tiles of 64 query rows of one (sample, head), K and V staged
+// once for all; the header's note says how.
+template <int D, bool FLASH, bool MULTI, int G>
+__global__ void __launch_bounds__(wide_wgs<D, G>() * kMmaThreads, wide_wgs<D, G>() == 1 ? 2 : 1)
+    wgmma_wide_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ stat_a, float* __restrict__ stat_b, int n, int nk,
+                          int heads, Strides st, float scale, int causal, int blk_q, int iters) {
+  static_assert(FLASH || !MULTI, "K1 and K4 walk one key block");
+  constexpr int P = pad16(D);  // Q K^T's depth; P V's n is D itself
+  constexpr int WGS = wide_wgs<D, G>();
+  constexpr int kThreads = WGS * kMmaThreads;
+  constexpr int R = 16 * G;                  // staged key rows
+  constexpr uint32_t kSlab = R * 32;         // one 16-column slab of K or V
+  constexpr uint32_t kKBytes = P / 16 * kSlab;
+  constexpr uint32_t kQBytes = kMmaRows * (P + 8) * 2;
+  constexpr int kN64 = G / 4;                // whole 64-key tiles of S (n64), then G % 4 groups (n16)
+  constexpr int kBlk = 8;                    // MULTI: groups of one jax key block of 128
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sk = (raw + 1023) & ~1023u;
+  const uint32_t sv = sk + kKBytes;
+
+  const int wg = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const uint32_t sq0 = sv + kKBytes + wg * 2 * kQBytes;  // this warpgroup's two Q tiles
+  const long long b = blockIdx.x / heads;  // heads fastest: neighbouring heads share
+  const int h = blockIdx.x % heads;        // sectors of each row (odd D / 8)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long hd = (long long)h * D;
+  const bf16* qb = q + b * st.q_bs + hd;
+  const float sl2 = scale * kLog2e;
+  const int row_first = blockIdx.y * iters * kMmaRows;
+  const int tiles = min(iters, (n - row_first + kMmaRows - 1) / kMmaRows);
+  const int mine = tiles > wg ? (tiles - wg + WGS - 1) / WGS : 0;  // sub-tiles wg, wg + WGS, ...
+
+  // each warpgroup's first Q tile with K, then V, whose copy overlaps the
+  // first S and softmax; key rows nk .. R - 1 zero-filled
+  if (mine > 0) {
+    const int r0 = row_first + wg * kMmaRows;
+    stage_rows_by<D, kMmaThreads>(sq0, qb + r0 * st.q_rs, st.q_rs, min(kMmaRows, n - r0), tid);
+  }
+  stage_slabs<D, R, kThreads>(sk, k + b * st.k_bs + hd, st.k_rs, nk, threadIdx.x);
+  cp_async_commit();
+  stage_slabs<D, R, kThreads>(sv, v + b * st.v_bs + hd, st.v_rs, nk, threadIdx.x);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();  // K and the first Q tiles landed
+
+  const uint64_t dk = wgmma_desc(sk, 16, 256, kSwizzle32);
+  const uint64_t dv = wgmma_desc(sv, kSlab, 256, kSwizzle32);
+  for (int j = 0; j < mine; ++j) {
+    const int row0 = row_first + (j * WGS + wg) * kMmaRows;
+    const uint32_t sq = sq0 + (j & 1) * kQBytes;
+    const bool next = j + 1 < mine;
+    if (j > 0) {
+      cp_async_wait<0>();
+      bar_sync(2 + wg, kMmaThreads);  // Q landed; the warpgroup is done with the other tile
+    }
+    if (next) {  // the next sub-tile's Q copy overlaps this one
+      const int r1 = row0 + WGS * kMmaRows;
+      stage_rows_by<D, kMmaThreads>(sq0 + ((j + 1) & 1) * kQBytes, qb + r1 * st.q_rs, st.q_rs,
+                                    min(kMmaRows, n - r1), tid);
+      cp_async_commit();
+    }
+
+    uint32_t qf[P / 16][4];  // this warp's 16 rows, the A fragments of S
+    {
+      const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+      for (int ds = 0; ds < P / 16; ++ds)
+        ldsm_x4<false>(qf[ds], sq + ((16 * warp + (mi & 1) * 8 + rr) * (P + 8) + 16 * ds +
+                                     (mi >> 1) * 8) * 2);
+    }
+
+    // S = Q K^T, straight-line, over P / 16 k-steps (slab ks is step ks);
+    // in the descriptor's 16-byte units a slab is kSlab / 16 further, a
+    // 16-key group 32, a 64-key tile 128
+    float s[8 * G];
+    wgmma_fence();
+#pragma unroll
+    for (int tt = 0; tt < kN64; ++tt) {
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks)
+        wgmma_m64n64k16<0>(s + 32 * tt, qf[ks], dk + ks * (kSlab / 16) + 128 * tt, ks);
+    }
+#pragma unroll
+    for (int gg = 4 * kN64; gg < G; ++gg) {
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks)
+        wgmma_m64n16k16(s + 8 * gg, qf[ks], dk + ks * (kSlab / 16) + 32 * gg, ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<8 * G>(s);
+
+    // keys past nk and causal pairs to -inf
+    const int wrow0 = row0 + 16 * warp, r0 = wrow0 + g;  // this lane's rows: r0, r0 + 8
+#pragma unroll
+    for (int j8 = 0; j8 < 2 * G; ++j8) {  // 8-key chunk j8: keys 8 j8 + 2 t + {0, 1}
+      if (8 * j8 + 8 > nk || (causal && 8 * j8 + 7 > wrow0)) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j8 + 2 * t + (e & 1);
+          if (key >= nk || (causal && key > r0 + 8 * (e >> 1))) s[4 * j8 + e] = -INFINITY;
+        }
+      }
+    }
+    if (j == 0) {  // V landed for the whole block (its copy overlapped S)
+      if (next) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      bar_sync(1, kThreads);
+    }
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m to base 2
+    float acc[D / 2];
+    if constexpr (!MULTI) {
+      // the exact softmax: the row max m over every key, p = 2^(s sl2 - m)
+      // once, l = sum p, P = p * (1 / l) rounded to bf16: the A fragments
+      // of P V (a group's chunks 2 gg and 2 gg + 1). Every warp takes it:
+      // skipping the warps whose rows all lie past n (N = 257's fifth
+      // sub-tile) held s and P apart and spilled at D = 104 and 112
+#pragma unroll
+      for (int j8 = 0; j8 < 2 * G; ++j8) {
+        m[0] = fmaxf(m[0], fmaxf(s[4 * j8], s[4 * j8 + 1]));
+        m[1] = fmaxf(m[1], fmaxf(s[4 * j8 + 2], s[4 * j8 + 3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]) * sl2;  // scale > 0
+#pragma unroll
+      for (int jj = 0; jj < 8 * G; ++jj) {
+        s[jj] = ex2(fmaf(s[jj], sl2, -m[(jj >> 1) & 1]));
+        l[(jj >> 1) & 1] += s[jj];
+      }
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] = lane_sum(l[i]);
+        inv[i] = 1.f / l[i];
+      }
+      uint32_t pa[G][4];
+#pragma unroll
+      for (int kk = 0; kk < G; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack_bf16(s[8 * kk + 2 * i] * inv[i & 1], s[8 * kk + 2 * i + 1] * inv[i & 1]);
+      }
+      // O = P V on m64nDk16, one 16-key group a step (V read MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < G; ++kk) wgmma_m64nNk16_mn<D>(acc, pa[kk], dv + 32 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+    } else {
+      // jax's walk over its key blocks of 128 keys, S computed once
+      // (multi_block); a causal block wholly above the diagonal of the
+      // sub-tile's jax query block is skipped as jax skips it, and a warp
+      // whose 16 rows all lie past n (N = 257's fifth sub-tile) takes no
+      // softmax (here it spills nothing and gains 14% at D = 112)
+      const bool live = wrow0 < n;
+      const int qblk = row0 / blk_q;  // kMmaRows divides blk_q
+      constexpr int kB1 = G < kBlk ? G : kBlk, kB2 = G < 2 * kBlk ? G : 2 * kBlk;
+      multi_block<D, 0, kB1>(acc, s, m, l, dv, sl2, live);
+      if constexpr (G > kBlk)
+        multi_block<D, kBlk, kB2>(acc, s, m, l, dv, sl2,
+                                  live && (!causal || (qblk + 1) * blk_q - 1 > 16 * kBlk));
+      if constexpr (G > 2 * kBlk)
+        multi_block<D, 2 * kBlk, G>(acc, s, m, l, dv, sl2,
+                                    live && (!causal || (qblk + 1) * blk_q - 1 > 32 * kBlk));
+      static_assert(G <= 3 * kBlk, "three jax key blocks at most");
+    }
+
+    // o through this warp's 16 rows of the Q tile, 16 bytes per store; the
+    // first D columns only
+    bf16* so = reinterpret_cast<bf16*>(wg_smem + (sq - raw)) + 16 * warp * (P + 8);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(so + g * (P + 8) + 8 * jj + 2 * t) =
+          pack_bf16(acc[4 * jj], acc[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(so + (g + 8) * (P + 8) + 8 * jj + 2 * t) =
+          pack_bf16(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const int row = wrow0 + r;
+      if (row < n)
+        *reinterpret_cast<uint4*>(o + b * st.o_bs + row * st.o_rs + hd + 8 * c8) =
+            *reinterpret_cast<const uint4*>(so + r * (P + 8) + 8 * c8);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        if (row >= n) continue;
+        const long long idx = (b * heads + h) * n + row;
+        const float m_nat = m[i] * kLn2;
+        if constexpr (FLASH) {
+          stat_a[idx] = l[i];
+          stat_b[idx] = m_nat;
+        } else {
+          stat_a[idx] = __fadd_rn(m_nat, logf(l[i]));
+        }
+      }
+    }
+  }
+  if (mine == 0) {  // a warpgroup with no sub-tile still publishes its share of V
+    cp_async_wait<0>();
+    fence_proxy_async();
+    bar_sync(1, kThreads);
+  }
+}
+
+// Launches wgmma_wide_fwd_kernel<D, FLASH, MULTI, G>: one block a (sample,
+// head) where it has at most kWideTiles sub-tiles (every routed shape),
+// else the sub-tiles spread evenly over the fewest blocks.
+template <int D, bool FLASH, bool MULTI, int G>
+int launch_wide_fwd_g(const void* q, const void* k, const void* v, void* o, float* stat_a,
+                      float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+                      float scale, int causal, int blk_q, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  constexpr int kSmem = wide_smem_bytes(D, G, wide_wgs<D, G>());
+  const cudaError_t err = allow_smem(wgmma_wide_fwd_kernel<D, FLASH, MULTI, G>, kSmem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n + kMmaRows - 1) / kMmaRows;
+  const int iters = even_iters(tiles, kWideTiles);
+  const dim3 grid(batch * heads, (tiles + iters - 1) / iters);
+  wgmma_wide_fwd_kernel<D, FLASH, MULTI, G>
+      <<<grid, wide_wgs<D, G>() * kMmaThreads, kSmem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads, st, scale, causal, blk_q, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide route's instantiations: G = 4, 16 or 17 16-key groups, the
+// least that holds nk (64, 256, 272 keys: the routed main-path shapes N =
+// 64, 256 and 257 compute 64, 256 and 272; a G = 8 step for 65-128 keys
+// cost build time and served no main path); K10 with one key block holds
+// at most 256 keys (G = 4, 16); D = 64 and jax's several key blocks (K10)
+// take the wide route only past 256 keys, so G = 17 alone. MULTI walks
+// jax's blocks of 128 keys: nblk = 3 at nk = 257 .. 272.
+template <int D, bool FLASH, bool MULTI>
+int launch_wide_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
+                    float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+                    float scale, int causal, int blk_q, int blk_k, int nblk,
+                    cudaStream_t stream) {
+  const int groups = (nk + 15) / 16;
+#define MRCLIP_WIDE(G)                                                                           \
+  return launch_wide_fwd_g<D, FLASH, MULTI, G>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, \
+                                               st, scale, causal, blk_q, stream)
+  if constexpr (MULTI) {
+    if (blk_k != 128 || nblk != 3 || groups > 17) return static_cast<int>(cudaErrorInvalidValue);
+    MRCLIP_WIDE(17);
+  } else if constexpr (D == kWgDim) {
+    if constexpr (FLASH) {  // one jax block holds at most 256 keys: wgmma_fwd_kernel's
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if (groups <= 16 || groups > 17) return static_cast<int>(cudaErrorInvalidValue);
+      MRCLIP_WIDE(17);
+    }
+  } else {
+    if (groups <= 4) MRCLIP_WIDE(4);
+    if (groups <= 16) MRCLIP_WIDE(16);
+    if constexpr (!FLASH) {
+      if (groups <= 17) MRCLIP_WIDE(17);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MRCLIP_WIDE
+}
+
+// The forward's kernels, by route: fp32 on the FMA kernels; bf16 on
+// wgmma_fwd_kernel (D = 64, one key block of at most kWgKeys keys; K2 too),
+// wgmma_wide_fwd_kernel (no rope, D = 64-112, at most kWideKeys keys: past
+// 256 keys at D = 64, jax's blocks of 128 for K10) or mma_fwd_kernel (D =
+// 32, longer walks, K2 past 256 keys). The one source of the choice: the
+// launchers below and the C entry attn_fwd_route read it.
+enum FwdRoute { kRouteFma = 0, kRouteMmaSync = 1, kRouteWgmma = 2, kRouteWide = 3 };
+
+inline int fwd_route(bool bf16_in, int d, bool rope, int nk, int nblk) {
+  if (!bf16_in) return kRouteFma;
+  if (d == kWgDim && nblk == 1 && nk <= kWgKeys) return kRouteWgmma;
+  if (rope || d == 32 || nk > kWideKeys) return kRouteMmaSync;
+  return kRouteWide;  // K10 past 256 keys: nblk = 3 blocks of 128
+}
+
+// `tab`: K2's [n, 2D] rope table (ROPE), else unused. Launches the kernel of
+// fwd_route's choice; a shape on a route launches that route's kernel or
+// returns an error.
 template <int D, bool FLASH, bool MULTI, bool ROPE = false>
 int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab, void* o,
                    float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
                    const Strides& st, float scale, int causal, int blk_q, int blk_k, int nblk,
                    cudaStream_t stream) {
+  const int route = fwd_route(true, D, ROPE, nk, nblk);
   if constexpr (D == kWgDim && !MULTI) {
-    if (nblk == 1 && nk <= kWgKeys)
+    if (route == kRouteWgmma)
       return launch_wgmma_fwd<FLASH, ROPE>(q, k, v, tab, o, stat_a, stat_b, batch, n, nk, heads,
                                            st, scale, causal, (nk + 15) / 16, stream);
   }
+  if constexpr (!ROPE && D != 32) {
+    if (route == kRouteWide)
+      return launch_wide_fwd<D, FLASH, MULTI>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
+                                              scale, causal, blk_q, blk_k, nblk, stream);
+  }
+  if (route != kRouteMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
   if (err != cudaSuccess) return static_cast<int>(err);
   // one jax block (at most 256 keys when there are several) per chunk, or
@@ -1102,3 +1579,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* stat
 }
 
 }  // namespace
+
+// The forward route of a shape (FwdRoute: 0 the FMA kernels, 1 mma.sync,
+// 2 wgmma at D = 64, 3 the wide wgmma kernel) for the wrappers' launch
+// counts and the card's checks: fwd_route itself.
+extern "C" int attn_fwd_route(int is_bf16, int head_dim, int rope, int nk, int nblk) {
+  return fwd_route(is_bf16 != 0, head_dim, rope != 0, nk, nblk);
+}

@@ -51,7 +51,9 @@
 // and writes dq, dk, dv (7 tensors, 542 MB): 0.1640 ms, bytes. bf16 runs on
 // the tensor cores, FLASH = true, the strided views taken as they are: the
 // forward in attn_mma_fwd.cuh (K and V staged in bf16 by 16-byte copies;
-// one key block of at most 256 keys at D = 64 on wgmma),
+// one key block of at most 256 keys at D = 64 on wgmma, and at D = 72-112
+// and up to 272 keys, jax's three 128-key blocks past 256, on the wide
+// wgmma kernel),
 // the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
 // statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
 // = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 72,

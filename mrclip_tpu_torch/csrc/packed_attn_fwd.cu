@@ -33,10 +33,12 @@
 // Two kernels, chosen by type:
 //   bf16: attn_mma_fwd.cuh's tensor-core forward that K4 runs (K1 is the
 //     same instantiation, with the packed strides): wgmma_fwd_kernel, on
-//     Hopper's wgmma, at D = 64 with at most 256 keys (every main-path
-//     shape of K1 and K2), mma_fwd_kernel otherwise; K2 sets either
-//     kernel's ROPE flag: each rotates the staged K rows once per (sample,
-//     head) and each staged Q sub-tile in shared memory.
+//     Hopper's wgmma, at D = 64 with at most 256 keys, wgmma_wide_fwd_kernel
+//     at D = 72-112 up to 272 keys and at D = 64 from 257 to 272 (every
+//     main-path shape of K1 and K2), mma_fwd_kernel otherwise; K2 sets the
+//     ROPE flag of wgmma_fwd_kernel or mma_fwd_kernel: each rotates the
+//     staged K rows once per (sample, head) and each staged Q sub-tile in
+//     shared memory.
 //     Its 16-byte copies need the views' base pointers and batch and row
 //     strides to be multiples of 16 bytes, which the wrapper checks;
 //   fp32: packed_attn_fwd_kernel below, on the FMA pipes (TF32 products

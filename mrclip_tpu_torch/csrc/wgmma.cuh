@@ -21,6 +21,21 @@
 //     transpose bit 1): n spans one 128-byte row (64 columns), the two
 //     8-row groups of a k16 step lie 1024 bytes apart (SBO); LBO, the step
 //     to the next 64 columns, is not read at n = 64.
+// Past 64 columns (the wide-head forward, head dims 64-112: one layout for
+// every width) tiles are in the 32-byte swizzle instead: slabs of 16 bf16
+// columns, slab s holding columns 16 s .. 16 s + 15 of every row as one
+// 32-byte row, the 16-byte half c of row r at r * 32 + ((c ^ ((r >> 2) & 1))
+// * 16) (address bit 4 xor bit 7), slabs 512-byte aligned, R rows apart:
+//   - K-major B: the k16 step s is slab s (its descriptor starts there); an
+//     8-row group every 256 bytes (SBO); LBO is not read. The 16-row group g
+//     starts 512 bytes further (32 in the descriptor's units).
+//   - MN-major B: n spans the slabs, 16 columns each, LBO = R * 32 apart;
+//     the two 8-row groups of a k16 step 256 bytes apart (SBO). n need not
+//     fill the last slab: n = 72 reads 4.5 slabs, and the unread half
+//     holds the zero pad.
+// The slab form wastes no shared memory at 72-112 columns, where the
+// 128-byte swizzle's second slab of 64 columns would be a quarter to
+// three quarters empty.
 // The shared memory that a wgmma reads must be published to the async
 // proxy: each thread's copies landed, fence.proxy.async, then a barrier.
 
@@ -35,13 +50,22 @@ __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-// Descriptor of a 128-byte-swizzled tile at shared address `addr`: start
-// address, leading and stride byte offsets in 16-byte units, layout 1
-// (128-byte swizzle) in bits 62-63, base offset 0 (1024-byte aligned tiles).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Byte offset of the 16-byte half `c` of row `r` in a 32-byte-swizzled slab.
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return static_cast<uint32_t>(r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+}
+
+constexpr uint64_t kSwizzle128 = 1;  // the descriptor's layout field (bits 62-63)
+constexpr uint64_t kSwizzle32 = 3;
+
+// Descriptor of a swizzled tile at shared address `addr`: start address,
+// leading and stride byte offsets in 16-byte units, the layout in bits
+// 62-63, base offset 0 (tiles aligned to their swizzle's repeat).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint64_t layout = kSwizzle128) {
   return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32 | 1ull << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32 | layout << 62;
 }
 
 // This thread's generic-proxy writes to shared memory (cp.async, st.shared)
@@ -113,5 +137,80 @@ __device__ __forceinline__ void wgmma_m64n16k16(float* d, const uint32_t (&a)[4]
         "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
+
+#define MRCLIP_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (+)= a b for a 64 x 16 A in registers and a 16 x N MN-major B at `desc`
+// (transpose bit 1), N = 64, 72, 80, 88, 104 or 112 (the head dims of P V);
+// d holds N / 2 registers; `acc` 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_mn(float* d, const uint32_t (&a)[4], uint64_t desc,
+                                                  int acc) {
+  static_assert(N == 64 || N == 72 || N == 80 || N == 88 || N == 104 || N == 112, "n");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16<1>(d, a, desc, acc);
+  } else if constexpr (N == 72) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+        : MRCLIP_D4(0), MRCLIP_D4(4), MRCLIP_D4(8), MRCLIP_D4(12), MRCLIP_D4(16), MRCLIP_D4(20),
+          MRCLIP_D4(24), MRCLIP_D4(28), MRCLIP_D4(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : MRCLIP_D4(0), MRCLIP_D4(4), MRCLIP_D4(8), MRCLIP_D4(12), MRCLIP_D4(16), MRCLIP_D4(20),
+          MRCLIP_D4(24), MRCLIP_D4(28), MRCLIP_D4(32), MRCLIP_D4(36)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  } else if constexpr (N == 88) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43"
+        "}, {%44, %45, %46, %47}, %48, p, 1, 1, 1;\n}\n"
+        : MRCLIP_D4(0), MRCLIP_D4(4), MRCLIP_D4(8), MRCLIP_D4(12), MRCLIP_D4(16), MRCLIP_D4(20),
+          MRCLIP_D4(24), MRCLIP_D4(28), MRCLIP_D4(32), MRCLIP_D4(36), MRCLIP_D4(40)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  } else if constexpr (N == 104) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
+        : MRCLIP_D4(0), MRCLIP_D4(4), MRCLIP_D4(8), MRCLIP_D4(12), MRCLIP_D4(16), MRCLIP_D4(20),
+          MRCLIP_D4(24), MRCLIP_D4(28), MRCLIP_D4(32), MRCLIP_D4(36), MRCLIP_D4(40),
+          MRCLIP_D4(44), MRCLIP_D4(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  } else if constexpr (N == 112) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : MRCLIP_D4(0), MRCLIP_D4(4), MRCLIP_D4(8), MRCLIP_D4(12), MRCLIP_D4(16), MRCLIP_D4(20),
+          MRCLIP_D4(24), MRCLIP_D4(28), MRCLIP_D4(32), MRCLIP_D4(36), MRCLIP_D4(40),
+          MRCLIP_D4(44), MRCLIP_D4(48), MRCLIP_D4(52)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+}
+
+#undef MRCLIP_D4
 
 }  // namespace

@@ -37,6 +37,23 @@ def launch_counts_by_width() -> dict:
     return out
 
 
+def launch_counts_by_route() -> dict:
+    """The attention forwards' launches since their module's last
+    `reset_launches`, by kernel name, head dim and route
+    (`fused_attn.FWD_ROUTES`): {name: {d: {route: count}}}."""
+    from . import flash_attn as fl
+    from . import fused_attn as fa
+
+    kernels = ((fa, {"launches": "packed_attn_fwd", "rope_launches": "packed_attn_rope_fwd",
+                     "grouped_launches": "grouped_attn_fwd"}),
+               (fl, {"launches": "flash_attn_fwd"}))
+    out: dict = {}
+    for module, names in kernels:
+        for (counter, d, route), n in module.route_launches.items():
+            out.setdefault(names[counter], {}).setdefault(d, {})[route] = n
+    return out
+
+
 def launches_since(before: dict) -> dict:
     """The kernels launched since the `launch_counts()` snapshot `before`,
     with their counts."""

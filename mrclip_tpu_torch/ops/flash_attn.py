@@ -40,7 +40,7 @@ import threading
 import torch
 
 from . import build
-from .fused_attn import check_head_dim, check_rows_aligned_16
+from .fused_attn import check_head_dim, check_rows_aligned_16, fwd_route
 
 __all__ = [
     "FlashAttention",
@@ -52,6 +52,7 @@ __all__ = [
     "flash_di",
     "launches",
     "width_launches",
+    "route_launches",
     "bwd_launches",
     "load_kernels",
     "pick_block",
@@ -66,8 +67,10 @@ _MASK = -0.7 * float(torch.finfo(torch.float32).max)  # jax's DEFAULT_MASK_VALUE
 launches = 0
 bwd_launches = 0
 _COUNTERS = ("launches", "bwd_launches")
-# The same launches by (counter name, head dim).
+# The same launches by (counter name, head dim); K10's also by (counter
+# name, head dim, route: fused_attn.FWD_ROUTES).
 width_launches: dict[tuple[str, int], int] = {}
+route_launches: dict[tuple[str, int, str], int] = {}
 _count_lock = threading.Lock()
 
 
@@ -76,12 +79,15 @@ def reset_launches() -> None:
         for name in _COUNTERS:
             globals()[name] = 0
         width_launches.clear()
+        route_launches.clear()
 
 
-def _count(name: str, d: int) -> None:
+def _count(name: str, d: int, route: str | None = None) -> None:
     with _count_lock:
         globals()[name] += 1
         width_launches[name, d] = width_launches.get((name, d), 0) + 1
+        if route is not None:
+            route_launches[name, d, route] = route_launches.get((name, d, route), 0) + 1
 
 
 def _pad(n: int) -> int:
@@ -270,7 +276,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    _count("launches", d)
+    _count("launches", d, fwd_route("flash_attn", q.dtype == torch.bfloat16, d, False, nk, nblk))
     return o, l, m
 
 

@@ -73,8 +73,11 @@ __all__ = [
     "check_head_dim",
     "HEAD_DIMS",
     "ROPE_HEAD_DIMS",
+    "FWD_ROUTES",
+    "fwd_route",
     "launches",
     "width_launches",
+    "route_launches",
     "bwd_launches",
     "rope_launches",
     "rope_bwd_launches",
@@ -108,9 +111,34 @@ grouped_launches = 0
 grouped_bwd_launches = 0
 _COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches",
              "grouped_launches", "grouped_bwd_launches")
-# The same launches by (counter name, head dim).
+# The same launches by (counter name, head dim); the forwards' also by
+# (counter name, head dim, route).
 width_launches: dict[tuple[str, int], int] = {}
+route_launches: dict[tuple[str, int, str], int] = {}
 _count_lock = threading.Lock()
+
+# The forward kernels' routes, by the value of the libraries' C entry
+# `attn_fwd_route` (`csrc/attn_mma_fwd.cuh::fwd_route`, the launchers' own
+# choice): fp32 FMA kernels; bf16 `mma_fwd_kernel` (mma.sync),
+# `wgmma_fwd_kernel` (D = 64, one key block of at most 256 keys, K2 too) or
+# `wgmma_wide_fwd_kernel` (no rope, D = 64-112, at most 272 keys).
+FWD_ROUTES = ("fma", "mma_sync", "wgmma", "wgmma_wide")
+
+
+@functools.lru_cache(maxsize=None)
+def _route_entry(library: str):
+    fn = build.load_library(library).attn_fwd_route
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=4096)
+def fwd_route(library: str, is_bf16: bool, d: int, rope: bool, nk: int, nblk: int = 1) -> str:
+    """The route (`FWD_ROUTES`) by which the forward of `csrc/<library>.cu`
+    launches at head dim `d` over `nk` keys in `nblk` jax key blocks (K10;
+    1 for K1, K2, K4), asked of the built library itself."""
+    return FWD_ROUTES[_route_entry(library)(int(is_bf16), d, int(rope), nk, nblk)]
 
 
 def reset_launches() -> None:
@@ -118,12 +146,15 @@ def reset_launches() -> None:
         for name in _COUNTERS:
             globals()[name] = 0
         width_launches.clear()
+        route_launches.clear()
 
 
-def _count(name: str, d: int) -> None:
+def _count(name: str, d: int, route: str | None = None) -> None:
     with _count_lock:
         globals()[name] += 1
         width_launches[name, d] = width_launches.get((name, d), 0) + 1
+        if route is not None:
+            route_launches[name, d, route] = route_launches.get((name, d, route), 0) + 1
 
 
 def check_head_dim(name: str, d: int, rope: bool = False) -> None:
@@ -378,7 +409,8 @@ def fused_attention_packed(
     entry = "packed_attn_fwd" if rope is None else "packed_attn_rope_fwd"
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    _count("launches" if rope is None else "rope_launches", d)
+    _count("launches" if rope is None else "rope_launches", d,
+           fwd_route("packed_attn_fwd", is_bf16, d, rope is not None, nk))
     return o.reshape(q.shape), lse
 
 
@@ -659,7 +691,7 @@ def fused_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         )
     if err != 0:
         raise RuntimeError(f"grouped_attn_fwd launch failed: cudaError {err}")
-    _count("grouped_launches", d)
+    _count("grouped_launches", d, fwd_route("grouped_attn", q.dtype == torch.bfloat16, d, False, nk))
     return o, lse
 
 

@@ -412,13 +412,14 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
     """K2 equals, bit for bit, the same attention on q and k rotated
     beforehand by the plain version's arithmetic (`_rope_rotate`: fp32, each
     product and sum rounded once, one rounding to q's type): K2 with the
-    identity table (sin 0, cos 1, which rotates exactly), and K1, which
-    runs K2's kernel without the rotation on every route (bf16
-    wgmma_fwd_kernel at one key block of at most 256 keys and D = 64, K
-    and each Q sub-tile rotated in shared memory; mma_fwd_kernel past it
-    and at D = 32; fp32 on the FMA kernel). So the kernel's rotation is the
-    plain version's, and the CLS row, whose table row is the identity,
-    stays exactly the unrotated q and k."""
+    identity table (sin 0, cos 1, which rotates exactly), and K1 where it
+    runs K2's kernel without the rotation (the same route, `fwd_route`:
+    bf16 wgmma_fwd_kernel at one key block of at most 256 keys and D = 64,
+    K and each Q sub-tile rotated in shared memory; mma_fwd_kernel past 272
+    keys and at D = 32; fp32 on the FMA kernel; from 257 to 272 keys bf16
+    K1 runs the wide wgmma kernel, which rounds P in another order). So the
+    kernel's rotation is the plain version's, and the CLS row, whose table
+    row is the identity, stays exactly the unrotated q and k."""
     q, k, v, _, tab = _rope_inputs(b, n, h, d, prefix, cuda_device, dtype)
     o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h, rope=tab)
     sin, cos = (t[:, None] for t in tab.float().chunk(2, dim=-1))  # [N, 1, D]
@@ -430,7 +431,10 @@ def test_rope_forward_rotates_q_and_k_bit_identically(cuda_device, b, n, h, d, p
     qr, kr = rotated(q), rotated(k)
     assert torch.equal(qr[:, :prefix], q[:, :prefix]) and torch.equal(kr[:, :prefix], k[:, :prefix])
     identity = torch.cat([torch.zeros_like(tab[:, :d]), torch.ones_like(tab[:, d:])], dim=-1)
-    for kw in (dict(rope=identity), {}):  # K2 with the identity table, K1
+    bf16 = dtype == torch.bfloat16
+    same_kernel = (fa.fwd_route("packed_attn_fwd", bf16, d, False, n)
+                   == fa.fwd_route("packed_attn_fwd", bf16, d, True, n))
+    for kw in (dict(rope=identity), *([{}] if same_kernel else [])):  # K2 (identity), K1
         o1, lse1 = fa.fused_attention_packed(qr, kr, v, is_causal=causal, heads=h, **kw)
         torch.cuda.synchronize()
         assert torch.equal(o, o1) and torch.equal(lse, lse1)
@@ -698,6 +702,101 @@ def test_bf16_rope_forward_route_by_shape(cuda_device, n, wgmma):
         assert "wgmma_fwd_kernel<false, true, " in name
     else:
         assert "mma_fwd_kernel<64, false, false, true>" in name and "wgmma" not in name
+
+
+# The wide wgmma forward (attn_mma_fwd.cuh's wgmma_wide_fwd_kernel): K1, K4
+# and K10 in bf16 at every width it takes (D = 64 past 256 keys; 72, 80, 88,
+# 104, 112 up to 272) at the edges of its 16-key groups (15, 17, 63, 65,
+# 255, 257), its 64-row sub-tiles (63, 64, 65, 256, 257) and its route (256
+# keys: D = 64 stays on wgmma_fwd_kernel; 272: 17 groups, the most), causal
+# and not; K10 past 256 keys walks jax's three key blocks of 128
+WIDE_FWD_DIMS = (64, 72, 80, 88, 104, 112)
+WIDE_FWD_EDGES = (1, 15, 17, 63, 64, 65, 255, 256, 257, 272)
+
+
+def _kernels_seen(fn):
+    """`_device_kernels(fn)`, a window that recorded no device kernel tried
+    again (up to three): CUPTI can lose a short window's records."""
+    for _ in range(3):
+        names = _device_kernels(fn)
+        if names:
+            break
+    return names
+
+
+def _wide_fwd_call(kernel, q, k, v, causal):
+    """(call, plain call, library, launch counter, nblk) of K1, K4 or K10
+    on [B, L, H, D] q, k and v (K4 on their grouped copies)."""
+    if kernel == "K1":
+        return (lambda: fa.fused_attention_packed(q, k, v, is_causal=causal),
+                lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal),
+                "packed_attn_fwd", ("launches", fa), 1)
+    if kernel == "K4":
+        qg, kg, vg = (fa.group_heads(t) for t in (q, k, v))
+        return (lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+                lambda: fa.fused_attention_ref(qg, kg, vg, is_causal=causal),
+                "grouped_attn", ("grouped_launches", fa), 1)
+    return (lambda: fl.flash_attention(q, k, v, is_causal=causal),
+            lambda: fl.flash_attention_ref(q, k, v, is_causal=causal),
+            "flash_attn", ("launches", fl), fl._blocks(q.shape[1], k.shape[1])[2])
+
+
+@pytest.mark.parametrize("d,n,route", [(64, 273, "mma_sync"), (80, 273, "mma_sync"),
+                                       (112, 577, "mma_sync"), (32, 200, "mma_sync"),
+                                       (104, 257, "wgmma_wide"), (72, 64, "wgmma_wide"),
+                                       (64, 257, "wgmma_wide"), (64, 200, "wgmma")])
+def test_forward_route_by_shape(cuda_device, d, n, route):
+    """The shapes past the wide route (more than 272 keys, D = 32) stay on
+    mma_fwd_kernel, each kernel's library names the same route, and the
+    profiler sees that route's kernel (K10 in its several-block form past
+    256 keys); fp32 takes the FMA kernels."""
+    q, k, v = _inputs(1, n, n, 2, d, cuda_device, torch.bfloat16)
+    for kernel in ("K1", "K4", "K10"):
+        call, _, library, _, nblk = _wide_fwd_call(kernel, q, k, v, False)
+        assert fa.fwd_route(library, True, d, False, n, nblk) == route
+        assert fa.fwd_route(library, False, d, False, n, nblk) == "fma"
+        names = _kernels_seen(call)
+        assert len(names) == 1
+        name = names.pop()
+        flash = "true" if kernel == "K10" else "false"
+        multi = "true" if nblk > 1 else "false"
+        assert {"mma_sync": f"mma_fwd_kernel<{d}, {flash}, {multi}, false>",
+                "wgmma": f"wgmma_fwd_kernel<{flash}, false, ",
+                "wgmma_wide": f"wgmma_wide_fwd_kernel<{d}, {flash}, {multi}, "}[route] in name
+        if route == "mma_sync":
+            assert "wgmma" not in name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", WIDE_FWD_EDGES)
+@pytest.mark.parametrize("d", WIDE_FWD_DIMS)
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K10"])
+def test_wide_wgmma_forward_matches_plain_version(cuda_device, kernel, d, n, causal):
+    """bf16 K1, K4 and K10 on the route the library names (`fwd_route`:
+    wgmma_wide past D = 64 or 256 keys, else wgmma): o within 2e-2 of the
+    plain version, lse (K1, K4) and m (K10) within 1e-3, l within 1e-3
+    relative; two runs bit-equal; one launch counted on that route (the
+    profiler's kernel names: test_forward_route_by_shape)."""
+    q, k, v = _inputs(2, n, n, 2, d, cuda_device, torch.bfloat16)
+    call, plain, library, (counter, module), nblk = _wide_fwd_call(kernel, q, k, v, causal)
+    route = "wgmma" if d == 64 and n <= 256 else "wgmma_wide"
+    assert fa.fwd_route(library, True, d, False, n, nblk) == route
+    module.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert module.route_launches == {(counter, d, route): 1}
+    want = plain()
+    o, stats = got[0], got[1:]
+    assert o.shape == want[0].shape and o.dtype == torch.bfloat16
+    assert (o.float() - want[0].float()).abs().max().item() <= 2e-2
+    if kernel == "K10":
+        (l, m), (want_l, want_m) = stats, want[1:]
+        assert ((l - want_l).abs() / want_l).max().item() <= 1e-3
+        assert (m - want_m).abs().max().item() <= 1e-3
+    else:
+        assert (stats[0] - want[1]).abs().max().item() <= 1e-3
+    again = call()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):

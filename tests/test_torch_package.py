@@ -182,20 +182,31 @@ def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels, includes)
 @pytest.mark.parametrize("source", ["packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu"])
 def test_attention_forwards_reach_wgmma(source):
     """K1, K2, K4 and K10 reach the Hopper forward on wgmma: `wgmma.cuh` is
-    among the headers that key their build, it emits `wgmma.mma_async`, and
-    the one launcher they share routes one key block of at most 256 keys at
-    D = 64, with the rope (K2) or without, to `wgmma_fwd_kernel` (the
-    kernel itself runs only on the card)."""
+    among the headers that key their build, it emits `wgmma.mma_async`
+    (m64n64k16, m64n16k16, and m64nNk16 at every wide head dim), and the one
+    launcher they share routes by `fwd_route` one key block of at most 256
+    keys at D = 64, with the rope (K2) or without, to `wgmma_fwd_kernel`,
+    and K1, K4 and K10 without the rope up to 272 keys otherwise (D = 64 past
+    256 keys, 72-112) to `wgmma_wide_fwd_kernel` (the kernels themselves run
+    only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
     header = (build.CSRC / "wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
     assert "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16" in header
+    for n in (72, 80, 88, 104, 112):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in header
     fwd = (build.CSRC / "attn_mma_fwd.cuh").read_text()
+    route = fwd[fwd.index("inline int fwd_route("):]
+    assert "if (d == kWgDim && nblk == 1 && nk <= kWgKeys) return kRouteWgmma;" in route
+    assert "if (rope || d == 32 || nk > kWideKeys) return kRouteMmaSync;" in route
     launcher = fwd[fwd.index("int launch_mma_fwd("):]
     assert "if constexpr (D == kWgDim && !MULTI) {" in launcher
-    assert "if (nblk == 1 && nk <= kWgKeys)" in launcher
+    assert "if (route == kRouteWgmma)" in launcher
     assert "return launch_wgmma_fwd<FLASH, ROPE>(" in launcher
+    assert "if (route == kRouteWide)" in launcher
+    assert "return launch_wide_fwd<D, FLASH, MULTI>(" in launcher
     assert "constexpr int kWgKeys = 256;" in fwd and "constexpr int kWgDim = 64;" in fwd
+    assert "constexpr int kWideKeys = 272;" in fwd
 
 
 @pytest.mark.parametrize("source,call,writes_delta", [
