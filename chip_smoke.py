@@ -29,9 +29,11 @@ fails:
              on mma_fwd_kernel at N = 577, K2 on wgmma_fwd_kernel's ROPE form
              at N <= 256 and on mma_fwd_kernel at N = 257 and 577; bf16
              K3/K3r (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64
-             with N and Nk <= 256, on its mma_bwd_* at N = 257 and 577, Nk =
-             300 and D = 32, K10b on wgmma_bwd_*'s FLASH form at the vision,
-             N = 256 and causal ctx 77 shapes and on mma_bwd_* at N = 577,
+             with N and Nk <= 256, K3, K5 on its wgmma_wide_bwd_* at N =
+             257, on its mma_bwd_* at N = 257 causal, 577, Nk = 300 and D =
+             32, by the route `bwd_route` names, K10b on wgmma_bwd_*'s FLASH
+             form at the vision, N = 256 and causal ctx 77 shapes, on
+             wgmma_wide_bwd_* at N = 257 and on mma_bwd_* at N = 577,
              each name in its own profiler group; fp32 on packed_attn_bwd.cu's
              FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
@@ -187,12 +189,14 @@ fails:
              ViT-L-14's vision shape (N 257, b32 and b256, causal and not at
              b2); which device kernels they run and the route the libraries
              name (bf16 forwards: attn_mma_fwd.cuh's wgmma_wide_fwd_kernel up
-             to 272 keys, K10's MULTI form past 256; backward: mma.sync);
-             two bf16 runs of each forward and backward bit-equal; timings at
-             b256 and b32 beside the forwards' mma.sync route of the same run
-             (a second build of the three forward sources under
-             build/variants/fwd_mma_sync/ with the wide route's reach cut to
-             no key, started with phase 2's), SDPA and the bounds.
+             to 272 keys, K10's MULTI form past 256; backward:
+             attn_mma_bwd.cuh's wgmma_wide_bwd_* up to 272 rows, not
+             causal); two bf16 runs of each forward and backward bit-equal;
+             timings at b256 and b32 beside the kernels' mma.sync route of
+             the same run (a second build of the three forward and three
+             backward sources under build/variants/fwd_mma_sync/ with the
+             wide routes' reach cut to no row, started with phase 2's), SDPA
+             and the bounds.
              Then ViT-g-14 and ViT-bigG-14 at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp', remat
              'full') served at b32
@@ -216,7 +220,8 @@ fails:
              and b32, N 729 at b32: 378 and 384 px, no CLS), its non-causal
              text (N 64, b256) and the tile edges; which device kernels they
              run (the forwards on wgmma_wide_fwd_kernel, N 729 on
-             mma_fwd_kernel); timings at those four shapes beside the
+             mma_fwd_kernel; the backward on wgmma_wide_bwd_*, N 729 on
+             mma_bwd_*); timings at those four shapes beside the
              mma.sync route, SDPA and the bounds.
              Then ViT-SO400M-14-SigLIP at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp'): the
@@ -260,9 +265,11 @@ fails:
 Phases 16, 17 and 18's kernel checks and timings run right after the build
 (late in a long process the profiler loses the device records of short
 windows), their models after phase 15. Their served and trained paths also
-read the forwards' launches by route (`ops.launch_counts_by_route`): every
-K1, K4 and K10 launch at D = 72-112 on wgmma_wide, at the text towers' D =
-64 on wgmma, K2 (EVA02-L-14) on mma_sync, none elsewhere.
+read the attention launches by route (`ops.launch_counts_by_route`): every
+K1, K4 and K10 launch and every K3, K5 and K10b launch at D = 72-112 on
+wgmma_wide (but SO400M's text backward, N 64, on mma_sync), at the text
+towers' D = 64 on wgmma, K2 and K3r (EVA02-L-14) on mma_sync, none
+elsewhere.
 Each path (4 to 18; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
@@ -363,13 +370,21 @@ WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                         "(sample, head) in 32-byte-swizzled 16-column slabs, P V on m64nDk16, "
                         "K10's 128-key blocks as jax's update; mma.sync (mma_fwd_kernel) past 272 "
                         "keys, K2 past 256 and at D = 32")
-# K3, K3r, K5 and K10b at D = 64 with n and nk at most 256 (every
-# main-path shape); D = 32 and longer walks stay on the mma_bwd_* kernels
+# K3, K3r, K5 and K10b at D = 64 with n and nk at most 256; K3, K5 and K10b
+# at D = 72-112 (and 64 past 256 rows) up to 272 rows, not causal, on the
+# wide wgmma kernels; D = 32, the rope and causal past those, longer walks
+# and one 64-row sub-tile a side stay on the mma_bwd_* kernels
 WGMMA_BWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_bwd.cuh",
                  design="wgmma bf16 (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel: m64n64k16 and "
                         "m64n16k16, A in registers, the staged pair read K-major and MN-major "
-                        "from one 128-byte-swizzled tile), two passes, no atomics; mma.sync "
-                        "(mma_bwd_*) past 256 rows and at D = 32")
+                        "from one 128-byte-swizzled tile), two passes, no atomics; "
+                        "wgmma_wide_bwd_dq_kernel and wgmma_wide_bwd_dkv_kernel at D = 72-112 "
+                        "(and 64 past 256 rows) up to 272 rows, not causal: the staged pair once "
+                        "per (sample, head) in 32-byte-swizzled 16-column slabs, dQ, dK and dV "
+                        "on m64nDk16, the dk/dv pass's K and V the A operands from shared "
+                        "memory; mma.sync (mma_bwd_*) past 272 rows, at D = 32, K3r past 256, "
+                        "causal past the D = 64 route, and where n and nk are each one 64-row "
+                        "sub-tile")
 # the bf16 forwards (K1, K2, K4, K10), the kernels each is set beside and
 # SDPA take tens of microseconds at the text shapes: each is the median of
 # this many readings
@@ -617,28 +632,37 @@ def phase_card():
     return name, smi
 
 
-SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "flash_attn",
-           "dw_conv")
+SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", "grouped_attn_bwd",
+           "flash_attn", "flash_attn_bwd", "dw_conv")
 HOST_SOURCES = ("png_unfilter",)  # host code only: the PNG reader's unfilter (phase 13)
-# The bf16 forward's mma.sync route (mma_fwd_kernel) at the shapes the wide
-# wgmma kernel took over, timed beside it in phases 16-18: K1's, K4's and
-# K10's sources built again from a copy of csrc/ whose wide route reaches no
-# key (attn_mma_fwd.cuh's fwd_route then names mma_sync there) and whose
-# launcher leaves the wide kernel out (not compiled: the build costs what
-# the forwards cost before it)
+# The bf16 forward's and backward's mma.sync routes (mma_fwd_kernel,
+# mma_bwd_*) at the shapes the wide wgmma kernels took over, timed beside
+# them in phases 16-18: K1's, K3's, K4/K5's and K10/K10b's sources built
+# again from a copy of csrc/ whose wide routes reach no row
+# (attn_mma_fwd.cuh's fwd_route and attn_mma_bwd.cuh's bwd_route then name
+# mma_sync there) and whose launchers leave the wide kernels out (not
+# compiled: the build costs what the kernels cost before them)
 FWD_SOURCES = ("packed_attn_fwd", "grouped_attn", "flash_attn")
+BWD_SOURCES = ("packed_attn_bwd", "grouped_attn_bwd", "flash_attn_bwd")
 MMA_SYNC_EDITS = [("constexpr int kWideKeys = 272;", "constexpr int kWideKeys = 0;"),
                   ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)",
                    "  if constexpr (false) {\n    if (route == kRouteWide)")]
+MMA_SYNC_BWD_EDITS = [("  return kRouteWide;\n}", "  return kRouteMmaSync;\n}"),
+                      ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)\n"
+                       "      return launch_wide_bwd",
+                       "  if constexpr (false) {\n    if (route == kRouteWide)\n"
+                       "      return launch_wide_bwd")]
 MMA_SYNC_LIBS: dict = {}  # source name -> ctypes.CDLL of that build (phase_build)
 
 
-def build_fwd_variant(name, edits):
+def build_fwd_variant(name, edits, bwd_edits=None):
     """The three forward sources built from a copy of csrc/ under
     build/variants/fwd_<name>/ with `edits` ((old, new) texts of
-    attn_mma_fwd.cuh, each found once) applied, one nvcc each in parallel,
-    keyed by the edited sources as build.py keys the package's. Returns
-    {source: ctypes.CDLL}; raises with nvcc's output when a build fails."""
+    attn_mma_fwd.cuh, each found once) applied, and with `bwd_edits` (texts
+    of attn_mma_bwd.cuh) the three backward sources too; one nvcc each in
+    parallel, keyed by the edited sources as build.py keys the package's.
+    Returns {source: ctypes.CDLL}; raises with nvcc's output when a build
+    fails."""
     import ctypes
     import shutil
 
@@ -648,13 +672,14 @@ def build_fwd_variant(name, edits):
     csrc = root / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(build.CSRC, csrc)
-    header = csrc / "attn_mma_fwd.cuh"
-    text = header.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise AssertionError(f"variant {name}: the edit is not once in {header.name}: {old!r}")
-        text = text.replace(old, new)
-    header.write_text(text)
+    sources = FWD_SOURCES if bwd_edits is None else (*FWD_SOURCES, *BWD_SOURCES)
+    for header, header_edits in (("attn_mma_fwd.cuh", edits), ("attn_mma_bwd.cuh", bwd_edits or ())):
+        text = (csrc / header).read_text()
+        for old, new in header_edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: the edit is not once in {header}: {old!r}")
+            text = text.replace(old, new)
+        (csrc / header).write_text(text)
 
     def one(src_name):
         src = csrc / f"{src_name}.cu"
@@ -668,16 +693,17 @@ def build_fwd_variant(name, edits):
             (root / f"{src_name}.log").write_text(proc.stdout + proc.stderr)
         return src_name, ctypes.CDLL(str(out))
 
-    with ThreadPoolExecutor(len(FWD_SOURCES)) as pool:
-        return dict(pool.map(one, FWD_SOURCES))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
 
 
 @contextlib.contextmanager
 def fwd_libraries(libs):
-    """Within the block the K1, K4 and K10 wrappers launch the forwards of
+    """Within the block the K1, K4 and K10 wrappers (and K3's, K5's and
+    K10b's, where `libs` holds the backward sources) launch the kernels of
     `libs` (a `build_fwd_variant` build, bound as the package binds its
-    own; their backward entries are the package's code). Only timing
-    comparisons enter it: the launches it counts are not read."""
+    own). Only timing and device-kernel comparisons enter it: the launches
+    it counts are not read."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
@@ -686,16 +712,23 @@ def fwd_libraries(libs):
         fn.argtypes, fn.restype = like.argtypes, like.restype
         return fn
 
+    def pair(fwd_lib, bwd_lib, fns):  # (forward, backward): the package's backward without bwd_lib
+        return (bind(libs[fwd_lib], fns[0]), bind(libs[bwd_lib], fns[1]) if bwd_lib in libs
+                else fns[1])
+
     k1 = bind(libs["packed_attn_fwd"], fa.load_kernel())
-    k4 = tuple(bind(libs["grouped_attn"], f) for f in fa.load_grouped_kernels())
-    k10 = tuple(bind(libs["flash_attn"], f) for f in fl.load_kernels())
-    saved = fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels
+    k3 = bind(libs["packed_attn_bwd"], fa.load_bwd_kernel()) if "packed_attn_bwd" in libs else None
+    k4 = pair("grouped_attn", "grouped_attn_bwd", fa.load_grouped_kernels())
+    k10 = pair("flash_attn", "flash_attn_bwd", fl.load_kernels())
+    saved = fa.load_kernel, fa.load_bwd_kernel, fa.load_grouped_kernels, fl.load_kernels
     fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels = (
         lambda: k1), (lambda: k4), (lambda: k10)
+    if k3 is not None:
+        fa.load_bwd_kernel = lambda: k3
     try:
         yield
     finally:
-        fa.load_kernel, fa.load_grouped_kernels, fl.load_kernels = saved
+        fa.load_kernel, fa.load_bwd_kernel, fa.load_grouped_kernels, fl.load_kernels = saved
 
 
 def on_libraries(fn, libs):
@@ -712,12 +745,12 @@ def phase_build():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # the mma.sync route's builds beside the package's
-        variant = pool.submit(build_fwd_variant, "mma_sync", MMA_SYNC_EDITS)
+        variant = pool.submit(build_fwd_variant, "mma_sync", MMA_SYNC_EDITS, MMA_SYNC_BWD_EDITS)
         build.load_libraries(SOURCES + HOST_SOURCES)  # one nvcc per source, all started together
         t_pkg = time.perf_counter() - t0
         MMA_SYNC_LIBS.update(variant.result())
     log(f"[build] {len(SOURCES)} kernel sources and {len(HOST_SOURCES)} host source built in "
-        f"{t_pkg:.2f} s wall; the mma.sync route's {len(FWD_SOURCES)} forward sources beside "
+        f"{t_pkg:.2f} s wall; the mma.sync routes' {len(MMA_SYNC_LIBS)} sources beside "
         f"them, all done in {time.perf_counter() - t0:.2f} s")
     spills = []
     for name in SOURCES:
@@ -740,6 +773,13 @@ def phase_build():
     flash_attn.load_kernels()
     pallas_loss.load_kernels()
     dw_conv.load_kernels()
+
+
+# The device kernels that each bf16 backward route (`fused_attn.bwd_route`)
+# runs: a name they hold, and a name they must not ("wgmma_bwd_" holds
+# "mma_bwd_").
+BWD_ROUTE_KERNELS = {"wgmma": ("wgmma_bwd_", None), "wgmma_wide": ("wgmma_wide_bwd_", None),
+                     "mma_sync": ("mma_bwd_", "wgmma")}
 
 
 def device_kernels(tag, calls, want, avoid=None, group=None):
@@ -936,20 +976,22 @@ def phase_kernel_bwd():
             q, k, v, o, o, lse, heads=VISION["h"])
     names = device_kernels("K3", calls, {torch.bfloat16: "wgmma_bwd_", torch.float32: "attn_bwd_"},
                            group=K3_GROUP)
-    # past the wgmma route (N = 257, 577; Nk = 300) and at D = 32: mma.sync
+    # past the wgmma route: N = 257 on the wide one, causal there, past 272
+    # rows (N = 577, Nk = 300) and at D = 32 on mma.sync
     for tag, shape in (("N=256", dict(VISION, b=2, n=256, nk=256, h=2)),
                        ("N=257", dict(VISION, b=2, n=257, nk=257, h=2)),
+                       ("N=257 causal", dict(VISION, b=2, n=257, nk=257, h=2, causal=True)),
                        ("N=577", dict(VISION, b=2, n=577, nk=577, h=2)),
                        ("Nk=300", dict(VISION, b=2, n=76, nk=300, h=2)),
                        ("D=32", dict(VISION, b=2, h=2, d=32))):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
-        o, lse = fa.fused_attention_packed(q, k, v, heads=2)
-        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_packed_bwd(
-            q, k, v, o, o, lse, heads=2)}
-        wgmma = shape["d"] == 64 and max(shape["n"], shape["nk"]) <= 256
-        names[f"bf16_{tag}"] = device_kernels(
-            f"K3 {tag}", call, {torch.bfloat16: "wgmma_bwd_" if wgmma else "mma_bwd_"},
-            avoid=None if wgmma else "wgmma", group=K3_GROUP)["bfloat16"]
+        o, lse = fa.fused_attention_packed(q, k, v, heads=2, is_causal=shape["causal"])
+        call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse, c=shape["causal"]:
+                fa.fused_attention_packed_bwd(q, k, v, o, o, lse, heads=2, is_causal=c)}
+        want, avoid = BWD_ROUTE_KERNELS[fa.bwd_route("packed_attn_bwd", True, shape["d"], False,
+                                                     shape["n"], shape["nk"], shape["causal"])]
+        names[f"bf16_{tag}"] = device_kernels(f"K3 {tag}", call, {torch.bfloat16: want},
+                                              avoid=avoid, group=K3_GROUP)["bfloat16"]
 
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
@@ -1304,8 +1346,10 @@ def phase_kernel_grouped():
         o, lse = fa.fused_attention_grouped(q, k, v)
         call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, lse=lse: fa.fused_attention_grouped_bwd(
             q, k, v, o, o, lse)}
-        names[f"bf16_{tag}"] = device_kernels(f"K5 {tag}", call, {torch.bfloat16: "mma_bwd_"},
-                                              avoid="wgmma", group=K3_GROUP)["bfloat16"]
+        want, avoid = BWD_ROUTE_KERNELS[fa.bwd_route("grouped_attn_bwd", True, 64, False,
+                                                     shape["n"], shape["nk"], False)]
+        names[f"bf16_{tag}"] = device_kernels(f"K5 {tag}", call, {torch.bfloat16: want},
+                                              avoid=avoid, group=K3_GROUP)["bfloat16"]
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(VISION, dtype)
@@ -1369,7 +1413,7 @@ def phase_kernel_grouped():
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         **common, **bwd256, **WGMMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
-        "entry": "mrclip_tpu_torch/csrc/grouped_attn.cu::grouped_attn_bwd",
+        "entry": "mrclip_tpu_torch/csrc/grouped_attn_bwd.cu::grouped_attn_bwd",
         "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text_b256": bwd_text,
@@ -1414,18 +1458,23 @@ def phase_kernel_flash():
     names = device_kernels("K10b", calls, {torch.bfloat16: "wgmma_bwd_",
                                            torch.float32: "rows_bwd_"}, group=K10B_GROUP)
     # the causal text shape (ctx 77) on the wgmma pair's CAUSAL form, the
-    # top of its route, and N = 577 (several jax key blocks) on mma.sync
+    # top of its route, N = 257 on the wide route and N = 577 (several jax
+    # key blocks) on mma.sync
     for tag, shape in (("text77", dict(TEXT77, b=2)), ("n256", dict(VISION, b=2, n=256, nk=256)),
+                       ("n257", dict(VISION, b=2, n=257, nk=257)),
                        ("n577", dict(VISION, b=2, n=577, nk=577))):
         q, k, v = inputs(shape, torch.bfloat16)
         o, l, m = fl.flash_attention(q, k, v, is_causal=shape["causal"])
         di = fl.flash_di(o, o)
         call = {torch.bfloat16: lambda q=q, k=k, v=v, o=o, l=l, m=m, di=di, c=shape["causal"]:
                 fl.flash_attention_bwd(q, k, v, o, l, m, di, is_causal=c)}
-        wgmma = shape["n"] <= 256  # wgmma_bwd_*<FLASH, ROPE, CAUSAL, TAIL>
-        want = f"_kernel<true, false, {str(shape['causal']).lower()}, " if wgmma else "mma_bwd_"
+        route = fa.bwd_route("flash_attn_bwd", True, 64, False, shape["n"], shape["nk"],
+                             shape["causal"])
+        want, avoid = BWD_ROUTE_KERNELS[route]
+        if route == "wgmma":  # wgmma_bwd_*<FLASH, ROPE, CAUSAL, TAIL>
+            want = f"_kernel<true, false, {str(shape['causal']).lower()}, "
         names[f"bf16_{tag}"] = device_kernels(
-            f"K10b {tag}", call, {torch.bfloat16: want}, avoid=None if wgmma else "wgmma",
+            f"K10b {tag}", call, {torch.bfloat16: want}, avoid=avoid,
             group=K10B_GROUP)["bfloat16"]
     calls = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1503,7 +1552,7 @@ def phase_kernel_flash():
         "max_rel_err": worst[torch.bfloat16][2], "max_rel_err_fp32": worst[torch.float32][2],
         "rel_err_is": "max |kernel - plain| / the call's largest max |plain| of dq, dk, dv",
         **common, **bwd256, **WGMMA_BWD,  # bf16; fp32 runs attn_rows.cuh's FMA kernels
-        "entry": "mrclip_tpu_torch/csrc/flash_attn.cu::flash_attn_bwd",
+        "entry": "mrclip_tpu_torch/csrc/flash_attn_bwd.cu::flash_attn_bwd",
         "device_kernels": names,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
         "text77_b256": bwd_text, "n577_b32": bwd_577,
@@ -2213,6 +2262,8 @@ KERNEL_GROUPS = [
                                                   "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
     (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
+                  *(f"wgmma_wide_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS
+                    for p in ("dq", "dkv")),
                   *(f"mma_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS for p in ("dq", "dkv")),
                   *(f"rows_bwd_{p}_kernel<float, {d}, true>" for d in ATTN_DIMS
                     for p in ("dq", "dkv")))),
@@ -2224,7 +2275,7 @@ KERNEL_GROUPS = [
                  "attn_bwd_dq_kernel<64, true>", "attn_bwd_dkv_kernel<64, true>")),
     # the rest of the tensor-core and FMA backward: one bf16 instantiation,
     # K3 under fusedp, K5 under fused
-    (K3_GROUP, ("mma_bwd_", "rows_bwd_", "attn_bwd_dq", "attn_bwd_dkv")),
+    (K3_GROUP, ("wgmma_wide_bwd_", "mma_bwd_", "rows_bwd_", "attn_bwd_dq", "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -3982,7 +4033,7 @@ def wide_pairs(shape, dtype, gen):
 def wide_timings(shape, gen):
     """bf16 K1, K4, K10 and SDPA's forward, K3, K5, K10b and SDPA's backward
     at one shape: medians of FWD_RUNS event readings and the profiler's
-    device time per launch, in turns with the forwards' mma.sync route
+    device time per launch, in turns with the kernels' mma.sync route
     (MMA_SYNC_LIBS: "mma_sync_ms"), the plain versions' times, the bounds;
     two runs of each forward and backward bit-equal. {kernel name: timing
     dict}."""
@@ -4013,6 +4064,7 @@ def wide_timings(shape, gen):
                qg, kg, vg, og, dog, lseg, is_causal=causal),
            "flash_attn_bwd": lambda: fl.flash_attention_bwd(
                q3, k3, v3, do3, l, m, di, is_causal=causal)}
+    bwd.update({f"{name}@mma_sync": on_libraries(bwd[name], MMA_SYNC_LIBS) for name in list(bwd)})
     plain = {"packed_attn_fwd": lambda: fa.fused_attention_packed_ref(
                  q, k, v, is_causal=causal, heads=h),
              "grouped_attn_fwd": lambda: fa.fused_attention_ref(qg, kg, vg, is_causal=causal),
@@ -4049,14 +4101,13 @@ def wide_timings(shape, gen):
             library_device_ms=None if is_bwd else dev["sdpa"],
             bound_ms=bounds[name][0], bound_by=bounds[name][1])
         t = out[name]
-        if not is_bwd:
-            t["mma_sync_ms"], t["mma_sync_device_ms"] = (t_fwd[f"{name}@mma_sync"],
-                                                         dev[f"{name}@mma_sync"])
+        t["mma_sync_ms"] = (t_bwd if is_bwd else t_fwd)[f"{name}@mma_sync"]
+        t["mma_sync_device_ms"] = dev[f"{name}@mma_sync"]
         log(f"[widths] {name} bf16 {shape}: kernel {t['ms']:.4f} ms (median of {FWD_RUNS}; "
             f"readings {min(t['readings']):.4f}-{max(t['readings']):.4f}), device "
-            f"{fmt_ms(t['device_ms'])} ms per launch"
-            + ("" if is_bwd else f"; the mma.sync route {t['mma_sync_ms']:.4f} ms, device "
-                                 f"{fmt_ms(t['mma_sync_device_ms'])}")
+            f"{fmt_ms(t['device_ms'])} ms per launch; the mma.sync route {t['mma_sync_ms']:.4f} "
+            f"ms, device {fmt_ms(t['mma_sync_device_ms'])} "
+            f"({'faster' if t['ms'] < t['mma_sync_ms'] else 'NOT faster'})"
             + f"; plain {t['plain_ms']:.4f} ms; SDPA "
             f"{'backward (fwd+bwd - fwd) ' if is_bwd else ''}{t['library_ms']:.4f} ms"
             + ("" if is_bwd else f" (device {fmt_ms(t['library_device_ms'])})")
@@ -4078,18 +4129,32 @@ def width_checks(shapes, gen):
     return worst
 
 
-WIDE_FWD_KEYS = 272  # the wide wgmma forward's most keys (attn_mma_fwd.cuh's kWideKeys)
+WIDE_FWD_KEYS = 272  # the wide wgmma kernels' most rows (attn_mma_fwd.cuh's kWideKeys)
+
+
+def bwd_route_of(d, n, nk, causal, rope=False):
+    """The bf16 backward's route by attn_mma_bwd.cuh's bwd_route rule: wgmma
+    at D = 64 up to 256 rows; mma_sync with the rope, causal, at D = 32,
+    past WIDE_FWD_KEYS rows, or with n and nk each within one 64-row
+    sub-tile (SO400M's text, N 64); else wgmma_wide."""
+    if d == 64 and max(n, nk) <= 256:
+        return "wgmma"
+    if rope or causal or d == 32 or max(n, nk) > WIDE_FWD_KEYS or max(n, nk) <= 64:
+        return "mma_sync"
+    return "wgmma_wide"
 
 
 def width_device_kernels(shape, gen):
     """Which device kernels the six run at `shape` (profiler), bf16 and
-    fp32, and the route each forward's library names (`fwd_route`): the
+    fp32, and the route each library names (`fwd_route`, `bwd_route`): the
     bf16 forwards on wgmma_wide_fwd_kernel up to WIDE_FWD_KEYS keys (K10 in
     its several-block MULTI form where jax walks more than one key block),
     on mma_fwd_kernel past them, and on the mma.sync route's build on
-    mma_fwd_kernel; the bf16 backward on mma_bwd_* (its wgmma route is D =
-    64 up to 256 rows); the FMA kernels in fp32. {kernel name: {dtype:
-    names}}, the mma.sync route's under "bfloat16_mma_sync"."""
+    mma_fwd_kernel; the bf16 backward on bwd_route_of's route
+    (wgmma_wide_bwd_* up to WIDE_FWD_KEYS rows, not causal, one side past
+    64 rows; mma_bwd_* else), and on the mma.sync route's build on
+    mma_bwd_*; the FMA kernels in fp32. {kernel name: {dtype: names}}, the
+    mma.sync route's under "bfloat16_mma_sync"."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
@@ -4099,11 +4164,18 @@ def width_device_kernels(shape, gen):
     multi = "true" if nblk > 1 else "false"
     wide = nk <= WIDE_FWD_KEYS
     route = "wgmma_wide" if wide else "mma_sync"
+    n, causal = shape["n"], shape["causal"]
+    bwd_route = bwd_route_of(d, n, nk, causal)
     for library, flash in (("packed_attn_fwd", False), ("grouped_attn", False),
                            ("flash_attn", True)):
         got = fa.fwd_route(library, True, d, False, nk, nblk if flash else 1)
         if got != route or fa.fwd_route(library, False, d, False, nk, 1) != "fma":
             raise AssertionError(f"{library} names route {got} at D = {d}, {nk} keys, not {route}")
+    for library in BWD_SOURCES:
+        got = fa.bwd_route(library, True, d, False, n, nk, causal)
+        if got != bwd_route or fa.bwd_route(library, False, d, False, n, nk, causal) != "fma":
+            raise AssertionError(f"{library} names backward route {got} at D = {d}, N = {n}, "
+                                 f"Nk = {nk}, not {bwd_route}")
     mma = {flash: f"mma_fwd_kernel<{d}, {flash}, {multi if flash == 'true' else 'false'}, false>"
            for flash in ("false", "true")}
     bf16_fwd = ({flash: f"wgmma_wide_fwd_kernel<{d}, {flash}, "
@@ -4113,9 +4185,9 @@ def width_device_kernels(shape, gen):
         "packed_attn_fwd": (bf16_fwd["false"], f"packed_attn_fwd_kernel<{d}, false>", None),
         "grouped_attn_fwd": (bf16_fwd["false"], f"rows_fwd_kernel<float, {d}, false>", None),
         "flash_attn_fwd": (bf16_fwd["true"], f"rows_fwd_kernel<float, {d}, true>", None),
-        "packed_attn_bwd": ("mma_bwd_", "attn_bwd_", K3_GROUP),
-        "grouped_attn_bwd": ("mma_bwd_", "rows_bwd_", K3_GROUP),
-        "flash_attn_bwd": ("mma_bwd_", "rows_bwd_", K10B_GROUP)}
+        "packed_attn_bwd": (BWD_ROUTE_KERNELS[bwd_route][0], "attn_bwd_", K3_GROUP),
+        "grouped_attn_bwd": (BWD_ROUTE_KERNELS[bwd_route][0], "rows_bwd_", K3_GROUP),
+        "flash_attn_bwd": (BWD_ROUTE_KERNELS[bwd_route][0], "rows_bwd_", K10B_GROUP)}
     names = {}
     for dtype in (bf16, torch.float32):
         q, k, v = qkv_slices(shape, dtype, gen)
@@ -4134,15 +4206,17 @@ def width_device_kernels(shape, gen):
             "flash_attn_bwd": lambda: fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
         for name, (want_bf16, want_fp32, group) in wants.items():
             want = want_bf16 if dtype == bf16 else want_fp32
-            avoid = None if dtype == bf16 and name.endswith("_fwd") and wide else "wgmma"
+            on_wide = wide if name.endswith("_fwd") else bwd_route == "wgmma_wide"
+            avoid = None if dtype == bf16 and on_wide else "wgmma"
             seen = device_kernels(f"{name} D={d} N={shape['n']}", {dtype: calls[name]},
                                   {dtype: want}, avoid=avoid, group=group)
             names.setdefault(name, {}).update(seen)
-            if dtype == bf16 and name.endswith("_fwd"):  # the route it replaced
+            if dtype == bf16:  # the route it replaced
                 flash = "true" if name == "flash_attn_fwd" else "false"
                 seen = device_kernels(f"{name} D={d} N={shape['n']} (mma.sync route build)",
                                       {dtype: on_libraries(calls[name], MMA_SYNC_LIBS)},
-                                      {dtype: mma[flash]}, avoid="wgmma", group=group)
+                                      {dtype: mma[flash] if name.endswith("_fwd") else "mma_bwd_"},
+                                      avoid="wgmma", group=group)
                 names[name]["bfloat16_mma_sync"] = seen["bfloat16"]
     return names
 
@@ -4425,26 +4499,54 @@ def tower_wants(model_name, fwd, bwd=None, per_layer=1):
     return want
 
 
-FWD_KERNELS = ("packed_attn_fwd", "packed_attn_rope_fwd", "grouped_attn_fwd", "flash_attn_fwd")
+ROUTED_KERNELS = ("packed_attn_fwd", "packed_attn_rope_fwd", "grouped_attn_fwd", "flash_attn_fwd",
+                  "packed_attn_bwd", "packed_attn_rope_bwd", "grouped_attn_bwd", "flash_attn_bwd")
 
 
-def check_routes(tag, by_width):
-    """Fails unless the forwards' launches since the last reset, by route
-    (`ops.launch_counts_by_route`), are those of `by_width` ({kernel: {d:
-    launches}}, read at the same time) on the routes of phases 16-18's
-    towers, all within 272 keys: D = 72-112 on wgmma_wide, the text towers'
-    D = 64 (context 77 at most) on wgmma, K2 (EVA02-L-14's rope tower, N =
-    257 and 577) on mma_sync. Returns the launches by route."""
+def text_bwd_share(model_name):
+    """(head dim, share of that head dim's backward launches, route) of
+    `model_name`'s text tower where its backward leaves wgmma_wide
+    (`bwd_route_of` at its context, causal unless `no_causal_mask`): SO400M's
+    text, N 64 at D = 72 beside its vision's N 256, half of them on
+    mma_sync. None where the text runs D = 64 or the wide route."""
+    from mrclip_tpu_torch.factory import get_model_config
+
+    n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    txt = get_model_config(model_name)["text_cfg"]
+    ctx = txt["context_length"]
+    route = bwd_route_of(d_txt, ctx, ctx, not txt.get("no_causal_mask", False))
+    if d_txt == 64 or route == "wgmma_wide":
+        return None
+    return d_txt, n_txt / (n_txt + (n_vis if d_vis == d_txt else 0)), route
+
+
+def check_routes(tag, by_width, model_name=None):
+    """Fails unless the attention kernels' launches since the last reset,
+    forward and backward, by route (`ops.launch_counts_by_route`), are those
+    of `by_width` ({kernel: {d: launches}}, read at the same time) on the
+    routes of phases 16-18's towers, all within 272 rows: D = 72-112 (not
+    causal) on wgmma_wide, the text towers' D = 64 (context 77 at most) on
+    wgmma, K2 and K3r (EVA02-L-14's rope tower, N = 257 and 577) on
+    mma_sync; with `model_name`, its text tower's backward launches on
+    their own route where `text_bwd_share` names one (SO400M's text on
+    mma_sync). Returns the launches by route."""
     from mrclip_tpu_torch.ops import launch_counts_by_route
 
     got = launch_counts_by_route()
-    want = {k: {d: {"mma_sync" if k == "packed_attn_rope_fwd" else "wgmma" if d == 64
+    want = {k: {d: {"mma_sync" if k.startswith("packed_attn_rope") else "wgmma" if d == 64
                     else "wgmma_wide": n} for d, n in dims.items()}
-            for k, dims in by_width.items() if k in FWD_KERNELS}
+            for k, dims in by_width.items() if k in ROUTED_KERNELS}
+    if model_name and (text := text_bwd_share(model_name)):
+        d, share, route = text
+        for k in BWD_SOURCES:  # each backward kernel is named after its source
+            if d in want.get(k, {}):
+                n = want[k][d]["wgmma_wide"]
+                want[k][d] = {r: c for r, c in ((route, round(n * share)),
+                                                ("wgmma_wide", n - round(n * share))) if c}
     ok = got == want
-    log(f"{tag} forward launches by route {got} (want {want}) {'ok' if ok else 'FAIL'}")
+    log(f"{tag} attention launches by route {got} (want {want}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{tag} forward launches off their route: {got}, want {want}")
+        raise AssertionError(f"{tag} attention launches off their route: {got}, want {want}")
     return got
 
 
@@ -4510,7 +4612,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
             g_kernel, l_kernel = loss_and_grads(model, loss, params, small)
         torch.cuda.synchronize()
         counts, by_width = nonzero(launch_counts()), launch_counts_by_width()
-        check_routes(f"{tag} {impl} b{WIDE_STEP_BATCH}", by_width)
+        check_routes(f"{tag} {impl} b{WIDE_STEP_BATCH}", by_width, model_name)
         lk = l_kernel["loss"].item()
         whole, worst, worst_name = grad_cosines(g_kernel, g_plain)
         through = [n for n in g_kernel if n.endswith((*VIT_PROJ, EVA_PROJ[0]))]
@@ -4563,7 +4665,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
                           for k, v in after.items() if k in want_width})
     torch.cuda.synchronize()
     launches, by_width = nonzero(launch_counts()), launch_counts_by_width()  # read right after
-    check_routes(f"{tag} {steps} steps", by_width)
+    check_routes(f"{tag} {steps} steps", by_width, model_name)
 
     peak = torch.cuda.max_memory_allocated() / 1e9
     timed = times[1:] if steps > 1 else times

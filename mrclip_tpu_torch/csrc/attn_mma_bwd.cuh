@@ -49,15 +49,24 @@
 // compute S and dP in both passes (14 D a pair) and move 13 tensors' bytes,
 // not 8 (about 1.0 GB, 0.30 ms at 3.35 TB/s at vision b256).
 //
-// Two families of kernels, chosen by shape in launch_mma_bwd:
+// Three families of kernels, chosen in launch_mma_bwd by bwd_route (the one
+// source of the choice; the libraries' C entry attn_bwd_route answers it for
+// the wrappers' launch counts by route):
 //   wgmma_bwd_dq_kernel and wgmma_bwd_dkv_kernel<FLASH, ROPE, CAUSAL,
 //     TAIL>, on Hopper's warpgroup products (wgmma.cuh): bf16 K3, K3r, K5
-//     and K10b at D = 64 with n and nk at most 256, every main-path shape of
-//     the four;
+//     and K10b at D = 64 with n and nk at most 256 (kWgKeys);
+//   wgmma_wide_bwd_dq_kernel and wgmma_wide_bwd_dkv_kernel<D, FLASH,
+//     TAIL>, on warpgroup products too, below: K3, K5 and K10b without rope
+//     and not causal at D = 72, 80, 88, 104 and 112 with n and nk at most
+//     kWideKeys = 272, one of them past 64 (ViT-SO400M's vision, the vision
+//     towers of ViT-H/g/bigG-14, EVA01-g-14 and EVA02-E-14), and at D = 64
+//     from 257 to 272 rows (ViT-L-14's vision);
 //   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
-//     Ampere's mma.sync: D = 32, past 256 rows, and D = 72, 80, 88, 104
-//     and 112 (ViT-SO400M, ViT-H/g/bigG-14, EVA01-g-14, EVA02-E-14; no
-//     rope).
+//     Ampere's mma.sync: D = 32, past 272 rows, K3r past 256, causal past
+//     the D = 64 wgmma route (no config: every wide-head tower and SO400M's
+//     text are not causal), and the wide head dims where n and nk are each
+//     one 64-row sub-tile (SO400M's text, N = 64: there the wide kernels
+//     read 6-26% slower than these, PERF.md, section 6).
 //
 // wgmma kernels: one warpgroup (128 threads) per block walks every 64-row
 // (dq pass) or 64-key (dk/dv pass) sub-tile of its (sample, head), grid
@@ -129,6 +138,55 @@
 // route's edges (N 48 to 256, Nk != N) and asserts by the profiler's names
 // which kernels each shape runs; tools/attn_bwd_variants.py times them
 // beside the mma.sync route (the route disabled by a text edit).
+//
+// wgmma_wide_bwd_* (D = 64-112, n and nk <= 272, one of them past 64, not
+// causal), designed for Hopper where mma_bwd_* took 1.02-1.71x SDPA's backward at b256 (PERF.md,
+// section 6). Bound at EVA02-E-14's vision b256 (N = 257, H = 16, D = 112):
+// the 8 tensors once, 0.5644 ms at 3.35 TB/s; the two passes' 13, 0.92 ms.
+// What held mma_bwd_* back, and what these do about each:
+//   1. the instruction: all four products of a pass run on wgmma. dq pass:
+//      S = Q K^T and dP = dO V^T with Q and dO the register A (dq_rows) and
+//      K and V read K-major, dQ += dS K with K read MN-major at n = D
+//      (wgmma_m64nNk16_mn); dk/dv pass: S^T = K Q^T and dP^T = V dO^T with
+//      K and V the A operands read from shared memory through a descriptor
+//      (wgmma_m64n64k16_ss) and Q and dO K-major, dV += P^T dO and dK +=
+//      dS^T Q with dO and Q read MN-major at n = D. Only the depth of Q K^T
+//      and dO V^T (K Q^T, V dO^T) is padded to pad16(D);
+//   2. re-staging: the staged pair (K and V; Q and dO with the rows'
+//      statistics) goes into shared memory once per (sample, head) in the
+//      32-byte-swizzled 16-column slabs of the wide forward (wgmma.cuh,
+//      stage_slabs), and one block walks every 64-row sub-tile of it, where
+//      mma_bwd_* re-staged it in 240- or 224-row chunks about five times at
+//      104-112; blocks are ordered head first, as the forward's;
+//   3. registers: the dk/dv pass holds dK and dV (D / 2 fp32 each a
+//      thread) and a 64-query step's S^T and dP^T (64); K and V as register
+//      A fragments would add 2 pad16(D) / 4 (56 at 112) and pass 255, so
+//      they are read from shared memory: each warpgroup copies its
+//      sub-tile's K and V (64 rows, keys past nk zero) into slabs of its own
+//      before the walk, under the other warpgroup's (or block's) products.
+//      No instantiation spills (build.py's log);
+//   4. the tail: the staged rows, 16 (4 full + TAIL), are walked as `full`
+//      whole 64-row steps in a runtime loop and one straight-line step of
+//      TAIL 16-row groups (m64n16k16 for the scores; N = 257: four n64
+//      steps and one n16), TAIL 1 or 4 (with_wide_tail: other counts
+//      rounded up with zero rows), never 0 (with_tail's rule). On the walked side
+//      N = 257 is five 64-row sub-tiles, the fifth holding one real row:
+//      it costs a whole sub-tile's products, a fifth of each pass, and with
+//      two warpgroups a block (three sub-tiles and two) the second
+//      warpgroup idles for one sub-tile at the end. wgmma's m is 64, so a
+//      narrower last sub-tile is not an instruction; nothing cheaper was
+//      tried.
+// Geometry, by wide_bwd_smem and wide_bwd_wgs: one warpgroup a block, two
+// blocks an SM, where two such blocks fit an SM's shared memory at 272
+// rows (dq pass to D = 88: 1 KB of slack and K and V, 70,656 to 105,472
+// bytes; dk/dv pass to 80: also a sub-tile's K and V and 12 bytes a row of
+// statistics, 111,808 at 80), else two warpgroups a block sharing the
+// staged pair, taking alternate sub-tiles (N = 257: three and two), one
+// block an SM (dq at 104 and 112: 122,880 bytes; dk/dv from 88: 157,888
+// and 183,488). The dq pass's step is the D = 64 kernel's (dq_step over the
+// slabs), the dk/dv pass's arithmetic too (dkv_probs, dkv_ds); each
+// gradient element is written once by one thread, so two runs give the
+// same bits.
 //
 // mma.sync kernels (D = 32, past 256 rows):
 //   - dq pass, grid (batch or groups, row blocks, heads), four warps of 16
@@ -250,12 +308,13 @@ __device__ __forceinline__ void load_frag_a(uint32_t (&f)[pad16(D) / 16][4], con
   }
 }
 
-// Rows [r0, r0 + 16) of an accumulator (C layout, pad16(D) columns) rounded
-// to bf16 and stored, its first D columns; rows >= n not.
-template <int D>
-__device__ __forceinline__ void store_frag_c(bf16* base, long long rs,
-                                             const float (&acc)[pad16(D) / 8][4], int r0, int n,
-                                             int lane) {
+// Rows [r0, r0 + 16) of an accumulator (C layout, N 8-column chunks:
+// pad16(D) / 8 for mma.sync, D / 8 for an m64nDk16 wgmma) rounded to bf16
+// and stored, its first D columns; rows >= n not.
+template <int D, int N>
+__device__ __forceinline__ void store_frag_c(bf16* base, long long rs, const float (&acc)[N][4],
+                                             int r0, int n, int lane) {
+  static_assert(N >= D / 8, "the accumulator holds the D columns");
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -704,34 +763,38 @@ constexpr int wg_bwd_smem(int rows, bool dkv, bool flash) {
          (dkv ? (flash ? 3 : 2) * rows * 4 + 2 * kMmaRows * (kWgDim + 8) * 2 : 0);
 }
 
-// The accumulator of an m64n64 wgmma (d[4 j + e]) as mma.sync's C
-// fragments (acc[j][e]): the same registers, for store_frag_c and
-// unrotate_frag_c.
-__device__ __forceinline__ float (&as_frag_c(float (&d)[kWgDim / 2]))[kWgDim / 8][4] {
-  return *reinterpret_cast<float(*)[kWgDim / 8][4]>(&d);
+// The accumulator of an m64nNk16 wgmma (d[4 j + e], N / 2 registers) as
+// mma.sync's C fragments (acc[j][e]): the same registers, for store_frag_c
+// and unrotate_frag_c.
+template <int R>
+__device__ __forceinline__ float (&as_frag_c(float (&d)[R]))[R / 4][4] {
+  return *reinterpret_cast<float(*)[R / 4][4]>(&d);
 }
 
-// NG 16-row groups of a score-like product into d (8 NG fp32): A (64 x 64,
-// this warp's rows in registers) times the K-major B of the swizzled tile
-// at `desc` (a group 128 further in the descriptor's 16-byte units, a k16
-// step 2). NG = 4: one m64n64k16 per k16 step; else m64n16k16 per group.
-template <int NG>
-__device__ __forceinline__ void wg_scores(float* d, const uint32_t (&a)[kWgDim / 16][4],
-                                          uint64_t desc) {
+// NG 16-row groups of a score-like product into d (8 NG fp32) over P / 16
+// k16 steps: A the register fragments `a` (64 x P, this warp's rows), B the
+// K-major tile at `desc`, a k16 step `step` further in the descriptor's
+// 16-byte units and a 16-row group `group` (the 128-byte swizzle: 2 and
+// 128; the wide kernels' slabs: a slab and 32). NG = 4: one m64n64k16 per
+// k16 step; else m64n16k16 per group.
+template <int P, int NG>
+__device__ __forceinline__ void wg_scores(float* d, const uint32_t (&a)[P / 16][4], uint64_t desc,
+                                          uint32_t step, uint32_t group) {
 #pragma unroll
-  for (int ks = 0; ks < kWgDim / 16; ++ks) {
+  for (int ks = 0; ks < P / 16; ++ks) {
     if constexpr (NG == 4) {
-      wgmma_m64n64k16<0>(d, a[ks], desc + 2 * ks, ks);
+      wgmma_m64n64k16<0>(d, a[ks], desc + step * ks, ks);
     } else {
 #pragma unroll
       for (int gg = 0; gg < NG; ++gg)
-        wgmma_m64n16k16(d + 8 * gg, a[ks], desc + 128 * gg + 2 * ks, ks);
+        wgmma_m64n16k16(d + 8 * gg, a[ks], desc + group * gg + step * ks, ks);
     }
   }
 }
 
 // acc (64 x 64) += A B over NG 16-row groups: A the bf16 fragments `a` of
-// each group, B the MN-major rows of those groups in the tile at `desc`.
+// each group, B the MN-major rows of those groups in the 128-byte-swizzled
+// tile at `desc` (the D = 64 dk/dv pass).
 template <int NG>
 __device__ __forceinline__ void wg_accumulate(float (&acc)[kWgDim / 2], const uint32_t (&a)[NG][4],
                                               uint64_t desc) {
@@ -750,28 +813,14 @@ __device__ __forceinline__ void pack_frag_a(uint32_t (&a)[NG][4], const float* x
   }
 }
 
-// dq pass, NG 16-key groups from key k0 of the staged K (desc dk) and V
-// (dv): S = Q K^T and dP = dO V^T in one batch, P = 2^(S sl2 - lse) (FLASH:
-// 2^(S sl2 - m) (1 / l)) and dS = P (dP - delta) scale in the accumulator's
-// registers (keys >= nk and, CAUSAL, keys past the row to -inf, so P = 0),
-// dS rounded into the A fragments of acc += dS K, K read MN-major from the
-// same tile. st2: this lane's rows' lse (m) in log2 units; inv: their 1 / l
-// (FLASH); dl: their delta (di); r0: the lane's first row, wrow0 the warp's.
+// The dq pass's P in place of the scores s of NG 16-key groups from key k0
+// (the accumulator's layout): keys >= nk and, CAUSAL, keys past the row to
+// -inf, then P = 2^(S sl2 - lse) (FLASH: 2^(S sl2 - m) (1 / l)). st2, inv:
+// this lane's rows' lse (m) in log2 units and 1 / l; r0 the lane's first
+// row, wrow0 the warp's.
 template <int NG, bool FLASH, bool CAUSAL>
-__device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
-                                        const uint32_t (&qf)[kWgDim / 16][4],
-                                        const uint32_t (&dof)[kWgDim / 16][4],
-                                        const float (&st2)[2], const float (&inv)[2],
-                                        const float (&dl)[2], uint64_t dk, uint64_t dv, int k0,
-                                        int wrow0, int r0, int nk, float sl2, float scale, int t) {
-  float s[8 * NG], dp[8 * NG];
-  wgmma_fence();
-  wg_scores<NG>(s, qf, dk);
-  wgmma_commit();
-  wg_scores<NG>(dp, dof, dv);
-  wgmma_commit();
-  wgmma_wait<1>();  // S landed; P's exponentials run while dP is computed
-  fence_regs<8 * NG>(s);
+__device__ __forceinline__ void dq_probs(float* s, const float (&st2)[2], const float (&inv)[2],
+                                         int k0, int nk, int wrow0, int r0, float sl2, int t) {
 #pragma unroll
   for (int j = 0; j < 2 * NG; ++j) {  // 8-key chunk j: keys k0 + 8 j + 2 t + {0, 1}
     float* x = s + 4 * j;
@@ -788,41 +837,65 @@ __device__ __forceinline__ void dq_step(float (&acc)[kWgDim / 2],
       if constexpr (FLASH) x[e] *= inv[e >> 1];
     }
   }
-  wgmma_wait<0>();
-  fence_regs<8 * NG>(dp);
+}
+
+// dS = P (dP - delta) scale in place of P (8 NG values); dl: this lane's
+// rows' delta (di).
+template <int NG>
+__device__ __forceinline__ void dq_ds(float* s, const float* dp, const float (&dl)[2],
+                                      float scale) {
 #pragma unroll
   for (int j = 0; j < 8 * NG; ++j) s[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) * scale;  // dS
+}
+
+// dq pass, NG 16-key groups from key k0 of the staged K (desc dk) and V
+// (dv): S = Q K^T and dP = dO V^T in one batch (wg_scores: a k16 step
+// `step` further in the descriptors, a 16-key group `group`), P = 2^(S sl2
+// - lse) (FLASH: 2^(S sl2 - m) (1 / l)) and dS = P (dP - delta) scale in
+// the accumulator's registers (keys >= nk and, CAUSAL, keys past the row
+// to -inf, so P = 0), dS rounded into the A fragments of acc += dS K at n
+// = D, K read MN-major through dkm (the D = 64 kernel's 128-byte swizzle:
+// dk itself; the wide kernels' slabs: LBO across the slabs). st2: this
+// lane's rows' lse (m) in log2 units; inv: their 1 / l (FLASH); dl: their
+// delta (di); r0: the lane's first row, wrow0 the warp's.
+template <int D, int NG, bool FLASH, bool CAUSAL>
+__device__ __forceinline__ void dq_step(float (&acc)[D / 2],
+                                        const uint32_t (&qf)[pad16(D) / 16][4],
+                                        const uint32_t (&dof)[pad16(D) / 16][4],
+                                        const float (&st2)[2], const float (&inv)[2],
+                                        const float (&dl)[2], uint64_t dk, uint64_t dv,
+                                        uint64_t dkm, uint32_t step, uint32_t group, int k0,
+                                        int wrow0, int r0, int nk, float sl2, float scale, int t) {
+  float s[8 * NG], dp[8 * NG];
+  wgmma_fence();
+  wg_scores<pad16(D), NG>(s, qf, dk, step, group);
+  wgmma_commit();
+  wg_scores<pad16(D), NG>(dp, dof, dv, step, group);
+  wgmma_commit();
+  wgmma_wait<1>();  // S landed; P's exponentials run while dP is computed
+  fence_regs<8 * NG>(s);
+  dq_probs<NG, FLASH, CAUSAL>(s, st2, inv, k0, nk, wrow0, r0, sl2, t);
+  wgmma_wait<0>();
+  fence_regs<8 * NG>(dp);
+  dq_ds<NG>(s, dp, dl, scale);
   uint32_t da[NG][4];
   pack_frag_a<NG>(da, s);
   wgmma_fence();
-  wg_accumulate<NG>(acc, da, dk);
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) wgmma_m64nNk16_mn<D>(acc, da[kk], dkm + group * kk, 1);
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs<kWgDim / 2>(acc);
+  fence_regs<D / 2>(acc);
 }
 
-// dk/dv pass, NG 16-query groups from query c0 of the staged Q (desc dq)
-// and dO (ddo) with their statistics (s_st: lse (FLASH: m) in log2 units,
-// s_inv: 1 / l (FLASH), s_dl: delta (di)): S^T = K Q^T and dP^T = V dO^T
-// in one batch; P^T and dS^T in the accumulator's registers (queries >= n
-// and, CAUSAL, queries before the key to -inf); dva += round(P^T) dO and
-// dka += round(dS^T) Q, dO and Q read MN-major. key0: this lane's first
-// key, wk0 the warp's.
+// The dk/dv pass's P^T in place of the transposed scores s of NG 16-query
+// groups from query c0 (rows: this lane's keys key0, key0 + 8; wk0 the
+// warp's first): queries >= n and, CAUSAL, queries before the key to -inf,
+// then P^T = 2^(S^T sl2 - lse) (FLASH: 2^(S^T sl2 - m) (1 / l)) by the
+// staged statistics s_st (log2 units) and s_inv (1 / l).
 template <int NG, bool FLASH, bool CAUSAL>
-__device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[kWgDim / 2],
-                                         const uint32_t (&kf)[kWgDim / 16][4],
-                                         const uint32_t (&vf)[kWgDim / 16][4], const float* s_st,
-                                         const float* s_inv, const float* s_dl, uint64_t dq,
-                                         uint64_t ddo, int c0, int wk0, int key0, int n, float sl2,
-                                         float scale, int t) {
-  float s[8 * NG], dp[8 * NG];
-  wgmma_fence();
-  wg_scores<NG>(s, kf, dq);
-  wgmma_commit();
-  wg_scores<NG>(dp, vf, ddo);
-  wgmma_commit();
-  wgmma_wait<1>();  // S^T landed; P^T and dV's product run while dP^T is computed
-  fence_regs<8 * NG>(s);
+__device__ __forceinline__ void dkv_probs(float* s, const float* s_st, const float* s_inv, int c0,
+                                          int n, int wk0, int key0, float sl2, int t) {
 #pragma unroll
   for (int j = 0; j < 2 * NG; ++j) {  // 8-query chunk j: queries c0 + 8 j + 2 t + {0, 1}
     const int col = c0 + 8 * j + 2 * t;
@@ -843,13 +916,13 @@ __device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[
       for (int e = 0; e < 4; ++e) x[e] *= e & 1 ? il.y : il.x;
     }
   }
-  uint32_t pa[NG][4], da[NG][4];
-  pack_frag_a<NG>(pa, s);
-  wgmma_fence();
-  wg_accumulate<NG>(dva, pa, ddo);
-  wgmma_commit();
-  wgmma_wait<1>();  // dP^T landed (dV's product may still run)
-  fence_regs<8 * NG>(dp);
+}
+
+// dS^T = P^T (dP^T - delta) scale in place of dP^T (8 NG values), delta
+// (di) of the staged queries s_dl.
+template <int NG>
+__device__ __forceinline__ void dkv_ds(float* dp, const float* s, const float* s_dl, int c0,
+                                       float scale, int t) {
 #pragma unroll
   for (int j = 0; j < 2 * NG; ++j) {
     const float2 dl = *reinterpret_cast<const float2*>(s_dl + c0 + 8 * j + 2 * t);
@@ -857,6 +930,39 @@ __device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[
     for (int e = 0; e < 4; ++e)
       dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? dl.y : dl.x)) * scale;  // dS^T
   }
+}
+
+// dk/dv pass, NG 16-query groups from query c0 of the staged Q (desc dq)
+// and dO (ddo) with their statistics (s_st: lse (FLASH: m) in log2 units,
+// s_inv: 1 / l (FLASH), s_dl: delta (di)): S^T = K Q^T and dP^T = V dO^T
+// in one batch; P^T and dS^T in the accumulator's registers (queries >= n
+// and, CAUSAL, queries before the key to -inf); dva += round(P^T) dO and
+// dka += round(dS^T) Q, dO and Q read MN-major. key0: this lane's first
+// key, wk0 the warp's.
+template <int NG, bool FLASH, bool CAUSAL>
+__device__ __forceinline__ void dkv_step(float (&dka)[kWgDim / 2], float (&dva)[kWgDim / 2],
+                                         const uint32_t (&kf)[kWgDim / 16][4],
+                                         const uint32_t (&vf)[kWgDim / 16][4], const float* s_st,
+                                         const float* s_inv, const float* s_dl, uint64_t dq,
+                                         uint64_t ddo, int c0, int wk0, int key0, int n, float sl2,
+                                         float scale, int t) {
+  float s[8 * NG], dp[8 * NG];
+  wgmma_fence();
+  wg_scores<kWgDim, NG>(s, kf, dq, 2, 128);
+  wgmma_commit();
+  wg_scores<kWgDim, NG>(dp, vf, ddo, 2, 128);
+  wgmma_commit();
+  wgmma_wait<1>();  // S^T landed; P^T and dV's product run while dP^T is computed
+  fence_regs<8 * NG>(s);
+  dkv_probs<NG, FLASH, CAUSAL>(s, s_st, s_inv, c0, n, wk0, key0, sl2, t);
+  uint32_t pa[NG][4], da[NG][4];
+  pack_frag_a<NG>(pa, s);
+  wgmma_fence();
+  wg_accumulate<NG>(dva, pa, ddo);
+  wgmma_commit();
+  wgmma_wait<1>();  // dP^T landed (dV's product may still run)
+  fence_regs<8 * NG>(dp);
+  dkv_ds<NG>(dp, s, s_dl, c0, scale, t);
   pack_frag_a<NG>(da, dp);
   wgmma_fence();
   wg_accumulate<NG>(dka, da, dq);
@@ -929,11 +1035,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     // every row of it, so skipped, and so is a tail step past that row
     const int steps = CAUSAL ? min(full, row0 / kMmaRows + 1) : full;
     for (int tt = 0; tt < steps; ++tt)
-      dq_step<4, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * tt, dv + 512 * tt, 64 * tt,
-                                wrow0, r0, nk, sl2, scale, lane & 3);
+      dq_step<D, 4, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * tt, dv + 512 * tt,
+                                   dk + 512 * tt, 2, 128, 64 * tt, wrow0, r0, nk, sl2, scale,
+                                   lane & 3);
     if (!CAUSAL || 64 * full < row0 + kMmaRows)
-      dq_step<TAIL, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * full, dv + 512 * full,
-                                   64 * full, wrow0, r0, nk, sl2, scale, lane & 3);
+      dq_step<D, TAIL, FLASH, CAUSAL>(acc, qf, dof, st2, inv, dl, dk + 512 * full,
+                                      dv + 512 * full, dk + 512 * full, 2, 128, 64 * full, wrow0,
+                                      r0, nk, sl2, scale, lane & 3);
     if constexpr (ROPE) unrotate_frag_c<D>(as_frag_c(acc), tab, wrow0, n, lane);
     store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, as_frag_c(acc), wrow0, n, lane);
   }
@@ -1105,6 +1213,339 @@ int launch_wgmma_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* ta
   return static_cast<int>(err);
 }
 
+// ---- wgmma_wide_bwd_dq_kernel and wgmma_wide_bwd_dkv_kernel: D = 64-112, n
+// and nk <= kWideKeys, not causal (the header's note says how).
+
+// Shared-memory bytes of the wide backward for `rows` staged rows (a
+// multiple of 16): alignment slack and the staged pair (K and V, or Q and
+// dO) in pad16(d) / 16 slabs of `rows` 32-byte rows each; the dk/dv pass
+// also, for each of `wgs` warpgroups, K and V of a 64-key sub-tile in slabs
+// of 64 rows, and the rows' statistics in fp32 (lse and delta; FLASH: m, di
+// and 1 / l).
+__host__ __device__ constexpr int wide_bwd_smem(int d, int rows, bool dkv, bool flash, int wgs) {
+  return 1024 + 2 * (pad16(d) / 16) * rows * 32 +
+         (dkv ? wgs * 2 * (pad16(d) / 16) * kMmaRows * 32 + (flash ? 3 : 2) * rows * 4 : 0);
+}
+
+// Warpgroups a block of a wide backward pass: one where two blocks fit an
+// SM's shared memory at kWideKeys rows, else two sharing the staged pair and
+// taking alternate sub-tiles (one block an SM): the dq pass at D = 104 and
+// 112, the dk/dv pass from D = 88.
+template <int D, bool DKV, bool FLASH>
+__host__ __device__ constexpr int wide_bwd_wgs() {
+  return wide_bwd_smem(D, kWideKeys, DKV, FLASH, 1) <= kTwoBlocksSmem ? 1 : 2;
+}
+
+// wg_scores over the wide kernels' slabs (a k16 step `slab` further in the
+// descriptor's units, a group 32) with A read from shared memory too: the
+// K-major 64-row slabs at `adesc` (a k16 step 128 further: 64 rows of 32
+// bytes).
+template <int P, int NG>
+__device__ __forceinline__ void wide_scores_ss(float* d, uint64_t adesc, uint64_t desc,
+                                               uint32_t slab) {
+#pragma unroll
+  for (int ks = 0; ks < P / 16; ++ks) {
+    if constexpr (NG == 4) {
+      wgmma_m64n64k16_ss(d, adesc + 128 * ks, desc + ks * slab, ks);
+    } else {
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg)
+        wgmma_m64n16k16_ss(d + 8 * gg, adesc + 128 * ks, desc + ks * slab + 32 * gg, ks);
+    }
+  }
+}
+
+// Wide dk/dv pass (dkv_step over the slabs, K and V read from shared
+// memory), NG 16-query groups from query c0 of the staged Q and dO with
+// their statistics (s_st, s_inv, s_dl as dkv_step's): S^T = K Q^T and
+// dP^T = V dO^T in one batch, K and V the A operands read from this
+// warpgroup's sub-tile slabs (ak, av), Q and dO K-major (bq, bdo); P^T and
+// dS^T in the accumulator's registers (queries >= n to -inf); dva +=
+// round(P^T) dO and dka += round(dS^T) Q, dO and Q read MN-major (bdom,
+// bqm: n = D across the slabs).
+template <int D, int NG, bool FLASH>
+__device__ __forceinline__ void wide_dkv_step(float (&dka)[D / 2], float (&dva)[D / 2],
+                                              uint64_t ak, uint64_t av, const float* s_st,
+                                              const float* s_inv, const float* s_dl, uint64_t bq,
+                                              uint64_t bdo, uint64_t bqm, uint64_t bdom,
+                                              uint32_t slab, int c0, int n, float sl2,
+                                              float scale, int t) {
+  constexpr int P = pad16(D);
+  float s[8 * NG], dp[8 * NG];
+  wgmma_fence();
+  wide_scores_ss<P, NG>(s, ak, bq, slab);
+  wgmma_commit();
+  wide_scores_ss<P, NG>(dp, av, bdo, slab);
+  wgmma_commit();
+  wgmma_wait<1>();  // S^T landed; P^T and dV's product run while dP^T is computed
+  fence_regs<8 * NG>(s);
+  dkv_probs<NG, FLASH, false>(s, s_st, s_inv, c0, n, 0, 0, sl2, t);
+  uint32_t pa[NG][4], da[NG][4];
+  pack_frag_a<NG>(pa, s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) wgmma_m64nNk16_mn<D>(dva, pa[kk], bdom + 32 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<1>();  // dP^T landed (dV's product may still run)
+  fence_regs<8 * NG>(dp);
+  dkv_ds<NG>(dp, s, s_dl, c0, scale, t);
+  pack_frag_a<NG>(da, dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) wgmma_m64nNk16_mn<D>(dka, da[kk], bqm + 32 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold_frag<4 * NG>(pa[0]);  // read by dV's product while dS^T was computed
+  fence_regs<D / 2>(dva);
+  fence_regs<D / 2>(dka);
+}
+
+// Wide dq pass: dQ (and, for K3 and K5, delta) for every query row of one
+// (sample, head), block blockIdx.x = sample * heads + head; K3/K5: stat_a =
+// lse, delta taken and written; K10b: stat_a = l, stat_b = m, delta = di
+// read. K and V (16 (4 full + TAIL) rows, rows nk .. on zero) staged once in
+// slabs; each warpgroup walks every WGS-th 64-row sub-tile: `full` whole
+// 64-key steps in a loop, then one straight-line step of TAIL groups.
+template <int D, bool FLASH, int TAIL>
+__global__ void __launch_bounds__(wide_bwd_wgs<D, false, FLASH>() * kMmaThreads,
+                                  wide_bwd_wgs<D, false, FLASH>() == 1 ? 2 : 1)
+    wgmma_wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ o,
+                             const bf16* __restrict__ dout, const float* __restrict__ stat_a,
+                             const float* __restrict__ stat_b, float* __restrict__ delta,
+                             bf16* __restrict__ dq, int n, int nk, int heads, Strides st,
+                             float scale, int full) {
+  constexpr int P = pad16(D);  // S's and dP's depth; dQ's n is D itself
+  constexpr int WGS = wide_bwd_wgs<D, false, FLASH>();
+  constexpr int kThreads = WGS * kMmaThreads;
+  const int rows = 16 * (4 * full + TAIL);
+  const uint32_t slab = rows * 32;  // bytes of one 16-column slab
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sk = (raw + 1023) & ~1023u;
+  const uint32_t sv = sk + P / 16 * slab;
+
+  const int wg = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const long long b = blockIdx.x / heads;  // heads fastest, as the wide forward
+  const int h = blockIdx.x % heads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)h * D;
+  const long long sb = (b * heads + h) * n;
+  const float sl2 = scale * kLog2e;
+  const int tiles = (n + kMmaRows - 1) / kMmaRows;
+
+  stage_slabs<D, kThreads>(sk, k + b * st.k_bs + hd, st.k_rs, nk, rows, threadIdx.x);
+  stage_slabs<D, kThreads>(sv, v + b * st.v_bs + hd, st.v_rs, nk, rows, threadIdx.x);
+  cp_async_commit();
+  if (wg >= tiles) {  // a warpgroup with no sub-tile still publishes its share
+    cp_async_wait<0>();
+    fence_proxy_async();
+    bar_sync(1, kThreads);
+    return;
+  }
+  // K and V K-major for S and dP (a k16 step one slab, `us` in the
+  // descriptor's units), K MN-major for dQ += dS K (LBO: slab to slab)
+  const uint64_t dk = wgmma_desc(sk, 16, 256, kSwizzle32), dv = wgmma_desc(sv, 16, 256, kSwizzle32);
+  const uint64_t dkm = wgmma_desc(sk, slab, 256, kSwizzle32);
+  const uint32_t us = slab / 16;
+  for (int it = wg; it < tiles; it += WGS) {
+    const int wrow0 = it * kMmaRows + 16 * warp;
+    uint32_t qf[P / 16][4], dof[P / 16][4];
+    float st2[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f}, dl[2] = {0.f, 0.f};
+    // the first sub-tile's under the copies; rows past n read 0
+    dq_rows<D, FLASH, false>(qf, dof, st2, inv, dl, q, nullptr, o, dout, stat_a, stat_b, delta,
+                             st, b, hd, sb, wrow0, n, lane);
+    if (it == wg) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      bar_sync(1, kThreads);
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int tt = 0; tt < full; ++tt)
+      dq_step<D, 4, FLASH, false>(acc, qf, dof, st2, inv, dl, dk + 128 * tt, dv + 128 * tt,
+                                  dkm + 128 * tt, us, 32, 64 * tt, 0, 0, nk, sl2, scale,
+                                  lane & 3);
+    dq_step<D, TAIL, FLASH, false>(acc, qf, dof, st2, inv, dl, dk + 128 * full, dv + 128 * full,
+                                   dkm + 128 * full, us, 32, 64 * full, 0, 0, nk, sl2, scale,
+                                   lane & 3);
+    store_frag_c<D>(dq + b * st.dq_bs + hd, st.dq_rs, as_frag_c(acc), wrow0, n, lane);
+  }
+}
+
+// Wide dk/dv pass: dK and dV for every key of one (sample, head),
+// statistics as the dq pass's (delta from it, or di). Q and dO (16 (4 full +
+// TAIL) rows, rows n .. on zero) staged once in slabs with the rows'
+// statistics; each warpgroup walks every WGS-th 64-key sub-tile, its K and V
+// copied into the warpgroup's own slabs, the A operands of S^T and dP^T.
+template <int D, bool FLASH, int TAIL>
+__global__ void __launch_bounds__(wide_bwd_wgs<D, true, FLASH>() * kMmaThreads,
+                                  wide_bwd_wgs<D, true, FLASH>() == 1 ? 2 : 1)
+    wgmma_wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                              const float* __restrict__ stat_a, const float* __restrict__ stat_b,
+                              const float* __restrict__ delta, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int n, int nk, int heads, Strides st,
+                              float scale, int full) {
+  constexpr int P = pad16(D);
+  constexpr int WGS = wide_bwd_wgs<D, true, FLASH>();
+  constexpr int kThreads = WGS * kMmaThreads;
+  constexpr uint32_t kTile = P / 16 * kMmaRows * 32;  // K or V of one 64-key sub-tile
+  const int rows = 16 * (4 * full + TAIL);
+  const uint32_t slab = rows * 32;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t sq = (raw + 1023) & ~1023u;
+  const uint32_t sdo = sq + P / 16 * slab;
+  const uint32_t tiles0 = sdo + P / 16 * slab;  // each warpgroup's K and V sub-tile
+  float* s_st = reinterpret_cast<float*>(wg_smem + (tiles0 + WGS * 2 * kTile - raw));
+  float* s_dl = s_st + rows;
+  float* s_inv = s_dl + rows;  // FLASH only
+
+  const int wg = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const uint32_t sk = tiles0 + wg * 2 * kTile, sv = sk + kTile;
+  const long long b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)h * D;
+  const long long sb = (b * heads + h) * n;
+  const float sl2 = scale * kLog2e;
+  const int tiles = (nk + kMmaRows - 1) / kMmaRows;
+  const bf16* kb = k + b * st.k_bs + hd;
+  const bf16* vb = v + b * st.v_bs + hd;
+
+  // Q and dO, each warpgroup's first K and V (keys past nk zero), the rows'
+  // statistics (0 past n: those queries are masked; 1 / l there 1)
+  stage_slabs<D, kThreads>(sq, q + b * st.q_bs + hd, st.q_rs, n, rows, threadIdx.x);
+  stage_slabs<D, kThreads>(sdo, dout + b * st.do_bs + hd, st.do_rs, n, rows, threadIdx.x);
+  if (wg < tiles) {
+    const int kr0 = wg * kMmaRows, len = min(kMmaRows, nk - kr0);
+    stage_slabs<D, kMmaThreads>(sk, kb + kr0 * st.k_rs, st.k_rs, len, kMmaRows, tid);
+    stage_slabs<D, kMmaThreads>(sv, vb + kr0 * st.v_rs, st.v_rs, len, kMmaRows, tid);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    const bool in = i < n;
+    if constexpr (FLASH) {  // 1 / l as stage_queries takes it
+      s_st[i] = in ? stat_b[sb + i] * kLog2e : 0.f;
+      s_inv[i] = in ? __fdiv_rn(1.f, stat_a[sb + i]) : 1.f;
+    } else {
+      s_st[i] = in ? stat_a[sb + i] * kLog2e : 0.f;
+    }
+    s_dl[i] = in ? delta[sb + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // Q and dO K-major for S^T and dP^T, MN-major for dK and dV; K and V the
+  // K-major A of S^T and dP^T
+  const uint64_t bq = wgmma_desc(sq, 16, 256, kSwizzle32), bdo = wgmma_desc(sdo, 16, 256, kSwizzle32);
+  const uint64_t bqm = wgmma_desc(sq, slab, 256, kSwizzle32);
+  const uint64_t bdom = wgmma_desc(sdo, slab, 256, kSwizzle32);
+  const uint64_t ak = wgmma_desc(sk, 16, 256, kSwizzle32), av = wgmma_desc(sv, 16, 256, kSwizzle32);
+  const uint32_t us = slab / 16;
+  for (int it = wg; it < tiles; it += WGS) {
+    const int kr0 = it * kMmaRows;
+    if (it != wg) {  // this sub-tile's K and V, once the warpgroup is done with the last's
+      bar_sync(2 + wg, kMmaThreads);
+      const int len = min(kMmaRows, nk - kr0);
+      stage_slabs<D, kMmaThreads>(sk, kb + kr0 * st.k_rs, st.k_rs, len, kMmaRows, tid);
+      stage_slabs<D, kMmaThreads>(sv, vb + kr0 * st.v_rs, st.v_rs, len, kMmaRows, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      bar_sync(2 + wg, kMmaThreads);
+    }
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int tt = 0; tt < full; ++tt)
+      wide_dkv_step<D, 4, FLASH>(dka, dva, ak, av, s_st, s_inv, s_dl, bq + 128 * tt,
+                                 bdo + 128 * tt, bqm + 128 * tt, bdom + 128 * tt, us, 64 * tt, n,
+                                 sl2, scale, lane & 3);
+    wide_dkv_step<D, TAIL, FLASH>(dka, dva, ak, av, s_st, s_inv, s_dl, bq + 128 * full,
+                                  bdo + 128 * full, bqm + 128 * full, bdom + 128 * full, us,
+                                  64 * full, n, sl2, scale, lane & 3);
+    const int wk0 = kr0 + 16 * warp;
+    store_frag_c<D>(dv + b * st.dv_bs + hd, st.dv_rs, as_frag_c(dva), wk0, nk, lane);
+    store_frag_c<D>(dk + b * st.dk_bs + hd, st.dk_rs, as_frag_c(dka), wk0, nk, lane);
+  }
+}
+
+// fn(std::false_type(), std::integral_constant<int, TAIL>()): the wide
+// backward's instantiation over `groups` (>= 1) 16-row groups, walked as
+// full = (groups - 1) / 4 whole 64-row steps and a straight-line last step
+// of TAIL groups: 1 where one group follows the whole steps (N = 257), else
+// 4, the staged rows rounded up with zero rows (at most two more groups).
+// The routed main-path shapes take 17 and 16 groups (N = 257, 256);
+// two TAILs, not with_tail's four, halve the wide instantiations' build.
+// No TAIL 0: with_tail's rule.
+template <typename Fn>
+cudaError_t with_wide_tail(int groups, Fn&& fn) {
+  if ((groups - 1) % 4 == 0) return fn(std::false_type(), std::integral_constant<int, 1>());
+  return fn(std::false_type(), std::integral_constant<int, 4>());
+}
+
+// Launches the wide backward (D = 64-112, n and nk at most kWideKeys, not
+// causal), dq pass first: one block a (sample, head), heads fastest.
+// Statistics as launch_mma_bwd's. Returns the first cudaError_t.
+template <int D, bool FLASH>
+int launch_wide_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+                    const float* stat_a, const float* stat_b, float* delta, bf16* dq, bf16* dk,
+                    bf16* dv, int batch, int n, int nk, int heads, const Strides& st,
+                    float scale, cudaStream_t stream) {
+  const int groups_k = (nk + 15) / 16;
+  auto dq_pass = [&](auto, auto tail) {
+    constexpr int kTail = decltype(tail)::value;
+    constexpr int kWgs = wide_bwd_wgs<D, false, FLASH>();
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e = allow_smem(wgmma_wide_bwd_dq_kernel<D, FLASH, kTail>,
+                                     wide_bwd_smem(D, kWideKeys, false, FLASH, kWgs), done);
+    if (e != cudaSuccess) return e;
+    const int full = (groups_k - 1) / 4;
+    wgmma_wide_bwd_dq_kernel<D, FLASH, kTail>
+        <<<batch * heads, kWgs * kMmaThreads,
+           wide_bwd_smem(D, 16 * (4 * full + kTail), false, FLASH, kWgs), stream>>>(
+            q, k, v, o, dout, stat_a, stat_b, delta, dq, n, nk, heads, st, scale, full);
+    return cudaGetLastError();
+  };
+  cudaError_t err = with_wide_tail(groups_k, dq_pass);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups_q = (n + 15) / 16;
+  auto dkv_pass = [&](auto, auto tail) {
+    constexpr int kTail = decltype(tail)::value;
+    constexpr int kWgs = wide_bwd_wgs<D, true, FLASH>();
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e = allow_smem(wgmma_wide_bwd_dkv_kernel<D, FLASH, kTail>,
+                                     wide_bwd_smem(D, kWideKeys, true, FLASH, kWgs), done);
+    if (e != cudaSuccess) return e;
+    const int full = (groups_q - 1) / 4;
+    wgmma_wide_bwd_dkv_kernel<D, FLASH, kTail>
+        <<<batch * heads, kWgs * kMmaThreads,
+           wide_bwd_smem(D, 16 * (4 * full + kTail), true, FLASH, kWgs), stream>>>(
+            q, k, v, dout, stat_a, stat_b, delta, dk, dv, n, nk, heads, st, scale, full);
+    return cudaGetLastError();
+  };
+  return static_cast<int>(with_wide_tail(groups_q, dkv_pass));
+}
+
+// The backward's kernels, by route (FwdRoute's values): fp32 on the FMA
+// kernels; bf16 on wgmma_bwd_* (D = 64, n and nk at most kWgKeys; K3r and
+// causal too), wgmma_wide_bwd_* (no rope, not causal, D = 64-112, n and nk
+// at most kWideKeys, not both within one sub-tile) or mma_bwd_* (D = 32,
+// rope or causal past the wgmma route, past kWideKeys rows, one sub-tile a
+// side). The one source of the choice: launch_mma_bwd and the C entry
+// attn_bwd_route read it.
+inline int bwd_route(bool bf16_in, int d, bool rope, int n, int nk, bool causal) {
+  if (!bf16_in) return kRouteFma;
+  if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteWgmma;
+  if (rope || causal || d == 32 || n > kWideKeys || nk > kWideKeys) return kRouteMmaSync;
+  if (n <= kMmaRows && nk <= kMmaRows) return kRouteMmaSync;
+  return kRouteWide;
+}
+
 // Launches the bf16 backward, dq pass first (K3's and K5's delta). Each
 // pass runs its resident kernel where one chunk holds every row it stages
 // (Nk for the dq pass, N for the dkv pass, up to kMaxChunk), a block
@@ -1121,13 +1562,22 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab,
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
   const bf16 *vp = static_cast<const bf16*>(v), *dop = static_cast<const bf16*>(dout);
   const bf16* tp = static_cast<const bf16*>(tab);
+  const int route = bwd_route(true, D, ROPE, n, nk, causal != 0);
   if constexpr (D == kWgDim) {
-    if (n <= kWgKeys && nk <= kWgKeys)
+    if (route == kRouteWgmma)
       return launch_wgmma_bwd<FLASH, ROPE>(qp, kp, vp, tp, static_cast<const bf16*>(o), dop,
                                            stat_a, stat_b, delta, static_cast<bf16*>(dq),
                                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
                                            n, nk, heads, st, scale, causal, stream);
   }
+  if constexpr (!ROPE && D != 32) {
+    if (route == kRouteWide)
+      return launch_wide_bwd<D, FLASH>(qp, kp, vp, static_cast<const bf16*>(o), dop, stat_a,
+                                       stat_b, delta, static_cast<bf16*>(dq),
+                                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch, n,
+                                       nk, heads, st, scale, stream);
+  }
+  if (route != kRouteMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   // resident: the rows staged, rounded up to 16, and the sub-tiles a block
   // walks; chunked: the pass's most rows (mma_bwd_max_chunk) and one
   auto plan = [&](int len, int tiles, int most, int& ch, int& it) {
@@ -1185,3 +1635,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 }
 
 }  // namespace
+
+// The backward route of a shape (0 the FMA kernels, 1 mma.sync, 2 wgmma at
+// D = 64, 3 the wide wgmma kernels) for the wrappers' launch counts and the
+// card's checks: bwd_route itself.
+extern "C" int attn_bwd_route(int is_bf16, int head_dim, int rope, int n, int nk, int causal) {
+  return bwd_route(is_bf16 != 0, head_dim, rope != 0, n, nk, causal != 0);
+}

@@ -1133,17 +1133,17 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 }
 
 // Rows [0, len) of one (sample, head)'s D columns (row stride rs elements)
-// into the 32-byte-swizzled slabs at `dst` (wgmma.cuh: R rows a slab) by
-// 16-byte copies from THREADS threads, this one `tid`; rows [len, R) and
-// the pad columns [D, pad16(D)) zero-filled (no source bytes).
-template <int D, int R, int THREADS>
+// into the 32-byte-swizzled slabs at `dst` (wgmma.cuh: `rows` rows a slab)
+// by 16-byte copies from THREADS threads, this one `tid`; rows [len, rows)
+// and the pad columns [D, pad16(D)) zero-filled (no source bytes).
+template <int D, int THREADS>
 __device__ __forceinline__ void stage_slabs(uint32_t dst, const bf16* src, long long rs, int len,
-                                            int tid) {
+                                            int rows, int tid) {
   constexpr int kPieces = pad16(D) / 8;  // 16-byte pieces of a row, two a slab
-  for (int i = tid; i < R * kPieces; i += THREADS) {
+  for (int i = tid; i < rows * kPieces; i += THREADS) {
     const int r = i / kPieces, c = i % kPieces;
     const bool in = r < len && c < D / 8;
-    cp_async16(dst + (c >> 1) * (R * 32) + swz32(r, c & 1), src + (in ? r * rs + c * 8 : 0),
+    cp_async16(dst + (c >> 1) * (rows * 32) + swz32(r, c & 1), src + (in ? r * rs + c * 8 : 0),
                in ? 16 : 0);
   }
 }
@@ -1264,9 +1264,9 @@ __global__ void __launch_bounds__(wide_wgs<D, G>() * kMmaThreads, wide_wgs<D, G>
     const int r0 = row_first + wg * kMmaRows;
     stage_rows_by<D, kMmaThreads>(sq0, qb + r0 * st.q_rs, st.q_rs, min(kMmaRows, n - r0), tid);
   }
-  stage_slabs<D, R, kThreads>(sk, k + b * st.k_bs + hd, st.k_rs, nk, threadIdx.x);
+  stage_slabs<D, kThreads>(sk, k + b * st.k_bs + hd, st.k_rs, nk, R, threadIdx.x);
   cp_async_commit();
-  stage_slabs<D, R, kThreads>(sv, v + b * st.v_bs + hd, st.v_rs, nk, threadIdx.x);
+  stage_slabs<D, kThreads>(sv, v + b * st.v_bs + hd, st.v_rs, nk, R, threadIdx.x);
   cp_async_commit();
   cp_async_wait<1>();
   fence_proxy_async();

@@ -58,6 +58,8 @@
 
 #pragma once
 
+#include <string.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +75,22 @@ struct Strides {
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
   long long do_bs, do_rs, dq_bs, dq_rs, dk_bs, dk_rs, dv_bs, dv_rs;
 };
+
+// Strides of the contiguous grouped layout (K4, K5): group stride rows * D,
+// row stride D, for q/o/dO/dq (n rows) and k/v/dk/dv (nk rows).
+inline Strides grouped_strides(int n, int nk, int d) {
+  const long long qs = (long long)n * d, ks = (long long)nk * d;
+  return Strides{qs, d, ks, d, ks, d, qs, d, qs, d, qs, d, ks, d, ks, d};
+}
+
+// The 16 element strides of a C entry's array (K10, K10b: (batch, row) for
+// q, k, v, o, dO, dq, dk, dv) as Strides.
+inline Strides read_strides(const long long* strides) {
+  static_assert(sizeof(Strides) == 16 * sizeof(long long), "Strides layout");
+  Strides st;
+  memcpy(&st, strides, sizeof(st));
+  return st;
+}
 
 // Rows [0, len) of one tensor (this head's D columns) into shared memory as
 // fp32, in rows of pad16(D) whose columns past D are zero. CONTIG: the rows

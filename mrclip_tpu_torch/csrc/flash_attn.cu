@@ -6,8 +6,9 @@
 //   K10,  flash_attn_fwd: replaces _flash_attention_kernel_single_batch
 //         (:342) and its single-step form (:484), driven by
 //         _flash_attention_impl (:589);
-//   K10b, flash_attn_bwd: replaces _flash_attention_dkv_kernel (:796) and
-//         _flash_attention_dq_kernel (:1146), driven by
+//   K10b, flash_attn_bwd (flash_attn_bwd.cu, its own library, so that the
+//         two build in parallel): replaces _flash_attention_dkv_kernel (:796)
+//         and _flash_attention_dq_kernel (:1146), driven by
 //         _flash_attention_bwd (:254); one call launches both passes.
 //
 // Per (sample, head), in jax's rounding order (attn_rows.cuh and
@@ -54,11 +55,12 @@
 // one key block of at most 256 keys at D = 64 on wgmma, and at D = 72-112
 // and up to 272 keys, jax's three 128-key blocks past 256, on the wide
 // wgmma kernel),
-// the backward in attn_mma_bwd.cuh (a dq pass, then a dk/dv pass; the
-// statistics m and 1 / l, and di, read per query row; N and Nk <= 256 at D
-// = 64 on wgmma, wgmma_bwd_*<true, ...>, past 256 rows and at D = 32, 72,
-// 80, 88, 104 and 112 on mma.sync, 72, 88 and 104 padded to 80, 96 and
-// 112 columns). fp32
+// the backward in attn_mma_bwd.cuh (flash_attn_bwd.cu: a dq pass, then a
+// dk/dv pass; the statistics m and 1 / l, and di, read per query row; N and
+// Nk <= 256 at D = 64 on wgmma, wgmma_bwd_*<true, ...>; up to 272 at D =
+// 72-112, and at 64 past 256, not causal, on the wide wgmma kernels; past
+// 272 rows, causal past those and at D = 32 on mma.sync, 72, 88 and 104
+// padded to 80, 96 and 112 columns). fp32
 // runs on the
 // FMA pipes (attn_rows.cuh) and sits far above its bound. The model's
 // backward launches the forward again first (jax.checkpoint's recompute:
@@ -69,22 +71,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <string.h>
 
-#include "attn_mma_bwd.cuh"  // launch_bwd (bf16 on the tensor cores)
 #include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
-#include "attn_rows.cuh"     // Strides
-
-namespace {
-
-Strides read_strides(const long long* strides) {
-  static_assert(sizeof(Strides) == 16 * sizeof(long long), "Strides layout");
-  Strides st;
-  memcpy(&st, strides, sizeof(st));
-  return st;
-}
-
-}  // namespace
+#include "attn_rows.cuh"     // Strides, read_strides
 
 // K10. Returns the cudaError_t of the launch (0 = success). `strides` holds
 // 16 element strides, (batch, row) for q, k, v, o, dO, dq, dk, dv (only the
@@ -104,56 +93,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 #define MRCLIP_LAUNCH(T, D)                                                  \
   return launch_fwd<T, D, true>(q, k, v, o, lp, mp, batch, n, nk, heads, st, \
                                 scale, causal, blk_q, blk_k, nblk, s)
-  if (head_dim == 64) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
-    MRCLIP_LAUNCH(float, 64);
-  }
-  if (head_dim == 32) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
-    MRCLIP_LAUNCH(float, 32);
-  }
-  if (head_dim == 72) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
-    MRCLIP_LAUNCH(float, 72);
-  }
-  if (head_dim == 80) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
-    MRCLIP_LAUNCH(float, 80);
-  }
-  if (head_dim == 88) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
-    MRCLIP_LAUNCH(float, 88);
-  }
-  if (head_dim == 104) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
-    MRCLIP_LAUNCH(float, 104);
-  }
-  if (head_dim == 112) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
-    MRCLIP_LAUNCH(float, 112);
-  }
-#undef MRCLIP_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K10b. Returns the cudaError_t of the two launches. l, m and di are
-// contiguous [batch, heads, n] fp32; `strides` as for flash_attn_fwd (o's
-// pair is not read).
-extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
-                              const void* dout, const void* l, const void* m,
-                              const void* di, void* dq, void* dk, void* dv,
-                              int is_bf16, int batch, int n, int nk,
-                              int heads, int head_dim,
-                              const long long* strides, float scale,
-                              int causal, void* stream) {
-  const Strides st = read_strides(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lp = static_cast<const float*>(l);
-  const float* mp = static_cast<const float*>(m);
-  float* dip = const_cast<float*>(static_cast<const float*>(di));  // read only
-#define MRCLIP_LAUNCH(T, D)                                                   \
-  return launch_bwd<T, D, true>(q, k, v, nullptr, dout, lp, mp, dip, dq, dk, \
-                                dv, batch, n, nk, heads, st, scale, causal, s)
   if (head_dim == 64) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
     MRCLIP_LAUNCH(float, 64);

@@ -3,7 +3,8 @@
 //
 //   K4, grouped_attn_fwd: replaces mrclip_tpu/ops/fused_attn.py::_fwd_kernel
 //       (:101, driven by _run_fwd :167);
-//   K5, grouped_attn_bwd: replaces mrclip_tpu/ops/fused_attn.py::_bwd_kernel
+//   K5, grouped_attn_bwd (grouped_attn_bwd.cu, its own library, so that the
+//       two build in parallel): replaces mrclip_tpu/ops/fused_attn.py::_bwd_kernel
 //       (:118, driven by _core_bwd :193).
 //
 // Per group g (one (sample, head) of the [B*H, N, D] layout that
@@ -29,9 +30,9 @@
 // 64 past 256) on wgmma with each row's scores whole in registers and one
 // exp per score, since the TPU rounds P only after normalising it;
 // otherwise on mma.sync, the keys twice: max and online sum, then P.V with
-// the scores recomputed); the backward in attn_mma_bwd.cuh (a dq pass that also
-// takes delta, then a dk/dv pass; Q, dO or K, V fragments in registers, the
-// other pair staged once per group where the group has at most 256 rows).
+// the scores recomputed); the backward in attn_mma_bwd.cuh (grouped_attn_bwd.cu:
+// a dq pass that also takes delta, then a dk/dv pass, the staged pair once
+// per group up to 256 rows at D = 64 and up to 272 at D = 72-112 on wgmma).
 // fp32 takes one block per (group, 64-row query tile), four lanes per row,
 // K/V tiles of 64 keys (32 past D = 80) staged in fp32 (attn_rows.cuh): the
 // forward walks the keys twice; the backward is K3's two passes (dQ + delta
@@ -55,20 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "attn_mma_bwd.cuh"  // launch_bwd (bf16 on the tensor cores)
 #include "attn_mma_fwd.cuh"  // launch_fwd (bf16 on the tensor cores)
-#include "attn_rows.cuh"     // Strides
-
-namespace {
-
-// Strides of the contiguous grouped layout: group stride rows * D, row
-// stride D, for q/o/dO/dq (n rows) and k/v/dk/dv (nk rows).
-Strides grouped_strides(int n, int nk, int d) {
-  const long long qs = (long long)n * d, ks = (long long)nk * d;
-  return Strides{qs, d, ks, d, ks, d, qs, d, qs, d, qs, d, ks, d, ks, d};
-}
-
-}  // namespace
+#include "attn_rows.cuh"     // Strides, grouped_strides
 
 // K4. Returns the cudaError_t of the launch (0 = success). q [groups, n, d],
 // k and v [groups, nk, d], o [groups, n, d] (input type), lse [groups, n]
@@ -83,54 +72,6 @@ extern "C" int grouped_attn_fwd(const void* q, const void* k, const void* v,
 #define MRCLIP_LAUNCH(T, D)                                                 \
   return launch_fwd<T, D, false>(q, k, v, o, l, nullptr, groups, n, nk, 1, \
                                  st, scale, causal, 1, nk, 1, s)
-  if (head_dim == 64) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
-    MRCLIP_LAUNCH(float, 64);
-  }
-  if (head_dim == 32) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 32);
-    MRCLIP_LAUNCH(float, 32);
-  }
-  if (head_dim == 72) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 72);
-    MRCLIP_LAUNCH(float, 72);
-  }
-  if (head_dim == 80) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 80);
-    MRCLIP_LAUNCH(float, 80);
-  }
-  if (head_dim == 88) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 88);
-    MRCLIP_LAUNCH(float, 88);
-  }
-  if (head_dim == 104) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 104);
-    MRCLIP_LAUNCH(float, 104);
-  }
-  if (head_dim == 112) {
-    if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 112);
-    MRCLIP_LAUNCH(float, 112);
-  }
-#undef MRCLIP_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K5. Returns the cudaError_t of the two launches. q, o, dout, dq
-// [groups, n, d]; k, v, dk, dv [groups, nk, d]; lse [groups, n] fp32 from
-// K4; delta an fp32 [groups, n] scratch. All contiguous and 16-byte aligned.
-extern "C" int grouped_attn_bwd(const void* q, const void* k, const void* v,
-                                const void* o, const void* dout,
-                                const void* lse, void* delta, void* dq,
-                                void* dk, void* dv, int is_bf16, int groups,
-                                int n, int nk, int head_dim, float scale,
-                                int causal, void* stream) {
-  const Strides st = grouped_strides(n, nk, head_dim);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-#define MRCLIP_LAUNCH(T, D)                                                  \
-  return launch_bwd<T, D, false>(q, k, v, o, dout, l, nullptr, dl, dq, dk,  \
-                                 dv, groups, n, nk, 1, st, scale, causal, s)
   if (head_dim == 64) {
     if (is_bf16) MRCLIP_LAUNCH(__nv_bfloat16, 64);
     MRCLIP_LAUNCH(float, 64);

@@ -88,7 +88,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <string.h>
 
 #include "attn_mma_bwd.cuh"  // launch_mma_bwd (bf16 on the tensor cores), Strides
 #include "attn_tile.cuh"  // kTile, kSub, lane_sum, load_row, store_row, dot_part, axpy
@@ -341,9 +340,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* tab,
              void* dq, void* dk, void* dv, int is_bf16, int batch, int n,
              int nk, int heads, int head_dim, const long long* strides,
              float scale, int causal, void* stream) {
-  static_assert(sizeof(Strides) == 16 * sizeof(long long), "Strides layout");
-  Strides st;
-  memcpy(&st, strides, sizeof(st));
+  const Strides st = read_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);

@@ -35,7 +35,9 @@
 //     holds the zero pad.
 // The slab form wastes no shared memory at 72-112 columns, where the
 // 128-byte swizzle's second slab of 64 columns would be a quarter to
-// three quarters empty.
+// three quarters empty. A K-major A read from shared memory (the wide
+// backward's K and V of a 64-row sub-tile) is laid out as a K-major B of 64
+// rows: the k16 step s is slab s, SBO 256.
 // The shared memory that a wgmma reads must be published to the async
 // proxy: each thread's copies landed, fence.proxy.async, then a barrier.
 
@@ -136,6 +138,37 @@ __device__ __forceinline__ void wgmma_m64n16k16(float* d, const uint32_t (&a)[4]
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// d (+)= a b with A, too, read from shared memory through the descriptor
+// `adesc`: a K-major 64 x 16 A (rows along k, laid out as a K-major B of 64
+// rows), a K-major B of 64 (16) columns at `bdesc`. The wide backward's
+// dk/dv pass takes K and V so (attn_mma_bwd.cuh).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t adesc, uint64_t bdesc,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float* d, uint64_t adesc, uint64_t bdesc,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(adesc), "l"(bdesc), "r"(acc));
 }
 
 #define MRCLIP_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])

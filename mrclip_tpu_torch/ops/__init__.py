@@ -38,15 +38,18 @@ def launch_counts_by_width() -> dict:
 
 
 def launch_counts_by_route() -> dict:
-    """The attention forwards' launches since their module's last
+    """The attention kernels' launches since their module's last
     `reset_launches`, by kernel name, head dim and route
-    (`fused_attn.FWD_ROUTES`): {name: {d: {route: count}}}."""
+    (`fused_attn.FWD_ROUTES`, `BWD_ROUTES`): {name: {d: {route: count}}}."""
     from . import flash_attn as fl
     from . import fused_attn as fa
 
-    kernels = ((fa, {"launches": "packed_attn_fwd", "rope_launches": "packed_attn_rope_fwd",
-                     "grouped_launches": "grouped_attn_fwd"}),
-               (fl, {"launches": "flash_attn_fwd"}))
+    kernels = ((fa, {"launches": "packed_attn_fwd", "bwd_launches": "packed_attn_bwd",
+                     "rope_launches": "packed_attn_rope_fwd",
+                     "rope_bwd_launches": "packed_attn_rope_bwd",
+                     "grouped_launches": "grouped_attn_fwd",
+                     "grouped_bwd_launches": "grouped_attn_bwd"}),
+               (fl, {"launches": "flash_attn_fwd", "bwd_launches": "flash_attn_bwd"}))
     out: dict = {}
     for module, names in kernels:
         for (counter, d, route), n in module.route_launches.items():

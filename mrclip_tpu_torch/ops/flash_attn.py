@@ -1,8 +1,9 @@
 """Flash attention, `attn_impl='flash'`: the port of the JAX package's
 `ops/flash_attn.py::flash_attention_unpadded`, which pads q, k and v to 128
 rows and calls jax's Pallas TPU flash attention, to hand-written Hopper
-kernels in `csrc/flash_attn.cu`: K10 (the forward) and K10b (the backward,
-its dkv and dq passes in one call).
+kernels in `csrc/flash_attn.cu` (K10, the forward) and
+`csrc/flash_attn_bwd.cu` (K10b, the backward, its dkv and dq passes in one
+call).
 
 Both follow jax's kernels' rounding order, which differs from the fused
 kernels' (K1, K4): the keys are walked in blocks of `pick_block(Np)` (256
@@ -40,7 +41,7 @@ import threading
 import torch
 
 from . import build
-from .fused_attn import check_head_dim, check_rows_aligned_16, fwd_route
+from .fused_attn import bwd_route, check_head_dim, check_rows_aligned_16, fwd_route
 
 __all__ = [
     "FlashAttention",
@@ -195,10 +196,11 @@ def flash_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def load_kernels():
-    """Build (at first use) and bind K10 and K10b, `flash_attn_fwd` and
-    `flash_attn_bwd` of `csrc/flash_attn.cu`."""
-    lib = build.load_library("flash_attn")
-    fwd, bwd = lib.flash_attn_fwd, lib.flash_attn_bwd
+    """Build (at first use) and bind K10 and K10b, `flash_attn_fwd` of
+    `csrc/flash_attn.cu` and `flash_attn_bwd` of `csrc/flash_attn_bwd.cu`
+    (two libraries, built in parallel)."""
+    libs = build.load_libraries(("flash_attn", "flash_attn_bwd"))
+    fwd, bwd = libs["flash_attn"].flash_attn_fwd, libs["flash_attn_bwd"].flash_attn_bwd
     fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
@@ -309,7 +311,8 @@ def flash_attention_bwd(
             )
         if err != 0:
             raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")
-        _count("bwd_launches", d)
+        _count("bwd_launches", d,
+               bwd_route("flash_attn_bwd", q.dtype == torch.bfloat16, d, False, n, nk, is_causal))
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return dq, dk, dv

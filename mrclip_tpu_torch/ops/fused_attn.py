@@ -10,7 +10,8 @@ backward K5 runs, fp32 on FMA kernels), bound together for autograd by `FusedAtt
 package's `_pcore` and `_pcore_rope` custom VJPs).
 
 'fused', the grouped layout: `_fwd_kernel` and `_bwd_kernel` (driven by
-`_run_fwd` and `_core_bwd`) are `csrc/grouped_attn.cu` (K4 and K5), bound
+`_run_fwd` and `_core_bwd`) are `csrc/grouped_attn.cu` (K4) and
+`csrc/grouped_attn_bwd.cu` (K5), bound
 by `FusedAttention` (the JAX package's `_core` custom VJP) behind
 `fused_attention`. As the JAX package's `prep` does, q, k and v are
 transposed to contiguous `[B*H, N, D]` tiles first, and o back after; the
@@ -75,6 +76,8 @@ __all__ = [
     "ROPE_HEAD_DIMS",
     "FWD_ROUTES",
     "fwd_route",
+    "BWD_ROUTES",
+    "bwd_route",
     "launches",
     "width_launches",
     "route_launches",
@@ -111,8 +114,8 @@ grouped_launches = 0
 grouped_bwd_launches = 0
 _COUNTERS = ("launches", "bwd_launches", "rope_launches", "rope_bwd_launches",
              "grouped_launches", "grouped_bwd_launches")
-# The same launches by (counter name, head dim); the forwards' also by
-# (counter name, head dim, route).
+# The same launches by (counter name, head dim), and by (counter name, head
+# dim, route).
 width_launches: dict[tuple[str, int], int] = {}
 route_launches: dict[tuple[str, int, str], int] = {}
 _count_lock = threading.Lock()
@@ -123,12 +126,18 @@ _count_lock = threading.Lock()
 # `wgmma_fwd_kernel` (D = 64, one key block of at most 256 keys, K2 too) or
 # `wgmma_wide_fwd_kernel` (no rope, D = 64-112, at most 272 keys).
 FWD_ROUTES = ("fma", "mma_sync", "wgmma", "wgmma_wide")
+# The backward kernels' routes, the same four names by the value of
+# `attn_bwd_route` (`csrc/attn_mma_bwd.cuh::bwd_route`): fp32 FMA kernels;
+# bf16 `mma_bwd_*` (mma.sync), `wgmma_bwd_*` (D = 64, n and nk at most 256,
+# K3r and causal too) or `wgmma_wide_bwd_*` (no rope, not causal, D =
+# 64-112, n and nk at most 272, not both within one 64-row sub-tile).
+BWD_ROUTES = FWD_ROUTES
 
 
 @functools.lru_cache(maxsize=None)
-def _route_entry(library: str):
-    fn = build.load_library(library).attn_fwd_route
-    fn.argtypes = [ctypes.c_int] * 5
+def _route_entry(library: str, entry: str, nargs: int):
+    fn = getattr(build.load_library(library), entry)
+    fn.argtypes = [ctypes.c_int] * nargs
     fn.restype = ctypes.c_int
     return fn
 
@@ -138,7 +147,19 @@ def fwd_route(library: str, is_bf16: bool, d: int, rope: bool, nk: int, nblk: in
     """The route (`FWD_ROUTES`) by which the forward of `csrc/<library>.cu`
     launches at head dim `d` over `nk` keys in `nblk` jax key blocks (K10;
     1 for K1, K2, K4), asked of the built library itself."""
-    return FWD_ROUTES[_route_entry(library)(int(is_bf16), d, int(rope), nk, nblk)]
+    entry = _route_entry(library, "attn_fwd_route", 5)
+    return FWD_ROUTES[entry(int(is_bf16), d, int(rope), nk, nblk)]
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_route(library: str, is_bf16: bool, d: int, rope: bool, n: int, nk: int,
+              causal: bool) -> str:
+    """The route (`BWD_ROUTES`) by which the backward of `csrc/<library>.cu`
+    (K3 and K3r: packed_attn_bwd; K5: grouped_attn_bwd; K10b:
+    flash_attn_bwd) launches at head dim `d` over `n` query rows and `nk`
+    keys, asked of the built library itself."""
+    entry = _route_entry(library, "attn_bwd_route", 6)
+    return BWD_ROUTES[entry(int(is_bf16), d, int(rope), n, nk, int(causal))]
 
 
 def reset_launches() -> None:
@@ -559,7 +580,8 @@ def fused_attention_packed_bwd(
         entry = "packed_attn_bwd" if rope is None else "packed_attn_rope_bwd"
         if err != 0:
             raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-        _count("bwd_launches" if rope is None else "rope_bwd_launches", d)
+        _count("bwd_launches" if rope is None else "rope_bwd_launches", d,
+               bwd_route("packed_attn_bwd", is_bf16, d, rope is not None, n, nk, is_causal))
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return tuple(t.reshape(like.shape) for t, like in zip(out, (q, k, v)))
@@ -628,10 +650,11 @@ def fused_attention_bwd_ref(
 
 @functools.lru_cache(maxsize=None)
 def load_grouped_kernels():
-    """Build (at first use) and bind K4 and K5, `grouped_attn_fwd` and
-    `grouped_attn_bwd` of `csrc/grouped_attn.cu`."""
-    lib = build.load_library("grouped_attn")
-    fwd, bwd = lib.grouped_attn_fwd, lib.grouped_attn_bwd
+    """Build (at first use) and bind K4 and K5, `grouped_attn_fwd` of
+    `csrc/grouped_attn.cu` and `grouped_attn_bwd` of
+    `csrc/grouped_attn_bwd.cu` (two libraries, built in parallel)."""
+    libs = build.load_libraries(("grouped_attn", "grouped_attn_bwd"))
+    fwd, bwd = libs["grouped_attn"].grouped_attn_fwd, libs["grouped_attn_bwd"].grouped_attn_bwd
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
@@ -724,7 +747,9 @@ def fused_attention_grouped_bwd(
             )
         if err != 0:
             raise RuntimeError(f"grouped_attn_bwd launch failed: cudaError {err}")
-        _count("grouped_bwd_launches", d)
+        _count("grouped_bwd_launches", d,
+               bwd_route("grouped_attn_bwd", q.dtype == torch.bfloat16, d, False, n, nk,
+                         is_causal))
     elif nk == 0 and n:
         raise ValueError("attention over zero keys")
     return dq, dk, dv

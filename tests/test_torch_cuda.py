@@ -69,6 +69,63 @@ def _inputs(b, n, nk, h, d, device, dtype):
                  for m in (n, nk, nk))
 
 
+# The wide wgmma backward (attn_mma_bwd.cuh's wgmma_wide_bwd_dq_kernel and
+# wgmma_wide_bwd_dkv_kernel): K3, K5 and K10b in bf16 at D = 64 past 256
+# rows and at 72-112, at the edges of its 16-row groups (15, 17, 63, 65,
+# 255, 257), its 64-row sub-tiles (63, 64, 65, 256, 257) and its route (256
+# rows: D = 64 stays on wgmma_bwd_*; 272: 17 groups, the most), each N
+# beside Nk = N and Nk != N (the edges reversed), and group counts the
+# last step rounds up to four (N = 40, 80, 100, 230: 3, 5, 7 and 15
+# groups), causal (mma.sync past D = 64 and 256 rows) and not; where N and
+# Nk are both at most 64 (one sub-tile a side) the route is mma.sync, so 40
+# rows stand beside 80. The route test by
+# the profiler's names sits with the other route tests (a profiler window
+# opened first in the process made every later one lose its records), the
+# cases against the plain versions last in the file.
+WIDE_BWD_EDGES = (1, 15, 17, 63, 64, 65, 255, 256, 257, 272)
+WIDE_BWD_CASES = [(d, n, nk) for d in (64, 72, 80, 88, 104, 112) for n, other in
+                  zip(WIDE_BWD_EDGES, reversed(WIDE_BWD_EDGES)) for nk in (n, other)
+                  if d != 64 or max(n, nk) > 256]
+WIDE_BWD_CASES += [(d, n, nk) for d in (72, 80, 88, 104, 112)
+                   for n, nk in ((40, 40), (100, 230), (230, 100), (40, 80), (80, 40))]
+BWD_ROUTE_NAMES = {"wgmma": "wgmma_bwd_", "wgmma_wide": "wgmma_wide_bwd_",
+                   "mma_sync": "mma_bwd_"}
+
+
+def _bwd_route_of(d, n, nk, causal, rope=False):
+    """The backward route that attn_mma_bwd.cuh's bwd_route names, by its
+    rule: wgmma at D = 64 up to 256 rows; past it mma.sync with the rope,
+    causal, at D = 32, past 272 rows or with n and nk each within one
+    64-row sub-tile; else the wide kernels."""
+    if d == 64 and max(n, nk) <= 256:
+        return "wgmma"
+    if rope or causal or d == 32 or max(n, nk) > 272 or max(n, nk) <= 64:
+        return "mma_sync"
+    return "wgmma_wide"
+
+
+def _wide_bwd_call(kernel, q, k, v, do, causal):
+    """(call, plain call, library, launch counter) of K3, K5 or K10b on [B,
+    L, H, D] q, k, v and do (K5 on their grouped copies), from their
+    forward's outputs."""
+    if kernel == "K3":
+        o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal)
+        return (lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal),
+                lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal),
+                "packed_attn_bwd", ("bwd_launches", fa))
+    if kernel == "K5":
+        qg, kg, vg, dog = (fa.group_heads(t) for t in (q, k, v, do))
+        og, lse = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
+        return (lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lse, is_causal=causal),
+                lambda: fa.fused_attention_bwd_ref(qg, kg, vg, og, dog, lse, is_causal=causal),
+                "grouped_attn_bwd", ("grouped_bwd_launches", fa))
+    o, l, m = fl.flash_attention(q, k, v, is_causal=causal)
+    di = fl.flash_di(o, do)
+    return (lambda: fl.flash_attention_bwd(q, k, v, do, l, m, di, is_causal=causal),
+            lambda: fl.flash_attention_bwd_ref(q, k, v, do, l, m, di, is_causal=causal),
+            "flash_attn_bwd", ("bwd_launches", fl))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("b,n,nk,h,causal", SHAPES + TILE_EDGES + PACKED_LONG)
 @pytest.mark.parametrize("d", [32, 64])
@@ -663,8 +720,9 @@ def _device_kernels(fn):
 def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
     """bf16 K3, K3r, K5 and K10b at D = 64 run the wgmma backward
     (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel) where n and nk are at most
-    256, and attn_mma_bwd.cuh's mma.sync kernels past that (N = 257; Nk =
-    300), by the profiler's kernel names."""
+    256; past that the wide wgmma kernels up to 272 rows (N = 257; K3r, the
+    rope, on mma.sync) and attn_mma_bwd.cuh's mma.sync kernels past 272 (Nk
+    = 300), by the profiler's kernel names."""
     if impl == "fusedp_rope" and n != nk:
         pytest.skip("K3r is self-attention")
     q, k, v = _inputs(1, n, nk, 2, 64, cuda_device, torch.bfloat16)
@@ -684,9 +742,12 @@ def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
         o, lse = fa.fused_attention_packed(q, k, v, heads=2, rope=tab)
         names = _device_kernels(
             lambda: fa.fused_attention_packed_bwd(q, k, v, o, o, lse, heads=2, rope=tab))
+    route = _bwd_route_of(64, n, nk, False, rope=impl == "fusedp_rope")
+    assert (route == "wgmma") == wgmma
     assert len(names) == 2
     for name in names:
-        assert ("wgmma_bwd_" in name) == wgmma and "mma_bwd_" in name
+        assert ("wgmma_bwd_" in name) == wgmma and BWD_ROUTE_NAMES[route] in name
+        assert route != "mma_sync" or "wgmma" not in name
 
 
 @pytest.mark.parametrize("n,wgmma", [(197, True), (256, True), (257, False)])
@@ -765,6 +826,30 @@ def test_forward_route_by_shape(cuda_device, d, n, route):
                 "wgmma_wide": f"wgmma_wide_fwd_kernel<{d}, {flash}, {multi}, "}[route] in name
         if route == "mma_sync":
             assert "wgmma" not in name
+
+
+@pytest.mark.parametrize("d,n,nk,causal", [(64, 273, 273, False), (80, 273, 100, False),
+                                           (112, 257, 257, True), (32, 200, 200, False),
+                                           (104, 257, 257, False), (72, 64, 64, False),
+                                           (64, 257, 257, False), (64, 257, 257, True),
+                                           (64, 100, 272, False), (64, 200, 200, True)])
+def test_wide_backward_route_by_shape(cuda_device, d, n, nk, causal):
+    """Each backward's library names the route of the shape (`bwd_route`),
+    and the profiler sees that route's two kernels: past 272 rows, causal
+    past the D = 64 wgmma route and at D = 32 the mma.sync kernels; fp32
+    takes the FMA kernels."""
+    route = _bwd_route_of(d, n, nk, causal)
+    q, k, v = _inputs(1, n, nk, 2, d, cuda_device, torch.bfloat16)
+    for kernel in ("K3", "K5", "K10b"):
+        call, _, library, _ = _wide_bwd_call(kernel, q, k, v, q, causal)
+        assert fa.bwd_route(library, True, d, False, n, nk, causal) == route
+        assert fa.bwd_route(library, False, d, False, n, nk, causal) == "fma"
+        names = _kernels_seen(call)
+        assert len(names) == 2
+        for name in names:
+            assert BWD_ROUTE_NAMES[route] in name
+            assert route != "mma_sync" or "wgmma" not in name
+            assert route != "wgmma" or "wgmma_wide" not in name
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -1446,3 +1531,36 @@ def test_training_cli_fast_input_on_the_card(cuda_device, tmp_path, flags):
     assert all(np.isfinite(v) for v in res.values() if isinstance(v, float))
     log = (tmp_path / "logs" / "r" / "out.log").read_text()
     assert "Train Epoch: 0 [32/32 (100%)]" in log
+
+
+# Last in the file: its 700 cases launch many kernels, and the profiler's
+# route tests above read their windows before that (CUPTI loses records
+# late in a long process).
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,n,nk", WIDE_BWD_CASES)
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K10b"])
+def test_wide_wgmma_backward_matches_plain_version(cuda_device, kernel, d, n, nk, causal):
+    """bf16 K3, K5 and K10b on the route the library names (`bwd_route`):
+    max |dq, dk, dv - plain| within 2e-2 of the call's largest max |plain|
+    (phase 3's bar), finite, two runs bit-equal, one launch counted on that
+    route (the profiler's kernel names: test_bf16_backward_route_by_shape
+    and test_wide_backward_route_by_shape)."""
+    q, k, v = _inputs(2, n, nk, 2, d, cuda_device, torch.bfloat16)
+    do = torch.from_numpy(np.random.RandomState(1).randn(2, n, 2, d).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    call, plain, library, (counter, module) = _wide_bwd_call(kernel, q, k, v, do, causal)
+    route = _bwd_route_of(d, n, nk, causal)
+    assert fa.bwd_route(library, True, d, False, n, nk, causal) == route
+    assert fa.bwd_route(library, False, d, False, n, nk, causal) == "fma"
+    module.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert module.route_launches == {(counter, d, route): 1}
+    want = plain()
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all())
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+    again = call()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

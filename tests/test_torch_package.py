@@ -149,15 +149,19 @@ def test_copied_files_are_byte_identical(rel):
      ["fused_attn.py::_packed_bwd_kernel", "_rope_unrotate_grad"], ["attn_mma_bwd.cuh"]),
     ("supcon_loss.cu", ["supcon_stats", "supcon_grad_q", "supcon_grad_k"],
      ["pallas_loss.py", "_fwd_kernel", "_grad_q_kernel", "_grad_k_kernel"], []),
-    ("grouped_attn.cu", ["grouped_attn_fwd", "grouped_attn_bwd"],
-     ["fused_attn.py::_fwd_kernel", "fused_attn.py::_bwd_kernel"],
-     ["attn_mma_fwd.cuh", "attn_mma_bwd.cuh"]),
-    ("flash_attn.cu", ["flash_attn_fwd", "flash_attn_bwd"],
-     ["flash_attn.py::flash_attention_unpadded", "_flash_attention_kernel_single_batch",
-      "_flash_attention_dkv_kernel", "_flash_attention_dq_kernel"],
-     ["attn_mma_fwd.cuh", "attn_mma_bwd.cuh"]),
+    ("grouped_attn.cu", ["grouped_attn_fwd"], ["fused_attn.py::_fwd_kernel"],
+     ["attn_mma_fwd.cuh"]),
+    ("flash_attn.cu", ["flash_attn_fwd"],
+     ["flash_attn.py::flash_attention_unpadded", "_flash_attention_kernel_single_batch"],
+     ["attn_mma_fwd.cuh"]),
     ("dw_conv.cu", ["dw_conv_fwd", "dw_conv_bwd"],
      ["dw_conv.py::_fwd_kernel", "dw_conv.py::_bwd_kernel"], []),
+    ("grouped_attn_bwd.cu", ["grouped_attn_bwd"], ["fused_attn.py::_bwd_kernel"],
+     ["attn_mma_bwd.cuh"]),
+    ("flash_attn_bwd.cu", ["flash_attn_bwd"],
+     ["flash_attn.py::flash_attention_unpadded", "_flash_attention_dkv_kernel",
+      "_flash_attention_dq_kernel"],
+     ["attn_mma_bwd.cuh"]),
 ])
 def test_kernel_source_builds_for_hopper(source, entries, tpu_kernels, includes):
     """Each source's C entry points, the TPU kernels it names, the
@@ -209,33 +213,48 @@ def test_attention_forwards_reach_wgmma(source):
     assert "constexpr int kWideKeys = 272;" in fwd
 
 
+# (the ids name the sources K5 and K10b lived in with their forwards)
 @pytest.mark.parametrize("source,call,writes_delta", [
     ("packed_attn_bwd.cu", "launch_mma_bwd<D, false, ROPE>(", True),  # K3, K3r
-    ("grouped_attn.cu", "launch_bwd<T, D, false>(", True),  # K5
-    ("flash_attn.cu", "launch_bwd<T, D, true>(", False),  # K10b: di from outside
-])
+    ("grouped_attn_bwd.cu", "launch_bwd<T, D, false>(", True),  # K5
+    ("flash_attn_bwd.cu", "launch_bwd<T, D, true>(", False),  # K10b: di from outside
+], ids=["packed_attn_bwd.cu-launch_mma_bwd<D, false, ROPE>(-True",
+        "grouped_attn.cu-launch_bwd<T, D, false>(-True",
+        "flash_attn.cu-launch_bwd<T, D, true>(-False"])
 def test_attention_backwards_reach_wgmma(source, call, writes_delta):
     """K3, K3r, K5 and K10b reach the Hopper backward on wgmma: `wgmma.cuh`
     keys each source's build through `attn_mma_bwd.cuh`, and the launcher
-    they share sends bf16 at D = 64 with n and nk at most 256 to
-    `launch_wgmma_bwd` whatever the source's FLASH flag (K10b's, which reads
-    m, l and di where the others take lse and write delta). Every wgmma
-    pass ends in a straight-line step of 1 to 4 groups: no TAIL = 0
-    instantiation (the kernels run only on the card)."""
+    they share routes by `bwd_route`, whatever the source's FLASH flag
+    (K10b's, which reads m, l and di where the others take lse and write
+    delta): bf16 at D = 64 with n and nk at most 256 to `launch_wgmma_bwd`,
+    without the rope and not causal up to 272 rows otherwise (D = 64 past
+    256 rows, 72-112; not where n and nk are each one 64-row sub-tile) to
+    `launch_wide_bwd`. Every wgmma pass ends in a
+    straight-line step of 1 to 4 groups (the wide passes 1 or 4): no TAIL =
+    0 instantiation (the kernels run only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
     assert call in (build.CSRC / source).read_text()
     assert ("FLASH" not in call and "true" not in call.split("<")[1]) == writes_delta
     bwd = (build.CSRC / "attn_mma_bwd.cuh").read_text()
+    route = bwd[bwd.index("inline int bwd_route("):]
+    assert "if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteWgmma;" in route
+    assert ("if (rope || causal || d == 32 || n > kWideKeys || nk > kWideKeys) "
+            "return kRouteMmaSync;") in route
+    assert "if (n <= kMmaRows && nk <= kMmaRows) return kRouteMmaSync;" in route
     launcher = bwd[bwd.index("int launch_mma_bwd("):]
+    assert "const int route = bwd_route(true, D, ROPE, n, nk, causal != 0);" in launcher
     assert "if constexpr (D == kWgDim) {" in launcher and "!FLASH" not in launcher
-    assert "if (n <= kWgKeys && nk <= kWgKeys)" in launcher
+    assert "if (route == kRouteWgmma)" in launcher
     assert "return launch_wgmma_bwd<FLASH, ROPE>(" in launcher
+    assert "if (route == kRouteWide)" in launcher
+    assert "return launch_wide_bwd<D, FLASH>(" in launcher
     # the FLASH passes read di; only the others' dq pass writes delta
     dq_rows = bwd[bwd.index("void dq_rows("):bwd.index("void dq_walk(")]
     flash, other = dq_rows.split("} else {", 1)
     assert "delta[sb + row] =" not in flash and "delta[sb + row] = dl[i]" in other
+    # with_tail's 1-4 (D = 64) and with_wide_tail's 1 and 4
     tails = re.findall(r"std::integral_constant<int, (\d+)>\(\)", bwd)
-    assert sorted(map(int, tails)) == [1, 2, 3, 4]
+    assert sorted(map(int, tails)) == [1, 1, 2, 3, 4, 4]
 
 
 def test_rope_helpers_live_in_one_header_that_keys_the_build(tmp_path):
@@ -262,10 +281,12 @@ def test_nested_headers_key_the_build(tmp_path):
     the forward's header: an edit to a header that a source includes only
     through another header rebuilds the source, and an edit to the
     backward's header rebuilds K3/K3r's, K5's and K10b's sources alone."""
-    sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu", "packed_attn_bwd.cu")
+    sources = ("packed_attn_fwd.cu", "grouped_attn.cu", "flash_attn.cu", "packed_attn_bwd.cu",
+               "grouped_attn_bwd.cu", "flash_attn_bwd.cu")
     fwd_headers = ["attn_mma_fwd.cuh", "attn_rows.cuh", "attn_tile.cuh", "rope.cuh", "wgmma.cuh"]
-    assert build._headers(build.CSRC / "packed_attn_fwd.cu") == fwd_headers
-    for source in sources[1:]:
+    for source in sources[:3]:
+        assert build._headers(build.CSRC / source) == fwd_headers
+    for source in sources[3:]:
         assert build._headers(build.CSRC / source) == ["attn_mma_bwd.cuh", *fwd_headers]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -274,7 +295,7 @@ def test_nested_headers_key_the_build(tmp_path):
     keys = {s: build.source_key(csrc / s) for s in sources}
     header = csrc / "attn_mma_bwd.cuh"
     header.write_text(header.read_text() + "// edited\n")
-    assert [build.source_key(csrc / s) != keys[s] for s in sources] == [False, True, True, True]
+    assert [build.source_key(csrc / s) != keys[s] for s in sources] == [False] * 3 + [True] * 3
     keys = {s: build.source_key(csrc / s) for s in sources}
     header = csrc / "attn_mma_fwd.cuh"
     header.write_text(header.read_text() + "// edited\n")

@@ -12,25 +12,30 @@ committed sources with text edits to that header, into
              straight-line step of TAIL = 1-4 16-row groups;
   tail0      a walk of a whole number of 64-row steps ends in the loop's
              last pass (TAIL 0; `with_tail` maps a group count that is a
-             multiple of 4 to it), the form the header's note says is
-             wrong.
+             multiple of 4 to it, `with_wide_tail` every count past one
+             group after the whole steps), the form the header's note says
+             is wrong.
 At N = 128, 192 and 256 (B = 2, H = 12, D = 64, bf16, not causal; 8, 12
-and 16 groups, so TAIL 0 in the tail0 build) the script
-  1. holds each build's K3, K3r (with a random table, and with the
+and 16 groups, so TAIL 0 in the tail0 build), and on the wide kernels
+(wgmma_wide_bwd_*: B = 2, H = 4, D = 72 at N = 128, 80 at 256, 104 at 192,
+and D = 112 and 64 at N = 257, TAIL 1 in both builds) the script
+  1. holds each build's K3, K3r (D = 64, with a random table, and with the
      identity table) and K10b against their plain versions (GRAD_TOL, as
      chip_smoke.py) and prints the errors; a tail0 failure is reported,
      not raised;
   2. runs itself again under `compute-sanitizer --tool racecheck` and
      `--tool synccheck` for each build (the wgmma backward kernels only,
-     `--kernel-name kns=wgmma_bwd`), calling those kernels once at each
+     `--kernel-name kns=wgmma_`), calling those kernels once at each
      shape, and prints each run's exit code and error summary (or why it
      did not run: the sanitizer missing from the toolkit, or refused);
   3. disassembles both builds' three libraries (`cuobjdump -sass`) and,
      for every wgmma backward instantiation, finds its innermost loop that
      issues wgmma (the walk of whole 64-row steps), the A-operand registers
      the loop carries around its back-edge (read before written in the
-     body: Q and dO in the dq pass, K and V in the dk/dv pass, the same in
-     every pass by design) and the body's instructions that write one of
+     body: Q and dO in the dq passes, K and V in the D = 64 dk/dv pass,
+     the same in every pass by design; the wide dk/dv pass reads K and V
+     from shared memory, so its loop carries none) and the body's
+     instructions that write one of
      them after that read, so that the next pass multiplies another value;
      it prints the count of such loops per build, the counts and loops of
      the rope dq and dk/dv pair (TAIL 4 against TAIL 0) and of every loop
@@ -73,19 +78,32 @@ BUILDS = {
          "    default: return fn(C(), std::integral_constant<int, 0>());"),
         ("        (groups_k - 1) / 4, tiles_q);", "        (groups_k - 1) / 4 + (kTail == 0), tiles_q);"),
         ("        (groups_q - 1) / 4, tiles_k);", "        (groups_q - 1) / 4 + (kTail == 0), tiles_k);"),
-        ("    if (!CAUSAL || 64 * full < row0 + kMmaRows)\n      dq_step<TAIL",
+        ("    if (!CAUSAL || 64 * full < row0 + kMmaRows)\n      dq_step<D, TAIL",
          "    if constexpr (TAIL > 0) if (!CAUSAL || 64 * full < row0 + kMmaRows)\n"
-         "      dq_step<TAIL"),
+         "      dq_step<D, TAIL"),
         ("    dkv_step<TAIL, FLASH, CAUSAL>(dka", "    if constexpr (TAIL > 0) dkv_step<TAIL, FLASH, CAUSAL>(dka"),
+        ("  return fn(std::false_type(), std::integral_constant<int, 4>());",
+         "  return fn(std::false_type(), std::integral_constant<int, 0>());"),
+        ("    const int full = (groups_k - 1) / 4;", "    const int full = (groups_k - 1) / 4 + (kTail == 0);"),
+        ("    const int full = (groups_q - 1) / 4;", "    const int full = (groups_q - 1) / 4 + (kTail == 0);"),
+        ("    dq_step<D, TAIL, FLASH, false>(acc",
+         "    if constexpr (TAIL > 0) dq_step<D, TAIL, FLASH, false>(acc"),
+        ("    wide_dkv_step<D, TAIL, FLASH>(dka", "    if constexpr (TAIL > 0) wide_dkv_step<D, TAIL, FLASH>(dka"),
     ],
 }
 SHAPES = [dict(b=2, n=n, nk=n, h=12, d=64, causal=False, prefix=1) for n in (128, 192, 256)]
+# the wide kernels (wgmma_wide_bwd_*) at whole 64-row steps (TAIL 0 in the
+# tail0 build) and at N = 257 (TAIL 1): K3 and K10b
+WIDE_SHAPES = [dict(b=2, n=n, nk=n, h=4, d=d, causal=False)
+               for d, n in ((72, 128), (80, 256), (104, 192), (112, 257), (64, 257))]
 TOOLS = ("racecheck", "synccheck")
 SANITIZE_S = 200  # each run's limit
 # the rope kernels whose SASS is compared: (pass, mangled template arguments
 # <FLASH, ROPE, CAUSAL, TAIL>) of the committed build and the tail0 build
 SASS_PAIRS = [(f"wgmma_bwd_{p}_kernel", "ILb0ELb1ELb0ELi4E", "ILb0ELb1ELb0ELi0E")
               for p in ("dq", "dkv")]
+# and K3's wide dq pass at D = 72 (its A fragments' last k16 step half pad)
+SASS_PAIRS.append(("wgmma_wide_bwd_dq_kernel", "ILi72ELb0ELi4E", "ILi72ELb0ELi0E"))
 SASS_KEYS = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "WARPSYNC", "BAR.SYNC",
              "LDGSTS", "LDGDEPBAR", "DEPBAR", "FENCE", "STG", "LDSM")
 
@@ -94,6 +112,12 @@ def cases(fns, gen):
     """(tag, zero-argument call, plain result) of K3, K3r (random and
     identity tables) and K10b of the library functions `fns` at SHAPES."""
     out = []
+    for shape in WIDE_SHAPES:
+        n, h, d = shape["n"], shape["h"], shape["d"]
+        _, k10b_args, k3_args = av.inputs(shape, gen)
+        _, k10b, k3 = av.calls(fns, None, k10b_args, k3_args, False, h)
+        out.append((f"K3 D={d} N={n}", k3, fa.fused_attention_packed_bwd_ref(*k3_args, heads=h)))
+        out.append((f"K10b D={d} N={n}", k10b, fl.flash_attention_bwd_ref(*k10b_args)))
     for shape in SHAPES:
         n, h = shape["n"], shape["h"]
         _, k10b_args, k3_args = av.inputs(shape, gen)
@@ -132,7 +156,7 @@ def child(name: str) -> int:
 
 def sanitize(exe, name, tool):
     """One sanitizer run of `child(name)`: (exit code, summary line, tail)."""
-    cmd = [exe, "--tool", tool, "--kernel-name", "kns=wgmma_bwd", "--print-limit", "20",
+    cmd = [exe, "--tool", tool, "--kernel-name", "kns=wgmma_", "--print-limit", "20",
            sys.executable, __file__, "--child", name]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SANITIZE_S)
@@ -171,7 +195,9 @@ def _parse(op: str):
         return opcode, None, {a[0] + i for i in range(4)} if a else set()
     if opcode.startswith(_NO_DEST) or not regs or not regs[0]:
         return opcode, None, {r for x in regs for r in x}
-    wide = 2 if ".64" in opcode or "WIDE" in opcode else 1
+    # a 64-bit destination (CS2R with no .32: a register pair, as the zero
+    # of a padded A fragment's upper half) writes two registers
+    wide = 2 if ".64" in opcode or "WIDE" in opcode or opcode == "CS2R" else 1
     dest = {regs[0][0] + i for i in range(wide)}
     return opcode, dest, {r for x in regs[1:] for r in x}
 
@@ -237,7 +263,7 @@ def analyse_sass(texts: dict) -> dict:
     return result
 
 
-_INST = re.compile(r"(wgmma_bwd_\w+?_kernel)(I(?:L[bi]\d+E)+E)")
+_INST = re.compile(r"(wgmma_(?:wide_)?bwd_\w+?_kernel)(I(?:L[bi]\d+E)+E)")
 
 
 def dump_sass(build: str, out: Path) -> dict:
@@ -247,7 +273,7 @@ def dump_sass(build: str, out: Path) -> dict:
     <build>_<kernel>_<args>.sass."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     texts = {}
-    for lib in ("packed_attn_bwd", "grouped_attn", "flash_attn"):
+    for lib in cs.BWD_SOURCES:
         path = ROOT / "build" / "variants" / build / f"lib{lib}.so"
         proc = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True)
         if proc.returncode != 0:

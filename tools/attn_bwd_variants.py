@@ -80,8 +80,8 @@ NO_UNROT = ("if constexpr (ROPE) unrotate_frag_c<D>(", "if constexpr (false) unr
 ROPE_ABLATIONS = ("rope_no_reg", "rope_no_smem", "rope_no_unrot", "rope_none")
 VARIANTS = {
     "committed": [],
-    "mma_sync_route": [("if (n <= kWgKeys && nk <= kWgKeys)\n      return launch_wgmma_bwd<",
-                        "if (false)\n      return launch_wgmma_bwd<")],
+    "mma_sync_route": [("if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteWgmma;",
+                        "if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteMmaSync;")],
     "no_causal_skip": [
         ("const int steps = CAUSAL ? min(full, row0 / kMmaRows + 1) : full;",
          "const int steps = full;"),
@@ -100,9 +100,10 @@ VARIANTS = {
     "rope_no_unrot": [NO_UNROT],
     "rope_none": [*NO_REG, *NO_SMEM, NO_UNROT],
     "dq_fold": [("      if constexpr (FLASH) x[e] *= inv[e >> 1];\n", ""),
-                ("s[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) * scale;  // dS",
-                 "s[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) *\n"
-                 "      (FLASH ? inv[(j >> 1) & 1] * scale : scale);")],
+                ("  dq_ds<NG>(s, dp, dl, scale);\n",
+                 "#pragma unroll\n  for (int j = 0; j < 8 * NG; ++j)\n"
+                 "    s[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) *\n"
+                 "      (FLASH ? inv[(j >> 1) & 1] * scale : scale);\n")],
     "flash_no_inv": [("      if constexpr (FLASH) x[e] *= inv[e >> 1];",
                       "      if constexpr (false) x[e] *= inv[e >> 1];"),
                      ("    if constexpr (FLASH) {\n      const float2 il =",
@@ -130,7 +131,7 @@ def build_variant(name, edits):
         text = text.replace(old, new)
     header.write_text(text)
     lines = []
-    for lib in ("grouped_attn", "flash_attn", "packed_attn_bwd"):
+    for lib in cs.BWD_SOURCES:
         out = src / f"lib{lib}.so"
         proc = subprocess.run(build.nvcc_command(src / f"{lib}.cu", out, build._find_nvcc()),
                               capture_output=True, text=True)
@@ -151,11 +152,11 @@ def bind_variant(src):
     """(K5 bwd fn, K10b bwd fn, K3 fn, K3r fn) of the grouped, flash and
     packed-backward libraries built by `build_variant` in `src`."""
     libs = {lib: ctypes.CDLL(str(Path(src) / f"lib{lib}.so"))
-            for lib in ("grouped_attn", "flash_attn", "packed_attn_bwd")}
-    k5 = libs["grouped_attn"].grouped_attn_bwd
+            for lib in cs.BWD_SOURCES}
+    k5 = libs["grouped_attn_bwd"].grouped_attn_bwd
     k5.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    k10b = libs["flash_attn"].flash_attn_bwd
+    k10b = libs["flash_attn_bwd"].flash_attn_bwd
     k10b.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     k3 = libs["packed_attn_bwd"].packed_attn_bwd
