@@ -26,7 +26,7 @@ fails:
              causal and not (two bf16 K3r runs bit-equal there);
              which device kernels bf16 and fp32 K1, K2, K3 and K3r run
              (profiler: bf16 K1 on attn_mma_fwd.cuh's wgmma_fwd_kernel, and
-             on mma_fwd_kernel at N = 577, K2 on wgmma_fwd_kernel's ROPE form
+             on wgmma_long_fwd_kernel at N = 577, K2 on wgmma_fwd_kernel's ROPE form
              at N <= 256 and on mma_fwd_kernel at N = 257 and 577; bf16
              K3/K3r (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64
              with N and Nk <= 256, K3, K5 on its wgmma_wide_bwd_* at N =
@@ -51,7 +51,7 @@ fails:
              at the edges of the bf16 tensor-core tiles (as K1's), bf16 and
              fp32, which device kernels bf16 and fp32 K4, K5, K10 and K10b
              run (profiler; bf16 K4 and K10 on wgmma_fwd_kernel, K10 at N =
-             577 on mma_fwd_kernel; K10b as above),
+             577 on wgmma_long_fwd_kernel; K10b as above),
              two bf16 K5 and K10b runs bit-equal, timed at the b256 shapes of
              phases 8 and 9 beside K1 (K4) and K4/K5 (K10/K10b), the
              backward too as medians of 7 and the profiler's device time;
@@ -131,12 +131,12 @@ fails:
              decode (the compiled unfilter) and host transform rates; then
              `python -m mrclip_tpu_torch.train.main` trains full-width
              ViT-B-16 at 224 px, b256, `fusedp` + `--pallas-loss
-             --multipositiveloss`, csv, amp, for 2 epochs with a val pass
-             after each (and a profiler window), and `--resume latest
-             --epochs 3` exactly one more: the checkpoints and results,
+             --multipositiveloss`, csv, amp, for 1 epoch with a val pass
+             (and a profiler window), and `--resume latest --epochs 2`
+             exactly one more: the checkpoints and results,
              finite losses and metrics, the exact K1/K3/K6/K7 launches of
              each epoch (phase 5's per step times the steps) and K1's of
-             each val pass, read from the runs' logs; the epoch-2 checkpoint
+             each val pass, read from the runs' logs; the epoch-1 checkpoint
              restored onto the card bit-equal; a batch of the CLI's data
              (its first sampler indices and seed; augmentation draws of its
              own) under the kernels against plain attention and the dense
@@ -175,8 +175,8 @@ fails:
              at b256 from 256 x 256 uint8 canvases (CUDA events), the
              deterministic apply and the eval preprocessing on the card
              against the CPU on the same draws (1e-4); then the training
-             CLI on phase 13's CSVs under --native-loader (2 epochs, a val
-             pass each) and --device-augment (1 epoch): exact K1/K3/K6/K7
+             CLI on phase 13's CSVs under --native-loader and
+             --device-augment (1 epoch each, a val pass): exact K1/K3/K6/K7
              launches per epoch and K1's per val pass, finite losses and
              metrics, pairs/s and the data-time share beside phase 13's.
  16. wide:   the attention kernels at the head dims of the large public
@@ -220,8 +220,8 @@ fails:
              and b32, N 729 at b32: 378 and 384 px, no CLS), its non-causal
              text (N 64, b256) and the tile edges; which device kernels they
              run (the forwards on wgmma_wide_fwd_kernel, N 729 on
-             mma_fwd_kernel; the backward on wgmma_wide_bwd_*, N 729 on
-             mma_bwd_*); timings at those four shapes beside the
+             wgmma_long_fwd_kernel; the backward on wgmma_wide_bwd_*, N 729
+             on mma_bwd_*); timings at those four shapes beside the
              mma.sync route, SDPA and the bounds.
              Then ViT-SO400M-14-SigLIP at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp'): the
@@ -235,7 +235,10 @@ fails:
              and 3 timed steps, 108 K1 and 54 K3 each; a profiled step);
              ViT-B-16-SigLIP-512 (N = 1024 at D = 64) and
              ViT-bigG-14-CLIPA-336 (N = 577 at D = 104) served one b32 batch
-             each against their plain attention.
+             each against their plain attention, their vision K1 on
+             wgmma_long; encode_image b32 timed on the package's build and on
+             the mma.sync route's in turns, with K1's share of one profiled
+             call on each.
  18. eva:    the EVA family. K1/K3, K4/K5 and K10/K10b at D = 112
              (EVA02-E-14's vision tower, 16 heads of 112, unpadded) against
              their plain versions with phase 16's bars, bf16 and fp32, at
@@ -262,14 +265,24 @@ fails:
              b256 and trained one step at b32 (K2/K3r at N = 257). The run
              ends with the count of torch.profiler windows and of those that
              recorded no device event, by phase.
-Phases 16, 17 and 18's kernel checks and timings run right after the build
+ 19. long:   the bf16 forward past 272 keys, not causal
+             (attn_mma_fwd.cuh's wgmma_long_fwd_kernel: K and V streamed
+             through a ring of 64-key tiles by TMA): K1, K4 and K10 at the
+             long towers' vision shapes at b32 (D 64 N 577 and N 1024 at 12
+             heads, D 72 N 729, D 80 N 730, D 104 N 577; 16 heads) against
+             their plain versions with phase 3's bars, their bits against the
+             mma.sync route's build (bit-equal or not, and o's largest
+             difference), which device kernel each runs on both builds and
+             the route the libraries name; timings beside the mma.sync
+             route, SDPA and the bounds, two runs bit-equal.
+Phases 16, 17, 18 and 19's kernel checks and timings run right after the build
 (late in a long process the profiler loses the device records of short
 windows), their models after phase 15. Their served and trained paths also
 read the attention launches by route (`ops.launch_counts_by_route`): every
 K1, K4 and K10 launch and every K3, K5 and K10b launch at D = 72-112 on
-wgmma_wide (but SO400M's text backward, N 64, on mma_sync), at the text
-towers' D = 64 on wgmma, K2 and K3r (EVA02-L-14) on mma_sync, none
-elsewhere.
+wgmma_wide (but SO400M's text backward, N 64, on mma_sync, and phase 17's
+long vision towers' K1 on wgmma_long), at the text towers' D = 64 on wgmma,
+K2 and K3r (EVA02-L-14) on mma_sync, none elsewhere.
 Each path (4 to 18; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
 phase 15's "fast_native", "fast_device" and their "_eval", counted by the
@@ -285,6 +298,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -360,16 +374,19 @@ PACKED_CHECKED = [*CHECKED, *TILE_EDGES, *(dict(b=4, n=577, nk=577, h=4, d=64, c
                   dict(b=2, n=76, nk=300, h=2, d=64, causal=False)]
 # K1, K4, K10 and K2 with one key block of at most 256 keys at D = 64
 # (every main-path shape); K1, K4 and K10 at D = 72-112 up to 272 keys and
-# at D = 64 from 257 to 272 keys on the wide wgmma kernel; longer walks, K2
-# past 256 keys and D = 32 stay on mma_fwd_kernel
+# at D = 64 from 257 to 272 keys on the wide wgmma kernel, past 272 keys
+# (not causal) on the long one; causal walks past 272 keys, K2 past 256
+# keys and D = 32 stay on mma_fwd_kernel
 WGMMA_FWD = dict(source="mrclip_tpu_torch/csrc/attn_mma_fwd.cuh",
                  design="wgmma bf16 (wgmma_fwd_kernel: m64n64k16 and m64n16k16, A in "
                         "registers, K and V read through 128-byte-swizzled shared memory), each "
                         "row's scores whole in registers, one exp per score; wgmma_wide_fwd_kernel "
                         "at D = 72-112 (and 64 past 256 keys) up to 272 keys: K and V once per "
                         "(sample, head) in 32-byte-swizzled 16-column slabs, P V on m64nDk16, "
-                        "K10's 128-key blocks as jax's update; mma.sync (mma_fwd_kernel) past 272 "
-                        "keys, K2 past 256 and at D = 32")
+                        "K10's 128-key blocks as jax's update; wgmma_long_fwd_kernel past 272 "
+                        "keys, not causal: K and V by TMA, K resident for both passes, V through "
+                        "a ring of 64-key tiles, a block walking the row blocks of its head; "
+                        "mma.sync (mma_fwd_kernel) causal past 272 keys, K2 past 256 and at D = 32")
 # K3, K3r, K5 and K10b at D = 64 with n and nk at most 256; K3, K5 and K10b
 # at D = 72-112 (and 64 past 256 rows) up to 272 rows, not causal, on the
 # wide wgmma kernels; D = 32, the rope and causal past those, longer walks
@@ -636,17 +653,20 @@ SOURCES = ("packed_attn_fwd", "packed_attn_bwd", "supcon_loss", "grouped_attn", 
            "flash_attn", "flash_attn_bwd", "dw_conv")
 HOST_SOURCES = ("png_unfilter",)  # host code only: the PNG reader's unfilter (phase 13)
 # The bf16 forward's and backward's mma.sync routes (mma_fwd_kernel,
-# mma_bwd_*) at the shapes the wide wgmma kernels took over, timed beside
-# them in phases 16-18: K1's, K3's, K4/K5's and K10/K10b's sources built
-# again from a copy of csrc/ whose wide routes reach no row
+# mma_bwd_*) at the shapes the wide and long wgmma kernels took over, timed
+# beside them in phases 16-19: K1's, K3's, K4/K5's and K10/K10b's sources
+# built again from a copy of csrc/ whose wide and long routes reach no row
 # (attn_mma_fwd.cuh's fwd_route and attn_mma_bwd.cuh's bwd_route then name
-# mma_sync there) and whose launchers leave the wide kernels out (not
+# mma_sync there) and whose launchers leave those kernels out (not
 # compiled: the build costs what the kernels cost before them)
 FWD_SOURCES = ("packed_attn_fwd", "grouped_attn", "flash_attn")
 BWD_SOURCES = ("packed_attn_bwd", "grouped_attn_bwd", "flash_attn_bwd")
 MMA_SYNC_EDITS = [("constexpr int kWideKeys = 272;", "constexpr int kWideKeys = 0;"),
                   ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)",
-                   "  if constexpr (false) {\n    if (route == kRouteWide)")]
+                   "  if constexpr (false) {\n    if (route == kRouteWide)"),
+                  ("  if (causal) return kRouteMmaSync;\n  return kRouteLong;", "  return kRouteMmaSync;"),
+                  ("  if constexpr (!ROPE && D != 32 && FLASH == MULTI) {\n    if (route == kRouteLong)",
+                   "  if constexpr (false) {\n    if (route == kRouteLong)")]
 MMA_SYNC_BWD_EDITS = [("  return kRouteWide;\n}", "  return kRouteMmaSync;\n}"),
                       ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)\n"
                        "      return launch_wide_bwd",
@@ -845,11 +865,11 @@ def phase_kernel_fwd():
         calls[dtype] = lambda q=q, k=k, v=v: fa.fused_attention_packed(q, k, v, heads=VISION["h"])
     names = device_kernels("K1", calls, {torch.bfloat16: "wgmma_fwd_kernel<false, false, ",
                                          torch.float32: "packed_attn_fwd_kernel<64, false>"})
-    chunked = dict(VISION, b=4, n=577, nk=577, h=4)  # past 256 keys: the chunked walk
-    q, k, v = qkv_slices(chunked, torch.bfloat16, gen)
-    call = {torch.bfloat16: lambda: fa.fused_attention_packed(q, k, v, heads=chunked["h"])}
+    long = dict(VISION, b=4, n=577, nk=577, h=4)  # past 272 keys: the long kernel
+    q, k, v = qkv_slices(long, torch.bfloat16, gen)
+    call = {torch.bfloat16: lambda: fa.fused_attention_packed(q, k, v, heads=long["h"])}
     names["bf16_n577"] = device_kernels(
-        "K1 N=577", call, {torch.bfloat16: "mma_fwd_kernel<64, false, false, false>"})["bfloat16"]
+        "K1 N=577", call, {torch.bfloat16: "wgmma_long_fwd_kernel<64, false, false>"})["bfloat16"]
 
     def timings(shape):
         q, k, v = qkv_slices(shape, torch.bfloat16, gen)
@@ -1482,10 +1502,11 @@ def phase_kernel_flash():
         calls[dtype] = lambda q=q, k=k, v=v: fl.flash_attention(q, k, v)
     names_fwd = device_kernels("K10", calls, {torch.bfloat16: "wgmma_fwd_kernel<true, ",
                                               torch.float32: "rows_fwd_kernel<float, 64, true>"})
-    q, k, v = inputs(dict(VISION, b=4, n=577, nk=577, h=4), torch.bfloat16)  # five key blocks
+    # five key blocks of 128, each in one pass
+    q, k, v = inputs(dict(VISION, b=4, n=577, nk=577, h=4), torch.bfloat16)
     names_fwd["bf16_n577"] = device_kernels(
         "K10 N=577", {torch.bfloat16: lambda: fl.flash_attention(q, k, v)},
-        {torch.bfloat16: "mma_fwd_kernel<64, true, true, false>"})["bfloat16"]
+        {torch.bfloat16: "wgmma_long_fwd_kernel<64, true, true>"})["bfloat16"]
 
     def timings(shape):
         h, d, causal = shape["h"], shape["d"], shape["causal"]
@@ -2255,11 +2276,12 @@ KERNEL_GROUPS = [
                 "packed_attn_fwd_kernel<64, true>")),
     ("K10 flash_attn_fwd", ("wgmma_fwd_kernel<true, ",
                             *(f"wgmma_wide_fwd_kernel<{d}, true" for d in ATTN_DIMS),
+                            *(f"wgmma_long_fwd_kernel<{d}, true" for d in ATTN_DIMS),
                             *(f"mma_fwd_kernel<{d}, true" for d in ATTN_DIMS),
                             *(f"rows_fwd_kernel<float, {d}, true>" for d in ATTN_DIMS))),
     # one instantiation: K1 under fusedp, K4 under fused
     ("K1 packed_attn_fwd / K4 grouped_attn_fwd", ("wgmma_fwd_kernel", "wgmma_wide_fwd_kernel",
-                                                  "mma_fwd_kernel",
+                                                  "wgmma_long_fwd_kernel", "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
     (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
                   *(f"wgmma_wide_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS
@@ -2920,6 +2942,10 @@ CLI_SLICES = range(122, 221, 2)  # the slices the captions and split steps keep
 CLI_PER_STEP = {**TRAIN_PATHS["ViT-B-16", "fusedp"]["per_step"], **PALLAS_STEP}
 CLI_EVAL_PER_BATCH = {"packed_attn_fwd": 24}  # 12 vision + 12 text layers
 CLI_TIMEOUT = 900
+# epochs of the first training run; `--resume latest` then trains one more
+# (one, not two: the runs wait on the host's transforms, ~20 s an epoch's
+# first step, and the whole script has to stay inside its time limit)
+CLI_EPOCHS = 1
 
 
 def _run_cli(tag, args, log_path):
@@ -2997,8 +3023,8 @@ def phase_cli(card):
     """Phase 13: MR-CLIP's own main path from MRI volumes. Synthetic NIfTI
     volumes (the port's writer) with BIDS sidecars go through the
     preprocessing CLI (slices, captions, label, split); the training CLI
-    trains `CLI_MODEL` on the CSVs for two epochs with a val pass after each,
-    then `--resume latest --epochs 3` trains exactly one more. Checks the
+    trains `CLI_MODEL` on the CSVs for CLI_EPOCHS epochs with a val pass after
+    each, then `--resume latest` trains exactly one more. Checks the
     runs' files, finite losses and metrics, the exact K1/K3/K6/K7 launches
     per epoch and K1's per val pass, the saved state restored bit-equal onto
     the card, and a batch of the CLI's data under the kernels against plain
@@ -3092,18 +3118,20 @@ def phase_cli(card):
         f"{perf['train_transform_images_per_s']:.1f} images/s, eval transform "
         f"{perf['eval_transform_images_per_s']:.1f} images/s (224 px)")
 
-    # 4. the training CLI: two epochs with val, then one more from the saved state
+    # 4. the training CLI: CLI_EPOCHS epochs with val, then one more from the
+    # saved state
     workers = os.cpu_count() or 4
     logs = os.path.join(root, "logs")
     flags = _cli_flags(work, logs, "cli", workers)
     train_mod = "mrclip_tpu_torch.train.main"
-    _, perf["cli_run1_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", "2", "--profile-dir",
-                                           os.path.join(root, "trace")],
+    epochs = CLI_EPOCHS + 1
+    _, perf["cli_run1_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", str(CLI_EPOCHS),
+                                           "--profile-dir", os.path.join(root, "trace")],
                                      os.path.join(root, "train1.log"))
     run = os.path.join(logs, "cli")
     ckdir = os.path.join(run, "checkpoints")
-    saved2 = ckpt.load_checkpoint(ckdir, 2)
-    _, perf["cli_run2_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", "3", "--resume",
+    saved = ckpt.load_checkpoint(ckdir, CLI_EPOCHS)
+    _, perf["cli_run2_s"] = _run_cli(tag, [train_mod, *flags, "--epochs", str(epochs), "--resume",
                                            "latest"], os.path.join(root, "train2.log"))
     steps, train_launch, eval_launch = _cli_log(os.path.join(run, "out.log"))
     with open(os.path.join(run, "out.log")) as f:  # where the runs' time went
@@ -3125,13 +3153,14 @@ def phase_cli(card):
                       if isinstance(v, (int, float))))
     traces = os.listdir(os.path.join(root, "trace")) if os.path.isdir(
         os.path.join(root, "trace")) else []
-    ok = (sorted(ckpt.saved_steps(ckdir)) == [1, 2, 3] and [r["epoch"] for r in results] == [1, 2, 3]
-          and [s[0] for s in steps] == [e for e in range(3) for _ in range(n_steps)]
-          and "=> resuming checkpoint (epoch 2)" in text and finite
-          and train_launch == {e: want_train for e in range(3)}
-          and eval_launch == {e: want_eval for e in (1, 2, 3)} and traces)
-    log(f"{tag} train CLI: {len(steps)} steps over 3 epochs ({n_steps} a epoch, b{CLI_BATCH}, "
-        f"{workers} loader threads), the third resumed from epoch 2; losses "
+    ok = (sorted(ckpt.saved_steps(ckdir)) == list(range(1, epochs + 1))
+          and [r["epoch"] for r in results] == list(range(1, epochs + 1))
+          and [s[0] for s in steps] == [e for e in range(epochs) for _ in range(n_steps)]
+          and f"=> resuming checkpoint (epoch {CLI_EPOCHS})" in text and finite
+          and train_launch == {e: want_train for e in range(epochs)}
+          and eval_launch == {e: want_eval for e in range(1, epochs + 1)} and traces)
+    log(f"{tag} train CLI: {len(steps)} steps over {epochs} epochs ({n_steps} a epoch, "
+        f"b{CLI_BATCH}, {workers} loader threads), the last resumed from epoch {CLI_EPOCHS}; losses "
         + ", ".join(f"{s[1]:.4f}" for s in steps) + "; val R@1 i2t "
         + ", ".join(f"{r.get('image_to_text_general_R@1', float('nan')):.3f}" for r in results)
         + f"; launches per train epoch {train_launch.get(0)} (want {want_train}), per val pass "
@@ -3149,27 +3178,28 @@ def phase_cli(card):
         f"pairs/s, data-time share {perf['cli_steady_data_time_share']:.3f} (phase 5's bare step "
         f"on random uint8 images is the card's side of it) | {card}")
 
-    # 5. the resumed state: the epoch-2 checkpoint loaded onto the card, bit-equal
-    args = parse_args([*flags, "--epochs", "3", "--workers", str(workers)])
+    # 5. the resumed state: the epoch-CLI_EPOCHS checkpoint loaded onto the
+    # card, bit-equal
+    args = parse_args([*flags, "--epochs", str(epochs), "--workers", str(workers)])
     args.device, args.rank, args.world_size = CLI_DEVICE, 0, 1
     model, preprocess_train, preprocess_val = create_model_and_transforms(
         CLI_MODEL, precision="amp", device=CLI_DEVICE, attn_impl="fusedp", gelu_approx=True,
         rng_seed=0)
     tx = create_optimizer(lr=1e-4, wd=0.2, moments_dtype="bfloat16")
-    state = ckpt.load_checkpoint(ckdir, 2, template=create_train_state(model, tx))
-    same = (state.step == saved2["step"] == 2 * n_steps
-            and all(torch.equal(state.params[k].cpu(), v) for k, v in saved2["params"].items())
+    state = ckpt.load_checkpoint(ckdir, CLI_EPOCHS, template=create_train_state(model, tx))
+    same = (state.step == saved["step"] == CLI_EPOCHS * n_steps
+            and all(torch.equal(state.params[k].cpu(), v) for k, v in saved["params"].items())
             and all(torch.equal(state.opt_state.mu[k].cpu(), v)
-                    for k, v in saved2["opt_state"]["mu"].items())
+                    for k, v in saved["opt_state"]["mu"].items())
             and all(torch.equal(state.opt_state.nu[k].cpu(), v)
-                    for k, v in saved2["opt_state"]["nu"].items())
+                    for k, v in saved["opt_state"]["nu"].items())
             and all(v.dtype == torch.bfloat16 for v in state.opt_state.mu.values()))
-    log(f"{tag} epoch-2 checkpoint restored onto {CLI_DEVICE}: step {state.step}, "
-        f"{len(saved2['params'])} parameters and both moments (first in bf16) bit-equal "
+    log(f"{tag} epoch-{CLI_EPOCHS} checkpoint restored onto {CLI_DEVICE}: step {state.step}, "
+        f"{len(saved['params'])} parameters and both moments (first in bf16) bit-equal "
         f"{'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError(f"{tag} the restored state differs from the checkpoint")
-    del state, saved2, tx
+    del state, saved, tx
     torch.cuda.empty_cache()
 
     # 6. a batch of the CLI's data at its first epoch's sampler indices,
@@ -3758,7 +3788,7 @@ FAST_APPLY_ROWS = 64  # rows of the card-vs-CPU apply check (the CPU's share is 
 FAST_APPLY_TOL = 1e-4  # normalised values: fp32 order and the card's FMAs
 FAST_JITTER = dict(color_jitter=(0.4, 0.4, 0.4, 0.1), color_jitter_prob=0.8,
                    gray_scale_prob=0.2)
-FAST_RUNS = {"native": (["--native-loader"], 2), "device": (["--device-augment"], 1)}
+FAST_RUNS = {"native": (["--native-loader"], 1), "device": (["--device-augment"], 1)}
 
 
 def _host_images_per_s(fn, n):
@@ -3781,8 +3811,8 @@ def phase_fast_input(card, study, cli_perf):
     the card at b256 from 256 x 256 uint8 canvases to 224 x 224 and holds the
     deterministic apply (with the colour extras) and the eval preprocessing
     on the card against the CPU on the same draws; then trains the CLI on
-    phase 13's CSVs under `--native-loader` (two epochs, a val pass each)
-    and `--device-augment` (one epoch): the exact launches per epoch and
+    phase 13's CSVs under `--native-loader` and `--device-augment` (one
+    epoch each, a val pass): the exact launches per epoch and
     per val pass, finite losses and metrics, pairs/s and the data-time
     share beside phase 13's. Returns ({path: launches}, {path: per-step or
     per-batch launches}, perf) and removes the study."""
@@ -4030,13 +4060,13 @@ def wide_pairs(shape, dtype, gen):
     return out
 
 
-def wide_timings(shape, gen):
+def wide_timings(shape, gen, backward=True):
     """bf16 K1, K4, K10 and SDPA's forward, K3, K5, K10b and SDPA's backward
-    at one shape: medians of FWD_RUNS event readings and the profiler's
-    device time per launch, in turns with the kernels' mma.sync route
-    (MMA_SYNC_LIBS: "mma_sync_ms"), the plain versions' times, the bounds;
-    two runs of each forward and backward bit-equal. {kernel name: timing
-    dict}."""
+    (not without `backward`) at one shape: medians of FWD_RUNS event
+    readings and the profiler's device time per launch, in turns with the
+    kernels' mma.sync route (MMA_SYNC_LIBS: "mma_sync_ms"), the plain
+    versions' times, the bounds; two runs of each forward and backward
+    bit-equal. {kernel name: timing dict}."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
 
@@ -4065,6 +4095,8 @@ def wide_timings(shape, gen):
            "flash_attn_bwd": lambda: fl.flash_attention_bwd(
                q3, k3, v3, do3, l, m, di, is_causal=causal)}
     bwd.update({f"{name}@mma_sync": on_libraries(bwd[name], MMA_SYNC_LIBS) for name in list(bwd)})
+    if not backward:
+        bwd = {}
     plain = {"packed_attn_fwd": lambda: fa.fused_attention_packed_ref(
                  q, k, v, is_causal=causal, heads=h),
              "grouped_attn_fwd": lambda: fa.fused_attention_ref(qg, kg, vg, is_causal=causal),
@@ -4078,7 +4110,7 @@ def wide_timings(shape, gen):
     t_fwd, r_fwd = median_ms(fwd, 20)
     t_bwd, r_bwd = median_ms(bwd, 10)
     dev = {**device_ms(fwd), **device_ms(bwd)}
-    _, sdpa_bwd = sdpa_ms(q4, k4, v4, do4, causal)
+    sdpa_bwd = sdpa_ms(q4, k4, v4, do4, causal)[1] if backward else None
     args = {key: shape[key] for key in ("b", "n", "nk", "h", "d", "causal")}
     bounds = {"packed_attn_fwd": attention_bound(**args, dtype=bf16),
               "grouped_attn_fwd": attention_bound(**args, dtype=bf16),
@@ -4147,10 +4179,11 @@ def bwd_route_of(d, n, nk, causal, rope=False):
 def width_device_kernels(shape, gen):
     """Which device kernels the six run at `shape` (profiler), bf16 and
     fp32, and the route each library names (`fwd_route`, `bwd_route`): the
-    bf16 forwards on wgmma_wide_fwd_kernel up to WIDE_FWD_KEYS keys (K10 in
-    its several-block MULTI form where jax walks more than one key block),
-    on mma_fwd_kernel past them, and on the mma.sync route's build on
-    mma_fwd_kernel; the bf16 backward on bwd_route_of's route
+    bf16 forwards on the route K1's library names, wgmma_wide_fwd_kernel up to
+    WIDE_FWD_KEYS keys (K10 in its several-block MULTI form where jax walks
+    more than one key block) and wgmma_long_fwd_kernel past them (not
+    causal), and on the mma.sync route's build on mma_fwd_kernel; the bf16
+    backward on bwd_route_of's route
     (wgmma_wide_bwd_* up to WIDE_FWD_KEYS rows, not causal, one side past
     64 rows; mma_bwd_* else), and on the mma.sync route's build on
     mma_bwd_*; the FMA kernels in fp32. {kernel name: {dtype: names}}, the
@@ -4162,14 +4195,14 @@ def width_device_kernels(shape, gen):
     h, d, nk = shape["h"], shape["d"], shape["nk"]
     nblk = fl._blocks(shape["n"], nk)[2]
     multi = "true" if nblk > 1 else "false"
-    wide = nk <= WIDE_FWD_KEYS
-    route = "wgmma_wide" if wide else "mma_sync"
     n, causal = shape["n"], shape["causal"]
+    # K10's over jax's blocks is the same past 256 keys at D > 64
+    route = fa.fwd_route("packed_attn_fwd", True, d, False, nk, 1, causal)
     bwd_route = bwd_route_of(d, n, nk, causal)
     for library, flash in (("packed_attn_fwd", False), ("grouped_attn", False),
                            ("flash_attn", True)):
-        got = fa.fwd_route(library, True, d, False, nk, nblk if flash else 1)
-        if got != route or fa.fwd_route(library, False, d, False, nk, 1) != "fma":
+        got = fa.fwd_route(library, True, d, False, nk, nblk if flash else 1, causal)
+        if got != route or fa.fwd_route(library, False, d, False, nk, 1, causal) != "fma":
             raise AssertionError(f"{library} names route {got} at D = {d}, {nk} keys, not {route}")
     for library in BWD_SOURCES:
         got = fa.bwd_route(library, True, d, False, n, nk, causal)
@@ -4178,9 +4211,12 @@ def width_device_kernels(shape, gen):
                                  f"Nk = {nk}, not {bwd_route}")
     mma = {flash: f"mma_fwd_kernel<{d}, {flash}, {multi if flash == 'true' else 'false'}, false>"
            for flash in ("false", "true")}
-    bf16_fwd = ({flash: f"wgmma_wide_fwd_kernel<{d}, {flash}, "
-                        f"{multi if flash == 'true' else 'false'}, " for flash in ("false", "true")}
-                if wide else mma)
+    bf16_fwd = {"wgmma_wide": {flash: f"wgmma_wide_fwd_kernel<{d}, {flash}, "
+                                      f"{multi if flash == 'true' else 'false'}, "
+                               for flash in ("false", "true")},
+                "wgmma_long": {flash: f"wgmma_long_fwd_kernel<{d}, {flash}, "
+                               for flash in ("false", "true")},
+                "mma_sync": mma}[route]
     wants = {
         "packed_attn_fwd": (bf16_fwd["false"], f"packed_attn_fwd_kernel<{d}, false>", None),
         "grouped_attn_fwd": (bf16_fwd["false"], f"rows_fwd_kernel<float, {d}, false>", None),
@@ -4206,8 +4242,8 @@ def width_device_kernels(shape, gen):
             "flash_attn_bwd": lambda: fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
         for name, (want_bf16, want_fp32, group) in wants.items():
             want = want_bf16 if dtype == bf16 else want_fp32
-            on_wide = wide if name.endswith("_fwd") else bwd_route == "wgmma_wide"
-            avoid = None if dtype == bf16 and on_wide else "wgmma"
+            on_wgmma = route != "mma_sync" if name.endswith("_fwd") else bwd_route == "wgmma_wide"
+            avoid = None if dtype == bf16 and on_wgmma else "wgmma"
             seen = device_kernels(f"{name} D={d} N={shape['n']}", {dtype: calls[name]},
                                   {dtype: want}, avoid=avoid, group=group)
             names.setdefault(name, {}).update(seen)
@@ -4520,16 +4556,46 @@ def text_bwd_share(model_name):
     return d_txt, n_txt / (n_txt + (n_vis if d_vis == d_txt else 0)), route
 
 
+def vision_tokens(model_name):
+    """The vision tower's sequence length: its patches (of the config's
+    patch size, or the timm tower's name) and a class token, which the timm
+    SigLIP towers lack."""
+    from mrclip_tpu_torch.factory import get_model_config
+
+    vis = get_model_config(model_name)["vision_cfg"]
+    timm = vis.get("timm_model_name")
+    patch = int(re.search(r"patch(\d+)", timm).group(1)) if timm else vis["patch_size"]
+    return (vis["image_size"] // patch) ** 2 + (0 if timm and "siglip" in timm else 1)
+
+
+def long_vision_share(model_name):
+    """(head dim, share of that head dim's launches) of `model_name`'s vision
+    tower where its forward runs past WIDE_FWD_KEYS keys (K1's library
+    names wgmma_long; its backward mma_sync), beside a text tower of the same head
+    dim (ViT-B-16-SigLIP-512's); None where it does not, or where the tower
+    is a rope one (K2)."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    if rope_tower(model_name) or fa.fwd_route("packed_attn_fwd", True, d_vis, False,
+                                              vision_tokens(model_name)) != "wgmma_long":
+        return None
+    return d_vis, n_vis / (n_vis + (n_txt if d_txt == d_vis else 0))
+
+
 def check_routes(tag, by_width, model_name=None):
     """Fails unless the attention kernels' launches since the last reset,
     forward and backward, by route (`ops.launch_counts_by_route`), are those
     of `by_width` ({kernel: {d: launches}}, read at the same time) on the
-    routes of phases 16-18's towers, all within 272 rows: D = 72-112 (not
+    routes of phases 16-18's towers: within 272 rows D = 72-112 (not
     causal) on wgmma_wide, the text towers' D = 64 (context 77 at most) on
     wgmma, K2 and K3r (EVA02-L-14's rope tower, N = 257 and 577) on
     mma_sync; with `model_name`, its text tower's backward launches on
     their own route where `text_bwd_share` names one (SO400M's text on
-    mma_sync). Returns the launches by route."""
+    mma_sync), and its vision tower's launches past 272 rows where
+    `long_vision_share` names a share (phase 17's long towers: the forwards
+    on wgmma_long, the backwards on mma_sync). Returns the launches by
+    route."""
     from mrclip_tpu_torch.ops import launch_counts_by_route
 
     got = launch_counts_by_route()
@@ -4543,6 +4609,14 @@ def check_routes(tag, by_width, model_name=None):
                 n = want[k][d]["wgmma_wide"]
                 want[k][d] = {r: c for r, c in ((route, round(n * share)),
                                                 ("wgmma_wide", n - round(n * share))) if c}
+    if model_name and (long := long_vision_share(model_name)):
+        d, share = long
+        for k in (*LONG_FORWARDS.values(), *BWD_SOURCES):
+            if d in want.get(k, {}):
+                (route, n), = want[k][d].items()
+                m = round(n * share)
+                long_route = "wgmma_long" if k in LONG_FORWARDS.values() else "mma_sync"
+                want[k][d] = {r: c for r, c in ((long_route, m), (route, n - m)) if c}
     ok = got == want
     log(f"{tag} attention launches by route {got} (want {want}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -4726,7 +4800,7 @@ def serve_against_plain(name, served, images, tokens, tag, routes=True):
     launches = nonzero(launch_counts())  # read right after the run
     by_width = launch_counts_by_width()
     if routes:
-        check_routes(tag, by_width)
+        check_routes(tag, by_width, name)
     want = tower_wants(name, "packed_attn_fwd")
     with torch.inference_mode(), attention_impl(model, "xla"):
         ref_img = model.encode_image(torch.from_numpy(images).cuda(), normalize=True).float().cpu().numpy()
@@ -4800,6 +4874,124 @@ SIGLIP_TIMED = 3  # timed SO400M steps at b256 after one warm-up
 # N = 1024 at D = 64 (32 x 32 patches, no CLS) and ViT-bigG-14-CLIPA-336's N
 # = 577 at D = 104
 LONG_MODELS = ("ViT-B-16-SigLIP-512", "ViT-bigG-14-CLIPA-336")
+
+
+# The bf16 forward past WIDE_FWD_KEYS keys (wgmma_long_fwd_kernel): the long
+# towers' vision shapes at b32, 16 heads but SigLIP-B's 12: ViT-L-14-336 (N
+# 577, D 64), ViT-B-16-SigLIP-512 (1024, 64), ViT-SO400M-14-SigLIP-378/384
+# (729, 72), ViT-H-14-378 (730, 80), ViT-bigG-14-CLIPA-336 (577, 104)
+LONG_SHAPES = {"d64_n577": dict(b=32, n=577, nk=577, h=16, d=64, causal=False),
+               "d64_n1024": dict(b=32, n=1024, nk=1024, h=12, d=64, causal=False),
+               "d72_n729": dict(b=32, n=729, nk=729, h=16, d=72, causal=False),
+               "d80_n730": dict(b=32, n=730, nk=730, h=16, d=80, causal=False),
+               "d104_n577": dict(b=32, n=577, nk=577, h=16, d=104, causal=False)}
+LONG_FORWARDS = {"K1": "packed_attn_fwd", "K4": "grouped_attn_fwd", "K10": "flash_attn_fwd"}
+
+
+def long_calls(shape, gen):
+    """({kernel: (call, plain call, stat kinds)} of bf16 K1, K4 and K10 on one
+    set of inputs (column slices of one projection; K4 on their grouped
+    copies), SDPA's forward on the same)."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    h, d, causal = shape["h"], shape["d"], shape["causal"]
+    q, k, v = qkv_slices(shape, torch.bfloat16, gen)
+    q3, k3, v3 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+    qg, kg, vg = (fa.group_heads(t) for t in (q3, k3, v3))
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q3, k3, v3))
+    calls = {"K1": (lambda: fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h),
+                    lambda: fa.fused_attention_packed_ref(q, k, v, is_causal=causal, heads=h),
+                    ["lse"]),
+             "K4": (lambda: fa.fused_attention_grouped(qg, kg, vg, is_causal=causal),
+                    lambda: fa.fused_attention_ref(qg, kg, vg, is_causal=causal), ["lse"]),
+             "K10": (lambda: fl.flash_attention(q3, k3, v3, is_causal=causal),
+                     lambda: fl.flash_attention_ref(q3, k3, v3, is_causal=causal), ["l", "m"])}
+    return calls, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal)
+
+
+def check_forward(tag, got, want, kinds):
+    """A bf16 forward's (o, stats) against its plain version with phase 3's
+    bars: o within O_TOL, lse and m within LSE_TOL, l within LSE_TOL
+    relative. Returns (max |o err|, max stat err); raises past a bar."""
+    err_o = abs_err(got[0], want[0])
+    err_s = [((a - b).abs() / b).max().item() if kind == "l" else abs_err(a, b)
+             for a, b, kind in zip(got[1:], want[1:], kinds)]
+    ok = err_o <= O_TOL[torch.bfloat16] and max(err_s) <= LSE_TOL
+    if not ok:
+        raise AssertionError(f"{tag}: max|o-plain| {err_o:.3e}, stats {err_s}")
+    return err_o, max(err_s)
+
+
+def bits_equal(got, want):
+    """Whether each pair of tensors (o and the stats) is bit-equal."""
+    return [torch.equal(a, b) for a, b in zip(got, want)]
+
+
+def long_device_kernels(label, shape, calls):
+    """Which device kernel bf16 K1, K4 and K10 (`calls`, long_calls's) run at
+    a long shape (profiler): wgmma_long_fwd_kernel<D, FLASH, ONE> on the
+    package's build, the route its library names (`fwd_route`), and
+    mma_fwd_kernel on the mma.sync route's build (MMA_SYNC_LIBS). {kernel:
+    {"bfloat16": names, "bfloat16_mma_sync": names}}."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    bf16, d, nk = torch.bfloat16, shape["d"], shape["nk"]
+    nblk = fl._blocks(shape["n"], nk)[2]
+    libraries = {"K1": "packed_attn_fwd", "K4": "grouped_attn", "K10": "flash_attn"}
+    names = {}
+    for kernel, (call, _, _) in calls.items():
+        flash = kernel == "K10"
+        route = fa.fwd_route(libraries[kernel], True, d, False, nk, nblk if flash else 1)
+        if route != "wgmma_long":
+            raise AssertionError(f"{libraries[kernel]} names route {route} at {label}")
+        new = device_kernels(f"{kernel} {label}", {bf16: call},
+                             {bf16: f"wgmma_long_fwd_kernel<{d}, {str(flash).lower()}, "})
+        old = device_kernels(f"{kernel} {label} (mma.sync route build)",
+                             {bf16: on_libraries(call, MMA_SYNC_LIBS)},
+                             {bf16: f"mma_fwd_kernel<{d}, {str(flash).lower()}, "
+                                    f"{str(flash and nblk > 1).lower()}, false>"}, avoid="wgmma")
+        names[kernel] = {"bfloat16": new["bfloat16"], "bfloat16_mma_sync": old["bfloat16"]}
+    return names
+
+
+def phase_kernel_long():
+    """bf16 K1, K4 and K10 past WIDE_FWD_KEYS keys (wgmma_long_fwd_kernel) at
+    LONG_SHAPES: against their plain versions with phase 3's bars, their
+    bits against the mma.sync route's build (bit-equal or not; K10 keeps its
+    arithmetic, K1 and K4 sum their rows' online l over other key chunks
+    past D = 64), which device kernel each runs on both builds and the route
+    the libraries name, and timed (event and device ms beside the mma.sync
+    route's, the plain version, SDPA's forward, the bound; two runs
+    bit-equal). Returns {kernel name: {label: results}}."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out = {name: {} for name in LONG_FORWARDS.values()}
+    for label, shape in LONG_SHAPES.items():
+        t0 = time.perf_counter()
+        calls, _ = long_calls(shape, gen)
+        names = long_device_kernels(label, shape, calls)
+        checked = {}
+        for kernel, (call, plain, kinds) in calls.items():
+            got, old = call(), on_libraries(call, MMA_SYNC_LIBS)()
+            errs = check_forward(f"[long] {kernel} {label}", got, plain(), kinds)
+            checked[kernel] = (*errs, bits_equal(got, old), abs_err(got[0], old[0]))
+        del calls
+        timed = wide_timings(shape, gen, backward=False)
+        for kernel, (err_o, err_s, same, err_old) in checked.items():
+            name = LONG_FORWARDS[kernel]
+            res = out[name][label] = dict(shape=shape, max_abs_err=err_o, max_stat_err=err_s,
+                                          bit_equal_vs_mma_sync=same, max_abs_vs_mma_sync=err_old,
+                                          device_kernels=names[kernel], **timed[name])
+            log(f"[long] {kernel} {label}: max|o - plain| {err_o:.3e}, stats {err_s:.3e}; "
+                f"against the mma.sync route: bit-equal (o, stats) {same}, max|o diff| {err_old:.3e}; device "
+                f"{fmt_ms(res['device_ms'])} ms against the mma.sync route's "
+                f"{fmt_ms(res['mma_sync_device_ms'])} and SDPA's "
+                f"{fmt_ms(res['library_device_ms'])} (bound {res['bound_ms']:.4f}, "
+                f"{res['bound_by']})")
+        log(f"[long] {label} checked and timed in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_kernel_siglip():
@@ -4915,14 +5107,35 @@ def phase_train_so400m(card):
     return out
 
 
+def attention_share(fn, names):
+    """(device ms of one fn() call, the share of it in device kernels whose
+    name holds one of `names`) from one profiler window; (None, None) where
+    the window recorded no device kernel."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {ev.key: getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA}
+    total = sum(times.values())
+    if not total:
+        return None, None
+    return total / 1e3, sum(v for k, v in times.items() if any(n in k for n in names)) / total
+
+
 def phase_serve_long(card):
     """One served b32 batch each of LONG_MODELS at full width and depth
     (random weights from seed 0, bf16, 'fusedp') through `ServedModel`:
     ViT-B-16-SigLIP-512 (vision N = 1024 at D = 64, text N = 64) and
     ViT-bigG-14-CLIPA-336 (vision N = 577 at D = 104, avg pool and no
-    ln_pre; non-causal text N = 32 at D = 64), K1 once a layer, against the
-    same model's plain attention. Returns ({path: launches}, {path:
-    launches by width}, perf)."""
+    ln_pre; non-causal text N = 32 at D = 64), K1 once a layer, the vision
+    tower's on wgmma_long (`check_routes`), against the same model's plain
+    attention; `encode_image` at b32 timed on the package's build and on the
+    mma.sync route's (MMA_SYNC_LIBS, the route it replaced) in turns, and
+    one profiled call of each with K1's share of the device time. Returns
+    ({path: launches}, {path: launches by width}, perf)."""
     from mrclip_tpu_torch.serving import ServedModel
 
     paths, widths, perf = {}, {}, {}
@@ -4934,13 +5147,28 @@ def phase_serve_long(card):
         served = ServedModel(model, {})
         images, tokens = siglip_inputs(model, 32, 18)
         paths[key], widths[key], _ = serve_against_plain(name, served, images, tokens,
-                                                         "[serve-long]", routes=False)
+                                                         "[serve-long]")
         x = torch.from_numpy(images).cuda()
-        with torch.inference_mode():
-            perf[f"{key}_device_encode_image_b32_ms"] = cuda_ms(
-                lambda: model.encode_image(x, normalize=True), 3, warmup=1)
-        log(f"[serve-long] {name} encode_image b32 on the card: "
-            f"{perf[f'{key}_device_encode_image_b32_ms']:.2f} ms | {card}")
+
+        def encode():
+            with torch.inference_mode():
+                return model.encode_image(x, normalize=True)
+
+        runs = {"long": encode, "mma_sync": on_libraries(encode, MMA_SYNC_LIBS)}
+        t_enc, reads = median_ms(runs, 3, runs=5)
+        shares = {route: attention_share(fn, ("wgmma_long_fwd_kernel", "mma_fwd_kernel"))
+                  for route, fn in runs.items()}
+        perf[f"{key}_device_encode_image_b32_ms"] = t_enc["long"]
+        perf[f"{key}_device_encode_image_b32_ms_mma_sync"] = t_enc["mma_sync"]
+        perf[f"{key}_encode_image_b32_readings"] = reads
+        perf[f"{key}_k1_share"] = {route: s for route, (_, s) in shares.items()}
+        perf[f"{key}_profiled_device_ms"] = {route: ms for route, (ms, _) in shares.items()}
+        log(f"[serve-long] {name} encode_image b32 on the card: {t_enc['long']:.2f} ms on "
+            f"wgmma_long, {t_enc['mma_sync']:.2f} ms on the mma.sync route it replaced (medians "
+            f"of 5 in turns; {spread(reads)}); K1's share of one profiled call's device time: "
+            + ", ".join(f"{route} {fmt_ms(ms)} ms, "
+                        f"{'not measured' if s is None else f'{100 * s:.1f}%'}"
+                        for route, (ms, s) in shares.items()) + f" | {card}")
         del served, model, x
         torch.cuda.empty_cache()
     return paths, widths, perf
@@ -5168,6 +5396,8 @@ def main() -> int:
     mark("17 kernels", t0)
     for kname, res in [*phase_kernel_siglip().items(), *eva_widths.items()]:
         widths[kname].update(res)
+    mark("19 kernels", t0)
+    long_fwd = phase_kernel_long()
     mark("3 kernel", t0)
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
                                       *phase_kernel_supcon(), *phase_kernel_grouped(),
@@ -5302,6 +5532,10 @@ def main() -> int:
                                        *(r["max_abs_err"] for r in widths[kname].values()))
             entry["max_abs_err_fp32"] = max(entry["max_abs_err_fp32"],
                                             *(r["max_abs_err_fp32"] for r in widths[kname].values()))
+        if kname in long_fwd:  # phase 19: past 272 keys on wgmma_long_fwd_kernel
+            entry["long"] = long_fwd[kname]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in long_fwd[kname].values()))
     log(f"[profiler] {PROFILER['windows']} windows opened, {PROFILER['empty']} recorded no "
         f"device event; the first such: {PROFILER['first_empty']} (window, phase); by phase "
         f"{PROFILER['empty_by_phase']}")

@@ -28,7 +28,7 @@
 // K4) and 93.9 us (K10) at 3.35 TB/s, against 30.5 GFLOP of products (31 us
 // at 989 TFLOP/s): bound by bytes.
 //
-// Three kernels, chosen by shape in launch_mma_fwd, the launcher all four
+// Four kernels, chosen by shape in launch_mma_fwd, the launcher all four
 // reach, by fwd_route (the one source of the choice; the libraries' C entry
 // attn_fwd_route answers it for the wrappers' launch counts by route):
 //   wgmma_fwd_kernel<FLASH, ROPE, G>, on Hopper's warpgroup products
@@ -44,9 +44,13 @@
 //     vision towers of ViT-H/g/bigG-14, EVA01-g-14 and EVA02-E-14 at 224
 //     px, N 257), and at D = 64 from 257 to 272 keys (ViT-L-14's vision);
 //     K10 past 256 keys in jax's three key blocks of 128 (MULTI).
+//   wgmma_long_fwd_kernel<D, FLASH, ONE>, on warpgroup products with K and
+//     V streamed by TMA, below: K1, K4 and K10 without rope, not causal, at
+//     D = 64-112 past kWideKeys keys (N = 576, 577, 729, 730, 1024: the
+//     336-512 px towers); ONE: K10 in one pass over jax's 128-key blocks.
 //   mma_fwd_kernel<D, FLASH, MULTI, ROPE>, on Ampere's mma.sync, below:
-//     past 272 keys (N = 577, 729, 1024: the 336-512 px towers), K2 past 256
-//     keys (the chunked walk; its rope rotated in shared memory), D = 32.
+//     causal past 272 keys (no tower's), K2 past 256 keys (the chunked walk;
+//     its rope rotated in shared memory), D = 32.
 //
 // wgmma_fwd_kernel: one warpgroup (128 threads) per block walks up to four
 // sub-tiles of 64 query rows of one (sample, head), grid (batch or groups,
@@ -231,8 +235,72 @@
 // 64 and for K10's several blocks. What still bounds it at 88-112: one block
 // an SM, so the next (sample, head)'s 104-122 KB of K and V cannot load
 // while this one's products run.
+//
+// wgmma_long_fwd_kernel (D = 64-112 past kWideKeys keys, not causal),
+// designed for Hopper where mma_fwd_kernel took 2.2-3.0x SDPA's forward at
+// the 336-512 px towers' lengths (N 577-1024, b32: PERF.md, section 6).
+// Bound at SO400M-378's vision b32 (N = 729, H = 16, D = 72): 78.4 GFLOP of
+// products, 79.2 us at 989 TFLOP/s (operations; 215 MB of q, k, v, o:
+// 64.2 us); the two passes compute about 134 GFLOP over the 64-key tiles
+// and take two exponentials a score, about 0.16 ms of the SFU. It keeps
+// mma_fwd_kernel's arithmetic:
+// K1 and K4 two passes (pass A the row max and the online sum, pass B S
+// again and P = 2^(s sl2 - (m + log2 l)) rounded to bf16, the TPU's order;
+// bit-equal to it at D = 64, where both walk 64-key tiles from key 0),
+// K10 jax's key blocks of blk_k (128 or 256 keys) one after the other, a
+// pass A for the block's max and a pass B for its unnormalised P, its sum
+// key by key and its P V apart, then jax's update (o, l and m bit-equal to
+// mma_fwd_kernel at every checked shape on the H100). Where a block is 128
+// keys (N = 577) and D is at most 88, K10 runs in one pass (ONE): a thread
+// holds both tiles' scores (64 fp32), takes the block's max from them and
+// runs P and P V from the same registers, the same bits as the two passes
+// (the same products, maxima and sums in the same order), 8-10% faster at
+// D 64 and 80 (tools/attn_long_fwd_variants.py, variant k10_two_pass). At
+// D 104 and 112 it spilled (44 and 128 bytes) and read 4% slower; as a
+// runtime branch in the one instantiation it cost the 256-key blocks (N
+// 729, 1024) 10%, hence an instantiation of its own; blocks of 256 would
+// need 128 fp32 of scores a thread. What held
+// mma_fwd_kernel back, and what this one does about it:
+//   1. re-staging: a block of four warps took 64 rows and copied K twice
+//      and V once by cp.async, in 208-288-key chunks that did not overlap
+//      the products. Here one producer thread (a warpgroup that gives its
+//      registers to the consumers by setmaxnreg, 40 against 232) loads by
+//      TMA (cp.async.bulk.tensor, 4-D maps (D, heads, rows, batch) with the
+//      views' strides, boxes of 16 columns x 64 rows in the 32-byte swizzle:
+//      wgmma.cuh's slabs; the pad columns of D = 72, 88, 104 and the rows
+//      past nk zero-filled by the hardware), and two consumer warpgroups of
+//      64 rows share it. K stays resident in shared memory from its one load
+//      (122-143 KB at every long tower's shape, beside a ring of three V
+//      tiles and the Q tiles; long_smem_bytes), and a block walks the row
+//      blocks of its head in turn, as few blocks a head as still give every
+//      SM two, so K leaves L2 once a block and V once a row block. Where K
+//      does not fit, both stream through the ring (K twice a row block).
+//   2. the instruction: both products on wgmma (S = Q K^T over P / 16
+//      k-steps of m64n64k16, A in registers; P V on m64nDk16 with V
+//      MN-major), each batch straight-line; a warpgroup waits for each
+//      batch before the softmax that reads it.
+// What the timings showed (tools/attn_long_fwd_variants.py and, for the
+// overlap, an A/B of two builds in one process; device ms at b32, D 72 N
+// 729, PERF.md section 6): K and V streamed, one row block a block: K1
+// 0.4556 and K10 0.4517 against the mma.sync route's 0.8012 and 0.6299;
+// the warpgroups taking turns to issue their products (ping-pong on named
+// barriers) read the same at 72 and 104 and 6-11% slower at 64 and 80;
+// K resident and the row-block walk 0.4088 against 0.4808 streamed in the
+// same run (15%; 19% at D 104 N 577, 7% at 64 N 577); each warpgroup
+// issuing the next tile's S before this tile's softmax (FA3's overlap
+// within a warpgroup, two score tiles in registers) 7-12% slower than
+// waiting, at all five long shapes; two ring stages 30-45% slower, four as
+// three. K1 and K10 read alike though K1 takes twice the exponentials:
+// the products reach about a third of the tensor cores' rate, SDPA's own
+// rate per product at these shapes, and the two passes (Q K^T twice) are
+// what keeps K1 and K10 1.3-1.9x over SDPA's one-pass forward (1.4-2.4x
+// faster than mma_fwd_kernel). At N = 257 the long kernel read K10 @ 104
+// and 112 b256 0.8897 and 0.8781 ms against wgmma_wide_fwd_kernel's 0.6700
+// and 0.6529: those stay on the wide route.
+// Registers: 168 a thread at launch, no spill (-Xptxas -v).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the encode is reached through the runtime: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -1500,19 +1568,639 @@ int launch_wide_fwd(const void* q, const void* k, const void* v, void* o, float*
 #undef MRCLIP_WIDE
 }
 
+// wgmma_long_fwd_kernel's ring: the mbarriers (a full and an empty one a
+// stage) and the TMA loads that fill it.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed (a
+// barrier just initialised counts the phase before its first as done).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the 4-D tensor map `map` at coordinates (c0, c1, c2, c3) into
+// shared memory at `dst`, its bytes counted on the barrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+constexpr int kLongRows = 2 * kMmaRows;  // query rows a block: two consumer warpgroups
+constexpr int kLongKeys = 64;            // keys a tile of the ring
+constexpr int kLongStages = 3;           // tiles in flight
+constexpr int kLongConsumers = 2 * kMmaThreads;
+constexpr int kLongThreads = kLongConsumers + kMmaThreads;  // and a producer warpgroup
+// Registers a thread after setmaxnreg: 12 warps a block cap each at 168,
+// which spilled K10's several-block form at D = 104 and 112; the producer
+// gives the consumers its share (128 x 40 + 256 x 232 <= 65,536)
+constexpr int kLongProducerRegs = 40;
+constexpr int kLongConsumerRegs = 232;
+// K10's one-pass form (ONE): a jax block of at most kLongHeld tiles (128
+// keys: N 577) whose scores a thread holds at once (32 fp32 a tile), up to
+// head dim kLongOneDim (past it the form spilled, 44 bytes at D = 104 and
+// 128 at 112)
+constexpr int kLongHeld = 2;
+constexpr int kLongOneDim = 88;
+
+// wgmma_long_fwd_kernel: issues S = Q K^T of the K tile at `sk` (P / 16
+// slabs of kLongKeys rows) into `s`, straight-line over the k-steps (slab
+// ks is step ks), as one commit group.
+template <int P>
+__device__ __forceinline__ void long_issue_scores(float (&s)[32], const uint32_t (&qf)[P / 16][4],
+                                                  uint32_t sk) {
+  const uint64_t dk = wgmma_desc(sk, 16, 256, kSwizzle32);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < P / 16; ++ks)
+    wgmma_m64n64k16<0>(s, qf[ks], dk + ks * (kLongKeys * 32 / 16), ks);
+  wgmma_commit();
+}
+
+// Issues acc += P V of the V tile at `sv` on m64nDk16, one 16-key group a
+// step, V read MN-major, as one commit group.
+template <int D>
+__device__ __forceinline__ void long_issue_pv(float* acc, const uint32_t (&pa)[kLongKeys / 16][4],
+                                              uint32_t sv) {
+  const uint64_t dv = wgmma_desc(sv, kLongKeys * 32, 256, kSwizzle32);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kLongKeys / 16; ++kk) wgmma_m64nNk16_mn<D>(acc, pa[kk], dv + 32 * kk, 1);
+  wgmma_commit();
+}
+
+// The tile's scores once their products landed: keys at or past nk (the
+// tile starts at key s0) to -inf.
+__device__ __forceinline__ void long_mask(float (&s)[32], int s0, int nk, int t) {
+  fence_regs<32>(s);
+  if (s0 + kLongKeys > nk) {
+#pragma unroll
+    for (int j8 = 0; j8 < kLongKeys / 8; ++j8) {  // 8-key chunk j8: keys 8 j8 + 2 t + {0, 1}
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (s0 + 8 * j8 + 2 * t + (e & 1) >= nk) s[4 * j8 + e] = -INFINITY;
+    }
+  }
+}
+
+// Pass A over one tile's scores: the rows' max m (base 2: s sl2) and the
+// online sum l of 2^(s sl2 - m) (K1, K4; mma_fwd_kernel's pass_a_tile), or
+// the key block's max mb (FLASH).
+template <bool FLASH>
+__device__ __forceinline__ void long_stats(const float (&s)[32], float (&m)[2], float (&l)[2],
+                                           float (&mb)[2], float sl2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) mx = fmaxf(mx, fmaxf(s[4 * j8 + 2 * i], s[4 * j8 + 2 * i + 1]));
+    mx = quad_max(mx) * sl2;  // scale > 0: the max of the scaled scores
+    if constexpr (FLASH) {
+      mb[i] = fmaxf(mb[i], mx);
+    } else {
+      const float m_new = fmaxf(m[i], mx);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {  // masked keys: ex2(-inf) = 0
+        sum0 += ex2(fmaf(s[4 * j8 + 2 * i], sl2, -m_new));
+        sum1 += ex2(fmaf(s[4 * j8 + 2 * i + 1], sl2, -m_new));
+      }
+      l[i] = fmaf(l[i], ex2(m[i] - m_new), sum0 + sum1);
+      m[i] = m_new;
+    }
+  }
+}
+
+// Pass B over one tile's scores: p = 2^(s sl2 - mo) rounded to bf16 into
+// the A fragments of P V (a 16-key group's chunks 2 kk and 2 kk + 1); FLASH
+// adds p to the block's sum ls key by key (mma_fwd_kernel's order).
+template <bool FLASH>
+__device__ __forceinline__ void long_probs(uint32_t (&pa)[kLongKeys / 16][4], float (&s)[32],
+                                           const float (&mo)[2], float (&ls)[2], float sl2) {
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    s[jj] = ex2(fmaf(s[jj], sl2, -mo[(jj >> 1) & 1]));
+    if constexpr (FLASH) ls[(jj >> 1) & 1] += s[jj];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kLongKeys / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  }
+}
+
+// K10's update of (acc, m, l) by a key block's P V `cur`, its max mo and
+// its row sums ls (this lane's part): jax's, each product and sum rounded
+// once (mma_fwd_kernel's MULTI form, acc starting at 0).
+template <int D>
+__device__ __forceinline__ void long_flash_update(float* acc, const float* cur, float (&m)[2],
+                                                  float (&l)[2], const float (&mo)[2],
+                                                  const float (&ls)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_blk = lane_sum(ls[i]);
+    const float l_corr = mo[i] == -INFINITY ? 0.f : __fmul_rn(ex2(m[i] - mo[i]), l[i]);
+    const float l_new = __fadd_rn(l_blk, l_corr);
+    const float inv = l_new == 0.f ? 1.f : __fdiv_rn(1.f, l_new);
+    const float f = __fmul_rn(l_corr, inv);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e)
+        acc[4 * jj + e] = __fadd_rn(__fmul_rn(acc[4 * jj + e], f), __fmul_rn(cur[4 * jj + e], inv));
+    }
+    m[i] = mo[i];
+    l[i] = l_new;
+  }
+}
+
+// The ring's stage after `stage` (and its phase parity after `phase`).
+__device__ __forceinline__ void ring_next(int& stage, uint32_t& phase) {
+  if (++stage == kLongStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// Shared-memory bytes of wgmma_long_fwd_kernel with `tiles` K tiles
+// resident (0: K streamed through the ring beside V): alignment slack, the
+// resident K tiles, the ring (a stage: V's tile, and K's when streamed;
+// kLongKeys rows of pad16(D) / 16 slabs of 32 bytes each), a Q tile (rows
+// of pad16(D) + 8 elements) a warpgroup, a full and an empty barrier a
+// stage and one a resident K tile.
+__host__ __device__ constexpr int long_smem_bytes(int d, int tiles) {
+  return 1024 + (tiles + kLongStages * (tiles ? 1 : 2)) * (pad16(d) / 16) * kLongKeys * 32 +
+         2 * kMmaRows * (pad16(d) + 8) * 2 + (2 * kLongStages + tiles) * 8;
+}
+
+constexpr int kMaxSmem = 232448;  // the most dynamic shared memory a block takes (227 KB)
+
+// K1 and K4 (FLASH = false: stat_a = lse) and K10 (FLASH: stat_a = l,
+// stat_b = m) without rope, not causal, at D = 64-112 past kWideKeys keys;
+// ONE (K10 with K resident, jax blocks of at most kLongHeld tiles): one pass
+// a block.
+// A block takes `iters` row blocks of kLongRows query rows of one (sample,
+// head) in turn, two consumer warpgroups of 64 rows, and walks the keys per
+// segment (the whole key range for K1 and K4; each of jax's `segs` key
+// blocks of `seg_keys` keys for K10) twice: pass A over K, pass B over K
+// and V, in tiles of kLongKeys keys that one producer thread loads by TMA.
+// `resident`: K's tiles stay in shared memory from their one load for every
+// pass and row block, V's go through a ring of kLongStages stages; else
+// both go through the ring, K twice a row block. The header's note says
+// how.
+template <int D, bool FLASH, bool ONE>
+__global__ void __launch_bounds__(kLongThreads, 1)
+    wgmma_long_fwd_kernel(__grid_constant__ const CUtensorMap tm_k,
+                          __grid_constant__ const CUtensorMap tm_v, const bf16* __restrict__ q,
+                          bf16* __restrict__ o, float* __restrict__ stat_a,
+                          float* __restrict__ stat_b, int n, int nk, int heads, Strides st,
+                          float scale, int seg_keys, int segs, int iters, int resident) {
+  constexpr int P = pad16(D);                     // Q K^T's depth; P V's n is D itself
+  constexpr int kSlabs = P / 16;
+  constexpr uint32_t kSlab = kLongKeys * 32;      // one 16-column slab of a tile
+  constexpr uint32_t kTileBytes = kSlabs * kSlab;  // K's (or V's) tile
+  constexpr uint32_t kQBytes = kMmaRows * (P + 8) * 2;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const int ktiles = (nk + kLongKeys - 1) / kLongKeys;
+  const int kept = resident ? ktiles : 0;                         // K tiles resident
+  const uint32_t stage_bytes = resident ? kTileBytes : 2 * kTileBytes;  // V, or K then V
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t kres = (raw + 1023) & ~1023u;           // resident K tile j at kres + j kTileBytes
+  const uint32_t ring = kres + kept * kTileBytes;        // stage s at ring + s stage_bytes
+  const uint32_t sq0 = ring + kLongStages * stage_bytes;
+  const uint32_t full = sq0 + 2 * kQBytes;               // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kLongStages;         // empty[s] at empty + 8 s
+  const uint32_t kbar = empty + 8 * kLongStages;         // resident K tile j's at kbar + 8 j
+
+  // blocks of one (sample, head) side by side, so that those reading its K
+  // and V run together and find them in L2; the block's row blocks from
+  // first_rb on
+  const int rows_blocks = (n + kLongRows - 1) / kLongRows;
+  const int per_head = (rows_blocks + iters - 1) / iters;
+  const int first_rb = (blockIdx.x % per_head) * iters;
+  const int my_iters = min(iters, rows_blocks - first_rb);
+  const int bh = blockIdx.x / per_head;
+  const int head = bh % heads;
+  const long long smp = bh / heads;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLongStages; ++s) {
+      mbar_init(full + 8 * s, 1);                     // the producer's expect_tx
+      mbar_init(empty + 8 * s, kLongConsumers / 32);  // every consumer warp
+    }
+    for (int j = 0; j < kept; ++j) mbar_init(kbar + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wid >= kLongConsumers / 32) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLongProducerRegs));
+    if (threadIdx.x == kLongConsumers) {
+      for (int j = 0; j < kept; ++j) {  // resident K, once, in key order
+        mbar_expect_tx(kbar + 8 * j, kTileBytes);
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(kres + j * kTileBytes + c * kSlab, &tm_k, kbar + 8 * j, 16 * c, head,
+                      j * kLongKeys, static_cast<int>(smp));
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < my_iters; ++it) {
+        for (int sg = 0; sg < segs; ++sg) {
+          const int kb0 = sg * seg_keys, kb1 = min(nk, kb0 + seg_keys);
+          for (int pass = resident ? 1 : 0; pass < 2; ++pass) {  // A: K; B: K (streamed) and V
+            for (int s0 = kb0; s0 < kb1; s0 += kLongKeys) {
+              mbar_wait(empty + 8 * stage, phase ^ 1);
+              const uint32_t bar = full + 8 * stage, dst = ring + stage * stage_bytes;
+              mbar_expect_tx(bar, pass && !resident ? 2 * kTileBytes : kTileBytes);
+              if (!resident) {
+                for (int c = 0; c < kSlabs; ++c)
+                  tma_load_4d(dst + c * kSlab, &tm_k, bar, 16 * c, head, s0,
+                              static_cast<int>(smp));
+              }
+              if (pass) {
+                const uint32_t dv = dst + (resident ? 0 : kTileBytes);
+                for (int c = 0; c < kSlabs; ++c)
+                  tma_load_4d(dv + c * kSlab, &tm_v, bar, 16 * c, head, s0, static_cast<int>(smp));
+              }
+              ring_next(stage, phase);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kLongConsumerRegs));
+  const int wg = wid >> 2, warp = wid & 3, tid = threadIdx.x & (kMmaThreads - 1);
+  const int g = lane >> 2, t = lane & 3;
+  const long long hd = (long long)head * D;
+  const uint32_t sq = sq0 + wg * kQBytes;
+  const float sl2 = scale * kLog2e;
+  int stage = 0;  // the ring's oldest stage this warpgroup holds, and its phase
+  uint32_t phase = 0;
+  const auto release = [&]() {  // this warp is done with `stage`
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    ring_next(stage, phase);
+  };
+  // K tile j (key j kLongKeys on) of pass A once it has landed; streamed,
+  // the ring's stage `stage`, released once its S has landed
+  const auto k_ready = [&](int j) {
+    if (resident) {
+      mbar_wait(kbar + 8 * j, 0);
+      return kres + j * kTileBytes;
+    }
+    mbar_wait(full + 8 * stage, phase);
+    return ring + stage * stage_bytes;
+  };
+
+  for (int it = 0; it < my_iters; ++it) {
+    // this warpgroup's 64 query rows' Q as the A fragments of S (once every
+    // warp has stored its o rows of the last row block through the tile)
+    const int row0 = (first_rb + it) * kLongRows + wg * kMmaRows;
+    bar_sync(1 + wg, kMmaThreads);
+    stage_rows_by<D, kMmaThreads>(sq, q + smp * st.q_bs + row0 * st.q_rs + hd, st.q_rs,
+                                  min(kMmaRows, n - row0), tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    bar_sync(1 + wg, kMmaThreads);
+    uint32_t qf[P / 16][4];
+    {
+      const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+      for (int ds = 0; ds < P / 16; ++ds)
+        ldsm_x4<false>(qf[ds], sq + ((16 * warp + (mi & 1) * 8 + rr) * (P + 8) + 16 * ds +
+                                     (mi >> 1) * 8) * 2);
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m to base 2
+
+    for (int sg = 0; sg < segs; ++sg) {
+      const int kb0 = sg * seg_keys, kb1 = min(nk, kb0 + seg_keys);
+      const int j0 = kb0 / kLongKeys, tiles = (kb1 - kb0 + kLongKeys - 1) / kLongKeys;
+      if constexpr (ONE) {
+        // K10 in one pass, the block's scores in registers: S of every
+        // tile, the block's max mb, then P and P V tile by tile, as pass B
+        // would from the same S (the same bits)
+        float sb[kLongHeld][32];
+#pragma unroll
+        for (int i = 0; i < kLongHeld; ++i) {
+          if (i < tiles) {
+            long_issue_scores<P>(sb[i], qf, k_ready(j0 + i));
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < 32; ++jj) sb[i][jj] = -INFINITY;
+          }
+        }
+        wgmma_wait<0>();
+        float mb[2] = {-INFINITY, -INFINITY}, mo[2], ls[2] = {0.f, 0.f}, cur[D / 2];
+#pragma unroll
+        for (int i = 0; i < kLongHeld; ++i) {
+          long_mask(sb[i], kb0 + i * kLongKeys, nk, t);
+          long_stats<true>(sb[i], m, l, mb, sl2);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mo[i] = fmaxf(m[i], mb[i]);
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) cur[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kLongHeld; ++i) {
+          if (i < tiles) {  // V's tile in the ring's stage
+            mbar_wait(full + 8 * stage, phase);
+            uint32_t pa[kLongKeys / 16][4];
+            long_probs<true>(pa, sb[i], mo, ls, sl2);
+            long_issue_pv<D>(cur, pa, ring + stage * stage_bytes);
+            wgmma_wait<0>();
+            fence_regs<D / 2>(cur);
+            release();
+          }
+        }
+        long_flash_update<D>(acc, cur, m, l, mo, ls);
+        continue;
+      }
+      // pass A: m and the online l (K1, K4), or the key block's max mb (K10)
+      float mb[2] = {-INFINITY, -INFINITY};
+      for (int i = 0; i < tiles; ++i) {
+        float s[32];
+        long_issue_scores<P>(s, qf, k_ready(j0 + i));
+        wgmma_wait<0>();
+        long_mask(s, kb0 + i * kLongKeys, nk, t);
+        if (!resident) release();
+        long_stats<FLASH>(s, m, l, mb, sl2);
+      }
+
+      // pass B: S again, p = 2^(s sl2 - mo) rounded to bf16, P V. K1, K4:
+      // mo = m + log2 l (P normalised, then rounded: the TPU's order); K10:
+      // mo = the new max, P unnormalised, its sum ls taken key by key and
+      // the block's P V apart (cur), for jax's update
+      float mo[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (FLASH) {
+          mo[i] = fmaxf(m[i], mb[i]);
+        } else {
+          l[i] = lane_sum(l[i]);
+          mo[i] = m[i] + log2f(l[i]);
+        }
+      }
+      float cur[FLASH ? D / 2 : 1];
+      if constexpr (FLASH) {
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) cur[j] = 0.f;
+      }
+      float* dst = FLASH ? cur : acc;
+      for (int i = 0; i < tiles; ++i) {  // K resident, or K then V in the ring's stage
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t kv = ring + stage * stage_bytes;
+        float s[32];
+        long_issue_scores<P>(s, qf, resident ? kres + (j0 + i) * kTileBytes : kv);
+        wgmma_wait<0>();
+        long_mask(s, kb0 + i * kLongKeys, nk, t);
+        uint32_t pa[kLongKeys / 16][4];
+        long_probs<FLASH>(pa, s, mo, ls, sl2);
+        long_issue_pv<D>(dst, pa, resident ? kv : kv + kTileBytes);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(dst);
+        release();
+      }
+
+      if constexpr (FLASH) long_flash_update<D>(acc, cur, m, l, mo, ls);
+    }
+
+    // o through this warp's 16 rows of the Q tile, 16 bytes per store; the
+    // first D columns only; rows >= n store nothing
+    const int wrow0 = row0 + 16 * warp, r0 = wrow0 + g;  // this lane's rows: r0, r0 + 8
+    bf16* so = reinterpret_cast<bf16*>(wg_smem + (sq - raw)) + 16 * warp * (P + 8);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(so + g * (P + 8) + 8 * jj + 2 * t) =
+          pack_bf16(acc[4 * jj], acc[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(so + (g + 8) * (P + 8) + 8 * jj + 2 * t) =
+          pack_bf16(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const int row = wrow0 + r;
+      if (row < n)
+        *reinterpret_cast<uint4*>(o + smp * st.o_bs + row * st.o_rs + hd + 8 * c8) =
+            *reinterpret_cast<const uint4*>(so + r * (P + 8) + 8 * c8);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        if (row >= n) continue;
+        const long long idx = (smp * heads + head) * n + row;
+        const float m_nat = m[i] * kLn2;
+        if constexpr (FLASH) {
+          stat_a[idx] = l[i];
+          stat_b[idx] = m_nat;
+        } else {
+          stat_a[idx] = __fadd_rn(m_nat, logf(l[i]));
+        }
+      }
+    }
+  }
+}
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda
+// on the link line); null where libcuda lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of one operand, K or V, as a 4-D tensor (D, heads, rows,
+// batch) with the view's row and batch strides (elements) and contiguous
+// heads: a box is 16 columns of kLongKeys rows of one (sample, head), in the
+// 32-byte swizzle of wgmma.cuh's slabs; columns past D (the pad of D = 72,
+// 88, 104) and rows past `rows` are zero-filled. Every stride is a multiple
+// of 16 bytes (the wrappers' check_rows_aligned_16). False where libcuda
+// refuses it.
+inline bool long_tensor_map(CUtensorMap* map, const void* base, int d, int heads, int rows,
+                            int batch, long long rs, long long bs) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2, static_cast<cuuint64_t>(rs) * 2,
+                                 static_cast<cuuint64_t>(bs) * 2};
+  const cuuint32_t box[4] = {16, 1, kLongKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// long_tensor_map through a cache of the last kMapCache maps this host
+// thread encoded, keyed by all that a map encodes (the pointer, the shape
+// and the strides: no data), so that the served path's repeated launches
+// encode none.
+constexpr int kMapCache = 16;
+
+inline bool cached_tensor_map(CUtensorMap* map, const void* base, int d, int heads, int rows,
+                              int batch, long long rs, long long bs) {
+  struct Key {
+    const void* base;
+    int d, heads, rows, batch;
+    long long rs, bs;
+  };
+  thread_local Key keys[kMapCache];
+  thread_local CUtensorMap maps[kMapCache];
+  thread_local int filled = 0, next = 0;
+  for (int i = 0; i < filled; ++i) {
+    const Key& k = keys[i];
+    if (k.base == base && k.d == d && k.heads == heads && k.rows == rows && k.batch == batch &&
+        k.rs == rs && k.bs == bs) {
+      *map = maps[i];
+      return true;
+    }
+  }
+  if (!long_tensor_map(map, base, d, heads, rows, batch, rs, bs)) return false;
+  keys[next] = Key{base, d, heads, rows, batch, rs, bs};
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  if (filled < kMapCache) ++filled;
+  return true;
+}
+
+// The current device's SM count, asked once a device.
+inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && (*sms = known[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) known[dev].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// One launch of wgmma_long_fwd_kernel<D, FLASH, ONE> (launch_long_fwd's).
+template <int D, bool FLASH, bool ONE>
+cudaError_t launch_long(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const void* q, void* o,
+                        float* stat_a, float* stat_b, int n, int nk, int heads, const Strides& st,
+                        float scale, int seg_keys, int segs, int iters, int resident,
+                        long long blocks, int smem, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = allow_smem(wgmma_long_fwd_kernel<D, FLASH, ONE>, kMaxSmem, done);
+  if (err != cudaSuccess) return err;
+  wgmma_long_fwd_kernel<D, FLASH, ONE><<<static_cast<unsigned>(blocks), kLongThreads, smem, stream>>>(
+      tm_k, tm_v, static_cast<const bf16*>(q), static_cast<bf16*>(o), stat_a, stat_b, n, nk, heads,
+      st, scale, seg_keys, segs, iters, resident);
+  return cudaGetLastError();
+}
+
+// Launches wgmma_long_fwd_kernel<D, FLASH, ONE>: K resident where its tiles
+// fit the shared memory beside the ring and the Q tiles (every long tower's
+// shape), else streamed; the row blocks of a (sample, head) spread over the
+// fewest blocks that still give every SM two (K resident: one block walks
+// them in turn, K loaded once); K1 and K4 walk the keys as one segment, K10
+// jax's nblk blocks of blk_k keys, in one pass (ONE) where K is resident,
+// a block is at most kLongHeld tiles and D at most kLongOneDim.
+template <int D, bool FLASH>
+int launch_long_fwd(const void* q, const void* k, const void* v, void* o, float* stat_a,
+                    float* stat_b, int batch, int n, int nk, int heads, const Strides& st,
+                    float scale, int blk_k, int nblk, cudaStream_t stream) {
+  if (FLASH && (blk_k % kLongKeys != 0 || nblk < 1)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_k, tm_v;
+  if (!cached_tensor_map(&tm_k, k, D, heads, nk, batch, st.k_rs, st.k_bs) ||
+      !cached_tensor_map(&tm_v, v, D, heads, nk, batch, st.v_rs, st.v_bs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ktiles = (nk + kLongKeys - 1) / kLongKeys;
+  const bool resident = long_smem_bytes(D, ktiles) <= kMaxSmem;
+  const int rows_blocks = (n + kLongRows - 1) / kLongRows;
+  const long long heads_total = (long long)heads * batch;
+  int iters = 1;
+  if (resident) {
+    const long long want = (2LL * sms + heads_total - 1) / heads_total;
+    const int per_head = want < rows_blocks ? static_cast<int>(want) : rows_blocks;
+    iters = even_iters(rows_blocks, (rows_blocks + per_head - 1) / per_head);
+  }
+  const long long blocks = (long long)((rows_blocks + iters - 1) / iters) * heads_total;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = long_smem_bytes(D, resident ? ktiles : 0);
+  const int seg_keys = FLASH ? blk_k : nk, segs = FLASH ? nblk : 1;
+  if constexpr (FLASH && D <= kLongOneDim) {
+    if (resident && blk_k <= kLongHeld * kLongKeys)
+      return static_cast<int>(launch_long<D, true, true>(tm_k, tm_v, q, o, stat_a, stat_b, n, nk,
+                                                         heads, st, scale, seg_keys, segs, iters,
+                                                         1, blocks, smem, stream));
+  }
+  return static_cast<int>(launch_long<D, FLASH, false>(tm_k, tm_v, q, o, stat_a, stat_b, n, nk,
+                                                       heads, st, scale, seg_keys, segs, iters,
+                                                       resident ? 1 : 0, blocks, smem, stream));
+}
+
 // The forward's kernels, by route: fp32 on the FMA kernels; bf16 on
 // wgmma_fwd_kernel (D = 64, one key block of at most kWgKeys keys; K2 too),
 // wgmma_wide_fwd_kernel (no rope, D = 64-112, at most kWideKeys keys: past
-// 256 keys at D = 64, jax's blocks of 128 for K10) or mma_fwd_kernel (D =
-// 32, longer walks, K2 past 256 keys). The one source of the choice: the
-// launchers below and the C entry attn_fwd_route read it.
-enum FwdRoute { kRouteFma = 0, kRouteMmaSync = 1, kRouteWgmma = 2, kRouteWide = 3 };
+// 256 keys at D = 64, jax's blocks of 128 for K10), wgmma_long_fwd_kernel
+// (no rope, not causal, D = 64-112, past kWideKeys keys) or mma_fwd_kernel
+// (D = 32, causal past kWideKeys keys, K2 past 256 keys). The one source of
+// the choice: the launchers below and the C entry attn_fwd_route read it.
+enum FwdRoute { kRouteFma = 0, kRouteMmaSync = 1, kRouteWgmma = 2, kRouteWide = 3, kRouteLong = 4 };
 
-inline int fwd_route(bool bf16_in, int d, bool rope, int nk, int nblk) {
+inline int fwd_route(bool bf16_in, int d, bool rope, int nk, int nblk, bool causal) {
   if (!bf16_in) return kRouteFma;
   if (d == kWgDim && nblk == 1 && nk <= kWgKeys) return kRouteWgmma;
-  if (rope || d == 32 || nk > kWideKeys) return kRouteMmaSync;
-  return kRouteWide;  // K10 past 256 keys: nblk = 3 blocks of 128
+  if (rope || d == 32) return kRouteMmaSync;
+  if (nk <= kWideKeys) return kRouteWide;  // K10 past 256 keys: nblk = 3 blocks of 128
+  if (causal) return kRouteMmaSync;
+  return kRouteLong;
 }
 
 // `tab`: K2's [n, 2D] rope table (ROPE), else unused. Launches the kernel of
@@ -1523,7 +2211,7 @@ int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab,
                    float* stat_a, float* stat_b, int batch, int n, int nk, int heads,
                    const Strides& st, float scale, int causal, int blk_q, int blk_k, int nblk,
                    cudaStream_t stream) {
-  const int route = fwd_route(true, D, ROPE, nk, nblk);
+  const int route = fwd_route(true, D, ROPE, nk, nblk, causal != 0);
   if constexpr (D == kWgDim && !MULTI) {
     if (route == kRouteWgmma)
       return launch_wgmma_fwd<FLASH, ROPE>(q, k, v, tab, o, stat_a, stat_b, batch, n, nk, heads,
@@ -1533,6 +2221,11 @@ int launch_mma_fwd(const void* q, const void* k, const void* v, const void* tab,
     if (route == kRouteWide)
       return launch_wide_fwd<D, FLASH, MULTI>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st,
                                               scale, causal, blk_q, blk_k, nblk, stream);
+  }
+  if constexpr (!ROPE && D != 32 && FLASH == MULTI) {
+    if (route == kRouteLong)
+      return launch_long_fwd<D, FLASH>(q, k, v, o, stat_a, stat_b, batch, n, nk, heads, st, scale,
+                                       blk_k, nblk, stream);
   }
   if (route != kRouteMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_mma_smem<D, FLASH, MULTI, ROPE>();
@@ -1581,8 +2274,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* stat
 }  // namespace
 
 // The forward route of a shape (FwdRoute: 0 the FMA kernels, 1 mma.sync,
-// 2 wgmma at D = 64, 3 the wide wgmma kernel) for the wrappers' launch
-// counts and the card's checks: fwd_route itself.
-extern "C" int attn_fwd_route(int is_bf16, int head_dim, int rope, int nk, int nblk) {
-  return fwd_route(is_bf16 != 0, head_dim, rope != 0, nk, nblk);
+// 2 wgmma at D = 64, 3 the wide wgmma kernel, 4 the long wgmma kernel) for
+// the wrappers' launch counts and the card's checks: fwd_route itself.
+extern "C" int attn_fwd_route(int is_bf16, int head_dim, int rope, int nk, int nblk,
+                              int causal) {
+  return fwd_route(is_bf16 != 0, head_dim, rope != 0, nk, nblk, causal != 0);
 }

@@ -278,7 +278,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    _count("launches", d, fwd_route("flash_attn", q.dtype == torch.bfloat16, d, False, nk, nblk))
+    _count("launches", d,
+           fwd_route("flash_attn", q.dtype == torch.bfloat16, d, False, nk, nblk, is_causal))
     return o, l, m
 
 

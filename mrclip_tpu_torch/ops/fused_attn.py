@@ -123,10 +123,11 @@ _count_lock = threading.Lock()
 # The forward kernels' routes, by the value of the libraries' C entry
 # `attn_fwd_route` (`csrc/attn_mma_fwd.cuh::fwd_route`, the launchers' own
 # choice): fp32 FMA kernels; bf16 `mma_fwd_kernel` (mma.sync),
-# `wgmma_fwd_kernel` (D = 64, one key block of at most 256 keys, K2 too) or
-# `wgmma_wide_fwd_kernel` (no rope, D = 64-112, at most 272 keys).
-FWD_ROUTES = ("fma", "mma_sync", "wgmma", "wgmma_wide")
-# The backward kernels' routes, the same four names by the value of
+# `wgmma_fwd_kernel` (D = 64, one key block of at most 256 keys, K2 too),
+# `wgmma_wide_fwd_kernel` (no rope, D = 64-112, at most 272 keys) or
+# `wgmma_long_fwd_kernel` (no rope, not causal, D = 64-112, past 272 keys).
+FWD_ROUTES = ("fma", "mma_sync", "wgmma", "wgmma_wide", "wgmma_long")
+# The backward kernels' routes, the first four names by the value of
 # `attn_bwd_route` (`csrc/attn_mma_bwd.cuh::bwd_route`): fp32 FMA kernels;
 # bf16 `mma_bwd_*` (mma.sync), `wgmma_bwd_*` (D = 64, n and nk at most 256,
 # K3r and causal too) or `wgmma_wide_bwd_*` (no rope, not causal, D =
@@ -143,12 +144,13 @@ def _route_entry(library: str, entry: str, nargs: int):
 
 
 @functools.lru_cache(maxsize=4096)
-def fwd_route(library: str, is_bf16: bool, d: int, rope: bool, nk: int, nblk: int = 1) -> str:
+def fwd_route(library: str, is_bf16: bool, d: int, rope: bool, nk: int, nblk: int = 1,
+              causal: bool = False) -> str:
     """The route (`FWD_ROUTES`) by which the forward of `csrc/<library>.cu`
     launches at head dim `d` over `nk` keys in `nblk` jax key blocks (K10;
-    1 for K1, K2, K4), asked of the built library itself."""
-    entry = _route_entry(library, "attn_fwd_route", 5)
-    return FWD_ROUTES[entry(int(is_bf16), d, int(rope), nk, nblk)]
+    1 for K1, K2, K4), causal or not, asked of the built library itself."""
+    entry = _route_entry(library, "attn_fwd_route", 6)
+    return FWD_ROUTES[entry(int(is_bf16), d, int(rope), nk, nblk, int(causal))]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -431,7 +433,7 @@ def fused_attention_packed(
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     _count("launches" if rope is None else "rope_launches", d,
-           fwd_route("packed_attn_fwd", is_bf16, d, rope is not None, nk))
+           fwd_route("packed_attn_fwd", is_bf16, d, rope is not None, nk, 1, is_causal))
     return o.reshape(q.shape), lse
 
 
@@ -714,7 +716,8 @@ def fused_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         )
     if err != 0:
         raise RuntimeError(f"grouped_attn_fwd launch failed: cudaError {err}")
-    _count("grouped_launches", d, fwd_route("grouped_attn", q.dtype == torch.bfloat16, d, False, nk))
+    _count("grouped_launches", d,
+           fwd_route("grouped_attn", q.dtype == torch.bfloat16, d, False, nk, 1, is_causal))
     return o, lse
 
 

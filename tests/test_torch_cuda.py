@@ -92,6 +92,20 @@ BWD_ROUTE_NAMES = {"wgmma": "wgmma_bwd_", "wgmma_wide": "wgmma_wide_bwd_",
                    "mma_sync": "mma_bwd_"}
 
 
+def _fwd_route_of(d, nk, nblk=1, causal=False, rope=False):
+    """The forward route that attn_mma_fwd.cuh's fwd_route names, by its
+    rule: wgmma at D = 64 with one key block of at most 256 keys; mma.sync
+    with the rope or at D = 32; the wide kernel up to 272 keys; past them
+    mma.sync when causal, else the long kernel."""
+    if d == 64 and nblk == 1 and nk <= 256:
+        return "wgmma"
+    if rope or d == 32:
+        return "mma_sync"
+    if nk <= 272:
+        return "wgmma_wide"
+    return "mma_sync" if causal else "wgmma_long"
+
+
 def _bwd_route_of(d, n, nk, causal, rope=False):
     """The backward route that attn_mma_bwd.cuh's bwd_route names, by its
     rule: wgmma at D = 64 up to 256 rows; past it mma.sync with the rope,
@@ -802,20 +816,24 @@ def _wide_fwd_call(kernel, q, k, v, causal):
             "flash_attn", ("launches", fl), fl._blocks(q.shape[1], k.shape[1])[2])
 
 
-@pytest.mark.parametrize("d,n,route", [(64, 273, "mma_sync"), (80, 273, "mma_sync"),
-                                       (112, 577, "mma_sync"), (32, 200, "mma_sync"),
-                                       (104, 257, "wgmma_wide"), (72, 64, "wgmma_wide"),
-                                       (64, 257, "wgmma_wide"), (64, 200, "wgmma")])
-def test_forward_route_by_shape(cuda_device, d, n, route):
-    """The shapes past the wide route (more than 272 keys, D = 32) stay on
-    mma_fwd_kernel, each kernel's library names the same route, and the
-    profiler sees that route's kernel (K10 in its several-block form past
-    256 keys); fp32 takes the FMA kernels."""
+@pytest.mark.parametrize("d,n,causal,route", [
+    (64, 273, False, "wgmma_long"), (80, 273, False, "wgmma_long"),
+    (112, 577, False, "wgmma_long"), (72, 729, False, "wgmma_long"),
+    (64, 577, True, "mma_sync"), (104, 577, True, "mma_sync"), (32, 200, False, "mma_sync"),
+    (104, 257, False, "wgmma_wide"), (72, 64, False, "wgmma_wide"),
+    (64, 257, False, "wgmma_wide"), (64, 200, False, "wgmma")])
+def test_forward_route_by_shape(cuda_device, d, n, causal, route):
+    """Past the wide route's 272 keys the non-causal bf16 forward takes
+    wgmma_long_fwd_kernel, the causal one mma_fwd_kernel (as D = 32 does);
+    each kernel's library names the same route, and the profiler sees that
+    route's kernel (K10 in its several-block form past 256 keys); fp32
+    takes the FMA kernels."""
     q, k, v = _inputs(1, n, n, 2, d, cuda_device, torch.bfloat16)
     for kernel in ("K1", "K4", "K10"):
-        call, _, library, _, nblk = _wide_fwd_call(kernel, q, k, v, False)
-        assert fa.fwd_route(library, True, d, False, n, nblk) == route
-        assert fa.fwd_route(library, False, d, False, n, nblk) == "fma"
+        call, _, library, _, nblk = _wide_fwd_call(kernel, q, k, v, causal)
+        assert _fwd_route_of(d, n, nblk, causal) == route
+        assert fa.fwd_route(library, True, d, False, n, nblk, causal) == route
+        assert fa.fwd_route(library, False, d, False, n, nblk, causal) == "fma"
         names = _kernels_seen(call)
         assert len(names) == 1
         name = names.pop()
@@ -823,7 +841,8 @@ def test_forward_route_by_shape(cuda_device, d, n, route):
         multi = "true" if nblk > 1 else "false"
         assert {"mma_sync": f"mma_fwd_kernel<{d}, {flash}, {multi}, false>",
                 "wgmma": f"wgmma_fwd_kernel<{flash}, false, ",
-                "wgmma_wide": f"wgmma_wide_fwd_kernel<{d}, {flash}, {multi}, "}[route] in name
+                "wgmma_wide": f"wgmma_wide_fwd_kernel<{d}, {flash}, {multi}, ",
+                "wgmma_long": f"wgmma_long_fwd_kernel<{d}, {flash}, "}[route] in name
         if route == "mma_sync":
             assert "wgmma" not in name
 
@@ -882,6 +901,70 @@ def test_wide_wgmma_forward_matches_plain_version(cuda_device, kernel, d, n, cau
         assert (stats[0] - want[1]).abs().max().item() <= 1e-3
     again = call()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The long wgmma forward (attn_mma_fwd.cuh's wgmma_long_fwd_kernel): K1, K4
+# and K10 in bf16, not causal, past 272 keys at every width it takes, at the
+# edges of its 64-key ring tiles and 128-row blocks (273, 320, 511) and the
+# long towers' lengths (577, 729, 730, 1024), each N beside another Nk (the
+# lengths reversed) and a short query side (N 100) over the longest keys;
+# K10 walks jax's key blocks (128 up to 384 padded keys, then 256)
+LONG_FWD_N = (273, 320, 511, 577, 729, 730, 1024)
+LONG_FWD_PAIRS = [(n, nk) for n, other in zip(LONG_FWD_N, reversed(LONG_FWD_N))
+                  for nk in (n, other)] + [(100, 1024), (1, 577)]
+
+
+@pytest.mark.parametrize("n,nk", LONG_FWD_PAIRS)
+@pytest.mark.parametrize("d", WIDE_FWD_DIMS)
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K10"])
+def test_long_wgmma_forward_matches_plain_version(cuda_device, kernel, d, n, nk):
+    """bf16 K1, K4 and K10 past 272 keys on wgmma_long (`fwd_route`): o
+    within 2e-2 of the plain version, lse (K1, K4) and m (K10) within 1e-3,
+    l within 1e-3 relative; two runs bit-equal; one launch counted on that
+    route."""
+    q, k, v = _inputs(2, n, nk, 2, d, cuda_device, torch.bfloat16)
+    call, plain, library, (counter, module), nblk = _wide_fwd_call(kernel, q, k, v, False)
+    assert _fwd_route_of(d, nk, nblk) == "wgmma_long"
+    assert fa.fwd_route(library, True, d, False, nk, nblk) == "wgmma_long"
+    module.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert module.route_launches == {(counter, d, "wgmma_long"): 1}
+    want = plain()
+    o, stats = got[0], got[1:]
+    assert o.shape == want[0].shape and o.dtype == torch.bfloat16
+    assert (o.float() - want[0].float()).abs().max().item() <= 2e-2
+    if kernel == "K10":
+        (l, m), (want_l, want_m) = stats, want[1:]
+        assert ((l - want_l).abs() / want_l).max().item() <= 1e-3
+        assert (m - want_m).abs().max().item() <= 1e-3
+    else:
+        assert (stats[0] - want[1]).abs().max().item() <= 1e-3
+    again = call()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,nk", [(729, 729), (1024, 577), (577, 1024)])
+@pytest.mark.parametrize("d", [64, 72, 104])
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K10"])
+def test_long_wgmma_forward_walks_row_blocks(cuda_device, kernel, d, n, nk):
+    """At 8 samples of 16 heads a block of wgmma_long_fwd_kernel walks two
+    or more row blocks of its head in turn, K kept in shared memory: o,
+    lse, l and m against the plain version with the bars above, two runs
+    bit-equal."""
+    q, k, v = _inputs(8, n, nk, 16, d, cuda_device, torch.bfloat16)
+    call, plain, library, _, nblk = _wide_fwd_call(kernel, q, k, v, False)
+    assert fa.fwd_route(library, True, d, False, nk, nblk) == "wgmma_long"
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    assert (got[0].float() - want[0].float()).abs().max().item() <= 2e-2
+    if kernel == "K10":
+        assert ((got[1] - want[1]).abs() / want[1]).max().item() <= 1e-3
+        assert (got[2] - want[2]).abs().max().item() <= 1e-3
+    else:
+        assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))
 
 
 def test_grouped_and_flash_kernels_refuse_what_they_cannot_take(cuda_device):

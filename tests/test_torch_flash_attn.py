@@ -54,6 +54,26 @@ def test_plain_forward_matches_jax_kernel(n, causal, d):
     assert np.abs(got.numpy() - want).max() < 1e-4
 
 
+# The long vision sequences past the wide kernel's 272 keys, where bf16 K10
+# runs wgmma_long_fwd_kernel (fused_attn's test names the towers): N = 577
+# pads to 640, five jax key blocks of 128; 729 and 730 to 768, three of 256
+LONG = [(577, 64), (729, 72), (730, 80), (577, 104)]
+
+
+@pytest.mark.parametrize("n,d", LONG)
+def test_plain_forward_matches_jax_kernel_at_long_sequences(n, d):
+    """fp32, B = H = 1: o of the plain K10 against `flash_attention_unpadded`
+    (interpret mode) to 1e-4, over jax's own key blocks."""
+    rng = np.random.RandomState(n + d)
+    q, k, v = (rng.randn(1, n, 1, d).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)), is_causal=False))
+    got = fl.flash_attention_unpadded(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert fl._blocks(n, n)[1:] == ((128, 5) if n == 577 else (256, 3))
+    assert got.shape == want.shape == (1, n, 1, d)
+    assert np.abs(got.numpy() - want).max() < 1e-4
+
+
 @pytest.mark.parametrize("n,causal", [(197, False), (98, True), (77, True), (256, False),
                                       (256, True), (257, False), (257, True), (577, False)])
 def test_plain_gradients_match_jax_kernels(n, causal):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from mrclip_tpu.ops.fused_attn import _pfwd_impl
+from mrclip_tpu.ops.fused_attn import _pfwd_impl, _run_fwd
 from mrclip_tpu.ops.fused_attn import fused_attention_packed as jax_fused_attention_packed
 from mrclip_tpu_torch.ops import fused_attn as fa
 
@@ -120,6 +120,41 @@ def test_plain_version_matches_jax_at_wide_head_dims(n, causal, d):
     assert o.shape == (b, n, h * d) and lse.shape == (b, h, n)
     assert np.abs(o.numpy() - np.asarray(want_o)).max() < 1e-4
     assert np.abs(lse.numpy() - np.asarray(want_lse)).max() < 1e-4
+
+
+# The long vision sequences of the 336-512 px towers, past the 272 keys of
+# the wide kernel, where bf16 K1 and K4 run wgmma_long_fwd_kernel: ViT-L-14-336
+# and ViT-H-14-CLIPA-336's 577 rows at D = 64 (80), SO400M-378/384's 729 at
+# 72, ViT-H-14-378's 730 at 80, ViT-bigG-14-CLIPA-336's 577 at 104; B = H = 1
+LONG = [(577, 64), (729, 72), (730, 80), (577, 104)]
+
+
+@pytest.mark.parametrize("n,d", LONG)
+def test_plain_version_matches_jax_at_long_sequences(n, d):
+    """fp32: o and lse of the plain K1 against JAX's packed kernel
+    (`_pfwd_impl`, interpret mode) to 1e-4."""
+    q, k, v = _inputs(1, n, n, 1, d, seed=n + d)
+    o, lse = fa.fused_attention_packed_ref(*(torch.from_numpy(x) for x in (q, k, v)))
+    want_o, want_lse = _pfwd_impl(*(jnp.asarray(x).reshape(1, n, d) for x in (q, k, v)),
+                                  d, False, True)
+    assert o.shape == (1, n, 1, d) and lse.shape == (1, 1, n)
+    assert np.abs(o.numpy().reshape(1, n, d) - np.asarray(want_o)).max() < 1e-4
+    assert np.abs(lse.numpy() - np.asarray(want_lse)).max() < 1e-4
+
+
+@pytest.mark.parametrize("n,d", LONG)
+def test_grouped_plain_version_matches_jax_at_long_sequences(n, d):
+    """fp32: o and lse of the plain K4 against JAX's grouped kernel
+    (`_run_fwd`, interpret mode, on the [B*H, N, D] tiles padded to 128 rows
+    as `fused_attention` pads them, the real rows compared) to 1e-4."""
+    q, k, v = (x.reshape(1, n, d) for x in _inputs(1, n, n, 1, d, seed=n + d))
+    o, lse = fa.fused_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)))
+    pad = -n % 128
+    want_o, want_lse = _run_fwd(*(jnp.pad(jnp.asarray(x), ((0, 0), (0, pad), (0, 0)))
+                                  for x in (q, k, v)), n, False, True)
+    assert o.shape == (1, n, d) and lse.shape == (1, n)
+    assert np.abs(o.numpy() - np.asarray(want_o)[:, :n]).max() < 1e-4
+    assert np.abs(lse.numpy() - np.asarray(want_lse)[:, :n]).max() < 1e-4
 
 
 @pytest.mark.parametrize("d", [96, 120, 16, 128])

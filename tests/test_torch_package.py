@@ -190,9 +190,10 @@ def test_attention_forwards_reach_wgmma(source):
     (m64n64k16, m64n16k16, and m64nNk16 at every wide head dim), and the one
     launcher they share routes by `fwd_route` one key block of at most 256
     keys at D = 64, with the rope (K2) or without, to `wgmma_fwd_kernel`,
-    and K1, K4 and K10 without the rope up to 272 keys otherwise (D = 64 past
-    256 keys, 72-112) to `wgmma_wide_fwd_kernel` (the kernels themselves run
-    only on the card)."""
+    K1, K4 and K10 without the rope up to 272 keys otherwise (D = 64 past
+    256 keys, 72-112) to `wgmma_wide_fwd_kernel`, and past 272 keys, not
+    causal, to `wgmma_long_fwd_kernel`, whose K and V come by TMA (the
+    kernels themselves run only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
     header = (build.CSRC / "wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
@@ -202,13 +203,18 @@ def test_attention_forwards_reach_wgmma(source):
     fwd = (build.CSRC / "attn_mma_fwd.cuh").read_text()
     route = fwd[fwd.index("inline int fwd_route("):]
     assert "if (d == kWgDim && nblk == 1 && nk <= kWgKeys) return kRouteWgmma;" in route
-    assert "if (rope || d == 32 || nk > kWideKeys) return kRouteMmaSync;" in route
+    assert "if (rope || d == 32) return kRouteMmaSync;" in route
+    assert "if (nk <= kWideKeys) return kRouteWide;" in route
+    assert "if (causal) return kRouteMmaSync;\n  return kRouteLong;" in route
     launcher = fwd[fwd.index("int launch_mma_fwd("):]
     assert "if constexpr (D == kWgDim && !MULTI) {" in launcher
     assert "if (route == kRouteWgmma)" in launcher
     assert "return launch_wgmma_fwd<FLASH, ROPE>(" in launcher
     assert "if (route == kRouteWide)" in launcher
     assert "return launch_wide_fwd<D, FLASH, MULTI>(" in launcher
+    assert "if (route == kRouteLong)" in launcher
+    assert "return launch_long_fwd<D, FLASH>(" in launcher
+    assert "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes" in fwd
     assert "constexpr int kWgKeys = 256;" in fwd and "constexpr int kWgDim = 64;" in fwd
     assert "constexpr int kWideKeys = 272;" in fwd
 
