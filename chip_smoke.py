@@ -30,10 +30,11 @@ fails:
              at N <= 256 and on mma_fwd_kernel at N = 257 and 577; bf16
              K3/K3r (and K5) on attn_mma_bwd.cuh's wgmma_bwd_* at D = 64
              with N and Nk <= 256, K3, K5 on its wgmma_wide_bwd_* at N =
-             257, on its mma_bwd_* at N = 257 causal, 577, Nk = 300 and D =
-             32, by the route `bwd_route` names, K10b on wgmma_bwd_*'s FLASH
-             form at the vision, N = 256 and causal ctx 77 shapes, on
-             wgmma_wide_bwd_* at N = 257 and on mma_bwd_* at N = 577,
+             257, on its wgmma_long_bwd_* at N = 577 and Nk = 300, on its
+             mma_bwd_* at N = 257 causal and D = 32, by the route
+             `bwd_route` names, K10b on wgmma_bwd_*'s FLASH form at the
+             vision, N = 256 and causal ctx 77 shapes, on wgmma_wide_bwd_*
+             at N = 257 and on wgmma_long_bwd_* at N = 577,
              each name in its own profiler group; fp32 on packed_attn_bwd.cu's
              FMA kernels);
              K6/K7 (fused SupCon loss) in fp32 at
@@ -221,7 +222,7 @@ fails:
              text (N 64, b256) and the tile edges; which device kernels they
              run (the forwards on wgmma_wide_fwd_kernel, N 729 on
              wgmma_long_fwd_kernel; the backward on wgmma_wide_bwd_*, N 729
-             on mma_bwd_*); timings at those four shapes beside the
+             on wgmma_long_bwd_*); timings at those four shapes beside the
              mma.sync route, SDPA and the bounds.
              Then ViT-SO400M-14-SigLIP at full width and depth (random
              weights drawn on the card from seed 0, bf16, 'fusedp'): the
@@ -238,7 +239,16 @@ fails:
              each against their plain attention, their vision K1 on
              wgmma_long; encode_image b32 timed on the package's build and on
              the mma.sync route's in turns, with K1's share of one profiled
-             call on each.
+             call on each. Then ViT-SO400M-14-SigLIP-384 (vision N 729 at D
+             = 72, 27 layers, map pool; non-causal text N 64) at full width
+             and depth trained with the SigLIP loss under remat 'full' at
+             b32 (gradients against plain attention first, also under
+             'fused' and 'flash'; 1 warm-up and 5 timed steps, 108 K1 and 54
+             K3 each, the vision backward on wgmma_long_bwd_* and the text's
+             on mma_bwd_* by the launch counts by route; a profiled step
+             with the backward's device time by route; the step's forward
+             and backward timed with the mma.sync route's backward in
+             turns).
  18. eva:    the EVA family. K1/K3, K4/K5 and K10/K10b at D = 112
              (EVA02-E-14's vision tower, 16 heads of 112, unpadded) against
              their plain versions with phase 16's bars, bf16 and fp32, at
@@ -265,23 +275,26 @@ fails:
              b256 and trained one step at b32 (K2/K3r at N = 257). The run
              ends with the count of torch.profiler windows and of those that
              recorded no device event, by phase.
- 19. long:   the bf16 forward past 272 keys, not causal
-             (attn_mma_fwd.cuh's wgmma_long_fwd_kernel: K and V streamed
-             through a ring of 64-key tiles by TMA): K1, K4 and K10 at the
+ 19. long:   the bf16 forward past 272 keys and backward past 272 rows,
+             not causal (attn_mma_fwd.cuh's wgmma_long_fwd_kernel: K and V
+             streamed through a ring of 64-key tiles by TMA;
+             attn_mma_bwd.cuh's wgmma_long_bwd_*: each pass's staged pair
+             through such a ring): K1, K4 and K10, K3, K5 and K10b at the
              long towers' vision shapes at b32 (D 64 N 577 and N 1024 at 12
              heads, D 72 N 729, D 80 N 730, D 104 N 577; 16 heads) against
              their plain versions with phase 3's bars, their bits against the
-             mma.sync route's build (bit-equal or not, and o's largest
+             mma.sync route's build (bit-equal or not, and the largest
              difference), which device kernel each runs on both builds and
              the route the libraries name; timings beside the mma.sync
-             route, SDPA and the bounds, two runs bit-equal.
+             route, SDPA's forward and backward, the plain versions and the
+             bounds, two runs bit-equal.
 Phases 16, 17, 18 and 19's kernel checks and timings run right after the build
 (late in a long process the profiler loses the device records of short
 windows), their models after phase 15. Their served and trained paths also
 read the attention launches by route (`ops.launch_counts_by_route`): every
 K1, K4 and K10 launch and every K3, K5 and K10b launch at D = 72-112 on
 wgmma_wide (but SO400M's text backward, N 64, on mma_sync, and phase 17's
-long vision towers' K1 on wgmma_long), at the text towers' D = 64 on wgmma,
+long vision towers' on wgmma_long), at the text towers' D = 64 on wgmma,
 K2 and K3r (EVA02-L-14) on mma_sync, none elsewhere.
 Each path (4 to 18; phase 12 has five, one per objective; phase 13's train
 and val runs are "cli" and "cli_eval", phase 14's CLI runs "cli_<run>",
@@ -667,7 +680,8 @@ MMA_SYNC_EDITS = [("constexpr int kWideKeys = 272;", "constexpr int kWideKeys = 
                   ("  if (causal) return kRouteMmaSync;\n  return kRouteLong;", "  return kRouteMmaSync;"),
                   ("  if constexpr (!ROPE && D != 32 && FLASH == MULTI) {\n    if (route == kRouteLong)",
                    "  if constexpr (false) {\n    if (route == kRouteLong)")]
-MMA_SYNC_BWD_EDITS = [("  return kRouteWide;\n}", "  return kRouteMmaSync;\n}"),
+MMA_SYNC_BWD_EDITS = [("  if (n > kWideKeys || nk > kWideKeys) return kRouteLong;\n", ""),
+                      ("  return kRouteWide;\n}", "  return kRouteMmaSync;\n}"),
                       ("  if constexpr (!ROPE && D != 32) {\n    if (route == kRouteWide)\n"
                        "      return launch_wide_bwd",
                        "  if constexpr (false) {\n    if (route == kRouteWide)\n"
@@ -675,9 +689,9 @@ MMA_SYNC_BWD_EDITS = [("  return kRouteWide;\n}", "  return kRouteMmaSync;\n}"),
 MMA_SYNC_LIBS: dict = {}  # source name -> ctypes.CDLL of that build (phase_build)
 
 
-def build_fwd_variant(name, edits, bwd_edits=None):
-    """The three forward sources built from a copy of csrc/ under
-    build/variants/fwd_<name>/ with `edits` ((old, new) texts of
+def build_fwd_variant(name, edits, bwd_edits=None, fwd=True):
+    """The three forward sources (not without `fwd`) built from a copy of
+    csrc/ under build/variants/fwd_<name>/ with `edits` ((old, new) texts of
     attn_mma_fwd.cuh, each found once) applied, and with `bwd_edits` (texts
     of attn_mma_bwd.cuh) the three backward sources too; one nvcc each in
     parallel, keyed by the edited sources as build.py keys the package's.
@@ -692,7 +706,7 @@ def build_fwd_variant(name, edits, bwd_edits=None):
     csrc = root / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(build.CSRC, csrc)
-    sources = FWD_SOURCES if bwd_edits is None else (*FWD_SOURCES, *BWD_SOURCES)
+    sources = (*(FWD_SOURCES if fwd else ()), *(() if bwd_edits is None else BWD_SOURCES))
     for header, header_edits in (("attn_mma_fwd.cuh", edits), ("attn_mma_bwd.cuh", bwd_edits or ())):
         text = (csrc / header).read_text()
         for old, new in header_edits:
@@ -799,7 +813,16 @@ def phase_build():
 # runs: a name they hold, and a name they must not ("wgmma_bwd_" holds
 # "mma_bwd_").
 BWD_ROUTE_KERNELS = {"wgmma": ("wgmma_bwd_", None), "wgmma_wide": ("wgmma_wide_bwd_", None),
-                     "mma_sync": ("mma_bwd_", "wgmma")}
+                     "wgmma_long": ("wgmma_long_bwd_", None), "mma_sync": ("mma_bwd_", "wgmma")}
+
+
+def bwd_kernel_route(name):
+    """The backward route (`fused_attn.BWD_ROUTES`) of a device kernel's
+    name, or None for a kernel of no attention backward."""
+    for route, (key, _) in BWD_ROUTE_KERNELS.items():  # the wgmma routes before mma_sync's
+        if key in name:
+            return route
+    return "fma" if "rows_bwd_" in name or "attn_bwd_d" in name else None
 
 
 def device_kernels(tag, calls, want, avoid=None, group=None):
@@ -2284,8 +2307,8 @@ KERNEL_GROUPS = [
                                                   "wgmma_long_fwd_kernel", "mma_fwd_kernel",
                                                   "rows_fwd_kernel", "packed_attn_fwd")),
     (K10B_GROUP, ("wgmma_bwd_dq_kernel<true", "wgmma_bwd_dkv_kernel<true",
-                  *(f"wgmma_wide_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS
-                    for p in ("dq", "dkv")),
+                  *(f"wgmma_{w}_bwd_{p}_kernel<{d}, true" for w in ("wide", "long")
+                    for d in ATTN_DIMS for p in ("dq", "dkv")),
                   *(f"mma_bwd_{p}_kernel<{d}, true" for d in ATTN_DIMS for p in ("dq", "dkv")),
                   *(f"rows_bwd_{p}_kernel<float, {d}, true>" for d in ATTN_DIMS
                     for p in ("dq", "dkv")))),
@@ -2297,7 +2320,8 @@ KERNEL_GROUPS = [
                  "attn_bwd_dq_kernel<64, true>", "attn_bwd_dkv_kernel<64, true>")),
     # the rest of the tensor-core and FMA backward: one bf16 instantiation,
     # K3 under fusedp, K5 under fused
-    (K3_GROUP, ("wgmma_wide_bwd_", "mma_bwd_", "rows_bwd_", "attn_bwd_dq", "attn_bwd_dkv")),
+    (K3_GROUP, ("wgmma_wide_bwd_", "wgmma_long_bwd_", "mma_bwd_", "rows_bwd_", "attn_bwd_dq",
+                "attn_bwd_dkv")),
     ("K6/K7 supcon", ("supcon_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -2313,8 +2337,9 @@ def kernel_group(name):
 
 def profile_step(run, tag="[train]"):
     """Device time of one step by kernel group, from torch.profiler (CUPTI),
-    and the device's idle share of the profiled wall time (profiling slows
-    the host, so that share is an upper bound). {} if no device time was
+    the attention backward's device time by route (`bwd_kernel_route`), and
+    the device's idle share of the profiled wall time (profiling slows the
+    host, so that share is an upper bound). {} if no device time was
     recorded."""
     from torch.autograd import DeviceType
 
@@ -2343,9 +2368,16 @@ def profile_step(run, tag="[train]"):
         + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+    bwd_routes = {}
+    for ms, _, key in kernels:
+        if (route := bwd_kernel_route(key)) is not None:
+            bwd_routes[route] = bwd_routes.get(route, 0.0) + ms
+    if bwd_routes:
+        log(f"{tag} the attention backward by route (ms, share of the device time): "
+            + ", ".join(f"{r} {ms:.2f} ({ms / busy:.3f})" for r, ms in bwd_routes.items()))
     other = KERNEL_GROUPS[-1][0]
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "groups_ms": groups,
+            "groups_ms": groups, "bwd_by_route_ms": bwd_routes,
             "kernels_in_other": [key for _, _, key in kernels if kernel_group(key) == other]}
 
 
@@ -4164,18 +4196,6 @@ def width_checks(shapes, gen):
 WIDE_FWD_KEYS = 272  # the wide wgmma kernels' most rows (attn_mma_fwd.cuh's kWideKeys)
 
 
-def bwd_route_of(d, n, nk, causal, rope=False):
-    """The bf16 backward's route by attn_mma_bwd.cuh's bwd_route rule: wgmma
-    at D = 64 up to 256 rows; mma_sync with the rope, causal, at D = 32,
-    past WIDE_FWD_KEYS rows, or with n and nk each within one 64-row
-    sub-tile (SO400M's text, N 64); else wgmma_wide."""
-    if d == 64 and max(n, nk) <= 256:
-        return "wgmma"
-    if rope or causal or d == 32 or max(n, nk) > WIDE_FWD_KEYS or max(n, nk) <= 64:
-        return "mma_sync"
-    return "wgmma_wide"
-
-
 def width_device_kernels(shape, gen):
     """Which device kernels the six run at `shape` (profiler), bf16 and
     fp32, and the route each library names (`fwd_route`, `bwd_route`): the
@@ -4183,10 +4203,10 @@ def width_device_kernels(shape, gen):
     WIDE_FWD_KEYS keys (K10 in its several-block MULTI form where jax walks
     more than one key block) and wgmma_long_fwd_kernel past them (not
     causal), and on the mma.sync route's build on mma_fwd_kernel; the bf16
-    backward on bwd_route_of's route
-    (wgmma_wide_bwd_* up to WIDE_FWD_KEYS rows, not causal, one side past
-    64 rows; mma_bwd_* else), and on the mma.sync route's build on
-    mma_bwd_*; the FMA kernels in fp32. {kernel name: {dtype: names}}, the
+    backward on the route K3's library names (`bwd_route`: wgmma_wide_bwd_*
+    up to WIDE_FWD_KEYS rows, not causal, one side past 64 rows;
+    wgmma_long_bwd_* past them; mma_bwd_* else), and on the mma.sync
+    route's build on mma_bwd_*; the FMA kernels in fp32. {kernel name: {dtype: names}}, the
     mma.sync route's under "bfloat16_mma_sync"."""
     from mrclip_tpu_torch.ops import flash_attn as fl
     from mrclip_tpu_torch.ops import fused_attn as fa
@@ -4198,7 +4218,7 @@ def width_device_kernels(shape, gen):
     n, causal = shape["n"], shape["causal"]
     # K10's over jax's blocks is the same past 256 keys at D > 64
     route = fa.fwd_route("packed_attn_fwd", True, d, False, nk, 1, causal)
-    bwd_route = bwd_route_of(d, n, nk, causal)
+    bwd_route = fa.bwd_route("packed_attn_bwd", True, d, False, n, nk, causal)
     for library, flash in (("packed_attn_fwd", False), ("grouped_attn", False),
                            ("flash_attn", True)):
         got = fa.fwd_route(library, True, d, False, nk, nblk if flash else 1, causal)
@@ -4242,7 +4262,7 @@ def width_device_kernels(shape, gen):
             "flash_attn_bwd": lambda: fl.flash_attention_bwd(q3, k3, v3, of, l, m, di)}
         for name, (want_bf16, want_fp32, group) in wants.items():
             want = want_bf16 if dtype == bf16 else want_fp32
-            on_wgmma = route != "mma_sync" if name.endswith("_fwd") else bwd_route == "wgmma_wide"
+            on_wgmma = (route if name.endswith("_fwd") else bwd_route) != "mma_sync"
             avoid = None if dtype == bf16 and on_wgmma else "wgmma"
             seen = device_kernels(f"{name} D={d} N={shape['n']}", {dtype: calls[name]},
                                   {dtype: want}, avoid=avoid, group=group)
@@ -4541,16 +4561,19 @@ ROUTED_KERNELS = ("packed_attn_fwd", "packed_attn_rope_fwd", "grouped_attn_fwd",
 
 def text_bwd_share(model_name):
     """(head dim, share of that head dim's backward launches, route) of
-    `model_name`'s text tower where its backward leaves wgmma_wide
-    (`bwd_route_of` at its context, causal unless `no_causal_mask`): SO400M's
-    text, N 64 at D = 72 beside its vision's N 256, half of them on
-    mma_sync. None where the text runs D = 64 or the wide route."""
+    `model_name`'s text tower where its backward leaves wgmma_wide (the
+    route K3's library names at its context, causal unless
+    `no_causal_mask`): SO400M's text, N 64 at D = 72 beside its vision's, half
+    of them on mma_sync. None where the text runs D = 64 or the wide
+    route."""
     from mrclip_tpu_torch.factory import get_model_config
+    from mrclip_tpu_torch.ops import fused_attn as fa
 
     n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
     txt = get_model_config(model_name)["text_cfg"]
     ctx = txt["context_length"]
-    route = bwd_route_of(d_txt, ctx, ctx, not txt.get("no_causal_mask", False))
+    route = fa.bwd_route("packed_attn_bwd", True, d_txt, False, ctx, ctx,
+                         not txt.get("no_causal_mask", False))
     if d_txt == 64 or route == "wgmma_wide":
         return None
     return d_txt, n_txt / (n_txt + (n_vis if d_vis == d_txt else 0)), route
@@ -4569,18 +4592,21 @@ def vision_tokens(model_name):
 
 
 def long_vision_share(model_name):
-    """(head dim, share of that head dim's launches) of `model_name`'s vision
-    tower where its forward runs past WIDE_FWD_KEYS keys (K1's library
-    names wgmma_long; its backward mma_sync), beside a text tower of the same head
-    dim (ViT-B-16-SigLIP-512's); None where it does not, or where the tower
-    is a rope one (K2)."""
+    """(head dim, share of that head dim's launches, backward route) of
+    `model_name`'s vision tower where its forward runs past WIDE_FWD_KEYS
+    keys (K1's library names wgmma_long; the backward's route K3's library
+    names, wgmma_long), beside a text tower of the same head dim
+    (ViT-B-16-SigLIP-512's, ViT-SO400M-14-SigLIP-384's); None where it does
+    not, or where the tower is a rope one (K2)."""
     from mrclip_tpu_torch.ops import fused_attn as fa
 
     n_vis, d_vis, n_txt, d_txt = wide_layers(model_name)
+    n = vision_tokens(model_name)
     if rope_tower(model_name) or fa.fwd_route("packed_attn_fwd", True, d_vis, False,
-                                              vision_tokens(model_name)) != "wgmma_long":
+                                              n) != "wgmma_long":
         return None
-    return d_vis, n_vis / (n_vis + (n_txt if d_txt == d_vis else 0))
+    return (d_vis, n_vis / (n_vis + (n_txt if d_txt == d_vis else 0)),
+            fa.bwd_route("packed_attn_bwd", True, d_vis, False, n, n, False))
 
 
 def check_routes(tag, by_width, model_name=None):
@@ -4594,8 +4620,8 @@ def check_routes(tag, by_width, model_name=None):
     their own route where `text_bwd_share` names one (SO400M's text on
     mma_sync), and its vision tower's launches past 272 rows where
     `long_vision_share` names a share (phase 17's long towers: the forwards
-    on wgmma_long, the backwards on mma_sync). Returns the launches by
-    route."""
+    on wgmma_long, the backwards on the route the library names,
+    wgmma_long). Returns the launches by route."""
     from mrclip_tpu_torch.ops import launch_counts_by_route
 
     got = launch_counts_by_route()
@@ -4610,13 +4636,16 @@ def check_routes(tag, by_width, model_name=None):
                 want[k][d] = {r: c for r, c in ((route, round(n * share)),
                                                 ("wgmma_wide", n - round(n * share))) if c}
     if model_name and (long := long_vision_share(model_name)):
-        d, share = long
+        d, share, bwd_long = long
+        vision_default = "wgmma" if d == 64 else "wgmma_wide"  # where `want` put the vision's
         for k in (*LONG_FORWARDS.values(), *BWD_SOURCES):
             if d in want.get(k, {}):
-                (route, n), = want[k][d].items()
-                m = round(n * share)
-                long_route = "wgmma_long" if k in LONG_FORWARDS.values() else "mma_sync"
-                want[k][d] = {r: c for r, c in ((long_route, m), (route, n - m)) if c}
+                routes = dict(want[k][d])
+                m = round(sum(routes.values()) * share)
+                long_route = "wgmma_long" if k in LONG_FORWARDS.values() else bwd_long
+                routes[vision_default] -= m
+                routes[long_route] = routes.get(long_route, 0) + m
+                want[k][d] = {r: c for r, c in routes.items() if c}
     ok = got == want
     log(f"{tag} attention launches by route {got} (want {want}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -4739,7 +4768,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
                           for k, v in after.items() if k in want_width})
     torch.cuda.synchronize()
     launches, by_width = nonzero(launch_counts()), launch_counts_by_width()  # read right after
-    check_routes(f"{tag} {steps} steps", by_width, model_name)
+    by_route = check_routes(f"{tag} {steps} steps", by_width, model_name)
 
     peak = torch.cuda.max_memory_allocated() / 1e9
     timed = times[1:] if steps > 1 else times
@@ -4755,7 +4784,7 @@ def wide_step(model_name, model, batch_size, steps, card, tag, profile=False, im
         raise AssertionError(f"the {model_name} train main path failed its checks")
     perf = {"batch": batch_size, "steps": steps, "step_ms": step_ms, "step_ms_all": times,
             "pairs_per_s": batch_size / step_ms * 1e3, "peak_memory_gb": peak,
-            "params_m": n_params / 1e6, "optimizer": opt}
+            "params_m": n_params / 1e6, "optimizer": opt, "launches_by_route": by_route}
     if profile:  # one more step, after the main path's counts were read
         perf["profiled_step"] = profile_step(lambda: step(state, prep(batch)), tag)
     log(f"{tag} {model_name} b{batch_size} step {step_ms:.1f} ms"
@@ -4957,17 +4986,90 @@ def long_device_kernels(label, shape, calls):
     return names
 
 
+# the backwards' kernel names, their libraries' too
+LONG_BACKWARDS = {"K3": "packed_attn_bwd", "K5": "grouped_attn_bwd", "K10b": "flash_attn_bwd"}
+
+
+def long_bwd_calls(shape, gen):
+    """{kernel: (call, plain call)} of bf16 K3, K5 and K10b on one set of
+    inputs (column slices of one projection and a random output gradient;
+    K5 on their grouped copies), each from its own forward's outputs."""
+    from mrclip_tpu_torch.ops import flash_attn as fl
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    h, d, causal = shape["h"], shape["d"], shape["causal"]
+    q, k, v = qkv_slices(shape, torch.bfloat16, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    o, lse = fa.fused_attention_packed(q, k, v, is_causal=causal, heads=h)
+    qg, kg, vg, dog = (fa.group_heads(t.unflatten(-1, (h, d))) for t in (q, k, v, do))
+    og, lseg = fa.fused_attention_grouped(qg, kg, vg, is_causal=causal)
+    q3, k3, v3, do3 = (t.unflatten(-1, (h, d)) for t in (q, k, v, do))
+    of, l, m = fl.flash_attention(q3, k3, v3, is_causal=causal)
+    di = fl.flash_di(of, do3)
+    return {"K3": (lambda: fa.fused_attention_packed_bwd(q, k, v, o, do, lse, is_causal=causal,
+                                                         heads=h),
+                   lambda: fa.fused_attention_packed_bwd_ref(q, k, v, o, do, lse, is_causal=causal,
+                                                             heads=h)),
+            "K5": (lambda: fa.fused_attention_grouped_bwd(qg, kg, vg, og, dog, lseg,
+                                                          is_causal=causal),
+                   lambda: fa.fused_attention_bwd_ref(qg, kg, vg, og, dog, lseg, is_causal=causal)),
+            "K10b": (lambda: fl.flash_attention_bwd(q3, k3, v3, do3, l, m, di, is_causal=causal),
+                     lambda: fl.flash_attention_bwd_ref(q3, k3, v3, do3, l, m, di,
+                                                        is_causal=causal))}
+
+
+def check_backward(tag, got, want):
+    """A bf16 backward's (dq, dk, dv) against its plain version with phase
+    3's bar: finite, each within GRAD_TOL of the call's largest |plain|
+    gradient. Returns (max |d - plain|, max relative error); raises past
+    the bar."""
+    scale = max(w.float().abs().max().item() for w in want)
+    errs = [rel_err(g, w, scale) for g, w in zip(got, want)]
+    ok = (all(bool(torch.isfinite(g.float()).all()) for g in got)
+          and max(errs) <= GRAD_TOL[torch.bfloat16])
+    if not ok:
+        raise AssertionError(f"{tag}: max|d-plain| / max|plain| dq/dk/dv {errs}")
+    return max(abs_err(g, w) for g, w in zip(got, want)), max(errs)
+
+
+def long_bwd_device_kernels(label, shape, calls):
+    """Which device kernels bf16 K3, K5 and K10b (`calls`, long_bwd_calls's)
+    run at a long shape (profiler): the route each library names
+    (`bwd_route`: wgmma_long_bwd_* past WIDE_FWD_KEYS rows), in K3/K5's or
+    K10b's profiler group, and mma_bwd_* on the mma.sync route's build
+    (MMA_SYNC_LIBS). {kernel: {"route": route, "bfloat16": names,
+    "bfloat16_mma_sync": names}}."""
+    from mrclip_tpu_torch.ops import fused_attn as fa
+
+    bf16, d, n, nk = torch.bfloat16, shape["d"], shape["n"], shape["nk"]
+    names = {}
+    for kernel, (call, _) in calls.items():
+        group = K10B_GROUP if kernel == "K10b" else K3_GROUP
+        route = fa.bwd_route(LONG_BACKWARDS[kernel], True, d, False, n, nk, shape["causal"])
+        want, avoid = BWD_ROUTE_KERNELS[route]
+        new = device_kernels(f"{kernel} {label}", {bf16: call}, {bf16: want}, avoid=avoid,
+                             group=group)
+        old = device_kernels(f"{kernel} {label} (mma.sync route build)",
+                             {bf16: on_libraries(call, MMA_SYNC_LIBS)}, {bf16: "mma_bwd_"},
+                             avoid="wgmma", group=group)
+        names[kernel] = {"route": route, "bfloat16": new["bfloat16"],
+                         "bfloat16_mma_sync": old["bfloat16"]}
+    return names
+
+
 def phase_kernel_long():
-    """bf16 K1, K4 and K10 past WIDE_FWD_KEYS keys (wgmma_long_fwd_kernel) at
+    """bf16 K1, K4 and K10 past WIDE_FWD_KEYS keys (wgmma_long_fwd_kernel)
+    and bf16 K3, K5 and K10b past WIDE_FWD_KEYS rows (wgmma_long_bwd_*) at
     LONG_SHAPES: against their plain versions with phase 3's bars, their
     bits against the mma.sync route's build (bit-equal or not; K10 keeps its
     arithmetic, K1 and K4 sum their rows' online l over other key chunks
-    past D = 64), which device kernel each runs on both builds and the route
-    the libraries name, and timed (event and device ms beside the mma.sync
-    route's, the plain version, SDPA's forward, the bound; two runs
-    bit-equal). Returns {kernel name: {label: results}}."""
+    past D = 64, the backwards sum their products in another order), which
+    device kernel each runs on both builds and the route the libraries
+    name, and timed (`wide_timings`: event and device ms beside the
+    mma.sync route's, the plain version, SDPA's forward and backward, the
+    bound; two runs bit-equal). Returns {kernel name: {label: results}}."""
     gen = torch.Generator(device="cuda").manual_seed(19)
-    out = {name: {} for name in LONG_FORWARDS.values()}
+    out = {name: {} for name in (*LONG_FORWARDS.values(), *LONG_BACKWARDS.values())}
     for label, shape in LONG_SHAPES.items():
         t0 = time.perf_counter()
         calls, _ = long_calls(shape, gen)
@@ -4978,18 +5080,38 @@ def phase_kernel_long():
             errs = check_forward(f"[long] {kernel} {label}", got, plain(), kinds)
             checked[kernel] = (*errs, bits_equal(got, old), abs_err(got[0], old[0]))
         del calls
-        timed = wide_timings(shape, gen, backward=False)
-        for kernel, (err_o, err_s, same, err_old) in checked.items():
-            name = LONG_FORWARDS[kernel]
-            res = out[name][label] = dict(shape=shape, max_abs_err=err_o, max_stat_err=err_s,
-                                          bit_equal_vs_mma_sync=same, max_abs_vs_mma_sync=err_old,
-                                          device_kernels=names[kernel], **timed[name])
-            log(f"[long] {kernel} {label}: max|o - plain| {err_o:.3e}, stats {err_s:.3e}; "
-                f"against the mma.sync route: bit-equal (o, stats) {same}, max|o diff| {err_old:.3e}; device "
-                f"{fmt_ms(res['device_ms'])} ms against the mma.sync route's "
-                f"{fmt_ms(res['mma_sync_device_ms'])} and SDPA's "
-                f"{fmt_ms(res['library_device_ms'])} (bound {res['bound_ms']:.4f}, "
-                f"{res['bound_by']})")
+        bwd_calls = long_bwd_calls(shape, gen)
+        names.update(long_bwd_device_kernels(label, shape, bwd_calls))
+        for kernel, (call, plain) in bwd_calls.items():
+            got, old = call(), on_libraries(call, MMA_SYNC_LIBS)()
+            errs = check_backward(f"[long] {kernel} {label}", got, plain())
+            checked[kernel] = (*errs, bits_equal(got, old),
+                               max(abs_err(a, b) for a, b in zip(got, old)))
+        del bwd_calls
+        timed = wide_timings(shape, gen)
+        for kernel, (err_a, err_b, same, err_old) in checked.items():
+            if kernel in LONG_FORWARDS:
+                name = LONG_FORWARDS[kernel]
+                res = out[name][label] = dict(shape=shape, max_abs_err=err_a, max_stat_err=err_b,
+                                              bit_equal_vs_mma_sync=same,
+                                              max_abs_vs_mma_sync=err_old,
+                                              device_kernels=names[kernel], **timed[name])
+                what, errors = "o", f"max|o - plain| {err_a:.3e}, stats {err_b:.3e}"
+                yardstick = f"SDPA's {fmt_ms(res['library_device_ms'])}"
+            else:
+                name = LONG_BACKWARDS[kernel]
+                res = out[name][label] = dict(shape=shape, max_abs_err=err_a, max_rel_err=err_b,
+                                              bit_equal_vs_mma_sync=same,
+                                              max_abs_vs_mma_sync=err_old,
+                                              device_kernels=names[kernel], **timed[name])
+                what = "dq, dk, dv"
+                errors = f"max|d - plain| {err_a:.3e}, relative {err_b:.3e} (tol {GRAD_TOL[torch.bfloat16]})"
+                yardstick = f"SDPA's backward (event) {res['library_ms']:.4f}"
+            log(f"[long] {kernel} {label}: {errors}; against the mma.sync route: bit-equal "
+                f"({what}) {same}, max|diff| {err_old:.3e}; device {fmt_ms(res['device_ms'])} ms "
+                f"against the mma.sync route's {fmt_ms(res['mma_sync_device_ms'])} "
+                f"({'faster' if res['ms'] < res['mma_sync_ms'] else 'NOT faster'} by event) and "
+                f"{yardstick} (bound {res['bound_ms']:.4f}, {res['bound_by']})")
         log(f"[long] {label} checked and timed in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -5103,6 +5225,68 @@ def phase_train_so400m(card):
     out = wide_step(SIGLIP_MODEL, model, TRAIN_BATCH, 1 + SIGLIP_TIMED, card, "[train-so400m]",
                     profile=True, impls=("fused", "flash"), siglip=True)
     del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# The first training path through a long tower: ViT-SO400M-14-SigLIP-384
+# (vision N 729 at D = 72, 16 heads, 27 layers, map pool; non-causal text N
+# 64 at D = 72), whose vision backward runs wgmma_long_bwd_*
+SIGLIP_LONG_MODEL = "ViT-SO400M-14-SigLIP-384"
+SIGLIP_LONG_BATCH = 32
+SIGLIP_LONG_TIMED = 5  # timed steps after one warm-up: at b32 the host sets the pace
+
+
+def phase_train_so400m_384(card):
+    """ViT-SO400M-14-SigLIP-384 at full width and depth (random weights drawn
+    on the card from seed 0), bf16, 'fusedp', remat 'full', the SigLIP
+    sigmoid loss with its learned bias: gradients against plain attention at
+    b32, also with the attention under 'fused' and 'flash' (K4/K5 and
+    K10/K10b, each a path), then one warm-up and SIGLIP_LONG_TIMED timed
+    steps at SIGLIP_LONG_BATCH: 108 K1 and 54 K3 a step at D = 72, the
+    vision tower's forwards and backwards on wgmma_long and its text's
+    backward on mma_sync by the exact launch counts by route
+    (`check_routes`); pairs/s, peak memory, one profiled step with the
+    attention backward's device time by route; then the step's forward and
+    backward (`loss_and_grads`, no optimizer) by CUDA events with the
+    package's backward and with the mma.sync route's (MMA_SYNC_LIBS'
+    backward sources beside the package's forwards), in turns."""
+    from types import SimpleNamespace
+
+    from mrclip_tpu_torch import create_loss
+    from mrclip_tpu_torch.ops import build
+    from mrclip_tpu_torch.ops.image_ops import normalize_images
+    from mrclip_tpu_torch.parallel import make_loss_apply
+    from mrclip_tpu_torch.parallel.train_step import loss_and_grads
+
+    t0 = time.perf_counter()
+    model = build_on_card(SIGLIP_LONG_MODEL, precision="bf16", attn_impl="fusedp",
+                          grad_checkpointing=True, remat_policy="full")
+    log(f"[train-so400m-384] {SIGLIP_LONG_MODEL} built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = wide_step(SIGLIP_LONG_MODEL, model, SIGLIP_LONG_BATCH, 1 + SIGLIP_LONG_TIMED, card,
+                    "[train-so400m-384]", profile=True, impls=("fused", "flash"), siglip=True)
+    loss = make_loss_apply(create_loss(SimpleNamespace(siglip=True, loss_dist_impl="bidir",
+                                                       model=SIGLIP_LONG_MODEL)))
+    batch = wide_batch(model, SIGLIP_LONG_BATCH, 0)
+    batch["images"] = normalize_images(batch["images"])
+    params = dict(model.named_parameters())
+    runs = {"wgmma_long": lambda: loss_and_grads(model, loss, params, batch)}
+    old_bwd = {**{src: build.load_library(src) for src in FWD_SOURCES},
+               **{src: MMA_SYNC_LIBS[src] for src in BWD_SOURCES}}
+    runs["mma_sync"] = on_libraries(runs["wgmma_long"], old_bwd)
+    reads = {key: [] for key in runs}
+    for _ in range(5):
+        for key, fn in runs.items():
+            reads[key].append(cuda_ms(fn, 1, warmup=1))
+    grads_ms = {key: statistics.median(v) for key, v in reads.items()}
+    out[3]["grads_ms_by_route"] = grads_ms
+    out[3]["grads_ms_readings"] = reads
+    log(f"[train-so400m-384] forward and backward of the b{SIGLIP_LONG_BATCH} step "
+        f"(loss_and_grads), medians of 5 in turns: vision backward on wgmma_long "
+        f"{grads_ms['wgmma_long']:.1f} ms, on the mma.sync route {grads_ms['mma_sync']:.1f} ms "
+        f"({spread(reads)}) | {card}")
+    del model, params, batch
     torch.cuda.empty_cache()
     return out
 
@@ -5397,7 +5581,7 @@ def main() -> int:
     for kname, res in [*phase_kernel_siglip().items(), *eva_widths.items()]:
         widths[kname].update(res)
     mark("19 kernels", t0)
-    long_fwd = phase_kernel_long()
+    long_res = phase_kernel_long()
     mark("3 kernel", t0)
     entries = {e["name"]: e for e in [phase_kernel_fwd(), phase_kernel_bwd(), *phase_kernel_rope(),
                                       *phase_kernel_supcon(), *phase_kernel_grouped(),
@@ -5471,11 +5655,17 @@ def main() -> int:
      so400m_grads) = phase_train_so400m(smi)
     for impl, (counts, by_width) in so400m_grads.items():  # K4/K5 and K10/K10b at D = 72
         paths[f"grads_so400m_{impl}"], wide_widths[f"grads_so400m_{impl}"] = counts, by_width
+    # the long tower trained: its vision backward on wgmma_long_bwd_*
+    (paths["train_so400m_384"], wide_widths["train_so400m_384"], per_step["train_so400m_384"],
+     so400m_384_train, so400m_384_grads) = phase_train_so400m_384(smi)
+    for impl, (counts, by_width) in so400m_384_grads.items():
+        paths[f"grads_so400m_384_{impl}"] = counts
+        wide_widths[f"grads_so400m_384_{impl}"] = by_width
     long_paths, long_widths, long_perf = phase_serve_long(smi)
     paths.update(long_paths)
     wide_widths.update(long_widths)
     fwd["siglip_models"] = {"serve_so400m": so400m_serve, "train_so400m": so400m_train,
-                            **long_perf}
+                            "train_so400m_384": so400m_384_train, **long_perf}
     # phase 18's models: EVA02-E-14, then the rest of the EVA family
     mark("18 models", t0)
     eva_paths, eva_widths, eva_per_step, eva_perf = phase_eva_e(smi)
@@ -5510,6 +5700,9 @@ def main() -> int:
                 "train_so400m": [*per_step["train_so400m"]],
                 **{f"grads_so400m_{impl}": [fwd_name, bwd_name]
                    for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()},
+                "train_so400m_384": [*per_step["train_so400m_384"]],
+                **{f"grads_so400m_384_{impl}": [fwd_name, bwd_name]
+                   for impl, (fwd_name, _, bwd_name) in WIDE_GRAD_PATHS.items()},
                 **{path: ["packed_attn_fwd"] for path in long_paths},
                 **{path: [*counts, *(PALLAS_STEP if path.startswith(("train_", "grads_")) else ())]
                    for path, counts in {**eva_widths, **fam_widths}.items()}}
@@ -5532,10 +5725,10 @@ def main() -> int:
                                        *(r["max_abs_err"] for r in widths[kname].values()))
             entry["max_abs_err_fp32"] = max(entry["max_abs_err_fp32"],
                                             *(r["max_abs_err_fp32"] for r in widths[kname].values()))
-        if kname in long_fwd:  # phase 19: past 272 keys on wgmma_long_fwd_kernel
-            entry["long"] = long_fwd[kname]
+        if kname in long_res:  # phase 19: past 272 rows on wgmma_long_fwd_kernel, _bwd_*
+            entry["long"] = long_res[kname]
             entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       *(r["max_abs_err"] for r in long_fwd[kname].values()))
+                                       *(r["max_abs_err"] for r in long_res[kname].values()))
     log(f"[profiler] {PROFILER['windows']} windows opened, {PROFILER['empty']} recorded no "
         f"device event; the first such: {PROFILER['first_empty']} (window, phase); by phase "
         f"{PROFILER['empty_by_phase']}")

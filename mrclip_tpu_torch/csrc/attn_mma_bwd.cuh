@@ -49,7 +49,7 @@
 // compute S and dP in both passes (14 D a pair) and move 13 tensors' bytes,
 // not 8 (about 1.0 GB, 0.30 ms at 3.35 TB/s at vision b256).
 //
-// Three families of kernels, chosen in launch_mma_bwd by bwd_route (the one
+// Four families of kernels, chosen in launch_mma_bwd by bwd_route (the one
 // source of the choice; the libraries' C entry attn_bwd_route answers it for
 // the wrappers' launch counts by route):
 //   wgmma_bwd_dq_kernel and wgmma_bwd_dkv_kernel<FLASH, ROPE, CAUSAL,
@@ -61,9 +61,14 @@
 //     kWideKeys = 272, one of them past 64 (ViT-SO400M's vision, the vision
 //     towers of ViT-H/g/bigG-14, EVA01-g-14 and EVA02-E-14), and at D = 64
 //     from 257 to 272 rows (ViT-L-14's vision);
+//   wgmma_long_bwd_dq_kernel and wgmma_long_bwd_dkv_kernel<D, FLASH>, on
+//     warpgroup products fed by TMA, below: K3, K5 and K10b without rope and
+//     not causal at D = 64-112 with n or nk past kWideKeys (the 336-512 px
+//     towers: ViT-L-14-336, SO400M-14-SigLIP-378/384, ViT-H-14-378, the
+//     CLIPA-336 towers, ViT-B/L-16-SigLIP-384/512);
 //   mma_bwd_dq_kernel and mma_bwd_dkv_kernel<D, FLASH, CHUNKED, ROPE>, on
-//     Ampere's mma.sync: D = 32, past 272 rows, K3r past 256, causal past
-//     the D = 64 wgmma route (no config: every wide-head tower and SO400M's
+//     Ampere's mma.sync: D = 32, K3r past 256 rows, causal past the D = 64
+//     wgmma route (no config: every wide-head and long tower and SO400M's
 //     text are not causal), and the wide head dims where n and nk are each
 //     one 64-row sub-tile (SO400M's text, N = 64: there the wide kernels
 //     read 6-26% slower than these, PERF.md, section 6).
@@ -187,6 +192,53 @@
 // slabs), the dk/dv pass's arithmetic too (dkv_probs, dkv_ds); each
 // gradient element is written once by one thread, so two runs give the
 // same bits.
+//
+// wgmma_long_bwd_* (D = 64-112, n or nk past kWideKeys, not causal, no
+// rope), designed for Hopper where mma_bwd_* took 1.19-1.72x SDPA's
+// backward (K3, K5, K10b at SO400M-384's vision b32, N 729, D 72: 1.53,
+// 1.64, 1.49 ms; PERF.md, section 6). Bound there: the five products,
+// 198.1 us at 989 TFLOP/s (operations); the two passes compute S and dP
+// twice, seven products, 277 us. Past 272 rows the staged pair no longer
+// fits an SM's shared memory beside a second block (N 729 at D 72: 2 x 729
+// x 160 bytes of K and V), so neither pass keeps it resident; both stream
+// it instead, each as wgmma_long_fwd_kernel streams V (attn_mma_fwd.cuh):
+//   - a block: a producer warpgroup (setmaxnreg 40; one thread issues every
+//     TMA box of the 4-D maps of long_tensor_map, cached_tensor_map) and
+//     kLbConsumers = 2 consumer warpgroups (setmaxnreg 232) of 64 rows
+//     (dq pass) or 64 keys (dk/dv pass) each, 128 of one (sample, head); a
+//     head's blocks side by side, so that those reading one staged pair run
+//     together and find it in L2. A block does not walk several row
+//     blocks: nothing stays resident across them here, so a walk would
+//     save only the prologue;
+//   - a ring of kLbStages = 3 stages of 64-row tiles in 32-byte-swizzled
+//     16-column slabs (wgmma.cuh), a full and an empty mbarrier a stage; the
+//     two consumers share each tile and each of their warps releases it
+//     once its last product that reads it has landed;
+//   - dq pass: the stage holds a K and a V tile (keys past nk zero-filled by
+//     TMA, and masked to -inf). Each consumer holds its rows' Q and dO as A
+//     fragments with their statistics (dq_rows: delta taken and written for
+//     K3 and K5) and runs the wide kernels' dq_step per tile: S = Q K^T and
+//     dP = dO V^T as two commit groups, P while dP is computed, dS rounded
+//     into A fragments, dQ += dS K with K read MN-major from the same tile.
+//     Q and dO, the loop's carried A operands, are held live to the end of
+//     each pass (hold_frag: TAIL 0's fault above cannot reach them);
+//   - dk/dv pass: each consumer's K and V tiles are loaded once by TMA onto
+//     a barrier of their own, the A operands of S^T and dP^T read from
+//     shared memory (no loop-carried register A); the stage holds a Q and a
+//     dO tile (rows past n zero-filled) and the rows' statistics in fp32,
+//     which kLbStatWriters = 64 producer threads store (lse or m in log2
+//     units, delta or di, 1 / l for K10b; 0, 0 and 1 past n, as
+//     stage_queries: those queries are masked to -inf, so P = 0 whatever
+//     TMA's zero rows give) before they arrive on the stage's full barrier,
+//     one of them with the TMA's expect_tx; the wide kernels' wide_dkv_step
+//     per tile; dV stored first;
+//   - shared memory: dq 62,512 bytes at D 72 and 80 (3 stages of 20 KB),
+//     87,088 at 104 and 112; dk/dv 105,024 at 72 and 80, 145,984 at 104 and
+//     112 (3 stages, each consumer's K and V, the statistics; K10b's 768
+//     bytes more); one block an SM (384 threads, 168 registers at launch);
+//   - no atomics: each gradient element is written once by one thread, so
+//     two runs give the same bits. tools/attn_long_bwd_variants.py times
+//     the ring's depth, one consumer a block and the long kernels at N 257.
 //
 // mma.sync kernels (D = 32, past 256 rows):
 //   - dq pass, grid (batch or groups, row blocks, heads), four warps of 16
@@ -1531,17 +1583,324 @@ int launch_wide_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, 
   return static_cast<int>(with_wide_tail(groups_q, dkv_pass));
 }
 
+// ---- wgmma_long_bwd_dq_kernel and wgmma_long_bwd_dkv_kernel: D = 64-112,
+// past kWideKeys rows on either side, not causal, without the rope (the
+// header's note says how).
+
+constexpr int kLbStages = 3;     // tiles in flight in a pass's ring
+constexpr int kLbConsumers = 2;  // consumer warpgroups a block, 64 rows (keys) each
+constexpr int kLbThreads = (kLbConsumers + 1) * kMmaThreads;  // and a producer warpgroup
+constexpr int kLbRows = kLbConsumers * kMmaRows;              // query rows (keys) a block
+constexpr int kLbMinBlocks = 1;
+// Registers a consumer thread after setmaxnreg: the block's 65,536 /
+// kLbMinBlocks less the producer's 40 a thread, over the consumers
+constexpr int kLbConsumerRegs = 232;
+constexpr int kLbStatWriters = kLongKeys;  // producer threads that stage a tile's row statistics
+
+// Shared-memory bytes of the long dq pass: alignment slack, the ring (a
+// stage: a K tile and a V tile, kLongKeys rows of pad16(d) / 16 slabs of 32
+// bytes each) and a full and an empty barrier a stage.
+__host__ __device__ constexpr int long_bwd_dq_smem(int d) {
+  return 1024 + kLbStages * 2 * (pad16(d) / 16) * kLongKeys * 32 + 16 * kLbStages;
+}
+
+// Shared-memory bytes of the long dk/dv pass: alignment slack, the ring (a
+// stage: a Q tile and a dO tile), each consumer's K and V tiles, the
+// stages' row statistics (lse and delta; FLASH: m, di and 1 / l; kLongKeys
+// fp32 each), a full and an empty barrier a stage and one a consumer.
+__host__ __device__ constexpr int long_bwd_dkv_smem(int d, bool flash) {
+  return 1024 + (kLbStages + kLbConsumers) * 2 * (pad16(d) / 16) * kLongKeys * 32 +
+         kLbStages * (flash ? 3 : 2) * kLongKeys * 4 + 8 * (2 * kLbStages + kLbConsumers);
+}
+
+// Long dq pass: dQ (and, for K3 and K5, delta) for kLbRows query rows of
+// one (sample, head), block blockIdx.x = (sample * heads + head) * row
+// blocks + row block; K3/K5: stat_a = lse, delta taken and written; K10b:
+// stat_a = l, stat_b = m, delta = di read. Each consumer warpgroup holds its
+// 64 rows' Q and dO as A fragments (dq_rows) and walks every 64-key tile of
+// K and V, which one producer thread loads by TMA (`tm_k`, `tm_v`: keys past
+// nk zero-filled) into a ring of kLbStages stages that the consumers share:
+// dq_step per tile (S and dP, P and dS, dQ += dS K with K read MN-major from
+// the same tile), the stage released once its dQ product has landed.
+template <int D, bool FLASH>
+__global__ void __launch_bounds__(kLbThreads, kLbMinBlocks)
+    wgmma_long_bwd_dq_kernel(__grid_constant__ const CUtensorMap tm_k,
+                             __grid_constant__ const CUtensorMap tm_v,
+                             const bf16* __restrict__ q, const bf16* __restrict__ o,
+                             const bf16* __restrict__ dout, const float* __restrict__ stat_a,
+                             const float* __restrict__ stat_b, float* __restrict__ delta,
+                             bf16* __restrict__ dq, int n, int nk, int heads, Strides st,
+                             float scale) {
+  constexpr int P = pad16(D);  // S's and dP's depth; dQ's n is D itself
+  constexpr int kSlabs = P / 16;
+  constexpr uint32_t kSlab = kLongKeys * 32;   // one 16-column slab of a tile
+  constexpr uint32_t kTile = kSlabs * kSlab;   // K's (or V's) tile
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t ring = (raw + 1023) & ~1023u;  // stage s: K at ring + 2 s kTile, V after it
+  const uint32_t full = ring + kLbStages * 2 * kTile;
+  const uint32_t empty = full + 8 * kLbStages;
+
+  const int row_blocks = (n + kLbRows - 1) / kLbRows;  // a head's row blocks side by side
+  const int bh = blockIdx.x / row_blocks, rb = blockIdx.x % row_blocks;
+  const int head = bh % heads;
+  const long long smp = bh / heads;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ktiles = (nk + kLongKeys - 1) / kLongKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLbStages; ++s) {
+      mbar_init(full + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty + 8 * s, kLbConsumers * 4);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wid >= kLbConsumers * 4) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLongProducerRegs));
+    if (threadIdx.x == kLbConsumers * kMmaThreads) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < ktiles; ++j) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t bar = full + 8 * stage, dst = ring + stage * 2 * kTile;
+        mbar_expect_tx(bar, 2 * kTile);
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + c * kSlab, &tm_k, bar, 16 * c, head, j * kLongKeys,
+                      static_cast<int>(smp));
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + kTile + c * kSlab, &tm_v, bar, 16 * c, head, j * kLongKeys,
+                      static_cast<int>(smp));
+        ring_next<kLbStages>(stage, phase);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups; rows past n read 0 and store nothing
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kLbConsumerRegs));
+  const int wg = wid >> 2, warp = wid & 3;
+  const long long hd = (long long)head * D;
+  const long long sb = (smp * heads + head) * n;
+  const float sl2 = scale * kLog2e;
+  const int wrow0 = rb * kLbRows + wg * kMmaRows + 16 * warp;
+  uint32_t qf[P / 16][4], dof[P / 16][4];
+  float st2[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f}, dl[2] = {0.f, 0.f};
+  dq_rows<D, FLASH, false>(qf, dof, st2, inv, dl, q, nullptr, o, dout, stat_a, stat_b, delta, st,
+                           smp, hd, sb, wrow0, n, lane);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < ktiles; ++j) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t sk = ring + stage * 2 * kTile, sv = sk + kTile;
+    // K and V K-major for S and dP (a k16 step one slab), K MN-major for dQ
+    // += dS K (LBO: slab to slab)
+    dq_step<D, 4, FLASH, false>(acc, qf, dof, st2, inv, dl, wgmma_desc(sk, 16, 256, kSwizzle32),
+                                wgmma_desc(sv, 16, 256, kSwizzle32),
+                                wgmma_desc(sk, kSlab, 256, kSwizzle32), kSlab / 16, 32,
+                                j * kLongKeys, 0, 0, nk, sl2, scale, lane & 3);
+    // Q and dO, the loop-carried A operands, live (their registers unshared)
+    // to the end of each pass (the header's note: TAIL 0)
+    hold_frag<4 * (P / 16)>(qf[0]);
+    hold_frag<4 * (P / 16)>(dof[0]);
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    ring_next<kLbStages>(stage, phase);
+  }
+  store_frag_c<D>(dq + smp * st.dq_bs + hd, st.dq_rs, as_frag_c(acc), wrow0, n, lane);
+}
+
+// Long dk/dv pass: dK and dV for kLbRows keys of one (sample, head), block
+// blockIdx.x = (sample * heads + head) * key blocks + key block; statistics
+// as the dq pass's (delta from it, or di). Each consumer warpgroup's 64 keys
+// of K and V are loaded once by TMA (`tm_k`, `tm_v`; keys past nk zero) into
+// its own slabs, the shared-memory A operands of S^T and dP^T; the 64-row
+// tiles of Q and dO (`tm_q`, `tm_do`; rows past n zero) come through a ring
+// of kLbStages stages that both consumers read, each stage with its rows'
+// statistics in fp32, which kLbStatWriters producer threads store (0 past
+// n, 1 / l there 1: those queries are masked) before they arrive on the
+// stage's full barrier beside the TMA's expect_tx: wide_dkv_step per tile.
+template <int D, bool FLASH>
+__global__ void __launch_bounds__(kLbThreads, kLbMinBlocks)
+    wgmma_long_bwd_dkv_kernel(__grid_constant__ const CUtensorMap tm_q,
+                              __grid_constant__ const CUtensorMap tm_do,
+                              __grid_constant__ const CUtensorMap tm_k,
+                              __grid_constant__ const CUtensorMap tm_v,
+                              const float* __restrict__ stat_a, const float* __restrict__ stat_b,
+                              const float* __restrict__ delta, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int n, int nk, int heads, Strides st,
+                              float scale) {
+  constexpr int P = pad16(D);
+  constexpr int kSlabs = P / 16;
+  constexpr uint32_t kSlab = kLongKeys * 32;
+  constexpr uint32_t kTile = kSlabs * kSlab;  // a Q, dO, K or V tile
+  constexpr int kStats = FLASH ? 3 : 2;       // fp32 statistics a row
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t ring = (raw + 1023) & ~1023u;               // stage s: Q, then dO
+  const uint32_t kv = ring + kLbStages * 2 * kTile;           // consumer w: K, then V
+  const uint32_t stats = kv + kLbConsumers * 2 * kTile;       // stage s: kStats x kLongKeys
+  const uint32_t full = stats + kLbStages * kStats * kLongKeys * 4;
+  const uint32_t empty = full + 8 * kLbStages;
+  const uint32_t kvbar = empty + 8 * kLbStages;               // consumer w's at kvbar + 8 w
+  float* s_stats = reinterpret_cast<float*>(wg_smem + (stats - raw));
+
+  const int key_blocks = (nk + kLbRows - 1) / kLbRows;  // a head's key blocks side by side
+  const int bh = blockIdx.x / key_blocks, kb = blockIdx.x % key_blocks;
+  const int head = bh % heads;
+  const long long smp = bh / heads;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qtiles = (n + kLongKeys - 1) / kLongKeys;
+  const long long sb = (smp * heads + head) * n;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLbStages; ++s) {
+      mbar_init(full + 8 * s, kLbStatWriters);     // the statistics' writers, one with expect_tx
+      mbar_init(empty + 8 * s, kLbConsumers * 4);  // every consumer warp
+    }
+    for (int w = 0; w < kLbConsumers; ++w) mbar_init(kvbar + 8 * w, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wid >= kLbConsumers * 4) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLongProducerRegs));
+    const int p = threadIdx.x - kLbConsumers * kMmaThreads;
+    if (p >= kLbStatWriters) return;
+    if (p == 0) {  // each consumer's K and V, once
+      for (int w = 0; w < kLbConsumers; ++w) {
+        const uint32_t bar = kvbar + 8 * w, dst = kv + w * 2 * kTile;
+        const int key0 = kb * kLbRows + w * kMmaRows;
+        mbar_expect_tx(bar, 2 * kTile);
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + c * kSlab, &tm_k, bar, 16 * c, head, key0, static_cast<int>(smp));
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + kTile + c * kSlab, &tm_v, bar, 16 * c, head, key0,
+                      static_cast<int>(smp));
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < qtiles; ++j) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      const uint32_t bar = full + 8 * stage, dst = ring + stage * 2 * kTile;
+      float* s_st = s_stats + stage * kStats * kLongKeys;
+      const int i = j * kLongKeys + p;
+      const bool in = i < n;
+      if constexpr (FLASH) {  // 1 / l as stage_queries takes it
+        s_st[p] = in ? stat_b[sb + i] * kLog2e : 0.f;
+        s_st[2 * kLongKeys + p] = in ? __fdiv_rn(1.f, stat_a[sb + i]) : 1.f;
+      } else {
+        s_st[p] = in ? stat_a[sb + i] * kLog2e : 0.f;
+      }
+      s_st[kLongKeys + p] = in ? delta[sb + i] : 0.f;
+      if (p == 0) {
+        mbar_expect_tx(bar, 2 * kTile);
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + c * kSlab, &tm_q, bar, 16 * c, head, j * kLongKeys,
+                      static_cast<int>(smp));
+        for (int c = 0; c < kSlabs; ++c)
+          tma_load_4d(dst + kTile + c * kSlab, &tm_do, bar, 16 * c, head, j * kLongKeys,
+                      static_cast<int>(smp));
+      } else {
+        mbar_arrive(bar);  // release: the statistics' stores before it
+      }
+      ring_next<kLbStages>(stage, phase);
+    }
+    return;
+  }
+
+  // the consumer warpgroups; keys past nk compute what they read and store
+  // nothing
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kLbConsumerRegs));
+  const int wg = wid >> 2, warp = wid & 3;
+  const long long hd = (long long)head * D;
+  const float sl2 = scale * kLog2e;
+  const uint32_t sk = kv + wg * 2 * kTile, sv = sk + kTile;
+  const uint64_t ak = wgmma_desc(sk, 16, 256, kSwizzle32), av = wgmma_desc(sv, 16, 256, kSwizzle32);
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kvbar + 8 * wg, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < qtiles; ++j) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t sq = ring + stage * 2 * kTile, sdo = sq + kTile;
+    // the stage's statistics, indexed by query (wide_dkv_step reads query c0
+    // + x at x of the stage)
+    const int c0 = j * kLongKeys;
+    const float* s_st = s_stats + stage * kStats * kLongKeys - c0;
+    // Q and dO K-major for S^T and dP^T (a k16 step one slab), MN-major for
+    // dK and dV (LBO: slab to slab)
+    wide_dkv_step<D, 4, FLASH>(dka, dva, ak, av, s_st, s_st + 2 * kLongKeys, s_st + kLongKeys,
+                               wgmma_desc(sq, 16, 256, kSwizzle32),
+                               wgmma_desc(sdo, 16, 256, kSwizzle32),
+                               wgmma_desc(sq, kSlab, 256, kSwizzle32),
+                               wgmma_desc(sdo, kSlab, 256, kSwizzle32), kSlab / 16, c0, n, sl2,
+                               scale, lane & 3);
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    ring_next<kLbStages>(stage, phase);
+  }
+  const int wk0 = kb * kLbRows + wg * kMmaRows + 16 * warp;
+  store_frag_c<D>(dv + smp * st.dv_bs + hd, st.dv_rs, as_frag_c(dva), wk0, nk, lane);
+  store_frag_c<D>(dk + smp * st.dk_bs + hd, st.dk_rs, as_frag_c(dka), wk0, nk, lane);
+}
+
+// Launches the long backward (D = 64-112, not causal, no rope), dq pass
+// first: a block of kLbRows rows (keys) of one (sample, head), a head's
+// blocks side by side (those reading one head's staged operand run together
+// and find it in L2). The TMA maps (cached_tensor_map) need the views'
+// row and batch strides and base pointers to be multiples of 16 bytes (the
+// wrappers' check_rows_aligned_16) and contiguous heads D apart; a map that
+// libcuda refuses returns cudaErrorInvalidValue. Statistics as
+// launch_mma_bwd's. Returns the first cudaError_t.
+template <int D, bool FLASH>
+int launch_long_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+                    const float* stat_a, const float* stat_b, float* delta, bf16* dq, bf16* dk,
+                    bf16* dv, int batch, int n, int nk, int heads, const Strides& st,
+                    float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if (!cached_tensor_map(&tm_k, k, D, heads, nk, batch, st.k_rs, st.k_bs) ||
+      !cached_tensor_map(&tm_v, v, D, heads, nk, batch, st.v_rs, st.v_bs) ||
+      !cached_tensor_map(&tm_q, q, D, heads, n, batch, st.q_rs, st.q_bs) ||
+      !cached_tensor_map(&tm_do, dout, D, heads, n, batch, st.do_rs, st.do_bs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long heads_total = (long long)heads * batch;
+  const long long dq_blocks = (n + kLbRows - 1) / kLbRows * heads_total;
+  const long long dkv_blocks = (nk + kLbRows - 1) / kLbRows * heads_total;
+  if (dq_blocks > INT_MAX || dkv_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> done[2];
+  cudaError_t err = allow_smem(wgmma_long_bwd_dq_kernel<D, FLASH>, long_bwd_dq_smem(D), done[0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgmma_long_bwd_dq_kernel<D, FLASH>
+      <<<static_cast<unsigned>(dq_blocks), kLbThreads, long_bwd_dq_smem(D), stream>>>(
+          tm_k, tm_v, q, o, dout, stat_a, stat_b, delta, dq, n, nk, heads, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(wgmma_long_bwd_dkv_kernel<D, FLASH>, long_bwd_dkv_smem(D, FLASH), done[1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgmma_long_bwd_dkv_kernel<D, FLASH>
+      <<<static_cast<unsigned>(dkv_blocks), kLbThreads, long_bwd_dkv_smem(D, FLASH), stream>>>(
+          tm_q, tm_do, tm_k, tm_v, stat_a, stat_b, delta, dk, dv, n, nk, heads, st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The backward's kernels, by route (FwdRoute's values): fp32 on the FMA
 // kernels; bf16 on wgmma_bwd_* (D = 64, n and nk at most kWgKeys; K3r and
-// causal too), wgmma_wide_bwd_* (no rope, not causal, D = 64-112, n and nk
-// at most kWideKeys, not both within one sub-tile) or mma_bwd_* (D = 32,
-// rope or causal past the wgmma route, past kWideKeys rows, one sub-tile a
-// side). The one source of the choice: launch_mma_bwd and the C entry
-// attn_bwd_route read it.
+// causal too), wgmma_long_bwd_* (no rope, not causal, D = 64-112, n or nk
+// past kWideKeys), wgmma_wide_bwd_* (no rope, not causal, D = 64-112, n and
+// nk at most kWideKeys, not both within one sub-tile) or mma_bwd_* (D = 32,
+// rope or causal past the wgmma route, one sub-tile a side). The one source
+// of the choice: launch_mma_bwd and the C entry attn_bwd_route read it.
 inline int bwd_route(bool bf16_in, int d, bool rope, int n, int nk, bool causal) {
   if (!bf16_in) return kRouteFma;
   if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteWgmma;
-  if (rope || causal || d == 32 || n > kWideKeys || nk > kWideKeys) return kRouteMmaSync;
+  if (rope || causal || d == 32) return kRouteMmaSync;
+  if (n > kWideKeys || nk > kWideKeys) return kRouteLong;
   if (n <= kMmaRows && nk <= kMmaRows) return kRouteMmaSync;
   return kRouteWide;
 }
@@ -1573,6 +1932,11 @@ int launch_mma_bwd(const void* q, const void* k, const void* v, const void* tab,
   if constexpr (!ROPE && D != 32) {
     if (route == kRouteWide)
       return launch_wide_bwd<D, FLASH>(qp, kp, vp, static_cast<const bf16*>(o), dop, stat_a,
+                                       stat_b, delta, static_cast<bf16*>(dq),
+                                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch, n,
+                                       nk, heads, st, scale, stream);
+    if (route == kRouteLong)
+      return launch_long_bwd<D, FLASH>(qp, kp, vp, static_cast<const bf16*>(o), dop, stat_a,
                                        stat_b, delta, static_cast<bf16*>(dq),
                                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch, n,
                                        nk, heads, st, scale, stream);

@@ -1737,9 +1737,11 @@ __device__ __forceinline__ void long_flash_update(float* acc, const float* cur, 
   }
 }
 
-// The ring's stage after `stage` (and its phase parity after `phase`).
+// The ring's stage after `stage` (and its phase parity after `phase`), in a
+// ring of STAGES stages.
+template <int STAGES = kLongStages>
 __device__ __forceinline__ void ring_next(int& stage, uint32_t& phase) {
-  if (++stage == kLongStages) {
+  if (++stage == STAGES) {
     stage = 0;
     phase ^= 1;
   }

@@ -38,8 +38,7 @@ def test_route_names_follow_the_c_enum():
     text = BWD_HEADER.read_text()
     body = text[text.index("inline int bwd_route("):]
     body = body[:body.index("\n}\n")]
-    # every route but the forward's long one (wgmma_long_fwd_kernel)
-    assert set(re.findall(r"return (kRoute\w+);", body)) == set(values) - {"kRouteLong"}
+    assert set(re.findall(r"return (kRoute\w+);", body)) == set(values)
 
 
 def test_wide_route_rows_agree():
@@ -57,7 +56,7 @@ def _header_route(body, consts, **args):
     """The route name that the C body of `bwd_route` returns for `args`,
     its conditions read as Python over the headers' constants."""
     names = {"kRouteFma": "fma", "kRouteMmaSync": "mma_sync", "kRouteWgmma": "wgmma",
-             "kRouteWide": "wgmma_wide"}
+             "kRouteWide": "wgmma_wide", "kRouteLong": "wgmma_long"}
     for cond, route in re.findall(r"if \((.*)\) return (kRoute\w+);", body):
         expr = re.sub(r"!(?!=)", " not ", cond.replace("&&", " and ").replace("||", " or "))
         if eval(expr, dict(consts), dict(args)):
@@ -65,27 +64,39 @@ def _header_route(body, consts, **args):
     return names[re.search(r"\n  return (kRoute\w+);", body).group(1)]
 
 
-def test_card_checks_mirror_the_header_route():
-    """The bf16 backward route that the card's checks expect
-    (`chip_smoke.bwd_route_of`, and `_bwd_route_of` of
-    tests/test_torch_cuda.py) is the one the header's `bwd_route` returns,
-    at every head dim and on both sides of each row limit: 64 (one
-    sub-tile), 256 and 272, causal or not, with the rope or not."""
-    import importlib.util
+def _bwd_route_body():
+    text = BWD_HEADER.read_text()
+    body = text[text.index("inline int bwd_route("):]
+    return body[:body.index("\n}\n")]
 
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
+
+def _route_consts():
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k(?:WgDim|WgKeys|WideKeys|MmaRows)) = (\d+);", FWD_HEADER.read_text())}
+    assert set(consts) == {"kWgDim", "kWgKeys", "kWideKeys", "kMmaRows"}
+    return consts
+
+
+def _card_tests():
+    import importlib.util
 
     spec = importlib.util.spec_from_file_location("card_tests", ROOT / "tests" / "test_torch_cuda.py")
     card_tests = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(card_tests)
-    consts = {name: int(v) for name, v in re.findall(
-        r"constexpr int (k(?:WgDim|WgKeys|WideKeys|MmaRows)) = (\d+);", FWD_HEADER.read_text())}
-    assert set(consts) == {"kWgDim", "kWgKeys", "kWideKeys", "kMmaRows"}
-    text = BWD_HEADER.read_text()
-    body = text[text.index("inline int bwd_route("):]
-    body = body[:body.index("\n}\n")]
-    rows = (1, 17, 63, 64, 65, 200, 256, 257, 272, 273, 577)
+    return card_tests
+
+
+def test_card_checks_mirror_the_header_route():
+    """The bf16 backward route that the card tests expect (`_bwd_route_of`
+    of tests/test_torch_cuda.py, the one Python copy of the rule;
+    chip_smoke.py asks the built libraries) is the one the header's
+    `bwd_route` returns, at every head dim and on both sides of each row
+    limit: 64 (one sub-tile), 256 and 272, causal or not, with the rope or
+    not."""
+    card_tests = _card_tests()
+    consts = _route_consts()
+    body = _bwd_route_body()
+    rows = (1, 17, 63, 64, 65, 200, 256, 257, 272, 273, 577, 729)
     seen = set()
     for d in fa.HEAD_DIMS:
         for n in rows:
@@ -94,13 +105,43 @@ def test_card_checks_mirror_the_header_route():
                     for rope in (False, True):
                         want = _header_route(body, consts, bf16_in=True, d=d, rope=rope, n=n,
                                              nk=nk, causal=causal)
-                        assert chip_smoke.bwd_route_of(d, n, nk, causal, rope) == want
                         assert card_tests._bwd_route_of(d, n, nk, causal, rope) == want
                         seen.add(want)
-    assert seen == {"mma_sync", "wgmma", "wgmma_wide"}
+    assert seen == {"mma_sync", "wgmma", "wgmma_wide", "wgmma_long"}
     assert _header_route(body, consts, bf16_in=False, d=80, rope=False, n=257, nk=257,
                          causal=False) == "fma"
     assert _header_route(body, consts, bf16_in=True, d=72, rope=False, n=64, nk=64,
+                         causal=False) == "mma_sync"
+
+
+def test_long_configs_take_the_long_backward_route():
+    """At each long config's vision shape (N and D from its config:
+    tests/test_torch_fwd_route.py's LONG_CONFIGS) bf16 K3, K5 and K10b take
+    wgmma_long by the header's `bwd_route`, and the card tests' mirror says
+    so too; causal, at D = 32 or with the rope (K3r: EVA02-L-14-336, N 577)
+    the same lengths stay on mma_sync, and fp32 on the FMA kernels."""
+    import importlib.util
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    spec = importlib.util.spec_from_file_location("fwd_route_tests",
+                                                  ROOT / "tests" / "test_torch_fwd_route.py")
+    fwd_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fwd_tests)
+    body, consts, card = _bwd_route_body(), _route_consts(), _card_tests()
+    assert len(fwd_tests.LONG_CONFIGS) == 10
+    for name, (n, d) in fwd_tests.LONG_CONFIGS.items():
+        assert chip_smoke.vision_tokens(name) == n and chip_smoke.wide_layers(name)[1] == d, name
+        args = dict(bf16_in=True, d=d, rope=False, n=n, nk=n, causal=False)
+        assert _header_route(body, consts, **args) == "wgmma_long", name
+        assert card._bwd_route_of(d, n, n, False) == "wgmma_long", name
+        for stay in (dict(causal=True), dict(d=32), dict(rope=True, d=64)):
+            assert _header_route(body, consts, **{**args, **stay}) == "mma_sync", (name, stay)
+        assert _header_route(body, consts, **{**args, "bf16_in": False}) == "fma"
+    n = chip_smoke.vision_tokens("EVA02-L-14-336")
+    assert n == 577 and chip_smoke.rope_tower("EVA02-L-14-336")
+    assert _header_route(body, consts, bf16_in=True, d=64, rope=True, n=n, nk=n,
                          causal=False) == "mma_sync"
 
 
@@ -161,6 +202,7 @@ def _variant_edits():
     sys.path.insert(0, str(ROOT / "tools"))
     import attn_bwd_sanitize
     import attn_bwd_variants
+    import attn_long_bwd_variants
     import attn_wide_bwd_variants
     import chip_smoke
 
@@ -173,12 +215,15 @@ def _variant_edits():
         yield from (("attn_bwd_variants", name, BWD_HEADER, e) for e in edits)
     for name, edits in attn_bwd_sanitize.BUILDS.items():
         yield from (("attn_bwd_sanitize", name, BWD_HEADER, e) for e in edits)
+    for name, edits in attn_long_bwd_variants.VARIANTS.items():
+        yield from (("attn_long_bwd_variants", name, BWD_HEADER, e) for e in edits)
 
 
 def test_variant_edits_find_their_text():
     """Every text edit of the backward's comparison builds (chip_smoke's
-    `mma.sync` route, tools/attn_wide_bwd_variants.py's designs,
-    tools/attn_bwd_variants.py's and tools/attn_bwd_sanitize.py's) finds its
+    `mma.sync` route, tools/attn_wide_bwd_variants.py's and
+    tools/attn_long_bwd_variants.py's designs, tools/attn_bwd_variants.py's
+    and tools/attn_bwd_sanitize.py's) finds its
     text in the committed header as often as it says (once by default), and
     the wide tool's `mma.sync` route is chip_smoke's."""
     edits = list(_variant_edits())
@@ -193,3 +238,27 @@ def test_variant_edits_find_their_text():
         text = texts.setdefault(header, header.read_text())
         assert text.count(old) == (count[0] if count else 1), (tool, name, old)
         assert old != new
+
+
+def _sass(*ops):
+    return "\n".join(f"        /*{16 * i:04x}*/                   {op} ;" for i, op in enumerate(ops))
+
+
+@pytest.mark.parametrize("clobber", [False, True])
+def test_sanitize_reads_a_wgmma_loop_around_an_mbarrier_wait(clobber):
+    """tools/attn_bwd_sanitize.py's SASS reading finds the long kernels'
+    tile loop, which holds the spin loop of its mbarrier wait (a nested
+    backward branch that issues no wgmma), with the A operands it carries
+    (four registers from the one an HGMMA names), and reports an
+    instruction of the body that writes one of them after the wgmma."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import attn_bwd_sanitize
+
+    body = ["MOV R1, c[0x0][0x28]", "LDG.E R152, desc[UR4][R2.64]",
+            "SYNCS.PHASECHECK.TRANS64.TRYWAIT P0, [UR8], R5", "@!P0 BRA 0x20",
+            "HGMMA.64x64x16.F32.BF16 R24, R152, gdesc[UR4], R24", "FADD R30, R24, R25",
+            *(["MOV R154, R30"] if clobber else []), "@P1 BRA 0x20", "EXIT"]
+    loops = attn_bwd_sanitize.wgmma_loops(_sass(*body))
+    assert len(loops) == 1
+    assert loops[0]["carried_a_registers"] == [152, 153, 154, 155]
+    assert bool(loops[0]["carried_a_overwritten_by"]) == clobber

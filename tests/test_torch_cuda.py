@@ -89,7 +89,7 @@ WIDE_BWD_CASES = [(d, n, nk) for d in (64, 72, 80, 88, 104, 112) for n, other in
 WIDE_BWD_CASES += [(d, n, nk) for d in (72, 80, 88, 104, 112)
                    for n, nk in ((40, 40), (100, 230), (230, 100), (40, 80), (80, 40))]
 BWD_ROUTE_NAMES = {"wgmma": "wgmma_bwd_", "wgmma_wide": "wgmma_wide_bwd_",
-                   "mma_sync": "mma_bwd_"}
+                   "wgmma_long": "wgmma_long_bwd_", "mma_sync": "mma_bwd_"}
 
 
 def _fwd_route_of(d, nk, nblk=1, causal=False, rope=False):
@@ -109,11 +109,16 @@ def _fwd_route_of(d, nk, nblk=1, causal=False, rope=False):
 def _bwd_route_of(d, n, nk, causal, rope=False):
     """The backward route that attn_mma_bwd.cuh's bwd_route names, by its
     rule: wgmma at D = 64 up to 256 rows; past it mma.sync with the rope,
-    causal, at D = 32, past 272 rows or with n and nk each within one
-    64-row sub-tile; else the wide kernels."""
+    causal or at D = 32; the long kernels past 272 rows on either side;
+    mma.sync with n and nk each within one 64-row sub-tile; else the wide
+    kernels."""
     if d == 64 and max(n, nk) <= 256:
         return "wgmma"
-    if rope or causal or d == 32 or max(n, nk) > 272 or max(n, nk) <= 64:
+    if rope or causal or d == 32:
+        return "mma_sync"
+    if max(n, nk) > 272:
+        return "wgmma_long"
+    if max(n, nk) <= 64:
         return "mma_sync"
     return "wgmma_wide"
 
@@ -735,8 +740,8 @@ def test_bf16_backward_route_by_shape(cuda_device, impl, n, nk, wgmma):
     """bf16 K3, K3r, K5 and K10b at D = 64 run the wgmma backward
     (wgmma_bwd_dq_kernel, wgmma_bwd_dkv_kernel) where n and nk are at most
     256; past that the wide wgmma kernels up to 272 rows (N = 257; K3r, the
-    rope, on mma.sync) and attn_mma_bwd.cuh's mma.sync kernels past 272 (Nk
-    = 300), by the profiler's kernel names."""
+    rope, on mma.sync) and the long wgmma kernels past 272 (Nk = 300), by
+    the profiler's kernel names."""
     if impl == "fusedp_rope" and n != nk:
         pytest.skip("K3r is self-attention")
     q, k, v = _inputs(1, n, nk, 2, 64, cuda_device, torch.bfloat16)
@@ -854,9 +859,9 @@ def test_forward_route_by_shape(cuda_device, d, n, causal, route):
                                            (64, 100, 272, False), (64, 200, 200, True)])
 def test_wide_backward_route_by_shape(cuda_device, d, n, nk, causal):
     """Each backward's library names the route of the shape (`bwd_route`),
-    and the profiler sees that route's two kernels: past 272 rows, causal
-    past the D = 64 wgmma route and at D = 32 the mma.sync kernels; fp32
-    takes the FMA kernels."""
+    and the profiler sees that route's two kernels: past 272 rows the long
+    wgmma kernels, causal past the D = 64 wgmma route and at D = 32 the
+    mma.sync kernels; fp32 takes the FMA kernels."""
     route = _bwd_route_of(d, n, nk, causal)
     q, k, v = _inputs(1, n, nk, 2, d, cuda_device, torch.bfloat16)
     for kernel in ("K3", "K5", "K10b"):
@@ -1647,3 +1652,53 @@ def test_wide_wgmma_backward_matches_plain_version(cuda_device, kernel, d, n, nk
         assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
     again = call()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The long wgmma backward (attn_mma_bwd.cuh's wgmma_long_bwd_*): K3, K5 and
+# K10b in bf16, not causal, past 272 rows on either side, at every width it
+# takes, at the edges of its 64-row ring tiles and 128-row blocks (273, 320)
+# and the long towers' lengths (577, 729, 730, 1024), each N beside another
+# Nk (the lengths reversed) and short sides against long ones. After the
+# profiler's tests: these read no profiler window.
+LONG_BWD_N = (273, 320, 577, 729, 730, 1024)
+LONG_BWD_PAIRS = [(n, nk) for n, other in zip(LONG_BWD_N, reversed(LONG_BWD_N))
+                  for nk in (n, other)] + [(100, 1024), (1024, 100), (1, 577)]
+
+
+def _long_bwd_check(kernel, b, n, nk, h, d, device):
+    q, k, v = _inputs(b, n, nk, h, d, device, torch.bfloat16)
+    do = torch.from_numpy(np.random.RandomState(2).randn(b, n, h, d).astype(np.float32)).to(
+        device, torch.bfloat16)
+    call, plain, library, (counter, module) = _wide_bwd_call(kernel, q, k, v, do, False)
+    assert _bwd_route_of(d, n, nk, False) == "wgmma_long"
+    assert fa.bwd_route(library, True, d, False, n, nk, False) == "wgmma_long"
+    module.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert module.route_launches == {(counter, d, "wgmma_long"): 1}
+    want = plain()
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all())
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))
+
+
+@pytest.mark.parametrize("n,nk", LONG_BWD_PAIRS)
+@pytest.mark.parametrize("d", WIDE_FWD_DIMS)
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K10b"])
+def test_long_wgmma_bwd_matches_plain_version(cuda_device, kernel, d, n, nk):
+    """bf16 K3, K5 and K10b past 272 rows on wgmma_long (`bwd_route`):
+    max |dq, dk, dv - plain| within 2e-2 of the call's largest max |plain|
+    (phase 3's bar), finite, two runs bit-equal, one launch counted on that
+    route."""
+    _long_bwd_check(kernel, 2, n, nk, 2, d, cuda_device)
+
+
+@pytest.mark.parametrize("n,nk,d", [(729, 729, 72), (1024, 577, 64), (577, 1024, 104)])
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K10b"])
+def test_long_wgmma_bwd_at_many_heads(cuda_device, kernel, n, nk, d):
+    """The same at 4 samples of 16 heads: hundreds of blocks a pass, a
+    head's row and key blocks side by side."""
+    _long_bwd_check(kernel, 4, n, nk, 16, d, cuda_device)

@@ -56,8 +56,9 @@ def test_plain_forward_matches_jax_kernel(n, causal, d):
 
 # The long vision sequences past the wide kernel's 272 keys, where bf16 K10
 # runs wgmma_long_fwd_kernel (fused_attn's test names the towers): N = 577
-# pads to 640, five jax key blocks of 128; 729 and 730 to 768, three of 256
-LONG = [(577, 64), (729, 72), (730, 80), (577, 104)]
+# pads to 640, five jax key blocks of 128; 729 and 730 to 768, three of 256;
+# ViT-B-16-SigLIP-512's 1024, four of 256
+LONG = [(577, 64), (729, 72), (730, 80), (577, 104), (1024, 64)]
 
 
 @pytest.mark.parametrize("n,d", LONG)
@@ -69,7 +70,7 @@ def test_plain_forward_matches_jax_kernel_at_long_sequences(n, d):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)), is_causal=False))
     got = fl.flash_attention_unpadded(*(torch.from_numpy(x) for x in (q, k, v)))
-    assert fl._blocks(n, n)[1:] == ((128, 5) if n == 577 else (256, 3))
+    assert fl._blocks(n, n)[1:] == {577: (128, 5), 729: (256, 3), 730: (256, 3), 1024: (256, 4)}[n]
     assert got.shape == want.shape == (1, n, 1, d)
     assert np.abs(got.numpy() - want).max() < 1e-4
 
@@ -96,6 +97,33 @@ def test_plain_gradients_match_jax_kernels(n, causal):
                               (tq, tk, tv), torch.from_numpy(do))
     for g, w in zip(got, want):
         assert g.shape == (B, n, H, 64)
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
+
+
+# The long vision sequences past 272 rows, where bf16 K10b runs
+# wgmma_long_bwd_* (N, D, H): tests/test_torch_fused_attn_bwd.py's LONG
+LONG_BWD = [(577, 64, 1), (729, 72, 2), (730, 80, 1), (577, 104, 1), (1024, 64, 1)]
+
+
+@pytest.mark.parametrize("n,d,h", LONG_BWD)
+def test_plain_gradients_match_jax_kernels_at_long_sequences(n, d, h):
+    """fp32, B = 1: as test_plain_gradients_match_jax_kernels at the long
+    towers' lengths (jax's key blocks of 128 at N 577, of 256 past it), each
+    gradient to 1e-4."""
+    rng = np.random.RandomState(n + d)
+    q, k, v, do = (rng.randn(1, n, h, d).astype(np.float32) for _ in range(4))
+
+    def loss(q_, k_, v_):
+        return (jax_flash(q_, k_, v_, is_causal=False, save_residuals=True)
+                * jnp.asarray(do)).sum()
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fl.flash_attention_unpadded(tq, tk, tv), (tq, tk, tv),
+                              torch.from_numpy(do))
+    for g, w in zip(got, want):
+        assert g.shape == (1, n, h, d)
         assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
 
 

@@ -125,8 +125,9 @@ def test_plain_version_matches_jax_at_wide_head_dims(n, causal, d):
 # The long vision sequences of the 336-512 px towers, past the 272 keys of
 # the wide kernel, where bf16 K1 and K4 run wgmma_long_fwd_kernel: ViT-L-14-336
 # and ViT-H-14-CLIPA-336's 577 rows at D = 64 (80), SO400M-378/384's 729 at
-# 72, ViT-H-14-378's 730 at 80, ViT-bigG-14-CLIPA-336's 577 at 104; B = H = 1
-LONG = [(577, 64), (729, 72), (730, 80), (577, 104)]
+# 72, ViT-H-14-378's 730 at 80, ViT-bigG-14-CLIPA-336's 577 at 104,
+# ViT-B-16-SigLIP-512's 1024 at 64; B = H = 1
+LONG = [(577, 64), (729, 72), (730, 80), (577, 104), (1024, 64)]
 
 
 @pytest.mark.parametrize("n,d", LONG)

@@ -53,6 +53,29 @@ def test_plain_backward_matches_jax_kernel(b, n, nk, h, causal, d):
         assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
 
 
+# The long vision sequences past 272 rows, where bf16 K3 and K5 run
+# wgmma_long_bwd_*: (N, D) of ViT-L-14-336 (577, 64), ViT-SO400M-14-SigLIP-
+# 378/384 (729, 72), ViT-H-14-378 (730, 80), ViT-bigG-14-CLIPA-336 (577,
+# 104) and ViT-B-16-SigLIP-512 (1024, 64); B = 1, two heads at 729, else one
+LONG = [(577, 64, 1), (729, 72, 2), (730, 80, 1), (577, 104, 1), (1024, 64, 1)]
+
+
+@pytest.mark.parametrize("n,d,h", LONG)
+def test_plain_backward_matches_jax_kernel_at_long_sequences(n, d, h):
+    """fp32: the plain K3 against JAX's `_pbwd_impl` (interpret mode) at the
+    long towers' lengths, dq, dk and dv each to 1e-4."""
+    q, k, v, do = _packed(1, n, n, h, d, seed=n + d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jo, jlse = _pfwd_impl(jq, jk, jv, d, False, True)
+    want = _pbwd_impl(jq, jk, jv, jo, jdo, jlse, d, False, True)
+    got = fa.fused_attention_packed_bwd_ref(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(np.array(jo)),
+        torch.from_numpy(do), torch.from_numpy(np.array(jlse)), heads=h)
+    for g, w, like in zip(got, want, (q, k, v)):
+        assert g.shape == like.shape and g.dtype == torch.float32
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
+
+
 @pytest.mark.parametrize("b,n,nk,h,causal,d", [
     (2, 197, 197, 4, False, 64),
     (2, 98, 98, 4, True, 32),

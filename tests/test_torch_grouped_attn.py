@@ -89,6 +89,29 @@ def test_gradients_match_jax_custom_vjp(n, nk, causal, d):
         assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
 
 
+# The long vision sequences past 272 rows (N, D, H): tests/test_torch_fused_attn_bwd.py's LONG
+LONG = [(577, 64, 1), (729, 72, 2), (730, 80, 1), (577, 104, 1), (1024, 64, 1)]
+
+
+@pytest.mark.parametrize("n,d,h", LONG)
+def test_gradients_match_jax_custom_vjp_at_long_sequences(n, d, h):
+    """fp32, B = 1: dq, dk, dv through `FusedAttention` (plain K4 then plain
+    K5) against jax.grad through `fused_attention` (interpret-mode
+    `_bwd_kernel`) at the long towers' lengths, each to 1e-4."""
+    rng = np.random.RandomState(n + d)
+    q, k, v, do = (rng.randn(1, n, h, d).astype(np.float32) for _ in range(4))
+
+    def loss(q_, k_, v_):
+        return (jax_fused_attention(q_, k_, v_, interpret=True) * jnp.asarray(do)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fa.fused_attention(tq, tk, tv), (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        assert g.shape == (1, n, h, d)
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-4
+
+
 @pytest.mark.parametrize("n,nk,causal", [(197, 197, False), (98, 98, True), (76, 255, False)])
 def test_plain_forward_follows_tpu_rounding_in_bf16(n, nk, causal):
     """bf16: P is normalised, then cast to bf16 before P V, where the TPU

@@ -233,9 +233,10 @@ def test_attention_backwards_reach_wgmma(source, call, writes_delta):
     they share routes by `bwd_route`, whatever the source's FLASH flag
     (K10b's, which reads m, l and di where the others take lse and write
     delta): bf16 at D = 64 with n and nk at most 256 to `launch_wgmma_bwd`,
-    without the rope and not causal up to 272 rows otherwise (D = 64 past
-    256 rows, 72-112; not where n and nk are each one 64-row sub-tile) to
-    `launch_wide_bwd`. Every wgmma pass ends in a
+    without the rope and not causal past 272 rows (n or nk) to
+    `launch_long_bwd` (its passes fed by TMA), up to 272 rows otherwise (D
+    = 64 past 256 rows, 72-112; not where n and nk are each one 64-row
+    sub-tile) to `launch_wide_bwd`. Every wgmma_bwd_* and wgmma_wide_bwd_* pass ends in a
     straight-line step of 1 to 4 groups (the wide passes 1 or 4): no TAIL =
     0 instantiation (the kernels run only on the card)."""
     assert "wgmma.cuh" in build._headers(build.CSRC / source)
@@ -244,8 +245,8 @@ def test_attention_backwards_reach_wgmma(source, call, writes_delta):
     bwd = (build.CSRC / "attn_mma_bwd.cuh").read_text()
     route = bwd[bwd.index("inline int bwd_route("):]
     assert "if (d == kWgDim && n <= kWgKeys && nk <= kWgKeys) return kRouteWgmma;" in route
-    assert ("if (rope || causal || d == 32 || n > kWideKeys || nk > kWideKeys) "
-            "return kRouteMmaSync;") in route
+    assert "if (rope || causal || d == 32) return kRouteMmaSync;" in route
+    assert "if (n > kWideKeys || nk > kWideKeys) return kRouteLong;" in route
     assert "if (n <= kMmaRows && nk <= kMmaRows) return kRouteMmaSync;" in route
     launcher = bwd[bwd.index("int launch_mma_bwd("):]
     assert "const int route = bwd_route(true, D, ROPE, n, nk, causal != 0);" in launcher
@@ -254,6 +255,9 @@ def test_attention_backwards_reach_wgmma(source, call, writes_delta):
     assert "return launch_wgmma_bwd<FLASH, ROPE>(" in launcher
     assert "if (route == kRouteWide)" in launcher
     assert "return launch_wide_bwd<D, FLASH>(" in launcher
+    assert "if (route == kRouteLong)" in launcher
+    assert "return launch_long_bwd<D, FLASH>(" in launcher
+    assert bwd.count("tma_load_4d(") == 6  # K and V (dq pass); K, V, Q and dO (dk/dv pass)
     # the FLASH passes read di; only the others' dq pass writes delta
     dq_rows = bwd[bwd.index("void dq_rows("):bwd.index("void dq_walk(")]
     flash, other = dq_rows.split("} else {", 1)

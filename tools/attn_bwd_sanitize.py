@@ -18,7 +18,10 @@ committed sources with text edits to that header, into
 At N = 128, 192 and 256 (B = 2, H = 12, D = 64, bf16, not causal; 8, 12
 and 16 groups, so TAIL 0 in the tail0 build), and on the wide kernels
 (wgmma_wide_bwd_*: B = 2, H = 4, D = 72 at N = 128, 80 at 256, 104 at 192,
-and D = 112 and 64 at N = 257, TAIL 1 in both builds) the script
+and D = 112 and 64 at N = 257, TAIL 1 in both builds), and on the long
+kernels (wgmma_long_bwd_*: B = 2, H = 4, D = 72 at N = 729, 64 and 112 at
+577, 80 at 320; one runtime loop over the ring's 64-row tiles, the same in
+both builds) the script
   1. holds each build's K3, K3r (D = 64, with a random table, and with the
      identity table) and K10b against their plain versions (GRAD_TOL, as
      chip_smoke.py) and prints the errors; a tail0 failure is reported,
@@ -33,8 +36,8 @@ and D = 112 and 64 at N = 257, TAIL 1 in both builds) the script
      issues wgmma (the walk of whole 64-row steps), the A-operand registers
      the loop carries around its back-edge (read before written in the
      body: Q and dO in the dq passes, K and V in the D = 64 dk/dv pass,
-     the same in every pass by design; the wide dk/dv pass reads K and V
-     from shared memory, so its loop carries none) and the body's
+     the same in every pass by design; the wide and long dk/dv passes
+     read K and V from shared memory, so their loops carry none) and the body's
      instructions that write one of
      them after that read, so that the next pass multiplies another value;
      it prints the count of such loops per build, the counts and loops of
@@ -96,6 +99,11 @@ SHAPES = [dict(b=2, n=n, nk=n, h=12, d=64, causal=False, prefix=1) for n in (128
 # tail0 build) and at N = 257 (TAIL 1): K3 and K10b
 WIDE_SHAPES = [dict(b=2, n=n, nk=n, h=4, d=d, causal=False)
                for d, n in ((72, 128), (80, 256), (104, 192), (112, 257), (64, 257))]
+# the long kernels (wgmma_long_bwd_*: every 64-row tile in one runtime loop
+# of the ring, Q and dO the dq pass's carried A operands) at the long
+# towers' lengths and a 64-row edge: K3 and K10b
+LONG_SHAPES = [dict(b=2, n=n, nk=n, h=4, d=d, causal=False)
+               for d, n in ((72, 729), (64, 577), (112, 577), (80, 320))]
 TOOLS = ("racecheck", "synccheck")
 SANITIZE_S = 200  # each run's limit
 # the rope kernels whose SASS is compared: (pass, mangled template arguments
@@ -112,7 +120,7 @@ def cases(fns, gen):
     """(tag, zero-argument call, plain result) of K3, K3r (random and
     identity tables) and K10b of the library functions `fns` at SHAPES."""
     out = []
-    for shape in WIDE_SHAPES:
+    for shape in (*WIDE_SHAPES, *LONG_SHAPES):
         n, h, d = shape["n"], shape["h"], shape["d"]
         _, k10b_args, k3_args = av.inputs(shape, gen)
         _, k10b, k3 = av.calls(fns, None, k10b_args, k3_args, False, h)
@@ -203,9 +211,10 @@ def _parse(op: str):
 
 
 def wgmma_loops(text: str, after: int = 12) -> list:
-    """Each innermost loop (a backward branch, its body from the target to
-    it, holding no other backward branch) that issues wgmma: the walk of
-    whole 64-row steps. The wgmma A-operand registers the body reads before it
+    """Each innermost loop that issues wgmma (a backward branch, its body
+    from the target to it, holding no other backward branch whose body
+    issues wgmma: the long kernels' tile loops hold their mbarrier waits'
+    spin loops): the walk of whole 64-row steps or of the ring's tiles. The wgmma A-operand registers the body reads before it
     writes them (values carried around the back-edge, so the next pass reads
     them as this one did), the body's instructions that write one of them
     after that read (a carried A operand overwritten: the next pass then
@@ -217,9 +226,12 @@ def wgmma_loops(text: str, after: int = 12) -> list:
         tgt = re.search(r"BRA\s+(?:`\(\.)?(0x[0-9a-f]+)", op)
         if tgt and int(tgt.group(1), 16) < addr:
             edges.append((i, addr, int(tgt.group(1), 16)))
+    def issues_wgmma(lo, hi):
+        return any("HGMMA" in o for a, o in ins if lo <= a <= hi)
+
     loops = []
     for i, addr, target in edges:
-        if any(target <= a < addr for _, a, _ in edges):
+        if any(target <= a < addr and issues_wgmma(t, a) for _, a, t in edges):
             continue  # an outer loop
         body = [(a, o) for a, o in ins if target <= a <= addr]
         if not any("HGMMA" in o for _, o in body):
@@ -263,7 +275,7 @@ def analyse_sass(texts: dict) -> dict:
     return result
 
 
-_INST = re.compile(r"(wgmma_(?:wide_)?bwd_\w+?_kernel)(I(?:L[bi]\d+E)+E)")
+_INST = re.compile(r"(wgmma_(?:wide_|long_)?bwd_\w+?_kernel)(I(?:L[bi]\d+E)+E)")
 
 
 def dump_sass(build: str, out: Path) -> dict:
